@@ -1,0 +1,578 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``mistralrs_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path on the card and checks it, in phases that each
+print one progress line with the elapsed seconds:
+
+0. watchdog and device: a hang ends in a traceback after 600 s; no CUDA
+   device is an error; prints ``nvidia-smi``'s name and power limit;
+1. build: compiles the four CUDA kernels (one ``nvcc`` call) and prints the
+   build time;
+2. kernels: each kernel against its plain PyTorch version at the main
+   path's shapes (bf16), with its median time (CUDA events), its bound at
+   the card's memory and bf16 tensor-core rates, the plain version's time
+   and a PyTorch library call on the same inputs as a yardstick;
+3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
+   the kernels and through the plain versions on the same device weights
+   (a 2 x 96-token prefill, then 4 decode steps), logits compared;
+4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
+   planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
+   6 concurrent chat requests (40-600 prompt tokens, one streamed, half
+   greedy, half seeded sampling), every kernel's launch count read after the
+   run, then the server and engine threads are shut down and joined;
+5. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
+   the script exits non-zero without that line.
+
+Budget: the whole run at most 8 minutes on an H100 with the build, at most
+8 GB of host memory (all weights are drawn on the device, none on the host),
+at most 40 GB of device memory.
+
+Tolerances: the matmul kernels dequantize exactly as the plain version and
+differ in f32 sum order, so their bf16 outputs agree within 1e-2 of the
+largest |value|; the attention kernels agree within 2e-2 absolute (bf16
+outputs of magnitude ~1, exp2 vs exp and sum order); the model's logits
+agree within 5e-2 of the largest |logit| (bf16 activations through two
+full-width layers).
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import math
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+faulthandler.dump_traceback_later(600, exit=True)
+
+import torch  # noqa: E402
+
+from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E402
+from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
+from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv  # noqa: E402
+from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
+from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
+from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
+from mistralrs_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_decode_attention_fused,
+    paged_prefill_attention_fused,
+)
+from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul  # noqa: E402
+from mistralrs_tpu_torch.quant.qtensor import QTensor  # noqa: E402
+from mistralrs_tpu_torch.serving.server import Server  # noqa: E402
+from mistralrs_tpu_torch.tokenizer import Detokenizer  # noqa: E402
+
+T0 = time.monotonic()
+SEED = 0
+
+# Llama-3-8B geometry (bench.py:103-115 of the JAX package)
+LLAMA3_8B = dict(
+    arch="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+    rope_theta=500000.0, max_position_embeddings=8192, rms_norm_eps=1e-5,
+)
+
+# memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
+# (NVIDIA data sheets; the rates assume the card's full power limit)
+RATES = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
+         "H100": (3.35e12, 989e12), "H200": (4.8e12, 989e12)}
+
+KERNEL_INFO = {
+    "w4_matmul": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+                  "mistralrs_tpu/ops/quant_matmul.py:350"),
+    "w8_matmul": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+                  "mistralrs_tpu/ops/quant_matmul.py:411"),
+    "paged_decode": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                     "mistralrs_tpu/ops/paged_attention.py:496"),
+    "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                      "mistralrs_tpu/ops/paged_attention.py:1162"),
+}
+
+
+def log(msg: str) -> None:
+    print(f"[{time.monotonic() - T0:7.1f}s] {msg}", flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    """A result check that holds under ``python -O`` too."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_rates(name: str) -> tuple[float, float]:
+    """The card's published rates; an unknown card is bounded with the H100
+    SXM's (the log line of phase 0 shows which were used)."""
+    for key in ("H100 PCIe", "H100 NVL", "H200", "H100"):
+        if key in name:
+            return RATES[key]
+    return RATES["H100"]
+
+
+def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
+    t_mem, t_ops = nbytes / rates[0], flops / rates[1]
+    return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations")
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median of CUDA-event times of single calls, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# random planar weights, drawn on the device
+# ---------------------------------------------------------------------------
+
+
+def q4k(n: int, k: int, gen: torch.Generator, dev) -> QTensor:
+    """Random Q4_K-style planes: 4-bit codes, group 32, zero-mean weights
+    (bias = -8 scale) of variance ~1/K so activations keep their scale."""
+    data = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+    scale = (0.75 + 0.5 * torch.rand((k // 32, n), generator=gen, device=dev)) / math.sqrt(21.25 * k)
+    return QTensor(data, scale, -8.0 * scale, group_size=32, packed=True, code_bits=4)
+
+
+def q8(n: int, k: int, gen: torch.Generator, dev, gs: int = 32, lo: int = -127,
+       hi: int = 127) -> QTensor:
+    """Random signed planes, codes in [lo, hi], no bias: Q8_0 at the
+    defaults, Q6_K-style with gs 16 and codes in [-32, 31]."""
+    data = torch.randint(lo, hi + 1, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    var = ((hi - lo + 1) ** 2 - 1) / 12 + ((hi + lo) / 2) ** 2  # E[q^2]
+    scale = (0.75 + 0.5 * torch.rand((k // gs, n), generator=gen, device=dev)) / math.sqrt(k * var)
+    return QTensor(data, scale, None, group_size=gs, packed=False,
+                   code_bits=8 if hi == 127 else 6)
+
+
+def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
+    """Fused-projection weights of ``cfg`` (wqkv, wgateup), Q4_K layers,
+    Q8_0 lm_head, bf16 embedding: ~5.2 + 0.6 + 1.05 GB at 32 layers."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "attn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "ffn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "wqkv": q4k(cfg.q_dim + 2 * cfg.kv_dim, h, gen, dev),
+            "wo": q4k(h, cfg.q_dim, gen, dev),
+            "wgateup": q4k(2 * i, h, gen, dev),
+            "down": q4k(h, i, gen, dev),
+        })
+    return {
+        "embed": torch.randn((cfg.vocab_size, h), generator=gen, device=dev).to(torch.bfloat16),
+        "layers": layers,
+        "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+        "lm_head": q8(cfg.vocab_size, h, gen, dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_matmul(name, m, qt, rates, gen, dev):
+    n, k = qt.shape
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    got = quant_matmul(x, qt)
+    ref = quant_matmul(x, qt, plain=True)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 1e-2 * ref.float().abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{name} M={m} N={n} K={k}: max err {err} > {tol}")
+    w_bf16 = qt.dequantize(torch.float32).to(torch.bfloat16)
+    ms = time_ms(lambda: quant_matmul(x, qt))
+    plain_ms = time_ms(lambda: quant_matmul(x, qt, plain=True), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.matmul(x, w_bf16.T))
+    del w_bf16
+    b_ms, b_by = bound(m * k * 2 + qt.nbytes + m * n * 2, 2.0 * m * n * k, rates)
+    row = dict(shape=f"M={m} N={n} K={k}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log(f"  {name} {row['shape']}: err {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms")
+    return row
+
+
+def paged_layout(b, bs, w, gen, dev):
+    """Random block tables for `b` rows of `w` blocks, pools of b*w+1 blocks."""
+    bt = torch.randperm(b * w, generator=gen, device=dev).to(torch.int32).reshape(b, w)
+    return bt, (b * w + 1) * bs
+
+
+def slots_for(bt, pos, bs):
+    """Physical slots of positions pos [B, T] (long) through tables bt."""
+    return (bt.gather(1, (pos // bs).long()) * bs + pos % bs).to(torch.int32)
+
+
+def gathered_err(k1, v1, k2, v2, bt, bs, kv_lens) -> float:
+    """Largest difference of two pool pairs' K/V gathered through the block
+    tables over each row's valid positions (the pools' bytes elsewhere, e.g.
+    the trash block, may differ)."""
+    a, b = gather_kv(k1, v1, bt, bs), gather_kv(k2, v2, bt, bs)
+    return max((x[i, :n].float() - y[i, :n].float()).abs().max().item()
+               for x, y in zip(a, b) for i, n in enumerate(kv_lens.tolist()))
+
+
+def check_decode(rates, gen, dev):
+    b, n_q, n_kv, hd, bs, w = 8, 32, 8, 128, 64, 16
+    kv_lens = torch.tensor([1024, 1, 700, 64, 65, 333, 901, 512], device=dev, dtype=torch.int32)
+    bt, s_total = paged_layout(b, bs, w, gen, dev)
+    kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    slots = slots_for(bt, (kv_lens - 1)[:, None], bs)[:, 0].contiguous()
+    slots[3] = -1  # a dropped write
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    args = (kn, vn, slots, bt, kv_lens)
+    got = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
+    ref = paged_decode_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
+    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0):
+        raise AssertionError(f"paged_decode: max err {err}, gathered K/V err {gather_err}")
+    # yardstick: SDPA over K/V gathered and expanded to all query heads ahead of time
+    kk, vv = gather_kv(k1, v1, bt, bs)  # [B, P, n_kv, hd]
+    kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    mask = (torch.arange(kk.shape[2], device=dev)[None] < kv_lens[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    ms = time_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
+    plain_ms = time_ms(lambda: paged_decode_attention_fused(q, k2, v2, *args, block_size=bs,
+                                                            plain=True), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask))
+    tokens = int(kv_lens.sum())
+    nbytes = 2 * tokens * n_kv * hd * 2 + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
+    b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
+    row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<=1024",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms)
+    log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
+        f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms")
+    return row
+
+
+def check_prefill(rates, gen, dev):
+    b, t, n_q, n_kv, hd, bs, w = 2, 128, 32, 8, 128, 64, 8
+    n_valid = torch.tensor([128, 70], device=dev, dtype=torch.int32)  # row 1: n_valid < T
+    kv_lens = n_valid + 300
+    bt, s_total = paged_layout(b, bs, w, gen, dev)
+    kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, t, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    tok = torch.arange(t, device=dev)[None]
+    slots = slots_for(bt, (kv_lens - n_valid)[:, None] + tok, bs)
+    slots[tok.expand(b, t) >= n_valid[:, None]] = -1
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    args = (kn, vn, slots, bt, kv_lens, n_valid)
+    got = paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs)
+    ref = paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    err = max((got[i, :n].float() - ref[i, :n].float()).abs().max().item()
+              for i, n in enumerate(n_valid.tolist()))
+    gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
+    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0):
+        raise AssertionError(f"paged_prefill: max err {err}, gathered K/V err {gather_err}")
+    kk, vv = gather_kv(k1, v1, bt, bs)
+    kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    pos = torch.arange(kk.shape[2], device=dev)
+    lim = (kv_lens - n_valid)[:, None] + tok  # [B, T]
+    mask = (pos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
+    qt_ = q.transpose(1, 2)
+    ms = time_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
+    plain_ms = time_ms(lambda: paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs,
+                                                             plain=True), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt_, kk, vv, attn_mask=mask))
+    ctx = (kv_lens - n_valid).tolist()
+    nv = n_valid.tolist()
+    # bytes: past K/V read once, the chunk's K/V read and written, q in, out
+    nbytes = sum(2 * c * n_kv * hd * 2 + 2 * 2 * v * n_kv * hd * 2 + 2 * v * n_q * hd * 2
+                 for c, v in zip(ctx, nv))
+    # ops: causal QK and PV over the positions each valid token sees
+    flops = sum(4 * n_q * hd * sum(c + i + 1 for i in range(v)) for c, v in zip(ctx, nv))
+    b_ms, b_by = bound(nbytes, flops, rates)
+    row = dict(shape=f"B={b} T={t} n_valid=(128,70) past=300 n_q={n_q} n_kv={n_kv} hd={hd}",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms)
+    log(f"  paged_prefill {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
+        f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the model through the kernels and through the plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_model(dev):
+    cfg = ModelConfig(**dict(LLAMA3_8B, num_layers=2))
+    weights = build_weights(cfg, dev, SEED + 1)
+    bs, b, t, n_dec = 64, 2, 96, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
+    bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
+    worst = 0.0
+    runs = []
+    for plain in (False, True):
+        cache = PagedKVCache.create(cfg, b * 4, bs, device=dev)
+        pos = torch.arange(t, device=dev)[None].expand(b, t)
+        logits, _ = forward_paged(weights, cfg, ids[:, :t], pos, cache, bt,
+                                  slots_for(bt, pos, bs), torch.full((b,), t, device=dev),
+                                  block_size=bs, plain=plain)
+        outs = [logits]
+        for d in range(n_dec):
+            p = torch.full((b, 1), t + d, device=dev)
+            logits, _ = forward_paged(weights, cfg, ids[:, t + d:t + d + 1], p, cache, bt,
+                                      slots_for(bt, p, bs), torch.full((b,), t + d + 1, device=dev),
+                                      block_size=bs, plain=plain)
+            outs.append(logits)
+        runs.append(outs)
+    torch.cuda.synchronize()
+    for got, ref in zip(*runs):
+        if not torch.isfinite(got).all():
+            raise AssertionError("model: non-finite logits through the kernels")
+        err = (got - ref).abs().max().item()
+        tol = 5e-2 * ref.abs().max().item()
+        worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
+        if err > tol:
+            raise AssertionError(f"model: logits differ by {err} > {tol}")
+    log(f"  model 2 layers: 1 prefill (2x{t}) + {n_dec} decode steps, worst |err|/max|logit| "
+        f"{worst:.3e} (tol 5e-2)")
+    del weights
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve
+# ---------------------------------------------------------------------------
+
+
+class ByteTokenizer:
+    """UTF-8 bytes as token ids, with the port's tokenizer interface."""
+
+    def encode(self, text, add_bos=None):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+
+    def detokenizer(self):
+        return Detokenizer(self)
+
+
+def serve(dev, name_line: str) -> dict:
+    cfg = ModelConfig(**LLAMA3_8B)
+    t_w = time.monotonic()
+    weights = build_weights(cfg, dev, SEED + 3)
+    torch.cuda.synchronize()
+    log(f"  32-layer weights drawn on the device in {time.monotonic() - t_w:.1f} s "
+        f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
+                    max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED)
+    seqs = []
+    add_request = engine.add_request
+
+    def recording_add_request(*a, **kw):
+        seq = add_request(*a, **kw)
+        seqs.append(seq)
+        return seq
+
+    engine.add_request = recording_add_request
+    tok = ByteTokenizer()
+    # the prompt is the message text itself, so its length in bytes is its
+    # length in tokens
+    template = resolve_chat_template(
+        override="{% for message in messages %}{{ message['content'] }}{% endfor %}")
+    threads_before = set(threading.enumerate())
+    server = Server(engine, tok, template, "llama3-8b-geometry-q4k", host="127.0.0.1", port=0)
+    server.start()
+    # prompts of 40 to 600 tokens; three are longer than one prefill chunk
+    sizes = [40, 97, 180, 290, 430, 600]
+    bodies = []
+    for i, n in enumerate(sizes):
+        content = ("the quick brown fox jumps over the lazy dog " * 20)[:n]
+        body = {"model": "llama3-8b-geometry-q4k",
+                "messages": [{"role": "user", "content": content}], "max_tokens": 24}
+        if i % 2 == 0:
+            body["temperature"] = 0.0
+        else:
+            body.update(temperature=0.8, top_p=0.95, top_k=40, seed=100 + i)
+        if i == 3:
+            body["stream"] = True
+        bodies.append(body)
+    expected_prompt = [len(tok.encode(template.render(b["messages"], add_generation_prompt=True)))
+                       for b in bodies]
+    results: list = [None] * len(bodies)
+    errors: list = []
+
+    def send(i):
+        req = urllib.request.Request(
+            server.url + "/v1/chat/completions", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[i] = (r.status, r.read().decode())
+        except Exception as e:  # noqa: BLE001 — reported and re-raised below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    with urllib.request.urlopen(server.url + "/health", timeout=30) as r:
+        check(json.loads(r.read()) == {"status": "ok"}, "serve: /health")
+    _cuda.reset_counts()
+    t_s = time.monotonic()
+    clients = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(300)
+    wall = time.monotonic() - t_s
+    counts = dict(_cuda.COUNTS)
+    server.shutdown()
+    for th in threading.enumerate():
+        if th not in threads_before:
+            th.join(10)
+    leftover = [th.name for th in threading.enumerate()
+                if th not in threads_before and th.is_alive()]
+    if errors or any(c.is_alive() for c in clients):
+        raise AssertionError(f"serve: requests failed: {errors}")
+    if leftover:
+        raise AssertionError(f"serve: threads still running after shutdown: {leftover}")
+    for i, (status, text) in enumerate(results):
+        if status != 200:
+            raise AssertionError(f"request {i}: HTTP {status}")
+        if bodies[i].get("stream"):
+            events = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
+            check(events[-1] == "[DONE]", f"request {i}: stream ends {events[-3:]}")
+            finish = json.loads(events[-2])["choices"][0]["finish_reason"]
+        else:
+            body = json.loads(text)
+            usage = body["usage"]
+            check(usage == {"prompt_tokens": expected_prompt[i], "completion_tokens": 24,
+                            "total_tokens": expected_prompt[i] + 24},
+                  f"request {i}: usage {usage}, prompt {expected_prompt[i]} tokens")
+            finish = body["choices"][0]["finish_reason"]
+        check(finish == "length", f"request {i}: finish_reason {finish!r}")
+    for seq in seqs:
+        check(len(seq.generated_ids) == 24,
+              f"{seq.request_id}: {len(seq.generated_ids)} tokens, not 24")
+    missing = [k for k in _cuda.KERNELS if counts.get(k, 0) == 0]
+    plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain:
+        raise AssertionError(f"serve: kernels not launched {missing}, plain versions run {plain}")
+    ttft = sorted(s.first_token_time - s.arrival_time for s in seqs)
+    st = engine.stats
+    dec_tokens = st["generated_tokens"] - len(seqs)
+    dec_tps = dec_tokens / st["decode_time_s"]
+    log(f"  served {len(seqs)} requests, prompts {sorted(expected_prompt)} tokens, 24 tokens "
+        f"each, in {wall:.2f} s; TTFT median {statistics.median(ttft):.3f} s, max "
+        f"{ttft[-1]:.3f} s; decode {dec_tps:.1f} tok/s over {st['decode_steps']} steps "
+        f"({st['decode_time_s'] / st['decode_steps'] * 1e3:.1f} ms/step), "
+        f"{st['prefill_steps']} prefill steps ({st['prefill_time_s']:.2f} s) "
+        f"[{name_line}]")
+    log(f"  kernel launches in the serve run: {counts}")
+    del weights, engine, server
+    torch.cuda.empty_cache()
+    return counts
+
+
+def main() -> int:
+    # phase 0
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 matmuls stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    name_line = smi.stdout.strip().splitlines()[0]
+    print(name_line, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    rates = card_rates(kind)
+    log(f"phase 0: device {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; rates {rates[0] / 1e12:.2f} TB/s, "
+        f"{rates[1] / 1e12:.0f} TFLOP/s bf16")
+    # phase 1
+    t_b = time.monotonic()
+    _cuda.library()
+    log(f"phase 1: kernels built and loaded in {time.monotonic() - t_b:.1f} s "
+        f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 'cached'} s)")
+    # phase 2
+    log("phase 2: kernels against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows: dict[str, list] = {k: [] for k in _cuda.KERNELS}
+    for n, k in ((6144, 4096), (28672, 4096), (4096, 14336)):
+        qt = q4k(n, k, gen, dev)
+        for m in (1, 8, 512):
+            rows["w4_matmul"].append(check_matmul("w4_matmul", m, qt, rates, gen, dev))
+        del qt
+    head = q8(128256, 4096, gen, dev)
+    for m in (1, 8):
+        rows["w8_matmul"].append(check_matmul("w8_matmul", m, head, rates, gen, dev))
+    del head
+    q6 = q8(4096, 14336, gen, dev, gs=16, lo=-32, hi=31)  # Q6_K-style ffn_down
+    rows["w8_matmul"].append(check_matmul("w8_matmul", 8, q6, rates, gen, dev))
+    del q6
+    rows["paged_decode"].append(check_decode(rates, gen, dev))
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev))
+    torch.cuda.empty_cache()
+    # phase 3
+    log("phase 3: forward_paged at full width, 2 layers, kernels vs plain")
+    check_model(dev)
+    torch.cuda.empty_cache()
+    # phase 4
+    log("phase 4: serve the 32-layer Llama-3-8B geometry")
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts = serve(dev, name_line)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    # the summary: one entry per kernel at the main path's dominant shape
+    # (W4: decode M=8 gate-up; W8: decode M=8 lm_head), errors the worst of all checks
+    main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096"}
+    entries = []
+    for kname in _cuda.KERNELS:
+        kr = rows[kname]
+        pick = next((r for r in kr if r["shape"] == main_shape.get(kname)), kr[0])
+        src, replaces = KERNEL_INFO[kname]
+        entries.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[kname], "max_abs_err": max(r["max_abs_err"] for r in kr),
+            "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
+            "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
+            "shape": pick["shape"],
+        })
+    log(f"done in {time.monotonic() - T0:.1f} s [{name_line}]")
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    code = main()
+    faulthandler.cancel_dump_traceback_later()
+    sys.exit(code)

@@ -1,0 +1,29 @@
+"""Device resolution for the port's entry points.
+
+``cuda`` is the default; the CPU is used only when the caller asks for it
+(the tests do), and a missing card is an error, never a silent fallback."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` → ``cuda:0``; ``"cpu"`` → the CPU; raises when a CUDA device
+    is asked for (explicitly or by default) and none is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,77 @@
+"""Command-line interface (counterpart of ``mistralrs_tpu/cli.py``): the
+``serve`` command only.
+
+    python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def cmd_serve(args) -> int:
+    from .engine.engine import Engine
+    from .kv.paged import calculate_cache_config
+    from .models.llama import fuse_projections
+    from .pipeline import load_pipeline
+    from .serving.server import Server
+
+    override = None
+    if args.chat_template:
+        with open(args.chat_template) as f:
+            override = f.read()
+    pipe = load_pipeline(args.model, chat_template_override=override, device=args.device)
+    if pipe.tokenizer is None:
+        print("error: model has no tokenizer; `serve` needs one", file=sys.stderr)
+        return 1
+    weights = fuse_projections(pipe.weights, pipe.cfg)
+    max_len = args.max_seq_len or min(pipe.cfg.max_position_embeddings, 8192)
+    num_blocks = args.num_kv_blocks
+    if num_blocks is None:
+        on_cpu = args.device == "cpu"
+        num_blocks = calculate_cache_config(
+            pipe.cfg, block_size=args.block_size, max_model_len=max_len,
+            max_batch=args.max_batch, device=args.device or "cuda",
+            mem_bytes=(16 << 30) if on_cpu else None,  # CPU: a 16 GiB budget
+        )
+    eng = Engine(
+        pipe.cfg, weights, num_blocks=num_blocks, block_size=args.block_size,
+        max_batch=args.max_batch, max_model_len=max_len,
+        prefill_chunk=args.prefill_chunk, tokenizer=pipe.tokenizer, device=args.device,
+    )
+    server = Server(eng, pipe.tokenizer, pipe.chat_template, pipe.model_id,
+                    host=args.host, port=args.port)
+    host, port = server.address
+    print(f"serving {pipe.model_id} on {host}:{port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="mistralrs_tpu_torch", description="quantized LLM serving on one CUDA GPU"
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
+    p.add_argument("model", help="path to a llama .gguf file")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--block-size", type=int, default=64, help="paged KV block tokens")
+    p.add_argument("--num-kv-blocks", type=int, default=None,
+                   help="KV blocks (default: fill free device memory)")
+    p.add_argument("--max-seq-len", type=int, default=None)
+    p.add_argument("--prefill-chunk", type=int, default=512)
+    p.add_argument("--chat-template", default=None, help="jinja template override file")
+    p.set_defaults(fn=cmd_serve)
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+"""Weights carried across from the JAX package.
+
+:func:`from_jax_params` turns the JAX package's weight dictionary (stacked
+``[L, ...]`` layer leaves, ``QTensor`` planes; the caller converts arrays to
+numpy, or passes objects numpy can read) into the port's (a list of
+per-layer dictionaries of torch tensors and :class:`QTensor`), so the two
+packages compute the same function. This module imports nothing of the JAX
+package: a quantized leaf is anything with ``data``, ``scale``, ``bias``,
+``group_size``, ``packed`` and ``code_bits`` fields, as a mapping or as
+attributes.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .models.config import ModelConfig
+from .models.llama import check_supported
+from .quant.qtensor import QTensor
+
+_PLANE_FIELDS = ("data", "scale", "bias", "group_size", "packed", "code_bits")
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _is_planar(obj) -> bool:
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        return False
+    if isinstance(obj, dict):
+        return all(k in obj for k in _PLANE_FIELDS)
+    return all(hasattr(obj, k) for k in _PLANE_FIELDS)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: widen exactly to f32
+        arr = arr.astype(np.float32)
+        dtype = dtype or torch.bfloat16
+    t = torch.from_numpy(np.array(arr, order="C")).to(device)  # a writable copy
+    return t.to(dtype) if dtype is not None else t
+
+
+def _leaf(obj, device, dtype, layer=None):
+    """One weight (or layer ``layer`` of a stacked weight)."""
+    if obj is None:
+        return None
+    if _is_planar(obj):
+        if int(getattr(obj, "chunks", 1) if not isinstance(obj, dict)
+               else obj.get("chunks", 1)) != 1:
+            raise NotImplementedError("row-parallel (chunked) packing is not ported")
+
+        def plane(name):
+            v = _field(obj, name)
+            if v is None:
+                return None
+            a = np.asarray(v)
+            return _tensor(a if layer is None else a[layer], device)
+
+        return QTensor(
+            data=plane("data"), scale=plane("scale").to(torch.float32),
+            bias=None if _field(obj, "bias") is None else plane("bias").to(torch.float32),
+            group_size=int(_field(obj, "group_size")), packed=bool(_field(obj, "packed")),
+            code_bits=int(_field(obj, "code_bits")),
+        )
+    a = np.asarray(obj)
+    return _tensor(a if layer is None else a[layer], device, dtype)
+
+
+def from_jax_params(
+    params: dict[str, Any], cfg: ModelConfig, device: torch.device | str = "cpu",
+    dtype=torch.bfloat16,
+) -> dict:
+    """The JAX package's llama weight dict → the port's weight dict. Dense
+    leaves are cast to ``dtype`` (bf16 values stay exact); quantized planes
+    keep their integer codes and f32 scales bit for bit."""
+    check_supported(cfg)
+    windows = params.get("layer_windows")
+    if windows is not None and np.any(np.asarray(windows) != 0):
+        raise NotImplementedError("sliding-window layers are not ported")
+    stacked = params["layers"]
+    unknown = set(stacked) - {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo",
+                              "gate", "up", "wgateup", "down"}
+    if unknown:
+        raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")
+    layers = [
+        {key: _leaf(w, device, dtype, layer=i) for key, w in stacked.items()}
+        for i in range(cfg.num_layers)
+    ]
+    return {
+        "embed": _leaf(params["embed"], device, dtype),
+        "layers": layers,
+        "final_norm": _leaf(params["final_norm"], device, dtype),
+        "lm_head": _leaf(params.get("lm_head"), device, dtype),
+    }

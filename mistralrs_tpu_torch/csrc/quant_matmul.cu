@@ -1,0 +1,233 @@
+// Fused dequant-matmul for planar quantized weights, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of mistralrs_tpu/ops/quant_matmul.py:
+//   _w4_matmul (:350) and _w4_matmul_l (:527): 4-bit unsigned split-half
+//       packed codes (Q4_K), scale and "min" bias per group of 32;
+//   _w8_matmul (:411) and _w8_matmul_l (:616): one byte per code, signed
+//       int8 without bias (Q8_0, Q6_K at group 16) or unsigned with bias.
+// The GPU takes one layer's planes by pointer, so the stacked `_l` variants
+// and the plain ones are one kernel here.
+//
+//   out[m, n] = sum_k x[m, k] * w[k, n],
+//   w[k, n]   = bf16(scale[k / gs, n] * q[k, n] + bias[k / gs, n])
+//
+// The weight is dequantized exactly as the plain version does it (f32
+// multiply, f32 add, round to bf16), so the two differ only in the order of
+// the f32 sums. The "min" bias is folded into the dequantized tile, as the
+// JAX package's XLA path does.
+//
+// What bounds it on the H100: at decode (M <= 32) the code bytes, ~0.5 B per
+// weight for Q4_K plus 8 B of scale and bias per group of 32; at prefill
+// (M >= 256) the bf16 tensor-core rate. Design: one block of 4 warps per
+// 64 x 64 output tile walks K in steps of 128 rows. Each step stages the x
+// tile [64 x 128] and the dequantized weight tile [128 x 64] in shared
+// memory, so each code byte is read from device memory once per M-tile, and
+// runs bf16 wmma 16x16x16 fragments with f32 accumulators. For the packed
+// format one step reads a [64 x 64] byte tile and expands it to the low
+// (rows k0..k0+63) and high (rows K/2+k0..) halves. There is no
+// double-buffering, no split-K and no wgmma yet: the kernel is simple and
+// right first; its times against the bound are in PERF.md.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 64;       // output rows per block
+constexpr int BN = 64;       // output columns per block
+constexpr int BK = 64;       // half-step: rows of one packed byte tile
+constexpr int KS = 2 * BK;   // logical K rows per step
+constexpr int THREADS = 128;
+constexpr int XS_LD = KS + 8;  // padded row strides (bf16 elements)
+constexpr int WS_LD = BN + 8;
+constexpr int CS_LD = BN + 4;  // f32
+constexpr int MAX_LG = KS / 16;  // local groups per step at gs = 16
+
+enum Fmt { PACKED4 = 0, U8 = 1, S8 = 2 };
+
+constexpr int XS_BYTES = BM * XS_LD * 2;
+constexpr int WS_BYTES = KS * WS_LD * 2;
+constexpr int SB_BYTES = MAX_LG * BN * 4;
+constexpr int MAIN_BYTES = XS_BYTES + WS_BYTES + 2 * SB_BYTES;
+constexpr int CS_BYTES = BM * CS_LD * 4;
+constexpr int SMEM_BYTES = MAIN_BYTES > CS_BYTES ? MAIN_BYTES : CS_BYTES;
+
+__device__ __forceinline__ float code_at(uint32_t word, int j, int fmt_hi) {
+  // byte j of a little-endian 32-bit word; fmt_hi: 0 low nibble, 1 high
+  // nibble (packed), 2 unsigned byte, 3 signed byte
+  uint32_t b = (word >> (8 * j)) & 0xFFu;
+  if (fmt_hi == 0) return (float)(b & 15u);
+  if (fmt_hi == 1) return (float)(b >> 4);
+  if (fmt_hi == 2) return (float)b;
+  return (float)(int8_t)b;
+}
+
+// Dequantize 16 codes (one 16-byte chunk of a code row) into 16 bf16 values
+// of weight-tile row `row`, columns [c, c+16).
+template <bool HAS_BIAS>
+__device__ __forceinline__ void deq16(const uint4& chunk, int mode, const float* s_row,
+                                      const float* b_row, int c, __nv_bfloat16* w_row) {
+  const uint32_t words[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
+  __align__(16) __nv_bfloat16 vals[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float q = code_at(words[i >> 2], i & 3, mode);
+    float w = __fmul_rn(q, s_row[c + i]);
+    if (HAS_BIAS) w = __fadd_rn(w, b_row[c + i]);
+    vals[i] = __float2bfloat16_rn(w);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(w_row + c);
+  const uint4* src = reinterpret_cast<const uint4*>(vals);
+  dst[0] = src[0];
+  dst[1] = src[1];
+}
+
+template <int FMT, bool HAS_BIAS>
+__global__ void __launch_bounds__(THREADS)
+quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    void* __restrict__ out, int M, int N, int K, int gs, int out_bf16) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + XS_BYTES);
+  float* ss = reinterpret_cast<float*>(smem + XS_BYTES + WS_BYTES);
+  float* bs = ss + MAX_LG * BN;
+  float* cs = reinterpret_cast<float*>(smem);  // epilogue staging (aliases)
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int kh = K / 2;
+  const int nsteps = K / KS;
+  const int lg_per_half = BK / gs;
+  const int n_lg = 2 * lg_per_half;
+  const int wm = (warp >> 1) * 32;
+  const int wn = (warp & 1) * 32;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int s = 0; s < nsteps; ++s) {
+    // logical K offset of each half of this step
+    const int base0 = (FMT == PACKED4) ? s * BK : s * KS;
+    const int base1 = (FMT == PACKED4) ? kh + s * BK : s * KS + BK;
+
+    // 1. scales (and biases) of the step's groups
+    for (int i = tid; i < n_lg * BN; i += THREADS) {
+      const int lg = i / BN, c = i - lg * BN;
+      const int half = lg / lg_per_half;
+      const int g = (half ? base1 : base0) / gs + (lg - half * lg_per_half);
+      const int n = n0 + c;
+      ss[lg * BN + c] = n < N ? scale[(size_t)g * N + n] : 0.0f;
+      if (HAS_BIAS) bs[lg * BN + c] = n < N ? bias[(size_t)g * N + n] : 0.0f;
+    }
+    // 2. x tile [BM x KS]: 16-byte chunks of 8 bf16
+    for (int i = tid; i < BM * (KS / 8); i += THREADS) {
+      const int r = i / (KS / 8), cc = (i - r * (KS / 8)) * 8;
+      const int m = m0 + r;
+      const int k = (cc < BK ? base0 + cc : base1 + (cc - BK));
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (m < M) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
+      *reinterpret_cast<uint4*>(xs + r * XS_LD + cc) = v;
+    }
+    __syncthreads();
+    // 3. code tile → dequantized bf16 weight tile [KS x BN]
+    if (FMT == PACKED4) {
+      for (int i = tid; i < BK * (BN / 16); i += THREADS) {
+        const int rr = i / (BN / 16), c = (i - rr * (BN / 16)) * 16;
+        const int n = n0 + c;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (n < N) v = *reinterpret_cast<const uint4*>(codes + (size_t)(s * BK + rr) * N + n);
+        const int lg_lo = rr / gs, lg_hi = (BK + rr) / gs;
+        deq16<HAS_BIAS>(v, 0, ss + lg_lo * BN, bs + lg_lo * BN, c, ws + rr * WS_LD);
+        deq16<HAS_BIAS>(v, 1, ss + lg_hi * BN, bs + lg_hi * BN, c, ws + (BK + rr) * WS_LD);
+      }
+    } else {
+      for (int i = tid; i < KS * (BN / 16); i += THREADS) {
+        const int r = i / (BN / 16), c = (i - r * (BN / 16)) * 16;
+        const int n = n0 + c;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (n < N) v = *reinterpret_cast<const uint4*>(codes + (size_t)(base0 + r) * N + n);
+        const int lg = r / gs;
+        deq16<HAS_BIAS>(v, FMT == S8 ? 3 : 2, ss + lg * BN, bs + lg * BN, c, ws + r * WS_LD);
+      }
+    }
+    __syncthreads();
+    // 4. tensor-core products over the step
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], xs + (wm + i * 16) * XS_LD + kk, XS_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], ws + kk * WS_LD + wn + j * 16, WS_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  // epilogue: fragments → shared staging → masked, coalesced stores
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[i][j], CS_LD,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < BM * BN; i += THREADS) {
+    const int r = i / BN, c = i - r * BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N) {
+      const float v = cs[r * CS_LD + c];
+      if (out_bf16)
+        reinterpret_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(v);
+      else
+        reinterpret_cast<float*>(out)[(size_t)m * N + n] = v;
+    }
+  }
+}
+
+template <int FMT>
+void launch_fmt(const void* x, const void* codes, const void* scale, const void* bias,
+                void* out, int M, int N, int K, int gs, int out_bf16, cudaStream_t st) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* cp = static_cast<const uint8_t*>(codes);
+  const auto* sp = static_cast<const float*>(scale);
+  const auto* bp = static_cast<const float*>(bias);
+  if (bias)
+    quant_matmul_kernel<FMT, true><<<grid, THREADS, 0, st>>>(xp, cp, sp, bp, out, M, N, K, gs, out_bf16);
+  else
+    quant_matmul_kernel<FMT, false><<<grid, THREADS, 0, st>>>(xp, cp, sp, bp, out, M, N, K, gs, out_bf16);
+}
+
+}  // namespace
+
+// fmt: 0 = 4-bit unsigned split-half packed [K/2, N]; 1 = uint8 [K, N];
+// 2 = int8 [K, N]. bias may be NULL. Requires K % 128 == 0, N % 16 == 0,
+// gs in {16, 32} (checked by the Python wrapper).
+extern "C" int mrt_quant_matmul(const void* x, const void* codes, const void* scale,
+                                const void* bias, void* out, int M, int N, int K, int gs,
+                                int fmt, int out_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fmt == PACKED4)
+    launch_fmt<PACKED4>(x, codes, scale, bias, out, M, N, K, gs, out_bf16, st);
+  else if (fmt == U8)
+    launch_fmt<U8>(x, codes, scale, bias, out, M, N, K, gs, out_bf16, st);
+  else
+    launch_fmt<S8>(x, codes, scale, bias, out, M, N, K, gs, out_bf16, st);
+  return (int)cudaGetLastError();
+}

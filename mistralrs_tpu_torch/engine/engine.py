@@ -1,0 +1,357 @@
+"""The serving engine: continuous batching over the paged KV cache
+(counterpart of ``mistralrs_tpu/engine/engine.py``).
+
+* Decode runs a **fixed slot batch** of ``max_batch`` rows
+  (``engine/engine.py:73-87`` and ``_run_decode`` in the JAX package); empty
+  slots carry dummy tokens whose KV writes are dropped (slot −1). The step
+  runs eagerly; capturing it as one CUDA graph is later work.
+* Prompt chunks of up to ``prefill_chunk`` tokens from up to four sequences
+  run as one batched prefill (``_run_prefill_batch``); a sequence finishing
+  its prompt samples its first token from the prefill logits.
+* Prefix caching and recompute preemption come from the block manager and
+  scheduler, copied from the JAX package.
+
+Speculative decoding, tensor/data parallelism, adapters, grammar constraints
+and the DRY penalty are not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+import traceback
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..kv.manager import KVCacheManager
+from ..kv.paged import PagedKVCache
+from ..models.config import ModelConfig
+from ..models.llama import check_supported, forward_paged
+from ..quant.qtensor import QTensor
+from .sampler import BatchSamplingState, SamplingParams, sample
+from .scheduler import Scheduler
+from .sequence import Sequence, StopReason
+
+_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+
+
+def _bucket(n: int, buckets=_PREFILL_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def weights_to(weights, device: torch.device):
+    """Move a weight tree (dicts, lists, tensors, QTensors) to ``device``;
+    leaves already there are not copied."""
+    if isinstance(weights, dict):
+        return {k: weights_to(v, device) for k, v in weights.items()}
+    if isinstance(weights, list):
+        return [weights_to(v, device) for v in weights]
+    if isinstance(weights, (torch.Tensor, QTensor)):
+        return weights.to(device)
+    return weights
+
+
+class Engine:
+    """Single-model serving engine (synchronous step loop; the server drives
+    it from its engine thread)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        weights: dict,
+        *,
+        num_blocks: int = 512,
+        block_size: int = 16,
+        max_batch: int = 8,
+        max_model_len: Optional[int] = None,
+        prefill_chunk: int = 512,
+        compute_dtype=torch.bfloat16,
+        kv_quant: Optional[str] = None,
+        enable_prefix_caching: bool = True,
+        tokenizer=None,
+        seed: int = 0,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        check_supported(cfg)
+        if kv_quant is not None:
+            raise NotImplementedError("quantized KV pools are not ported yet")
+        self.cfg = cfg
+        self.weights = weights_to(weights, self.device)
+        self.block_size = block_size
+        self.max_batch = max_batch
+        self.max_model_len = max_model_len or cfg.max_position_embeddings
+        self.compute_dtype = compute_dtype
+        self.tokenizer = tokenizer
+        self.seed = seed
+        self.kv = KVCacheManager(num_blocks, block_size, enable_prefix_caching)
+        self.scheduler = Scheduler(self.kv, max_batch, prefill_chunk)
+        self.cache = PagedKVCache.create(cfg, num_blocks, block_size, dtype=compute_dtype,
+                                         device=self.device)
+        self.samp_state = BatchSamplingState.create(max_batch, cfg.vocab_size, self.device)
+        self._req_counter = itertools.count()
+        self._slot_seq: list[Optional[Sequence]] = [None] * max_batch
+        self.stats = {
+            "prompt_tokens": 0, "generated_tokens": 0, "preemptions": 0,
+            "prefix_cache_hit_tokens": 0, "steps": 0,
+        }
+
+    def add_request(
+        self,
+        prompt_ids: list[int],
+        params: Optional[SamplingParams] = None,
+        request_id: Optional[str] = None,
+        on_tokens=None,
+        priority: int = 0,
+    ) -> Sequence:
+        params = params or SamplingParams()
+        if len(prompt_ids) >= self.max_model_len:
+            raise ValueError(
+                f"prompt length {len(prompt_ids)} ≥ max_model_len {self.max_model_len}"
+            )
+        if params.constraint is not None or params.dry_multiplier > 0.0:
+            raise NotImplementedError("grammar constraints and DRY are not ported yet")
+        n = next(self._req_counter)
+        seq = Sequence(
+            request_id=request_id or f"req-{n}",
+            prompt_ids=list(prompt_ids),
+            params=params,
+            on_tokens=on_tokens,
+            priority=priority,
+        )
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(params.seed if params.seed is not None
+                        else (self.seed * 1_000_003 + n) % (2**63))
+        seq.generator = gen  # type: ignore[attr-defined]
+        self.scheduler.add(seq)
+        return seq
+
+    def abort(self, request_id: str) -> Optional[Sequence]:
+        seq = self.scheduler.abort(request_id)
+        if seq is not None and seq.slot is not None:
+            self._slot_seq[seq.slot] = None
+        return seq
+
+    # -- stepping ------------------------------------------------------------
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    def step(self) -> list[Sequence]:
+        """Run one engine step. Returns sequences that finished this step.
+        A forward error finishes the sequences of that forward with ERROR
+        and leaves the engine running."""
+        out = self.scheduler.schedule()
+        self.stats["steps"] += 1
+        self.stats["preemptions"] = self.scheduler.num_preemptions
+        live = {id(s) for s in self.scheduler.running}
+        for i, s in enumerate(self._slot_seq):
+            if s is not None and id(s) not in live:
+                self._slot_seq[i] = None
+        if out.is_empty:
+            return []
+        finished: list[Sequence] = []
+        if out.decode:
+            t0 = time.monotonic()
+            try:
+                finished.extend(self._run_decode(out.decode))
+            except Exception as e:  # noqa: BLE001 — contain per request
+                self._fail_sequences(out.decode, e)
+                finished.extend(out.decode)
+            self.stats["decode_steps"] = self.stats.get("decode_steps", 0) + 1
+            self.stats["decode_time_s"] = (
+                self.stats.get("decode_time_s", 0.0) + time.monotonic() - t0
+            )
+        if out.prefills:
+            t0 = time.monotonic()
+            try:
+                finished.extend(self._run_prefill_batch(out.prefills))
+            except Exception as e:  # noqa: BLE001 — contain per request
+                seqs = [sp.seq for sp in out.prefills]
+                self._fail_sequences(seqs, e)
+                finished.extend(seqs)
+            self.stats["prefill_steps"] = self.stats.get("prefill_steps", 0) + 1
+            self.stats["prefill_time_s"] = (
+                self.stats.get("prefill_time_s", 0.0) + time.monotonic() - t0
+            )
+        return finished
+
+    def _fail_sequences(self, seqs: list[Sequence], err: Exception) -> None:
+        traceback.print_exc()
+        self.stats["forward_errors"] = self.stats.get("forward_errors", 0) + 1
+        for seq in seqs:
+            seq.error = f"{type(err).__name__}: {err}"  # type: ignore[attr-defined]
+            seq.finish(StopReason.ERROR)
+            if seq.slot is not None:
+                self._slot_seq[seq.slot] = None
+            self.scheduler.release(seq)
+            if seq.on_tokens is not None:
+                seq.on_tokens([], True)
+
+    def run_to_completion(self) -> list[Sequence]:
+        """Drain all queued work (batch/offline mode)."""
+        finished = []
+        while self.has_work:
+            finished.extend(self.step())
+        return finished
+
+    # -- internals -----------------------------------------------------------
+
+    def _max_blocks_bucket(self) -> int:
+        hard_max = -(-self.max_model_len // self.block_size)
+        longest = 1
+        for s in self.scheduler.running:
+            longest = max(longest, len(self.kv.block_table(s.request_id)))
+        b = 32
+        while b < longest:
+            b *= 2
+        return min(b, hard_max) if hard_max >= 32 else hard_max
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _run_prefill_batch(self, sps) -> list[Sequence]:
+        """Run this step's prompt chunks as ONE batched forward (rows padded
+        to a power of two, tokens to a bucket; pad tokens write nothing)."""
+        r = 1
+        while r < len(sps):
+            r *= 2
+        t = _bucket(max(sp.length for sp in sps))
+        ids_arr = np.zeros((r, t), np.int64)
+        positions = np.zeros((r, t), np.int64)
+        slot_map = np.full((r, t), -1, np.int32)
+        kv_lens = np.ones((r,), np.int32)
+        last_idx = np.zeros((r,), np.int64)
+        width = self._max_blocks_bucket()
+        for sp in sps:
+            need = len(self.kv.block_table(sp.seq.request_id))
+            while width < need:
+                width *= 2
+        bt = np.zeros((r, width), np.int32)
+        for row, sp in enumerate(sps):
+            seq = sp.seq
+            ids_arr[row, : sp.length] = seq.prompt_ids[sp.start : sp.start + sp.length]
+            positions[row, : sp.length] = np.arange(sp.start, sp.start + sp.length)
+            slot_map[row, : sp.length] = self.kv.slot_mapping(seq.request_id, sp.start, sp.length)
+            table = self.kv.block_table(seq.request_id)[:width]
+            bt[row, : len(table)] = table
+            kv_lens[row] = sp.start + sp.length
+            last_idx[row] = sp.length - 1
+        logits, self.cache = forward_paged(
+            self.weights, self.cfg, self._dev(ids_arr), self._dev(positions), self.cache,
+            self._dev(bt), self._dev(slot_map), self._dev(kv_lens),
+            block_size=self.block_size, logits_last_only=True,
+            compute_dtype=self.compute_dtype, last_indices=self._dev(last_idx),
+        )
+        finished: list[Sequence] = []
+        for row, sp in enumerate(sps):
+            seq = sp.seq
+            self.stats["prompt_tokens"] += sp.length
+            self.stats["prefix_cache_hit_tokens"] += sp.cached
+            self.kv.publish_full_blocks(seq.request_id, sp.start + sp.length)
+            if sp.start + sp.length >= seq.prompt_len:
+                if self._admit_and_sample_first(seq, logits[row, 0]):
+                    finished.append(seq)
+        return finished
+
+    def _admit_and_sample_first(self, seq: Sequence, logits_row) -> bool:
+        """Install the finished prompt's slot state and sample its first token
+        from the prefill logits. Returns True if the sequence finished."""
+        slot = seq.slot
+        self._slot_seq[slot] = seq
+        self.samp_state.admit(slot, seq.params, seq.prompt_ids)
+        toks, logprobs, tops = sample(logits_row[None], self.samp_state, [slot],
+                                      [seq.generator])
+        seq.first_token_time = time.monotonic()
+        return self._commit_token(seq, int(toks[0]), float(logprobs[0]),
+                                  tops[0][0].cpu().numpy(), tops[1][0].cpu().numpy())
+
+    def _run_decode(self, seqs: list[Sequence]) -> list[Sequence]:
+        b = self.max_batch
+        tokens = np.zeros((b, 1), np.int64)
+        positions = np.zeros((b, 1), np.int64)
+        kv_lens = np.zeros((b,), np.int32)
+        slot_map = np.full((b, 1), -1, np.int32)
+        width = self._max_blocks_bucket()
+        bt = np.zeros((b, width), np.int32)
+        for seq in seqs:
+            s = seq.slot
+            # the last generated token's KV is written this step at position
+            # total_len - 1 (the first token was sampled from prefill logits)
+            tokens[s, 0] = seq.all_ids[-1]
+            pos = seq.total_len - 1
+            positions[s, 0] = pos
+            kv_lens[s] = pos + 1
+            slot_map[s, 0] = self.kv.slot_mapping(seq.request_id, pos, 1)[0]
+            table = self.kv.block_table(seq.request_id)[:width]
+            bt[s, : len(table)] = table
+        logits, self.cache = forward_paged(
+            self.weights, self.cfg, self._dev(tokens), self._dev(positions), self.cache,
+            self._dev(bt), self._dev(slot_map), self._dev(kv_lens),
+            block_size=self.block_size, logits_last_only=True,
+            compute_dtype=self.compute_dtype,
+        )
+        rows = [seq.slot for seq in seqs]
+        toks, logprobs, tops = sample(
+            logits[rows, 0], self.samp_state, rows, [seq.generator for seq in seqs]
+        )
+        toks, logprobs = toks.tolist(), logprobs.tolist()
+        top_vals, top_ids = tops[0].cpu().numpy(), tops[1].cpu().numpy()
+        finished: list[Sequence] = []
+        for i, seq in enumerate(seqs):
+            if self._commit_token(seq, toks[i], logprobs[i], top_vals[i], top_ids[i]):
+                finished.append(seq)
+        return finished
+
+    def _commit_token(self, seq: Sequence, tok: int, logprob: float,
+                      top_vals_row, top_ids_row) -> bool:
+        """Record one sampled token, publish KV-complete blocks and run the
+        stop checks. Returns True if the sequence finished."""
+        if seq.first_token_time is None:
+            seq.first_token_time = time.monotonic()
+        seq.output_ids.append(tok)
+        seq.output_logprobs.append(logprob)
+        if seq.params.n_logprobs > 0:
+            k = min(seq.params.n_logprobs, top_ids_row.shape[0])
+            seq.output_top_logprobs.append(
+                {int(i): float(v) for i, v in zip(top_ids_row[:k], top_vals_row[:k])}
+            )
+        self.stats["generated_tokens"] += 1
+        self.kv.extend_hashes(seq.request_id, seq.all_ids)
+        # the token just sampled has no KV yet (written next step)
+        self.kv.publish_full_blocks(seq.request_id, seq.total_len - 1)
+        reason = self._check_stop(seq, tok)
+        if seq.on_tokens is not None:
+            seq.on_tokens([tok], reason is not None)
+        if reason is not None:
+            s = seq.slot
+            seq.finish(reason)
+            self.scheduler.release(seq)
+            self._slot_seq[s] = None
+            return True
+        return False
+
+    def _check_stop(self, seq: Sequence, tok: int) -> Optional[StopReason]:
+        p = seq.params
+        if tok in p.stop_token_ids:
+            return StopReason.STOP_TOKEN
+        if tok in self.cfg.eos_token_ids:
+            return StopReason.EOS
+        if seq.num_generated >= p.max_tokens:
+            return StopReason.LENGTH
+        if seq.total_len >= self.max_model_len:
+            return StopReason.LENGTH
+        if p.stop_strings and self.tokenizer is not None:
+            max_ss = max(len(ss) for ss in p.stop_strings)
+            ntok = min(len(seq.output_ids), max_ss + 8)
+            text = self.tokenizer.decode(seq.output_ids[-ntok:])
+            if any(ss in text for ss in p.stop_strings):
+                return StopReason.STOP_STRING
+        return None

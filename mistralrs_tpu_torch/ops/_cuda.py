@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+All sources under ``csrc/`` are compiled by ONE ``nvcc`` call into a shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+on first use (never at import), goes to ``_build/`` inside the package (the
+directory is git-ignored), and is keyed by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers raise on a non-zero code (:func:`check`).
+
+Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
+launches its kernel, and every plain PyTorch version adds one to
+``COUNTS[name + "_plain"]``. A run resets them with :func:`reset_counts` and
+reads them afterwards to show which path it went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("quant_matmul.cu", "paged_attention.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
+COUNTS: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream are c_void_p, every int c_int
+_SIGNATURES = {
+    "mrt_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def _source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call. Raises when there is
+    no CUDA device or no ``nvcc``."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA kernels need a CUDA device; none is available")
+        out = BUILD_DIR / f"libmrt_kernels_{_source_key()}.so"
+        if not out.exists():
+            import time
+
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(CSRC / s) for s in SOURCES]]
+            t0 = time.monotonic()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+            build_seconds = time.monotonic() - t0
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    """Input validation for the kernel wrappers (raises, never skipped)."""
+    if not cond:
+        raise ValueError(msg)

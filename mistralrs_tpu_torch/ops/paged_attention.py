@@ -1,0 +1,265 @@
+"""Paged attention with the KV write fused in (counterpart of
+``mistralrs_tpu/ops/paged_attention.py``).
+
+* :func:`paged_decode_attention_fused` — one query token per sequence: writes
+  the step's K/V row to ``slots[b]`` (dropped when < 0), then attends over
+  ``block_tables[b]`` up to ``kv_lens[b]``. **Decode kernel**
+  (``csrc/paged_attention.cu``), replaces ``paged_decode_attention_fused``.
+* :func:`paged_prefill_attention_fused` — T query tokens per sequence
+  (chunked prefill): writes the chunk's valid rows, then attends causally
+  over positions ``[kv_len − n_valid, kv_len)`` on top of the cached past.
+  **Prefill kernel**, replaces ``paged_prefill_attention_fused``.
+
+Pools are ``[L, n_kv, S, hd]`` (or one ``[n_kv, S, hd]`` plane) bf16 and are
+updated in place; the functions return the attention output only. On CUDA
+tensors the kernels run; on CPU tensors (or with ``plain=True``) the plain
+PyTorch versions below run. Both use the same math as the JAX kernels: an
+f32 softmax with masked logits at ``NEG_INF``, and an output of zeros for a
+row that sees no position. Sliding windows, logit softcap, sinks and
+quantized pools are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..kv.paged import write_kv
+from ._cuda import COUNTS, check, library, require, stream_ptr
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def _plane(pool: torch.Tensor, layer: int) -> torch.Tensor:
+    return pool[layer] if pool.dim() == 4 else pool
+
+
+def _unsupported(window, softcap, sinks) -> None:
+    if window or softcap or sinks is not None:
+        raise NotImplementedError(
+            "paged attention: sliding window, softcap and sinks are not ported yet"
+        )
+
+
+def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int):
+    """[n_kv, S, hd] plane → per-sequence [B, n_kv, W * bs, hd] (f32)."""
+    bt = block_tables.clamp_min(0).to(torch.long)
+    slots = (bt[:, :, None] * block_size
+             + torch.arange(block_size, device=bt.device)).reshape(bt.shape[0], -1)
+    return plane[:, slots].transpose(0, 1).to(torch.float32)
+
+
+def _softmax_attend(q, k, v, allowed):
+    """q [B, n_kv, R, hd] (pre-scaled), k/v [B, n_kv, P, hd], allowed
+    [B, 1|n_kv, R, P] bool → [B, n_kv, R, hd] f32, zeros where nothing is
+    allowed (the kernels' flash form: acc / max(l, 1e-20))."""
+    s = torch.einsum("bkrd,bkpd->bkrp", q, k)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * allowed
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkrp,bkpd->bkrd", p, v) / torch.clamp_min(l, 1e-20)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention_plain(
+    q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer=0,
+    *, block_size: int, scale: float,
+) -> torch.Tensor:
+    """Plain version of the decode kernel (same arguments, same result)."""
+    COUNTS["paged_decode_plain"] += 1
+    kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
+    write_kv(kp, vp, k_new, v_new, slots)
+    b, n_q, hd = q.shape
+    n_kv = kp.shape[0]
+    group = n_q // n_kv
+    k = _gather_seq(kp, block_tables, block_size)
+    v = _gather_seq(vp, block_tables, block_size)
+    qg = q.to(torch.float32).reshape(b, n_kv, group, hd) * scale
+    pos = torch.arange(k.shape[2], device=q.device)
+    allowed = (pos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
+    out = _softmax_attend(qg, k, v, allowed)
+    return out.reshape(b, n_q, hd).to(q.dtype)
+
+
+def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale):
+    b, n_q, hd = q.shape
+    n_kv, s_total, _ = kp.shape
+    require(hd == 128, f"decode kernel needs head_dim 128, got {hd}")
+    require(n_q % n_kv == 0 and n_q // n_kv <= 16, f"GQA group {n_q}/{n_kv} unsupported")
+    for name, t in (("q", q), ("k_pool", kp), ("v_pool", vp), ("k_new", k_new),
+                    ("v_new", v_new)):
+        require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device,
+                f"{name} must be contiguous bf16 on {q.device}")
+    require(tuple(k_new.shape) == (b, n_kv, hd) and v_new.shape == k_new.shape,
+            "k_new/v_new must be [B, n_kv, hd]")
+    for name, t in (("slots", slots), ("block_tables", block_tables),
+                    ("kv_lens", kv_lens)):
+        require(t.dtype == torch.int32 and t.is_contiguous() and t.device == q.device,
+                f"{name} must be contiguous int32 on {q.device}")
+    require(slots.shape == (b,) and kv_lens.shape == (b,) and block_tables.shape[0] == b,
+            "slots/kv_lens/block_tables batch mismatch")
+    out = torch.empty_like(q)
+    code = library().mrt_paged_decode(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        b, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
+        float(scale * LOG2E), stream_ptr(q),
+    )
+    check(code, "paged_decode")
+    COUNTS["paged_decode"] += 1
+    return out
+
+
+def paged_decode_attention_fused(
+    q: torch.Tensor,  # [B, n_q, hd]
+    k_pool: torch.Tensor,  # [L, n_kv, S, hd] or [n_kv, S, hd], updated in place
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, n_kv, hd] this step's KV rows
+    v_new: torch.Tensor,
+    slots: torch.Tensor,  # [B] int32 write slots (< 0 → dropped)
+    block_tables: torch.Tensor,  # [B, W] int32
+    kv_lens: torch.Tensor,  # [B] int32 (length AFTER this step's write)
+    layer: int = 0,
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    window: int = 0,
+    softcap: float = 0.0,
+    sinks: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Fused reshape_and_cache + paged decode attention → out [B, n_q, hd]."""
+    _unsupported(window, softcap, sinks)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if plain or q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer,
+            block_size=block_size, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode attention: unsupported device {q.device}")
+    return _decode_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
+                        slots, block_tables, kv_lens, block_size, scale)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def paged_prefill_attention_plain(
+    q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid, layer=0,
+    *, block_size: int, scale: float,
+) -> torch.Tensor:
+    """Plain version of the prefill kernel. Rows past ``n_valid`` write
+    nothing and return zeros (the kernel's output there is never read)."""
+    COUNTS["paged_prefill_plain"] += 1
+    kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
+    b, t, n_q, hd = q.shape
+    n_kv = kp.shape[0]
+    group = n_q // n_kv
+    dev = q.device
+    kv_lens = kv_lens.to(dev).to(torch.long)
+    n_valid = n_valid.to(dev).to(torch.long)
+    tok = torch.arange(t, device=dev)
+    valid = tok[None, :] < n_valid[:, None]  # [B, T]
+    # past K/V come from the pool as it was; the chunk's own from k_new/v_new
+    k = _gather_seq(kp, block_tables, block_size)  # [B, n_kv, P, hd]
+    v = _gather_seq(vp, block_tables, block_size)
+    ctx = kv_lens - n_valid
+    n_pos = max(k.shape[2], int((ctx + t).max()) if b else 0)
+    if n_pos > k.shape[2]:
+        pad = n_pos - k.shape[2]
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    for i in range(b):
+        nv, c = int(n_valid[i]), int(ctx[i])
+        k[i, :, c:c + nv] = k_new[i, :nv].transpose(0, 1).to(torch.float32)
+        v[i, :, c:c + nv] = v_new[i, :nv].transpose(0, 1).to(torch.float32)
+    write_kv(kp, vp, k_new.reshape(b * t, n_kv, hd), v_new.reshape(b * t, n_kv, hd),
+             torch.where(valid, slots.to(dev), torch.full_like(slots.to(dev), -1)).reshape(-1))
+    # rows ordered (token, head-in-group) like the kernel's query tile
+    qg = (q.to(torch.float32).reshape(b, t, n_kv, group, hd).permute(0, 2, 1, 3, 4)
+          .reshape(b, n_kv, t * group, hd) * scale)
+    pos = torch.arange(k.shape[2], device=dev)
+    lim = ctx[:, None] + tok[None, :]  # [B, T] last visible position
+    allowed = (pos[None, None, :] <= lim[:, :, None]) & valid[:, :, None]
+    allowed = allowed.repeat_interleave(group, dim=1)[:, None]  # [B, 1, T*G, P]
+    out = _softmax_attend(qg, k, v, allowed)
+    out = out.reshape(b, n_kv, t, group, hd).permute(0, 2, 1, 3, 4).reshape(b, t, n_q, hd)
+    return out.to(q.dtype)
+
+
+def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid,
+                  block_size, scale):
+    b, t, n_q, hd = q.shape
+    n_kv, s_total, _ = kp.shape
+    require(hd == 128, f"prefill kernel needs head_dim 128, got {hd}")
+    require(n_q % n_kv == 0 and 64 % (n_q // n_kv) == 0,
+            f"GQA group {n_q}/{n_kv} unsupported")
+    for name, x in (("q", q), ("k_pool", kp), ("v_pool", vp), ("k_new", k_new),
+                    ("v_new", v_new)):
+        require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.device == q.device,
+                f"{name} must be contiguous bf16 on {q.device}")
+    require(tuple(k_new.shape) == (b, t, n_kv, hd) and v_new.shape == k_new.shape,
+            "k_new/v_new must be [B, T, n_kv, hd]")
+    for name, x in (("slots", slots), ("block_tables", block_tables),
+                    ("kv_lens", kv_lens), ("n_valid", n_valid)):
+        require(x.dtype == torch.int32 and x.is_contiguous() and x.device == q.device,
+                f"{name} must be contiguous int32 on {q.device}")
+    require(tuple(slots.shape) == (b, t) and kv_lens.shape == (b,) and n_valid.shape == (b,)
+            and block_tables.shape[0] == b, "slots/kv_lens/n_valid/block_tables mismatch")
+    out = torch.empty_like(q)
+    code = library().mrt_paged_prefill(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), n_valid.data_ptr(),
+        out.data_ptr(), b, t, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
+        float(scale * LOG2E), stream_ptr(q),
+    )
+    check(code, "paged_prefill")
+    COUNTS["paged_prefill"] += 1
+    return out
+
+
+def paged_prefill_attention_fused(
+    q: torch.Tensor,  # [B, T, n_q, hd]
+    k_pool: torch.Tensor,  # [L, n_kv, S, hd] or [n_kv, S, hd], updated in place
+    v_pool: torch.Tensor,
+    k_new: torch.Tensor,  # [B, T, n_kv, hd] this chunk's KV rows
+    v_new: torch.Tensor,
+    slots: torch.Tensor,  # [B, T] int32 write slots (< 0 → dropped)
+    block_tables: torch.Tensor,  # [B, W] int32
+    kv_lens: torch.Tensor,  # [B] int32 (length AFTER this chunk's writes)
+    n_valid: torch.Tensor,  # [B] int32 valid tokens of this chunk (≤ T)
+    layer: int = 0,
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+    window: int = 0,
+    softcap: float = 0.0,
+    sinks: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Fused reshape_and_cache + causal paged attention for T > 1 → out
+    [B, T, n_q, hd]. Each row's valid tokens [0, n_valid) are the
+    consecutive positions [kv_len − n_valid, kv_len) (the engine's prefill
+    invariant, as in the JAX kernel)."""
+    _unsupported(window, softcap, sinks)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if plain or q.device.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid,
+            layer, block_size=block_size, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged prefill attention: unsupported device {q.device}")
+    return _prefill_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
+                         slots, block_tables, kv_lens, n_valid, block_size, scale)

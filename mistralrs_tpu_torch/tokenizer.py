@@ -1,0 +1,145 @@
+"""Tokenizer resolution + incremental detokenization (a copy of
+``mistralrs_tpu/tokenizer.py``).
+
+The ``tokenizers`` package is imported only inside the function that builds
+a tokenizer, so the module imports without it.
+
+The port reads tokenizers from GGUF metadata only (the analog of the
+reference's `mistralrs-core/src/gguf/gguf_tokenizer.rs`): a Unigram
+(llama/spm) or byte-level BPE (gpt2) tokenizer built from the
+`tokenizer.ggml.*` keys; HF `tokenizer.json` files are not ported yet.
+
+Also provides the incremental streaming detokenizer (the analog of the
+reference's delta-decode in `Sequence`), which withholds bytes that may be a
+partial UTF-8 sequence / partial token.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Sequence
+
+
+class Detokenizer:
+    """Incremental decode: emits stable text deltas as token ids arrive."""
+
+    def __init__(self, tokenizer: "TokenizerWrapper"):
+        self.tok = tokenizer
+        self.ids: list[int] = []
+        self.prefix_text = ""
+        self.stable_len = 0
+
+    def push(self, new_ids: Sequence[int]) -> str:
+        self.ids.extend(new_ids)
+        text = self.tok.decode(self.ids)
+        # withhold a potentially-incomplete suffix (replacement char at end)
+        if text.endswith("�"):
+            stable = text[: text.rfind("�")]
+        else:
+            stable = text
+        delta = stable[self.stable_len :]
+        self.stable_len = len(stable)
+        return delta
+
+    def flush(self) -> str:
+        text = self.tok.decode(self.ids)
+        delta = text[self.stable_len :]
+        self.stable_len = len(text)
+        return delta
+
+
+class TokenizerWrapper:
+    """Thin uniform interface over a `tokenizers.Tokenizer`."""
+
+    def __init__(self, hf_tokenizer, bos_id=None, eos_ids=(), add_bos=True):
+        self._tok = hf_tokenizer
+        self.bos_id = bos_id
+        self.eos_ids = tuple(eos_ids)
+        self.add_bos = add_bos
+
+    def encode(self, text: str, add_bos: Optional[bool] = None) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False).ids
+        use_bos = self.add_bos if add_bos is None else add_bos
+        if use_bos and self.bos_id is not None and (not ids or ids[0] != self.bos_id):
+            ids = [self.bos_id] + ids
+        return ids
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=skip_special_tokens)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self._tok.token_to_id(token)
+
+    def id_to_token(self, i: int) -> Optional[str]:
+        return self._tok.id_to_token(i)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    def detokenizer(self) -> Detokenizer:
+        return Detokenizer(self)
+
+
+# ---------------------------------------------------------------------------
+# GGUF-metadata tokenizer (gguf_tokenizer.rs analog)
+# ---------------------------------------------------------------------------
+
+_SPM_REPLACEMENT = "▁"  # ▁
+
+
+def from_gguf_metadata(md: Mapping[str, Any]) -> TokenizerWrapper:
+    from tokenizers import Tokenizer, decoders, models, normalizers, pre_tokenizers
+
+    model_kind = md.get("tokenizer.ggml.model", "llama")
+    tokens = [str(t) for t in md["tokenizer.ggml.tokens"]]
+    bos_id = md.get("tokenizer.ggml.bos_token_id")
+    eos_id = md.get("tokenizer.ggml.eos_token_id")
+    add_bos = bool(md.get("tokenizer.ggml.add_bos_token", True))
+
+    if model_kind == "llama":  # SentencePiece Unigram
+        scores = md.get("tokenizer.ggml.scores")
+        if scores is None:
+            scores = [0.0] * len(tokens)
+        vocab = [(t, float(s)) for t, s in zip(tokens, scores)]
+        unk = int(md.get("tokenizer.ggml.unknown_token_id", 0))
+        tok = Tokenizer(models.Unigram(vocab, unk_id=unk, byte_fallback=True))
+        tok.normalizer = normalizers.Sequence(
+            [normalizers.Replace(" ", _SPM_REPLACEMENT), normalizers.Prepend(_SPM_REPLACEMENT)]
+        )
+        tok.decoder = decoders.Sequence(
+            [
+                decoders.Replace(_SPM_REPLACEMENT, " "),
+                decoders.ByteFallback(),
+                decoders.Fuse(),
+                decoders.Strip(" ", 1, 0),
+            ]
+        )
+    elif model_kind == "gpt2":  # byte-level BPE
+        merges_raw = md.get("tokenizer.ggml.merges", [])
+        merges = [tuple(m.split(" ", 1)) for m in merges_raw]
+        vocab = {t: i for i, t in enumerate(tokens)}
+        tok = Tokenizer(models.BPE(vocab, merges, ignore_merges=True))
+        tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+        tok.decoder = decoders.ByteLevel()
+    else:
+        raise NotImplementedError(f"GGUF tokenizer model {model_kind!r}")
+
+    # register special/control tokens so decode can skip them
+    token_types = md.get("tokenizer.ggml.token_type")
+    if token_types is not None:
+        from tokenizers import AddedToken
+
+        specials = [
+            AddedToken(tokens[i], special=True)
+            for i, tt in enumerate(token_types)
+            if int(tt) in (3, 4)  # CONTROL, USER_DEFINED? (3=control)
+        ]
+        if specials:
+            tok.add_special_tokens(specials)
+
+    return TokenizerWrapper(
+        tok,
+        bos_id=bos_id,
+        eos_ids=(eos_id,) if eos_id is not None else (),
+        add_bos=add_bos,
+    )

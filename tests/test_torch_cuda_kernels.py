@@ -1,0 +1,158 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(marked ``cuda``; they skip where there is no GPU). On the card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
+
+(``--noconftest``: ``tests/conftest.py`` sets up JAX and aiohttp for the JAX
+package's tests, which these do not need.)
+
+Tolerances: the matmul kernels round the dequantized weight exactly as the
+plain version does and differ only in f32 sum order (bf16 output: 1e-2 of
+the largest value); the attention kernels use exp2 with log2(e) folded into
+the scale and another sum order (bf16 output: atol 2e-2).
+"""
+
+import pytest
+import torch
+
+from mistralrs_tpu_torch.models import ModelConfig, fuse_projections
+from mistralrs_tpu_torch.models.llama import forward_paged
+from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv
+from mistralrs_tpu_torch.ops._cuda import COUNTS, reset_counts
+from mistralrs_tpu_torch.ops.paged_attention import (
+    paged_decode_attention_fused,
+    paged_prefill_attention_fused,
+)
+from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
+from mistralrs_tpu_torch.quant.qtensor import QTensor
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _qt(n, k, packed, gs, signed, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if packed:
+        data = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    elif signed:
+        data = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    else:
+        data = torch.randint(0, 64, (k, n), generator=g, device=dev, dtype=torch.uint8)
+    scale = torch.rand((k // gs, n), generator=g, device=dev) * 0.02
+    bias = None if signed else -8 * scale
+    return QTensor(data, scale, bias, group_size=gs, packed=packed,
+                   code_bits=4 if packed else 8)
+
+
+@pytest.mark.parametrize("m", [1, 8, 130])
+@pytest.mark.parametrize("kind", ["w4", "w8_s32", "w8_s16", "w8_u32"])
+def test_quant_matmul_kernel_matches_plain(dev, m, kind):
+    packed = kind == "w4"
+    gs = 16 if kind == "w8_s16" else 32
+    qt = _qt(320, 512, packed, gs, signed=kind.startswith("w8_s"), dev=dev)
+    x = torch.randn((m, 512), device=dev).to(torch.bfloat16)
+    reset_counts()
+    got = quant_matmul(x, qt)
+    ref = quant_matmul(x, qt, plain=True)
+    torch.cuda.synchronize()
+    name = "w4_matmul" if packed else "w8_matmul"
+    assert COUNTS[name] == 1 and COUNTS[name + "_plain"] == 1
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+def test_attention_kernels_match_plain(dev):
+    n_kv, group, hd, bs, b = 2, 4, 128, 16, 3
+    w = 6
+    s = (b * w + 1) * bs
+    bt = torch.randperm(b * w, device=dev, dtype=torch.int32).reshape(b, w)
+    kp = torch.randn((n_kv, s, hd), device=dev).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    q = torch.randn((b, n_kv * group, hd), device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, n_kv, hd), device=dev).to(torch.bfloat16)
+    kv_lens = torch.tensor([37, 1, 90], device=dev, dtype=torch.int32)
+    slots = (bt.gather(1, ((kv_lens - 1) // bs)[:, None].long())[:, 0] * bs
+             + (kv_lens - 1) % bs).to(torch.int32)
+    slots[1] = -1
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    got = paged_decode_attention_fused(q, k1, v1, kn, kn, slots, bt, kv_lens, block_size=bs)
+    ref = paged_decode_attention_fused(q, k2, v2, kn, kn, slots, bt, kv_lens,
+                                       block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+    for pool_a, pool_b in ((k1, k2), (v1, v2)):
+        ga, _ = gather_kv(pool_a, pool_a, bt, bs)
+        gb, _ = gather_kv(pool_b, pool_b, bt, bs)
+        for i, n in enumerate(kv_lens.tolist()):
+            assert torch.equal(ga[i, :n], gb[i, :n])
+    t = 40
+    n_valid = torch.tensor([40, 17, 33], device=dev, dtype=torch.int32)
+    kv_lens = n_valid + torch.tensor([30, 0, 50], device=dev, dtype=torch.int32)
+    pos = (kv_lens - n_valid)[:, None] + torch.arange(t, device=dev)[None]
+    slots = (bt.gather(1, (pos // bs).clamp_max(w - 1).long()) * bs + pos % bs).to(torch.int32)
+    slots[torch.arange(t, device=dev)[None] >= n_valid[:, None]] = -1
+    qp = torch.randn((b, t, n_kv * group, hd), device=dev).to(torch.bfloat16)
+    kpn = torch.randn((b, t, n_kv, hd), device=dev).to(torch.bfloat16)
+    got = paged_prefill_attention_fused(qp, k1, v1, kpn, kpn, slots, bt, kv_lens, n_valid,
+                                        block_size=bs)
+    ref = paged_prefill_attention_fused(qp, k2, v2, kpn, kpn, slots, bt, kv_lens, n_valid,
+                                        block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    for i, n in enumerate(n_valid.tolist()):
+        assert (got[i, :n].float() - ref[i, :n].float()).abs().max().item() < 2e-2
+    ga, _ = gather_kv(k1, k1, bt, bs)
+    gb, _ = gather_kv(k2, k2, bt, bs)
+    for i, n in enumerate(kv_lens.tolist()):
+        assert torch.equal(ga[i, :n], gb[i, :n])
+
+
+def test_forward_paged_kernels_match_plain(dev):
+    """Two Q4_K-style layers at head_dim 128: logits of a prefill and a
+    decode step through the kernels against the plain path (rtol 5e-2 of the
+    logit range: bf16 activations over two layers)."""
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128)
+    layers = []
+    for li in range(2):
+        layers.append({
+            "attn_norm": torch.ones(512, device=dev, dtype=torch.bfloat16),
+            "ffn_norm": torch.ones(512, device=dev, dtype=torch.bfloat16),
+            "wq": _qt(512, 512, True, 32, False, dev, 10 * li + 1),
+            "wk": _qt(256, 512, True, 32, False, dev, 10 * li + 2),
+            "wv": _qt(256, 512, True, 32, False, dev, 10 * li + 3),
+            "wo": _qt(512, 512, True, 32, False, dev, 10 * li + 4),
+            "gate": _qt(1024, 512, True, 32, False, dev, 10 * li + 5),
+            "up": _qt(1024, 512, True, 32, False, dev, 10 * li + 6),
+            "down": _qt(512, 1024, True, 32, False, dev, 10 * li + 7),
+        })
+    weights = fuse_projections({
+        "embed": torch.randn((512, 512), device=dev).to(torch.bfloat16),
+        "layers": layers,
+        "final_norm": torch.ones(512, device=dev, dtype=torch.bfloat16),
+        "lm_head": _qt(512, 512, False, 32, True, dev, 99),
+    }, cfg)
+    bs, t = 16, 24
+    bt = torch.arange(8, device=dev, dtype=torch.int32).reshape(2, 4)
+    ids = torch.randint(0, 512, (2, t), device=dev)
+    pos = torch.arange(t, device=dev)[None].expand(2, t)
+    slots = (bt.gather(1, (pos // bs).long()) * bs + pos % bs).to(torch.int32)
+    outs = []
+    for plain in (False, True):
+        cache = PagedKVCache.create(cfg, 8, bs, device=dev)
+        lp, _ = forward_paged(weights, cfg, ids, pos, cache, bt, slots,
+                              torch.full((2,), t, device=dev), block_size=bs, plain=plain)
+        ld, _ = forward_paged(weights, cfg, ids[:, :1], torch.full((2, 1), t, device=dev),
+                              cache, bt, slots[:, :1] + t, torch.full((2,), t + 1, device=dev),
+                              block_size=bs, plain=plain)
+        outs.append((lp, ld))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.isfinite(a).all()
+        span = (b.max() - b.min()).item()
+        assert (a - b).abs().max().item() <= 5e-2 * span

@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of mistralrs_tpu_torch
+loads neither jax nor any module of the JAX package; its entry points refuse
+to run without a card unless the caller asks for the CPU; and a kernel
+wrapper without a CUDA build raises instead of falling back."""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import mistralrs_tpu_torch
+from mistralrs_tpu_torch import resolve_device
+from mistralrs_tpu_torch.engine.engine import Engine
+from mistralrs_tpu_torch.models import ModelConfig, init_random_weights
+from mistralrs_tpu_torch.ops import _cuda
+from mistralrs_tpu_torch.ops.paged_attention import _decode_cuda
+from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
+from mistralrs_tpu_torch.pipeline import load_pipeline
+from mistralrs_tpu_torch.quant.qtensor import QTensor
+
+REPO = Path(__file__).resolve().parent.parent
+CFG = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
+                  num_layers=1, num_heads=2, num_kv_heads=1, head_dim=16)
+
+
+def test_imports_no_jax():
+    modules = sorted(m.name for m in pkgutil.walk_packages(
+        mistralrs_tpu_torch.__path__, "mistralrs_tpu_torch."))
+    assert len(modules) >= 25
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {modules!r}:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "mistralrs_tpu" or m.startswith("mistralrs_tpu.")]
+        assert not bad, bad
+        print("ok", len({modules!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = init_random_weights(CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(CFG, w, num_blocks=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_pipeline(str(tmp_path / "missing.gguf"))
+    assert resolve_device("cpu").type == "cpu"
+    Engine(CFG, w, num_blocks=4, device="cpu")  # explicit CPU is fine
+
+
+def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_cuda, "_lib", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cuda.library()
+    # the CUDA path of a wrapper validates, then needs the library: it raises
+    # and never substitutes the plain version
+    b, n_q, n_kv, hd = 1, 4, 1, 128
+    q = torch.zeros((b, n_q, hd), dtype=torch.bfloat16)
+    pool = torch.zeros((n_kv, 32, hd), dtype=torch.bfloat16)
+    new = torch.zeros((b, n_kv, hd), dtype=torch.bfloat16)
+    i1 = torch.zeros(b, dtype=torch.int32)
+    _cuda.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _decode_cuda(q, pool, pool, new, new, i1, i1[:, None], i1, 16, 0.1)
+    assert sum(_cuda.COUNTS.values()) == 0
+    # a tensor on neither the CPU nor a card is refused, not computed
+    qt = QTensor(torch.zeros((64, 16), dtype=torch.uint8), torch.ones((4, 16)),
+                 torch.zeros((4, 16)), group_size=32, packed=True, code_bits=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quant_matmul(torch.zeros((2, 128), device="meta"), qt)
