@@ -6,40 +6,66 @@
 Drives the port's main path on the card and checks it, in phases that each
 print one progress line with the elapsed seconds:
 
-0. watchdog and device: a hang ends in a traceback after 600 s; no CUDA
+0. watchdog and device: a hang ends in a traceback after 900 s; no CUDA
    device is an error; prints ``nvidia-smi``'s name and power limit;
-1. build: compiles the four CUDA kernels (one ``nvcc`` call) and prints the
-   build time;
+1. build: compiles the seven CUDA kernels (one ``nvcc`` call) and prints
+   the build time;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16), with its median time (CUDA events), its bound at
    the card's memory and bf16 tensor-core rates, the plain version's time
-   and a PyTorch library call on the same inputs as a yardstick;
+   and a PyTorch library call on the same inputs as a yardstick. The
+   grouped (MoE) kernels run on Mixtral-8x7B banks (8 experts, top-2) at
+   n*k = 16 (decode, 8 tokens) and 1024 (a 512-token prefill) with routings
+   drawn from the script's generator, plus one all-to-one routing and one
+   with an empty expert; their bound counts the work the function needs:
+   the planes of the experts the routing touches plus the n*k real rows of x
+   and out (the padding rows of the used tiles are left out), and 2 * n*k *
+   N * K operations; their library call is one ``torch.matmul`` per non-empty
+   group on weights dequantized to bf16 ahead of time;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared;
+3b. the same at full Mixtral-8x7B width with 2 layers: layer 0 holds Q4_K
+   gate/up and a Q6_K down bank, layer 1 Q4_K gate/up and a bf16 down bank,
+   so all three grouped kernels run. Both paths record the experts each
+   (token, layer) chose; near-tied router logits may pick differently under
+   the two sum orders, so at least 99 % of the choices must agree. The plain
+   run then takes the kernel run's choices (its own router weights at those
+   experts), so every row's logits at every step are compared;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
    greedy, half seeded sampling), every kernel's launch count read after the
    run, then the server and engine threads are shut down and joined;
-5. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
+5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
+   device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
+   Q4_K attention and gate/up banks, Q6_K down banks on the 16
+   ``use_more_bits`` layers and Q4_K on the rest, Q8_0 ``attn_v``, a Q6_K
+   head, a bf16 embedding and router; the same 6 requests and checks;
+6. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
    the script exits non-zero without that line.
+
+The ``kernels`` line gives each kernel's launches in the run of its path
+(phase 4 for the dense-model kernels, phase 5 for the W4/W8 grouped kernels,
+phase 3b's kernel run for the dense grouped kernel, which a Q4_K_M file does
+not reach) and its time at the main path's dominant shape.
 
 Budget: the whole run at most 8 minutes on an H100 with the build, at most
 8 GB of host memory (all weights are drawn on the device, none on the host),
-at most 40 GB of device memory.
+at most 60 GB of device memory.
 
-Tolerances: the matmul kernels dequantize exactly as the plain version and
-differ in f32 sum order, so their bf16 outputs agree within 1e-2 of the
-largest |value|; the attention kernels agree within 2e-2 absolute (bf16
-outputs of magnitude ~1, exp2 vs exp and sum order); the model's logits
-agree within 5e-2 of the largest |logit| (bf16 activations through two
-full-width layers).
+Tolerances: the matmul kernels (plain and grouped) dequantize exactly as
+the plain version and differ in f32 sum order, so their bf16 outputs agree
+within 1e-2 of the largest |value|; the attention kernels agree within 2e-2
+absolute (bf16 outputs of magnitude ~1, exp2 vs exp and sum order); the
+models' logits agree within 5e-2 of the largest |logit| (bf16 activations
+through two full-width layers).
 """
 
 from __future__ import annotations
 
 import faulthandler
+import gc
 import json
 import math
 import statistics
@@ -49,7 +75,7 @@ import threading
 import time
 import urllib.request
 
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(900, exit=True)
 
 import torch  # noqa: E402
 
@@ -57,13 +83,22 @@ from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E40
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
 from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv  # noqa: E402
 from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
+from mistralrs_tpu_torch.models import llama  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
 from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
+from mistralrs_tpu_torch.ops.moe_grouped import (  # noqa: E402
+    build_groups,
+    dense_matmul_grouped,
+    grouped_tile,
+)
 from mistralrs_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_decode_attention_fused,
     paged_prefill_attention_fused,
 )
-from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul  # noqa: E402
+from mistralrs_tpu_torch.ops.quant_matmul import (  # noqa: E402
+    quant_matmul,
+    quant_matmul_grouped,
+)
 from mistralrs_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from mistralrs_tpu_torch.serving.server import Server  # noqa: E402
 from mistralrs_tpu_torch.tokenizer import Detokenizer  # noqa: E402
@@ -77,6 +112,15 @@ LLAMA3_8B = dict(
     num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
     rope_theta=500000.0, max_position_embeddings=8192, rms_norm_eps=1e-5,
 )
+
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-Instruct-v0.1 config.json)
+MIXTRAL_8X7B = dict(
+    arch="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128, rope_theta=1e6,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, num_experts=8,
+    num_experts_per_tok=2, moe_intermediate_size=14336,
+)
+DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -92,6 +136,12 @@ KERNEL_INFO = {
                      "mistralrs_tpu/ops/paged_attention.py:496"),
     "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                       "mistralrs_tpu/ops/paged_attention.py:1162"),
+    "w4_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+                    "mistralrs_tpu/ops/quant_matmul.py:830"),
+    "w8_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+                    "mistralrs_tpu/ops/quant_matmul.py:895"),
+    "dense_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+                       "mistralrs_tpu/ops/moe_grouped.py:67"),
 }
 
 
@@ -141,23 +191,89 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
-def q4k(n: int, k: int, gen: torch.Generator, dev) -> QTensor:
-    """Random Q4_K-style planes: 4-bit codes, group 32, zero-mean weights
-    (bias = -8 scale) of variance ~1/K so activations keep their scale."""
-    data = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
-    scale = (0.75 + 0.5 * torch.rand((k // 32, n), generator=gen, device=dev)) / math.sqrt(21.25 * k)
+def q4k(n: int, k: int, gen: torch.Generator, dev, e: int | None = None) -> QTensor:
+    """Random Q4_K-style planes (a bank of ``e`` experts when given): 4-bit
+    codes, group 32, zero-mean weights (bias = -8 scale) of variance ~1/K so
+    activations keep their scale."""
+    lead = () if e is None else (e,)
+    data = torch.randint(0, 256, (*lead, k // 2, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    scale = (0.75 + 0.5 * torch.rand((*lead, k // 32, n), generator=gen, device=dev)
+             ) / math.sqrt(21.25 * k)
     return QTensor(data, scale, -8.0 * scale, group_size=32, packed=True, code_bits=4)
 
 
 def q8(n: int, k: int, gen: torch.Generator, dev, gs: int = 32, lo: int = -127,
-       hi: int = 127) -> QTensor:
+       hi: int = 127, e: int | None = None) -> QTensor:
     """Random signed planes, codes in [lo, hi], no bias: Q8_0 at the
     defaults, Q6_K-style with gs 16 and codes in [-32, 31]."""
-    data = torch.randint(lo, hi + 1, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    lead = () if e is None else (e,)
+    data = torch.randint(lo, hi + 1, (*lead, k, n), generator=gen, device=dev, dtype=torch.int8)
     var = ((hi - lo + 1) ** 2 - 1) / 12 + ((hi + lo) / 2) ** 2  # E[q^2]
-    scale = (0.75 + 0.5 * torch.rand((k // gs, n), generator=gen, device=dev)) / math.sqrt(k * var)
+    scale = (0.75 + 0.5 * torch.rand((*lead, k // gs, n), generator=gen, device=dev)
+             ) / math.sqrt(k * var)
     return QTensor(data, scale, None, group_size=gs, packed=False,
                    code_bits=8 if hi == 127 else 6)
+
+
+def q6k(n: int, k: int, gen: torch.Generator, dev, e: int | None = None) -> QTensor:
+    """Q6_K-style planes: signed codes in [-32, 31], group 16, no bias."""
+    return q8(n, k, gen, dev, gs=16, lo=-32, hi=31, e=e)
+
+
+def widened(n: int, k: int, gen: torch.Generator, dev, e: int) -> QTensor:
+    """A Q4_K bank in the JAX loader's widened form: int8 codes in [0, 15],
+    group 16, with a bias plane (the signed-with-bias W8 format)."""
+    data = torch.randint(0, 16, (e, k, n), generator=gen, device=dev, dtype=torch.int8)
+    scale = (0.75 + 0.5 * torch.rand((e, k // 16, n), generator=gen, device=dev)
+             ) / math.sqrt(21.25 * k)
+    return QTensor(data, scale, -7.5 * scale, group_size=16, packed=False, code_bits=8)
+
+
+def bf16_bank(n: int, k: int, gen: torch.Generator, dev, e: int) -> torch.Tensor:
+    """A dense bf16 expert bank [E, N, K] of variance 1/K."""
+    return (torch.randn((e, n, k), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's Q4_K_M rule (``llama_tensor_get_type``) for the layers
+    whose ``ffn_down`` it keeps in Q6_K: the first and last eighth and every
+    third layer between."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def build_mixtral(cfg: ModelConfig, dev, seed: int, down_kinds=None) -> dict:
+    """Mixtral weights in the Q4_K_M recipe, drawn on the device: Q4_K
+    attention (a Q8_0 ``attn_v``), fused Q4_K gate/up banks, down banks in
+    Q6_K on the ``use_more_bits`` layers and Q4_K on the rest (or
+    ``down_kinds[i]`` in "q6k", "q4k", "bf16"), a bf16 router of N(0, 1)/sqrt(H),
+    a bf16 embedding and a Q6_K-style head: ~39 GB at 32 layers."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, e = cfg.hidden_size, cfg.num_experts
+    mi = cfg.moe_intermediate_size or cfg.intermediate_size
+    down_fns = {"q6k": lambda: q6k(h, mi, gen, dev, e=e), "q4k": lambda: q4k(h, mi, gen, dev, e=e),
+                "bf16": lambda: bf16_bank(h, mi, gen, dev, e)}
+    layers = []
+    for i in range(cfg.num_layers):
+        kind = down_kinds[i] if down_kinds else (
+            "q6k" if use_more_bits(i, cfg.num_layers) else "q4k")
+        layers.append({
+            "attn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "ffn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "wq": q4k(cfg.q_dim, h, gen, dev),
+            "wk": q4k(cfg.kv_dim, h, gen, dev),
+            "wv": q8(cfg.kv_dim, h, gen, dev),
+            "wo": q4k(h, cfg.q_dim, gen, dev),
+            "router": (torch.randn((e, h), generator=gen, device=dev) / math.sqrt(h)
+                       ).to(torch.bfloat16),
+            "experts": {"gateup": q4k(2 * mi, h, gen, dev, e=e), "down": down_fns[kind]()},
+        })
+    return {
+        "embed": torch.randn((cfg.vocab_size, h), generator=gen, device=dev).to(torch.bfloat16),
+        "layers": layers,
+        "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+        "lm_head": q6k(cfg.vocab_size, h, gen, dev),
+    }
 
 
 def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
@@ -209,6 +325,95 @@ def check_matmul(name, m, qt, rates, gen, dev):
     log(f"  {name} {row['shape']}: err {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms")
     return row
+
+
+def grouped_routing(ntok, e, routing, gen, dev):
+    """Top-2 choices of ``ntok`` tokens over ``e`` experts: two distinct
+    experts drawn from the generator ("random"), every choice on the last
+    expert ("all_to_one"), or random with expert 2 left empty."""
+    first = torch.randint(0, e, (ntok,), generator=gen, device=dev)
+    second = (first + torch.randint(1, e, (ntok,), generator=gen, device=dev)) % e
+    topi = torch.stack([first, second], dim=1)
+    if routing == "all_to_one":
+        topi[:] = e - 1
+    elif routing == "empty_expert":
+        topi[topi == 2] = 3
+    return topi, torch.rand((ntok, 2), generator=gen, device=dev)
+
+
+def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True):
+    """One grouped kernel on a bank ``w`` ([E, N, K]: QTensor or bf16) for
+    ``ntok`` tokens routed top-2, against its plain version; timed with its
+    bound and library yardstick when ``timed``."""
+    dense = isinstance(w, torch.Tensor)
+    e, n, k = w.shape
+    topi, topw = grouped_routing(ntok, e, routing, gen, dev)
+    tm = grouped_tile(ntok * 2)
+    st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
+    x = torch.randn((ntok, k), generator=gen, device=dev).to(torch.bfloat16)
+    xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
+    xs[dest] = x[st]
+    fn = dense_matmul_grouped if dense else quant_matmul_grouped
+
+    def run(plain=False):
+        return fn(xs, w, tiles, tm=tm, n_used_tiles=n_used, plain=plain)
+
+    got, ref = run(), run(plain=True)
+    torch.cuda.synchronize()
+    used = int(n_used)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 1e-2 * ref.float().abs().max().item()
+    if not (torch.isfinite(got).all() and err <= tol and bool((got[used * tm:] == 0).all())):
+        raise AssertionError(f"{name} {routing} E={e} N={n} K={k} tokens={ntok}: "
+                             f"max err {err} > {tol} or unused tiles not zero")
+    shape = f"E={e} N={n} K={k} n*k={2 * ntok} tm={tm} used tiles={used} ({routing})"
+    if not timed:
+        log(f"  {name} {shape}: err {err:.3e} (tol {tol:.3e})")
+        return dict(shape=shape, max_abs_err=err)
+    tl = tiles[:used].tolist()
+    spans = {}  # expert → its tiles' row span (an expert's tiles are contiguous)
+    for t, ex in enumerate(tl):
+        a, _ = spans.get(ex, (t * tm, 0))
+        spans[ex] = (a, (t + 1) * tm)
+    wd = {ex: (w[ex] if dense else w.bank(ex).dequantize(torch.float32).to(torch.bfloat16))
+          for ex in spans}
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: run(plain=True), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: [torch.matmul(xs[a:b], wd[ex].T) for ex, (a, b) in spans.items()])
+    del wd
+    # the function's own work: the touched experts' planes and the n*k real
+    # (token, choice) rows, not the padding of the used tiles
+    plane_bytes = sum(n * k * 2 if dense else w.bank(ex).nbytes for ex in spans)
+    pairs = 2 * ntok
+    b_ms, b_by = bound(plane_bytes + pairs * k * 2 + pairs * n * 2, 2.0 * pairs * n * k, rates)
+    row = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, experts=len(spans))
+    log(f"  {name} {shape}, {len(spans)} experts: err {err:.3e} (tol {tol:.3e}) | kernel "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"torch.matmul per group {lib_ms:.4f} ms")
+    return row
+
+
+def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
+    """Phase 2's grouped part: Mixtral-8x7B banks at decode (8 tokens) and
+    a 512-token prefill, plus the all-to-one and empty-expert routings."""
+    banks = [
+        ("w4_matmul_g", "gate/up, fused", lambda: q4k(2 * mi, h, gen, dev, e=e), (8, 512)),
+        ("w4_matmul_g", "Q4_K down", lambda: q4k(h, mi, gen, dev, e=e), (8, 512)),
+        ("w8_matmul_g", "Q6_K down", lambda: q6k(h, mi, gen, dev, e=e), (8, 512)),
+        ("w8_matmul_g", "widened down", lambda: widened(h, mi, gen, dev, e), (8,)),
+        ("dense_matmul_g", "bf16 down", lambda: bf16_bank(h, mi, gen, dev, e), (8, 512)),
+    ]
+    for name, what, make, sizes in banks:
+        w = make()
+        for ntok in sizes:
+            r = check_grouped(name, w, ntok, rates, gen, dev)
+            r["shape"] = f"{what}: {r['shape']}"
+            rows[name].append(r)
+        for routing in ("all_to_one", "empty_expert"):
+            rows[name].append(check_grouped(name, w, 8, rates, gen, dev, routing, timed=False))
+        del w
+        torch.cuda.empty_cache()
 
 
 def paged_layout(b, bs, w, gen, dev):
@@ -368,8 +573,92 @@ def check_model(dev):
     del weights
 
 
+def check_mixtral_model(dev) -> dict:
+    """Phase 3b: 2 Mixtral layers at full width through the kernels and the
+    plain versions; returns the kernel run's launch counts."""
+    cfg = ModelConfig(**dict(MIXTRAL_8X7B, num_layers=2))
+    weights = build_mixtral(cfg, dev, SEED + 4, down_kinds=("q6k", "bf16"))
+    bs, b, t, n_dec = 64, 2, 96, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
+    bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
+    runs, choices = [], []
+    counts: dict = {}
+    route = llama.route
+    for plain in (False, True):
+        chosen: list = []
+        forced = iter(choices[0]) if plain else None
+
+        def recording_route(logits, cfg_, chosen=chosen, forced=forced):
+            topw, topi = route(logits, cfg_)
+            chosen.append(topi.sort(dim=-1).values)  # [b, t, k] per layer and forward
+            if forced is None:
+                return topw, topi
+            # the kernel run's experts, weighted from this run's own logits:
+            # routing over the logits of those experts alone gives the same
+            # weights as the router does when it picks them
+            keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, next(forced), True)
+            return route(logits.masked_fill(~keep, float("-inf")), cfg_)
+
+        llama.route = recording_route
+        try:
+            cache = PagedKVCache.create(cfg, b * 4, bs, device=dev)
+            _cuda.reset_counts()
+            pos = torch.arange(t, device=dev)[None].expand(b, t)
+            logits, _ = forward_paged(weights, cfg, ids[:, :t], pos, cache, bt,
+                                      slots_for(bt, pos, bs), torch.full((b,), t, device=dev),
+                                      block_size=bs, plain=plain)
+            outs = [logits]
+            for d in range(n_dec):
+                p = torch.full((b, 1), t + d, device=dev)
+                logits, _ = forward_paged(weights, cfg, ids[:, t + d:t + d + 1], p, cache, bt,
+                                          slots_for(bt, p, bs),
+                                          torch.full((b,), t + d + 1, device=dev),
+                                          block_size=bs, plain=plain)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            if not plain:
+                counts = dict(_cuda.COUNTS)
+        finally:
+            llama.route = route
+        runs.append(outs)
+        choices.append(chosen)
+    # agreement of the experts each path's own router chose per (token, layer)
+    total = same = 0
+    for a, c in zip(*choices):
+        eq = (a == c).all(dim=-1)  # [b, t]
+        total += eq.numel()
+        same += int(eq.sum())
+    frac = same / total
+    if frac < 0.99:
+        raise AssertionError(f"mixtral model: only {same}/{total} expert choices agree")
+    worst = 0.0
+    for step, (got, ref) in enumerate(zip(*runs)):
+        if not torch.isfinite(got).all():
+            raise AssertionError("mixtral model: non-finite logits through the kernels")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > 5e-2 * scale:
+            raise AssertionError(f"mixtral model: step {step} logits differ by "
+                                 f"{err} > {5e-2 * scale}")
+    log(f"  mixtral 2 layers (Q6_K down, bf16 down): 1 prefill (2x{t}) + {n_dec} decode "
+        f"steps; expert choices agree {same}/{total} ({100 * frac:.2f} %, need 99 %); "
+        f"all {b * (n_dec + 1)} (row, step) logits compared on the kernel run's routing, "
+        f"worst |err|/max|logit| {worst:.3e} (tol 5e-2); kernel run launches {counts}")
+    want = ("w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "w4_matmul", "w8_matmul",
+            "paged_decode", "paged_prefill")
+    missing = [k for k in want if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"mixtral model: kernels not launched {missing}, "
+                             f"plain versions run {plain_run}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phase 4: serve
+# phases 4 and 5: serve
 # ---------------------------------------------------------------------------
 
 
@@ -386,12 +675,16 @@ class ByteTokenizer:
         return Detokenizer(self)
 
 
-def serve(dev, name_line: str) -> dict:
-    cfg = ModelConfig(**LLAMA3_8B)
+def serve(dev, name_line: str, cfg: ModelConfig, build, seed: int, model_id: str,
+          required) -> dict:
+    """Serve 6 concurrent requests on ``build(cfg, dev, seed)``'s weights;
+    returns the launch counts of the run, which must show every kernel of
+    ``required`` and no plain version."""
     t_w = time.monotonic()
-    weights = build_weights(cfg, dev, SEED + 3)
+    weights = build(cfg, dev, seed)
     torch.cuda.synchronize()
-    log(f"  32-layer weights drawn on the device in {time.monotonic() - t_w:.1f} s "
+    log(f"  {cfg.num_layers}-layer weights drawn on the device in "
+        f"{time.monotonic() - t_w:.1f} s "
         f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
     engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
                     max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED)
@@ -410,14 +703,14 @@ def serve(dev, name_line: str) -> dict:
     template = resolve_chat_template(
         override="{% for message in messages %}{{ message['content'] }}{% endfor %}")
     threads_before = set(threading.enumerate())
-    server = Server(engine, tok, template, "llama3-8b-geometry-q4k", host="127.0.0.1", port=0)
+    server = Server(engine, tok, template, model_id, host="127.0.0.1", port=0)
     server.start()
     # prompts of 40 to 600 tokens; three are longer than one prefill chunk
     sizes = [40, 97, 180, 290, 430, 600]
     bodies = []
     for i, n in enumerate(sizes):
         content = ("the quick brown fox jumps over the lazy dog " * 20)[:n]
-        body = {"model": "llama3-8b-geometry-q4k",
+        body = {"model": model_id,
                 "messages": [{"role": "user", "content": content}], "max_tokens": 24}
         if i % 2 == 0:
             body["temperature"] = 0.0
@@ -480,7 +773,7 @@ def serve(dev, name_line: str) -> dict:
     for seq in seqs:
         check(len(seq.generated_ids) == 24,
               f"{seq.request_id}: {len(seq.generated_ids)} tokens, not 24")
-    missing = [k for k in _cuda.KERNELS if counts.get(k, 0) == 0]
+    missing = [k for k in required if counts.get(k, 0) == 0]
     plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
     if missing or plain:
         raise AssertionError(f"serve: kernels not launched {missing}, plain versions run {plain}")
@@ -495,7 +788,11 @@ def serve(dev, name_line: str) -> dict:
         f"{st['prefill_steps']} prefill steps ({st['prefill_time_s']:.2f} s) "
         f"[{name_line}]")
     log(f"  kernel launches in the serve run: {counts}")
+    # the recording wrapper on the engine refers back to it: drop it, so that
+    # the weights and the KV pools are freed before the next phase
+    del engine.add_request
     del weights, engine, server
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -526,7 +823,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows: dict[str, list] = {k: [] for k in _cuda.KERNELS}
-    for n, k in ((6144, 4096), (28672, 4096), (4096, 14336)):
+    for n, k in ((6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336)):
         qt = q4k(n, k, gen, dev)
         for m in (1, 8, 512):
             rows["w4_matmul"].append(check_matmul("w4_matmul", m, qt, rates, gen, dev))
@@ -540,27 +837,50 @@ def main() -> int:
     del q6
     rows["paged_decode"].append(check_decode(rates, gen, dev))
     rows["paged_prefill"].append(check_prefill(rates, gen, dev))
+    check_grouped_kernels(rows, rates, gen, dev)
     torch.cuda.empty_cache()
     # phase 3
     log("phase 3: forward_paged at full width, 2 layers, kernels vs plain")
     check_model(dev)
     torch.cuda.empty_cache()
+    log("phase 3b: forward_paged at full Mixtral-8x7B width, 2 layers, kernels vs plain")
+    model_counts = check_mixtral_model(dev)
+    torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry")
     torch.cuda.reset_peak_memory_stats(dev)
-    counts = serve(dev, name_line)
+    counts = serve(dev, name_line, ModelConfig(**LLAMA3_8B), build_weights, SEED + 3,
+                   "llama3-8b-geometry-q4k", DENSE_KERNELS)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    # phase 5
+    log("phase 5: serve the 32-layer Mixtral-8x7B geometry (Q4_K_M recipe)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    moe_counts = serve(dev, name_line, ModelConfig(**MIXTRAL_8X7B), build_mixtral, SEED + 6,
+                       "mixtral-8x7b-geometry-q4km",
+                       ("w4_matmul_g", "w8_matmul_g") + DENSE_KERNELS)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
-    # (W4: decode M=8 gate-up; W8: decode M=8 lm_head), errors the worst of all checks
-    main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096"}
+    # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode n*k=16,
+    # fused gate/up for W4, the Q6_K down bank for W8, the bf16 down bank for
+    # dense), errors the worst of all checks; launches from the run of each
+    # kernel's path (module docstring)
+    main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096",
+                  "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
+                  "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
+                  "dense_matmul_g": "bf16 down: E=8 N=4096 K=14336 n*k=16"}
+    launches = {**counts, "w4_matmul_g": moe_counts["w4_matmul_g"],
+                "w8_matmul_g": moe_counts["w8_matmul_g"],
+                "dense_matmul_g": model_counts["dense_matmul_g"]}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]
-        pick = next((r for r in kr if r["shape"] == main_shape.get(kname)), kr[0])
+        pick = next((r for r in kr if "ms" in r and kname in main_shape
+                     and r["shape"].startswith(main_shape[kname])), kr[0])
         src, replaces = KERNEL_INFO[kname]
         entries.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[kname], "max_abs_err": max(r["max_abs_err"] for r in kr),
+            "launches": launches[kname], "max_abs_err": max(r["max_abs_err"] for r in kr),
             "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
             "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
             "shape": pick["shape"],

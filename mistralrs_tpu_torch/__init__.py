@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of ``mistralrs_tpu`` for one NVIDIA H100.
 
 The package mirrors the JAX package's layout (``ops/quant_matmul.py`` here is
-the counterpart of ``mistralrs_tpu/ops/quant_matmul.py``) and serves the dense
-llama path: GGUF k-quant weights, the paged KV cache, the continuous-batching
-engine and an OpenAI-compatible HTTP server. Every Pallas kernel on that path
+the counterpart of ``mistralrs_tpu/ops/quant_matmul.py``) and serves the
+llama path, dense or with Mixtral-style experts: GGUF k-quant weights, the
+paged KV cache, the continuous-batching engine and an OpenAI-compatible HTTP
+server. Every Pallas kernel on that path
 is a hand-written CUDA C++ kernel under ``csrc/``, built with ``nvcc`` on first
 use. The package imports ``torch`` and ``numpy``, never ``jax``.
 

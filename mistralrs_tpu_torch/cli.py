@@ -25,7 +25,11 @@ def cmd_serve(args) -> int:
     if pipe.tokenizer is None:
         print("error: model has no tokenizer; `serve` needs one", file=sys.stderr)
         return 1
-    weights = fuse_projections(pipe.weights, pipe.cfg)
+    weights = fuse_projections(pipe.weights, pipe.cfg)  # in place: no unfused copy stays
+    if args.device != "cpu":
+        import torch
+
+        torch.cuda.empty_cache()  # the unfused parts' memory counts as free below
     max_len = args.max_seq_len or min(pipe.cfg.max_position_embeddings, 8192)
     num_blocks = args.num_kv_blocks
     if num_blocks is None:

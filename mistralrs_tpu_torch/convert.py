@@ -8,6 +8,12 @@ packages compute the same function. This module imports nothing of the JAX
 package: a quantized leaf is anything with ``data``, ``scale``, ``bias``,
 ``group_size``, ``packed`` and ``code_bits`` fields, as a mapping or as
 attributes.
+
+MoE layers carry their ``router`` (``[L, E, H]``) and ``experts`` (a
+mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
+as per-layer ``[E, ...]`` banks. Banks the JAX loader widened to int8 codes
+at group 16 with a bias plane are carried as they are and run through the
+W8 grouped kernel in its signed-with-bias form.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ._device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.llama import check_supported
 from .quant.qtensor import QTensor
@@ -72,25 +79,37 @@ def _leaf(obj, device, dtype, layer=None):
 
 
 def from_jax_params(
-    params: dict[str, Any], cfg: ModelConfig, device: torch.device | str = "cpu",
+    params: dict[str, Any], cfg: ModelConfig, device: DeviceLike = None,
     dtype=torch.bfloat16,
 ) -> dict:
-    """The JAX package's llama weight dict → the port's weight dict. Dense
-    leaves are cast to ``dtype`` (bf16 values stay exact); quantized planes
-    keep their integer codes and f32 scales bit for bit."""
+    """The JAX package's llama weight dict → the port's weight dict on
+    ``device`` (``cuda`` unless the caller asks for ``"cpu"``). Dense leaves
+    are cast to ``dtype`` (bf16 values stay exact); quantized planes keep
+    their integer codes and f32 scales bit for bit."""
     check_supported(cfg)
+    device = resolve_device(device)
     windows = params.get("layer_windows")
     if windows is not None and np.any(np.asarray(windows) != 0):
         raise NotImplementedError("sliding-window layers are not ported")
     stacked = params["layers"]
     unknown = set(stacked) - {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo",
-                              "gate", "up", "wgateup", "down"}
+                              "gate", "up", "wgateup", "down", "router", "experts"}
     if unknown:
         raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")
-    layers = [
-        {key: _leaf(w, device, dtype, layer=i) for key, w in stacked.items()}
-        for i in range(cfg.num_layers)
-    ]
+    experts = stacked.get("experts", {})
+    unknown = set(experts) - {"gate", "up", "down"}
+    if unknown:
+        raise NotImplementedError(f"expert weights not ported: {sorted(unknown)}")
+
+    def layer(i):
+        lw = {key: _leaf(w, device, dtype, layer=i)
+              for key, w in stacked.items() if key != "experts"}
+        if experts:
+            lw["experts"] = {key: _leaf(w, device, dtype, layer=i)
+                             for key, w in experts.items()}
+        return lw
+
+    layers = [layer(i) for i in range(cfg.num_layers)]
     return {
         "embed": _leaf(params["embed"], device, dtype),
         "layers": layers,

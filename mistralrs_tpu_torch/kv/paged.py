@@ -16,6 +16,8 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from .._device import DeviceLike, resolve_device
+
 if TYPE_CHECKING:  # the model package imports this module
     from ..models.config import ModelConfig
 
@@ -35,8 +37,11 @@ class PagedKVCache:
         block_size: int,
         dtype=torch.bfloat16,
         kv_quant: Optional[str] = None,
-        device: torch.device | str = "cpu",
+        device: DeviceLike = None,
     ) -> "PagedKVCache":
+        """Zeroed pools on ``device`` (``cuda`` unless the caller asks for
+        ``"cpu"``)."""
+        device = resolve_device(device)
         if kv_quant is not None:
             raise NotImplementedError("quantized KV pools are not ported yet")
         # +1 trash block: dropped writes (slot −1) go there, never to a live slot

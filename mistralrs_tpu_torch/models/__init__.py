@@ -1,4 +1,5 @@
-"""Model library: the dense llama-family decoder."""
+"""Model library: the llama-family decoder (dense MLP or Mixtral-style
+experts)."""
 
 from .config import ModelConfig, config_from_gguf, config_from_hf
 from .llama import forward_paged, fuse_projections, init_random_weights

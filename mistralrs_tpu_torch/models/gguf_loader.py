@@ -7,6 +7,14 @@ rotate-half RoPE serves every weight source), keeps Q4_K/Q6_K/Q8_0 tensors
 planar (:class:`QTensor`) and dequantizes norms and dense tensors. Per-layer
 quant types may differ (Q4_K_M files store half of ``ffn_down`` in Q6_K):
 each layer keeps its own type, since layers are not stacked here.
+
+Mixtral files (``llama.expert_count`` > 0) carry each layer's experts as
+``blk.N.ffn_{gate,up,down}_exps.weight`` of shape ``[E, out, in]`` and the
+router as ``blk.N.ffn_gate_inp.weight``. A bank is loaded whole, as one
+:class:`QTensor` with a bank axis in its own GGML type (the JAX loader
+widens layers of mixed types to int8 / group 16, an exact re-expression at
+1.5 B per weight that the port skips), or as a dense ``[E, out, in]`` tensor
+when the file keeps it in F16/BF16/F32.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.planar import PLANAR_TYPES, PlanarQuant, dequantize, to_planar
 from ..gguf.reader import GGUFContent
@@ -36,6 +45,14 @@ _LAYER_MAP = {
     "ffn_gate.weight": "gate",
     "ffn_up.weight": "up",
     "ffn_down.weight": "down",
+}
+_DENSE_MLP = ("gate", "up", "down")
+# MoE layers: the router and the expert banks take the dense MLP's place
+_MOE_MAP = {
+    "ffn_gate_inp.weight": "router",
+    "ffn_gate_exps.weight": "gate",
+    "ffn_up_exps.weight": "up",
+    "ffn_down_exps.weight": "down",
 }
 
 
@@ -61,6 +78,8 @@ def _unpermute_planar(p: PlanarQuant, shape: tuple[int, int], n_heads: int) -> P
 
 def _load(content: GGUFContent, name: str, *, dense: bool, dtype, device,
           unpermute_heads: int = 0):
+    """One tensor: dense (``dtype``) or planar; a 3-D ``[E, out, in]`` expert
+    tensor becomes a bank."""
     info = content.tensor_info(name)
     raw = content.tensor_bytes(name)
     shape = tuple(info.shape)
@@ -78,9 +97,12 @@ def _load(content: GGUFContent, name: str, *, dense: bool, dtype, device,
 
 
 def load_gguf_model(
-    path: str, dtype=torch.bfloat16, device: torch.device | str = "cpu"
+    path: str, dtype=torch.bfloat16, device: DeviceLike = None
 ) -> tuple[ModelConfig, dict, dict[str, Any]]:
-    """Load a llama GGUF checkpoint → (config, weights, metadata)."""
+    """Load a llama (or Mixtral) GGUF checkpoint → (config, weights,
+    metadata), the weights on ``device`` (``cuda`` unless the caller asks
+    for ``"cpu"``)."""
+    device = resolve_device(device)
     content = GGUFContent.open(path)
     try:
         md = content.metadata
@@ -97,6 +119,8 @@ def load_gguf_model(
         if cfg.vocab_size is None:
             cfg.vocab_size = (embed.out_features if isinstance(embed, QTensor)
                               else embed.shape[0])
+        moe = cfg.num_experts > 0
+        want = set(_LAYER_MAP.values()) - (set(_DENSE_MLP) if moe else set())
         layers = []
         for i in range(cfg.num_layers):
             lw = {}
@@ -106,7 +130,15 @@ def load_gguf_model(
                     continue
                 heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}.get(key, 0)
                 lw[key] = load(name, dense=key.endswith("norm"), heads=heads)
-            missing = set(_LAYER_MAP.values()) - set(lw)
+            if moe:
+                moe_w = {key: load(f"blk.{i}.{suffix}") for suffix, key in _MOE_MAP.items()
+                         if f"blk.{i}.{suffix}" in content}
+                if set(moe_w) != set(_MOE_MAP.values()):
+                    raise ValueError(f"layer {i}: MoE tensors missing: "
+                                     f"{sorted(set(_MOE_MAP.values()) - set(moe_w))}")
+                lw["router"] = moe_w.pop("router")
+                lw["experts"] = moe_w
+            missing = want - set(lw)
             if missing:
                 raise ValueError(f"layer {i}: missing tensors {sorted(missing)}")
             layers.append(lw)

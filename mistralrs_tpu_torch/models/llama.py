@@ -1,6 +1,7 @@
-"""Dense llama-family decoder over the paged KV cache (counterpart of
-``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, dense branch,
-plus ``fuse_projections`` and ``init_random_weights``).
+"""Llama-family decoder over the paged KV cache (counterpart of
+``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, the dense MLP
+and the Mixtral-style mixture of experts (``_moe_mlp`` at :272), plus
+``fuse_projections`` and ``init_random_weights``).
 
 Weights are a plain dictionary. Per-layer weights are a LIST of dictionaries
 (one per layer) and the decoder is a Python loop over it, where the JAX
@@ -11,10 +12,17 @@ package stacks them and runs ``lax.scan``. A projection is a dense
      "layers": [{"attn_norm", "ffn_norm", "wq", "wk", "wv" | "wqkv", "wo",
                  "gate", "up" | "wgateup", "down"}, ...]}
 
+An MoE layer holds ``"router"`` (dense ``[E, H]``) and ``"experts"``
+(``{"gate", "up" | "gateup", "down"}``, each a ``[E, out, in]`` bank: a
+:class:`QTensor` with a bank axis or a dense tensor) in place of the dense
+MLP's ``gate``/``up``/``down``.
+
 Attention runs through the fused paged kernels (``ops/paged_attention.py``):
 the decode kernel for one token per row, the prefill kernel otherwise; both
-write the step's K/V into the pools in place. MoE, LoRA, M-RoPE, logit
-softcaps, sinks and sliding windows are not ported yet and raise
+write the step's K/V into the pools in place. The routers of ``mixtral``
+and of ``llama`` with experts (how GGUF Mixtral files arrive) are ported;
+other routers, shared experts, expert parallelism, LoRA, M-RoPE, logit
+softcaps, sinks and sliding windows are not yet and raise
 ``NotImplementedError``.
 """
 
@@ -26,7 +34,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import DeviceLike, resolve_device
 from ..kv.paged import PagedKVCache
+from ..ops.moe_grouped import moe_grouped_mlp
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (
     paged_decode_attention_fused,
@@ -38,10 +48,23 @@ from ..quant.qtensor import QTensor
 from .config import ModelConfig
 
 
+# archs whose MoE router is ported: mixtral (softmax over all experts, top-k,
+# renormalise) and llama with experts (top-k of the logits, softmax over k)
+_MOE_ARCHS = ("llama", "mixtral")
+# the JAX package's _sparse_expert_combine takes dense banks from this many
+# experts on, for at most _SPARSE_MAX_TOKENS tokens (not ported)
+_SPARSE_MIN_E, _SPARSE_MAX_TOKENS = 16, 64
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for config features the port lacks."""
+    moe = cfg.num_experts > 0
     unsupported = {
-        "mixture-of-experts": cfg.num_experts > 0,
+        f"mixture-of-experts router of arch {cfg.arch!r}": moe and cfg.arch not in _MOE_ARCHS,
+        "top-k wider than the expert count": moe and not (
+            0 < cfg.num_experts_per_tok <= cfg.num_experts),
+        "shared expert": bool(cfg.shared_expert_intermediate_size),
+        "dense first-k layers": bool(cfg.first_k_dense),
         "M-RoPE": bool(cfg.mrope_section),
         "attention logit softcap": bool(cfg.attn_logit_softcap),
         "final logit softcap": bool(cfg.logit_softcap),
@@ -63,6 +86,64 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = [name for name, on in unsupported.items() if on]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+
+
+def _mlp(x: torch.Tensor, lw: dict, plain: bool) -> torch.Tensor:
+    """Dense SwiGLU MLP (``gate``/``up`` or fused ``wgateup``, ``down``)."""
+    if "wgateup" in lw:
+        gu = linear(x, lw["wgateup"], plain=plain)
+        half = gu.shape[-1] // 2
+        hidden = F.silu(gu[..., :half]) * gu[..., half:]
+    else:
+        hidden = F.silu(linear(x, lw["gate"], plain=plain)) * linear(x, lw["up"], plain=plain)
+    return linear(hidden, lw["down"], plain=plain)
+
+
+def route(router_logits: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing from f32 router logits → ``(topw, topi)`` ``[..., k]``.
+    ``mixtral``: softmax over all experts, top-k, renormalise; ``llama``
+    with experts: top-k of the logits, softmax over the k (optionally
+    renormalised). The two are the same function up to rounding."""
+    k = cfg.num_experts_per_tok
+    if cfg.arch == "mixtral":
+        probs = torch.softmax(router_logits, dim=-1)
+        topw, topi = torch.topk(probs, k, dim=-1)
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    else:
+        topw, topi = torch.topk(router_logits, k, dim=-1)
+        topw = torch.softmax(topw, dim=-1)
+        if cfg.norm_topk_prob:
+            topw = topw / topw.sum(dim=-1, keepdim=True)
+    return topw, topi
+
+
+def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False) -> torch.Tensor:
+    """Mixture-of-experts MLP (JAX ``_moe_mlp``, ``models/llama.py:272``).
+
+    A bank with any quantized leaf runs the grouped kernels
+    (:func:`~mistralrs_tpu_torch.ops.moe_grouped.moe_grouped_mlp`); a bank
+    of dense leaves only runs every expert on every token with a masked
+    combine, as the JAX package does outside any Pallas kernel."""
+    b, t, h = x.shape
+    # router logits follow the JAX dtype path: linear in the compute dtype, then f32
+    router_logits = linear(x, lw["router"], plain=plain).to(torch.float32)
+    topw, topi = route(router_logits, cfg)
+    experts = lw["experts"]
+    if any(isinstance(v, QTensor) for v in experts.values()):
+        out = moe_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
+                              topi.reshape(b * t, -1), F.silu, plain=plain)
+        return out.reshape(b, t, h)
+    if cfg.num_experts >= _SPARSE_MIN_E and b * t <= _SPARSE_MAX_TOKENS:
+        raise NotImplementedError(
+            "the sparse expert combine for dense banks of >= 16 experts is not ported yet")
+    full_w = torch.zeros((b, t, cfg.num_experts), dtype=torch.float32, device=x.device)
+    full_w.scatter_add_(-1, topi, topw)
+    out = torch.zeros_like(x)
+    for e in range(cfg.num_experts):
+        ew = {("wgateup" if key == "gateup" else key): w[e] for key, w in experts.items()}
+        y = _mlp(x, ew, plain)
+        out = out + y * full_w[..., e, None].to(y.dtype)
+    return out
 
 
 def forward_paged(
@@ -131,13 +212,10 @@ def forward_paged(
             )
         h = h + linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], plain=plain)
         x = rms_norm(h, lw["ffn_norm"], eps)
-        if "wgateup" in lw:
-            gu = linear(x, lw["wgateup"], plain=plain)
-            half = gu.shape[-1] // 2
-            hidden = F.silu(gu[..., :half]) * gu[..., half:]
+        if "experts" in lw:
+            h = h + _moe_mlp(x, lw, cfg, plain)
         else:
-            hidden = F.silu(linear(x, lw["gate"], plain=plain)) * linear(x, lw["up"], plain=plain)
-        h = h + linear(hidden, lw["down"], plain=plain)
+            h = h + _mlp(x, lw, plain)
     h = rms_norm(h, weights["final_norm"], eps)
     if logits_last_only:
         if last_indices is not None:
@@ -158,8 +236,8 @@ def forward_paged(
 
 
 def _concat_n(ws):
-    """Concat weights along out-features (dense [N, K] or K-major QTensor);
-    None when their kinds differ."""
+    """Concat weights along out-features (dense [(E,) N, K] or K-major
+    QTensor [(E,) K, N]); None when their kinds differ."""
     if all(isinstance(w, QTensor) for w in ws):
         first = ws[0]
         if not all(
@@ -178,56 +256,84 @@ def _concat_n(ws):
         )
     if any(isinstance(w, QTensor) for w in ws):
         return None
-    return torch.cat(ws, dim=0)
+    return torch.cat(ws, dim=-2)
+
+
+def _fuse(d: dict, parts: tuple[str, ...], fused_key: str) -> dict:
+    """``d`` with ``parts`` merged into ``fused_key`` where their kinds match."""
+    if all(p in d for p in parts):
+        fused = _concat_n([d[p] for p in parts])
+        if fused is not None:
+            d = {k: v for k, v in d.items() if k not in parts}
+            d[fused_key] = fused
+    return d
 
 
 def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
-    """Merge each layer's q/k/v into ``wqkv`` and gate/up into ``wgateup``
-    (fewer kernel launches per layer); layers whose parts differ in kind
-    stay unfused."""
-    layers = []
-    for lw in weights["layers"]:
-        lw = dict(lw)
-        for parts, fused_key in ((("wq", "wk", "wv"), "wqkv"), (("gate", "up"), "wgateup")):
-            if all(p in lw for p in parts):
-                fused = _concat_n([lw[p] for p in parts])
-                if fused is not None:
-                    lw[fused_key] = fused
-                    for p in parts:
-                        del lw[p]
-        layers.append(lw)
-    return {**weights, "layers": layers}
+    """Merge each layer's q/k/v into ``wqkv``, gate/up into ``wgateup`` and
+    an expert bank's gate/up into ``gateup`` (fewer kernel launches per
+    layer); parts that differ in kind stay unfused.
+
+    Fuses in place: each entry of ``weights["layers"]`` is replaced by its
+    fused layer as soon as that exists, so the unfused parts are released
+    layer by layer (the peak is one layer's parts over the model) and the
+    model holds no second copy afterwards. Returns ``weights``."""
+    layers = weights["layers"]
+    for i, lw in enumerate(layers):
+        lw = _fuse(_fuse(dict(lw), ("wq", "wk", "wv"), "wqkv"), ("gate", "up"), "wgateup")
+        if "experts" in lw:
+            lw["experts"] = _fuse(lw["experts"], ("gate", "up"), "gateup")
+        layers[i] = lw
+    return weights
 
 
 def init_random_weights(
     cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, scale: float = 0.02,
-    device: torch.device | str = "cpu",
+    device: DeviceLike = None,
 ) -> dict:
-    """Random dense weights (testing), drawn from numpy in the same order as
-    ``mistralrs_tpu.models.llama.init_random_weights``."""
+    """Random dense weights (testing) on ``device`` (``cuda`` unless the
+    caller asks for ``"cpu"``), drawn from numpy in the same order as
+    ``mistralrs_tpu.models.llama.init_random_weights`` (the layer stacks,
+    then the embedding and the head), so the two packages start from the
+    same numbers. An MoE config then draws, after those, the router
+    ``[L, E, H]`` and the expert banks gate ``[L, E, I, H]``, up and down
+    ``[L, E, H, I]`` (``I`` = ``moe_intermediate_size`` or the dense
+    width), which replace the layers' dense MLP (the JAX function draws no
+    experts)."""
     check_supported(cfg)
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def arr(*shape):
         a = rng.standard_normal(shape, dtype=np.float32) * scale
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
-    embed = arr(cfg.vocab_size, H)
     stacked = {
         "wq": arr(L, cfg.q_dim, H), "wk": arr(L, cfg.kv_dim, H),
         "wv": arr(L, cfg.kv_dim, H), "wo": arr(L, H, cfg.q_dim),
         "gate": arr(L, I, H), "up": arr(L, I, H), "down": arr(L, H, I),
     }
-    ones = torch.ones(H, dtype=dtype, device=device)
+    embed = arr(cfg.vocab_size, H)
+    lm_head = None if cfg.tie_word_embeddings else arr(cfg.vocab_size, H)
+    ones = torch.ones(H, dtype=dtype, device=dev)
     layers = [
         {"attn_norm": ones.clone(), "ffn_norm": ones.clone(),
          **{k: v[i].contiguous() for k, v in stacked.items()}}
         for i in range(L)
     ]
+    if cfg.num_experts:
+        e, mi = cfg.num_experts, cfg.moe_intermediate_size or I
+        router = arr(L, e, H)
+        banks = {"gate": arr(L, e, mi, H), "up": arr(L, e, mi, H), "down": arr(L, e, H, mi)}
+        for i, lw in enumerate(layers):
+            for key in ("gate", "up", "down"):
+                del lw[key]
+            lw["router"] = router[i].contiguous()
+            lw["experts"] = {k: v[i].contiguous() for k, v in banks.items()}
     return {
         "embed": embed,
         "layers": layers,
         "final_norm": ones.clone(),
-        "lm_head": None if cfg.tie_word_embeddings else arr(cfg.vocab_size, H),
+        "lm_head": lm_head,
     }

@@ -37,15 +37,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
+KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
+           "w4_matmul_g", "w8_matmul_g", "dense_matmul_g")
 COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream are c_void_p, every int c_int
+_L = ctypes.c_longlong
+# C signatures: every pointer and the stream are c_void_p, every int c_int,
+# every bank stride c_longlong
 _SIGNATURES = {
     "mrt_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mrt_quant_matmul_grouped": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
     "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -13,6 +13,11 @@ packed along K: byte ``j`` holds code ``j`` (low nibble) and code ``j + K/2``
 (high nibble), so the 4-bit plane is ``[K/2, N]`` uint8. Scales and biases are
 exact f32 products of the GGUF f16 scales and integer sub-scales, so
 :meth:`QTensor.dequantize` is bit-identical to the GGUF spec.
+
+A bank of experts carries one leading axis: codes ``[E, K/2, N]`` or
+``[E, K, N]``, scales and biases ``[E, K/gs, N]``, contiguous, so expert
+``e`` (:meth:`QTensor.bank`) is a view and the grouped kernels find it at a
+fixed stride.
 """
 
 from __future__ import annotations
@@ -23,34 +28,42 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.planar import PlanarQuant, to_planar
 
 
 @dataclass(frozen=True)
 class QTensor:
-    """Quantized ``[N, K]`` weight matrix in planar layout."""
+    """Quantized ``[N, K]`` weight matrix (or ``[E, N, K]`` bank) in planar
+    layout."""
 
-    data: torch.Tensor  # uint8 [K//2, N] (packed) or int8/uint8 [K, N]
-    scale: torch.Tensor  # f32 [K // group_size, N]
-    bias: Optional[torch.Tensor]  # f32 [K // group_size, N] or None
+    data: torch.Tensor  # uint8 [(E,) K//2, N] (packed) or int8/uint8 [(E,) K, N]
+    scale: torch.Tensor  # f32 [(E,) K // group_size, N]
+    bias: Optional[torch.Tensor]  # f32 [(E,) K // group_size, N] or None
     group_size: int = 32
     packed: bool = False
     code_bits: int = 8
     ggml_type: Optional[GGMLType] = None
 
     @property
-    def shape(self) -> tuple[int, int]:
-        kd, n = self.data.shape
-        return (n, kd * 2 if self.packed else kd)
+    def shape(self) -> tuple[int, ...]:
+        """Logical shape: ``(N, K)``, or ``(E, N, K)`` for a bank."""
+        *lead, kd, n = self.data.shape
+        return (*lead, n, kd * 2 if self.packed else kd)
 
     @property
     def out_features(self) -> int:
-        return self.shape[0]
+        return self.shape[-2]
 
     @property
     def in_features(self) -> int:
-        return self.shape[1]
+        return self.shape[-1]
+
+    @property
+    def num_banks(self) -> Optional[int]:
+        """E for a bank of experts, None for one matrix."""
+        return self.data.shape[0] if self.data.dim() == 3 else None
 
     @property
     def device(self) -> torch.device:
@@ -71,30 +84,42 @@ class QTensor:
     def from_planar(
         cls,
         planar: PlanarQuant,
-        shape: tuple[int, int],
+        shape: tuple[int, ...],
         ggml_type: GGMLType | None = None,
-        device: torch.device | str = "cpu",
+        device: DeviceLike = None,
     ) -> "QTensor":
-        n, k = shape
+        """Planes of a ``[N, K]`` matrix or an ``[E, N, K]`` bank (GGUF row
+        order) on ``device`` (``cuda`` unless the caller asks for ``"cpu"``)."""
+        dev = resolve_device(device)
+        *lead, n, k = shape
+        if len(lead) > 1:
+            raise ValueError(f"shape {shape}: at most one bank axis")
+        e = lead[0] if lead else 1
         gs = planar.group_size
         if k % gs != 0:
             raise ValueError(f"K={k} not divisible by group size {gs}")
-        q = np.ascontiguousarray(planar.q.reshape(n, k).T)  # [K, N]
-        scale = np.ascontiguousarray(planar.scale.reshape(n, k // gs).astype(np.float32).T)
-        bias = (
-            None if planar.bias is None
-            else np.ascontiguousarray(planar.bias.reshape(n, k // gs).astype(np.float32).T)
-        )
+
+        def kmajor(a, cols):  # [E*N*cols] → [E, cols, N]
+            return np.ascontiguousarray(a.reshape(e, n, cols).transpose(0, 2, 1))
+
+        q = kmajor(planar.q, k)
+        scale = kmajor(planar.scale.astype(np.float32), k // gs)
+        bias = None if planar.bias is None else kmajor(planar.bias.astype(np.float32), k // gs)
         pack = (not planar.signed) and planar.code_bits <= 4 and (k // 2) % gs == 0
         if pack:
             half = k // 2
-            data = (q[:half] | (q[half:] << 4)).astype(np.uint8)
+            data = (q[:, :half] | (q[:, half:] << 4)).astype(np.uint8)
         else:
             data = q.astype(np.int8 if planar.signed else np.uint8)
+
+        def put(a):
+            t = torch.from_numpy(np.ascontiguousarray(a if lead else a[0]))
+            return t.to(dev)
+
         return cls(
-            data=torch.from_numpy(np.ascontiguousarray(data)).to(device),
-            scale=torch.from_numpy(scale).to(device),
-            bias=None if bias is None else torch.from_numpy(bias).to(device),
+            data=put(data),
+            scale=put(scale),
+            bias=None if bias is None else put(bias),
             group_size=gs,
             packed=pack,
             code_bits=planar.code_bits,
@@ -103,8 +128,8 @@ class QTensor:
 
     @classmethod
     def from_gguf_raw(
-        cls, raw: np.ndarray, t: GGMLType, shape: tuple[int, int],
-        device: torch.device | str = "cpu",
+        cls, raw: np.ndarray, t: GGMLType, shape: tuple[int, ...],
+        device: DeviceLike = None,
     ) -> "QTensor":
         return cls.from_planar(to_planar(raw, t), shape, ggml_type=t, device=device)
 
@@ -118,21 +143,33 @@ class QTensor:
 
     # -- access -------------------------------------------------------------
 
+    def bank(self, e: int) -> "QTensor":
+        """Expert ``e`` of a bank, as a view."""
+        if self.num_banks is None:
+            raise ValueError("not a bank of experts")
+        return QTensor(
+            data=self.data[e], scale=self.scale[e],
+            bias=None if self.bias is None else self.bias[e],
+            group_size=self.group_size, packed=self.packed,
+            code_bits=self.code_bits, ggml_type=self.ggml_type,
+        )
+
     def unpack_codes(self) -> torch.Tensor:
-        """Integer codes as int32 ``[K, N]``."""
+        """Integer codes as int32 ``[(E,) K, N]``."""
         if self.packed:
             d = self.data.to(torch.int32)
-            return torch.cat([d & 15, d >> 4], dim=0)
+            return torch.cat([d & 15, d >> 4], dim=-2)
         if self.data.dtype == torch.int8:
             return self.data.to(torch.int32)
         return self.data.to(torch.int32) & 0xFF
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
-        """Full dequantization (computed in f32, then cast); logical ``[N, K]``."""
-        n, k = self.shape
+        """Full dequantization (computed in f32, then cast); logical
+        ``[N, K]``, or ``[E, N, K]`` for a bank (each bank on its own)."""
+        *lead, n, k = self.shape
         g = k // self.group_size
-        q = self.unpack_codes().to(torch.float32).reshape(g, self.group_size, n)
-        w = q * self.scale[:, None, :]
+        q = self.unpack_codes().to(torch.float32).reshape(*lead, g, self.group_size, n)
+        w = q * self.scale[..., :, None, :]
         if self.bias is not None:
-            w = w + self.bias[:, None, :]
-        return w.reshape(k, n).T.to(dtype)
+            w = w + self.bias[..., :, None, :]
+        return w.reshape(*lead, k, n).transpose(-1, -2).to(dtype)

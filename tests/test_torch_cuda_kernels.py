@@ -9,7 +9,9 @@ package's tests, which these do not need.)
 Tolerances: the matmul kernels round the dequantized weight exactly as the
 plain version does and differ only in f32 sum order (bf16 output: 1e-2 of
 the largest value); the attention kernels use exp2 with log2(e) folded into
-the scale and another sum order (bf16 output: atol 2e-2).
+the scale and another sum order (bf16 output: atol 2e-2). The grouped (MoE)
+kernels share the matmul kernels' arithmetic and tolerance, over every row
+including the zero rows of unused tiles.
 """
 
 import pytest
@@ -23,7 +25,8 @@ from mistralrs_tpu_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     paged_prefill_attention_fused,
 )
-from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
+from mistralrs_tpu_torch.ops.moe_grouped import build_groups, dense_matmul_grouped
+from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_grouped
 from mistralrs_tpu_torch.quant.qtensor import QTensor
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +66,54 @@ def test_quant_matmul_kernel_matches_plain(dev, m, kind):
     torch.cuda.synchronize()
     name = "w4_matmul" if packed else "w8_matmul"
     assert COUNTS[name] == 1 and COUNTS[name + "_plain"] == 1
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+def _bank(e, n, k, kind, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "dense":
+        return (torch.randn((e, n, k), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    packed, gs = kind == "w4", 32 if kind == "w4" else 16
+    if packed:
+        data = torch.randint(0, 256, (e, k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    else:
+        data = torch.randint(-32, 32, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((e, k // gs, n), generator=g, device=dev) * 0.02
+    bias = -8 * scale if kind in ("w4", "w8_bias") else None
+    return QTensor(data, scale, bias, group_size=gs, packed=packed,
+                   code_bits=4 if packed else 8)
+
+
+@pytest.mark.parametrize("routing", ["ragged", "all_to_one", "empty_expert"])
+@pytest.mark.parametrize("ntok", [8, 200])
+@pytest.mark.parametrize("kind", ["w4", "w8", "w8_bias", "dense"])
+def test_grouped_kernels_match_plain(dev, kind, ntok, routing):
+    """The W4, W8 and dense grouped kernels against their plain versions at
+    the 16-row (decode) and 64-row (prefill) tiles."""
+    e, n, k = 8, 320, 512
+    g = torch.Generator(device=dev).manual_seed(1)
+    topi = torch.randint(0, e, (ntok, 2), generator=g, device=dev)
+    if routing == "all_to_one":
+        topi[:] = 5
+    elif routing == "empty_expert":
+        topi[topi == 2] = 3
+    topw = torch.rand((ntok, 2), generator=g, device=dev)
+    tm = 16 if ntok * 2 <= 256 else 64
+    st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
+    x = torch.randn((ntok, k), generator=g, device=dev).to(torch.bfloat16)
+    xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
+    xs[dest] = x[st]
+    bank = _bank(e, n, k, kind, dev)
+    fn = dense_matmul_grouped if kind == "dense" else quant_matmul_grouped
+    reset_counts()
+    got = fn(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
+    ref = fn(xs, bank, tiles, tm=tm, n_used_tiles=n_used, plain=True)
+    torch.cuda.synchronize()
+    name = {"w4": "w4_matmul_g", "dense": "dense_matmul_g"}.get(kind, "w8_matmul_g")
+    assert COUNTS[name] == 1 and COUNTS[name + "_plain"] == 1
+    assert torch.isfinite(got).all()
+    assert (got[int(n_used) * tm:] == 0).all()
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item()
 

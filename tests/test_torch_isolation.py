@@ -9,13 +9,19 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import mistralrs_tpu_torch
 from mistralrs_tpu_torch import resolve_device
+from mistralrs_tpu_torch.convert import from_jax_params
 from mistralrs_tpu_torch.engine.engine import Engine
+from mistralrs_tpu_torch.gguf.constants import GGMLType
+from mistralrs_tpu_torch.gguf.planar import PlanarQuant
+from mistralrs_tpu_torch.kv.paged import PagedKVCache
 from mistralrs_tpu_torch.models import ModelConfig, init_random_weights
+from mistralrs_tpu_torch.models.gguf_loader import load_gguf_model
 from mistralrs_tpu_torch.ops import _cuda
 from mistralrs_tpu_torch.ops.paged_attention import _decode_cuda
 from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
@@ -48,7 +54,7 @@ def test_imports_no_jax():
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    w = init_random_weights(CFG)
+    w = init_random_weights(CFG, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(CFG, w, num_blocks=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -57,6 +63,45 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
         load_pipeline(str(tmp_path / "missing.gguf"))
     assert resolve_device("cpu").type == "cpu"
     Engine(CFG, w, num_blocks=4, device="cpu")  # explicit CPU is fine
+
+
+def _cpu_numpy_params():
+    """The JAX package's weight layout, as numpy, for ``from_jax_params``."""
+    w = init_random_weights(CFG, device="cpu", dtype=torch.float32)
+    stacked = {k: torch.stack([lw[k] for lw in w["layers"]]).numpy() for k in w["layers"][0]}
+    return {"embed": w["embed"].numpy(), "layers": stacked,
+            "final_norm": w["final_norm"].numpy(), "lm_head": w["lm_head"].numpy()}
+
+
+_PLANAR = PlanarQuant(np.zeros(64 * 32, np.int8), np.ones(64 * 32 // 32, np.float32), None,
+                      32, 8, True)
+# every public constructor, called without ``device``; each refuses to place
+# its tensors anywhere but a card, and on the CPU only when asked
+CONSTRUCTORS = {
+    "init_random_weights": lambda tmp: init_random_weights(CFG),
+    "from_jax_params": lambda tmp: from_jax_params(_cpu_numpy_params(), CFG),
+    "PagedKVCache.create": lambda tmp: PagedKVCache.create(CFG, 4, 16),
+    "QTensor.from_planar": lambda tmp: QTensor.from_planar(_PLANAR, (64, 32)),
+    "QTensor.from_gguf_raw": lambda tmp: QTensor.from_gguf_raw(
+        np.zeros(64 * 34, np.uint8), GGMLType.Q8_0, (64, 32)),
+    "load_gguf_model": lambda tmp: load_gguf_model(str(tmp / "missing.gguf")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_default_to_the_card(monkeypatch, tmp_path, name):
+    """Called without ``device``, each public constructor raises on a
+    machine without a CUDA device (it does not fall back to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CONSTRUCTORS[name](tmp_path)
+
+
+def test_constructors_take_the_cpu_when_asked():
+    qt = QTensor.from_planar(_PLANAR, (64, 32), device="cpu")
+    cache = PagedKVCache.create(CFG, 4, 16, device="cpu")
+    w = from_jax_params(_cpu_numpy_params(), CFG, device="cpu")
+    assert qt.device.type == cache.k.device.type == w["embed"].device.type == "cpu"
 
 
 def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):

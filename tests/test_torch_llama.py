@@ -84,7 +84,7 @@ def _run_both(jcfg, jw, tcfg, tw, compute, num_blocks=17):
     """Logits of every step from both packages → list of (jax, port)."""
     jdt = jnp.float32 if compute == torch.float32 else jnp.bfloat16
     jc = JaxCache.create(jcfg, num_blocks, BS, dtype=jdt)
-    tc = PagedKVCache.create(tcfg, num_blocks, BS, dtype=compute)
+    tc = PagedKVCache.create(tcfg, num_blocks, BS, dtype=compute, device="cpu")
     bt, steps = _schedule()
     out = []
     for ids, pos, slots, kv_lens, last in steps:
@@ -109,7 +109,8 @@ def test_dense_f32_matches_jax(fused):
     (rtol/atol 1e-4 on logits of magnitude ~0.1)."""
     jcfg = JaxConfig(**CFG_KW)
     jw = jax_init(jcfg, seed=1, dtype=jnp.float32, scale=0.1)
-    tw = from_jax_params(jax_to_numpy(jw), ModelConfig(**CFG_KW), dtype=torch.float32)
+    tw = from_jax_params(jax_to_numpy(jw), ModelConfig(**CFG_KW), device="cpu",
+                         dtype=torch.float32)
     if fused:
         jw, tw = jax_fuse(jw, jcfg), fuse_projections(tw, ModelConfig(**CFG_KW))
         assert "wqkv" in tw["layers"][0] and "wgateup" in tw["layers"][0]
@@ -123,7 +124,8 @@ def test_dense_bf16_matches_jax():
     activations (atol 0.05 on logits of magnitude ~1, rows correlated >0.999)."""
     jcfg = JaxConfig(**CFG_KW)
     jw = jax_init(jcfg, seed=2, dtype=jnp.bfloat16, scale=0.1)
-    tw = from_jax_params(jax_to_numpy(jw), ModelConfig(**CFG_KW), dtype=torch.bfloat16)
+    tw = from_jax_params(jax_to_numpy(jw), ModelConfig(**CFG_KW), device="cpu",
+                         dtype=torch.bfloat16)
     for jl, tl in _run_both(jcfg, jw, ModelConfig(**CFG_KW), tw, torch.bfloat16):
         np.testing.assert_allclose(tl, jl, atol=5e-2)
         for a, b in zip(jl.reshape(-1, jl.shape[-1]), tl.reshape(-1, tl.shape[-1])):
@@ -167,7 +169,7 @@ def test_q4k_gguf_both_loaders(tmp_path):
     _write_q4k_gguf(path, GGUF_KW)
     h = GGUF_KW["hidden_size"]
     jcfg2, jw, _ = jax_load_gguf(path)
-    tcfg, tw, _ = load_gguf_model(path)
+    tcfg, tw, _ = load_gguf_model(path, device="cpu")
     assert tcfg.hidden_size == h and tcfg.num_layers == 2
     wq = tw["layers"][1]["wq"]
     assert wq.packed and wq.bias is not None and wq.group_size == 32

@@ -41,7 +41,7 @@ def test_planar_and_dequant_bit_exact(name):
         np.testing.assert_array_equal(a.bias, b.bias)
     assert (a.group_size, a.code_bits, a.signed) == (b.group_size, b.code_bits, b.signed)
     jq = JaxQTensor.from_gguf_raw(raw, JaxType[name], w.shape)
-    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape)
+    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape, device="cpu")
     assert (tq.packed, tq.group_size, tq.shape) == (jq.packed, jq.group_size, jq.shape)
     np.testing.assert_array_equal(tq.data.numpy(), np.asarray(jq.data))
     np.testing.assert_array_equal(tq.dequantize().numpy(), np.asarray(jq.dequantize()))
@@ -54,7 +54,7 @@ def test_plain_matmul_matches_xla_f32(name, m):
     (rtol 1e-5 of the largest output)."""
     w, raw = _raw(name, seed=1)
     jq = JaxQTensor.from_gguf_raw(raw, JaxType[name], w.shape)
-    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape)
+    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape, device="cpu")
     x = np.random.default_rng(2).standard_normal((m, 512)).astype(np.float32)
     ref = np.asarray(jax_qmm(jnp.asarray(x), jq, backend="xla", dequant_dtype=jnp.float32))
     reset_counts()
@@ -70,7 +70,7 @@ def test_plain_matmul_matches_xla_bf16(name):
     arithmetic to the XLA path up to sum order (atol 1e-2 of the max)."""
     w, raw = _raw(name, seed=3)
     jq = JaxQTensor.from_gguf_raw(raw, JaxType[name], w.shape)
-    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape)
+    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape, device="cpu")
     x = np.random.default_rng(4).standard_normal((3, 7, 512)).astype(np.float32)
     ref = np.asarray(jax_qmm(jnp.asarray(x, jnp.bfloat16), jq, backend="xla"), np.float32)
     got = quant_matmul(torch.from_numpy(x).to(torch.bfloat16), tq)
@@ -86,7 +86,7 @@ def test_plain_matmul_matches_pallas_interpret(name):
     (atol 1e-2 of the max)."""
     w, raw = _raw(name, n=128, k=256, seed=5)
     jq = JaxQTensor.from_gguf_raw(raw, JaxType[name], w.shape)
-    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape)
+    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape, device="cpu")
     x = np.random.default_rng(6).standard_normal((4, 256)).astype(np.float32)
     ref = np.asarray(jax_qmm(jnp.asarray(x, jnp.bfloat16), jq, backend="pallas",
                              interpret=True), np.float32)
@@ -98,7 +98,7 @@ def test_plain_matmul_matches_pallas_interpret(name):
 def test_embedding_lookup_rows_exact(name):
     """Planar row gather equals the dequantized table's rows bit for bit."""
     w, raw = _raw(name, n=64, k=256, seed=8)
-    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape)
+    tq = QTensor.from_gguf_raw(raw, GGMLType[name], w.shape, device="cpu")
     ids = torch.tensor([[3, 0, 63], [7, 7, 1]])
     rows = embedding_lookup(ids, tq, dtype=torch.float32)
     np.testing.assert_array_equal(rows.numpy(), tq.dequantize()[ids].numpy())

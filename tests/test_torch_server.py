@@ -39,7 +39,7 @@ class ByteTokenizer:
 
 @pytest.fixture(scope="module")
 def server():
-    eng = Engine(CFG, init_random_weights(CFG, seed=3), num_blocks=64, block_size=16,
+    eng = Engine(CFG, init_random_weights(CFG, seed=3, device="cpu"), num_blocks=64, block_size=16,
                  max_batch=4, prefill_chunk=32, device="cpu")
     srv = Server(eng, ByteTokenizer(), resolve_chat_template(arch="llama"), "tiny",
                  host="127.0.0.1", port=0)
@@ -127,7 +127,7 @@ def test_bad_requests(server):
 
 
 def test_shutdown_joins_threads():
-    eng = Engine(CFG, init_random_weights(CFG, seed=4), num_blocks=16, block_size=16,
+    eng = Engine(CFG, init_random_weights(CFG, seed=4, device="cpu"), num_blocks=16, block_size=16,
                  max_batch=2, device="cpu")
     srv = Server(eng, ByteTokenizer(), resolve_chat_template(arch="llama"),
                  host="127.0.0.1", port=0)
