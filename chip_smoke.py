@@ -8,12 +8,14 @@ print one progress line with the elapsed seconds:
 
 0. watchdog and device: a hang ends in a traceback after 900 s; no CUDA
    device is an error; prints ``nvidia-smi``'s name and power limit;
-1. build: compiles the seven CUDA kernels (one ``nvcc`` call) and prints
+1. build: compiles the eight CUDA kernels (one ``nvcc`` call) and prints
    the build time;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16), with its median time (CUDA events), its bound at
    the card's memory and bf16 tensor-core rates, the plain version's time
-   and a PyTorch library call on the same inputs as a yardstick. The
+   and a PyTorch library call on the same inputs as a yardstick; beside the
+   CUDA-event time of a call (host enqueue included, as the card waits for
+   it), the device's own kernel time from a ``torch.profiler`` trace. The
    grouped (MoE) kernels run on Mixtral-8x7B banks (8 experts, top-2) at
    n*k = 16 (decode, 8 tokens) and 1024 (a 512-token prefill) with routings
    drawn from the script's generator, plus one all-to-one routing and one
@@ -21,7 +23,18 @@ print one progress line with the elapsed seconds:
    the planes of the experts the routing touches plus the n*k real rows of x
    and out (the padding rows of the used tiles are left out), and 2 * n*k *
    N * K operations; their library call is one ``torch.matmul`` per non-empty
-   group on weights dequantized to bf16 ahead of time;
+   group on weights dequantized to bf16 ahead of time. The dense grouped
+   kernel also runs on DeepSeek-V2-Lite's expert banks (64 experts, top-6:
+   gate/up [64, 2816, 2048], down [64, 2048, 1408]) at n*k = 36 (decode, 6
+   tokens) and 1152 (a 2 x 96-token prefill). The MLA decode kernel runs at
+   DeepSeek-V2-Lite's shapes (16 heads, rank 512, rows of 576, batch 8) with
+   16- and 64-token blocks, kv_lens from 0 to 2048, one dropped write (slot
+   -1), one row with kv_len 0 and one write into the last block of its
+   table; the output, the written layer's pool (but its trash row, which
+   the two dropped writes may tear) and the other layer are compared; its
+   library call is ``scaled_dot_product_attention`` over the
+   rows gathered ahead of time (values = rows[:, :512]), on the first backend
+   that takes those shapes;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared;
@@ -32,23 +45,34 @@ print one progress line with the elapsed seconds:
    the two sum orders, so at least 99 % of the choices must agree. The plain
    run then takes the kernel run's choices (its own router weights at those
    experts), so every row's logits at every step are compared;
+3c. the same at full DeepSeek-V2-Lite width with 2 layers (the dense layer
+   0 and one MoE layer of 64 bf16 experts, top-6, 2 shared), bf16 weights:
+   the MLA decode kernel at every decode step, the dense grouped kernel on
+   the routed experts; the same rule on expert choices;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
    greedy, half seeded sampling), every kernel's launch count read after the
-   run, then the server and engine threads are shut down and joined;
+   run, then the server and engine threads are shut down and joined; then
+   one decode step of 6 greedy requests on the same engine is timed on the
+   host clock and traced with ``torch.profiler`` for the device's kernel
+   time, its idle share and the kernels that take most of it;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
    ``use_more_bits`` layers and Q4_K on the rest, Q8_0 ``attn_v``, a Q6_K
    head, a bf16 embedding and router; the same 6 requests and checks;
-6. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
+6. serve the full 27-layer DeepSeek-V2-Lite geometry (bf16, ~29 GiB drawn on
+   the device after the Mixtral weights are freed) through the engine's
+   DeepSeek adapter: the same 6 requests and checks, the MLA decode and
+   dense grouped kernels launched and no plain version run;
+7. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
    the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches in the run of its path
 (phase 4 for the dense-model kernels, phase 5 for the W4/W8 grouped kernels,
-phase 3b's kernel run for the dense grouped kernel, which a Q4_K_M file does
-not reach) and its time at the main path's dominant shape.
+phase 6 for the MLA decode and dense grouped kernels) and its time at the
+main path's dominant shape.
 
 Budget: the whole run at most 8 minutes on an H100 with the build, at most
 8 GB of host memory (all weights are drawn on the device, none on the host),
@@ -59,7 +83,9 @@ the plain version and differ in f32 sum order, so their bf16 outputs agree
 within 1e-2 of the largest |value|; the attention kernels agree within 2e-2
 absolute (bf16 outputs of magnitude ~1, exp2 vs exp and sum order); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
-through two full-width layers).
+through two full-width layers). The MLA decode kernel rounds P to bf16 for
+its tensor-core PV product and sums in another order: 2e-2 absolute on
+bf16 outputs of magnitude ~1; the pool after the write is exact.
 """
 
 from __future__ import annotations
@@ -68,6 +94,7 @@ import faulthandler
 import gc
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
@@ -80,12 +107,15 @@ faulthandler.dump_traceback_later(900, exit=True)
 import torch  # noqa: E402
 
 from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E402
+from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
+from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
 from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv  # noqa: E402
 from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
-from mistralrs_tpu_torch.models import llama  # noqa: E402
+from mistralrs_tpu_torch.models import deepseek, llama  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
 from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
+from mistralrs_tpu_torch.ops.mla_attention import mla_decode  # noqa: E402
 from mistralrs_tpu_torch.ops.moe_grouped import (  # noqa: E402
     build_groups,
     dense_matmul_grouped,
@@ -120,7 +150,18 @@ MIXTRAL_8X7B = dict(
     max_position_embeddings=32768, rms_norm_eps=1e-5, num_experts=8,
     num_experts_per_tok=2, moe_intermediate_size=14336,
 )
+# DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json; its YaRN
+# rope_scaling entry is left out, as both packages ignore it)
+DEEPSEEK_V2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944, moe_intermediate_size=1408,
+    num_layers=27, num_heads=16, q_lora_rank=None, kv_lora_rank=512, qk_rope_head_dim=64,
+    qk_nope_head_dim=128, v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6,
+    n_shared_experts=2, first_k_dense_replace=1, rms_norm_eps=1e-6, rope_theta=10000.0,
+    routed_scaling_factor=1.0, scoring_func="softmax", norm_topk_prob=False, n_group=1,
+    topk_group=1, max_position_embeddings=163840,
+)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
+DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -142,6 +183,8 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:895"),
     "dense_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
+    "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
+                   "mistralrs_tpu/ops/mla_attention.py:218"),
 }
 
 
@@ -184,6 +227,36 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_kernels(prof) -> dict:
+    """``{kernel name: (device µs, launches)}`` of a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int = 10):
+    """The device's kernel time per call of ``fn`` (all its kernels, no host
+    time), from a ``torch.profiler`` trace of ``iters`` calls; None when no
+    kernel of the trace has a record for every call (records lost)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof).values()
+    if not kernels or max(n for _, n in kernels) < iters:
+        return None
+    return sum(us for us, _ in kernels) / iters / 1e3
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 # ---------------------------------------------------------------------------
@@ -316,39 +389,44 @@ def check_matmul(name, m, qt, rates, gen, dev):
         raise AssertionError(f"{name} M={m} N={n} K={k}: max err {err} > {tol}")
     w_bf16 = qt.dequantize(torch.float32).to(torch.bfloat16)
     ms = time_ms(lambda: quant_matmul(x, qt))
+    dev_ms = device_ms(lambda: quant_matmul(x, qt))
     plain_ms = time_ms(lambda: quant_matmul(x, qt, plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.matmul(x, w_bf16.T))
     del w_bf16
     b_ms, b_by = bound(m * k * 2 + qt.nbytes + m * n * 2, 2.0 * m * n * k, rates)
-    row = dict(shape=f"M={m} N={n} K={k}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    log(f"  {name} {row['shape']}: err {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms, "
+    row = dict(shape=f"M={m} N={n} K={k}", max_abs_err=err, ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log(f"  {name} {row['shape']}: err {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
+        f"(device {fmt_ms(dev_ms)}), "
         f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms")
     return row
 
 
-def grouped_routing(ntok, e, routing, gen, dev):
-    """Top-2 choices of ``ntok`` tokens over ``e`` experts: two distinct
+def grouped_routing(ntok, e, routing, gen, dev, top=2):
+    """Top-``top`` choices of ``ntok`` tokens over ``e`` experts: distinct
     experts drawn from the generator ("random"), every choice on the last
     expert ("all_to_one"), or random with expert 2 left empty."""
-    first = torch.randint(0, e, (ntok,), generator=gen, device=dev)
-    second = (first + torch.randint(1, e, (ntok,), generator=gen, device=dev)) % e
-    topi = torch.stack([first, second], dim=1)
+    if top == 2:
+        first = torch.randint(0, e, (ntok,), generator=gen, device=dev)
+        second = (first + torch.randint(1, e, (ntok,), generator=gen, device=dev)) % e
+        topi = torch.stack([first, second], dim=1)
+    else:
+        topi = torch.rand((ntok, e), generator=gen, device=dev).argsort(dim=1)[:, :top]
     if routing == "all_to_one":
         topi[:] = e - 1
     elif routing == "empty_expert":
         topi[topi == 2] = 3
-    return topi, torch.rand((ntok, 2), generator=gen, device=dev)
+    return topi, torch.rand((ntok, top), generator=gen, device=dev)
 
 
-def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True):
+def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, top=2):
     """One grouped kernel on a bank ``w`` ([E, N, K]: QTensor or bf16) for
-    ``ntok`` tokens routed top-2, against its plain version; timed with its
-    bound and library yardstick when ``timed``."""
+    ``ntok`` tokens routed top-``top``, against its plain version; timed with
+    its bound and library yardstick when ``timed``."""
     dense = isinstance(w, torch.Tensor)
     e, n, k = w.shape
-    topi, topw = grouped_routing(ntok, e, routing, gen, dev)
-    tm = grouped_tile(ntok * 2)
+    topi, topw = grouped_routing(ntok, e, routing, gen, dev, top)
+    tm = grouped_tile(ntok * top)
     st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
     x = torch.randn((ntok, k), generator=gen, device=dev).to(torch.bfloat16)
     xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
@@ -366,7 +444,7 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True):
     if not (torch.isfinite(got).all() and err <= tol and bool((got[used * tm:] == 0).all())):
         raise AssertionError(f"{name} {routing} E={e} N={n} K={k} tokens={ntok}: "
                              f"max err {err} > {tol} or unused tiles not zero")
-    shape = f"E={e} N={n} K={k} n*k={2 * ntok} tm={tm} used tiles={used} ({routing})"
+    shape = f"E={e} N={n} K={k} n*k={top * ntok} tm={tm} used tiles={used} ({routing})"
     if not timed:
         log(f"  {name} {shape}: err {err:.3e} (tol {tol:.3e})")
         return dict(shape=shape, max_abs_err=err)
@@ -378,18 +456,19 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True):
     wd = {ex: (w[ex] if dense else w.bank(ex).dequantize(torch.float32).to(torch.bfloat16))
           for ex in spans}
     ms = time_ms(run)
+    dev_ms = device_ms(run)
     plain_ms = time_ms(lambda: run(plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: [torch.matmul(xs[a:b], wd[ex].T) for ex, (a, b) in spans.items()])
     del wd
     # the function's own work: the touched experts' planes and the n*k real
     # (token, choice) rows, not the padding of the used tiles
     plane_bytes = sum(n * k * 2 if dense else w.bank(ex).nbytes for ex in spans)
-    pairs = 2 * ntok
+    pairs = top * ntok
     b_ms, b_by = bound(plane_bytes + pairs * k * 2 + pairs * n * 2, 2.0 * pairs * n * k, rates)
-    row = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, experts=len(spans))
+    row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, experts=len(spans))
     log(f"  {name} {shape}, {len(spans)} experts: err {err:.3e} (tol {tol:.3e}) | kernel "
-        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
         f"torch.matmul per group {lib_ms:.4f} ms")
     return row
 
@@ -414,6 +493,93 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
             rows[name].append(check_grouped(name, w, 8, rates, gen, dev, routing, timed=False))
         del w
         torch.cuda.empty_cache()
+
+
+def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408):
+    """Phase 2's dense grouped kernel on DeepSeek-V2-Lite's expert banks,
+    top-6: 6 decode tokens (n*k = 36) and a 2 x 96-token prefill (1152)."""
+    for what, make in (("V2-Lite gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
+                       ("V2-Lite down", lambda: bf16_bank(h, mi, gen, dev, e))):
+        w = make()
+        for ntok in (6, 192):
+            r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=6)
+            r["shape"] = f"{what}: {r['shape']}"
+            rows["dense_matmul_g"].append(r)
+        rows["dense_matmul_g"].append(
+            check_grouped("dense_matmul_g", w, 6, rates, gen, dev, "empty_expert", timed=False,
+                          top=6))
+        del w
+        torch.cuda.empty_cache()
+
+
+def sdpa_timed(q, k, v, mask):
+    """Time ``scaled_dot_product_attention`` on the first backend that takes
+    these inputs → (ms, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def run(backend=backend):
+            with sdpa_kernel([backend]):
+                return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return time_ms(run), backend.name
+    raise AssertionError("no SDPA backend takes these inputs")
+
+
+def check_mla(rates, gen, dev, bs):
+    """The MLA decode kernel at DeepSeek-V2-Lite's decode shapes against its
+    plain version (module docstring)."""
+    b, nh, rank, d, n_layers = 8, 16, 512, 576, 2
+    kv_lens = torch.tensor([1, 2048, 700, 0, 65, 1333, 64, 1024], device=dev, dtype=torch.int32)
+    w = 2048 // bs
+    bt, s_total = paged_layout(b, bs, w, gen, dev)
+    pool = torch.randn((n_layers, s_total, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).to(torch.bfloat16)
+    rows_new = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    slots = slots_for(bt, (kv_lens - 1).clamp_min(0)[:, None], bs)[:, 0].contiguous()
+    slots[2] = -1  # a dropped write
+    slots[3] = -1  # the kv_len 0 row: a padding row of the engine's batch
+    # row 1 (kv_len 2048) writes into the last block of its table
+    check(int(slots[1]) // bs == int(bt[1, -1]), "mla: row 1 must write its last block")
+    scale = 192 ** -0.5  # qk_head_dim ** -0.5
+    p1, p2 = pool.clone(), pool.clone()
+    args = (rows_new, slots, bt, kv_lens, 1)
+    kw = dict(rank=rank, block_size=bs, scale=scale)
+    got = mla_decode(q, p1, *args, **kw)
+    ref = mla_decode(q, p2, *args, **kw, plain=True)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    # two rows drop their writes into the trash row (the last), from two
+    # blocks at once: what it holds after is not defined and never read
+    pool_ok = bool((p1[1, :-1] == p2[1, :-1]).all()) and bool((p1[0] == pool[0]).all())
+    if not (torch.isfinite(got).all() and err <= 2e-2 and pool_ok
+            and bool((got[3] == 0).all())):
+        raise AssertionError(f"mla_decode bs={bs}: max err {err}, pool written right "
+                             f"{pool_ok}, kv_len-0 row zero {bool((got[3] == 0).all())}")
+    keys = p1[1][(bt.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(b, -1)]
+    kk = keys[:, None].expand(b, nh, keys.shape[1], d).contiguous()
+    vv = kk[..., :rank]
+    mask = (torch.arange(keys.shape[1], device=dev)[None] < kv_lens[:, None])[:, None, None]
+    ms = time_ms(lambda: mla_decode(q, p1, *args, **kw))
+    dev_ms = device_ms(lambda: mla_decode(q, p1, *args, **kw))
+    plain_ms = time_ms(lambda: mla_decode(q, p2, *args, **kw, plain=True), iters=3, warmup=1)
+    lib_ms, backend = sdpa_timed(q[:, :, None], kk, vv, mask)
+    tokens = int(kv_lens.sum())
+    # each visible row read once, q and the new rows read, the rows written, out written
+    nbytes = tokens * d * 2 + b * nh * d * 2 + 2 * b * d * 2 + b * nh * rank * 2
+    b_ms, b_by = bound(nbytes, 2.0 * tokens * nh * (d + rank), rates)
+    row = dict(shape=f"B={b} nh={nh} D={d} rank={rank} bs={bs} kv_lens 0..2048",
+               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, library=f"sdpa ({backend})")
+    log(f"  mla_decode {row['shape']}: err {err:.3e} (tol 2e-2), pool exact | kernel "
+        f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, sdpa "
+        f"[{backend}] {lib_ms:.4f} ms")
+    return row
 
 
 def paged_layout(b, bs, w, gen, dev):
@@ -463,6 +629,7 @@ def check_decode(rates, gen, dev):
     mask = (torch.arange(kk.shape[2], device=dev)[None] < kv_lens[:, None])[:, None, None]
     q4 = q[:, :, None]
     ms = time_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
+    dev_ms = device_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
     plain_ms = time_ms(lambda: paged_decode_attention_fused(q, k2, v2, *args, block_size=bs,
                                                             plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -471,10 +638,10 @@ def check_decode(rates, gen, dev):
     nbytes = 2 * tokens * n_kv * hd * 2 + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
     b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
     row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<=1024",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
+               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
     log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
-        f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms")
     return row
 
@@ -510,6 +677,7 @@ def check_prefill(rates, gen, dev):
     mask = (pos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
     qt_ = q.transpose(1, 2)
     ms = time_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
+    dev_ms = device_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
     plain_ms = time_ms(lambda: paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs,
                                                              plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -523,10 +691,10 @@ def check_prefill(rates, gen, dev):
     flops = sum(4 * n_q * hd * sum(c + i + 1 for i in range(v)) for c, v in zip(ctx, nv))
     b_ms, b_by = bound(nbytes, flops, rates)
     row = dict(shape=f"B={b} T={t} n_valid=(128,70) past=300 n_q={n_q} n_kv={n_kv} hd={hd}",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
+               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
     log(f"  paged_prefill {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
-        f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+        f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms")
     return row
 
@@ -657,8 +825,87 @@ def check_mixtral_model(dev) -> dict:
     return counts
 
 
+def check_deepseek_model(dev) -> dict:
+    """Phase 3c: 2 DeepSeek-V2-Lite layers at full width (the dense layer 0
+    and one MoE layer) through the kernels and the plain versions, with
+    phase 3b's rule on expert choices; returns the kernel run's counts."""
+    cfg = deepseek.DeepseekConfig(**dict(DEEPSEEK_V2_LITE, num_layers=2))
+    weights = deepseek.init_random_weights(cfg, seed=SEED + 7, device=dev)
+    bs, b, t, n_dec = 64, 2, 96, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
+    bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
+    runs, choices = [], []
+    counts: dict = {}
+    select = deepseek.select_experts
+    for plain in (False, True):
+        chosen: list = []
+        forced = iter(choices[0]) if plain else None
+
+        def recording_select(cfg_, scores, biased, chosen=chosen, forced=forced):
+            topw, topi = select(cfg_, scores, biased)
+            chosen.append(topi.sort(dim=-1).values)
+            if forced is None:
+                return topw, topi
+            # the kernel run's experts, weighted by this run's own scores
+            keep = torch.zeros_like(scores).scatter_(-1, next(forced), 1.0)
+            return select(cfg_, scores, keep)
+
+        deepseek.select_experts = recording_select
+        try:
+            pool = deepseek.make_paged_cache(cfg, b * 4, bs, device=dev)
+            _cuda.reset_counts()
+            pos = torch.arange(t, device=dev)[None].expand(b, t)
+            logits, _ = deepseek.deepseek_forward_paged(
+                weights, cfg, ids[:, :t], pos, pool, bt, slots_for(bt, pos, bs),
+                torch.full((b,), t, device=dev), block_size=bs, plain=plain)
+            outs = [logits]
+            for d in range(n_dec):
+                p = torch.full((b, 1), t + d, device=dev)
+                logits, _ = deepseek.deepseek_forward_paged(
+                    weights, cfg, ids[:, t + d:t + d + 1], p, pool, bt, slots_for(bt, p, bs),
+                    torch.full((b,), t + d + 1, device=dev), block_size=bs, plain=plain)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            if not plain:
+                counts = dict(_cuda.COUNTS)
+        finally:
+            deepseek.select_experts = select
+        runs.append(outs)
+        choices.append(chosen)
+    total = same = 0
+    for a, c in zip(*choices):
+        eq = (a == c).all(dim=-1)
+        total += eq.numel()
+        same += int(eq.sum())
+    frac = same / total
+    if frac < 0.99:
+        raise AssertionError(f"deepseek model: only {same}/{total} expert choices agree")
+    worst = 0.0
+    for step, (got, ref) in enumerate(zip(*runs)):
+        if not torch.isfinite(got).all():
+            raise AssertionError("deepseek model: non-finite logits through the kernels")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > 5e-2 * scale:
+            raise AssertionError(f"deepseek model: step {step} logits differ by "
+                                 f"{err} > {5e-2 * scale}")
+    log(f"  deepseek-v2-lite 2 layers: 1 prefill (2x{t}) + {n_dec} decode steps; expert "
+        f"choices agree {same}/{total} ({100 * frac:.2f} %, need 99 %); all "
+        f"{b * (n_dec + 1)} (row, step) logits compared on the kernel run's routing, worst "
+        f"|err|/max|logit| {worst:.3e} (tol 5e-2); kernel run launches {counts}")
+    missing = [k for k in DEEPSEEK_KERNELS if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"deepseek model: kernels not launched {missing}, "
+                             f"plain versions run {plain_run}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: serve
+# phases 4, 5 and 6: serve
 # ---------------------------------------------------------------------------
 
 
@@ -675,19 +922,52 @@ class ByteTokenizer:
         return Detokenizer(self)
 
 
-def serve(dev, name_line: str, cfg: ModelConfig, build, seed: int, model_id: str,
-          required) -> dict:
-    """Serve 6 concurrent requests on ``build(cfg, dev, seed)``'s weights;
-    returns the launch counts of the run, which must show every kernel of
-    ``required`` and no plain version."""
+def profile_decode_step(engine, add_request) -> str:
+    """One decode step of 6 running greedy requests (100-token prompts) on
+    the serve run's engine, its server stopped: the step's wall time on the
+    host clock (a step ends in a host sync), the device's kernel time from a
+    ``torch.profiler`` trace of the next step, so the device's idle share,
+    and the kernels that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seqs = [add_request([(7 * i + j) % 250 + 1 for j in range(100)],
+                        SamplingParams(temperature=0.0, max_tokens=16)) for i in range(6)]
+    while any(len(s.generated_ids) < 2 for s in seqs):  # prefills and a first decode step
+        engine.step()
+    t0 = time.monotonic()
+    engine.step()
+    wall = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    engine.run_to_completion()
+    by_kernel = {k: us for k, (us, _) in device_kernels(prof).items()}
+    busy = sum(by_kernel.values()) / 1e3
+    if busy == 0:
+        return f"decode step (6 rows) {wall:.2f} ms wall; device time not measured"
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
+    return (f"decode step (6 rows) {wall:.2f} ms wall, device kernels {busy:.3f} ms "
+            f"({len(by_kernel)} kernel names), device idle {100 * (1 - busy / wall):.1f} %; "
+            f"top: {tops}")
+
+
+def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
+          required, adapter_cls=None) -> dict:
+    """Serve 6 concurrent requests on ``build(cfg, dev, seed)``'s weights
+    (through ``adapter_cls``'s arch adapter when given); returns the launch
+    counts of the run, which must show every kernel of ``required`` and no
+    plain version."""
     t_w = time.monotonic()
     weights = build(cfg, dev, seed)
     torch.cuda.synchronize()
     log(f"  {cfg.num_layers}-layer weights drawn on the device in "
         f"{time.monotonic() - t_w:.1f} s "
         f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    adapter = adapter_cls(cfg, weights, device=dev) if adapter_cls else None
     engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
-                    max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED)
+                    max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED,
+                    adapter=adapter)
     seqs = []
     add_request = engine.add_request
 
@@ -788,10 +1068,11 @@ def serve(dev, name_line: str, cfg: ModelConfig, build, seed: int, model_id: str
         f"{st['prefill_steps']} prefill steps ({st['prefill_time_s']:.2f} s) "
         f"[{name_line}]")
     log(f"  kernel launches in the serve run: {counts}")
+    log(f"  {profile_decode_step(engine, add_request)} [{name_line}]")
     # the recording wrapper on the engine refers back to it: drop it, so that
     # the weights and the KV pools are freed before the next phase
     del engine.add_request
-    del weights, engine, server
+    del weights, engine, server, adapter
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -838,13 +1119,20 @@ def main() -> int:
     rows["paged_decode"].append(check_decode(rates, gen, dev))
     rows["paged_prefill"].append(check_prefill(rates, gen, dev))
     check_grouped_kernels(rows, rates, gen, dev)
+    check_deepseek_grouped(rows, rates, gen, dev)
+    for bs in (16, 64):
+        rows["mla_decode"].append(check_mla(rates, gen, dev, bs))
     torch.cuda.empty_cache()
     # phase 3
     log("phase 3: forward_paged at full width, 2 layers, kernels vs plain")
     check_model(dev)
     torch.cuda.empty_cache()
     log("phase 3b: forward_paged at full Mixtral-8x7B width, 2 layers, kernels vs plain")
-    model_counts = check_mixtral_model(dev)
+    check_mixtral_model(dev)
+    torch.cuda.empty_cache()
+    log("phase 3c: deepseek_forward_paged at full DeepSeek-V2-Lite width, 2 layers, "
+        "kernels vs plain")
+    check_deepseek_model(dev)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry")
@@ -860,18 +1148,30 @@ def main() -> int:
                        ("w4_matmul_g", "w8_matmul_g") + DENSE_KERNELS)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 6
+    log("phase 6: serve the 27-layer DeepSeek-V2-Lite geometry (bf16)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ds_counts = serve(dev, name_line, deepseek.DeepseekConfig(**DEEPSEEK_V2_LITE),
+                      lambda cfg, dev_, seed: deepseek.init_random_weights(cfg, seed=seed,
+                                                                           device=dev_),
+                      SEED + 9, "deepseek-v2-lite-geometry-bf16", DEEPSEEK_KERNELS,
+                      adapter_cls=DeepseekAdapter)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
-    # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode n*k=16,
-    # fused gate/up for W4, the Q6_K down bank for W8, the bf16 down bank for
-    # dense), errors the worst of all checks; launches from the run of each
-    # kernel's path (module docstring)
+    # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
+    # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
+    # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
+    # checks; launches from the run of each kernel's path (module docstring)
     main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096",
                   "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
-                  "dense_matmul_g": "bf16 down: E=8 N=4096 K=14336 n*k=16"}
+                  "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
+                  "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64"}
     launches = {**counts, "w4_matmul_g": moe_counts["w4_matmul_g"],
                 "w8_matmul_g": moe_counts["w8_matmul_g"],
-                "dense_matmul_g": model_counts["dense_matmul_g"]}
+                "dense_matmul_g": ds_counts["dense_matmul_g"],
+                "mla_decode": ds_counts["mla_decode"]}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]
@@ -881,11 +1181,14 @@ def main() -> int:
         entries.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max(r["max_abs_err"] for r in kr),
-            "ms": pick["ms"], "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
+            "ms": pick["ms"], "device_ms": pick["device_ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"],
             "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
             "shape": pick["shape"],
         })
-    log(f"done in {time.monotonic() - T0:.1f} s [{name_line}]")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB → GiB
+    log(f"done in {time.monotonic() - T0:.1f} s, peak host memory (RSS) {rss:.2f} GiB "
+        f"[{name_line}]")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,6 +2,10 @@
 ``serve`` command only.
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
+    python -m mistralrs_tpu_torch.cli serve path/to/DeepSeek-V2-Lite --port 8080
+
+A ``.gguf`` file serves through the llama decoder; a DeepSeek-family HF
+directory (``config.json`` + safetensors) through its arch adapter.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ def cmd_serve(args) -> int:
     if pipe.tokenizer is None:
         print("error: model has no tokenizer; `serve` needs one", file=sys.stderr)
         return 1
-    weights = fuse_projections(pipe.weights, pipe.cfg)  # in place: no unfused copy stays
+    weights = None
+    if pipe.adapter is None:
+        weights = fuse_projections(pipe.weights, pipe.cfg)  # in place: no unfused copy stays
     if args.device != "cpu":
         import torch
 
@@ -38,11 +44,13 @@ def cmd_serve(args) -> int:
             pipe.cfg, block_size=args.block_size, max_model_len=max_len,
             max_batch=args.max_batch, device=args.device or "cuda",
             mem_bytes=(16 << 30) if on_cpu else None,  # CPU: a 16 GiB budget
+            bytes_per_token=pipe.adapter.kv_bytes_per_token() if pipe.adapter else None,
         )
     eng = Engine(
         pipe.cfg, weights, num_blocks=num_blocks, block_size=args.block_size,
         max_batch=args.max_batch, max_model_len=max_len,
         prefill_chunk=args.prefill_chunk, tokenizer=pipe.tokenizer, device=args.device,
+        adapter=pipe.adapter,
     )
     server = Server(eng, pipe.tokenizer, pipe.chat_template, pipe.model_id,
                     host=args.host, port=args.port)
@@ -61,7 +69,7 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
-    p.add_argument("model", help="path to a llama .gguf file")
+    p.add_argument("model", help="a llama .gguf file or a DeepSeek-family HF directory")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")

@@ -14,6 +14,9 @@ mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
 as per-layer ``[E, ...]`` banks. Banks the JAX loader widened to int8 codes
 at group 16 with a bias plane are carried as they are and run through the
 W8 grouped kernel in its signed-with-bias form.
+
+:func:`from_jax_deepseek_params` does the same for the JAX package's
+DeepSeek weights (absorbed MLA, DeepSeek-MoE).
 """
 
 from __future__ import annotations
@@ -110,6 +113,51 @@ def from_jax_params(
         return lw
 
     layers = [layer(i) for i in range(cfg.num_layers)]
+    return {
+        "embed": _leaf(params["embed"], device, dtype),
+        "layers": layers,
+        "final_norm": _leaf(params["final_norm"], device, dtype),
+        "lm_head": _leaf(params.get("lm_head"), device, dtype),
+    }
+
+
+_DEEPSEEK_LAYER_KEYS = {"attn_norm", "ffn_norm", "q", "q_a", "q_a_norm", "q_b", "kv_a",
+                        "kv_a_norm", "kv_b", "w_uk", "w_uv", "o", "gate", "up", "down",
+                        "router", "router_bias", "experts", "shared"}
+
+
+def from_jax_deepseek_params(
+    params: dict[str, Any], cfg, device: DeviceLike = None, dtype=torch.bfloat16,
+) -> dict:
+    """The JAX package's absorbed DeepSeek weight dict
+    (``deepseek_weights_from_state_dict(..., absorbed=True)``: ``segments``
+    ``dense`` and ``moe`` of stacked ``[Lseg, ...]`` leaves, as numpy) → the
+    port's (:mod:`~mistralrs_tpu_torch.models.deepseek`) on ``device``
+    (``cuda`` unless the caller asks for ``"cpu"``), leaves cast to
+    ``dtype``. Each routed-expert bank's gate and up are fused into
+    ``gateup``; ``kv_b`` (unused by the absorbed path) is dropped."""
+    device = resolve_device(device)
+    layers = []
+    for seg in ("dense", "moe"):
+        stacked = params["segments"].get(seg)
+        if stacked is None:
+            continue
+        unknown = set(stacked) - _DEEPSEEK_LAYER_KEYS
+        if unknown:
+            raise NotImplementedError(f"DeepSeek layer weights not ported: {sorted(unknown)}")
+        for i in range(len(np.asarray(stacked["attn_norm"]))):
+            lw = {k: _leaf(v, device, dtype, layer=i) for k, v in stacked.items()
+                  if k not in ("experts", "shared", "kv_b")}
+            if "experts" in stacked:
+                ex = {k: _leaf(v, device, dtype, layer=i) for k, v in stacked["experts"].items()}
+                lw["experts"] = {"gateup": torch.cat([ex["gate"], ex["up"]], dim=1),
+                                 "down": ex["down"]}
+            if "shared" in stacked:
+                lw["shared"] = {k: _leaf(v, device, dtype, layer=i)
+                                for k, v in stacked["shared"].items()}
+            layers.append(lw)
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers in the weights, config has {cfg.num_layers}")
     return {
         "embed": _leaf(params["embed"], device, dtype),
         "layers": layers,

@@ -11,8 +11,12 @@
 * Prefix caching and recompute preemption come from the block manager and
   scheduler, copied from the JAX package.
 
-Speculative decoding, tensor/data parallelism, adapters, grammar constraints
-and the DRY penalty are not ported yet.
+* An arch adapter (``adapter=``, ``engine/adapters.py``) brings its own
+  cache and forward: the engine then runs the adapter's ``prefill`` and
+  ``decode`` in place of the llama decoder (DeepSeek's absorbed MLA).
+
+Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
+constraints and the DRY penalty are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,14 +39,15 @@ from .sampler import BatchSamplingState, SamplingParams, sample
 from .scheduler import Scheduler
 from .sequence import Sequence, StopReason
 
-_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 
-
-def _bucket(n: int, buckets=_PREFILL_BUCKETS) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return buckets[-1]
+def _bucket(n: int) -> int:
+    """Prefill rows are padded to a power of two of at least 16 tokens (the
+    JAX package's buckets up to 1024, and on by powers of two past it, so a
+    chunk of any length fits its row)."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
 
 
 def weights_to(weights, device: torch.device):
@@ -77,13 +82,25 @@ class Engine:
         tokenizer=None,
         seed: int = 0,
         device: DeviceLike = None,
+        adapter=None,
     ):
+        """With ``adapter`` (``engine/adapters.py``), ``cfg`` is the
+        adapter's config and the adapter's weights serve; ``weights`` is
+        not used."""
         self.device = resolve_device(device)
-        check_supported(cfg)
         if kv_quant is not None:
             raise NotImplementedError("quantized KV pools are not ported yet")
+        self.adapter = adapter
+        if adapter is None:
+            check_supported(cfg)
+            self.weights = weights_to(weights, self.device)
+        else:
+            if adapter.device != self.device:
+                raise ValueError(f"adapter on {adapter.device}, engine on {self.device}")
+            if not adapter.supports_prefix_cache:
+                enable_prefix_caching = False
+            self.weights = None
         self.cfg = cfg
-        self.weights = weights_to(weights, self.device)
         self.block_size = block_size
         self.max_batch = max_batch
         self.max_model_len = max_model_len or cfg.max_position_embeddings
@@ -92,8 +109,11 @@ class Engine:
         self.seed = seed
         self.kv = KVCacheManager(num_blocks, block_size, enable_prefix_caching)
         self.scheduler = Scheduler(self.kv, max_batch, prefill_chunk)
-        self.cache = PagedKVCache.create(cfg, num_blocks, block_size, dtype=compute_dtype,
-                                         device=self.device)
+        if adapter is None:
+            self.cache = PagedKVCache.create(cfg, num_blocks, block_size, dtype=compute_dtype,
+                                             device=self.device)
+        else:
+            self.cache = adapter.create_cache(num_blocks, block_size, max_batch)
         self.samp_state = BatchSamplingState.create(max_batch, cfg.vocab_size, self.device)
         self._req_counter = itertools.count()
         self._slot_seq: list[Optional[Sequence]] = [None] * max_batch
@@ -244,12 +264,17 @@ class Engine:
             bt[row, : len(table)] = table
             kv_lens[row] = sp.start + sp.length
             last_idx[row] = sp.length - 1
-        logits, self.cache = forward_paged(
-            self.weights, self.cfg, self._dev(ids_arr), self._dev(positions), self.cache,
-            self._dev(bt), self._dev(slot_map), self._dev(kv_lens),
-            block_size=self.block_size, logits_last_only=True,
-            compute_dtype=self.compute_dtype, last_indices=self._dev(last_idx),
-        )
+        ids, pos = self._dev(ids_arr), self._dev(positions)
+        args = (self._dev(bt), self._dev(slot_map), self._dev(kv_lens))
+        if self.adapter is not None:
+            logits, self.cache = self.adapter.prefill(self.cache, ids, pos, *args,
+                                                      self._dev(last_idx))
+        else:
+            logits, self.cache = forward_paged(
+                self.weights, self.cfg, ids, pos, self.cache, *args, block_size=self.block_size,
+                logits_last_only=True, compute_dtype=self.compute_dtype,
+                last_indices=self._dev(last_idx),
+            )
         finished: list[Sequence] = []
         for row, sp in enumerate(sps):
             seq = sp.seq
@@ -292,12 +317,16 @@ class Engine:
             slot_map[s, 0] = self.kv.slot_mapping(seq.request_id, pos, 1)[0]
             table = self.kv.block_table(seq.request_id)[:width]
             bt[s, : len(table)] = table
-        logits, self.cache = forward_paged(
-            self.weights, self.cfg, self._dev(tokens), self._dev(positions), self.cache,
-            self._dev(bt), self._dev(slot_map), self._dev(kv_lens),
-            block_size=self.block_size, logits_last_only=True,
-            compute_dtype=self.compute_dtype,
-        )
+        # rows without a sequence keep slot -1 (the write is dropped) and kv_len 0
+        ids, pos = self._dev(tokens), self._dev(positions)
+        args = (self._dev(bt), self._dev(slot_map), self._dev(kv_lens))
+        if self.adapter is not None:
+            logits, self.cache = self.adapter.decode(self.cache, ids, pos, *args)
+        else:
+            logits, self.cache = forward_paged(
+                self.weights, self.cfg, ids, pos, self.cache, *args, block_size=self.block_size,
+                logits_last_only=True, compute_dtype=self.compute_dtype,
+            )
         rows = [seq.slot for seq in seqs]
         toks, logprobs, tops = sample(
             logits[rows, 0], self.samp_state, rows, [seq.generator for seq in seqs]

@@ -124,7 +124,8 @@ def sample(
     sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
     probs_sorted = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs_sorted, dim=-1)
-    k = torch.where(st["top_k"] > 0, st["top_k"], torch.full_like(st["top_k"], v))
+    # top_k >= V keeps every token: top-k is off, as at top_k = 0
+    k = torch.where(st["top_k"] > 0, st["top_k"].clamp_max(v), torch.full_like(st["top_k"], v))
     kth_val = sorted_logits.gather(1, (k - 1)[:, None])
     include = (cum - probs_sorted) < st["top_p"][:, None]
     last = torch.clamp(include.sum(dim=-1) - 1, 0, v - 1)

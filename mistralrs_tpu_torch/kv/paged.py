@@ -96,16 +96,21 @@ def calculate_cache_config(
     weight_bytes: int | None = None,
     mem_bytes: int | None = None,
     device: torch.device | str = "cuda",
+    bytes_per_token: int | None = None,
 ) -> int:
     """Memory-utilization-driven KV pool sizing (the analog of the reference's
     ``calculate_cache_config``): fill ``utilization`` of the device's free
     memory (``torch.cuda.mem_get_info``) with KV blocks, clamped to [two
     blocks per sequence … full length for ``max_batch`` sequences].
-    ``mem_bytes`` overrides the free-memory query (CPU callers pass it)."""
+    ``mem_bytes`` overrides the free-memory query (CPU callers pass it);
+    ``bytes_per_token`` overrides the llama pools' K + V bytes per token
+    (an arch adapter's own cache, e.g. DeepSeek's latent pool)."""
     if kv_quant:
         raise NotImplementedError("quantized KV pools are not ported yet")
-    dsize = torch.empty((), dtype=dtype).element_size()
-    bytes_per_block = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * dsize * block_size
+    if bytes_per_token is None:
+        dsize = torch.empty((), dtype=dtype).element_size()
+        bytes_per_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * dsize
+    bytes_per_block = bytes_per_token * block_size
     if mem_bytes is None:
         dev = torch.device(device)
         if dev.type != "cuda":

@@ -1,5 +1,5 @@
 """Model library: the llama-family decoder (dense MLP or Mixtral-style
-experts)."""
+experts); DeepSeek V2/V3 lives in :mod:`.deepseek`."""
 
 from .config import ModelConfig, config_from_gguf, config_from_hf
 from .llama import forward_paged, fuse_projections, init_random_weights

@@ -31,14 +31,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("quant_matmul.cu", "paged_attention.cu")
+SOURCES = ("quant_matmul.cu", "paged_attention.cu", "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
-           "w4_matmul_g", "w8_matmul_g", "dense_matmul_g")
+           "w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "mla_decode")
 COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -55,6 +55,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "mrt_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

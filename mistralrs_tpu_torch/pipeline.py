@@ -1,10 +1,13 @@
 """Model loading entry point (counterpart of ``mistralrs_tpu/pipeline.py``):
-a ``.gguf`` path → config, weights on the device, tokenizer and chat
-template. HF directories, UQFF files and in-situ quantization are not ported
-yet and raise ``NotImplementedError``."""
+a llama ``.gguf`` path, or a HF directory of the DeepSeek family
+(``model_type`` ``deepseek_v2``, ``deepseek_v3``, ``glm4_moe_lite``) →
+config, weights on the device, tokenizer, chat template and, for DeepSeek,
+the engine's arch adapter. Other HF directories, UQFF files and in-situ
+quantization are not ported yet and raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
+import json
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -16,7 +19,11 @@ from ._device import DeviceLike, resolve_device
 from .chat_template import ChatTemplate, resolve_chat_template
 from .models.config import ModelConfig
 from .models.gguf_loader import load_gguf_model
-from .tokenizer import TokenizerWrapper, from_gguf_metadata
+from .tokenizer import TokenizerWrapper, from_gguf_metadata, from_hf_dir
+
+# HF model types served through an arch adapter (JAX pipeline.py:61): the
+# DeepSeek family, to which GLM-4-MoE-Lite belongs
+DEEPSEEK_ARCHS = ("deepseek_v2", "deepseek_v3", "glm4_moe_lite")
 
 
 @dataclass
@@ -27,6 +34,8 @@ class Pipeline:
     chat_template: ChatTemplate
     model_id: str
     metadata: dict[str, Any]
+    # the engine's arch adapter (engine/adapters.py); None for the llama decoder
+    adapter: Optional[Any] = None
 
 
 def load_pipeline(
@@ -36,13 +45,16 @@ def load_pipeline(
     chat_template_override: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Pipeline:
-    """Load a llama ``.gguf`` checkpoint onto ``device`` (``cuda`` unless the
-    caller asks for ``"cpu"``)."""
+    """Load a llama ``.gguf`` checkpoint or a DeepSeek-family HF directory
+    onto ``device`` (``cuda`` unless the caller asks for ``"cpu"``)."""
     dev = resolve_device(device)
     path = Path(model_path)
+    if path.is_dir():
+        return _load_hf_dir(path, dtype, chat_template_override, dev)
     if not (path.is_file() and path.suffix == ".gguf"):
         raise NotImplementedError(
-            f"model path {model_path!r}: only .gguf files are ported so far"
+            f"model path {model_path!r}: only .gguf files and DeepSeek HF directories "
+            "are ported so far"
         )
     cfg, weights, md = load_gguf_model(str(path), dtype=dtype, device=dev)
     try:
@@ -54,3 +66,28 @@ def load_pipeline(
     ct = resolve_chat_template(override=chat_template_override, gguf_metadata=md,
                                arch=cfg.arch)
     return Pipeline(cfg, weights, tokenizer, ct, path.stem, md)
+
+
+def _load_hf_dir(path: Path, dtype, chat_template_override, dev) -> Pipeline:
+    """A DeepSeek-family HF directory (JAX ``pipeline.py:240-257`` and
+    ``make_adapter`` at :325-352)."""
+    from .engine.adapters import DeepseekAdapter
+    from .models.deepseek import DeepseekConfig, deepseek_weights_from_state_dict
+    from .models.hf_loader import load_safetensors_dir
+
+    cfg_file = path / "config.json"
+    hf_cfg = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
+    model_type = hf_cfg.get("model_type", "")
+    if model_type not in DEEPSEEK_ARCHS:
+        raise NotImplementedError(
+            f"HF model_type {model_type!r}: only {DEEPSEEK_ARCHS} directories are ported")
+    cfg = DeepseekConfig.from_hf(hf_cfg)
+    weights = deepseek_weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
+                                               device=dev)
+    try:
+        tokenizer = from_hf_dir(path)
+    except FileNotFoundError:
+        tokenizer = None
+    ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=model_type)
+    adapter = DeepseekAdapter(cfg, weights, compute_dtype=dtype, device=dev)
+    return Pipeline(cfg, weights, tokenizer, ct, path.name, hf_cfg, adapter=adapter)

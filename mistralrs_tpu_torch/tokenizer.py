@@ -4,10 +4,11 @@
 The ``tokenizers`` package is imported only inside the function that builds
 a tokenizer, so the module imports without it.
 
-The port reads tokenizers from GGUF metadata only (the analog of the
+The port reads tokenizers from GGUF metadata (the analog of the
 reference's `mistralrs-core/src/gguf/gguf_tokenizer.rs`): a Unigram
 (llama/spm) or byte-level BPE (gpt2) tokenizer built from the
-`tokenizer.ggml.*` keys; HF `tokenizer.json` files are not ported yet.
+`tokenizer.ggml.*` keys, and from a HF directory's `tokenizer.json`
+(:func:`from_hf_dir`).
 
 Also provides the incremental streaming detokenizer (the analog of the
 reference's delta-decode in `Sequence`), which withholds bytes that may be a
@@ -16,6 +17,8 @@ partial UTF-8 sequence / partial token.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Mapping, Optional, Sequence
 
 
@@ -78,6 +81,30 @@ class TokenizerWrapper:
 
     def detokenizer(self) -> Detokenizer:
         return Detokenizer(self)
+
+
+def from_hf_dir(path: str | Path) -> TokenizerWrapper:
+    """The tokenizer of a HF model directory (``tokenizer.json``; BOS and EOS
+    ids from ``config.json``). Raises ``FileNotFoundError`` without
+    ``tokenizer.json``."""
+    path = Path(path)
+    bos_id = None
+    eos_ids: tuple[int, ...] = ()
+    cfg_path = path / "config.json"
+    if cfg_path.exists():
+        cfg = json.loads(cfg_path.read_text())
+        bos_id = cfg.get("bos_token_id")
+        eos = cfg.get("eos_token_id")
+        if isinstance(eos, int):
+            eos_ids = (eos,)
+        elif isinstance(eos, list):
+            eos_ids = tuple(eos)
+    tok_path = path / "tokenizer.json"
+    if not tok_path.exists():
+        raise FileNotFoundError(tok_path)
+    from tokenizers import Tokenizer
+
+    return TokenizerWrapper(Tokenizer.from_file(str(tok_path)), bos_id=bos_id, eos_ids=eos_ids)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ package's tests, which these do not need.)
 
 Tolerances: the matmul kernels round the dequantized weight exactly as the
 plain version does and differ only in f32 sum order (bf16 output: 1e-2 of
-the largest value); the attention kernels use exp2 with log2(e) folded into
+the largest value); the attention kernels (and the MLA decode kernel,
+which also rounds P to bf16 for its tensor-core product) use exp2 with log2(e) folded into
 the scale and another sum order (bf16 output: atol 2e-2). The grouped (MoE)
 kernels share the matmul kernels' arithmetic and tolerance, over every row
 including the zero rows of unused tiles.
@@ -21,6 +22,7 @@ from mistralrs_tpu_torch.models import ModelConfig, fuse_projections
 from mistralrs_tpu_torch.models.llama import forward_paged
 from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv
 from mistralrs_tpu_torch.ops._cuda import COUNTS, reset_counts
+from mistralrs_tpu_torch.ops.mla_attention import mla_decode
 from mistralrs_tpu_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     paged_prefill_attention_fused,
@@ -207,3 +209,56 @@ def test_forward_paged_kernels_match_plain(dev):
         assert torch.isfinite(a).all()
         span = (b.max() - b.min()).item()
         assert (a - b).abs().max().item() <= 5e-2 * span
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+def test_mla_decode_kernel_matches_plain(dev, bs):
+    """The MLA decode kernel at DeepSeek-V2-Lite's head shapes (16 heads,
+    rank 512, rows of 576) with a dropped write, a kv_len-0 row, a write into
+    the last block of a table and a 2-layer pool: output within 2e-2 (bf16,
+    P rounded to bf16 for the tensor cores), the written layer exact except
+    the trash row, the other layer untouched."""
+    b, nh, rank, d, w = 5, 16, 512, 576, 1024 // bs
+    g = torch.Generator(device=dev).manual_seed(4)
+    bt = torch.randperm(b * w, generator=g, device=dev).to(torch.int32).reshape(b, w)
+    pool = torch.randn((2, (b * w + 1) * bs, d), generator=g, device=dev).to(torch.bfloat16)
+    kv_lens = torch.tensor([1024, 0, 300, 1, 77], device=dev, dtype=torch.int32)
+    pos = (kv_lens - 1).clamp_min(0).long()
+    slots = (bt.gather(1, (pos // bs)[:, None])[:, 0] * bs + pos % bs).to(torch.int32)
+    slots[1] = -1
+    q = torch.randn((b, nh, d), generator=g, device=dev).to(torch.bfloat16)
+    rows = torch.randn((b, d), generator=g, device=dev).to(torch.bfloat16)
+    p1, p2 = pool.clone(), pool.clone()
+    reset_counts()
+    got = mla_decode(q, p1, rows, slots, bt, kv_lens, 0, rank=rank, block_size=bs, scale=0.07)
+    ref = mla_decode(q, p2, rows, slots, bt, kv_lens, 0, rank=rank, block_size=bs, scale=0.07,
+                     plain=True)
+    torch.cuda.synchronize()
+    assert COUNTS["mla_decode"] == 1 and COUNTS["mla_decode_plain"] == 1
+    assert torch.isfinite(got).all() and (got[1] == 0).all()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+    assert torch.equal(p1, p2) and torch.equal(p1[1], pool[1])
+    assert torch.equal(p1[0, -1], rows[1])  # the dropped write in the trash row
+
+
+@pytest.mark.parametrize("ntok", [6, 192])
+def test_dense_grouped_kernel_at_deepseek_shapes(dev, ntok):
+    """The dense grouped kernel on DeepSeek-V2-Lite's expert banks (64
+    experts, gate/up [64, 2816, 2048] and down [64, 2048, 1408]), top-6."""
+    e, h, mi = 64, 2048, 1408
+    g = torch.Generator(device=dev).manual_seed(5)
+    topi = torch.rand((ntok, e), generator=g, device=dev).argsort(dim=1)[:, :6]
+    topw = torch.rand((ntok, 6), generator=g, device=dev)
+    tm = 16 if ntok * 6 <= 256 else 64
+    st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
+    for n, k in ((2 * mi, h), (h, mi)):
+        bank = (torch.randn((e, n, k), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+        x = torch.randn((ntok, k), generator=g, device=dev).to(torch.bfloat16)
+        xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
+        xs[dest] = x[st]
+        got = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
+        ref = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used, plain=True)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and (got[int(n_used) * tm:] == 0).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item()

@@ -166,3 +166,28 @@ def test_tiny_mixtral_greedy_matches_jax():
     assert [s.generated_ids for s in ts] == [s.generated_ids for s in js]
     assert all(len(s.generated_ids) == 5 for s in ts)
     assert COUNTS["w4_matmul_g_plain"] > 0 and COUNTS["w8_matmul_g_plain"] > 0
+
+
+def test_prefill_chunk_over_1024_is_served():
+    """A 1475-token prompt in one 2048-token prefill chunk (past the largest
+    of the JAX package's buckets, 1024) is served, and its greedy tokens
+    equal those of 512-token chunks."""
+    kw = dict(CFG_KW, num_layers=1, max_position_embeddings=2048)
+    cfg = ModelConfig(**kw)
+    w = from_jax_params(
+        {k: (None if v is None else
+             {kk: np.asarray(vv)[:1] for kk, vv in v.items()} if isinstance(v, dict)
+             else np.asarray(v)) for k, v in JW.items()},
+        cfg, device="cpu", dtype=torch.float32,
+    )
+    prompt = [int(x) for x in np.random.default_rng(12).integers(0, 256, 1475)]
+    outs = []
+    for chunk in (2048, 512):
+        te = Engine(cfg, w, compute_dtype=torch.float32, device="cpu", num_blocks=100,
+                    block_size=16, max_batch=2, max_model_len=2048, prefill_chunk=chunk)
+        s = te.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=4))
+        te.run_to_completion()
+        assert s.stop_reason == StopReason.LENGTH, getattr(s, "error", None)
+        assert te.stats["prefill_steps"] == (1 if chunk == 2048 else 3)
+        outs.append(s.output_ids)
+    assert outs[0] == outs[1] and len(outs[0]) == 4

@@ -15,14 +15,17 @@ import torch
 
 import mistralrs_tpu_torch
 from mistralrs_tpu_torch import resolve_device
-from mistralrs_tpu_torch.convert import from_jax_params
+from mistralrs_tpu_torch.convert import from_jax_deepseek_params, from_jax_params
+from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter
 from mistralrs_tpu_torch.engine.engine import Engine
 from mistralrs_tpu_torch.gguf.constants import GGMLType
 from mistralrs_tpu_torch.gguf.planar import PlanarQuant
 from mistralrs_tpu_torch.kv.paged import PagedKVCache
 from mistralrs_tpu_torch.models import ModelConfig, init_random_weights
+from mistralrs_tpu_torch.models import deepseek
 from mistralrs_tpu_torch.models.gguf_loader import load_gguf_model
 from mistralrs_tpu_torch.ops import _cuda
+from mistralrs_tpu_torch.ops.mla_attention import _mla_cuda
 from mistralrs_tpu_torch.ops.paged_attention import _decode_cuda
 from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
 from mistralrs_tpu_torch.pipeline import load_pipeline
@@ -73,6 +76,35 @@ def _cpu_numpy_params():
             "final_norm": w["final_norm"].numpy(), "lm_head": w["lm_head"].numpy()}
 
 
+DS_CFG = deepseek.DeepseekConfig(
+    vocab_size=32, hidden_size=16, intermediate_size=32, moe_intermediate_size=16,
+    num_layers=2, num_heads=2, q_lora_rank=None, kv_lora_rank=16, qk_rope_head_dim=8,
+    qk_nope_head_dim=8, v_head_dim=8, n_routed_experts=2, num_experts_per_tok=1,
+    n_shared_experts=1, first_k_dense_replace=1)
+
+
+def _jax_deepseek_numpy():
+    """The JAX package's DeepSeek weight layout (stacked dense and moe
+    segments), as numpy, for ``from_jax_deepseek_params``."""
+    w = deepseek.init_random_weights(DS_CFG, device="cpu", dtype=torch.float32)
+
+    def stack(lws):
+        out = {}
+        for k, v in lws[0].items():
+            if isinstance(v, dict):
+                out[k] = {kk: torch.stack([lw[k][kk] for lw in lws]).numpy() for kk in v}
+            else:
+                out[k] = torch.stack([lw[k] for lw in lws]).numpy()
+        if "experts" in out:
+            gu = out["experts"].pop("gateup")
+            out["experts"]["gate"], out["experts"]["up"] = np.split(gu, 2, axis=2)
+        return out
+
+    return {"embed": w["embed"].numpy(), "final_norm": w["final_norm"].numpy(),
+            "lm_head": w["lm_head"].numpy(),
+            "segments": {"dense": stack(w["layers"][:1]), "moe": stack(w["layers"][1:])}}
+
+
 _PLANAR = PlanarQuant(np.zeros(64 * 32, np.int8), np.ones(64 * 32 // 32, np.float32), None,
                       32, 8, True)
 # every public constructor, called without ``device``; each refuses to place
@@ -85,6 +117,12 @@ CONSTRUCTORS = {
     "QTensor.from_gguf_raw": lambda tmp: QTensor.from_gguf_raw(
         np.zeros(64 * 34, np.uint8), GGMLType.Q8_0, (64, 32)),
     "load_gguf_model": lambda tmp: load_gguf_model(str(tmp / "missing.gguf")),
+    "deepseek.init_random_weights": lambda tmp: deepseek.init_random_weights(DS_CFG),
+    "deepseek.make_paged_cache": lambda tmp: deepseek.make_paged_cache(DS_CFG, 4, 16),
+    "DeepseekAdapter": lambda tmp: DeepseekAdapter(
+        DS_CFG, deepseek.init_random_weights(DS_CFG, device="cpu")),
+    "from_jax_deepseek_params": lambda tmp: from_jax_deepseek_params(
+        _jax_deepseek_numpy(), DS_CFG),
 }
 
 
@@ -102,6 +140,11 @@ def test_constructors_take_the_cpu_when_asked():
     cache = PagedKVCache.create(CFG, 4, 16, device="cpu")
     w = from_jax_params(_cpu_numpy_params(), CFG, device="cpu")
     assert qt.device.type == cache.k.device.type == w["embed"].device.type == "cpu"
+    dw = from_jax_deepseek_params(_jax_deepseek_numpy(), DS_CFG, device="cpu")
+    ad = DeepseekAdapter(DS_CFG, dw, device="cpu")
+    pool = ad.create_cache(4, 16, 2)
+    assert pool.device.type == dw["layers"][1]["experts"]["gateup"].device.type == "cpu"
+    assert tuple(pool.shape) == (2, 5 * 16, 24)
 
 
 def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):
@@ -119,6 +162,10 @@ def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):
     _cuda.reset_counts()
     with pytest.raises(RuntimeError, match="CUDA"):
         _decode_cuda(q, pool, pool, new, new, i1, i1[:, None], i1, 16, 0.1)
+    lat_pool = torch.zeros((32, 144), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _mla_cuda(torch.zeros((b, 4, 144), dtype=torch.bfloat16), lat_pool,
+                  torch.zeros((b, 144), dtype=torch.bfloat16), i1, i1[:, None], i1, 16, 128, 0.1)
     assert sum(_cuda.COUNTS.values()) == 0
     # a tensor on neither the CPU nor a card is refused, not computed
     qt = QTensor(torch.zeros((64, 16), dtype=torch.uint8), torch.ones((4, 16)),

@@ -193,4 +193,4 @@ def test_load_pipeline_gguf_on_cpu(tmp_path):
     text = pipe.chat_template.render([{"role": "user", "content": "hi"}])
     assert "<|start_header_id|>user<|end_header_id|>" in text
     with pytest.raises(NotImplementedError):
-        load_pipeline(str(tmp_path), device="cpu")  # HF directories: not ported
+        load_pipeline(str(tmp_path), device="cpu")  # HF directories but DeepSeek's: not ported
