@@ -2,9 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``mistralrs_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--port DIR]
 
 Drives the port's main path on the card and checks it, in phases that each
-print one progress line with the elapsed seconds:
+print one progress line with the elapsed seconds. ``--kernels-only`` stops
+after phase 2 and prints its rows as one JSON line; ``--port DIR`` imports
+``mistralrs_tpu_torch`` from the tree at DIR (a ``git archive`` of another
+commit, say), so that two versions of the kernels are timed by the same
+script in one call:
 
 0. watchdog and device: a hang ends in a traceback after 900 s; no CUDA
    device is an error; prints ``nvidia-smi``'s name and power limit;
@@ -15,7 +20,13 @@ print one progress line with the elapsed seconds:
    the card's memory and bf16 tensor-core rates, the plain version's time
    and a PyTorch library call on the same inputs as a yardstick; beside the
    CUDA-event time of a call (host enqueue included, as the card waits for
-   it), the device's own kernel time from a ``torch.profiler`` trace. The
+   it), the device's own kernel time from a ``torch.profiler`` trace, for
+   the kernel and for the library call alike. The dense matmul rows cycle
+   through copies of the weight whose bytes exceed twice the L2 cache, as
+   a decode step streams every weight once (the library's bf16 copies as
+   well); the W4 kernel is also checked (untimed) at edge shapes: M of 1,
+   16, 17, 64 and 130, N a multiple of 16 but not of 64, K of one step,
+   K splits that do not divide its steps evenly, no bias, f32 output. The
    grouped (MoE) kernels run on Mixtral-8x7B banks (8 experts, top-2) at
    n*k = 16 (decode, 8 tokens) and 1024 (a 512-token prefill) with routings
    drawn from the script's generator, plus one all-to-one routing and one
@@ -23,7 +34,9 @@ print one progress line with the elapsed seconds:
    the planes of the experts the routing touches plus the n*k real rows of x
    and out (the padding rows of the used tiles are left out), and 2 * n*k *
    N * K operations; their library call is one ``torch.matmul`` per non-empty
-   group on weights dequantized to bf16 ahead of time. The dense grouped
+   group on weights dequantized to bf16 ahead of time. The W4 grouped kernel
+   also runs the all-to-one and empty-expert routings at both row tiles (16
+   and 64 rows). The dense grouped
    kernel also runs on DeepSeek-V2-Lite's expert banks (64 experts, top-6:
    gate/up [64, 2816, 2048], down [64, 2048, 1408]) at n*k = 36 (decode, 6
    tokens) and 1152 (a 2 x 96-token prefill). The MLA decode kernel runs at
@@ -56,7 +69,9 @@ print one progress line with the elapsed seconds:
    run, then the server and engine threads are shut down and joined; then
    one decode step of 6 greedy requests on the same engine is timed on the
    host clock and traced with ``torch.profiler`` for the device's kernel
-   time, its idle share and the kernels that take most of it;
+   time, its idle share, the kernels that take most of it and the device
+   time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
+   16-row tile) and W8-body kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -71,16 +86,19 @@ print one progress line with the elapsed seconds:
 
 The ``kernels`` line gives each kernel's launches in the run of its path
 (phase 4 for the dense-model kernels, phase 5 for the W4/W8 grouped kernels,
-phase 6 for the MLA decode and dense grouped kernels) and its time at the
-main path's dominant shape.
+phase 6 for the MLA decode and dense grouped kernels) and its times at the
+main path's dominant shape (``library_device_ms``: the library call's own
+device time).
 
 Budget: the whole run at most 8 minutes on an H100 with the build, at most
 8 GB of host memory (all weights are drawn on the device, none on the host),
 at most 60 GB of device memory.
 
-Tolerances: the matmul kernels (plain and grouped) dequantize exactly as
-the plain version and differ in f32 sum order, so their bf16 outputs agree
-within 1e-2 of the largest |value|; the attention kernels agree within 2e-2
+Tolerances: the W8 and dense grouped kernels dequantize exactly as the
+plain version and differ in f32 sum order; the W4 decode body never rounds
+the weight to bf16 (scale and bias applied to f32 group sums) and the W4
+prefill body rounds scale and bias to bf16 before one bf16 fma, so all of
+them agree with the plain versions within 1e-2 of the largest |value|; the attention kernels agree within 2e-2
 absolute (bf16 outputs of magnitude ~1, exp2 vs exp and sum order); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
 through two full-width layers). The MLA decode kernel rounds P to bf16 for
@@ -92,6 +110,7 @@ from __future__ import annotations
 
 import faulthandler
 import gc
+import itertools
 import json
 import math
 import resource
@@ -103,6 +122,10 @@ import time
 import urllib.request
 
 faulthandler.dump_traceback_later(900, exit=True)
+
+KERNELS_ONLY = "--kernels-only" in sys.argv
+if "--port" in sys.argv:
+    sys.path.insert(0, sys.argv[sys.argv.index("--port") + 1])
 
 import torch  # noqa: E402
 
@@ -169,7 +192,7 @@ RATES = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
          "H100": (3.35e12, 989e12), "H200": (4.8e12, 989e12)}
 
 KERNEL_INFO = {
-    "w4_matmul": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+    "w4_matmul": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:350"),
     "w8_matmul": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:411"),
@@ -177,7 +200,7 @@ KERNEL_INFO = {
                      "mistralrs_tpu/ops/paged_attention.py:496"),
     "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                       "mistralrs_tpu/ops/paged_attention.py:1162"),
-    "w4_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+    "w4_matmul_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:830"),
     "w8_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:895"),
@@ -245,14 +268,15 @@ def device_ms(fn, iters: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof).values()
-    if not kernels or max(n for _, n in kernels) < iters:
-        return None
-    return sum(us for us, _ in kernels) / iters / 1e3
+    for _ in range(3):  # a trace now and then loses its records: try again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof).values()
+        if kernels and max(n for _, n in kernels) >= iters:
+            return sum(us for us, _ in kernels) / iters / 1e3
+    return None
 
 
 def fmt_ms(v) -> str:
@@ -377,29 +401,73 @@ def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_matmul(name, m, qt, rates, gen, dev):
+def cold_copies(t, nbytes: int) -> list:
+    """``t`` and enough copies of it (a QTensor's planes or a tensor) that
+    cycling through them touches more than twice the L2 cache between two
+    uses of one copy, as a decode step streams each weight once."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    extra = max(0, math.ceil(2 * l2 / nbytes) - 1)
+    if isinstance(t, QTensor):
+        return [t] + [QTensor(t.data.clone(), t.scale.clone(),
+                              None if t.bias is None else t.bias.clone(),
+                              group_size=t.group_size, packed=t.packed,
+                              code_bits=t.code_bits) for _ in range(extra)]
+    return [t] + [t.clone() for _ in range(extra)]
+
+
+def check_matmul(name, m, qt, rates, gen, dev, timed=True, out_dtype=None):
     n, k = qt.shape
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-    got = quant_matmul(x, qt)
-    ref = quant_matmul(x, qt, plain=True)
+    got = quant_matmul(x, qt, out_dtype=out_dtype)
+    ref = quant_matmul(x, qt, plain=True, out_dtype=out_dtype)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     tol = 1e-2 * ref.float().abs().max().item()
     if not (torch.isfinite(got).all() and err <= tol):
         raise AssertionError(f"{name} M={m} N={n} K={k}: max err {err} > {tol}")
+    shape = f"M={m} N={n} K={k}"
+    if not timed:
+        log(f"  {name} {shape} bias={qt.bias is not None} out={got.dtype}: err {err:.3e} "
+            f"(tol {tol:.3e})")
+        return dict(shape=shape, max_abs_err=err)
     w_bf16 = qt.dequantize(torch.float32).to(torch.bfloat16)
-    ms = time_ms(lambda: quant_matmul(x, qt))
-    dev_ms = device_ms(lambda: quant_matmul(x, qt))
+    copies = cold_copies(qt, qt.nbytes)
+    for c in copies:  # each copy's first call (plane checks) before timing
+        quant_matmul(x, c)
+    weights = itertools.cycle(copies).__next__
+    dense = itertools.cycle(cold_copies(w_bf16, w_bf16.numel() * 2)).__next__
+    ms = time_ms(lambda: quant_matmul(x, weights()))
+    dev_ms = device_ms(lambda: quant_matmul(x, weights()))
     plain_ms = time_ms(lambda: quant_matmul(x, qt, plain=True), iters=3, warmup=1)
-    lib_ms = time_ms(lambda: torch.matmul(x, w_bf16.T))
-    del w_bf16
+    lib_ms = time_ms(lambda: torch.matmul(x, dense().T))
+    lib_dev_ms = device_ms(lambda: torch.matmul(x, dense().T))
+    del w_bf16, copies, weights, dense
     b_ms, b_by = bound(m * k * 2 + qt.nbytes + m * n * 2, 2.0 * m * n * k, rates)
-    row = dict(shape=f"M={m} N={n} K={k}", max_abs_err=err, ms=ms, device_ms=dev_ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms)
     log(f"  {name} {row['shape']}: err {err:.3e} (tol {tol:.3e}) | kernel {ms:.4f} ms "
         f"(device {fmt_ms(dev_ms)}), "
-        f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms")
+        f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms "
+        f"(device {fmt_ms(lib_dev_ms)})")
     return row
+
+
+def check_w4_edges(rows, rates, gen, dev):
+    """The W4 kernel's two bodies at edge shapes (untimed): N a multiple of
+    16 but not of 64, K of one step, K splits that do not divide the steps
+    evenly (Mixtral's k-proj, N=1024), no bias, f32 output."""
+    for n, k, bias in ((336, 512, True), (320, 128, False), (1024, 4096, True),
+                       (4096, 14336, False)):
+        qt = q4k(n, k, gen, dev)
+        if not bias:
+            qt = QTensor(qt.data, qt.scale, None, group_size=32, packed=True, code_bits=4)
+        for m in (1, 16, 17, 64, 130):
+            for out_dtype in (None, torch.float32):
+                r = check_matmul("w4_matmul", m, qt, rates, gen, dev, timed=False,
+                                 out_dtype=out_dtype)
+                rows["w4_matmul"].append(r)
+        del qt
 
 
 def grouped_routing(ntok, e, routing, gen, dev, top=2):
@@ -459,6 +527,8 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, 
     dev_ms = device_ms(run)
     plain_ms = time_ms(lambda: run(plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: [torch.matmul(xs[a:b], wd[ex].T) for ex, (a, b) in spans.items()])
+    lib_dev_ms = device_ms(lambda: [torch.matmul(xs[a:b], wd[ex].T)
+                                    for ex, (a, b) in spans.items()])
     del wd
     # the function's own work: the touched experts' planes and the n*k real
     # (token, choice) rows, not the padding of the used tiles
@@ -466,10 +536,11 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, 
     pairs = top * ntok
     b_ms, b_by = bound(plane_bytes + pairs * k * 2 + pairs * n * 2, 2.0 * pairs * n * k, rates)
     row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, experts=len(spans))
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               experts=len(spans))
     log(f"  {name} {shape}, {len(spans)} experts: err {err:.3e} (tol {tol:.3e}) | kernel "
         f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-        f"torch.matmul per group {lib_ms:.4f} ms")
+        f"torch.matmul per group {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -490,7 +561,10 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
             r["shape"] = f"{what}: {r['shape']}"
             rows[name].append(r)
         for routing in ("all_to_one", "empty_expert"):
-            rows[name].append(check_grouped(name, w, 8, rates, gen, dev, routing, timed=False))
+            # both row tiles (16 and 64 rows) for the W4 bodies
+            for ntok in ((8, 512) if name == "w4_matmul_g" else (8,)):
+                rows[name].append(check_grouped(name, w, ntok, rates, gen, dev, routing,
+                                                timed=False))
         del w
         torch.cuda.empty_cache()
 
@@ -514,7 +588,7 @@ def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408):
 
 def sdpa_timed(q, k, v, mask):
     """Time ``scaled_dot_product_attention`` on the first backend that takes
-    these inputs → (ms, backend name)."""
+    these inputs → (ms, device ms, backend name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
@@ -527,7 +601,7 @@ def sdpa_timed(q, k, v, mask):
             torch.cuda.synchronize()
         except RuntimeError:
             continue
-        return time_ms(run), backend.name
+        return time_ms(run), device_ms(run), backend.name
     raise AssertionError("no SDPA backend takes these inputs")
 
 
@@ -568,17 +642,18 @@ def check_mla(rates, gen, dev, bs):
     ms = time_ms(lambda: mla_decode(q, p1, *args, **kw))
     dev_ms = device_ms(lambda: mla_decode(q, p1, *args, **kw))
     plain_ms = time_ms(lambda: mla_decode(q, p2, *args, **kw, plain=True), iters=3, warmup=1)
-    lib_ms, backend = sdpa_timed(q[:, :, None], kk, vv, mask)
+    lib_ms, lib_dev_ms, backend = sdpa_timed(q[:, :, None], kk, vv, mask)
     tokens = int(kv_lens.sum())
     # each visible row read once, q and the new rows read, the rows written, out written
     nbytes = tokens * d * 2 + b * nh * d * 2 + 2 * b * d * 2 + b * nh * rank * 2
     b_ms, b_by = bound(nbytes, 2.0 * tokens * nh * (d + rank), rates)
     row = dict(shape=f"B={b} nh={nh} D={d} rank={rank} bs={bs} kv_lens 0..2048",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, library=f"sdpa ({backend})")
+               bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               library=f"sdpa ({backend})")
     log(f"  mla_decode {row['shape']}: err {err:.3e} (tol 2e-2), pool exact | kernel "
         f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, sdpa "
-        f"[{backend}] {lib_ms:.4f} ms")
+        f"[{backend}] {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -634,15 +709,17 @@ def check_decode(rates, gen, dev):
                                                             plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=mask))
+    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask))
     tokens = int(kv_lens.sum())
     nbytes = 2 * tokens * n_kv * hd * 2 + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
     b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
     row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<=1024",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms)
+               bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
     log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms")
+        f"sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -682,6 +759,8 @@ def check_prefill(rates, gen, dev):
                                                              plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt_, kk, vv, attn_mask=mask))
+    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt_, kk, vv, attn_mask=mask))
     ctx = (kv_lens - n_valid).tolist()
     nv = n_valid.tolist()
     # bytes: past K/V read once, the chunk's K/V read and written, q in, out
@@ -692,10 +771,10 @@ def check_prefill(rates, gen, dev):
     b_ms, b_by = bound(nbytes, flops, rates)
     row = dict(shape=f"B={b} T={t} n_valid=(128,70) past=300 n_q={n_q} n_kv={n_kv} hd={hd}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms)
+               bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
     log(f"  paged_prefill {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms")
+        f"sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -947,9 +1026,15 @@ def profile_decode_step(engine, add_request) -> str:
         return f"decode step (6 rows) {wall:.2f} ms wall; device time not measured"
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
+    # the W4 decode body runs the dense projections of <= 8 rows with its
+    # 8-row tile and the grouped experts with its 16-row tile
+    families = {"W4": "w4_decode_kernel<1", "W4 grouped": "w4_decode_kernel<2",
+                "W8 body": "quant_matmul_kernel"}
+    fam = ", ".join(f"{f} {sum(v for k, v in by_kernel.items() if key in k) / 1e3:.3f} ms"
+                    for f, key in families.items())
     return (f"decode step (6 rows) {wall:.2f} ms wall, device kernels {busy:.3f} ms "
             f"({len(by_kernel)} kernel names), device idle {100 * (1 - busy / wall):.1f} %; "
-            f"top: {tops}")
+            f"{fam}; top: {tops}")
 
 
 def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
@@ -1118,11 +1203,17 @@ def main() -> int:
     del q6
     rows["paged_decode"].append(check_decode(rates, gen, dev))
     rows["paged_prefill"].append(check_prefill(rates, gen, dev))
+    check_w4_edges(rows, rates, gen, dev)
     check_grouped_kernels(rows, rates, gen, dev)
     check_deepseek_grouped(rows, rates, gen, dev)
     for bs in (16, 64):
         rows["mla_decode"].append(check_mla(rates, gen, dev, bs))
     torch.cuda.empty_cache()
+    if KERNELS_ONLY:
+        timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
+        log(f"kernels only: {len(timed)} timed rows [{name_line}]")
+        print(json.dumps({"kernel_rows": timed, "card": name_line}), flush=True)
+        return 0
     # phase 3
     log("phase 3: forward_paged at full width, 2 layers, kernels vs plain")
     check_model(dev)
@@ -1184,7 +1275,7 @@ def main() -> int:
             "ms": pick["ms"], "device_ms": pick["device_ms"], "plain_ms": pick["plain_ms"],
             "bound_ms": pick["bound_ms"],
             "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
-            "shape": pick["shape"],
+            "library_device_ms": pick["library_device_ms"], "shape": pick["shape"],
         })
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB → GiB
     log(f"done in {time.monotonic() - T0:.1f} s, peak host memory (RSS) {rss:.2f} GiB "

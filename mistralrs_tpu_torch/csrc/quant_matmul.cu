@@ -1,21 +1,20 @@
 // Fused dequant-matmul for planar quantized weights, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of mistralrs_tpu/ops/quant_matmul.py:
-//   _w4_matmul (:350) and _w4_matmul_l (:527): 4-bit unsigned split-half
-//       packed codes (Q4_K), scale and "min" bias per group of 32;
 //   _w8_matmul (:411) and _w8_matmul_l (:616): one byte per code, signed
 //       int8 without bias (Q8_0, Q6_K at group 16) or unsigned with bias.
-//   _w4_matmul_g (:830) and _w8_matmul_g (:895): the grouped (MoE) forms.
-//       Rows arrive sorted by expert and padded so that each M-tile belongs
-//       to one expert; the block reads that expert's id from tile_idx itself
-//       and offsets its code, scale and bias pointers by the bank stride;
+//   _w8_matmul_g (:895): the grouped (MoE) form. Rows arrive sorted by
+//       expert and padded so that each M-tile belongs to one expert; the
+//       block reads that expert's id from tile_idx itself and offsets its
+//       code, scale and bias pointers by the bank stride;
 // and the TPU kernel of mistralrs_tpu/ops/moe_grouped.py:
 //   _dense_matmul_g (:67; body _dense_g_kernel :32): the grouped form on a
 //       bf16 bank [E, N, K] (a dense leaf of a quantized expert bank), the
-//       fourth code format here, BF16.
+//       third code format here, BF16.
 // The GPU takes one layer's planes by pointer, so the stacked `_l` variants
 // and the plain ones are one kernel here, and the grouped forms are the same
-// body with a bank offset.
+// body with a bank offset. The 4-bit packed codes (Q4_K) have their own
+// kernel, csrc/w4_matmul.cu.
 //
 //   out[m, n] = sum_k x[m, k] * w[k, n],
 //   w[k, n]   = bf16(scale[k / gs, n] * q[k, n] + bias[k / gs, n])
@@ -26,20 +25,17 @@
 // the f32 sums. The "min" bias is folded into the dequantized tile, as the
 // JAX package's XLA path does.
 //
-// What bounds it on the H100: at decode (M <= 32) the code bytes, ~0.5 B per
-// weight for Q4_K plus 8 B of scale and bias per group of 32 (BF16: 2 B per
-// weight); at prefill
-// (M >= 256) the bf16 tensor-core rate. Design: one block of 4 warps per
-// 64 x 64 output tile walks K in steps of 128 rows. Each step stages the x
-// tile [64 x 128] and the dequantized weight tile [128 x 64] in shared
-// memory, so each code byte is read from device memory once per M-tile, and
-// runs bf16 wmma 16x16x16 fragments with f32 accumulators. For the packed
-// format one step reads a [64 x 64] byte tile and expands it to the low
-// (rows k0..k0+63) and high (rows K/2+k0..) halves. The BF16 format stages
-// the [64 x 128] K-contiguous weight tile as it is and reads it as a
-// column-major B operand. There is no double-buffering, no split-K and no
-// wgmma yet: the kernel is simple and right first; its times against the
-// bound are in PERF.md.
+// What bounds it on the H100: at decode (M <= 32) the code bytes, 1 B per
+// weight plus 4 or 8 B of scale and bias per group (BF16: 2 B per weight);
+// at prefill (M >= 256) the bf16 tensor-core rate. Design: one block of 4
+// warps per 64 x 64 output tile walks K in steps of 128 rows. Each step
+// stages the x tile [64 x 128] and the dequantized weight tile [128 x 64]
+// in shared memory, so each code byte is read from device memory once per
+// M-tile, and runs bf16 wmma 16x16x16 fragments with f32 accumulators. The
+// BF16 format stages the [64 x 128] K-contiguous weight tile as it is and
+// reads it as a column-major B operand. There is no double-buffering, no
+// split-K and no wgmma yet: the kernel is simple and right first; its times
+// against the bound are in PERF.md.
 //
 // Grouped form: at decode, 16 (token, choice) pairs spread over ~7 of 8
 // experts, so each expert's group is padded to one M-tile: the kernel is
@@ -61,7 +57,7 @@ using namespace nvcuda;
 namespace {
 
 constexpr int BN = 64;       // output columns per block
-constexpr int BK = 64;       // half-step: rows of one packed byte tile
+constexpr int BK = 64;       // half-step (rows of K)
 constexpr int KS = 2 * BK;   // logical K rows per step
 constexpr int THREADS = 128;
 constexpr int XS_LD = KS + 8;  // padded row strides (bf16 elements)
@@ -70,7 +66,7 @@ constexpr int WT_LD = KS + 8;  // BF16: K-contiguous weight tile [BN x KS]
 constexpr int CS_LD = BN + 4;  // f32
 constexpr int MAX_LG = KS / 16;  // local groups per step at gs = 16
 
-enum Fmt { PACKED4 = 0, U8 = 1, S8 = 2, BF16 = 3 };
+enum Fmt { U8 = 1, S8 = 2, BF16 = 3 };  // 0, the packed 4-bit format, is w4_matmul.cu's
 
 // Shared-memory layout and warp tiling for an M-tile of BM rows (64 or 16).
 // 64: 2 x 2 warps, each 32 x 32 (2 x 2 fragments); 16: 1 x 4 warps, each
@@ -90,26 +86,22 @@ struct Tiling {
   static_assert(BN * WT_LD * 2 <= WS_BYTES, "the BF16 weight tile must fit the W tile");
 };
 
-__device__ __forceinline__ float code_at(uint32_t word, int j, int fmt_hi) {
-  // byte j of a little-endian 32-bit word; fmt_hi: 0 low nibble, 1 high
-  // nibble (packed), 2 unsigned byte, 3 signed byte
-  uint32_t b = (word >> (8 * j)) & 0xFFu;
-  if (fmt_hi == 0) return (float)(b & 15u);
-  if (fmt_hi == 1) return (float)(b >> 4);
-  if (fmt_hi == 2) return (float)b;
-  return (float)(int8_t)b;
+__device__ __forceinline__ float code_at(uint32_t word, int j, bool is_signed) {
+  // byte j of a little-endian 32-bit word, unsigned or signed
+  const uint32_t b = (word >> (8 * j)) & 0xFFu;
+  return is_signed ? (float)(int8_t)b : (float)b;
 }
 
 // Dequantize 16 codes (one 16-byte chunk of a code row) into 16 bf16 values
 // of weight-tile row `row`, columns [c, c+16).
 template <bool HAS_BIAS>
-__device__ __forceinline__ void deq16(const uint4& chunk, int mode, const float* s_row,
+__device__ __forceinline__ void deq16(const uint4& chunk, bool is_signed, const float* s_row,
                                       const float* b_row, int c, __nv_bfloat16* w_row) {
   const uint32_t words[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
   __align__(16) __nv_bfloat16 vals[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    float q = code_at(words[i >> 2], i & 3, mode);
+    float q = code_at(words[i >> 2], i & 3, is_signed);
     float w = __fmul_rn(q, s_row[c + i]);
     if (HAS_BIAS) w = __fadd_rn(w, b_row[c + i]);
     vals[i] = __float2bfloat16_rn(w);
@@ -169,7 +161,6 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
     scale += e * sb_stride;
     if (HAS_BIAS) bias += e * sb_stride;
   }
-  const int kh = K / 2;
   const int nsteps = K / KS;
   const int lg_per_half = FMT == BF16 ? 0 : BK / gs;
   const int n_lg = 2 * lg_per_half;
@@ -183,9 +174,9 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
     for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int s = 0; s < nsteps; ++s) {
-    // logical K offset of each half of this step
-    const int base0 = (FMT == PACKED4) ? s * BK : s * KS;
-    const int base1 = (FMT == PACKED4) ? kh + s * BK : s * KS + BK;
+    // K offset of each half of this step
+    const int base0 = s * KS;
+    const int base1 = s * KS + BK;
 
     // 1. scales (and biases) of the step's groups (none for BF16)
     for (int i = tid; i < n_lg * BN; i += THREADS) {
@@ -217,16 +208,6 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
         if (n < N) v = *reinterpret_cast<const uint4*>(w + (size_t)n * K + base0 + cc);
         *reinterpret_cast<uint4*>(ws + r * WT_LD + cc) = v;
       }
-    } else if constexpr (FMT == PACKED4) {
-      for (int i = tid; i < BK * (BN / 16); i += THREADS) {
-        const int rr = i / (BN / 16), c = (i - rr * (BN / 16)) * 16;
-        const int n = n0 + c;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (n < N) v = *reinterpret_cast<const uint4*>(codes + (size_t)(s * BK + rr) * N + n);
-        const int lg_lo = rr / gs, lg_hi = (BK + rr) / gs;
-        deq16<HAS_BIAS>(v, 0, ss + lg_lo * BN, bs + lg_lo * BN, c, ws + rr * WS_LD);
-        deq16<HAS_BIAS>(v, 1, ss + lg_hi * BN, bs + lg_hi * BN, c, ws + (BK + rr) * WS_LD);
-      }
     } else {
       for (int i = tid; i < KS * (BN / 16); i += THREADS) {
         const int r = i / (BN / 16), c = (i - r * (BN / 16)) * 16;
@@ -234,7 +215,7 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
         uint4 v = make_uint4(0, 0, 0, 0);
         if (n < N) v = *reinterpret_cast<const uint4*>(codes + (size_t)(base0 + r) * N + n);
         const int lg = r / gs;
-        deq16<HAS_BIAS>(v, FMT == S8 ? 3 : 2, ss + lg * BN, bs + lg * BN, c, ws + r * WS_LD);
+        deq16<HAS_BIAS>(v, FMT == S8, ss + lg * BN, bs + lg * BN, c, ws + r * WS_LD);
       }
     }
     __syncthreads();
@@ -312,9 +293,7 @@ void launch_fmt(const Launch& a, cudaStream_t st) {
 
 template <int BM>
 bool launch(const Launch& a, int fmt, cudaStream_t st) {
-  if (fmt == PACKED4)
-    launch_fmt<PACKED4, BM>(a, st);
-  else if (fmt == U8)
+  if (fmt == U8)
     launch_fmt<U8, BM>(a, st);
   else if (fmt == S8)
     launch_fmt<S8, BM>(a, st);
@@ -327,9 +306,8 @@ bool launch(const Launch& a, int fmt, cudaStream_t st) {
 
 }  // namespace
 
-// fmt: 0 = 4-bit unsigned split-half packed [K/2, N]; 1 = uint8 [K, N];
-// 2 = int8 [K, N]. bias may be NULL. Requires K % 128 == 0, N % 16 == 0,
-// gs in {16, 32} (checked by the Python wrapper).
+// fmt: 1 = uint8 [K, N]; 2 = int8 [K, N]. bias may be NULL. Requires
+// K % 128 == 0, N % 16 == 0, gs in {16, 32} (checked by the Python wrapper).
 extern "C" int mrt_quant_matmul(const void* x, const void* codes, const void* scale,
                                 const void* bias, void* out, int M, int N, int K, int gs,
                                 int fmt, int out_bf16, void* stream) {
@@ -339,7 +317,7 @@ extern "C" int mrt_quant_matmul(const void* x, const void* codes, const void* sc
   return (int)cudaGetLastError();
 }
 
-// Grouped form over a bank of E experts: codes [E, K/2 or K, N], scale and
+// Grouped form over a bank of E experts: codes [E, K, N], scale and
 // bias [E, K/gs, N] (fmt 3: codes is a bf16 bank [E, N, K], scale and bias
 // NULL, gs unused); x [M, K] with M = (M / tm) row tiles, tile_idx [M / tm]
 // int32 expert per tile, n_used one int32 on the device. tm in {16, 64}.

@@ -1,0 +1,842 @@
+// W4 dequant-matmul for Hopper (sm_90a): split-half packed 4-bit Q4_K codes.
+//
+// Replaces the TPU kernels of mistralrs_tpu/ops/quant_matmul.py:
+//   _w4_matmul (:350), _w4_matmul_l (:527) and _w4_matmul_g (:830), body
+//   _w4_kernel (:182) with _deq_dot (:106).
+//
+//   out[m, n] = sum_k x[m, k] * (scale[k / 32, n] * q[k, n] + bias[k / 32, n])
+//
+// Codes are [K/2, N] uint8: byte row r holds k = r in its low nibble and
+// k = K/2 + r in its high nibble, so a step over byte rows [r0, r1)
+// contracts two column ranges of x: [r0, r1) and [K/2 + r0, K/2 + r1).
+// Scale and bias planes are f32 [K/32, N]; bias may be absent. The grouped
+// form multiplies row tile t by expert tile_idx[t] of a bank (planes
+// code_stride bytes and sb_stride floats apart); tiles at or past *n_used
+// write zeros and read no weights.
+//
+// Two bodies, chosen by the wrapper's w4_plan (ops/quant_matmul.py):
+//
+// DECODE (a row tile of at most 16 rows: dense M <= 16, grouped tm = 16).
+//   Bound: the weight bytes (0.75 B per weight: half a byte of code plus
+//   8 B of scale and bias per group of 32), so the design keeps loads in
+//   flight on every SM. A step is 64 byte rows.
+//   - Blocks of 4 warps own 64 output columns; the wrapper splits K so that
+//     the grid has >= 2 blocks per SM. Each split writes f32 partials to a
+//     workspace; the last block of a column tile to arrive (an int counter
+//     per tile, reset by that block) sums the splits in split order, so the
+//     result does not depend on which block came last: no float atomics.
+//   - A ring of 4 stages (codes 4 KB, scale and bias 2 KB, x rows) filled by
+//     16-byte cp.async.cg copies: three steps are in flight while one is
+//     dequantized and multiplied (~18 KB per block, 2-4 blocks per SM).
+//   - Only the real rows of x are staged. The MMA is mma.sync m16n8k16 with
+//     the weight as the 16-row A operand and x as the 8-row B operand
+//     ("swap A/B": out^T = W^T x^T), so N fills the MMA's M side and the
+//     <= 8 (or <= 16, two B tiles) rows of x its N side: no padded rows, and
+//     half the MMAs of x as the A operand at M <= 8. ldmatrix.trans turns a
+//     [16 byte rows x 16 columns] code tile into A fragments (rows of A =
+//     output columns in the order 0, 2, 4, .., 1, 3, 5, ..).
+//   - Dequantization leaves the inner loop, as the TPU kernel's f32dot_bias
+//     branch does: two nibbles become the exact bf16 pair 128 + q with one
+//     mask-and-or, the tensor cores sum x * (128 + q) per group of 32 in f32,
+//     and a second MMA against ones gives the group sums of x. Per group,
+//     acc += scale * sum(x (128 + q)) + (bias - 128 scale) * sum(x) in f32.
+//     The weight is never rounded to bf16, so the result is closer to the
+//     exact product than the plain version (which rounds w to bf16); the
+//     two agree within 1e-2 of the largest |out| (tests, chip_smoke.py).
+//
+// PREFILL (a row tile of 64 or 128 rows: dense M > 16, grouped tm = 64).
+//   Bound: the bf16 tensor-core rate; wgmma is the only way to it on Hopper.
+//   A step is 32 byte rows: x's columns [32 s, 32 s + 32) and
+//   [K/2 + 32 s, ...) side by side as one 64-column box.
+//   - Two producer warps and two consumer warpgroups; a block owns 128 rows
+//     (a warpgroup each, 64 x 256) or 64 rows (grouped, or M <= 64: each
+//     warpgroup takes 128 of the 256 columns, so eight warps still share the
+//     dequantization) and 256 columns, wide so that x, re-read from L2 for
+//     every column tile, costs less per product. Row tiles vary fastest in
+//     the grid, so blocks that share a weight tile run together.
+//   - The producers keep a ring of 5 (7 for 64-row tiles) stages of x, raw
+//     codes, scales and biases in flight with cp.async.cg, each stage
+//     signalled by cp.async.mbarrier.arrive on a "full" mbarrier; consumers
+//     free a stage on an "empty" mbarrier.
+//   - Consumers dequantize a stage's codes into a bf16 B tile [64 k x 256 n]
+//     in shared memory, N-major in the 128-byte swizzle (read through
+//     wgmma's transpose bit), while the wgmma of the previous stage runs (two
+//     B buffers). One mask-and-or turns two nibbles into the exact bf16 pair
+//     (128 + q0, 128 + q1); each half widens to f32 by a shift or a mask, and
+//     w = fma(s, 128 + q, b - 128 s) is s q + b within an f32 ulp, rounded to
+//     bf16 as the plain version rounds it. The stores are made visible to
+//     wgmma with fence.proxy.async.shared::cta and a named barrier.
+//   - x lands in the 128-byte swizzled K-major layout; each consumer
+//     warpgroup runs wgmma.mma_async m64n256k16 (m64n128k16 for 64-row
+//     tiles; bf16 in, f32 accumulators in registers) over its part. The
+//     output tile is staged in the drained ring and stored in 16-byte rows.
+//   - What still bounds it is the dequantization (PERF.md): it does not
+//     overlap the wgmma as planned, and takes about as long.
+//
+// Both bodies need K % 128 == 0 and N % 16 == 0 (checked by the wrapper and
+// here); columns past N and rows past M are zero-filled, never read.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// PTX helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills the 16 bytes when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, col-major), bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+// arrive on `bar` once every cp.async this thread issued so far has landed
+// (counts as one of the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the nibbles at bits 0-3 and 16-19 of v as the bf16 pair (128 + q0, 128 + q1)
+__device__ __forceinline__ uint32_t nib_pair(uint32_t v) {
+  return (v & 0x000F000Fu) | 0x43004300u;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store_pair(void* out, size_t idx, float a, float b, int out_bf16) {
+  if (out_bf16)
+    *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(out) + idx) = pack_bf16(a, b);
+  else
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + idx) = make_float2(a, b);
+}
+
+// Zero rows [m0, m0 + rows) x columns [n0, n0 + cols) of out (an unused
+// tile of a grouped call).
+__device__ void zero_tile(void* out, int m0, int rows, int n0, int cols, int N, int out_bf16) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int m = m0 + i / cols, n = n0 + i % cols;
+    if (n < N) {
+      if (out_bf16)
+        reinterpret_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(0.0f);
+      else
+        reinterpret_cast<float*>(out)[(size_t)m * N + n] = 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// DECODE body: mma.sync, split K, a 4-stage cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int D_BN = 64;        // output columns per block (4 warps x 16)
+constexpr int D_STAGES = 4;
+constexpr int D_THREADS = 128;
+constexpr int D_XLD = 272;      // bytes per staged x row: 64 lo + 64 hi bf16, 16 pad
+constexpr uint32_t BF16_ONES = 0x3F803F80u;
+
+template <int MT>  // MT row tiles of 8 rows
+struct DecodeSmem {
+  static constexpr int CODES = 0;                    // [64 byte rows][64 B], swizzled
+  static constexpr int SCALE = 64 * D_BN;            // [4 groups][64] f32: lo0 lo1 hi0 hi1
+  static constexpr int BIAS = SCALE + 4 * D_BN * 4;
+  static constexpr int X = BIAS + 4 * D_BN * 4;      // [8 MT rows][D_XLD B]
+  static constexpr int STAGE = X + 8 * MT * D_XLD;
+  static constexpr int TOTAL = D_STAGES * STAGE;
+};
+
+// tile_idx == nullptr: one matrix, M <= 8 MT rows, blockIdx.y = the split.
+// Otherwise blockIdx.y = a 16-row tile of a bank (MT = 2, one split).
+template <int MT, bool HAS_BIAS>
+__global__ void __launch_bounds__(D_THREADS)
+w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 void* __restrict__ out, int M, int N, int K, int out_bf16, int splits,
+                 const int* __restrict__ tile_idx, const int* __restrict__ n_used,
+                 long long code_stride, long long sb_stride, float* __restrict__ ws,
+                 int* __restrict__ counters) {
+  using L = DecodeSmem<MT>;
+  __shared__ __align__(128) uint8_t smem[L::TOTAL];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * D_BN;
+  int m0 = 0, rows = M, split = 0;
+  if (tile_idx != nullptr) {
+    m0 = blockIdx.y * 16;
+    rows = 16;
+    if ((int)blockIdx.y >= *n_used) {
+      zero_tile(out, m0, 16, n0, D_BN, N, out_bf16);
+      return;
+    }
+    const long long e = tile_idx[blockIdx.y];
+    codes += e * code_stride;
+    scale += e * sb_stride;
+    if (HAS_BIAS) bias += e * sb_stride;
+  } else {
+    split = blockIdx.y;
+  }
+  const int kh = K / 2;
+  const int gh = kh / 32;  // first group of the high half
+  const int nsteps = kh / 64;
+  const int s_begin = (int)((long long)split * nsteps / splits);
+  const int n = (int)((long long)(split + 1) * nsteps / splits) - s_begin;
+
+  // rows of x past the tile's real rows stay zero in every stage
+  for (int i = tid; i < D_STAGES * (8 * MT - rows) * (D_XLD / 16); i += D_THREADS) {
+    const int per = (8 * MT - rows) * (D_XLD / 16);
+    const int slot = i / per, rem = i % per;
+    const int r = rows + rem / (D_XLD / 16), c = rem % (D_XLD / 16);
+    *reinterpret_cast<uint4*>(smem + slot * L::STAGE + L::X + r * D_XLD + c * 16) =
+        make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const uint32_t smem_a = smem_u32(smem);
+  auto load = [&](int slot, int step) {
+    const uint32_t st = smem_a + slot * L::STAGE;
+    // codes: 64 byte rows x 4 chunks of 16 columns; chunk c of row r at
+    // c ^ ((r / 2) % 4), so ldmatrix's 8 rows hit 8 different bank groups
+#pragma unroll
+    for (int i = tid; i < 64 * 4; i += D_THREADS) {
+      const int r = i >> 2, c = i & 3;
+      const int col = n0 + c * 16;
+      const bool ok = col < N;
+      cp_async16(st + L::CODES + r * 64 + ((c ^ ((r >> 1) & 3)) << 4),
+                 codes + (ok ? (size_t)(step * 64 + r) * N + col : 0), ok);
+    }
+    // scale and bias of the step's 4 groups, 16 chunks of 4 columns each
+    {
+      const int which = tid >> 6, g = (tid >> 4) & 3, c = tid & 15;
+      const int grow = g < 2 ? 2 * step + g : gh + 2 * step + (g - 2);
+      const int col = n0 + c * 4;
+      const bool ok = col < N;
+      if (which == 0 || HAS_BIAS) {
+        const float* plane = which ? bias : scale;
+        cp_async16(st + (which ? L::BIAS : L::SCALE) + (g * D_BN + c * 4) * 4,
+                   plane + (ok ? (size_t)grow * N + col : 0), ok);
+      }
+    }
+    // x: the tile's real rows, 64 lo and 64 hi values each
+    for (int i = tid; i < rows * 16; i += D_THREADS) {
+      const int r = i >> 4, h = (i >> 3) & 1, c = i & 7;
+      cp_async16(st + L::X + r * D_XLD + h * 128 + c * 16,
+                 x + (size_t)(m0 + r) * K + h * kh + step * 64 + c * 8, true);
+    }
+  };
+
+  const int g = lane >> 2, q = lane & 3;
+  float acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[mt][j] = 0.0f;
+
+  auto compute = [&](int slot) {
+    const uint32_t st = smem_a + slot * L::STAGE;
+    const float* ss = reinterpret_cast<const float*>(smem + slot * L::STAGE + L::SCALE);
+    const float* bs = reinterpret_cast<const float*>(smem + slot * L::STAGE + L::BIAS);
+    // codes of the warp's 16 columns: [chunk of 16 rows][rows 0-7, rows 8-15];
+    // with .trans, lane (g, q) holds bytes (row 2q, col 2g), (2q, 2g+1),
+    // (2q+1, 2g), (2q+1, 2g+1) of each 8 x 16-byte matrix
+    uint32_t cw[4][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int r = 32 * p + lane;
+      ldsm_x4_trans(st + L::CODES + r * 64 + ((warp ^ ((r >> 1) & 3)) << 4), cw[2 * p][0],
+                    cw[2 * p][1], cw[2 * p + 1][0], cw[2 * p + 1][1]);
+    }
+    // x fragments: lane's matrix (rows 8 mt.., k 8 kk..) for ldmatrix
+    const int xq = (lane >> 3) & (MT == 2 ? 3 : 1);
+    const uint32_t xrow = st + L::X + (8 * (xq >> 1) + (lane & 7)) * D_XLD + (xq & 1) * 16;
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float tq[MT][4], t1[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tq[mt][j] = t1[mt][j] = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int ch = 2 * gi + cc;
+          // A: rows (output columns 2g, 2g+1) x k-slots, as bf16 128 + q:
+          // bytes 0 and 2 hold column 2g at rows 2q, 2q+1, bytes 1 and 3
+          // column 2g+1, so one mask-and-or (lop3) makes each bf16 pair
+          const uint32_t a0 = nib_pair(cw[ch][0] >> (4 * h));
+          const uint32_t a1 = nib_pair(cw[ch][0] >> (8 + 4 * h));
+          const uint32_t a2 = nib_pair(cw[ch][1] >> (4 * h));
+          const uint32_t a3 = nib_pair(cw[ch][1] >> (8 + 4 * h));
+          const uint32_t xa = xrow + h * 128 + ch * 32;
+          uint32_t b[2][2];
+          if (MT == 2)
+            ldsm_x4(xa, b[0][0], b[0][1], b[1][0], b[1][1]);
+          else
+            ldsm_x2(xa, b[0][0], b[0][1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(tq[mt], a0, a1, a2, a3, b[mt][0], b[mt][1]);
+            mma_bf16(t1[mt], BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[mt][0], b[mt][1]);
+          }
+        }
+        const int gidx = 2 * h + gi;
+        const float2 s2 = *reinterpret_cast<const float2*>(ss + gidx * D_BN + 16 * warp + 2 * g);
+        float2 b2 = make_float2(0.0f, 0.0f);
+        if (HAS_BIAS) b2 = *reinterpret_cast<const float2*>(bs + gidx * D_BN + 16 * warp + 2 * g);
+        const float ca = fmaf(-128.0f, s2.x, b2.x), cb = fmaf(-128.0f, s2.y, b2.y);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[mt][0] = fmaf(s2.x, tq[mt][0], fmaf(ca, t1[mt][0], acc[mt][0]));
+          acc[mt][1] = fmaf(s2.x, tq[mt][1], fmaf(ca, t1[mt][1], acc[mt][1]));
+          acc[mt][2] = fmaf(s2.y, tq[mt][2], fmaf(cb, t1[mt][2], acc[mt][2]));
+          acc[mt][3] = fmaf(s2.y, tq[mt][3], fmaf(cb, t1[mt][3], acc[mt][3]));
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < D_STAGES - 1; ++i) {
+    if (i < n) load(i, s_begin + i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<D_STAGES - 2>();
+    __syncthreads();
+    const int j = it + D_STAGES - 1;
+    if (j < n) load(j % D_STAGES, s_begin + j);
+    cp_async_commit();
+    compute(it % D_STAGES);
+  }
+  cp_async_wait<0>();
+
+  // lane (g, q) holds (column na, rows 8 mt + 2q, +1) in acc[mt][0..1] and
+  // (column na + 1, the same rows) in acc[mt][2..3]
+  const int na = n0 + 16 * warp + 2 * g;
+  if (splits == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = 8 * mt + 2 * q + j;
+        if (m < rows && na < N)
+          store_pair(out, (size_t)(m0 + m) * N + na, acc[mt][j], acc[mt][2 + j], out_bf16);
+      }
+    return;
+  }
+  float* part = ws + (size_t)split * M * N;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = 8 * mt + 2 * q + j;
+      if (m < rows && na < N)
+        *reinterpret_cast<float2*>(part + (size_t)m * N + na) =
+            make_float2(acc[mt][j], acc[mt][2 + j]);
+    }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int m = 8 * mt + 2 * q + j;
+      if (m < rows && na < N) {
+        float2 sum = make_float2(0.0f, 0.0f);
+        for (int sp = 0; sp < splits; ++sp) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(ws + ((size_t)sp * M + m) * N + na));
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        store_pair(out, (size_t)m * N + na, sum.x, sum.y, out_bf16);
+      }
+    }
+  if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next call
+}
+
+// ---------------------------------------------------------------------------
+// PREFILL body: producer warpgroup, mbarrier ring, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int P_BN = 256;       // output columns per block
+constexpr int P_PRODUCERS = 64;  // two producer warps
+
+// Two consumer warpgroups: for a 128-row tile each takes 64 rows and all
+// 256 columns; for a 64-row tile each takes the 64 rows and 128 columns.
+template <int BM_>
+struct PrefillSmem {
+  static constexpr int BM = BM_;
+  static constexpr int WN = BM == 128 ? 256 : 128;  // columns per warpgroup
+  static constexpr int STAGES = BM == 128 ? 5 : 7;
+  // a step is 32 byte rows: logical k = [lo 32 | hi 32], one group each
+  static constexpr int X = 0;                        // [BM][64 k = 128 B], SW128
+  static constexpr int CODES = BM * 128;             // [32 byte rows][256 B]
+  static constexpr int SCALE = CODES + 32 * P_BN;    // [2 groups: lo, hi][256] f32
+  static constexpr int BIAS = SCALE + 2 * P_BN * 4;
+  static constexpr int STAGE = BIAS + 2 * P_BN * 4;  // a multiple of 1024
+  static constexpr int BT = P_BN * 128;              // B tile [64 k][256 n], N-major SW128
+  static constexpr int BTILES = STAGES * STAGE;
+  static constexpr int BARS = BTILES + 2 * BT;
+  static constexpr int TOTAL = BARS + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(BM * (P_BN * 4 + 16) <= BTILES, "the f32 output tile must fit the drained ring");
+  static constexpr int THREADS = 256 + P_PRODUCERS;
+  static_assert(STAGE % 1024 == 0, "stages must keep the 1024-byte swizzle alignment");
+};
+
+// wgmma shared-memory descriptor in the 128-byte swizzle. K-major (x):
+// rows of 64 bf16 (128 B), 8-row groups sbo = 1024 B apart, lbo unused.
+// N-major (the B tile): 1024-byte atoms of 8 k rows x 64 n, the atoms of
+// the next 8 k sbo = 1024 B on, those of the next 64 n lbo = 8192 B on.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+constexpr uint32_t B_LBO = 8192, B_SBO = 1024;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 256] += A[64 x 16] * B[16 x 256]; A K-major, B N-major (transposed)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] * B[16 x 128]; A K-major, B N-major (transposed)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int WN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da, uint64_t db) {
+  if constexpr (WN == 256)
+    wgmma_m64n256k16(d, da, db);
+  else
+    wgmma_m64n128k16(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int BM, bool HAS_BIAS>
+__global__ void __launch_bounds__(256 + P_PRODUCERS, 1)
+w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scale, const float* __restrict__ bias,
+                  void* __restrict__ out, int M, int N, int K, int out_bf16,
+                  const int* __restrict__ tile_idx, const int* __restrict__ n_used,
+                  long long code_stride, long long sb_stride) {
+  using L = PrefillSmem<BM>;
+  constexpr int WN = L::WN;
+  extern __shared__ uint8_t dsmem[];
+  const uint32_t raw = smem_u32(dsmem);
+  uint8_t* smem = dsmem + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t smem_a = smem_u32(smem);
+  const int tid = threadIdx.x;
+  // row tiles vary fastest, so the blocks that share a weight tile run
+  // together and find it in L2
+  const int n0 = blockIdx.y * P_BN, m0 = blockIdx.x * L::BM;
+  if (tile_idx != nullptr) {
+    if ((int)blockIdx.x >= *n_used) {
+      zero_tile(out, m0, L::BM, n0, P_BN, N, out_bf16);
+      return;
+    }
+    const long long e = tile_idx[blockIdx.x];
+    codes += e * code_stride;
+    scale += e * sb_stride;
+    if (HAS_BIAS) bias += e * sb_stride;
+  }
+  const int kh = K / 2, gh = kh / 32, nsteps = kh / 32;
+  const uint32_t full = smem_a + L::BARS, empty = full + 8 * L::STAGES;
+  if (tid == 0) {
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(full + 8 * i, P_PRODUCERS);  // one cp.async arrival per producer thread
+      mbar_init(empty + 8 * i, 8);           // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer warps
+    const int p = tid - 256;
+    for (int s = 0; s < nsteps; ++s) {
+      const int slot = s % L::STAGES;
+      mbar_wait(empty + 8 * slot, ((s / L::STAGES) & 1) ^ 1);
+      const uint32_t st = smem_a + slot * L::STAGE;
+      // x: rows m0.., chunks 0-3 from the low half, 4-7 from the high half;
+      // chunk c of row r at c ^ (r % 8) (the 128-byte swizzle wgmma reads)
+      for (int i = p; i < 8 * L::BM; i += P_PRODUCERS) {
+        const int r = i >> 3, c = i & 7;
+        const bool ok = m0 + r < M;
+        const int k = (c < 4 ? 0 : kh - 32) + s * 32 + c * 8;
+        cp_async16(st + L::X + r * 128 + ((c ^ (r & 7)) << 4),
+                   x + (ok ? (size_t)(m0 + r) * K + k : 0), ok);
+      }
+      // codes: 32 byte rows x 16 chunks of 16 columns
+      for (int i = p; i < 32 * 16; i += P_PRODUCERS) {
+        const int r = i >> 4, j = i & 15;
+        const int col = n0 + 16 * j;
+        const bool ok = col < N;
+        cp_async16(st + L::CODES + r * 256 + (j << 4),
+                   codes + (ok ? (size_t)(s * 32 + r) * N + col : 0), ok);
+      }
+      for (int i = p; i < 2 * 64; i += P_PRODUCERS) {
+        const int g = i >> 6, c = i & 63;
+        const int grow = g ? gh + s : s;
+        const int col = n0 + 4 * c;
+        const bool ok = col < N;
+        cp_async16(st + L::SCALE + (g * P_BN + 4 * c) * 4,
+                   scale + (ok ? (size_t)grow * N + col : 0), ok);
+        if (HAS_BIAS)
+          cp_async16(st + L::BIAS + (g * P_BN + 4 * c) * 4,
+                     bias + (ok ? (size_t)grow * N + col : 0), ok);
+      }
+      cp_async_mbar_arrive(full + 8 * slot);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumer warpgroups: wg's rows start at xr, its B columns at wc
+  const int cwarp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+  const int xr = BM == 128 ? 64 * wg : 0, wc = BM == 128 ? 0 : WN * wg;
+  float acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.0f;
+
+  // Dequantize stage `slot` into B tile `buf`. Lane l owns columns
+  // 8 l..8 l+7 and warp w byte rows w, w + 8, ...; a 32-bit code word
+  // holds columns n0..n0+3 of a byte row, and one mask-and-or turns the
+  // nibbles of columns (n0, n0+2) or (n0+1, n0+3) into the bf16 pair
+  // (128 + q0, 128 + q2), so the B tile keeps each 8 columns in the order
+  // 0 2 1 3 4 6 5 7 (undone in the epilogue). Each half widens to an exact
+  // f32 128 + q, and w = fma(s, 128 + q, b - 128 s) is s q + b within an f32
+  // ulp before the same rounding to bf16 as the plain version's.
+  const int n8 = 8 * lane;
+  auto dequant = [&](int slot, int buf) {
+    const uint8_t* st = smem + slot * L::STAGE;
+    const float* ss = reinterpret_cast<const float*>(st + L::SCALE);
+    const float* bs = reinterpret_cast<const float*>(st + L::BIAS);
+    const uint32_t bt = smem_a + L::BTILES + buf * L::BT;
+    // N-major SW128 address of (k, this lane's 8 columns)
+    const uint32_t col_off = (n8 >> 6) * B_LBO;
+    const int chunk = (n8 >> 3) & 7;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sc[8], bc[8];  // in the B column order 0 2 1 3 4 6 5 7
+      {
+        const float4 sa = *reinterpret_cast<const float4*>(ss + h * P_BN + n8);
+        const float4 sb = *reinterpret_cast<const float4*>(ss + h * P_BN + n8 + 4);
+        float4 ba = make_float4(0.0f, 0.0f, 0.0f, 0.0f), bb = ba;
+        if (HAS_BIAS) {
+          ba = *reinterpret_cast<const float4*>(bs + h * P_BN + n8);
+          bb = *reinterpret_cast<const float4*>(bs + h * P_BN + n8 + 4);
+        }
+        const float sv[8] = {sa.x, sa.z, sa.y, sa.w, sb.x, sb.z, sb.y, sb.w};
+        const float bv[8] = {ba.x, ba.z, ba.y, ba.w, bb.x, bb.z, bb.y, bb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          sc[i] = sv[i];
+          bc[i] = fmaf(-128.0f, sv[i], bv[i]);
+        }
+      }
+#pragma unroll 2
+      for (int r = cwarp; r < 32; r += 8) {
+        const uint2 cw = *reinterpret_cast<const uint2*>(st + L::CODES + r * 256 + n8);
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t word = i < 2 ? cw.x : cw.y;
+          const uint32_t pr = nib_pair(word >> ((i & 1) * 8 + 4 * h));
+          const float lo = fmaf(sc[2 * i], __uint_as_float(pr << 16), bc[2 * i]);
+          const float hi = fmaf(sc[2 * i + 1], __uint_as_float(pr & 0xFFFF0000u), bc[2 * i + 1]);
+          v[i] = pack_bf16(lo, hi);
+        }
+        const int k = 32 * h + r;
+        const uint32_t addr = bt + col_off + (k >> 3) * B_SBO + (k & 7) * 128 + ((chunk ^ (k & 7)) << 4);
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v[0]),
+                     "r"(v[1]), "r"(v[2]), "r"(v[3])
+                     : "memory");
+      }
+    }
+  };
+  auto consumer_sync = [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+
+  mbar_wait(full, 0);
+  fence_proxy_async();
+  dequant(0, 0);
+  fence_proxy_async();
+  consumer_sync();
+  for (int s = 0; s < nsteps; ++s) {
+    const int slot = s % L::STAGES, buf = s & 1;
+    const uint32_t xa = smem_a + slot * L::STAGE + L::X + xr * 128;
+    const uint32_t ba = smem_a + L::BTILES + buf * L::BT + (wc / 64) * B_LBO;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tile<WN>(acc, sw128_desc(xa + kk * 32, 16, 1024),
+                     sw128_desc(ba + kk * 2 * B_SBO, B_LBO, B_SBO));
+    wgmma_commit();
+    if (s + 1 < nsteps) {
+      const int ns = (s + 1) % L::STAGES;
+      mbar_wait(full + 8 * ns, ((s + 1) / L::STAGES) & 1);
+      fence_proxy_async();
+      dequant(ns, buf ^ 1);
+      fence_proxy_async();
+    }
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+    consumer_sync();
+  }
+
+  // Epilogue: the ring is drained (every stage was waited for), so the tile
+  // is staged there row-major, columns back in order, and written out in
+  // 16-byte chunks. Lane (g, q) of warp wi holds rows xr + 16 wi + g (+8)
+  // and B columns wc + 8 j + 2 q (+1), which are columns wc + 8 j + c and
+  // wc + 8 j + c + 2 of out with c = (q & 1) + 4 (q >> 1) (the dequantizer's
+  // column order).
+  const int wi = cwarp & 3, g = lane >> 2, q = lane & 3;
+  const int cq = (q & 1) + 4 * (q >> 1);
+  const int esz = out_bf16 ? 2 : 4;
+  const int pitch = P_BN * esz + 16;
+#pragma unroll
+  for (int jn = 0; jn < WN / 8; ++jn)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = xr + 16 * wi + g + 8 * hr, col = wc + 8 * jn + cq;
+      uint8_t* at = smem + row * pitch + col * esz;
+      const float a = acc[4 * jn + 2 * hr], b = acc[4 * jn + 2 * hr + 1];
+      if (out_bf16) {
+        reinterpret_cast<__nv_bfloat16*>(at)[0] = __float2bfloat16_rn(a);
+        reinterpret_cast<__nv_bfloat16*>(at)[2] = __float2bfloat16_rn(b);
+      } else {
+        reinterpret_cast<float*>(at)[0] = a;
+        reinterpret_cast<float*>(at)[2] = b;
+      }
+    }
+  consumer_sync();
+  const int chunks = P_BN * esz / 16;  // per row
+  for (int i = tid; i < BM * chunks; i += 256) {
+    const int row = i / chunks, c = i % chunks;
+    const int m = m0 + row, col = n0 + c * 16 / esz;
+    if (m < M && col < N)
+      *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(out) + ((size_t)m * N + col) * esz) =
+          *reinterpret_cast<const uint4*>(smem + row * pitch + c * 16);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const __nv_bfloat16* x;
+  const uint8_t* codes;
+  const float* scale;
+  const float* bias;
+  void* out;
+  int M, N, K, out_bf16, splits;
+  const int* tile_idx;
+  const int* n_used;
+  long long code_stride, sb_stride;
+  float* ws;
+  int* counters;
+};
+
+template <int MT, bool HB>
+void launch_decode(const Args& a, cudaStream_t st) {
+  const dim3 grid((a.N + D_BN - 1) / D_BN, a.tile_idx ? a.M / 16 : a.splits);
+  w4_decode_kernel<MT, HB><<<grid, D_THREADS, 0, st>>>(
+      a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K, a.out_bf16, a.splits, a.tile_idx,
+      a.n_used, a.code_stride, a.sb_stride, a.ws, a.counters);
+}
+
+template <int BM, bool HB>
+void launch_prefill(const Args& a, cudaStream_t st) {
+  using L = PrefillSmem<BM>;
+  auto kernel = w4_prefill_kernel<BM, HB>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
+  const dim3 grid((a.M + L::BM - 1) / L::BM, (a.N + P_BN - 1) / P_BN);
+  kernel<<<grid, L::THREADS, L::TOTAL, st>>>(a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K,
+                                             a.out_bf16, a.tile_idx, a.n_used, a.code_stride,
+                                             a.sb_stride);
+}
+
+template <bool HB>
+bool launch(const Args& a, int body, int tile, cudaStream_t st) {
+  if (body == 0 && tile == 8) launch_decode<1, HB>(a, st);
+  else if (body == 0 && tile == 16) launch_decode<2, HB>(a, st);
+  else if (body == 1 && tile == 64) launch_prefill<64, HB>(a, st);
+  else if (body == 1 && tile == 128) launch_prefill<128, HB>(a, st);
+  else return false;
+  return true;
+}
+
+}  // namespace
+
+// W4 matmul: x [M, K] bf16, codes [(E,) K/2, N] uint8, scale and bias
+// [(E,) K/32, N] f32 (bias may be NULL), out [M, N] (bf16 or f32).
+// body 0 (decode): tile 8 or 16 rows; dense: M <= tile, grid.y = splits of
+//   K, workspace f32 [splits, M, N] and counters int32 [ceil(N / 64)] (all
+//   zero, left zero) when splits > 1; grouped: tile 16, one split.
+// body 1 (prefill): tile 64 or 128 rows (grouped: 64), one split.
+// Grouped when tile_idx is given: M / tile row tiles, tile_idx [M / tile]
+// int32 experts, n_used one int32 on the device.
+extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale,
+                             const void* bias, void* out, const void* tile_idx,
+                             const void* n_used, int M, int N, int K, int out_bf16, int body,
+                             int tile, int splits, long long code_stride, long long sb_stride,
+                             void* workspace, void* counters, void* stream) {
+  const bool grouped = tile_idx != nullptr;
+  const int nsteps = K / 128;
+  const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
+                  splits <= nsteps &&
+                  (grouped ? (n_used != nullptr && M % tile == 0 && splits == 1 &&
+                              (body == 0 ? tile == 16 : tile == 64))
+                           : (body == 1 || M <= tile)) &&
+                  (splits == 1 || (workspace != nullptr && counters != nullptr && body == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+               static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, N, K,
+               out_bf16, splits, static_cast<const int*>(tile_idx),
+               static_cast<const int*>(n_used), code_stride, sb_stride,
+               static_cast<float*>(workspace), static_cast<int*>(counters)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool launched = bias ? launch<true>(a, body, tile, st) : launch<false>(a, body, tile, st);
+  if (!launched) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-on first use (never at import), goes to ``_build/`` inside the package (the
-directory is git-ignored), and is keyed by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one is reused.
+The sources under ``csrc/`` are compiled by one ``nvcc`` process each, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens on first use (never at
+import), goes to ``_build/`` inside the package (the directory is
+git-ignored), and is keyed by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code (:func:`check`).
@@ -31,10 +32,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("quant_matmul.cu", "paged_attention.cu", "mla_attention.cu")
+SOURCES = ("w4_matmul.cu", "quant_matmul.cu", "paged_attention.cu", "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "mrt_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mrt_quant_matmul_grouped": [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
+    "mrt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L,
+                      _P, _P, _P],
     "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -102,16 +105,8 @@ def library() -> ctypes.CDLL:
             import time
 
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(CSRC / s) for s in SOURCES]]
             t0 = time.monotonic()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, out)
+            _build(out)
             build_seconds = time.monotonic() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
@@ -122,12 +117,44 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def _build(out: Path) -> None:
+    """Compile every source to an object (one ``nvcc`` each, in parallel),
+    then link the objects into ``out``."""
+    tag = f"tmp{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [f"{s} ({p.returncode}):\n{log}"
+                  for s, p, log in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_suffix(f".{tag}")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
 def stream_ptr(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s device (the cheap
+    getter PyTorch's own kernel launchers use, where this build has it)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -8,7 +8,7 @@ the expert of tile ``t``. Quantized leaves go to
 :func:`~mistralrs_tpu_torch.ops.quant_matmul.quant_matmul_grouped` (the W4
 and W8 grouped kernels), a dense bf16 leaf to :func:`dense_matmul_grouped`
 (the **dense grouped kernel**, replacing ``_dense_matmul_g``: the grouped
-body of ``csrc/quant_matmul.cu`` with a bf16 bank as its fourth code
+W8 body of ``csrc/quant_matmul.cu`` with a bf16 bank as its BF16 code
 format).
 
 ``tm`` is the port's own M-tile, which the kernels must match: 16 rows when

@@ -1,30 +1,43 @@
 """Fused dequant + matmul (counterpart of ``mistralrs_tpu/ops/quant_matmul.py``).
 
 ``quant_matmul(x, qt)`` computes ``x @ w.T`` for a planar-quantized weight
-``w = [N, K]``. On a CUDA tensor it launches the hand-written kernel of
-``csrc/quant_matmul.cu``: the **W4 kernel** for split-half packed 4-bit codes
-(Q4_K; replaces ``_w4_matmul``/``_w4_matmul_l``) and the **W8 kernel** for one
-byte per code (Q8_0, Q6_K; replaces ``_w8_matmul``/``_w8_matmul_l``). On a CPU
-tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
-same function, which the tests hold against the JAX package and the card's
-smoke run holds the kernels against.
+``w = [N, K]``. On a CUDA tensor it launches a hand-written kernel: the **W4
+kernel** of ``csrc/w4_matmul.cu`` for split-half packed 4-bit codes (Q4_K;
+replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel** of
+``csrc/quant_matmul.cu`` for one byte per code (Q8_0, Q6_K; replaces
+``_w8_matmul``/``_w8_matmul_l``). On a CPU tensor it runs
+:func:`quant_matmul_plain`, the plain PyTorch version of the same function,
+which the tests hold against the JAX package and the card's smoke run holds
+the kernels against.
 
 ``quant_matmul_grouped(x, bank, tile_idx, ...)`` is the grouped (MoE) form
 over a bank ``[E, N, K]``: row-tile ``t`` of ``x`` multiplies expert
 ``tile_idx[t]``. On a CUDA tensor it launches the **W4 grouped kernel**
-(replaces ``_w4_matmul_g``) or the **W8 grouped kernel** (replaces
-``_w8_matmul_g``), the same CUDA body with a bank offset; on a CPU tensor it
-runs :func:`quant_matmul_grouped_plain`. The same body takes a bf16 bank as a
-fourth code format (``ops.moe_grouped.dense_matmul_grouped``).
+(replaces ``_w4_matmul_g``; the W4 bodies with a bank offset) or the **W8
+grouped kernel** (replaces ``_w8_matmul_g``); on a CPU tensor it runs
+:func:`quant_matmul_grouped_plain`. The W8 body also takes a bf16 bank
+(``ops.moe_grouped.dense_matmul_grouped``).
 
-All compute ``w = compute_dtype(scale * q + bias)`` (f32 multiply and add,
-then one rounding) and accumulate ``x · w`` in f32. The k-quant "min" bias is
-folded into the dequantized weight, as the JAX package's XLA path does.
+The W4 kernel has two bodies, chosen by :func:`w4_plan`: a decode body for
+row tiles of at most 16 rows (``mma.sync`` with the weight as the 16-row
+operand, K split across blocks) and a prefill body for tiles of 64 or 128
+rows (``wgmma`` fed by producer warps through a ring of stages);
+``csrc/w4_matmul.cu`` says how each is built.
+
+The plain versions compute ``w = compute_dtype(scale * q + bias)`` (f32
+multiply and add, then one rounding) and accumulate ``x · w`` in f32, the
+k-quant "min" bias folded into the weight as the JAX package's XLA path does.
+The W8 kernels and the W4 prefill body dequantize the same way (the W4
+prefill body within an f32 ulp before the rounding); the W4 decode body
+takes scale and bias out of the inner loop as group sums of ``x`` (the TPU
+kernel's ``f32dot_bias`` arithmetic) and never rounds the weight. All agree
+with the plain versions within 1e-2 of the largest |output|.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,24 +62,42 @@ def quant_matmul_plain(
     return out.to(out_dtype or x2.dtype)
 
 
-def _plane_format(qt: QTensor, n: int, k: int) -> int:
+def _check_planes(qt: QTensor) -> int:
     """Validate ``qt``'s planes for the CUDA kernels (one matrix or a bank)
     and return the kernel's code format."""
+    n, k = qt.out_features, qt.in_features
     lead = tuple(qt.data.shape[:-2])
-    require(qt.group_size in (16, 32), f"group size {qt.group_size} not in (16, 32)")
+    if qt.packed:
+        require(qt.group_size == 32, f"the W4 kernel takes group size 32, not {qt.group_size}")
+    else:
+        require(qt.group_size in (16, 32), f"group size {qt.group_size} not in (16, 32)")
     require(k % 128 == 0 and n % 16 == 0,
             f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
     require(qt.scale.dtype == torch.float32 and qt.scale.is_contiguous()
             and tuple(qt.scale.shape) == (*lead, k // qt.group_size, n), "bad scale plane")
+    planes = [qt.data, qt.scale]
     if qt.bias is not None:
         require(qt.bias.dtype == torch.float32 and qt.bias.is_contiguous()
                 and qt.bias.shape == qt.scale.shape, "bad bias plane")
+        planes.append(qt.bias)
     require(qt.data.is_contiguous(), "code plane must be contiguous")
+    require(all(p.device == qt.data.device and p.data_ptr() % 16 == 0 for p in planes),
+            "planes must share a device and start at 16-byte aligned addresses")
     if qt.packed:
         require(qt.data.dtype == torch.uint8, "packed codes must be uint8")
         return _FMT_PACKED4
     require(qt.data.dtype in (torch.uint8, torch.int8), "codes must be (u)int8")
     return _FMT_S8 if qt.data.dtype == torch.int8 else _FMT_U8
+
+
+def _plane_format(qt: QTensor) -> int:
+    """The kernels' code format of ``qt``, its planes validated on its first
+    call only: a QTensor is frozen, so they cannot change after."""
+    fmt = qt.__dict__.get("_kernel_format")
+    if fmt is None:
+        fmt = _check_planes(qt)
+        object.__setattr__(qt, "_kernel_format", fmt)
+    return fmt
 
 
 def _bf16_rows(x2: torch.Tensor) -> torch.Tensor:
@@ -75,29 +106,144 @@ def _bf16_rows(x2: torch.Tensor) -> torch.Tensor:
     return x2.clone() if x2.data_ptr() % 16 else x2
 
 
+# ---------------------------------------------------------------------------
+# the W4 kernel's plan
+# ---------------------------------------------------------------------------
+
+W4_STEP = 128  # logical K per step: 64 packed byte rows, each two halves of x
+W4_DECODE_COLUMNS = 64  # output columns per decode block
+W4_BLOCKS_PER_SM = 2  # the decode grid's floor, so every SM streams codes
+W4_SPLIT_STEPS = 4  # least steps per split: the decode body's ring depth
+
+
+class W4Plan(NamedTuple):
+    body: str  # "decode" (mma.sync, split K) or "prefill" (wgmma)
+    tile: int  # rows per row tile: decode 8 or 16, prefill 64 or 128
+    splits: int  # K splits of the decode body of one matrix; else 1
+
+
+_BODIES = {"decode": 0, "prefill": 1}
+
+
+@functools.lru_cache(maxsize=1024)
+def w4_plan(m: int, n: int, k: int, tm: Optional[int] = None, sms: int = 132) -> W4Plan:
+    """The W4 kernel's body, row tile and K splits for ``x [m, k] @ w.T``
+    with ``w [n, k]`` (``tm``: the grouped form's row tile) on a card of
+    ``sms`` SMs. A row tile of at most 16 rows takes the decode body; larger
+    tiles take the prefill body.
+
+    The decode body splits K only when its column tiles alone give fewer
+    than ``W4_BLOCKS_PER_SM`` blocks per SM. It then takes the split count
+    (whole steps each, at least that many blocks, and at least
+    ``W4_SPLIT_STEPS`` steps a split where K allows, so each split's ring
+    fills) that minimises the busiest SM's work,
+    ``ceil(blocks / sms) * ceil(steps / splits)`` steps, and the fewest splits
+    among equals: every SM streams codes, and no SM holds one block more
+    than the others for long."""
+    if tm is not None:
+        require(tm in GROUPED_TILES, f"row tile {tm} not in {GROUPED_TILES}")
+        return W4Plan("decode", 16, 1) if tm == 16 else W4Plan("prefill", 64, 1)
+    if m > 16:
+        return W4Plan("prefill", 64 if m <= 64 else 128, 1)
+    tile = 8 if m <= 8 else 16
+    tiles = -(-n // W4_DECODE_COLUMNS)
+    steps = k // W4_STEP
+    floor = W4_BLOCKS_PER_SM * sms
+    if tiles >= floor:
+        return W4Plan("decode", tile, 1)
+    least = min(-(-floor // tiles), steps)
+    splits = min(range(least, max(least, steps // W4_SPLIT_STEPS) + 1),
+                 key=lambda s: (-(-tiles * s // sms) * -(-steps // s), s))
+    return W4Plan("decode", tile, splits)
+
+
+def w4_split_rows(k: int, splits: int) -> list[tuple[int, int]]:
+    """The packed byte rows ``[begin, end)`` of each split of the decode
+    body, as the kernel computes them: split ``j`` takes steps
+    ``[j * s // splits, (j + 1) * s // splits)`` of ``s = k / 128``."""
+    s = k // W4_STEP
+    half = W4_STEP // 2
+    return [(j * s // splits * half, (j + 1) * s // splits * half) for j in range(splits)]
+
+
+_sm_counts: dict = {}
+_split_state: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _split_buffers(device: torch.device, floats: int, tiles: int):
+    """The decode body's split-K state on ``device``: an f32 workspace of at
+    least ``floats`` values and ``tiles`` int32 counters, zero between calls
+    (the last block of a column tile resets its counter). Kept per device and
+    reused, so W4 calls on one device must not run on two streams at once."""
+    ws, cnt = _split_state.get(device, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+    _split_state[device] = (ws, cnt)
+    return ws, cnt
+
+
+def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
+               tile_idx: Optional[torch.Tensor] = None,
+               n_used: Optional[torch.Tensor] = None, tm: Optional[int] = None) -> int:
+    """Launch the W4 kernel on ``x2 [m, k]`` (rows sorted into ``tm``-row
+    tiles for a bank) into ``out``; returns the CUDA error code."""
+    lib = library()
+    m, k = x2.shape
+    n = out.shape[1]
+    plan = w4_plan(m, n, k, tm, _sm_count(x2.device))
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = _split_buffers(x2.device, plan.splits * m * n, -(-n // W4_DECODE_COLUMNS))
+    bank = qt.num_banks is not None
+    shape, sshape = qt.data.shape, qt.scale.shape
+    return lib.mrt_w4_matmul(
+        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
+        None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
+        None if tile_idx is None else tile_idx.data_ptr(),
+        None if n_used is None else n_used.data_ptr(),
+        m, n, k, int(out_bf16), _BODIES[plan.body], plan.tile, plan.splits,
+        shape[-2] * shape[-1] if bank else 0, sshape[-2] * sshape[-1] if bank else 0,
+        None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        stream_ptr(x2),
+    )
+
+
 def _quant_matmul_cuda(
     x2: torch.Tensor, qt: QTensor, compute_dtype, out_dtype
 ) -> torch.Tensor:
     m, k = x2.shape
     n = qt.out_features
-    require(compute_dtype == torch.bfloat16,
-            f"the CUDA kernel computes in bf16, not {compute_dtype}")
-    require(qt.data.device == x2.device, "weight and input on different devices")
-    fmt = _plane_format(qt, n, k)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel computes in bf16, not {compute_dtype}")
+    if qt.data.device != x2.device:
+        raise ValueError("weight and input on different devices")
+    fmt = _plane_format(qt)
     x2 = _bf16_rows(x2)
     out_bf16 = out_dtype == torch.bfloat16
     out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32,
                       device=x2.device)
     if m == 0:
         return out.to(out_dtype)
-    lib = library()
-    code = lib.mrt_quant_matmul(
-        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-        None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
-        m, n, k, qt.group_size, fmt, int(out_bf16), stream_ptr(x2),
-    )
-    check(code, _kernel_name(qt))
-    COUNTS[_kernel_name(qt)] += 1
+    name = _kernel_name(qt)
+    if fmt == _FMT_PACKED4:
+        code = _w4_launch(x2, qt, out, out_bf16)
+    else:
+        code = library().mrt_quant_matmul(
+            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
+            None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
+            m, n, k, qt.group_size, fmt, int(out_bf16), stream_ptr(x2),
+        )
+    check(code, name)
+    COUNTS[name] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
@@ -139,13 +285,16 @@ GROUPED_TILES = (16, 64)
 def check_groups(x2: torch.Tensor, tile_idx: torch.Tensor,
                  n_used_tiles: torch.Tensor, tm: int) -> torch.Tensor:
     """Validate a grouped call's row tiling for the CUDA kernels and return
-    the used-tile count as one int32 on the device. ``tile_idx`` values must lie in [0, E): ``build_groups`` clips them, and
-    the kernels read them without a host round trip."""
+    the used-tile count as one int32 on the device. ``tile_idx`` values must
+    lie in [0, E): ``build_groups`` clips them, and the kernels read them
+    without a host round trip."""
     mp = x2.shape[0]
-    require(tm in GROUPED_TILES, f"row tile {tm} not in {GROUPED_TILES}")
-    require(mp % tm == 0, f"{mp} rows are not whole tiles of {tm}")
+    if tm not in GROUPED_TILES:
+        raise ValueError(f"row tile {tm} not in {GROUPED_TILES}")
+    if mp % tm:
+        raise ValueError(f"{mp} rows are not whole tiles of {tm}")
     require(tile_idx.dtype == torch.int32 and tile_idx.is_contiguous()
-            and tuple(tile_idx.shape) == (mp // tm,) and tile_idx.device == x2.device,
+            and tile_idx.shape == (mp // tm,) and tile_idx.device == x2.device,
             "tile_idx must be contiguous int32 [rows / tm] on the input's device")
     require(n_used_tiles.dtype == torch.int32 and n_used_tiles.numel() == 1
             and n_used_tiles.device == x2.device,
@@ -191,11 +340,11 @@ def _quant_matmul_grouped_cuda(
 ) -> torch.Tensor:
     mp, k = x2.shape
     n = qt.out_features
-    require(compute_dtype == torch.bfloat16,
-            f"the CUDA kernel computes in bf16, not {compute_dtype}")
-    require(qt.data.device == x2.device, "weight and input on different devices")
-    require(qt.num_banks is not None, "quant_matmul_grouped takes a bank [E, N, K]")
-    fmt = _plane_format(qt, n, k)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel computes in bf16, not {compute_dtype}")
+    if qt.data.device != x2.device:
+        raise ValueError("weight and input on different devices")
+    fmt = _plane_format(qt)
     n_used = check_groups(x2, tile_idx, n_used_tiles, tm)
     x2 = _bf16_rows(x2)
     out_bf16 = out_dtype == torch.bfloat16
@@ -204,12 +353,15 @@ def _quant_matmul_grouped_cuda(
     if mp == 0:
         return out.to(out_dtype)
     name = _kernel_name(qt) + "_g"
-    code = library().mrt_quant_matmul_grouped(
-        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-        None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
-        tile_idx.data_ptr(), n_used.data_ptr(), mp, n, k, qt.group_size, fmt,
-        int(out_bf16), tm, qt.data[0].numel(), qt.scale[0].numel(), stream_ptr(x2),
-    )
+    if fmt == _FMT_PACKED4:
+        code = _w4_launch(x2, qt, out, out_bf16, tile_idx, n_used, tm)
+    else:
+        code = library().mrt_quant_matmul_grouped(
+            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
+            None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
+            tile_idx.data_ptr(), n_used.data_ptr(), mp, n, k, qt.group_size, fmt,
+            int(out_bf16), tm, qt.data[0].numel(), qt.scale[0].numel(), stream_ptr(x2),
+        )
     check(code, name)
     COUNTS[name] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)

@@ -6,9 +6,11 @@
 (``--noconftest``: ``tests/conftest.py`` sets up JAX and aiohttp for the JAX
 package's tests, which these do not need.)
 
-Tolerances: the matmul kernels round the dequantized weight exactly as the
-plain version does and differ only in f32 sum order (bf16 output: 1e-2 of
-the largest value); the attention kernels (and the MLA decode kernel,
+Tolerances: the W8 kernels round the dequantized weight exactly as the
+plain version does and differ only in f32 sum order; the W4 decode body
+never rounds the weight and the W4 prefill body rounds it within an f32 ulp
+of the plain version's value (bf16 or f32 output: 1e-2 of the largest
+value); the attention kernels (and the MLA decode kernel,
 which also rounds P to bf16 for its tensor-core product) use exp2 with log2(e) folded into
 the scale and another sum order (bf16 output: atol 2e-2). The grouped (MoE)
 kernels share the matmul kernels' arithmetic and tolerance, over every row
@@ -41,7 +43,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _qt(n, k, packed, gs, signed, dev, seed=0):
+def _qt(n, k, packed, gs, signed, dev, seed=0, bias=True):
     g = torch.Generator(device=dev).manual_seed(seed)
     if packed:
         data = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
@@ -50,24 +52,38 @@ def _qt(n, k, packed, gs, signed, dev, seed=0):
     else:
         data = torch.randint(0, 64, (k, n), generator=g, device=dev, dtype=torch.uint8)
     scale = torch.rand((k // gs, n), generator=g, device=dev) * 0.02
-    bias = None if signed else -8 * scale
+    bias = None if signed or not bias else -8 * scale
     return QTensor(data, scale, bias, group_size=gs, packed=packed,
                    code_bits=4 if packed else 8)
 
 
-@pytest.mark.parametrize("m", [1, 8, 130])
-@pytest.mark.parametrize("kind", ["w4", "w8_s32", "w8_s16", "w8_u32"])
-def test_quant_matmul_kernel_matches_plain(dev, m, kind):
-    packed = kind == "w4"
+# (N, K): N a multiple of 64 or only of 16, K of one step (128), K = 4096 at
+# N = 1024 (32 steps in splits that do not divide them), K = 14336
+SHAPES = {"320x512": (320, 512), "336x128": (336, 128), "1024x4096": (1024, 4096),
+          "4096x14336": (4096, 14336)}
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 130])
+@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8_s32", "w8_s16", "w8_u32"])
+def test_quant_matmul_kernel_matches_plain(dev, m, kind, shape, out):
+    """Both W4 bodies (decode at M <= 16, prefill above) and the W8 kernel
+    against their plain versions."""
+    packed = kind.startswith("w4")
     gs = 16 if kind == "w8_s16" else 32
-    qt = _qt(320, 512, packed, gs, signed=kind.startswith("w8_s"), dev=dev)
-    x = torch.randn((m, 512), device=dev).to(torch.bfloat16)
+    n, k = SHAPES[shape]
+    qt = _qt(n, k, packed, gs, signed=kind.startswith("w8_s"), dev=dev,
+             bias=kind != "w4_nobias")
+    x = torch.randn((m, k), device=dev).to(torch.bfloat16)
+    out_dtype = torch.float32 if out == "f32" else None
     reset_counts()
-    got = quant_matmul(x, qt)
-    ref = quant_matmul(x, qt, plain=True)
+    got = quant_matmul(x, qt, out_dtype=out_dtype)
+    ref = quant_matmul(x, qt, plain=True, out_dtype=out_dtype)
     torch.cuda.synchronize()
     name = "w4_matmul" if packed else "w8_matmul"
     assert COUNTS[name] == 1 and COUNTS[name + "_plain"] == 1
+    assert got.dtype == (out_dtype or torch.bfloat16) and torch.isfinite(got).all()
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item()
 
@@ -76,23 +92,24 @@ def _bank(e, n, k, kind, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     if kind == "dense":
         return (torch.randn((e, n, k), generator=g, device=dev) * 0.05).to(torch.bfloat16)
-    packed, gs = kind == "w4", 32 if kind == "w4" else 16
+    packed, gs = kind.startswith("w4"), 32 if kind.startswith("w4") else 16
     if packed:
         data = torch.randint(0, 256, (e, k // 2, n), generator=g, device=dev, dtype=torch.uint8)
     else:
         data = torch.randint(-32, 32, (e, k, n), generator=g, device=dev, dtype=torch.int8)
     scale = torch.rand((e, k // gs, n), generator=g, device=dev) * 0.02
-    bias = -8 * scale if kind in ("w4", "w8_bias") else None
+    bias = -8 * scale if kind in ("w4", "w8_bias") else None  # w4_nobias: none
     return QTensor(data, scale, bias, group_size=gs, packed=packed,
                    code_bits=4 if packed else 8)
 
 
 @pytest.mark.parametrize("routing", ["ragged", "all_to_one", "empty_expert"])
 @pytest.mark.parametrize("ntok", [8, 200])
-@pytest.mark.parametrize("kind", ["w4", "w8", "w8_bias", "dense"])
+@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8", "w8_bias", "dense"])
 def test_grouped_kernels_match_plain(dev, kind, ntok, routing):
     """The W4, W8 and dense grouped kernels against their plain versions at
-    the 16-row (decode) and 64-row (prefill) tiles."""
+    the 16-row (decode) and 64-row (prefill) tiles, with the ragged,
+    all-to-one and empty-expert routings."""
     e, n, k = 8, 320, 512
     g = torch.Generator(device=dev).manual_seed(1)
     topi = torch.randint(0, e, (ntok, 2), generator=g, device=dev)
@@ -112,7 +129,8 @@ def test_grouped_kernels_match_plain(dev, kind, ntok, routing):
     got = fn(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
     ref = fn(xs, bank, tiles, tm=tm, n_used_tiles=n_used, plain=True)
     torch.cuda.synchronize()
-    name = {"w4": "w4_matmul_g", "dense": "dense_matmul_g"}.get(kind, "w8_matmul_g")
+    name = {"w4": "w4_matmul_g", "w4_nobias": "w4_matmul_g",
+            "dense": "dense_matmul_g"}.get(kind, "w8_matmul_g")
     assert COUNTS[name] == 1 and COUNTS[name + "_plain"] == 1
     assert torch.isfinite(got).all()
     assert (got[int(n_used) * tm:] == 0).all()
