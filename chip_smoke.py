@@ -13,8 +13,8 @@ script in one call:
 
 0. watchdog and device: a hang ends in a traceback after 900 s; no CUDA
    device is an error; prints ``nvidia-smi``'s name and power limit;
-1. build: compiles the eight CUDA kernels (one ``nvcc`` call) and prints
-   the build time;
+1. build: compiles the eight CUDA kernels (one ``nvcc`` per source under
+   ``csrc/``, all started together, then a link) and prints the build time;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16), with its median time (CUDA events), its bound at
    the card's memory and bf16 tensor-core rates, the plain version's time
@@ -24,9 +24,17 @@ script in one call:
    the kernel and for the library call alike. The dense matmul rows cycle
    through copies of the weight whose bytes exceed twice the L2 cache, as
    a decode step streams every weight once (the library's bf16 copies as
-   well); the W4 kernel is also checked (untimed) at edge shapes: M of 1,
-   16, 17, 64 and 130, N a multiple of 16 but not of 64, K of one step,
-   K splits that do not divide its steps evenly, no bias, f32 output. The
+   well). W8 is timed at Llama-3-8B's Q8_0 head (M 1 and 8), a Q6_K-style
+   down projection, and Mixtral-8x7B's Q8_0 ``attn_v`` (M 8 and 512) and Q6_K
+   head. The W4 and W8 kernels are also checked (untimed) at edge shapes: M
+   of 1, 16, 17, 64 and 130, N a multiple of 16 but not of 64, K of one
+   step, K splits that do not divide its steps evenly, no bias, f32 output,
+   and for W8 its three byte formats (unsigned codes over all 256 values).
+   The prefill kernel is timed at B=2 T=128 on 300 cached positions and at
+   the engine's chunks (4 x 256 tokens from position 0, 512 tokens on 512),
+   and checked at GQA groups 1, 2, 4 and 8, blocks of 16, a row with no
+   valid token and pasts not a multiple of 64; its pools must equal the
+   plain version's but the trash slot. The
    grouped (MoE) kernels run on Mixtral-8x7B banks (8 experts, top-2) at
    n*k = 16 (decode, 8 tokens) and 1024 (a 512-token prefill) with routings
    drawn from the script's generator, plus one all-to-one routing and one
@@ -71,7 +79,8 @@ script in one call:
    host clock and traced with ``torch.profiler`` for the device's kernel
    time, its idle share, the kernels that take most of it and the device
    time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
-   16-row tile) and W8-body kernels;
+   16-row tile), W8 (decode body) and wmma-body (W8 grouped, dense grouped)
+   kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -94,12 +103,15 @@ Budget: the whole run at most 8 minutes on an H100 with the build, at most
 8 GB of host memory (all weights are drawn on the device, none on the host),
 at most 60 GB of device memory.
 
-Tolerances: the W8 and dense grouped kernels dequantize exactly as the
-plain version and differ in f32 sum order; the W4 decode body never rounds
-the weight to bf16 (scale and bias applied to f32 group sums) and the W4
-prefill body rounds scale and bias to bf16 before one bf16 fma, so all of
-them agree with the plain versions within 1e-2 of the largest |value|; the attention kernels agree within 2e-2
-absolute (bf16 outputs of magnitude ~1, exp2 vs exp and sum order); the
+Tolerances: the wmma body (W8 at more than 16 rows, W8 grouped, dense
+grouped) dequantizes exactly as the plain version and differs in f32 sum
+order; the decode body (W4 and W8 at <= 16 rows, W4 grouped decode) never
+rounds the weight to bf16 (scale and bias applied to f32 group sums) and
+the W4 prefill body computes each weight within an f32 ulp before the
+plain version's rounding, so all of them agree with the plain versions
+within 1e-2 of the largest |value|; the attention kernels agree within
+2e-2 absolute (bf16 outputs of magnitude ~1, exp2 vs exp, sum order, and P
+as two bf16 parts for the prefill kernel's tensor-core PV product); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
 through two full-width layers). The MLA decode kernel rounds P to bf16 for
 its tensor-core PV product and sums in another order: 2e-2 absolute on
@@ -194,7 +206,7 @@ RATES = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
 KERNEL_INFO = {
     "w4_matmul": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:350"),
-    "w8_matmul": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+    "w8_matmul": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:411"),
     "paged_decode": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                      "mistralrs_tpu/ops/paged_attention.py:496"),
@@ -470,6 +482,37 @@ def check_w4_edges(rows, rates, gen, dev):
         del qt
 
 
+def check_w8_edges(rows, rates, gen, dev):
+    """The W8 kernel's two bodies at edge shapes (untimed), in its three
+    byte formats (signed without bias at group 32 and 16, unsigned codes
+    over all 256 values with bias, signed with bias): M of 1, 16, 17, 64 and
+    130; N a multiple of 16 but not of 64; K of one step; N 1024 at K 4096
+    (K splits that do not divide its steps evenly); N 4112 at K 4096 (the
+    128-column blocks, the last one partly past N); bf16 and f32 output."""
+    for n, k in ((336, 512), (336, 128), (1024, 4096), (4112, 4096)):
+        for fmt in ("s8", "s8_gs16", "u8_bias", "s8_gs16_bias"):
+            gs = 16 if "gs16" in fmt else 32
+            if fmt.startswith("u8"):
+                data = torch.randint(0, 256, (k, n), generator=gen, device=dev,
+                                     dtype=torch.int32).to(torch.uint8)
+                scale = (0.75 + 0.5 * torch.rand((k // gs, n), generator=gen, device=dev)
+                         ) / math.sqrt(k * 21845.0)
+                qt = QTensor(data, scale, -127.5 * scale, group_size=gs, packed=False,
+                             code_bits=8)
+            else:
+                qt = q8(n, k, gen, dev, gs=gs)
+                if fmt.endswith("bias"):
+                    qt = QTensor(qt.data, qt.scale, -3.0 * qt.scale, group_size=gs,
+                                 packed=False, code_bits=8)
+            for m in (1, 16, 17, 64, 130):
+                for out_dtype in (None, torch.float32):
+                    r = check_matmul("w8_matmul", m, qt, rates, gen, dev, timed=False,
+                                     out_dtype=out_dtype)
+                    r["shape"] += f" {fmt}"
+                    rows["w8_matmul"].append(r)
+            del qt
+
+
 def grouped_routing(ntok, e, routing, gen, dev, top=2):
     """Top-``top`` choices of ``ntok`` tokens over ``e`` experts: distinct
     experts drawn from the generator ("random"), every choice on the last
@@ -723,10 +766,18 @@ def check_decode(rates, gen, dev):
     return row
 
 
-def check_prefill(rates, gen, dev):
-    b, t, n_q, n_kv, hd, bs, w = 2, 128, 32, 8, 128, 64, 8
-    n_valid = torch.tensor([128, 70], device=dev, dtype=torch.int32)  # row 1: n_valid < T
-    kv_lens = n_valid + 300
+def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300), n_q=32,
+                  n_kv=8, bs=64, timed=True):
+    """The prefill kernel on a chunk of ``t`` tokens per row on top of
+    ``past`` cached positions, ``n_valid`` of them real (the rest dropped
+    writes): valid rows within 2e-2 of the plain version, the K/V gathered
+    through the tables exact, and the pools bit-equal to the plain
+    version's but the trash slot (where the plain version parks dropped
+    writes); timed with its bound and SDPA when ``timed``."""
+    hd = 128
+    n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
+    kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
+    w = -(-(max(past) + t) // bs)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
     kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -734,24 +785,32 @@ def check_prefill(rates, gen, dev):
     kn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     tok = torch.arange(t, device=dev)[None]
-    slots = slots_for(bt, (kv_lens - n_valid)[:, None] + tok, bs)
+    pos = (kv_lens - n_valid)[:, None] + tok
+    slots = slots_for(bt, pos.clamp_max(w * bs - 1), bs)
     slots[tok.expand(b, t) >= n_valid[:, None]] = -1
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     args = (kn, vn, slots, bt, kv_lens, n_valid)
     got = paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs)
     ref = paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
     torch.cuda.synchronize()
-    err = max((got[i, :n].float() - ref[i, :n].float()).abs().max().item()
-              for i, n in enumerate(n_valid.tolist()))
+    err = max([(got[i, :n].float() - ref[i, :n].float()).abs().max().item()
+               for i, n in enumerate(n_valid.tolist()) if n] or [0.0])
     gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
-    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0):
-        raise AssertionError(f"paged_prefill: max err {err}, gathered K/V err {gather_err}")
+    pools_ok = torch.equal(k1[:, :-1], k2[:, :-1]) and torch.equal(v1[:, :-1], v2[:, :-1])
+    shape = (f"B={b} T={t} n_valid={tuple(n_valid.tolist())} past={tuple(past)} n_q={n_q} "
+             f"n_kv={n_kv} hd={hd} bs={bs}")
+    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0 and pools_ok):
+        raise AssertionError(f"paged_prefill {shape}: max err {err}, gathered K/V err "
+                             f"{gather_err}, pools equal {pools_ok}")
+    if not timed:
+        log(f"  paged_prefill {shape}: err {err:.3e} (tol 2e-2), pools exact")
+        return dict(shape=shape, max_abs_err=err)
     kk, vv = gather_kv(k1, v1, bt, bs)
     kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
     vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
-    pos = torch.arange(kk.shape[2], device=dev)
+    ppos = torch.arange(kk.shape[2], device=dev)
     lim = (kv_lens - n_valid)[:, None] + tok  # [B, T]
-    mask = (pos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
+    mask = (ppos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
     qt_ = q.transpose(1, 2)
     ms = time_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
     dev_ms = device_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
@@ -769,13 +828,21 @@ def check_prefill(rates, gen, dev):
     # ops: causal QK and PV over the positions each valid token sees
     flops = sum(4 * n_q * hd * sum(c + i + 1 for i in range(v)) for c, v in zip(ctx, nv))
     b_ms, b_by = bound(nbytes, flops, rates)
-    row = dict(shape=f"B={b} T={t} n_valid=(128,70) past=300 n_q={n_q} n_kv={n_kv} hd={hd}",
-               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
-    log(f"  paged_prefill {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
+    row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
+    log(f"  paged_prefill {shape}: err {err:.3e} (tol 2e-2), pools exact | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
+
+
+def check_prefill_edges(rows, rates, gen, dev):
+    """The prefill kernel at edge cases (untimed): GQA groups 1, 2 and 8,
+    blocks of 16, a row with n_valid 0, pasts not a multiple of 64."""
+    for n_q, n_kv, bs in ((8, 8, 64), (16, 8, 16), (64, 8, 64), (32, 8, 16)):
+        rows["paged_prefill"].append(check_prefill(
+            rates, gen, dev, b=3, t=150, n_valid=(150, 0, 77), past=(200, 37, 0), n_q=n_q,
+            n_kv=n_kv, bs=bs, timed=False))
 
 
 # ---------------------------------------------------------------------------
@@ -1026,12 +1093,16 @@ def profile_decode_step(engine, add_request) -> str:
         return f"decode step (6 rows) {wall:.2f} ms wall; device time not measured"
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
-    # the W4 decode body runs the dense projections of <= 8 rows with its
-    # 8-row tile and the grouped experts with its 16-row tile
-    families = {"W4": "w4_decode_kernel<1", "W4 grouped": "w4_decode_kernel<2",
-                "W8 body": "quant_matmul_kernel"}
-    fam = ", ".join(f"{f} {sum(v for k, v in by_kernel.items() if key in k) / 1e3:.3f} ms"
-                    for f, key in families.items())
+    # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs W4's
+    # dense projections of <= 8 rows with its 8-row tile, W4's grouped
+    # experts with its 16-row tile, and W8 (formats 1 and 2); the wmma body
+    # runs W8 grouped and dense grouped
+    families = {"W4": ("mm_decode_kernel<0, 1",), "W4 grouped": ("mm_decode_kernel<0, 2",),
+                "W8": ("mm_decode_kernel<1", "mm_decode_kernel<2"),
+                "wmma body": ("quant_matmul_kernel",)}
+    fam = ", ".join(
+        f"{f} {sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3:.3f} ms"
+        for f, keys in families.items())
     return (f"decode step (6 rows) {wall:.2f} ms wall, device kernels {busy:.3f} ms "
             f"({len(by_kernel)} kernel names), device idle {100 * (1 - busy / wall):.1f} %; "
             f"{fam}; top: {tops}")
@@ -1198,12 +1269,28 @@ def main() -> int:
     for m in (1, 8):
         rows["w8_matmul"].append(check_matmul("w8_matmul", m, head, rates, gen, dev))
     del head
-    q6 = q8(4096, 14336, gen, dev, gs=16, lo=-32, hi=31)  # Q6_K-style ffn_down
+    q6 = q6k(4096, 14336, gen, dev)  # Q6_K-style ffn_down
     rows["w8_matmul"].append(check_matmul("w8_matmul", 8, q6, rates, gen, dev))
     del q6
+    attn_v = q8(1024, 4096, gen, dev)  # Mixtral-8x7B's Q8_0 attn_v
+    for m in (8, 512):
+        rows["w8_matmul"].append(check_matmul("w8_matmul", m, attn_v, rates, gen, dev))
+    del attn_v
+    q6_head = q6k(32000, 4096, gen, dev)  # Mixtral-8x7B's Q6_K head
+    rows["w8_matmul"].append(check_matmul("w8_matmul", 8, q6_head, rates, gen, dev))
+    del q6_head
     rows["paged_decode"].append(check_decode(rates, gen, dev))
     rows["paged_prefill"].append(check_prefill(rates, gen, dev))
+    # the engine's prefill chunks: 4 prompts of 256 tokens (the scheduler's
+    # max_prefill_seqs at chip_smoke's chunk), one 512-token chunk (the
+    # Engine default) on 512 cached positions
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, b=4, t=256,
+                                               n_valid=(256,) * 4, past=(0,) * 4))
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
+                                               past=(512,)))
+    check_prefill_edges(rows, rates, gen, dev)
     check_w4_edges(rows, rates, gen, dev)
+    check_w8_edges(rows, rates, gen, dev)
     check_grouped_kernels(rows, rates, gen, dev)
     check_deepseek_grouped(rows, rates, gen, dev)
     for bs in (16, 64):

@@ -1,8 +1,11 @@
-// Fused dequant-matmul for planar quantized weights, for Hopper (sm_90a).
+// The wmma body of the dequant-matmul kernels, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of mistralrs_tpu/ops/quant_matmul.py:
-//   _w8_matmul (:411) and _w8_matmul_l (:616): one byte per code, signed
-//       int8 without bias (Q8_0, Q6_K at group 16) or unsigned with bias.
+//   _w8_matmul (:411) and _w8_matmul_l (:616) for more than 16 rows (the
+//       W8 kernel's prefill body; at most 16 rows take the decode body of
+//       csrc/w8_matmul.cu, as ops/quant_matmul.py::w8_plan chooses): one byte
+//       per code, signed int8 without bias (Q8_0, Q6_K at group 16) or with
+//       bias, or unsigned with bias.
 //   _w8_matmul_g (:895): the grouped (MoE) form. Rows arrive sorted by
 //       expert and padded so that each M-tile belongs to one expert; the
 //       block reads that expert's id from tile_idx itself and offsets its
@@ -25,17 +28,18 @@
 // the f32 sums. The "min" bias is folded into the dequantized tile, as the
 // JAX package's XLA path does.
 //
-// What bounds it on the H100: at decode (M <= 32) the code bytes, 1 B per
-// weight plus 4 or 8 B of scale and bias per group (BF16: 2 B per weight);
-// at prefill (M >= 256) the bf16 tensor-core rate. Design: one block of 4
-// warps per 64 x 64 output tile walks K in steps of 128 rows. Each step
-// stages the x tile [64 x 128] and the dequantized weight tile [128 x 64]
-// in shared memory, so each code byte is read from device memory once per
-// M-tile, and runs bf16 wmma 16x16x16 fragments with f32 accumulators. The
-// BF16 format stages the [64 x 128] K-contiguous weight tile as it is and
-// reads it as a column-major B operand. There is no double-buffering, no
-// split-K and no wgmma yet: the kernel is simple and right first; its times
-// against the bound are in PERF.md.
+// What bounds it on the H100: for the grouped decode tiles the code bytes,
+// 1 B per weight plus 4 or 8 B of scale and bias per group (BF16: 2 B per
+// weight); at prefill (M >= 256) the bf16 tensor-core rate. Design: one
+// block of 4 warps per 64 x 64 output tile walks K in steps of 128 rows.
+// Each step stages the x tile [64 x 128] and the dequantized weight tile
+// [128 x 64] in shared memory, so each code byte is read from device memory
+// once per M-tile, and runs bf16 wmma 16x16x16 fragments with f32
+// accumulators. The BF16 format stages the [64 x 128] K-contiguous weight
+// tile as it is and reads it as a column-major B operand. There is no
+// double-buffering, no split-K and no wgmma: the body is simple and right
+// first; its times against the bound are in PERF.md (the W8 decode body of
+// csrc/mm_decode.cuh is the redesign for one byte per code at <= 16 rows).
 //
 // Grouped form: at decode, 16 (token, choice) pairs spread over ~7 of 8
 // experts, so each expert's group is padded to one M-tile: the kernel is

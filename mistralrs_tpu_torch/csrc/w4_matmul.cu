@@ -17,32 +17,10 @@
 // Two bodies, chosen by the wrapper's w4_plan (ops/quant_matmul.py):
 //
 // DECODE (a row tile of at most 16 rows: dense M <= 16, grouped tm = 16).
-//   Bound: the weight bytes (0.75 B per weight: half a byte of code plus
-//   8 B of scale and bias per group of 32), so the design keeps loads in
-//   flight on every SM. A step is 64 byte rows.
-//   - Blocks of 4 warps own 64 output columns; the wrapper splits K so that
-//     the grid has >= 2 blocks per SM. Each split writes f32 partials to a
-//     workspace; the last block of a column tile to arrive (an int counter
-//     per tile, reset by that block) sums the splits in split order, so the
-//     result does not depend on which block came last: no float atomics.
-//   - A ring of 4 stages (codes 4 KB, scale and bias 2 KB, x rows) filled by
-//     16-byte cp.async.cg copies: three steps are in flight while one is
-//     dequantized and multiplied (~18 KB per block, 2-4 blocks per SM).
-//   - Only the real rows of x are staged. The MMA is mma.sync m16n8k16 with
-//     the weight as the 16-row A operand and x as the 8-row B operand
-//     ("swap A/B": out^T = W^T x^T), so N fills the MMA's M side and the
-//     <= 8 (or <= 16, two B tiles) rows of x its N side: no padded rows, and
-//     half the MMAs of x as the A operand at M <= 8. ldmatrix.trans turns a
-//     [16 byte rows x 16 columns] code tile into A fragments (rows of A =
-//     output columns in the order 0, 2, 4, .., 1, 3, 5, ..).
-//   - Dequantization leaves the inner loop, as the TPU kernel's f32dot_bias
-//     branch does: two nibbles become the exact bf16 pair 128 + q with one
-//     mask-and-or, the tensor cores sum x * (128 + q) per group of 32 in f32,
-//     and a second MMA against ones gives the group sums of x. Per group,
-//     acc += scale * sum(x (128 + q)) + (bias - 128 scale) * sum(x) in f32.
-//     The weight is never rounded to bf16, so the result is closer to the
-//     exact product than the plain version (which rounds w to bf16); the
-//     two agree within 1e-2 of the largest |out| (tests, chip_smoke.py).
+//   The body of csrc/mm_decode.cuh in its PACKED4 format, which it shares
+//   with the W8 kernel (csrc/w8_matmul.cu): split K, a 4-stage cp.async
+//   ring, mma.sync with the weight as the 16-row operand, scale and bias
+//   applied to f32 group sums. That file says how it is built.
 //
 // PREFILL (a row tile of 64 or 128 rows: dense M > 16, grouped tm = 64).
 //   Bound: the bf16 tensor-core rate; wgmma is the only way to it on Hopper.
@@ -80,57 +58,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mm_decode.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// PTX helpers of the prefill body (the shared ones are in mm_decode.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; zero-fills the 16 bytes when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, col-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -158,270 +92,6 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
 }
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the nibbles at bits 0-3 and 16-19 of v as the bf16 pair (128 + q0, 128 + q1)
-__device__ __forceinline__ uint32_t nib_pair(uint32_t v) {
-  return (v & 0x000F000Fu) | 0x43004300u;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store_pair(void* out, size_t idx, float a, float b, int out_bf16) {
-  if (out_bf16)
-    *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(out) + idx) = pack_bf16(a, b);
-  else
-    *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + idx) = make_float2(a, b);
-}
-
-// Zero rows [m0, m0 + rows) x columns [n0, n0 + cols) of out (an unused
-// tile of a grouped call).
-__device__ void zero_tile(void* out, int m0, int rows, int n0, int cols, int N, int out_bf16) {
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int m = m0 + i / cols, n = n0 + i % cols;
-    if (n < N) {
-      if (out_bf16)
-        reinterpret_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(0.0f);
-      else
-        reinterpret_cast<float*>(out)[(size_t)m * N + n] = 0.0f;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// DECODE body: mma.sync, split K, a 4-stage cp.async ring
-// ---------------------------------------------------------------------------
-
-constexpr int D_BN = 64;        // output columns per block (4 warps x 16)
-constexpr int D_STAGES = 4;
-constexpr int D_THREADS = 128;
-constexpr int D_XLD = 272;      // bytes per staged x row: 64 lo + 64 hi bf16, 16 pad
-constexpr uint32_t BF16_ONES = 0x3F803F80u;
-
-template <int MT>  // MT row tiles of 8 rows
-struct DecodeSmem {
-  static constexpr int CODES = 0;                    // [64 byte rows][64 B], swizzled
-  static constexpr int SCALE = 64 * D_BN;            // [4 groups][64] f32: lo0 lo1 hi0 hi1
-  static constexpr int BIAS = SCALE + 4 * D_BN * 4;
-  static constexpr int X = BIAS + 4 * D_BN * 4;      // [8 MT rows][D_XLD B]
-  static constexpr int STAGE = X + 8 * MT * D_XLD;
-  static constexpr int TOTAL = D_STAGES * STAGE;
-};
-
-// tile_idx == nullptr: one matrix, M <= 8 MT rows, blockIdx.y = the split.
-// Otherwise blockIdx.y = a 16-row tile of a bank (MT = 2, one split).
-template <int MT, bool HAS_BIAS>
-__global__ void __launch_bounds__(D_THREADS)
-w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 void* __restrict__ out, int M, int N, int K, int out_bf16, int splits,
-                 const int* __restrict__ tile_idx, const int* __restrict__ n_used,
-                 long long code_stride, long long sb_stride, float* __restrict__ ws,
-                 int* __restrict__ counters) {
-  using L = DecodeSmem<MT>;
-  __shared__ __align__(128) uint8_t smem[L::TOTAL];
-  __shared__ int s_last;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * D_BN;
-  int m0 = 0, rows = M, split = 0;
-  if (tile_idx != nullptr) {
-    m0 = blockIdx.y * 16;
-    rows = 16;
-    if ((int)blockIdx.y >= *n_used) {
-      zero_tile(out, m0, 16, n0, D_BN, N, out_bf16);
-      return;
-    }
-    const long long e = tile_idx[blockIdx.y];
-    codes += e * code_stride;
-    scale += e * sb_stride;
-    if (HAS_BIAS) bias += e * sb_stride;
-  } else {
-    split = blockIdx.y;
-  }
-  const int kh = K / 2;
-  const int gh = kh / 32;  // first group of the high half
-  const int nsteps = kh / 64;
-  const int s_begin = (int)((long long)split * nsteps / splits);
-  const int n = (int)((long long)(split + 1) * nsteps / splits) - s_begin;
-
-  // rows of x past the tile's real rows stay zero in every stage
-  for (int i = tid; i < D_STAGES * (8 * MT - rows) * (D_XLD / 16); i += D_THREADS) {
-    const int per = (8 * MT - rows) * (D_XLD / 16);
-    const int slot = i / per, rem = i % per;
-    const int r = rows + rem / (D_XLD / 16), c = rem % (D_XLD / 16);
-    *reinterpret_cast<uint4*>(smem + slot * L::STAGE + L::X + r * D_XLD + c * 16) =
-        make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-
-  const uint32_t smem_a = smem_u32(smem);
-  auto load = [&](int slot, int step) {
-    const uint32_t st = smem_a + slot * L::STAGE;
-    // codes: 64 byte rows x 4 chunks of 16 columns; chunk c of row r at
-    // c ^ ((r / 2) % 4), so ldmatrix's 8 rows hit 8 different bank groups
-#pragma unroll
-    for (int i = tid; i < 64 * 4; i += D_THREADS) {
-      const int r = i >> 2, c = i & 3;
-      const int col = n0 + c * 16;
-      const bool ok = col < N;
-      cp_async16(st + L::CODES + r * 64 + ((c ^ ((r >> 1) & 3)) << 4),
-                 codes + (ok ? (size_t)(step * 64 + r) * N + col : 0), ok);
-    }
-    // scale and bias of the step's 4 groups, 16 chunks of 4 columns each
-    {
-      const int which = tid >> 6, g = (tid >> 4) & 3, c = tid & 15;
-      const int grow = g < 2 ? 2 * step + g : gh + 2 * step + (g - 2);
-      const int col = n0 + c * 4;
-      const bool ok = col < N;
-      if (which == 0 || HAS_BIAS) {
-        const float* plane = which ? bias : scale;
-        cp_async16(st + (which ? L::BIAS : L::SCALE) + (g * D_BN + c * 4) * 4,
-                   plane + (ok ? (size_t)grow * N + col : 0), ok);
-      }
-    }
-    // x: the tile's real rows, 64 lo and 64 hi values each
-    for (int i = tid; i < rows * 16; i += D_THREADS) {
-      const int r = i >> 4, h = (i >> 3) & 1, c = i & 7;
-      cp_async16(st + L::X + r * D_XLD + h * 128 + c * 16,
-                 x + (size_t)(m0 + r) * K + h * kh + step * 64 + c * 8, true);
-    }
-  };
-
-  const int g = lane >> 2, q = lane & 3;
-  float acc[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[mt][j] = 0.0f;
-
-  auto compute = [&](int slot) {
-    const uint32_t st = smem_a + slot * L::STAGE;
-    const float* ss = reinterpret_cast<const float*>(smem + slot * L::STAGE + L::SCALE);
-    const float* bs = reinterpret_cast<const float*>(smem + slot * L::STAGE + L::BIAS);
-    // codes of the warp's 16 columns: [chunk of 16 rows][rows 0-7, rows 8-15];
-    // with .trans, lane (g, q) holds bytes (row 2q, col 2g), (2q, 2g+1),
-    // (2q+1, 2g), (2q+1, 2g+1) of each 8 x 16-byte matrix
-    uint32_t cw[4][2];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int r = 32 * p + lane;
-      ldsm_x4_trans(st + L::CODES + r * 64 + ((warp ^ ((r >> 1) & 3)) << 4), cw[2 * p][0],
-                    cw[2 * p][1], cw[2 * p + 1][0], cw[2 * p + 1][1]);
-    }
-    // x fragments: lane's matrix (rows 8 mt.., k 8 kk..) for ldmatrix
-    const int xq = (lane >> 3) & (MT == 2 ? 3 : 1);
-    const uint32_t xrow = st + L::X + (8 * (xq >> 1) + (lane & 7)) * D_XLD + (xq & 1) * 16;
-#pragma unroll
-    for (int gi = 0; gi < 2; ++gi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float tq[MT][4], t1[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) tq[mt][j] = t1[mt][j] = 0.0f;
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int ch = 2 * gi + cc;
-          // A: rows (output columns 2g, 2g+1) x k-slots, as bf16 128 + q:
-          // bytes 0 and 2 hold column 2g at rows 2q, 2q+1, bytes 1 and 3
-          // column 2g+1, so one mask-and-or (lop3) makes each bf16 pair
-          const uint32_t a0 = nib_pair(cw[ch][0] >> (4 * h));
-          const uint32_t a1 = nib_pair(cw[ch][0] >> (8 + 4 * h));
-          const uint32_t a2 = nib_pair(cw[ch][1] >> (4 * h));
-          const uint32_t a3 = nib_pair(cw[ch][1] >> (8 + 4 * h));
-          const uint32_t xa = xrow + h * 128 + ch * 32;
-          uint32_t b[2][2];
-          if (MT == 2)
-            ldsm_x4(xa, b[0][0], b[0][1], b[1][0], b[1][1]);
-          else
-            ldsm_x2(xa, b[0][0], b[0][1]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(tq[mt], a0, a1, a2, a3, b[mt][0], b[mt][1]);
-            mma_bf16(t1[mt], BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[mt][0], b[mt][1]);
-          }
-        }
-        const int gidx = 2 * h + gi;
-        const float2 s2 = *reinterpret_cast<const float2*>(ss + gidx * D_BN + 16 * warp + 2 * g);
-        float2 b2 = make_float2(0.0f, 0.0f);
-        if (HAS_BIAS) b2 = *reinterpret_cast<const float2*>(bs + gidx * D_BN + 16 * warp + 2 * g);
-        const float ca = fmaf(-128.0f, s2.x, b2.x), cb = fmaf(-128.0f, s2.y, b2.y);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          acc[mt][0] = fmaf(s2.x, tq[mt][0], fmaf(ca, t1[mt][0], acc[mt][0]));
-          acc[mt][1] = fmaf(s2.x, tq[mt][1], fmaf(ca, t1[mt][1], acc[mt][1]));
-          acc[mt][2] = fmaf(s2.y, tq[mt][2], fmaf(cb, t1[mt][2], acc[mt][2]));
-          acc[mt][3] = fmaf(s2.y, tq[mt][3], fmaf(cb, t1[mt][3], acc[mt][3]));
-        }
-      }
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < D_STAGES - 1; ++i) {
-    if (i < n) load(i, s_begin + i);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n; ++it) {
-    cp_async_wait<D_STAGES - 2>();
-    __syncthreads();
-    const int j = it + D_STAGES - 1;
-    if (j < n) load(j % D_STAGES, s_begin + j);
-    cp_async_commit();
-    compute(it % D_STAGES);
-  }
-  cp_async_wait<0>();
-
-  // lane (g, q) holds (column na, rows 8 mt + 2q, +1) in acc[mt][0..1] and
-  // (column na + 1, the same rows) in acc[mt][2..3]
-  const int na = n0 + 16 * warp + 2 * g;
-  if (splits == 1) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int m = 8 * mt + 2 * q + j;
-        if (m < rows && na < N)
-          store_pair(out, (size_t)(m0 + m) * N + na, acc[mt][j], acc[mt][2 + j], out_bf16);
-      }
-    return;
-  }
-  float* part = ws + (size_t)split * M * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = 8 * mt + 2 * q + j;
-      if (m < rows && na < N)
-        *reinterpret_cast<float2*>(part + (size_t)m * N + na) =
-            make_float2(acc[mt][j], acc[mt][2 + j]);
-    }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = 8 * mt + 2 * q + j;
-      if (m < rows && na < N) {
-        float2 sum = make_float2(0.0f, 0.0f);
-        for (int sp = 0; sp < splits; ++sp) {
-          const float2 v = __ldcg(reinterpret_cast<const float2*>(ws + ((size_t)sp * M + m) * N + na));
-          sum.x += v.x;
-          sum.y += v.y;
-        }
-        store_pair(out, (size_t)m * N + na, sum.x, sum.y, out_bf16);
-      }
-    }
-  if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next call
 }
 
 // ---------------------------------------------------------------------------
@@ -763,27 +433,7 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 // launch
 // ---------------------------------------------------------------------------
 
-struct Args {
-  const __nv_bfloat16* x;
-  const uint8_t* codes;
-  const float* scale;
-  const float* bias;
-  void* out;
-  int M, N, K, out_bf16, splits;
-  const int* tile_idx;
-  const int* n_used;
-  long long code_stride, sb_stride;
-  float* ws;
-  int* counters;
-};
-
-template <int MT, bool HB>
-void launch_decode(const Args& a, cudaStream_t st) {
-  const dim3 grid((a.N + D_BN - 1) / D_BN, a.tile_idx ? a.M / 16 : a.splits);
-  w4_decode_kernel<MT, HB><<<grid, D_THREADS, 0, st>>>(
-      a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K, a.out_bf16, a.splits, a.tile_idx,
-      a.n_used, a.code_stride, a.sb_stride, a.ws, a.counters);
-}
+using Args = DecodeArgs;
 
 template <int BM, bool HB>
 void launch_prefill(const Args& a, cudaStream_t st) {
@@ -796,14 +446,15 @@ void launch_prefill(const Args& a, cudaStream_t st) {
                                              a.sb_stride);
 }
 
+// returns cudaErrorInvalidValue for a body and tile it does not have
 template <bool HB>
-bool launch(const Args& a, int body, int tile, cudaStream_t st) {
-  if (body == 0 && tile == 8) launch_decode<1, HB>(a, st);
-  else if (body == 0 && tile == 16) launch_decode<2, HB>(a, st);
-  else if (body == 1 && tile == 64) launch_prefill<64, HB>(a, st);
+cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
+  if (body == 0 && tile == 8) return launch_decode<PACKED4, 1, HB, 32, 4>(a, st);
+  if (body == 0 && tile == 16) return launch_decode<PACKED4, 2, HB, 32, 4>(a, st);
+  if (body == 1 && tile == 64) launch_prefill<64, HB>(a, st);
   else if (body == 1 && tile == 128) launch_prefill<128, HB>(a, st);
-  else return false;
-  return true;
+  else return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -836,7 +487,7 @@ extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale
                static_cast<const int*>(n_used), code_stride, sb_stride,
                static_cast<float*>(workspace), static_cast<int*>(counters)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool launched = bias ? launch<true>(a, body, tile, st) : launch<false>(a, body, tile, st);
-  if (!launched) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = bias ? launch<true>(a, body, tile, st) : launch<false>(a, body, tile, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

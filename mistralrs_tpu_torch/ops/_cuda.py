@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-The sources under ``csrc/`` are compiled by one ``nvcc`` process each, all
+The sources under ``csrc/`` (``SOURCES``; the ``.cuh`` headers they include
+are part of the build's key) are compiled by one ``nvcc`` process each, all
 started together, and linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The build happens on first use (never at
 import), goes to ``_build/`` inside the package (the directory is
@@ -32,7 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_matmul.cu", "quant_matmul.cu", "paged_attention.cu", "mla_attention.cu")
+SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "quant_matmul.cu", "paged_attention.cu",
+           "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -54,6 +56,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
     "mrt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                       _P, _P, _P],
+    "mrt_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

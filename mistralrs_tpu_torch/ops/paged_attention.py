@@ -8,7 +8,11 @@
 * :func:`paged_prefill_attention_fused` — T query tokens per sequence
   (chunked prefill): writes the chunk's valid rows, then attends causally
   over positions ``[kv_len − n_valid, kv_len)`` on top of the cached past.
-  **Prefill kernel**, replaces ``paged_prefill_attention_fused``.
+  **Prefill kernel** (same file), replaces ``paged_prefill_attention_fused``:
+  FlashAttention-2 on the tensor cores (``mma.sync``: QKᵀ and PV in bf16
+  with f32 sums, P as two bf16 parts), K/V tiles gathered through the block
+  table into a ``cp.async`` double buffer. It takes head_dim 128 and GQA
+  groups that divide 64.
 
 Pools are ``[L, n_kv, S, hd]`` (or one ``[n_kv, S, hd]`` plane) bf16 and are
 updated in place; the functions return the attention output only. On CUDA

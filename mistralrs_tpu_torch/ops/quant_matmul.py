@@ -2,9 +2,9 @@
 
 ``quant_matmul(x, qt)`` computes ``x @ w.T`` for a planar-quantized weight
 ``w = [N, K]``. On a CUDA tensor it launches a hand-written kernel: the **W4
-kernel** of ``csrc/w4_matmul.cu`` for split-half packed 4-bit codes (Q4_K;
-replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel** of
-``csrc/quant_matmul.cu`` for one byte per code (Q8_0, Q6_K; replaces
+kernel** (``csrc/w4_matmul.cu``) for split-half packed 4-bit codes (Q4_K;
+replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel** for one byte
+per code (Q8_0, Q6_K, unsigned with bias, the widened form; replaces
 ``_w8_matmul``/``_w8_matmul_l``). On a CPU tensor it runs
 :func:`quant_matmul_plain`, the plain PyTorch version of the same function,
 which the tests hold against the JAX package and the card's smoke run holds
@@ -14,22 +14,25 @@ the kernels against.
 over a bank ``[E, N, K]``: row-tile ``t`` of ``x`` multiplies expert
 ``tile_idx[t]``. On a CUDA tensor it launches the **W4 grouped kernel**
 (replaces ``_w4_matmul_g``; the W4 bodies with a bank offset) or the **W8
-grouped kernel** (replaces ``_w8_matmul_g``); on a CPU tensor it runs
-:func:`quant_matmul_grouped_plain`. The W8 body also takes a bf16 bank
+grouped kernel** (replaces ``_w8_matmul_g``; the wmma body of
+``csrc/quant_matmul.cu``); on a CPU tensor it runs
+:func:`quant_matmul_grouped_plain`. The wmma body also takes a bf16 bank
 (``ops.moe_grouped.dense_matmul_grouped``).
 
-The W4 kernel has two bodies, chosen by :func:`w4_plan`: a decode body for
-row tiles of at most 16 rows (``mma.sync`` with the weight as the 16-row
-operand, K split across blocks) and a prefill body for tiles of 64 or 128
-rows (``wgmma`` fed by producer warps through a ring of stages);
-``csrc/w4_matmul.cu`` says how each is built.
+Each kernel has two bodies, chosen by its plan (:func:`w4_plan`,
+:func:`w8_plan`). Row tiles of at most 16 rows take the decode body of
+``csrc/mm_decode.cuh``, which W4 and W8 share (``mma.sync`` with the weight
+as the 16-row operand, K split across blocks as :func:`decode_splits` says).
+Larger tiles take W4's ``wgmma`` prefill body (``csrc/w4_matmul.cu``) or
+W8's wmma body (``csrc/quant_matmul.cu``). The sources say how each is
+built.
 
 The plain versions compute ``w = compute_dtype(scale * q + bias)`` (f32
 multiply and add, then one rounding) and accumulate ``x · w`` in f32, the
 k-quant "min" bias folded into the weight as the JAX package's XLA path does.
-The W8 kernels and the W4 prefill body dequantize the same way (the W4
-prefill body within an f32 ulp before the rounding); the W4 decode body
-takes scale and bias out of the inner loop as group sums of ``x`` (the TPU
+The wmma body and the W4 prefill body dequantize the same way (the W4
+prefill body within an f32 ulp before the rounding); the decode body takes
+scale and bias out of the inner loop as group sums of ``x`` (the TPU
 kernel's ``f32dot_bias`` arithmetic) and never rounds the weight. All agree
 with the plain versions within 1e-2 of the largest |output|.
 """
@@ -107,63 +110,95 @@ def _bf16_rows(x2: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the W4 kernel's plan
+# the kernels' plans
 # ---------------------------------------------------------------------------
 
-W4_STEP = 128  # logical K per step: 64 packed byte rows, each two halves of x
-W4_DECODE_COLUMNS = 64  # output columns per decode block
-W4_BLOCKS_PER_SM = 2  # the decode grid's floor, so every SM streams codes
-W4_SPLIT_STEPS = 4  # least steps per split: the decode body's ring depth
+DECODE_STEP = 128  # logical K per decode step (W4: 64 packed byte rows; W8: 128 rows)
+DECODE_COLUMNS = 64  # output columns per W4 decode block (4 warps)
+W8_DECODE_COLUMNS = 128  # per W8 decode block (8 warps: 128-byte code rows)
+DECODE_BLOCKS_PER_SM = 2  # the decode grid's floor, so every SM streams codes
+DECODE_SPLIT_STEPS = 4  # least steps per split: the decode body's ring depth
 
 
-class W4Plan(NamedTuple):
-    body: str  # "decode" (mma.sync, split K) or "prefill" (wgmma)
+class Plan(NamedTuple):
+    body: str  # "decode" (mma.sync, split K); "prefill" (W4: wgmma; W8: wmma)
     tile: int  # rows per row tile: decode 8 or 16, prefill 64 or 128
     splits: int  # K splits of the decode body of one matrix; else 1
+    columns: int = DECODE_COLUMNS  # output columns per decode block
 
 
 _BODIES = {"decode": 0, "prefill": 1}
 
 
+def decode_splits(n: int, k: int, sms: int, columns: int = DECODE_COLUMNS) -> int:
+    """K splits of the decode body (``csrc/mm_decode.cuh``, W4 and W8 alike)
+    for ``w [n, k]`` in blocks of ``columns`` on a card of ``sms`` SMs.
+
+    K is split only when the column tiles alone give fewer than
+    ``DECODE_BLOCKS_PER_SM`` blocks per SM. The split count is then the one
+    (whole steps each, at least that many blocks, and at least
+    ``DECODE_SPLIT_STEPS`` steps a split where K allows, so each split's ring
+    fills) that minimises the busiest SM's work,
+    ``ceil(blocks / sms) * ceil(steps / splits)`` steps, and the fewest
+    splits among equals: every SM streams codes, and no SM holds one block
+    more than the others for long."""
+    tiles = -(-n // columns)
+    steps = k // DECODE_STEP
+    floor = DECODE_BLOCKS_PER_SM * sms
+    if tiles >= floor:
+        return 1
+    least = min(-(-floor // tiles), steps)
+    return min(range(least, max(least, steps // DECODE_SPLIT_STEPS) + 1),
+               key=lambda s: (-(-tiles * s // sms) * -(-steps // s), s))
+
+
 @functools.lru_cache(maxsize=1024)
-def w4_plan(m: int, n: int, k: int, tm: Optional[int] = None, sms: int = 132) -> W4Plan:
+def w4_plan(m: int, n: int, k: int, tm: Optional[int] = None, sms: int = 132) -> Plan:
     """The W4 kernel's body, row tile and K splits for ``x [m, k] @ w.T``
     with ``w [n, k]`` (``tm``: the grouped form's row tile) on a card of
-    ``sms`` SMs. A row tile of at most 16 rows takes the decode body; larger
-    tiles take the prefill body.
-
-    The decode body splits K only when its column tiles alone give fewer
-    than ``W4_BLOCKS_PER_SM`` blocks per SM. It then takes the split count
-    (whole steps each, at least that many blocks, and at least
-    ``W4_SPLIT_STEPS`` steps a split where K allows, so each split's ring
-    fills) that minimises the busiest SM's work,
-    ``ceil(blocks / sms) * ceil(steps / splits)`` steps, and the fewest splits
-    among equals: every SM streams codes, and no SM holds one block more
-    than the others for long."""
+    ``sms`` SMs. A row tile of at most 16 rows takes the decode body, split
+    as :func:`decode_splits` says; larger tiles take the wgmma prefill body."""
     if tm is not None:
         require(tm in GROUPED_TILES, f"row tile {tm} not in {GROUPED_TILES}")
-        return W4Plan("decode", 16, 1) if tm == 16 else W4Plan("prefill", 64, 1)
+        return Plan("decode", 16, 1) if tm == 16 else Plan("prefill", 64, 1)
     if m > 16:
-        return W4Plan("prefill", 64 if m <= 64 else 128, 1)
+        return Plan("prefill", 64 if m <= 64 else 128, 1)
+    return Plan("decode", 8 if m <= 8 else 16, decode_splits(n, k, sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def w8_plan(m: int, n: int, k: int, sms: int = 132) -> Plan:
+    """The W8 kernel's body for ``x [m, k] @ w.T``: at most 16 rows take the
+    decode body of ``csrc/w8_matmul.cu`` (the W4 decode body's, split by the
+    same rule); more rows take the wmma body of ``csrc/quant_matmul.cu``
+    (64-row tiles, no split).
+
+    The decode body takes blocks of ``W8_DECODE_COLUMNS`` (each code row a
+    block reads is one 128-byte line), unless those cannot reach the
+    ``DECODE_BLOCKS_PER_SM`` floor even with K split into single steps
+    (Mixtral's ``attn_v``, N = 1024); then the W4 body's 64-column blocks."""
+    if m > 16:
+        return Plan("prefill", 64, 1)
     tile = 8 if m <= 8 else 16
-    tiles = -(-n // W4_DECODE_COLUMNS)
-    steps = k // W4_STEP
-    floor = W4_BLOCKS_PER_SM * sms
-    if tiles >= floor:
-        return W4Plan("decode", tile, 1)
-    least = min(-(-floor // tiles), steps)
-    splits = min(range(least, max(least, steps // W4_SPLIT_STEPS) + 1),
-                 key=lambda s: (-(-tiles * s // sms) * -(-steps // s), s))
-    return W4Plan("decode", tile, splits)
+    wide = W8_DECODE_COLUMNS
+    if -(-n // wide) * (k // DECODE_STEP) >= DECODE_BLOCKS_PER_SM * sms:
+        return Plan("decode", tile, decode_splits(n, k, sms, wide), wide)
+    return Plan("decode", tile, decode_splits(n, k, sms), DECODE_COLUMNS)
+
+
+def split_steps(k: int, splits: int) -> list[tuple[int, int]]:
+    """The decode steps ``[begin, end)`` of each split, as the kernel
+    computes them: split ``j`` takes steps ``[j * s // splits,
+    (j + 1) * s // splits)`` of ``s = k / 128``."""
+    s = k // DECODE_STEP
+    return [(j * s // splits, (j + 1) * s // splits) for j in range(splits)]
 
 
 def w4_split_rows(k: int, splits: int) -> list[tuple[int, int]]:
-    """The packed byte rows ``[begin, end)`` of each split of the decode
-    body, as the kernel computes them: split ``j`` takes steps
-    ``[j * s // splits, (j + 1) * s // splits)`` of ``s = k / 128``."""
-    s = k // W4_STEP
-    half = W4_STEP // 2
-    return [(j * s // splits * half, (j + 1) * s // splits * half) for j in range(splits)]
+    """The packed byte rows ``[begin, end)`` of each split of the W4 decode
+    body (64 byte rows a step)."""
+    half = DECODE_STEP // 2
+    return [(a * half, b * half) for a, b in split_steps(k, splits)]
 
 
 _sm_counts: dict = {}
@@ -177,11 +212,16 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _split_buffers(device: torch.device, floats: int, tiles: int):
-    """The decode body's split-K state on ``device``: an f32 workspace of at
-    least ``floats`` values and ``tiles`` int32 counters, zero between calls
-    (the last block of a column tile resets its counter). Kept per device and
-    reused, so W4 calls on one device must not run on two streams at once."""
+def _split_buffers(device: torch.device, plan: Plan, m: int, n: int):
+    """The decode body's split-K state on ``device`` for ``plan``: an f32
+    workspace of at least ``splits * m * n`` values and one int32 counter per
+    column tile, zero between calls (the last block of a column tile resets
+    its counter); ``(None, None)`` for one split. Kept per device and reused
+    by W4 and W8 alike, so decode calls on one device must not run on two
+    streams at once."""
+    if plan.splits == 1:
+        return None, None
+    floats, tiles = plan.splits * m * n, -(-n // plan.columns)
     ws, cnt = _split_state.get(device, (None, None))
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
@@ -191,36 +231,54 @@ def _split_buffers(device: torch.device, floats: int, tiles: int):
     return ws, cnt
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
                tile_idx: Optional[torch.Tensor] = None,
                n_used: Optional[torch.Tensor] = None, tm: Optional[int] = None) -> int:
     """Launch the W4 kernel on ``x2 [m, k]`` (rows sorted into ``tm``-row
     tiles for a bank) into ``out``; returns the CUDA error code."""
-    lib = library()
     m, k = x2.shape
     n = out.shape[1]
     plan = w4_plan(m, n, k, tm, _sm_count(x2.device))
-    ws = cnt = None
-    if plan.splits > 1:
-        ws, cnt = _split_buffers(x2.device, plan.splits * m * n, -(-n // W4_DECODE_COLUMNS))
+    ws, cnt = _split_buffers(x2.device, plan, m, n)
     bank = qt.num_banks is not None
     shape, sshape = qt.data.shape, qt.scale.shape
-    return lib.mrt_w4_matmul(
-        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-        None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
-        None if tile_idx is None else tile_idx.data_ptr(),
-        None if n_used is None else n_used.data_ptr(),
-        m, n, k, int(out_bf16), _BODIES[plan.body], plan.tile, plan.splits,
-        shape[-2] * shape[-1] if bank else 0, sshape[-2] * sshape[-1] if bank else 0,
-        None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
-        stream_ptr(x2),
+    return library().mrt_w4_matmul(
+        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
+        _ptr(tile_idx), _ptr(n_used), m, n, k, int(out_bf16), _BODIES[plan.body], plan.tile,
+        plan.splits, shape[-2] * shape[-1] if bank else 0, sshape[-2] * sshape[-1] if bank else 0,
+        _ptr(ws), _ptr(cnt), stream_ptr(x2),
+    )
+
+
+def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor,
+               out_bf16: bool) -> int:
+    """Launch the W8 kernel's body that :func:`w8_plan` picks on ``x2 [m,
+    k]`` into ``out``; returns the CUDA error code."""
+    m, k = x2.shape
+    n = out.shape[1]
+    plan = w8_plan(m, n, k, _sm_count(x2.device))
+    lib = library()
+    if plan.body == "prefill":
+        return lib.mrt_quant_matmul(
+            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias),
+            out.data_ptr(), m, n, k, qt.group_size, fmt, int(out_bf16), stream_ptr(x2),
+        )
+    ws, cnt = _split_buffers(x2.device, plan, m, n)
+    return lib.mrt_w8_matmul(
+        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
+        m, n, k, qt.group_size, fmt, int(out_bf16), plan.tile, plan.splits, plan.columns,
+        _ptr(ws), _ptr(cnt), stream_ptr(x2),
     )
 
 
 def _quant_matmul_cuda(
     x2: torch.Tensor, qt: QTensor, compute_dtype, out_dtype
 ) -> torch.Tensor:
-    m, k = x2.shape
+    m = x2.shape[0]
     n = qt.out_features
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel computes in bf16, not {compute_dtype}")
@@ -237,11 +295,7 @@ def _quant_matmul_cuda(
     if fmt == _FMT_PACKED4:
         code = _w4_launch(x2, qt, out, out_bf16)
     else:
-        code = library().mrt_quant_matmul(
-            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-            None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
-            m, n, k, qt.group_size, fmt, int(out_bf16), stream_ptr(x2),
-        )
+        code = _w8_launch(x2, qt, fmt, out, out_bf16)
     check(code, name)
     COUNTS[name] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)
@@ -357,8 +411,7 @@ def _quant_matmul_grouped_cuda(
         code = _w4_launch(x2, qt, out, out_bf16, tile_idx, n_used, tm)
     else:
         code = library().mrt_quant_matmul_grouped(
-            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
-            None if qt.bias is None else qt.bias.data_ptr(), out.data_ptr(),
+            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
             tile_idx.data_ptr(), n_used.data_ptr(), mp, n, k, qt.group_size, fmt,
             int(out_bf16), tm, qt.data[0].numel(), qt.scale[0].numel(), stream_ptr(x2),
         )

@@ -74,8 +74,8 @@ def build(name: str, edits) -> ctypes.CDLL:
     path = _cuda.BUILD_DIR / f"w4_parts_{tag}.cu"
     path.write_text(src)
     lib = _cuda.BUILD_DIR / f"libw4_parts_{tag}.so"
-    proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib),
-                           str(path)], capture_output=True, text=True)
+    proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-shared",
+                           "-o", str(lib), str(path)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"variant {name!r}: nvcc failed\n{proc.stderr[-2000:]}")
     cdll = ctypes.CDLL(str(lib))

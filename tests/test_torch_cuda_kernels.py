@@ -6,13 +6,15 @@
 (``--noconftest``: ``tests/conftest.py`` sets up JAX and aiohttp for the JAX
 package's tests, which these do not need.)
 
-Tolerances: the W8 kernels round the dequantized weight exactly as the
-plain version does and differ only in f32 sum order; the W4 decode body
-never rounds the weight and the W4 prefill body rounds it within an f32 ulp
-of the plain version's value (bf16 or f32 output: 1e-2 of the largest
-value); the attention kernels (and the MLA decode kernel,
-which also rounds P to bf16 for its tensor-core product) use exp2 with log2(e) folded into
-the scale and another sum order (bf16 output: atol 2e-2). The grouped (MoE)
+Tolerances: the decode body (W4 and W8 at M <= 16) never rounds the
+weight, applying scale and bias to f32 group sums; the W8 wmma body (M >
+16) rounds the dequantized weight exactly as the plain version does and
+differs only in f32 sum order; the W4 prefill body rounds it within an f32
+ulp of the plain version's value (bf16 or f32 output: 1e-2 of the largest
+value). The attention kernels use exp2 with log2(e) folded into the scale
+and another sum order, the prefill kernel carries P as two bf16 parts and
+the MLA decode kernel rounds P to bf16 for their tensor-core products (bf16
+output: atol 2e-2). The grouped (MoE)
 kernels share the matmul kernels' arithmetic and tolerance, over every row
 including the zero rows of unused tiles.
 """
@@ -66,15 +68,20 @@ SHAPES = {"320x512": (320, 512), "336x128": (336, 128), "1024x4096": (1024, 4096
 @pytest.mark.parametrize("out", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 130])
-@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8_s32", "w8_s16", "w8_u32"])
+@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8_s32", "w8_s16", "w8_u32",
+                                  "w8_s16_bias"])
 def test_quant_matmul_kernel_matches_plain(dev, m, kind, shape, out):
-    """Both W4 bodies (decode at M <= 16, prefill above) and the W8 kernel
-    against their plain versions."""
+    """Both W4 bodies and both W8 bodies (decode at M <= 16, prefill above)
+    against their plain versions; W8 in its three byte formats (signed
+    without bias at group 32 and 16, unsigned with bias, signed with bias)."""
     packed = kind.startswith("w4")
-    gs = 16 if kind == "w8_s16" else 32
+    gs = 16 if kind.startswith("w8_s16") else 32
     n, k = SHAPES[shape]
     qt = _qt(n, k, packed, gs, signed=kind.startswith("w8_s"), dev=dev,
              bias=kind != "w4_nobias")
+    if kind == "w8_s16_bias":  # the widened form: signed codes with a bias plane
+        qt = QTensor(qt.data, qt.scale, -8 * qt.scale, group_size=gs, packed=False,
+                     code_bits=8)
     x = torch.randn((m, k), device=dev).to(torch.bfloat16)
     out_dtype = torch.float32 if out == "f32" else None
     reset_counts()
@@ -181,6 +188,93 @@ def test_attention_kernels_match_plain(dev):
     gb, _ = gather_kv(k2, k2, bt, bs)
     for i, n in enumerate(kv_lens.tolist()):
         assert torch.equal(ga[i, :n], gb[i, :n])
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 4112])
+@pytest.mark.parametrize("gs", [16, 32])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_w8_decode_body_full_byte_range(dev, m, signed, gs, n):
+    """The W8 decode body with codes over all 256 byte values (unsigned
+    0..255, signed -128..127), with bias, in 64-column blocks (N = 1024,
+    Mixtral's attn_v: K split unevenly) and 128-column blocks (N = 4096; N =
+    4112, the last block partly past N):
+    within 1e-2 of the plain version, and the same bits on a second call
+    (the splits are summed in split order)."""
+    k = 4096
+    g = torch.Generator(device=dev).manual_seed(7)
+    lo, dt = (-128, torch.int8) if signed else (0, torch.uint8)
+    data = torch.randint(lo, lo + 256, (k, n), generator=g, device=dev, dtype=torch.int32).to(dt)
+    scale = torch.rand((k // gs, n), generator=g, device=dev) * 0.01
+    qt = QTensor(data, scale, -0.5 * scale, group_size=gs, packed=False, code_bits=8)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    got = quant_matmul(x, qt, out_dtype=torch.float32)
+    again = quant_matmul(x, qt, out_dtype=torch.float32)
+    ref = quant_matmul(x, qt, plain=True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+def _prefill_case(dev, group, bs, t, n_valid, past, seed=3, n_kv=2):
+    """Pools, tables and a chunk of ``t`` tokens per row on top of ``past``
+    cached positions, ``n_valid`` of them real (the rest dropped writes)."""
+    hd, b = 128, len(n_valid)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
+    kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
+    w = -(-(max(past) + t) // bs)
+    bt = torch.randperm(b * w, generator=g, device=dev).to(torch.int32).reshape(b, w)
+    s_total = (b * w + 1) * bs
+    kp = torch.randn((n_kv, s_total, hd), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_kv, s_total, hd), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, t, n_kv * group, hd), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, t, n_kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, t, n_kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    tok = torch.arange(t, device=dev)[None]
+    pos = (kv_lens - n_valid)[:, None] + tok
+    slots = (bt.gather(1, (pos // bs).clamp_max(w - 1).long()) * bs + pos % bs).to(torch.int32)
+    slots[tok.expand(b, t) >= n_valid[:, None]] = -1
+    return q, kp, vp, (kn, vn, slots, bt, kv_lens, n_valid)
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_prefill_kernel_matches_plain(dev, group, bs):
+    """The tensor-core prefill body at GQA groups 1-8 and blocks of 16 and
+    64: a chunk spanning several query tiles, a row with n_valid 0, pasts
+    not aligned to the 64-position tile (one of 0). Valid rows within 2e-2
+    (bf16 output, another sum order), the pools bit-equal to the plain version's
+    but the trash slot (the plain version parks dropped writes there)."""
+    t = 150
+    q, kp, vp, args = _prefill_case(dev, group, bs, t, n_valid=[150, 0, 77, 131],
+                                    past=[200, 37, 0, 64])
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    reset_counts()
+    got = paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs)
+    ref = paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    assert COUNTS["paged_prefill"] == 1 and COUNTS["paged_prefill_plain"] == 1
+    assert torch.isfinite(got).all()
+    for i, n in enumerate(args[-1].tolist()):
+        if n:
+            assert (got[i, :n].float() - ref[i, :n].float()).abs().max().item() < 2e-2
+    assert torch.equal(k1[:, :-1], k2[:, :-1]) and torch.equal(v1[:, :-1], v2[:, :-1])
+
+
+def test_prefill_kernel_at_engine_chunks(dev):
+    """Llama-3-8B's attention (32/8 heads) at the engine's chunk shapes: four
+    256-token prompts from position 0, and one 512-token chunk on 512 past
+    positions, blocks of 64."""
+    for t, n_valid, past in ((256, [256, 256, 200, 256], [0, 0, 0, 0]), (512, [512], [512])):
+        q, kp, vp, args = _prefill_case(dev, 4, 64, t, n_valid, past, n_kv=8)
+        k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        got = paged_prefill_attention_fused(q, k1, v1, *args, block_size=64)
+        ref = paged_prefill_attention_fused(q, k2, v2, *args, block_size=64, plain=True)
+        torch.cuda.synchronize()
+        for i, n in enumerate(n_valid):
+            assert (got[i, :n].float() - ref[i, :n].float()).abs().max().item() < 2e-2
+        assert torch.equal(k1[:, :-1], k2[:, :-1]) and torch.equal(v1[:, :-1], v2[:, :-1])
 
 
 def test_forward_paged_kernels_match_plain(dev):

@@ -25,8 +25,8 @@ import jax.numpy as jnp
 
 from mistralrs_tpu_torch.ops import quant_matmul as qm
 from mistralrs_tpu_torch.ops.quant_matmul import (
-    W4_DECODE_COLUMNS,
-    W4_STEP,
+    DECODE_COLUMNS,
+    DECODE_STEP,
     quant_matmul_plain,
     w4_plan,
     w4_split_rows,
@@ -53,7 +53,7 @@ def _q4(n, k, seed=0, bias=True, e=None):
 def test_llama_decode_shapes_fill_the_card(n, k, m):
     plan = w4_plan(m, n, k, None, 132)
     assert plan.body == "decode"
-    assert -(-n // W4_DECODE_COLUMNS) * plan.splits >= 264
+    assert -(-n // DECODE_COLUMNS) * plan.splits >= 264
 
 
 @pytest.mark.parametrize("sms", [114, 132])
@@ -65,14 +65,14 @@ def test_splits_cover_k_in_whole_steps(n, k, sms):
     for (a, b), (c, _) in zip(rows, rows[1:]):
         assert b == c
     for a, b in rows:
-        assert b > a and a % (W4_STEP // 2) == 0 and b % (W4_STEP // 2) == 0
-    assert 1 <= plan.splits <= k // W4_STEP
+        assert b > a and a % (DECODE_STEP // 2) == 0 and b % (DECODE_STEP // 2) == 0
+    assert 1 <= plan.splits <= k // DECODE_STEP
 
 
 def test_uneven_splits_are_covered():
     """Mixtral's k-proj (N = 1024, K = 4096): 32 steps in 17 splits."""
     plan = w4_plan(8, 1024, 4096, None, 132)
-    assert 4096 // W4_STEP % plan.splits != 0
+    assert 4096 // DECODE_STEP % plan.splits != 0
     sizes = {b - a for a, b in w4_split_rows(4096, plan.splits)}
     assert sizes == {64, 128}
 
