@@ -25,8 +25,9 @@ script in one call:
    through copies of the weight whose bytes exceed twice the L2 cache, as
    a decode step streams every weight once (the library's bf16 copies as
    well). W8 is timed at Llama-3-8B's Q8_0 head (M 1 and 8), a Q6_K-style
-   down projection, and Mixtral-8x7B's Q8_0 ``attn_v`` (M 8 and 512) and Q6_K
-   head. The W4 and W8 kernels are also checked (untimed) at edge shapes: M
+   down projection (M 8 and 512), and Mixtral-8x7B's Q8_0 ``attn_v`` (M 8
+   and 512) and Q6_K head. The W4 and W8 kernels are also checked (untimed)
+   at edge shapes: M
    of 1, 16, 17, 64 and 130, N a multiple of 16 but not of 64, K of one
    step, K splits that do not divide its steps evenly, no bias, f32 output,
    and for W8 its three byte formats (unsigned codes over all 256 values).
@@ -42,9 +43,9 @@ script in one call:
    the planes of the experts the routing touches plus the n*k real rows of x
    and out (the padding rows of the used tiles are left out), and 2 * n*k *
    N * K operations; their library call is one ``torch.matmul`` per non-empty
-   group on weights dequantized to bf16 ahead of time. The W4 grouped kernel
-   also runs the all-to-one and empty-expert routings at both row tiles (16
-   and 64 rows). The dense grouped
+   group on weights dequantized to bf16 ahead of time. The W4 and W8
+   grouped kernels also run the all-to-one and empty-expert routings at both
+   row tiles (16 and 64 rows). The dense grouped
    kernel also runs on DeepSeek-V2-Lite's expert banks (64 experts, top-6:
    gate/up [64, 2816, 2048], down [64, 2048, 1408]) at n*k = 36 (decode, 6
    tokens) and 1152 (a 2 x 96-token prefill). The MLA decode kernel runs at
@@ -79,8 +80,8 @@ script in one call:
    host clock and traced with ``torch.profiler`` for the device's kernel
    time, its idle share, the kernels that take most of it and the device
    time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
-   16-row tile), W8 (decode body) and wmma-body (W8 grouped, dense grouped)
-   kernels;
+   16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode body,
+   16-row tile) and dense grouped (wmma body) kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -103,13 +104,13 @@ Budget: the whole run at most 8 minutes on an H100 with the build, at most
 8 GB of host memory (all weights are drawn on the device, none on the host),
 at most 60 GB of device memory.
 
-Tolerances: the wmma body (W8 at more than 16 rows, W8 grouped, dense
-grouped) dequantizes exactly as the plain version and differs in f32 sum
-order; the decode body (W4 and W8 at <= 16 rows, W4 grouped decode) never
-rounds the weight to bf16 (scale and bias applied to f32 group sums) and
-the W4 prefill body computes each weight within an f32 ulp before the
-plain version's rounding, so all of them agree with the plain versions
-within 1e-2 of the largest |value|; the attention kernels agree within
+Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
+tile) and the dense grouped kernel's wmma body use the plain version's
+weights exactly and differ in f32 sum order; the decode body (W4 and W8 at
+row tiles of <= 16 rows) never rounds the weight to bf16 (scale and bias
+applied to f32 group sums) and the W4 prefill body computes each weight
+within an f32 ulp before the plain version's rounding, so all of them agree
+with the plain versions within 1e-2 of the largest |value|; the attention kernels agree within
 2e-2 absolute (bf16 outputs of magnitude ~1, exp2 vs exp, sum order, and P
 as two bf16 parts for the prefill kernel's tensor-core PV product); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
@@ -214,7 +215,7 @@ KERNEL_INFO = {
                       "mistralrs_tpu/ops/paged_attention.py:1162"),
     "w4_matmul_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:830"),
-    "w8_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+    "w8_matmul_g": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:895"),
     "dense_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
@@ -594,7 +595,7 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
         ("w4_matmul_g", "gate/up, fused", lambda: q4k(2 * mi, h, gen, dev, e=e), (8, 512)),
         ("w4_matmul_g", "Q4_K down", lambda: q4k(h, mi, gen, dev, e=e), (8, 512)),
         ("w8_matmul_g", "Q6_K down", lambda: q6k(h, mi, gen, dev, e=e), (8, 512)),
-        ("w8_matmul_g", "widened down", lambda: widened(h, mi, gen, dev, e), (8,)),
+        ("w8_matmul_g", "widened down", lambda: widened(h, mi, gen, dev, e), (8, 512)),
         ("dense_matmul_g", "bf16 down", lambda: bf16_bank(h, mi, gen, dev, e), (8, 512)),
     ]
     for name, what, make, sizes in banks:
@@ -604,8 +605,8 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
             r["shape"] = f"{what}: {r['shape']}"
             rows[name].append(r)
         for routing in ("all_to_one", "empty_expert"):
-            # both row tiles (16 and 64 rows) for the W4 bodies
-            for ntok in ((8, 512) if name == "w4_matmul_g" else (8,)):
+            # both row tiles (16 and 64 rows) for the W4 and W8 bodies
+            for ntok in ((8, 512) if name in ("w4_matmul_g", "w8_matmul_g") else (8,)):
                 rows[name].append(check_grouped(name, w, ntok, rates, gen, dev, routing,
                                                 timed=False))
         del w
@@ -1093,13 +1094,15 @@ def profile_decode_step(engine, add_request) -> str:
         return f"decode step (6 rows) {wall:.2f} ms wall; device time not measured"
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
-    # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs W4's
-    # dense projections of <= 8 rows with its 8-row tile, W4's grouped
-    # experts with its 16-row tile, and W8 (formats 1 and 2); the wmma body
-    # runs W8 grouped and dense grouped
+    # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs the
+    # dense projections of <= 8 rows with its 8-row tile and the grouped
+    # experts with its 16-row tile, W4 in format 0 and W8 in formats 1 and 2;
+    # the wmma body runs dense grouped
     families = {"W4": ("mm_decode_kernel<0, 1",), "W4 grouped": ("mm_decode_kernel<0, 2",),
-                "W8": ("mm_decode_kernel<1", "mm_decode_kernel<2"),
-                "wmma body": ("quant_matmul_kernel",)}
+                "W8": ("mm_decode_kernel<1, 1", "mm_decode_kernel<2, 1"),
+                "W8 grouped": ("mm_decode_kernel<1, 2", "mm_decode_kernel<2, 2"),
+                "W8 prefill": ("w8_prefill_kernel",),
+                "dense grouped": ("dense_grouped_kernel",)}
     fam = ", ".join(
         f"{f} {sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3:.3f} ms"
         for f, keys in families.items())
@@ -1270,7 +1273,8 @@ def main() -> int:
         rows["w8_matmul"].append(check_matmul("w8_matmul", m, head, rates, gen, dev))
     del head
     q6 = q6k(4096, 14336, gen, dev)  # Q6_K-style ffn_down
-    rows["w8_matmul"].append(check_matmul("w8_matmul", 8, q6, rates, gen, dev))
+    for m in (8, 512):
+        rows["w8_matmul"].append(check_matmul("w8_matmul", m, q6, rates, gen, dev))
     del q6
     attn_v = q8(1024, 4096, gen, dev)  # Mixtral-8x7B's Q8_0 attn_v
     for m in (8, 512):

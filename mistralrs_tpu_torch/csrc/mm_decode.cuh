@@ -4,8 +4,8 @@
 //
 //   out[m, n] = sum_k x[m, k] * (scale[k / gs, n] * q[k, n] + bias[k / gs, n])
 //
-// for a row tile of at most 16 rows (dense M <= 16; the W4 grouped form's
-// 16-row tiles). Bound: the weight bytes (W4 0.75 B per weight, W8 1.125 to
+// for a row tile of at most 16 rows (dense M <= 16; the grouped forms'
+// 16-row tiles, W4 and W8 alike). Bound: the weight bytes (W4 0.75 B per weight, W8 1.125 to
 // 1.5 B: the code plus 4 or 8 B of scale and bias per group), so the design
 // keeps loads in flight on every SM. A step is 128 logical rows of K.
 //   - Blocks of NW warps own 16 NW output columns (W4: 4 warps, 64 columns;
@@ -53,9 +53,10 @@
 //     2304 (S8). tests/test_torch_w8_plan.py holds the conversion exact for
 //     all 256 byte values.
 // Scale and bias planes are f32 [K/gs, N] (gs 32, or 16 for U8/S8); bias
-// may be absent. The grouped form (PACKED4 only) multiplies row tile t by
+// may be absent. The grouped form (every format) multiplies row tile t by
 // expert tile_idx[t] of a bank (planes code_stride bytes and sb_stride
-// floats apart); tiles at or past *n_used write zeros and read no weights.
+// floats apart), one split a tile; tiles at or past *n_used write zeros and
+// read no weights.
 // Requires K % 128 == 0 and N % 16 == 0; columns past N and rows past M are
 // zero-filled, never read.
 

@@ -33,8 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "quant_matmul.cu", "paged_attention.cu",
-           "mla_attention.cu")
+SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "w8_prefill.cu", "quant_matmul.cu",
+           "paged_attention.cu", "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -51,12 +51,11 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream are c_void_p, every int c_int,
 # every bank stride c_longlong
 _SIGNATURES = {
-    "mrt_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mrt_quant_matmul_grouped": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
+    "mrt_dense_matmul_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     "mrt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                       _P, _P, _P],
-    "mrt_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "mrt_w8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _L, _L, _P, _P, _P],
     "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,9 +7,8 @@ streams each needed expert's weights once per row tile: ``tile_idx[t]`` names
 the expert of tile ``t``. Quantized leaves go to
 :func:`~mistralrs_tpu_torch.ops.quant_matmul.quant_matmul_grouped` (the W4
 and W8 grouped kernels), a dense bf16 leaf to :func:`dense_matmul_grouped`
-(the **dense grouped kernel**, replacing ``_dense_matmul_g``: the grouped
-W8 body of ``csrc/quant_matmul.cu`` with a bf16 bank as its BF16 code
-format).
+(the **dense grouped kernel**, replacing ``_dense_matmul_g``: the wmma
+body of ``csrc/quant_matmul.cu``).
 
 ``tm`` is the port's own M-tile, which the kernels must match: 16 rows when
 ``n * k <= 256`` (decode: 16 pairs over ~7 of 8 experts would pad to 512 rows
@@ -28,7 +27,6 @@ import torch
 from ..quant.qtensor import QTensor
 from ._cuda import COUNTS, check, library, require, stream_ptr
 from .quant_matmul import (
-    _FMT_BF16,
     _bf16_rows,
     check_groups,
     quant_matmul_grouped,
@@ -114,10 +112,9 @@ def _dense_matmul_grouped_cuda(
     out = torch.empty((mp, n), dtype=torch.bfloat16, device=x2.device)
     if mp == 0:
         return out
-    code = library().mrt_quant_matmul_grouped(
-        x2.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), tile_idx.data_ptr(),
-        n_used.data_ptr(), mp, n, k, 0, _FMT_BF16, 1, tm, w[0].numel() * w.element_size(), 0,
-        stream_ptr(x2),
+    code = library().mrt_dense_matmul_grouped(
+        x2.data_ptr(), w.data_ptr(), out.data_ptr(), tile_idx.data_ptr(), n_used.data_ptr(),
+        mp, n, k, tm, w[0].numel(), stream_ptr(x2),
     )
     check(code, "dense_matmul_g")
     COUNTS["dense_matmul_g"] += 1

@@ -3,38 +3,38 @@
 ``quant_matmul(x, qt)`` computes ``x @ w.T`` for a planar-quantized weight
 ``w = [N, K]``. On a CUDA tensor it launches a hand-written kernel: the **W4
 kernel** (``csrc/w4_matmul.cu``) for split-half packed 4-bit codes (Q4_K;
-replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel** for one byte
-per code (Q8_0, Q6_K, unsigned with bias, the widened form; replaces
-``_w8_matmul``/``_w8_matmul_l``). On a CPU tensor it runs
-:func:`quant_matmul_plain`, the plain PyTorch version of the same function,
-which the tests hold against the JAX package and the card's smoke run holds
-the kernels against.
+replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel**
+(``csrc/w8_matmul.cu``) for one byte per code (Q8_0, Q6_K, unsigned with
+bias, the widened form; replaces ``_w8_matmul``/``_w8_matmul_l``). On a CPU
+tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
+same function, which the tests hold against the JAX package and the card's
+smoke run holds the kernels against.
 
 ``quant_matmul_grouped(x, bank, tile_idx, ...)`` is the grouped (MoE) form
 over a bank ``[E, N, K]``: row-tile ``t`` of ``x`` multiplies expert
 ``tile_idx[t]``. On a CUDA tensor it launches the **W4 grouped kernel**
-(replaces ``_w4_matmul_g``; the W4 bodies with a bank offset) or the **W8
-grouped kernel** (replaces ``_w8_matmul_g``; the wmma body of
-``csrc/quant_matmul.cu``); on a CPU tensor it runs
-:func:`quant_matmul_grouped_plain`. The wmma body also takes a bf16 bank
-(``ops.moe_grouped.dense_matmul_grouped``).
+(replaces ``_w4_matmul_g``) or the **W8 grouped kernel** (replaces
+``_w8_matmul_g``): each kernel's own bodies with a bank offset. On a CPU
+tensor it runs :func:`quant_matmul_grouped_plain`.
 
 Each kernel has two bodies, chosen by its plan (:func:`w4_plan`,
-:func:`w8_plan`). Row tiles of at most 16 rows take the decode body of
-``csrc/mm_decode.cuh``, which W4 and W8 share (``mma.sync`` with the weight
-as the 16-row operand, K split across blocks as :func:`decode_splits` says).
-Larger tiles take W4's ``wgmma`` prefill body (``csrc/w4_matmul.cu``) or
-W8's wmma body (``csrc/quant_matmul.cu``). The sources say how each is
-built.
+:func:`w8_plan`). Row tiles of at most 16 rows (dense M <= 16, grouped
+``tm = 16``) take the decode body of ``csrc/mm_decode.cuh``, which W4 and
+W8 share (``mma.sync`` with the weight as the 16-row operand, K of one
+matrix split across blocks as :func:`decode_splits` says). Larger tiles
+take a ``wgmma`` prefill body: W4's dequantizes the weight into shared
+memory as the B operand (``csrc/w4_matmul.cu``); W8's makes it the A operand
+in registers (``csrc/w8_prefill.cu``), in the row tile and K splits of
+:func:`prefill_tile_splits`. The sources say how each is built.
 
 The plain versions compute ``w = compute_dtype(scale * q + bias)`` (f32
 multiply and add, then one rounding) and accumulate ``x · w`` in f32, the
 k-quant "min" bias folded into the weight as the JAX package's XLA path does.
-The wmma body and the W4 prefill body dequantize the same way (the W4
-prefill body within an f32 ulp before the rounding); the decode body takes
-scale and bias out of the inner loop as group sums of ``x`` (the TPU
-kernel's ``f32dot_bias`` arithmetic) and never rounds the weight. All agree
-with the plain versions within 1e-2 of the largest |output|.
+The W8 prefill body dequantizes exactly so, the W4 prefill body within an
+f32 ulp before the rounding; the decode body takes scale and bias out of the
+inner loop as group sums of ``x`` (the TPU kernel's ``f32dot_bias``
+arithmetic) and never rounds the weight. All agree with the plain versions
+within 1e-2 of the largest |output|.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ import torch
 from ..quant.qtensor import QTensor
 from ._cuda import COUNTS, check, library, require, stream_ptr
 
-_FMT_PACKED4, _FMT_U8, _FMT_S8, _FMT_BF16 = 0, 1, 2, 3
+_FMT_PACKED4, _FMT_U8, _FMT_S8 = 0, 1, 2
 
 
 def _kernel_name(qt: QTensor) -> str:
@@ -118,13 +118,19 @@ DECODE_COLUMNS = 64  # output columns per W4 decode block (4 warps)
 W8_DECODE_COLUMNS = 128  # per W8 decode block (8 warps: 128-byte code rows)
 DECODE_BLOCKS_PER_SM = 2  # the decode grid's floor, so every SM streams codes
 DECODE_SPLIT_STEPS = 4  # least steps per split: the decode body's ring depth
-
+PREFILL_STEP = 64  # logical K per W8 prefill step (one stage of its ring)
+PREFILL_COLUMNS = 256  # output columns per W8 prefill block
+PREFILL_SPLIT_STEPS = 4  # least steps per split of the W8 prefill body
+PREFILL_RAMP_STEPS = 4  # a W8 prefill block's ring fill and epilogue, in steps
+# rows per W8 prefill block of a grouped call: pairs of one expert's 64-row
+# tiles, so each dequantized weight serves up to 128 rows (PERF.md)
+W8_GROUPED_PREFILL_TILE = 128
 
 class Plan(NamedTuple):
-    body: str  # "decode" (mma.sync, split K); "prefill" (W4: wgmma; W8: wmma)
+    body: str  # "decode" (mma.sync, split K); "prefill" (wgmma)
     tile: int  # rows per row tile: decode 8 or 16, prefill 64 or 128
-    splits: int  # K splits of the decode body of one matrix; else 1
-    columns: int = DECODE_COLUMNS  # output columns per decode block
+    splits: int  # K splits of one matrix; else 1
+    columns: int = DECODE_COLUMNS  # output columns per block
 
 
 _BODIES = {"decode": 0, "prefill": 1}
@@ -152,6 +158,45 @@ def decode_splits(n: int, k: int, sms: int, columns: int = DECODE_COLUMNS) -> in
                key=lambda s: (-(-tiles * s // sms) * -(-steps // s), s))
 
 
+def prefill_cost(m: int, n: int, k: int, tile: int, splits: int, sms: int, gs: int = 32,
+                 bias: bool = False) -> float:
+    """What the busiest SM reads from L2, in bytes, when the W8 prefill body
+    runs ``x [m, k] @ w.T`` (``w [n, k]``, groups of ``gs``, a bias plane or
+    not) in ``tile``-row blocks of ``PREFILL_COLUMNS`` columns with K in
+    ``splits``: the body is bound by those reads (PERF.md), one block
+    an SM (its ring fills the SM's shared memory). Each of its waves of
+    blocks reads a stage (x, codes, scale and bias rows) per step, plus
+    ``PREFILL_RAMP_STEPS`` for filling its ring and its epilogue; the K
+    splits' f32 partials are written and read back once, spread over the
+    card."""
+    tiles = -(-m // tile) * -(-n // PREFILL_COLUMNS)
+    stage = (tile * PREFILL_STEP * 2 + PREFILL_STEP * PREFILL_COLUMNS
+             + PREFILL_STEP // gs * PREFILL_COLUMNS * 4 * (2 if bias else 1))
+    waves = -(-tiles * splits // sms)
+    per_split = -(-(k // PREFILL_STEP) // splits)
+    partials = 0 if splits == 1 else 2 * splits * m * n * 4 / sms
+    return waves * (per_split + PREFILL_RAMP_STEPS) * stage + partials
+
+
+def prefill_tile_splits(m: int, n: int, k: int, sms: int, gs: int = 32,
+                        bias: bool = False) -> tuple[int, int]:
+    """The W8 prefill body's row tile and K splits for one matrix: among
+    64-row tiles (and 128-row ones when ``m > 64``) and the split counts
+    that give every SM a block (none when the tiles alone do; whole steps,
+    at least ``PREFILL_SPLIT_STEPS`` a split where K allows), the one of the
+    least :func:`prefill_cost`; fewer splits, then the smaller tile, among
+    equals."""
+    steps = k // PREFILL_STEP
+    best = None
+    for tile in (64, 128) if m > 64 else (64,):
+        tiles = -(-m // tile) * -(-n // PREFILL_COLUMNS)
+        least = 1 if tiles >= sms else min(-(-sms // tiles), steps)
+        for s in range(least, max(least, steps // PREFILL_SPLIT_STEPS) + 1):
+            key = (prefill_cost(m, n, k, tile, s, sms, gs, bias), s, tile)
+            best = key if best is None or key < best else best
+    return best[2], best[1]
+
+
 @functools.lru_cache(maxsize=1024)
 def w4_plan(m: int, n: int, k: int, tm: Optional[int] = None, sms: int = 132) -> Plan:
     """The W4 kernel's body, row tile and K splits for ``x [m, k] @ w.T``
@@ -166,31 +211,50 @@ def w4_plan(m: int, n: int, k: int, tm: Optional[int] = None, sms: int = 132) ->
     return Plan("decode", 8 if m <= 8 else 16, decode_splits(n, k, sms))
 
 
+def _w8_decode_columns(tiles: int, steps: int, n: int, sms: int) -> int:
+    """Blocks of ``W8_DECODE_COLUMNS`` (each code row a block reads is one
+    128-byte line) where ``tiles`` row tiles of them, with K split into
+    ``steps`` single steps at most, reach the ``DECODE_BLOCKS_PER_SM`` floor;
+    else the W4 body's 64-column blocks."""
+    wide = -(-n // W8_DECODE_COLUMNS) * tiles * steps >= DECODE_BLOCKS_PER_SM * sms
+    return W8_DECODE_COLUMNS if wide else DECODE_COLUMNS
+
+
 @functools.lru_cache(maxsize=1024)
-def w8_plan(m: int, n: int, k: int, sms: int = 132) -> Plan:
-    """The W8 kernel's body for ``x [m, k] @ w.T``: at most 16 rows take the
-    decode body of ``csrc/w8_matmul.cu`` (the W4 decode body's, split by the
-    same rule); more rows take the wmma body of ``csrc/quant_matmul.cu``
-    (64-row tiles, no split).
+def w8_plan(m: int, n: int, k: int, sms: int = 132, tm: Optional[int] = None, gs: int = 32,
+            bias: bool = False) -> Plan:
+    """The W8 kernel's body for ``x [m, k] @ w.T`` (``tm``: the grouped
+    form's row tile) on a card of ``sms`` SMs.
 
-    The decode body takes blocks of ``W8_DECODE_COLUMNS`` (each code row a
-    block reads is one 128-byte line), unless those cannot reach the
-    ``DECODE_BLOCKS_PER_SM`` floor even with K split into single steps
-    (Mixtral's ``attn_v``, N = 1024); then the W4 body's 64-column blocks."""
+    A row tile of at most 16 rows takes the decode body of
+    ``csrc/w8_matmul.cu`` (the W4 decode body's): one matrix split by the
+    same rule, the grouped form's 16-row tiles one split each. Its blocks are
+    ``W8_DECODE_COLUMNS`` wide where that can reach the
+    ``DECODE_BLOCKS_PER_SM`` floor (for one matrix with K split into single
+    steps; for a bank over all ``m / 16`` tiles, the used tiles' worst
+    case), else 64 (Mixtral's ``attn_v``, N = 1024).
+
+    More rows take the wgmma prefill body in blocks of ``PREFILL_COLUMNS``:
+    for one matrix (groups of ``gs``, a bias plane or not) in the row tile
+    and K splits :func:`prefill_tile_splits` picks; for a bank in
+    ``W8_GROUPED_PREFILL_TILE`` rows (pairs of one expert's 64-row tiles)."""
+    if tm is not None:
+        require(tm in GROUPED_TILES, f"row tile {tm} not in {GROUPED_TILES}")
+        if tm == 16:
+            return Plan("decode", 16, 1, _w8_decode_columns(m // 16, 1, n, sms))
+        return Plan("prefill", W8_GROUPED_PREFILL_TILE, 1, PREFILL_COLUMNS)
     if m > 16:
-        return Plan("prefill", 64, 1)
-    tile = 8 if m <= 8 else 16
-    wide = W8_DECODE_COLUMNS
-    if -(-n // wide) * (k // DECODE_STEP) >= DECODE_BLOCKS_PER_SM * sms:
-        return Plan("decode", tile, decode_splits(n, k, sms, wide), wide)
-    return Plan("decode", tile, decode_splits(n, k, sms), DECODE_COLUMNS)
+        tile, splits = prefill_tile_splits(m, n, k, sms, gs, bias)
+        return Plan("prefill", tile, splits, PREFILL_COLUMNS)
+    columns = _w8_decode_columns(1, k // DECODE_STEP, n, sms)
+    return Plan("decode", 8 if m <= 8 else 16, decode_splits(n, k, sms, columns), columns)
 
 
-def split_steps(k: int, splits: int) -> list[tuple[int, int]]:
-    """The decode steps ``[begin, end)`` of each split, as the kernel
-    computes them: split ``j`` takes steps ``[j * s // splits,
-    (j + 1) * s // splits)`` of ``s = k / 128``."""
-    s = k // DECODE_STEP
+def split_steps(k: int, splits: int, step: int = DECODE_STEP) -> list[tuple[int, int]]:
+    """The steps ``[begin, end)`` of each split, as the kernels compute them:
+    split ``j`` takes steps ``[j * s // splits, (j + 1) * s // splits)`` of
+    ``s = k / step`` (decode: 128; W8 prefill: ``PREFILL_STEP``)."""
+    s = k // step
     return [(j * s // splits, (j + 1) * s // splits) for j in range(splits)]
 
 
@@ -213,12 +277,13 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _split_buffers(device: torch.device, plan: Plan, m: int, n: int):
-    """The decode body's split-K state on ``device`` for ``plan``: an f32
-    workspace of at least ``splits * m * n`` values and one int32 counter per
-    column tile, zero between calls (the last block of a column tile resets
-    its counter); ``(None, None)`` for one split. Kept per device and reused
-    by W4 and W8 alike, so decode calls on one device must not run on two
-    streams at once."""
+    """The split-K state on ``device`` for ``plan``: an f32 workspace of at
+    least ``splits * m * n`` values and one int32 counter per column tile
+    (the decode body's: zero between calls, the last block of a tile resets
+    its counter; the W8 prefill body sums its splits in a second kernel);
+    ``(None, None)`` for one split. Kept per device and reused by every
+    split body, so such calls on one device must not run on two streams at
+    once."""
     if plan.splits == 1:
         return None, None
     floats, tiles = plan.splits * m * n, -(-n // plan.columns)
@@ -235,6 +300,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _bank_strides(qt: QTensor) -> tuple[int, int]:
+    """The code (bytes) and scale/bias (floats) strides of a bank's experts;
+    zero for one matrix."""
+    if qt.num_banks is None:
+        return 0, 0
+    return qt.data[0].numel(), qt.scale[0].numel()
+
+
 def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
                tile_idx: Optional[torch.Tensor] = None,
                n_used: Optional[torch.Tensor] = None, tm: Optional[int] = None) -> int:
@@ -244,33 +317,27 @@ def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
     n = out.shape[1]
     plan = w4_plan(m, n, k, tm, _sm_count(x2.device))
     ws, cnt = _split_buffers(x2.device, plan, m, n)
-    bank = qt.num_banks is not None
-    shape, sshape = qt.data.shape, qt.scale.shape
     return library().mrt_w4_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
         _ptr(tile_idx), _ptr(n_used), m, n, k, int(out_bf16), _BODIES[plan.body], plan.tile,
-        plan.splits, shape[-2] * shape[-1] if bank else 0, sshape[-2] * sshape[-1] if bank else 0,
-        _ptr(ws), _ptr(cnt), stream_ptr(x2),
+        plan.splits, *_bank_strides(qt), _ptr(ws), _ptr(cnt), stream_ptr(x2),
     )
 
 
-def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor,
-               out_bf16: bool) -> int:
+def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor, out_bf16: bool,
+               tile_idx: Optional[torch.Tensor] = None,
+               n_used: Optional[torch.Tensor] = None, tm: Optional[int] = None) -> int:
     """Launch the W8 kernel's body that :func:`w8_plan` picks on ``x2 [m,
-    k]`` into ``out``; returns the CUDA error code."""
+    k]`` (rows sorted into ``tm``-row tiles for a bank) into ``out``;
+    returns the CUDA error code."""
     m, k = x2.shape
     n = out.shape[1]
-    plan = w8_plan(m, n, k, _sm_count(x2.device))
-    lib = library()
-    if plan.body == "prefill":
-        return lib.mrt_quant_matmul(
-            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias),
-            out.data_ptr(), m, n, k, qt.group_size, fmt, int(out_bf16), stream_ptr(x2),
-        )
+    plan = w8_plan(m, n, k, _sm_count(x2.device), tm, qt.group_size, qt.bias is not None)
     ws, cnt = _split_buffers(x2.device, plan, m, n)
-    return lib.mrt_w8_matmul(
+    return library().mrt_w8_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
-        m, n, k, qt.group_size, fmt, int(out_bf16), plan.tile, plan.splits, plan.columns,
+        _ptr(tile_idx), _ptr(n_used), m, n, k, qt.group_size, fmt, int(out_bf16),
+        _BODIES[plan.body], plan.tile, plan.splits, plan.columns, *_bank_strides(qt),
         _ptr(ws), _ptr(cnt), stream_ptr(x2),
     )
 
@@ -410,11 +477,7 @@ def _quant_matmul_grouped_cuda(
     if fmt == _FMT_PACKED4:
         code = _w4_launch(x2, qt, out, out_bf16, tile_idx, n_used, tm)
     else:
-        code = library().mrt_quant_matmul_grouped(
-            x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
-            tile_idx.data_ptr(), n_used.data_ptr(), mp, n, k, qt.group_size, fmt,
-            int(out_bf16), tm, qt.data[0].numel(), qt.scale[0].numel(), stream_ptr(x2),
-        )
+        code = _w8_launch(x2, qt, fmt, out, out_bf16, tile_idx, n_used, tm)
     check(code, name)
     COUNTS[name] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)

@@ -5,7 +5,7 @@
 Builds variants of ``csrc/w4_matmul.cu`` with some of its parts left out
 (the producers' global loads, the consumers' dequantization, the wgmma), or
 with the dequantization moved after the wgmma's wait (no overlap), each into
-its own library under ``_build/``, and times the prefill body with CUDA
+its own library under ``_build/`` (all built together), and times the prefill body with CUDA
 events over 20 back-to-back launches: Llama-3-8B's gate-up at M = 512 (the
 128-row tile), the same at the 64-row tile, and Mixtral-8x7B's fused gate/up
 bank at n*k = 1024 (grouped, 64-row tiles). A variant without a part
@@ -63,25 +63,38 @@ VARIANTS = {
 }
 
 
-def build(name: str, edits) -> ctypes.CDLL:
-    src = (_cuda.CSRC / "w4_matmul.cu").read_text()
-    for old, new in edits:
-        if old not in src:
-            raise RuntimeError(f"variant {name!r}: the source no longer has {old[:60]!r}")
-        src = src.replace(old, new)
-    tag = name.replace(" ", "_")
+def build(variants: dict, source: str = "w4_matmul.cu", entry: str = "mrt_w4_matmul",
+          argtypes=None) -> dict:
+    """``{name: library}``: ``source`` with each variant's edits (old, new)
+    applied, built alone into its own library under ``_build/`` (one
+    ``nvcc`` per variant, all started together); ``entry`` bound with
+    ``argtypes`` (by default its signature in ``_cuda``)."""
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = _cuda.BUILD_DIR / f"w4_parts_{tag}.cu"
-    path.write_text(src)
-    lib = _cuda.BUILD_DIR / f"libw4_parts_{tag}.so"
-    proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-shared",
-                           "-o", str(lib), str(path)], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"variant {name!r}: nvcc failed\n{proc.stderr[-2000:]}")
-    cdll = ctypes.CDLL(str(lib))
-    cdll.mrt_w4_matmul.argtypes = _cuda._SIGNATURES["mrt_w4_matmul"]
-    cdll.mrt_w4_matmul.restype = ctypes.c_int
-    return cdll
+    procs = {}
+    for name, edits in variants.items():
+        src = (_cuda.CSRC / source).read_text()
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"variant {name!r}: the source no longer has {old[:60]!r}")
+            src = src.replace(old, new)
+        tag = f"{source.split('.')[0]}_{name.replace(' ', '_')}"
+        path = _cuda.BUILD_DIR / f"parts_{tag}.cu"
+        path.write_text(src)
+        lib = _cuda.BUILD_DIR / f"libparts_{tag}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-shared", "-o",
+             str(lib), str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name!r}: nvcc failed\n{log[-2000:]}")
+        cdll = ctypes.CDLL(str(lib))
+        fn = getattr(cdll, entry)
+        fn.argtypes = argtypes or _cuda._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        libs[name] = cdll
+    return libs
 
 
 def q4k(n: int, k: int, gen, dev, e=None) -> QTensor:
@@ -128,7 +141,7 @@ def main() -> int:
                           check=True).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    libs = {name: build(name, edits) for name, edits in VARIANTS.items()}
+    libs = build(VARIANTS)
     qt = q4k(28672, 4096, gen, dev)
     x = torch.randn((512, 4096), generator=gen, device=dev).to(torch.bfloat16)
     out = torch.empty((512, 28672), device=dev, dtype=torch.bfloat16)

@@ -6,12 +6,12 @@
 (``--noconftest``: ``tests/conftest.py`` sets up JAX and aiohttp for the JAX
 package's tests, which these do not need.)
 
-Tolerances: the decode body (W4 and W8 at M <= 16) never rounds the
-weight, applying scale and bias to f32 group sums; the W8 wmma body (M >
-16) rounds the dequantized weight exactly as the plain version does and
-differs only in f32 sum order; the W4 prefill body rounds it within an f32
-ulp of the plain version's value (bf16 or f32 output: 1e-2 of the largest
-value). The attention kernels use exp2 with log2(e) folded into the scale
+Tolerances: the decode body (W4 and W8 at row tiles of <= 16 rows) never
+rounds the weight, applying scale and bias to f32 group sums; the W8
+prefill body (more rows) rounds the dequantized weight exactly as the plain
+version does and differs only in f32 sum order; the W4 prefill body rounds
+it within an f32 ulp of the plain version's value (bf16 or f32 output: 1e-2
+of the largest value). The attention kernels use exp2 with log2(e) folded into the scale
 and another sum order, the prefill kernel carries P as two bf16 parts and
 the MLA decode kernel rounds P to bf16 for their tensor-core products (bf16
 output: atol 2e-2). The grouped (MoE)
@@ -67,13 +67,15 @@ SHAPES = {"320x512": (320, 512), "336x128": (336, 128), "1024x4096": (1024, 4096
 
 @pytest.mark.parametrize("out", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 130])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 130, 512])
 @pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8_s32", "w8_s16", "w8_u32",
                                   "w8_s16_bias"])
 def test_quant_matmul_kernel_matches_plain(dev, m, kind, shape, out):
-    """Both W4 bodies and both W8 bodies (decode at M <= 16, prefill above)
-    against their plain versions; W8 in its three byte formats (signed
-    without bias at group 32 and 16, unsigned with bias, signed with bias)."""
+    """Both W4 bodies and both W8 bodies (decode at M <= 16, prefill above:
+    for W8 64-row tiles with K split at N = 1024 and at M = 512 N = 4096, and
+    N = 336 not a multiple of 64) against their plain versions; W8 in its
+    three byte formats (signed without bias at group 32 and 16, unsigned
+    with bias, signed with bias)."""
     packed = kind.startswith("w4")
     gs = 16 if kind.startswith("w8_s16") else 32
     n, k = SHAPES[shape]
@@ -96,27 +98,39 @@ def test_quant_matmul_kernel_matches_plain(dev, m, kind, shape, out):
 
 
 def _bank(e, n, k, kind, dev, seed=0):
+    """A bank of ``kind``: "dense" bf16, "w4" / "w4_nobias" Q4_K-style, or a
+    W8 byte format: "w8" (Q6_K-style: int8 in [-32, 32), group 16), "w8_bias"
+    (the widened form: the same with a bias plane), "w8_s32" (Q8_0-style:
+    int8 over all 256 values, group 32), "w8_u8_bias" (uint8 over all 256
+    values, group 32, with a bias plane)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if kind == "dense":
         return (torch.randn((e, n, k), generator=g, device=dev) * 0.05).to(torch.bfloat16)
-    packed, gs = kind.startswith("w4"), 32 if kind.startswith("w4") else 16
+    packed = kind.startswith("w4")
+    gs = 16 if kind in ("w8", "w8_bias") else 32
     if packed:
         data = torch.randint(0, 256, (e, k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    elif kind == "w8_s32":
+        data = torch.randint(-128, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    elif kind == "w8_u8_bias":
+        data = torch.randint(0, 256, (e, k, n), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
     else:
         data = torch.randint(-32, 32, (e, k, n), generator=g, device=dev, dtype=torch.int8)
     scale = torch.rand((e, k // gs, n), generator=g, device=dev) * 0.02
-    bias = -8 * scale if kind in ("w4", "w8_bias") else None  # w4_nobias: none
+    bias = -8 * scale if kind in ("w4", "w8_bias", "w8_u8_bias") else None
     return QTensor(data, scale, bias, group_size=gs, packed=packed,
                    code_bits=4 if packed else 8)
 
 
 @pytest.mark.parametrize("routing", ["ragged", "all_to_one", "empty_expert"])
 @pytest.mark.parametrize("ntok", [8, 200])
-@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8", "w8_bias", "dense"])
+@pytest.mark.parametrize("kind", ["w4", "w4_nobias", "w8", "w8_bias", "w8_s32", "w8_u8_bias",
+                                  "dense"])
 def test_grouped_kernels_match_plain(dev, kind, ntok, routing):
     """The W4, W8 and dense grouped kernels against their plain versions at
     the 16-row (decode) and 64-row (prefill) tiles, with the ragged,
-    all-to-one and empty-expert routings."""
+    all-to-one and empty-expert routings; W8 in every byte format."""
     e, n, k = 8, 320, 512
     g = torch.Generator(device=dev).manual_seed(1)
     topi = torch.randint(0, e, (ntok, 2), generator=g, device=dev)
@@ -143,6 +157,57 @@ def test_grouped_kernels_match_plain(dev, kind, ntok, routing):
     assert (got[int(n_used) * tm:] == 0).all()
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8", "w8_u8_bias", "dense"])
+@pytest.mark.parametrize("ntok", [8, 200])
+def test_unused_tiles_come_out_zero(dev, kind, ntok):
+    """Tiles at or past n_used are written as zeros, not left as whatever the
+    output's memory held: the output is allocated where NaNs were just
+    freed, at both row tiles, on a bank of 8 experts of which 3 are used."""
+    e, n, k = 8, 320, 512
+    g = torch.Generator(device=dev).manual_seed(2)
+    topi = torch.randint(0, 3, (ntok, 2), generator=g, device=dev)
+    topw = torch.rand((ntok, 2), generator=g, device=dev)
+    tm = 16 if ntok * 2 <= 256 else 64
+    st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
+    assert int(n_used) * tm < mp
+    xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
+    xs[dest] = torch.randn((ntok, k), generator=g, device=dev).to(torch.bfloat16)[st]
+    bank = _bank(e, n, k, kind, dev)
+    fn = dense_matmul_grouped if kind == "dense" else quant_matmul_grouped
+    for _ in range(3):
+        poison = torch.full((mp, n), float("nan"), device=dev, dtype=torch.bfloat16)
+        del poison
+        got = fn(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
+        torch.cuda.synchronize()
+        assert (got[int(n_used) * tm:] == 0).all()
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("m", [17, 130, 512])
+@pytest.mark.parametrize("gs", [16, 32])
+@pytest.mark.parametrize("signed", [False, True])
+def test_w8_prefill_body_full_byte_range(dev, m, signed, gs):
+    """The W8 prefill body at Mixtral's attn_v (N = 1024, K = 4096: K split
+    so the grid fills the card) with codes over all 256 byte values and a
+    bias plane: within 1e-2 of the plain version, and the same bits on a
+    second call (the splits are summed in split order)."""
+    n, k = 1024, 4096
+    g = torch.Generator(device=dev).manual_seed(8)
+    lo, dt = (-128, torch.int8) if signed else (0, torch.uint8)
+    data = torch.randint(lo, lo + 256, (k, n), generator=g, device=dev, dtype=torch.int32).to(dt)
+    scale = torch.rand((k // gs, n), generator=g, device=dev) * 0.01
+    qt = QTensor(data, scale, -0.5 * scale, group_size=gs, packed=False, code_bits=8)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    reset_counts()
+    got = quant_matmul(x, qt, out_dtype=torch.float32)
+    again = quant_matmul(x, qt, out_dtype=torch.float32)
+    ref = quant_matmul(x, qt, plain=True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert COUNTS["w8_matmul"] == 2
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
 
 
 def test_attention_kernels_match_plain(dev):
