@@ -31,6 +31,11 @@ script in one call:
    of 1, 16, 17, 64 and 130, N a multiple of 16 but not of 64, K of one
    step, K splits that do not divide its steps evenly, no bias, f32 output,
    and for W8 its three byte formats (unsigned codes over all 256 values).
+   The decode kernel is timed at B=8 (kv_lens up to 1024, one dropped
+   write) and at depth, one request at 8192 positions and 8 at 4096 each
+   (SDPA's yardstick, PyTorch's own choice of backend, takes no mask there:
+   every position is visible), each
+   call checked bit-equal to a second one.
    The prefill kernel is timed at B=2 T=128 on 300 cached positions and at
    the engine's chunks (4 x 256 tokens from position 0, 512 tokens on 512),
    and checked at GQA groups 1, 2, 4 and 8, blocks of 16, a row with no
@@ -48,7 +53,12 @@ script in one call:
    row tiles (16 and 64 rows). The dense grouped
    kernel also runs on DeepSeek-V2-Lite's expert banks (64 experts, top-6:
    gate/up [64, 2816, 2048], down [64, 2048, 1408]) at n*k = 36 (decode, 6
-   tokens) and 1152 (a 2 x 96-token prefill). The MLA decode kernel runs at
+   tokens) and 1152 (a 2 x 96-token prefill), and, after every other row
+   (so that the rows above keep the generator's stream of earlier runs), at
+   phase 6's decode step of 1 token (n*k = 6): both bodies of
+   ``dense_grouped_plan`` (each row names its body), each call checked
+   bit-equal to a second one.
+   The MLA decode kernel runs at
    DeepSeek-V2-Lite's shapes (16 heads, rank 512, rows of 576, batch 8) with
    16- and 64-token blocks, kv_lens from 0 to 2048, one dropped write (slot
    -1), one row with kv_len 0 and one write into the last block of its
@@ -81,7 +91,7 @@ script in one call:
    time, its idle share, the kernels that take most of it and the device
    time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
    16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode body,
-   16-row tile) and dense grouped (wmma body) kernels;
+   16-row tile), dense grouped (both bodies) and paged decode kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -105,14 +115,15 @@ Budget: the whole run at most 8 minutes on an H100 with the build, at most
 at most 60 GB of device memory.
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
-tile) and the dense grouped kernel's wmma body use the plain version's
-weights exactly and differ in f32 sum order; the decode body (W4 and W8 at
+tile) and the dense grouped kernel use the plain version's weights exactly
+and differ in f32 sum order; the decode body (W4 and W8 at
 row tiles of <= 16 rows) never rounds the weight to bf16 (scale and bias
 applied to f32 group sums) and the W4 prefill body computes each weight
 within an f32 ulp before the plain version's rounding, so all of them agree
 with the plain versions within 1e-2 of the largest |value|; the attention kernels agree within
 2e-2 absolute (bf16 outputs of magnitude ~1, exp2 vs exp, sum order, and P
-as two bf16 parts for the prefill kernel's tensor-core PV product); the
+as two bf16 parts for the decode and prefill kernels' tensor-core PV
+products); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
 through two full-width layers). The MLA decode kernel rounds P to bf16 for
 its tensor-core PV product and sums in another order: 2e-2 absolute on
@@ -151,6 +162,7 @@ from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
 from mistralrs_tpu_torch.models import deepseek, llama  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
 from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
+from mistralrs_tpu_torch.ops import moe_grouped as _moe_grouped  # noqa: E402
 from mistralrs_tpu_torch.ops.mla_attention import mla_decode  # noqa: E402
 from mistralrs_tpu_torch.ops.moe_grouped import (  # noqa: E402
     build_groups,
@@ -217,7 +229,7 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:830"),
     "w8_matmul_g": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:895"),
-    "dense_matmul_g": ("mistralrs_tpu_torch/csrc/quant_matmul.cu",
+    "dense_matmul_g": ("mistralrs_tpu_torch/csrc/dense_grouped.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
                    "mistralrs_tpu/ops/mla_attention.py:218"),
@@ -548,15 +560,20 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, 
     def run(plain=False):
         return fn(xs, w, tiles, tm=tm, n_used_tiles=n_used, plain=plain)
 
-    got, ref = run(), run(plain=True)
+    got, again, ref = run(), run(), run(plain=True)
     torch.cuda.synchronize()
     used = int(n_used)
     err = (got.float() - ref.float()).abs().max().item()
     tol = 1e-2 * ref.float().abs().max().item()
-    if not (torch.isfinite(got).all() and err <= tol and bool((got[used * tm:] == 0).all())):
+    if not (torch.isfinite(got).all() and err <= tol and bool((got[used * tm:] == 0).all())
+            and torch.equal(got, again)):
         raise AssertionError(f"{name} {routing} E={e} N={n} K={k} tokens={ntok}: "
-                             f"max err {err} > {tol} or unused tiles not zero")
+                             f"max err {err} > {tol}, unused tiles not zero or two calls differ")
     shape = f"E={e} N={n} K={k} n*k={top * ntok} tm={tm} used tiles={used} ({routing})"
+    plan_of = getattr(_moe_grouped, "dense_grouped_plan", None)  # absent in older trees
+    if dense and plan_of is not None:
+        plan = plan_of(tm)
+        shape += f" [{plan.body} body, {plan.columns} columns]"
     if not timed:
         log(f"  {name} {shape}: err {err:.3e} (tol {tol:.3e})")
         return dict(shape=shape, max_abs_err=err)
@@ -613,19 +630,22 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
         torch.cuda.empty_cache()
 
 
-def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408):
+def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408, tokens=(6, 192),
+                           edges=True):
     """Phase 2's dense grouped kernel on DeepSeek-V2-Lite's expert banks,
-    top-6: 6 decode tokens (n*k = 36) and a 2 x 96-token prefill (1152)."""
+    top-6, at ``tokens``: 6 decode tokens (n*k = 36), a 2 x 96-token prefill
+    (1152) or phase 6's decode step of 1 token (n*k = 6); ``edges`` adds an
+    untimed routing with an empty expert."""
     for what, make in (("V2-Lite gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
                        ("V2-Lite down", lambda: bf16_bank(h, mi, gen, dev, e))):
         w = make()
-        for ntok in (6, 192):
+        for ntok in tokens:
             r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=6)
             r["shape"] = f"{what}: {r['shape']}"
             rows["dense_matmul_g"].append(r)
-        rows["dense_matmul_g"].append(
-            check_grouped("dense_matmul_g", w, 6, rates, gen, dev, "empty_expert", timed=False,
-                          top=6))
+        if edges:
+            rows["dense_matmul_g"].append(check_grouped(
+                "dense_matmul_g", w, 6, rates, gen, dev, "empty_expert", timed=False, top=6))
         del w
         torch.cuda.empty_cache()
 
@@ -721,9 +741,14 @@ def gathered_err(k1, v1, k2, v2, bt, bs, kv_lens) -> float:
                for x, y in zip(a, b) for i, n in enumerate(kv_lens.tolist()))
 
 
-def check_decode(rates, gen, dev):
-    b, n_q, n_kv, hd, bs, w = 8, 32, 8, 128, 64, 16
-    kv_lens = torch.tensor([1024, 1, 700, 64, 65, 333, 901, 512], device=dev, dtype=torch.int32)
+def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
+                 dropped=3):
+    """The decode kernel on tables of ``w`` blocks of 64 for rows of
+    ``kv_lens`` (row ``dropped`` drops its write), against the plain
+    version: within 2e-2, the K/V gathered through the tables exact, two
+    calls bit-equal; timed with its bound and SDPA."""
+    b, n_q, n_kv, hd, bs = len(kv_lens), 32, 8, 128, 64
+    kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
     kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -731,21 +756,28 @@ def check_decode(rates, gen, dev):
     kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     slots = slots_for(bt, (kv_lens - 1)[:, None], bs)[:, 0].contiguous()
-    slots[3] = -1  # a dropped write
+    slots[dropped] = -1  # a dropped write
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     args = (kn, vn, slots, bt, kv_lens)
     got = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
+    again = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
     ref = paged_decode_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
-    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0):
-        raise AssertionError(f"paged_decode: max err {err}, gathered K/V err {gather_err}")
-    # yardstick: SDPA over K/V gathered and expanded to all query heads ahead of time
+    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0
+            and torch.equal(got, again)):
+        raise AssertionError(f"paged_decode: max err {err}, gathered K/V err {gather_err}, "
+                             f"two calls equal {torch.equal(got, again)}")
+    del ref
+    # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
+    # of time; no mask where every position of the table is visible
     kk, vv = gather_kv(k1, v1, bt, bs)  # [B, P, n_kv, hd]
     kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
     vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
-    mask = (torch.arange(kk.shape[2], device=dev)[None] < kv_lens[:, None])[:, None, None]
+    full = bool((kv_lens == kk.shape[2]).all())
+    mask = None if full else (torch.arange(kk.shape[2], device=dev)[None]
+                              < kv_lens[:, None])[:, None, None]
     q4 = q[:, :, None]
     ms = time_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
     dev_ms = device_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
@@ -755,15 +787,18 @@ def check_decode(rates, gen, dev):
         q4, kk, vv, attn_mask=mask))
     lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=mask))
+    del kk, vv
     tokens = int(kv_lens.sum())
     nbytes = 2 * tokens * n_kv * hd * 2 + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
     b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
-    row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<=1024",
+    lens = f"kv_lens={int(kv_lens[0])} x {b}" if full else "kv_lens<=1024"
+    row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
-    log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact | "
-        f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
+    log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact, two "
+        f"calls equal | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
+        f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+        f"{fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -1097,12 +1132,14 @@ def profile_decode_step(engine, add_request) -> str:
     # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs the
     # dense projections of <= 8 rows with its 8-row tile and the grouped
     # experts with its 16-row tile, W4 in format 0 and W8 in formats 1 and 2;
-    # the wmma body runs dense grouped
+    # dense grouped and paged decode are named as in this tree and its parent
     families = {"W4": ("mm_decode_kernel<0, 1",), "W4 grouped": ("mm_decode_kernel<0, 2",),
                 "W8": ("mm_decode_kernel<1, 1", "mm_decode_kernel<2, 1"),
                 "W8 grouped": ("mm_decode_kernel<1, 2", "mm_decode_kernel<2, 2"),
                 "W8 prefill": ("w8_prefill_kernel",),
-                "dense grouped": ("dense_grouped_kernel",)}
+                "dense grouped": ("dense_g_decode_kernel", "dense_g_prefill_kernel",
+                                  "dense_grouped_kernel"),
+                "paged decode": ("split_decode_kernel", "paged_decode_kernel")}
     fam = ", ".join(
         f"{f} {sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3:.3f} ms"
         for f, keys in families.items())
@@ -1299,6 +1336,13 @@ def main() -> int:
     check_deepseek_grouped(rows, rates, gen, dev)
     for bs in (16, 64):
         rows["mla_decode"].append(check_mla(rates, gen, dev, bs))
+    # paged decode at depth: one request at 8192 positions, 8 at 4096 each
+    # (after the rows above, which keep the generator's stream of earlier runs)
+    rows["paged_decode"].append(check_decode(rates, gen, dev, kv_lens=(8192,), w=128,
+                                             dropped=0))
+    rows["paged_decode"].append(check_decode(rates, gen, dev, kv_lens=(4096,) * 8, w=64,
+                                             dropped=7))
+    check_deepseek_grouped(rows, rates, gen, dev, tokens=(1,), edges=False)
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]

@@ -11,14 +11,41 @@
 // into the scale, the JAX kernels' math (ops/paged_attention.py: 31-35):
 // exp2(log2e * x) == exp(x).
 //
-// Decode (one query token per sequence). Bound: device-memory bytes; it
-// reads each sequence's K/V once (2 * kv_len * n_kv * hd * 2 B) for a
-// handful of flops per byte. One block of 4 warps per (KV head, sequence);
-// all query heads of the GQA group share the block, so each K/V row is read
-// once per group. K/V move through shared memory 64 positions at a time
-// (16-byte loads; the K tile's rows are padded to 130 elements so
-// lane-per-position dot products are free of bank conflicts), and the
-// scores use plain FMAs with the query pre-scaled in f32.
+// Decode (one query token per sequence): split-KV flash decode. Bound:
+// device-memory bytes; it reads each sequence's K/V once (2 * kv_len * n_kv
+// * hd * 2 B) for a handful of flops per byte, so the card has to keep
+// loads in flight on every SM whatever the batch and the lengths.
+//   - The wrapper's static plan (ops/paged_attention.py: decode_plan, from
+//     the batch, the table width and the SM count, never from kv_lens) cuts
+//     the table's positions into splits of `span` positions (a multiple of
+//     64) so that the grid (splits, n_kv, B) holds >= 2 blocks per SM. A
+//     block of 4 warps attends over [s * span, min((s + 1) * span, kv_len))
+//     for all query heads of its GQA group; a split at or past kv_len exits
+//     at once.
+//   - K/V tiles of 64 positions are gathered through the block table into
+//     a cp.async ring (the prefill kernel's swizzled 256-byte rows), so the
+//     next tile's copy runs under this tile's math; the walk over the table
+//     uses additions, not a division per chunk.
+//   - Scores and PV run on mma.sync m16n8k16 with the K (or V^T) tile as the
+//     16-row operand and the group's queries as the 8-column operand (groups
+//     over 8 take two such tiles): S^T = K Q^T, O^T += V^T P^T. Each warp
+//     owns 16 positions of every tile and keeps its own running max and sum
+//     per head (no barrier between warps inside the walk); P^T reaches the
+//     B-fragment layout by movmatrix, in two bf16 parts, hi = bf16(P) and
+//     lo = bf16(P - hi), as in the prefill kernel (P rounded once moved
+//     Mixtral's expert choices to the 99 % floor of chip_smoke.py's phase
+//     3b). The score step per tile is one function, where a window, a
+//     softcap or sinks would enter.
+//   - The block merges its 4 warps in warp order. A sequence whose kv_len
+//     fits one split is then written out; otherwise each split writes f32
+//     partials (m, l, acc[128]) per query head, and the last split block of
+//     the (sequence, KV head) to arrive (an int counter, reset by that
+//     block) merges them in split order: no float atomics, and the result
+//     does not depend on which block came last.
+//   - This step's K/V row is written to slots[b] (dropped when < 0) by the
+//     block whose split holds position kv_len - 1, before it reads that
+//     position; no other block reads it. kv_len 0 gives zeros
+//     (acc / max(l, 1e-20)). GQA groups 1 to 16, head_dim 128.
 //
 // Prefill (a chunk of T tokens on top of the cached past). Bound: the bf16
 // tensor-core rate at the engine's chunks (causal work T * kv_len), so the
@@ -53,175 +80,9 @@
 namespace {
 
 constexpr int HD = 128;      // head_dim (the wrapper requires it)
-constexpr int TILE = 64;     // KV positions per shared-memory tile
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int KS_LD = HD + 2;   // bf16 elements; 65 words per row
 constexpr float NEG_INF = -1e30f;
-constexpr int DEC_MAX_GROUP = 16;               // decode: query heads per KV head
-constexpr int DEC_HEADS_PER_WARP = DEC_MAX_GROUP / NWARPS;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Store one 16-byte chunk into a K-tile row (65-word stride, so as 4-byte
-// words).
-__device__ __forceinline__ void store_k_chunk(__nv_bfloat16* ks_row, int chunk, uint4 v) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(ks_row) + chunk * 4;
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-
-// Load a TILE x HD tile of K and V into shared memory. `row_of(p, kp, vp)`
-// sets the K and V row pointers of position p, or NULL when it is masked
-// (the tile row is then zeros).
-template <typename RowFn>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* ks, __nv_bfloat16* vs, int t0,
-                                          RowFn row_of) {
-  for (int i = threadIdx.x; i < TILE * (HD / 8); i += THREADS) {
-    const int r = i / (HD / 8), ch = i - r * (HD / 8);
-    const __nv_bfloat16* kp;
-    const __nv_bfloat16* vp;
-    row_of(t0 + r, kp, vp);
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (kp) {
-      kv = reinterpret_cast<const uint4*>(kp)[ch];
-      vv = reinterpret_cast<const uint4*>(vp)[ch];
-    }
-    store_k_chunk(ks + r * KS_LD, ch, kv);
-    reinterpret_cast<uint4*>(vs + r * HD)[ch] = vv;
-  }
-}
-
-__device__ __forceinline__ float dot_row(const float* q, const __nv_bfloat16* k_row) {
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(k_row);
-  const float2* q2 = reinterpret_cast<const float2*>(q);
-  float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD / 2; ++d) {
-    const float2 kf = __bfloat1622float2(k2[d]);
-    const float2 qf = q2[d];
-    s = fmaf(qf.x, kf.x, s);
-    s = fmaf(qf.y, kf.y, s);
-  }
-  return s;
-}
-
-__device__ __forceinline__ float4 v_quad(const __nv_bfloat16* vs, int j, int lane) {
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(vs + j * HD + lane * 4);
-  const float2 a = __bfloat1622float2(v2[0]);
-  const float2 b = __bfloat1622float2(v2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// ---------------------------------------------------------------------------
-// decode: grid (n_kv, B), one query token per sequence
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
-                    __nv_bfloat16* v_pool, const __nv_bfloat16* __restrict__ k_new,
-                    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
-                    const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
-                    __nv_bfloat16* __restrict__ out, int n_q, int n_kv, int S, int W,
-                    int bs, float scale_log2) {
-  __shared__ __align__(16) float qs[DEC_MAX_GROUP * HD];
-  __shared__ __align__(16) __nv_bfloat16 ks[TILE * KS_LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[TILE * HD];
-  __shared__ float ps[NWARPS][TILE];
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = n_q / n_kv;
-  const int kv_len = kv_lens[b];
-
-  // 1. this step's K/V row → slots[b] (slot < 0: the write is dropped)
-  const int slot = slots[b];
-  if (slot >= 0) {
-    const size_t src = ((size_t)b * n_kv + h) * HD;
-    const size_t dst = ((size_t)h * S + slot) * HD;
-    for (int d = tid; d < HD; d += THREADS) {
-      k_pool[dst + d] = k_new[src + d];
-      v_pool[dst + d] = v_new[src + d];
-    }
-  }
-  // 2. the group's queries, pre-scaled into the log2 domain
-  for (int i = tid; i < group * HD; i += THREADS)
-    qs[i] = __bfloat162float(q[((size_t)b * n_q + h * group) * HD + i]) * scale_log2;
-  __syncthreads();  // the write above is visible to the reads below
-
-  float m[DEC_HEADS_PER_WARP], l[DEC_HEADS_PER_WARP], acc[DEC_HEADS_PER_WARP][4];
-#pragma unroll
-  for (int i = 0; i < DEC_HEADS_PER_WARP; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-  const int* table = block_tables + (size_t)b * W;
-  auto row_of = [&](int p, const __nv_bfloat16*& kp, const __nv_bfloat16*& vp) {
-    if (p < kv_len) {
-      const size_t off = ((size_t)h * S + (size_t)table[p / bs] * bs + p % bs) * HD;
-      kp = k_pool + off;
-      vp = v_pool + off;
-    } else {
-      kp = vp = nullptr;
-    }
-  };
-  for (int t0 = 0; t0 < kv_len; t0 += TILE) {
-    load_tile(ks, vs, t0, row_of);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < DEC_HEADS_PER_WARP; ++i) {
-      const int g = warp + i * NWARPS;
-      if (g >= group) break;
-      float s0 = dot_row(qs + g * HD, ks + lane * KS_LD);
-      float s1 = dot_row(qs + g * HD, ks + (lane + 32) * KS_LD);
-      if (t0 + lane >= kv_len) s0 = NEG_INF;
-      if (t0 + lane + 32 >= kv_len) s1 = NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(s0, s1)));
-      const float alpha = exp2f(m[i] - m_new);
-      const float p0 = s0 > 0.5f * NEG_INF ? exp2f(s0 - m_new) : 0.f;
-      const float p1 = s1 > 0.5f * NEG_INF ? exp2f(s1 - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p0 + p1);
-      m[i] = m_new;
-      ps[warp][lane] = p0;
-      ps[warp][lane + 32] = p1;
-      __syncwarp();
-      float a0 = acc[i][0] * alpha, a1 = acc[i][1] * alpha;
-      float a2 = acc[i][2] * alpha, a3 = acc[i][3] * alpha;
-      for (int j = 0; j < TILE; ++j) {
-        const float pj = ps[warp][j];
-        const float4 v = v_quad(vs, j, lane);
-        a0 = fmaf(pj, v.x, a0);
-        a1 = fmaf(pj, v.y, a1);
-        a2 = fmaf(pj, v.z, a2);
-        a3 = fmaf(pj, v.w, a3);
-      }
-      acc[i][0] = a0; acc[i][1] = a1; acc[i][2] = a2; acc[i][3] = a3;
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < DEC_HEADS_PER_WARP; ++i) {
-    const int g = warp + i * NWARPS;
-    if (g >= group) break;
-    const float inv = 1.f / fmaxf(l[i], 1e-20f);
-    __nv_bfloat16* o = out + ((size_t)b * n_q + h * group + g) * HD + lane * 4;
-    o[0] = __float2bfloat16_rn(acc[i][0] * inv);
-    o[1] = __float2bfloat16_rn(acc[i][1] * inv);
-    o[2] = __float2bfloat16_rn(acc[i][2] * inv);
-    o[3] = __float2bfloat16_rn(acc[i][3] * inv);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // prefill: FlashAttention-2 style on the tensor cores. grid (query tiles, n_kv,
@@ -492,25 +353,339 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// decode: split-KV flash decode on the tensor cores. grid (splits, n_kv, B);
+// NT = 8-column tiles of query heads (1: groups up to 8, 2: up to 16)
+// ---------------------------------------------------------------------------
+
+constexpr int DC_STAGES = 2;                     // K/V tiles in the cp.async ring
+constexpr int DC_SMEM = DC_STAGES * FA_STAGE_B;  // 64 KB: three blocks per SM
+constexpr int DC_MAX_GROUP = 16;
+constexpr int DC_OLD = HD + 4;  // f32 stride of a warp's output row in the merge
+static_assert(NWARPS * DC_MAX_GROUP * (DC_OLD + 2) * 4 <= DC_SMEM, "the merge must fit the ring");
+static_assert(THREADS == HD, "the merges give each thread one head dim");
+
+// the 8x8 b16 matrix held in the m16n8k16 fragment layout, transposed
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// The score step of one tile for the warp's 16 positions: S^T [16 positions
+// x 8 NT heads] = K Q^T, lane (g, q) getting positions g and g + 8 of heads
+// 2q and 2q + 1 of each head tile. Positions at or past the split's end are
+// masked here (their rows were zero-filled).
+template <int NT>
+__device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
+                                              const uint32_t (&qb)[NT][HD / 16][2],
+                                              bool in0, bool in1, float (&s)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    uint32_t a0, a1, a2, a3;
+    ldsm_x4(kt + swz(r0 + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * kc + (lane >> 4)), a0, a1,
+            a2, a3);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(s[nt], a0, a1, a2, a3, qb[nt][kc][0], qb[nt][kc][1]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (!in0) s[nt][0] = s[nt][1] = NEG_INF;
+    if (!in1) s[nt][2] = s[nt][3] = NEG_INF;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 3)
+split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
+                    __nv_bfloat16* v_pool, const __nv_bfloat16* __restrict__ k_new,
+                    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
+                    const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                    int* __restrict__ counters, int n_q, int n_kv, int S, int W, int bs,
+                    int span, int splits, float scale_log2) {
+  extern __shared__ __align__(128) uint8_t dc_smem[];
+  __shared__ int s_last;
+  const uint32_t sa = smem_u32(dc_smem);
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int group = n_q / n_kv;
+  const int kv_len = kv_lens[b];
+  // splits that hold a position (split 0 alone for kv_len 0)
+  const int live = kv_len > span ? (kv_len + span - 1) / span : 1;
+  if (s >= live) return;
+  const int p_begin = s * span;
+  const int p_end = min(p_begin + span, kv_len);
+
+  // 1. this step's K/V row -> slots[b] (slot < 0: dropped), by the split
+  // holding position kv_len - 1, before the reads below
+  const int slot = slots[b];
+  if (slot >= 0 && s == live - 1 && tid < 2 * (HD / 8)) {
+    const int c = tid & 15;
+    const size_t src = ((size_t)b * n_kv + h) * HD + c * 8;
+    const size_t dst = ((size_t)h * S + slot) * HD + c * 8;
+    if (tid < 16)
+      *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
+    else
+      *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+  }
+  __syncthreads();
+
+  // 2. the group's queries as B fragments: head 8 nt + g (zeros past the
+  // group), head dims 16 kc + 2q (+1) and + 8
+  uint32_t qb[NT][HD / 16][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int head = 8 * nt + g;
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        q + ((size_t)b * n_q + h * group + (head < group ? head : 0)) * HD + 2 * qd);
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      qb[nt][kc][0] = head < group ? qr[8 * kc] : 0u;
+      qb[nt][kc][1] = head < group ? qr[8 * kc + 4] : 0u;
+    }
+  }
+
+  // 3. the K/V tiles of [p_begin, p_end) in order into the ring. Thread:
+  // chunk tid % 16 of rows tid / 16 + 8 j; (blk, off0) is its first row's
+  // table entry and offset in the block, advanced by additions.
+  const int* table = block_tables + (size_t)b * W;
+  const size_t pool_h = (size_t)h * S;
+  int blk = (p_begin + (tid >> 4)) / bs, off0 = (p_begin + (tid >> 4)) % bs;
+  auto load_kv = [&](int buf, int p0) {
+    const int c = tid & 15;
+    int bj = blk, oj = off0;
+#pragma unroll
+    for (int j = 0; j < FA_TILE / 8; ++j) {
+      const int r = (tid >> 4) + 8 * j;
+      const bool ok = p0 + r < p_end;
+      const size_t off = ok ? (pool_h + (size_t)table[bj] * bs + oj) * HD : 0;
+      cp_async16(sa + buf * FA_STAGE_B + swz(r, c), k_pool + off + c * 8, ok);
+      cp_async16(sa + buf * FA_STAGE_B + FA_KV_B + swz(r, c), v_pool + off + c * 8, ok);
+      for (oj += 8; oj >= bs; oj -= bs) ++bj;
+    }
+    for (off0 += FA_TILE; off0 >= bs; off0 -= bs) ++blk;
+  };
+
+  float o[NT][HD / 16][4];  // O^T [128 head dims x 8 NT heads], f32
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int dt = 0; dt < HD / 16; ++dt) o[nt][dt][0] = o[nt][dt][1] = o[nt][dt][2] = o[nt][dt][3] = 0.f;
+  float m_run[NT][2], l_run[NT][2];  // heads 2q, 2q + 1 of each head tile
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    m_run[nt][0] = m_run[nt][1] = NEG_INF;
+    l_run[nt][0] = l_run[nt][1] = 0.f;
+  }
+
+  const int n_tiles = (p_end - p_begin + FA_TILE - 1) / FA_TILE;
+  const int r0 = 16 * warp;  // the warp's positions in a tile
+#pragma unroll
+  for (int i = 0; i < DC_STAGES - 1; ++i) {
+    if (i < n_tiles) load_kv(i, p_begin + i * FA_TILE);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<DC_STAGES - 2>();
+    __syncthreads();  // this tile has landed for every thread; the slot refilled below is free
+    const int nxt = it + DC_STAGES - 1;
+    if (nxt < n_tiles) load_kv(nxt % DC_STAGES, p_begin + nxt * FA_TILE);
+    cp_async_commit();
+    const uint32_t kt = sa + (it % DC_STAGES) * FA_STAGE_B, vt = kt + FA_KV_B;
+    const int pw = p_begin + it * FA_TILE + r0 + g;
+    float sc[NT][4];
+    decode_scores<NT>(kt, r0, lane, qb, pw < p_end, pw + 8 < p_end, sc);
+
+    // online softmax per head; the running max in the raw scores' units,
+    // the scale inside the exponent: p = 2^(s * scale_log2 - m * scale_log2)
+    uint32_t bh[NT][2], bl[NT][2];  // P^T as B fragments: hi and lo parts
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = fmaxf(sc[nt][e], sc[nt][2 + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run[nt][e], mx);
+        const float alpha = ex2((m_run[nt][e] - m_new) * scale_log2);
+        const float mc = m_new * scale_log2;
+        m_run[nt][e] = m_new;
+        p[e] = sc[nt][e] > 0.5f * NEG_INF ? ex2(fmaf(sc[nt][e], scale_log2, -mc)) : 0.f;
+        p[2 + e] = sc[nt][2 + e] > 0.5f * NEG_INF ? ex2(fmaf(sc[nt][2 + e], scale_log2, -mc)) : 0.f;
+        l_run[nt][e] = l_run[nt][e] * alpha + p[e] + p[2 + e];  // the lane's share
+#pragma unroll
+        for (int dt = 0; dt < HD / 16; ++dt) {
+          o[nt][dt][e] *= alpha;
+          o[nt][dt][2 + e] *= alpha;
+        }
+      }
+      // (position g | g + 8, heads 2q, 2q + 1) -> (positions 2q, 2q + 1 |
+      // + 8, head g): the B fragment of P^T, by movmatrix
+      const uint32_t h0 = pack_bf16(p[0], p[1]), h1 = pack_bf16(p[2], p[3]);
+      const uint32_t l0 = pack_bf16(p[0] - __uint_as_float(h0 << 16),
+                                    p[1] - __uint_as_float(h0 & 0xFFFF0000u));
+      const uint32_t l1 = pack_bf16(p[2] - __uint_as_float(h1 << 16),
+                                    p[3] - __uint_as_float(h1 & 0xFFFF0000u));
+      bh[nt][0] = movmatrix_t(h0);
+      bh[nt][1] = movmatrix_t(h1);
+      bl[nt][0] = movmatrix_t(l0);
+      bl[nt][1] = movmatrix_t(l1);
+    }
+    // O^T += V^T P^T: V^T [16 head dims x 16 positions] by ldmatrix.trans
+#pragma unroll
+    for (int dt = 0; dt < HD / 16; ++dt) {
+      uint32_t a0, a1, a2, a3;
+      ldsm_x4_trans(vt + swz(r0 + (lane & 7) + ((lane >> 4) << 3), 2 * dt + ((lane >> 3) & 1)),
+                    a0, a1, a2, a3);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_bf16(o[nt][dt], a0, a1, a2, a3, bh[nt][0], bh[nt][1]);
+        mma_bf16(o[nt][dt], a0, a1, a2, a3, bl[nt][0], bl[nt][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the merge
+
+  // 4. merge the 4 warps in warp order: each warp's (m, l) and O^T rows per
+  // head into shared memory, then thread d combines head dim d
+  float* so = reinterpret_cast<float*>(dc_smem);  // [warp][head][DC_OLD]
+  float* sml = so + NWARPS * DC_MAX_GROUP * DC_OLD;  // [warp][head][2]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float l = l_run[nt][e];
+      l += __shfl_xor_sync(0xffffffffu, l, 4);
+      l += __shfl_xor_sync(0xffffffffu, l, 8);
+      l += __shfl_xor_sync(0xffffffffu, l, 16);
+      const int head = 8 * nt + 2 * qd + e, row = warp * DC_MAX_GROUP + head;
+      if (g == 0) {
+        sml[2 * row] = m_run[nt][e];
+        sml[2 * row + 1] = l;
+      }
+#pragma unroll
+      for (int dt = 0; dt < HD / 16; ++dt) {
+        so[row * DC_OLD + 16 * dt + g] = o[nt][dt][e];
+        so[row * DC_OLD + 16 * dt + g + 8] = o[nt][dt][2 + e];
+      }
+    }
+  __syncthreads();
+  const int d = tid;
+  const size_t row0 = (size_t)b * n_q + h * group;  // the group's first query head
+  float* pacc = part;                                         // [B, n_q, splits, HD]
+  float* pml = part + (size_t)gridDim.z * n_q * splits * HD;  // [B, n_q, splits, 2]
+  for (int hh = 0; hh < group; ++hh) {
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) mb = fmaxf(mb, sml[2 * (w * DC_MAX_GROUP + hh)]);
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const int row = w * DC_MAX_GROUP + hh;
+      const float f = ex2((sml[2 * row] - mb) * scale_log2);
+      acc = fmaf(f, so[row * DC_OLD + d], acc);
+      l = fmaf(f, sml[2 * row + 1], l);
+    }
+    if (live == 1) {
+      out[(row0 + hh) * HD + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
+    } else {
+      const size_t at = (row0 + hh) * splits + s;
+      pacc[at * HD + d] = acc;
+      if (d == 0) {
+        pml[2 * at] = mb;
+        pml[2 * at + 1] = l;
+      }
+    }
+  }
+  if (live == 1) return;
+
+  // 5. the last split block of (b, h) to arrive merges the splits in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counters + (size_t)b * n_kv + h, 1) == live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int hh = 0; hh < group; ++hh) {
+    const size_t at = (row0 + hh) * splits;
+    float mb = NEG_INF;
+    for (int sp = 0; sp < live; ++sp) mb = fmaxf(mb, __ldcg(pml + 2 * (at + sp)));
+    float acc = 0.f, l = 0.f;
+    for (int sp = 0; sp < live; ++sp) {
+      const float f = ex2((__ldcg(pml + 2 * (at + sp)) - mb) * scale_log2);
+      acc = fmaf(f, __ldcg(pacc + (at + sp) * HD + d), acc);
+      l = fmaf(f, __ldcg(pml + 2 * (at + sp) + 1), l);
+    }
+    out[(row0 + hh) * HD + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
+  }
+  if (tid == 0) counters[(size_t)b * n_kv + h] = 0;  // ready for the next call
+}
+
+template <int NT>
+cudaError_t launch_decode(const __nv_bfloat16* q, __nv_bfloat16* k_pool, __nv_bfloat16* v_pool,
+                          const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
+                          const int* slots, const int* block_tables, const int* kv_lens,
+                          __nv_bfloat16* out, float* part, int* counters, int B, int n_q,
+                          int n_kv, int S, int W, int bs, int span, int splits, float scale_log2,
+                          cudaStream_t st) {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      split_decode_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, DC_SMEM);
+  if (opt_in != cudaSuccess) return opt_in;
+  split_decode_kernel<NT><<<dim3(splits, n_kv, B), THREADS, DC_SMEM, st>>>(
+      q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, out, part, counters, n_q,
+      n_kv, S, W, bs, span, splits, scale_log2);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // q [B, n_q, 128], pools [n_kv, S, 128] (one layer plane), k_new/v_new
 // [B, n_kv, 128], slots [B], block_tables [B, W], kv_lens [B] (length after
-// this step's write), out [B, n_q, 128]. group = n_q / n_kv <= 16.
+// this step's write), out [B, n_q, 128]. group = n_q / n_kv <= 16. The plan:
+// `splits` splits of `span` positions (a multiple of 64) covering W * bs;
+// with splits > 1, partials f32 [B * n_q * splits * 130] and counters int32
+// [B * n_kv] (all zero, left zero).
 extern "C" int mrt_paged_decode(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                 const void* v_new, const void* slots, const void* block_tables,
-                                const void* kv_lens, void* out, int B, int n_q, int n_kv, int hd,
-                                int S, int W, int bs, float scale_log2, void* stream) {
-  if (hd != HD || n_q % n_kv != 0 || n_q / n_kv > DEC_MAX_GROUP) return (int)cudaErrorInvalidValue;
-  dim3 grid(n_kv, B);
-  paged_decode_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(k_pool),
-      static_cast<__nv_bfloat16*>(v_pool), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(slots),
-      static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), n_q, n_kv, S, W, bs, scale_log2);
+                                const void* kv_lens, void* out, void* partials, void* counters,
+                                int B, int n_q, int n_kv, int hd, int S, int W, int bs, int span,
+                                int splits, float scale_log2, void* stream) {
+  const bool ok = hd == HD && n_kv > 0 && n_q % n_kv == 0 && n_q / n_kv <= DC_MAX_GROUP &&
+                  span > 0 && span % FA_TILE == 0 && splits >= 1 && bs > 0 &&
+                  (long long)splits * span >= (long long)W * bs &&
+                  (splits == 1 || (partials != nullptr && counters != nullptr));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* kp = static_cast<__nv_bfloat16*>(k_pool);
+  auto* vp = static_cast<__nv_bfloat16*>(v_pool);
+  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
+  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
+  const auto* sl = static_cast<const int*>(slots);
+  const auto* bt = static_cast<const int*>(block_tables);
+  const auto* kl = static_cast<const int*>(kv_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* pp = static_cast<float*>(partials);
+  auto* cp = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      n_q / n_kv <= 8
+          ? launch_decode<1>(qp, kp, vp, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs,
+                             span, splits, scale_log2, st)
+          : launch_decode<2>(qp, kp, vp, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs,
+                             span, splits, scale_log2, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
 
 // q [B, T, n_q, 128], pools [n_kv, S, 128], k_new/v_new [B, T, n_kv, 128],
 // slots [B, T], block_tables [B, W], kv_lens [B] (after the chunk's writes),

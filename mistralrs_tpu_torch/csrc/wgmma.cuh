@@ -1,9 +1,11 @@
 // The wgmma and mbarrier machinery of the port's prefill bodies for Hopper
 // (sm_90a), shared by the W4 kernel (csrc/w4_matmul.cu: the weight as
-// wgmma's B operand, dequantized into shared memory) and the W8 kernel
+// wgmma's B operand, dequantized into shared memory), the W8 kernel
 // (csrc/w8_matmul.cu: the weight as the A operand, dequantized into
-// registers): mbarriers and cp.async arrivals for a producer/consumer ring,
-// the 128-byte-swizzle shared-memory descriptor, and wgmma.mma_async with A
+// registers) and the dense grouped kernel (csrc/dense_grouped.cu: the bf16
+// weight as the A operand and x as B, both K-major in shared memory):
+// mbarriers and cp.async arrivals for a producer/consumer ring, the
+// 128-byte-swizzle shared-memory descriptor, and wgmma.mma_async with A
 // from shared memory (SS) or from registers (RS), f32 accumulators.
 // Internal linkage: each source that includes this gets its own copies.
 
@@ -104,7 +106,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d[64 x 128] += A[64 x 16] * B[16 x 128]; A K-major, B N-major (transposed)
+// d[64 x 128] += A[64 x 16] * B[16 x 128]; A K-major, B N-major (TB = 1,
+// transposed) or K-major (TB = 0)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -113,7 +117,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -125,7 +129,25 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64]; A K-major, B N-major (TB = 1) or
+// K-major (TB = 0)
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
 template <int WN>

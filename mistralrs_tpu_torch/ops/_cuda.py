@@ -15,6 +15,11 @@ Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
 launches its kernel, and every plain PyTorch version adds one to
 ``COUNTS[name + "_plain"]``. A run resets them with :func:`reset_counts` and
 reads them afterwards to show which path it went through.
+
+The kernels that split their work across blocks share per-device state
+here: :func:`split_workspace` (f32 partials) and :func:`split_counters` (int
+counters, zero between calls: the last block of a tile resets its own).
+Calls that use them on one device must not run on two streams at once.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "w8_prefill.cu", "quant_matmul.cu",
+SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "w8_prefill.cu", "dense_grouped.cu",
            "paged_attention.cu", "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,8 +61,8 @@ _SIGNATURES = {
                       _P, _P, _P],
     "mrt_w8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _L, _L, _P, _P, _P],
-    "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "mrt_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -67,10 +72,42 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None
+_sm_counts: dict = {}
+_workspaces: dict = {}
+_counters: dict = {}
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device`` (the kernels' plans size their grids
+    by it)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def split_workspace(device: torch.device, floats: int) -> torch.Tensor:
+    """An f32 workspace of at least ``floats`` values on ``device`` (reused
+    by every split body; its contents are scratch)."""
+    ws = _workspaces.get(device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
+        _workspaces[device] = ws
+    return ws
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device``, zero between calls: each
+    split body's last block to arrive resets the counter it used."""
+    cnt = _counters.get(device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = cnt
+    return cnt
 
 
 def nvcc_path() -> str:

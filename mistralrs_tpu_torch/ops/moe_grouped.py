@@ -7,8 +7,13 @@ streams each needed expert's weights once per row tile: ``tile_idx[t]`` names
 the expert of tile ``t``. Quantized leaves go to
 :func:`~mistralrs_tpu_torch.ops.quant_matmul.quant_matmul_grouped` (the W4
 and W8 grouped kernels), a dense bf16 leaf to :func:`dense_matmul_grouped`
-(the **dense grouped kernel**, replacing ``_dense_matmul_g``: the wmma
-body of ``csrc/quant_matmul.cu``).
+(the **dense grouped kernel**, replacing ``_dense_matmul_g``:
+``csrc/dense_grouped.cu``). Its two bodies, by row tile
+(:func:`dense_grouped_plan`): 16-row tiles take a decode body (``mma.sync``
+with the weight as the 16-row operand, a 4-stage ``cp.async`` ring, blocks
+of 64 columns over all of K); 64-row tiles take a ``wgmma`` prefill body
+(weight and x both K-major in shared memory, pairs of one expert's tiles a
+block, 256 columns).
 
 ``tm`` is the port's own M-tile, which the kernels must match: 16 rows when
 ``n * k <= 256`` (decode: 16 pairs over ~7 of 8 experts would pad to 512 rows
@@ -20,7 +25,7 @@ Expert parallelism is not ported and raises.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -93,6 +98,24 @@ def dense_matmul_grouped_plain(
     for e, rows in used_tile_rows(tile_idx, n_used_tiles, tm).items():
         out[rows] = xf[rows] @ w[e].to(x2.dtype).to(torch.float32).T
     return out.to(x2.dtype)
+
+
+class DensePlan(NamedTuple):
+    body: str  # "decode" (16-row tiles, mma.sync), "prefill" (64-row tiles, wgmma)
+    columns: int  # output columns per block
+
+
+DENSE_PLANS = {16: DensePlan("decode", 64), 64: DensePlan("prefill", 256)}
+
+
+def dense_grouped_plan(tm: int) -> DensePlan:
+    """The dense grouped kernel's body and column-block width for ``tm``-row
+    tiles: the row tile alone decides (a static shape; the used tiles stay a
+    device scalar, never read here). The decode body walks all of K in each
+    block: 128-column blocks and K split across blocks were never faster on
+    the served banks (PERF.md)."""
+    require(tm in DENSE_PLANS, f"row tile {tm} not in {tuple(DENSE_PLANS)}")
+    return DENSE_PLANS[tm]
 
 
 def _dense_matmul_grouped_cuda(

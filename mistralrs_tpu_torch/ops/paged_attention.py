@@ -4,7 +4,12 @@
 * :func:`paged_decode_attention_fused` — one query token per sequence: writes
   the step's K/V row to ``slots[b]`` (dropped when < 0), then attends over
   ``block_tables[b]`` up to ``kv_lens[b]``. **Decode kernel**
-  (``csrc/paged_attention.cu``), replaces ``paged_decode_attention_fused``.
+  (``csrc/paged_attention.cu``), replaces ``paged_decode_attention_fused``:
+  split-KV flash decode on the tensor cores (``mma.sync`` with the K tile as
+  the 16-row operand and the GQA group's queries as the 8-column one), the
+  table's positions cut into the splits of :func:`decode_plan`, K/V tiles
+  gathered into a ``cp.async`` ring, the splits' f32 partials merged in
+  split order by the last block of each (sequence, KV head).
 * :func:`paged_prefill_attention_fused` — T query tokens per sequence
   (chunked prefill): writes the chunk's valid rows, then attends causally
   over positions ``[kv_len − n_valid, kv_len)`` on top of the cached past.
@@ -25,13 +30,14 @@ quantized pools are not ported yet and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..kv.paged import write_kv
-from ._cuda import COUNTS, check, library, require, stream_ptr
+from ._cuda import COUNTS, check, library, require, sm_count, split_counters, stream_ptr
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -93,11 +99,50 @@ def paged_decode_attention_plain(
     return out.reshape(b, n_q, hd).to(q.dtype)
 
 
-def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale):
+DECODE_TILE = 64  # K/V positions per tile of the decode kernel; a split is a multiple
+DECODE_BLOCKS_PER_SM = 2  # the decode grid's floor ...
+DECODE_MIN_TILES = 4  # ... where each split keeps at least this many tiles
+DECODE_MAX_GROUP = 16  # query heads per KV head: two 8-column tiles of the MMA
+
+
+class DecodePlan(NamedTuple):
+    positions: int  # positions per split, a multiple of DECODE_TILE
+    splits: int  # splits per (sequence, KV head); positions * splits >= W * block_size
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(b: int, n_kv: int, group: int, w: int, block_size: int,
+                sms: int = 132) -> DecodePlan:
+    """The decode kernel's split of a table of ``w`` blocks of ``block_size``
+    positions, for ``b`` sequences of ``n_kv`` KV heads (GQA ``group``) on a
+    card of ``sms`` SMs.
+
+    It reads static shapes only, never ``kv_lens``: the step can be captured
+    in a CUDA graph, with no host sync. The grid (splits, n_kv, b) gets at
+    least ``DECODE_BLOCKS_PER_SM`` blocks per SM, but no split holds fewer
+    than ``DECODE_MIN_TILES`` tiles unless the whole table does: shorter
+    splits cost more in partials and in the in-order merge than their extra
+    blocks win (PERF.md: at one 8192-position row, 43 splits of 3 tiles took
+    1.4x the time of 32 splits of 4). The splits are as even as whole tiles
+    allow, and a split past a sequence's length exits at once."""
+    require(1 <= group <= DECODE_MAX_GROUP, f"GQA group {group} not in 1..{DECODE_MAX_GROUP}")
+    tiles = max(1, -(-w * block_size // DECODE_TILE))
+    want = max(1, -(-DECODE_BLOCKS_PER_SM * sms // max(1, b * n_kv)))
+    # tiles a split, at the fewest splits that reach the floor
+    per = min(tiles, max(DECODE_MIN_TILES, tiles // want))
+    per = -(-tiles // -(-tiles // per))  # ... evened over the same number of splits
+    return DecodePlan(DECODE_TILE * per, -(-tiles // per))
+
+
+def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale,
+                 plan: Optional[DecodePlan] = None):
+    """The decode kernel's launch, at ``decode_plan``'s split unless a
+    ``plan`` is given (``probes/split_plans.py`` times other splits)."""
     b, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
     require(hd == 128, f"decode kernel needs head_dim 128, got {hd}")
-    require(n_q % n_kv == 0 and n_q // n_kv <= 16, f"GQA group {n_q}/{n_kv} unsupported")
+    require(n_q % n_kv == 0 and n_q // n_kv <= DECODE_MAX_GROUP,
+            f"GQA group {n_q}/{n_kv} unsupported")
     for name, t in (("q", q), ("k_pool", kp), ("v_pool", vp), ("k_new", k_new),
                     ("v_new", v_new)):
         require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device,
@@ -110,11 +155,20 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
                 f"{name} must be contiguous int32 on {q.device}")
     require(slots.shape == (b,) and kv_lens.shape == (b,) and block_tables.shape[0] == b,
             "slots/kv_lens/block_tables batch mismatch")
+    lib = library()
+    w = block_tables.shape[1]
+    plan = plan or decode_plan(b, n_kv, n_q // n_kv, w, block_size, sm_count(q.device))
     out = torch.empty_like(q)
-    code = library().mrt_paged_decode(
+    part = cnt = None
+    if plan.splits > 1:  # per (sequence, query head, split): acc[hd], then (m, l)
+        part = torch.empty(b * n_q * plan.splits * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+        cnt = split_counters(q.device, b * n_kv)
+    code = lib.mrt_paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        b, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        b, n_q, n_kv, hd, s_total, w, block_size, plan.positions, plan.splits,
         float(scale * LOG2E), stream_ptr(q),
     )
     check(code, "paged_decode")

@@ -45,7 +45,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..quant.qtensor import QTensor
-from ._cuda import COUNTS, check, library, require, stream_ptr
+from ._cuda import (
+    COUNTS,
+    check,
+    library,
+    require,
+    sm_count,
+    split_counters,
+    split_workspace,
+    stream_ptr,
+)
 
 _FMT_PACKED4, _FMT_U8, _FMT_S8 = 0, 1, 2
 
@@ -265,35 +274,16 @@ def w4_split_rows(k: int, splits: int) -> list[tuple[int, int]]:
     return [(a * half, b * half) for a, b in split_steps(k, splits)]
 
 
-_sm_counts: dict = {}
-_split_state: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
-
-
 def _split_buffers(device: torch.device, plan: Plan, m: int, n: int):
     """The split-K state on ``device`` for ``plan``: an f32 workspace of at
     least ``splits * m * n`` values and one int32 counter per column tile
     (the decode body's: zero between calls, the last block of a tile resets
     its counter; the W8 prefill body sums its splits in a second kernel);
-    ``(None, None)`` for one split. Kept per device and reused by every
-    split body, so such calls on one device must not run on two streams at
-    once."""
+    ``(None, None)`` for one split."""
     if plan.splits == 1:
         return None, None
-    floats, tiles = plan.splits * m * n, -(-n // plan.columns)
-    ws, cnt = _split_state.get(device, (None, None))
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < tiles:
-        cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-    _split_state[device] = (ws, cnt)
-    return ws, cnt
+    return (split_workspace(device, plan.splits * m * n),
+            split_counters(device, -(-n // plan.columns)))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -315,7 +305,7 @@ def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
     tiles for a bank) into ``out``; returns the CUDA error code."""
     m, k = x2.shape
     n = out.shape[1]
-    plan = w4_plan(m, n, k, tm, _sm_count(x2.device))
+    plan = w4_plan(m, n, k, tm, sm_count(x2.device))
     ws, cnt = _split_buffers(x2.device, plan, m, n)
     return library().mrt_w4_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
@@ -332,7 +322,7 @@ def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor, out_b
     returns the CUDA error code."""
     m, k = x2.shape
     n = out.shape[1]
-    plan = w8_plan(m, n, k, _sm_count(x2.device), tm, qt.group_size, qt.bias is not None)
+    plan = w8_plan(m, n, k, sm_count(x2.device), tm, qt.group_size, qt.bias is not None)
     ws, cnt = _split_buffers(x2.device, plan, m, n)
     return library().mrt_w8_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),

@@ -14,9 +14,13 @@ it within an f32 ulp of the plain version's value (bf16 or f32 output: 1e-2
 of the largest value). The attention kernels use exp2 with log2(e) folded into the scale
 and another sum order, the prefill kernel carries P as two bf16 parts and
 the MLA decode kernel rounds P to bf16 for their tensor-core products (bf16
-output: atol 2e-2). The grouped (MoE)
-kernels share the matmul kernels' arithmetic and tolerance, over every row
-including the zero rows of unused tiles.
+output: atol 2e-2); the split-KV decode kernel carries P as two bf16 parts
+too. The grouped (MoE) kernels share the matmul kernels' arithmetic and
+tolerance, over every row including the zero rows of unused tiles; the
+dense grouped kernel uses the bank's bf16 weights as they are (f32 sums in
+another order: 1e-2 of the largest value). The split-KV decode kernel sums
+its splits in split order, so two calls give the same bits, as they do for
+the dense grouped kernel, whose blocks each own their outputs.
 """
 
 import pytest
@@ -31,7 +35,12 @@ from mistralrs_tpu_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     paged_prefill_attention_fused,
 )
-from mistralrs_tpu_torch.ops.moe_grouped import build_groups, dense_matmul_grouped
+from mistralrs_tpu_torch.ops.moe_grouped import (
+    build_groups,
+    dense_grouped_plan,
+    dense_matmul_grouped,
+)
+from mistralrs_tpu_torch.ops.paged_attention import decode_plan
 from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_grouped
 from mistralrs_tpu_torch.quant.qtensor import QTensor
 
@@ -439,3 +448,131 @@ def test_dense_grouped_kernel_at_deepseek_shapes(dev, ntok):
         assert torch.isfinite(got).all() and (got[int(n_used) * tm:] == 0).all()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+def _decode_case(dev, group, bs, kv_lens, w, dropped=(), seed=9, n_kv=8):
+    """Pools, tables, this step's rows and slots (each row writes its last
+    position; the rows in ``dropped`` and those of kv_len 0 drop theirs)."""
+    hd, b = 128, len(kv_lens)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bt = torch.randperm(b * w, generator=g, device=dev).to(torch.int32).reshape(b, w)
+    s_total = (b * w + 1) * bs
+    kp = torch.randn((n_kv, s_total, hd), generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_kv, s_total, hd), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, n_kv * group, hd), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((b, n_kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    vn = torch.randn((b, n_kv, hd), generator=g, device=dev).to(torch.bfloat16)
+    kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
+    pos = (kv_lens - 1).clamp_min(0).long()
+    slots = (bt.gather(1, (pos // bs)[:, None])[:, 0] * bs + pos % bs).to(torch.int32)
+    for i in dropped:
+        slots[i] = -1
+    slots[kv_lens == 0] = -1
+    return q, kp, vp, (kn, vn, slots, bt, kv_lens)
+
+
+def _check_decode(q, kp, vp, args, bs):
+    """The decode kernel against the plain version: output within 2e-2,
+    kv_len-0 rows zero, the pools exactly the old ones with the kept writes
+    in place (a dropped write touches nothing), and a second call on the
+    same inputs bit-equal to the first."""
+    kn, vn, slots, bt, kv_lens = args
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    reset_counts()
+    got = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
+    again = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
+    ref = paged_decode_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+    torch.cuda.synchronize()
+    assert COUNTS["paged_decode"] == 2 and COUNTS["paged_decode_plain"] == 1
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got[kv_lens == 0] == 0).all()
+    assert (got.float() - ref.float()).abs().max().item() < 2e-2
+    keep = slots >= 0
+    for pool, new, old in ((k1, kn, kp), (v1, vn, vp)):
+        want = old.clone()
+        want[:, slots[keep].long()] = new[keep].transpose(0, 1)
+        assert torch.equal(pool, want)
+
+
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
+def test_decode_kernel_matches_plain(dev, group, bs):
+    """The split-KV decode kernel at GQA groups 1-16 and blocks of 16 and
+    64, on 1024-position tables (4 splits of 256 positions at B = 8): kv_len
+    0, one position, shorter than a split, exactly on a split boundary, a
+    row over every split, a dropped write (row 5: the pool's old row is read
+    at its last position) and a full table."""
+    kv_lens = [0, 1, 100, 256, 512, 901, 1000, 1024]
+    plan = decode_plan(8, 8, group, 1024 // bs, bs)
+    assert plan == (256, 4)
+    q, kp, vp, args = _decode_case(dev, group, bs, kv_lens, 1024 // bs, dropped=(5,))
+    _check_decode(q, kp, vp, args, bs)
+
+
+@pytest.mark.parametrize("b,length", [(1, 8192), (8, 4096)])
+def test_decode_kernel_at_depth(dev, b, length):
+    """Llama-3-8B's attention (32 query heads on 8 KV heads) at depth: one
+    request at 8192 positions (32 splits of 256) and 8 at 4096 each (6
+    splits of 704), blocks of 64, one of them dropping its write."""
+    w = length // 64
+    q, kp, vp, args = _decode_case(dev, 4, 64, [length] * b, w, dropped=(b - 1,))
+    _check_decode(q, kp, vp, args, 64)
+
+
+def _dense_case(dev, ntok, routing, e=8, n=320, k=1408, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    topi = torch.randint(0, e, (ntok, 2), generator=g, device=dev)
+    if routing == "all_to_one":
+        topi[:] = e - 1
+    elif routing == "empty_expert":
+        topi[topi == 2] = 3
+    tm = 16 if ntok * 2 <= 256 else 64
+    st, dest, _, tiles, n_used, mp = build_groups(
+        topi, torch.rand((ntok, 2), generator=g, device=dev), e, tm)
+    xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
+    xs[dest] = torch.randn((ntok, k), generator=g, device=dev).to(torch.bfloat16)[st]
+    bank = (torch.randn((e, n, k), generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    return xs, bank, tiles, n_used, tm
+
+
+@pytest.mark.parametrize("routing", ["ragged", "all_to_one", "empty_expert"])
+@pytest.mark.parametrize("body", ["decode", "prefill"])
+def test_dense_grouped_bodies_match_plain(dev, body, routing):
+    """Each body of the dense grouped kernel on a bank of 8 experts
+    [320, 1408] (N a multiple of 64 but not of 256; 22 steps of 64 k) at the
+    three routings: within 1e-2 of the plain version, unused tiles zero (the
+    output allocated over freed NaNs), a second call bit-equal."""
+    xs, bank, tiles, n_used, tm = _dense_case(dev, 8 if body == "decode" else 200, routing)
+    assert dense_grouped_plan(tm).body == body
+    ref = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used, plain=True)
+    outs = []
+    for _ in range(2):
+        poison = torch.full((xs.shape[0], bank.shape[1]), float("nan"), device=dev,
+                            dtype=torch.bfloat16)
+        del poison
+        outs.append(dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used))
+    torch.cuda.synchronize()
+    got = outs[0]
+    assert torch.isfinite(got).all() and torch.equal(got, outs[1])
+    assert (got[int(n_used) * tm:] == 0).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("ntok,n,want", [(2, 320, ("decode", 64)), (8, 2048, ("decode", 64)),
+                                         (8, 4096, ("decode", 64)),
+                                         (200, 320, ("prefill", 256))])
+def test_dense_grouped_plan_on_the_card(dev, ntok, n, want):
+    """The wrapper's own plan on the card, at decode steps of 2 and 8
+    tokens and a 200-token prefill chunk: the launch count, the plain
+    version's result within 1e-2 and a second call bit-equal."""
+    xs, bank, tiles, n_used, tm = _dense_case(dev, ntok, "ragged", n=n)
+    assert dense_grouped_plan(tm) == want
+    reset_counts()
+    got = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
+    again = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used)
+    ref = dense_matmul_grouped(xs, bank, tiles, tm=tm, n_used_tiles=n_used, plain=True)
+    torch.cuda.synchronize()
+    assert COUNTS["dense_matmul_g"] == 2 and COUNTS["dense_matmul_g_plain"] == 1
+    assert torch.equal(got, again) and (got[int(n_used) * tm:] == 0).all()
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
