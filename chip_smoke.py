@@ -62,11 +62,15 @@ script in one call:
    DeepSeek-V2-Lite's shapes (16 heads, rank 512, rows of 576, batch 8) with
    16- and 64-token blocks, kv_lens from 0 to 2048, one dropped write (slot
    -1), one row with kv_len 0 and one write into the last block of its
-   table; the output, the written layer's pool (but its trash row, which
-   the two dropped writes may tear) and the other layer are compared; its
+   table, and, after every other row, at depth (one request at 8192
+   positions, 8 at 4096 each, blocks of 64); the output, the written
+   layer's pool (but its trash row, which the two dropped writes may tear)
+   and the other layer are compared, and each call is checked bit-equal to
+   a second one; its
    library call is ``scaled_dot_product_attention`` over the
    rows gathered ahead of time (values = rows[:, :512]), on the first backend
-   that takes those shapes;
+   that takes those shapes (no mask at depth, where every position is
+   visible);
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared;
@@ -91,7 +95,8 @@ script in one call:
    time, its idle share, the kernels that take most of it and the device
    time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
    16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode body,
-   16-row tile), dense grouped (both bodies) and paged decode kernels;
+   16-row tile), dense grouped (both bodies), paged decode and MLA decode
+   kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -127,7 +132,8 @@ products); the
 models' logits agree within 5e-2 of the largest |logit| (bf16 activations
 through two full-width layers). The MLA decode kernel rounds P to bf16 for
 its tensor-core PV product and sums in another order: 2e-2 absolute on
-bf16 outputs of magnitude ~1; the pool after the write is exact.
+bf16 outputs of magnitude ~1; the pool after the write is exact; it merges
+its splits in split order, so two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -293,14 +299,15 @@ def device_ms(fn, iters: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then loses its records: try again
+    for attempt in range(5):  # a trace now and then loses its records: try again, longer
+        n_calls = iters * (1 + attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n_calls):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof).values()
-        if kernels and max(n for _, n in kernels) >= iters:
-            return sum(us for us, _ in kernels) / iters / 1e3
+        if kernels and max(n for _, n in kernels) >= n_calls:
+            return sum(us for us, _ in kernels) / n_calls / 1e3
     return None
 
 
@@ -669,55 +676,67 @@ def sdpa_timed(q, k, v, mask):
     raise AssertionError("no SDPA backend takes these inputs")
 
 
-def check_mla(rates, gen, dev, bs):
+def check_mla(rates, gen, dev, bs, kv_lens=(1, 2048, 700, 0, 65, 1333, 64, 1024),
+              positions=2048):
     """The MLA decode kernel at DeepSeek-V2-Lite's decode shapes against its
-    plain version (module docstring)."""
-    b, nh, rank, d, n_layers = 8, 16, 512, 576, 2
-    kv_lens = torch.tensor([1, 2048, 700, 0, 65, 1333, 64, 1024], device=dev, dtype=torch.int32)
-    w = 2048 // bs
+    plain version (module docstring), on tables of ``positions`` positions
+    in blocks of ``bs``; two calls bit-equal. Rows 2 and 3 drop their writes
+    where there are 8 rows; with fewer, none does."""
+    b, nh, rank, d, n_layers = len(kv_lens), 16, 512, 576, 2
+    kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
+    w = positions // bs
     bt, s_total = paged_layout(b, bs, w, gen, dev)
     pool = torch.randn((n_layers, s_total, d), generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn((b, nh, d), generator=gen, device=dev).to(torch.bfloat16)
     rows_new = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
     slots = slots_for(bt, (kv_lens - 1).clamp_min(0)[:, None], bs)[:, 0].contiguous()
-    slots[2] = -1  # a dropped write
-    slots[3] = -1  # the kv_len 0 row: a padding row of the engine's batch
-    # row 1 (kv_len 2048) writes into the last block of its table
-    check(int(slots[1]) // bs == int(bt[1, -1]), "mla: row 1 must write its last block")
+    full = bool((kv_lens == positions).all())
+    if b == 8 and not full:
+        slots[2] = -1  # a dropped write
+        slots[3] = -1  # the kv_len 0 row: a padding row of the engine's batch
+        # row 1 (kv_len 2048) writes into the last block of its table
+        check(int(slots[1]) // bs == int(bt[1, -1]), "mla: row 1 must write its last block")
     scale = 192 ** -0.5  # qk_head_dim ** -0.5
     p1, p2 = pool.clone(), pool.clone()
     args = (rows_new, slots, bt, kv_lens, 1)
     kw = dict(rank=rank, block_size=bs, scale=scale)
     got = mla_decode(q, p1, *args, **kw)
+    again = mla_decode(q, p1, *args, **kw)
     ref = mla_decode(q, p2, *args, **kw, plain=True)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     # two rows drop their writes into the trash row (the last), from two
     # blocks at once: what it holds after is not defined and never read
     pool_ok = bool((p1[1, :-1] == p2[1, :-1]).all()) and bool((p1[0] == pool[0]).all())
-    if not (torch.isfinite(got).all() and err <= 2e-2 and pool_ok
-            and bool((got[3] == 0).all())):
+    zero_ok = bool((got[kv_lens == 0] == 0).all())
+    if not (torch.isfinite(got).all() and err <= 2e-2 and pool_ok and zero_ok
+            and torch.equal(got, again)):
         raise AssertionError(f"mla_decode bs={bs}: max err {err}, pool written right "
-                             f"{pool_ok}, kv_len-0 row zero {bool((got[3] == 0).all())}")
+                             f"{pool_ok}, kv_len-0 rows zero {zero_ok}, two calls equal "
+                             f"{torch.equal(got, again)}")
+    del ref, again
     keys = p1[1][(bt.long()[:, :, None] * bs + torch.arange(bs, device=dev)).reshape(b, -1)]
     kk = keys[:, None].expand(b, nh, keys.shape[1], d).contiguous()
     vv = kk[..., :rank]
-    mask = (torch.arange(keys.shape[1], device=dev)[None] < kv_lens[:, None])[:, None, None]
+    mask = None if full else (torch.arange(keys.shape[1], device=dev)[None]
+                              < kv_lens[:, None])[:, None, None]
     ms = time_ms(lambda: mla_decode(q, p1, *args, **kw))
     dev_ms = device_ms(lambda: mla_decode(q, p1, *args, **kw))
     plain_ms = time_ms(lambda: mla_decode(q, p2, *args, **kw, plain=True), iters=3, warmup=1)
     lib_ms, lib_dev_ms, backend = sdpa_timed(q[:, :, None], kk, vv, mask)
+    del kk, vv, keys
     tokens = int(kv_lens.sum())
     # each visible row read once, q and the new rows read, the rows written, out written
     nbytes = tokens * d * 2 + b * nh * d * 2 + 2 * b * d * 2 + b * nh * rank * 2
     b_ms, b_by = bound(nbytes, 2.0 * tokens * nh * (d + rank), rates)
-    row = dict(shape=f"B={b} nh={nh} D={d} rank={rank} bs={bs} kv_lens 0..2048",
+    lens = f"kv_lens={positions} x {b}" if full else f"kv_lens 0..{positions}"
+    row = dict(shape=f"B={b} nh={nh} D={d} rank={rank} bs={bs} {lens}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
                library=f"sdpa ({backend})")
-    log(f"  mla_decode {row['shape']}: err {err:.3e} (tol 2e-2), pool exact | kernel "
-        f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, sdpa "
-        f"[{backend}] {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
+    log(f"  mla_decode {row['shape']}: err {err:.3e} (tol 2e-2), pool exact, two calls equal "
+        f"| kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.4f} ms, sdpa [{backend}] {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -1132,14 +1151,17 @@ def profile_decode_step(engine, add_request) -> str:
     # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs the
     # dense projections of <= 8 rows with its 8-row tile and the grouped
     # experts with its 16-row tile, W4 in format 0 and W8 in formats 1 and 2;
-    # dense grouped and paged decode are named as in this tree and its parent
+    # dense grouped, paged decode and MLA decode are named as in this tree
+    # and its parents (MLA: one kernel, or a split and a combine kernel)
     families = {"W4": ("mm_decode_kernel<0, 1",), "W4 grouped": ("mm_decode_kernel<0, 2",),
                 "W8": ("mm_decode_kernel<1, 1", "mm_decode_kernel<2, 1"),
                 "W8 grouped": ("mm_decode_kernel<1, 2", "mm_decode_kernel<2, 2"),
                 "W8 prefill": ("w8_prefill_kernel",),
                 "dense grouped": ("dense_g_decode_kernel", "dense_g_prefill_kernel",
                                   "dense_grouped_kernel"),
-                "paged decode": ("split_decode_kernel", "paged_decode_kernel")}
+                "paged decode": ("split_decode_kernel", "paged_decode_kernel"),
+                "MLA decode": ("mla_decode_kernel", "mla_decode_split_kernel",
+                               "mla_decode_combine_kernel")}
     fam = ", ".join(
         f"{f} {sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3:.3f} ms"
         for f, keys in families.items())
@@ -1343,6 +1365,10 @@ def main() -> int:
     rows["paged_decode"].append(check_decode(rates, gen, dev, kv_lens=(4096,) * 8, w=64,
                                              dropped=7))
     check_deepseek_grouped(rows, rates, gen, dev, tokens=(1,), edges=False)
+    # MLA decode at depth: one request at 8192 positions, 8 at 4096 each
+    rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(8192,), positions=8192))
+    rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(4096,) * 8,
+                                        positions=4096))
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -1393,7 +1419,7 @@ def main() -> int:
                   "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
-                  "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64"}
+                  "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64 kv_lens 0..2048"}
     launches = {**counts, "w4_matmul_g": moe_counts["w4_matmul_g"],
                 "w8_matmul_g": moe_counts["w8_matmul_g"],
                 "dense_matmul_g": ds_counts["dense_matmul_g"],

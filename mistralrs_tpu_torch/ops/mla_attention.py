@@ -11,20 +11,34 @@ over ``block_tables[b]`` up to ``kv_lens[b]``. **MLA decode kernel**
 (``csrc/mla_attention.cu``), replaces ``mla_decode_fused``. Pools are
 ``[L, S_total, D]`` (or one ``[S_total, D]`` plane) and are updated in
 place; rows are exactly ``D`` wide (the JAX package pads them to 128 lanes
-for its DMA stripes). On CUDA tensors the kernel runs; on CPU tensors (or
-with ``plain=True``) the plain version below, with the same math: an f32
-softmax and an output of zeros for a row that sees no position.
+for its DMA stripes). On CUDA tensors the kernel runs, one launch: a
+split-KV flash decode on ``mma.sync`` (16 query heads as the MMA's 16 rows,
+the f32 accumulator in registers, rows brought by bulk copies into a
+ring), the splits of :func:`mla_plan` taking each sequence's tiles in turn;
+each thread block cluster of splits merges its f32 partials in split order
+through distributed shared memory, and the clusters' results are merged in
+cluster order, slice by slice, by the last block of each slice. On CPU
+tensors (or with ``plain=True``) the plain version below runs, with the
+same math: an f32 softmax and an output of zeros for a row that sees no
+position.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
-from ._cuda import COUNTS, check, library, require, stream_ptr
+from ._cuda import COUNTS, check, library, require, sm_count, split_counters, stream_ptr
 from .paged_attention import LOG2E, _softmax_attend
 
-SPLIT_TILE = 64  # positions per tile of the kernel; a split is a multiple
-TARGET_BLOCKS = 264  # ~2 blocks per SM of the H100 (132 SMs)
+MLA_TILE = 32  # positions per tile of the kernel; split s takes tiles s, s + splits, ...
+MLA_HEADS = 16  # query heads per block: the MMA's 16 rows
+MLA_COLUMNS = 512  # rank columns per block (DeepSeek's whole rank)
+MLA_MAX_CLUSTER = 16  # splits of one thread block cluster (a non-portable cluster size)
+MLA_BLOCKS_PER_SM = 1  # the grid's aim ...
+MLA_MIN_TILES = 4  # ... where each split keeps at least this many of a full table's tiles
 
 
 def _plane(pool: torch.Tensor, layer: int) -> torch.Tensor:
@@ -52,17 +66,51 @@ def mla_decode_plain(
     return out[:, 0].to(q.dtype)
 
 
-def _splits(b: int, nh: int, max_positions: int) -> tuple[int, int]:
-    """``(n_split, span)``: the kernel's KV splits per sequence and the
-    positions each covers (a multiple of 64), enough splits for ~2 blocks
-    per SM over all sequences and head tiles."""
-    n_tiles = max(1, -(-max_positions // SPLIT_TILE))
-    want = max(1, -(-TARGET_BLOCKS // (b * -(-nh // 16))))
-    span = SPLIT_TILE * -(-n_tiles // min(n_tiles, want))
-    return -(-n_tiles * SPLIT_TILE // span), span
+class MlaPlan(NamedTuple):
+    splits: int  # blocks per (sequence, head tile); split s takes tiles s, s + splits, ...
+    cluster: int  # splits per thread block cluster (divides splits, at most 16)
 
 
-def _mla_cuda(q, plane, row_new, slots, block_tables, kv_lens, block_size, rank, scale):
+def clustered(splits: int) -> MlaPlan:
+    """``splits`` (rounded up) in the fewest clusters of at most
+    ``MLA_MAX_CLUSTER``, as even as they come."""
+    n = -(-splits // MLA_MAX_CLUSTER)
+    cluster = -(-splits // n)
+    return MlaPlan(n * cluster, cluster)
+
+
+@functools.lru_cache(maxsize=1024)
+def mla_plan(b: int, head_tiles: int, w: int, block_size: int, sms: int = 132) -> MlaPlan:
+    """The MLA decode kernel's splits of a table of ``w`` blocks of
+    ``block_size`` positions, for ``b`` sequences of ``head_tiles`` blocks
+    each (16 query heads, 512 rank columns a block) on a card of ``sms`` SMs.
+
+    It reads static shapes only, never ``kv_lens``: the step can be captured
+    in a CUDA graph, with no host sync. Split s of a sequence takes its
+    32-position tiles s, s + splits, ..., so a short sequence spreads over
+    as many splits as it has tiles whatever the plan. The grid (splits, b,
+    head_tiles) gets about ``MLA_BLOCKS_PER_SM`` block per SM, but no split
+    walks fewer than ``MLA_MIN_TILES`` tiles of a full table unless the
+    whole table is shorter: each split costs its query load and its share of
+    the merges. One block per SM, not two: on the H100 only 14 clusters of
+    16 blocks fit the card at once, and at 8 x 4096 positions 32 splits a
+    sequence (16 clusters, two waves) took 1.3x the time of 16
+    (``probes/split_plans.py``, PERF.md)."""
+    tiles = max(1, -(-w * block_size // MLA_TILE))
+    want = max(1, MLA_BLOCKS_PER_SM * sms // max(1, b * head_tiles))
+    return clustered(max(1, min(want, tiles // MLA_MIN_TILES)))
+
+
+def mla_blocks(nh: int, rank: int) -> int:
+    """Blocks per (sequence, split): head tiles of 16 times column groups
+    of 512."""
+    return -(-nh // MLA_HEADS) * -(-rank // MLA_COLUMNS)
+
+
+def _mla_cuda(q, plane, row_new, slots, block_tables, kv_lens, block_size, rank, scale,
+              plan: Optional[MlaPlan] = None):
+    """The kernel's launch, at ``mla_plan``'s split unless a ``plan`` is
+    given (``probes/split_plans.py`` times other splits)."""
     b, nh, d = q.shape
     s_total = plane.shape[0]
     require(d % 8 == 0 and rank % 16 == 0 and 16 <= rank <= d,
@@ -78,17 +126,24 @@ def _mla_cuda(q, plane, row_new, slots, block_tables, kv_lens, block_size, rank,
                 f"{name} must be contiguous int32 on {q.device}")
     require(slots.shape == (b,) and kv_lens.shape == (b,) and block_tables.shape[0] == b,
             "slots/kv_lens/block_tables batch mismatch")
+    lib = library()
     out = torch.empty((b, nh, rank), dtype=torch.bfloat16, device=q.device)
     if b == 0:
         return out
-    n_split, span = _splits(b, nh, block_tables.shape[1] * block_size)
-    o_part = torch.empty((b, n_split, nh, rank), dtype=torch.float32, device=q.device)
-    ml_part = torch.empty((b, n_split, nh, 2), dtype=torch.float32, device=q.device)
-    code = library().mrt_mla_decode(
+    w = block_tables.shape[1]
+    z = mla_blocks(nh, rank)
+    plan = plan or mla_plan(b, z, w, block_size, sm_count(q.device))
+    part = cnt = None
+    if plan.splits > plan.cluster:  # per (sequence, block, cluster): acc [16 x 512], (m, l) x 16
+        part = torch.empty(b * z * (plan.splits // plan.cluster) * MLA_HEADS * (MLA_COLUMNS + 2),
+                           dtype=torch.float32, device=q.device)
+        cnt = split_counters(q.device, b * z * plan.cluster)
+    code = lib.mrt_mla_decode(
         q.data_ptr(), plane.data_ptr(), row_new.data_ptr(), slots.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-        ml_part.data_ptr(), b, nh, d, rank, s_total, block_tables.shape[1], block_size,
-        span, n_split, float(scale * LOG2E), stream_ptr(q),
+        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        b, nh, d, rank, s_total, w, block_size, plan.splits, plan.cluster,
+        float(scale * LOG2E), stream_ptr(q),
     )
     check(code, "mla_decode")
     COUNTS["mla_decode"] += 1

@@ -64,15 +64,17 @@ VARIANTS = {
 
 
 def build(variants: dict, source: str = "w4_matmul.cu", entry: str = "mrt_w4_matmul",
-          argtypes=None) -> dict:
-    """``{name: library}``: ``source`` with each variant's edits (old, new)
-    applied, built alone into its own library under ``_build/`` (one
-    ``nvcc`` per variant, all started together); ``entry`` bound with
-    ``argtypes`` (by default its signature in ``_cuda``)."""
+          argtypes=None, csrc=None) -> dict:
+    """``{name: library}``: ``source`` (in ``csrc``, by default the port's
+    ``csrc/``) with each variant's edits (old, new) applied, built alone
+    into its own library under ``_build/`` (one ``nvcc`` per variant, all
+    started together); ``entry`` bound with ``argtypes`` (by default its
+    signature in ``_cuda``)."""
+    csrc = csrc or _cuda.CSRC
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edits in variants.items():
-        src = (_cuda.CSRC / source).read_text()
+        src = (csrc / source).read_text()
         for old, new in edits:
             if old not in src:
                 raise RuntimeError(f"variant {name!r}: the source no longer has {old[:60]!r}")
@@ -82,7 +84,7 @@ def build(variants: dict, source: str = "w4_matmul.cu", entry: str = "mrt_w4_mat
         path.write_text(src)
         lib = _cuda.BUILD_DIR / f"libparts_{tag}.so"
         procs[name] = (lib, subprocess.Popen(
-            [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-shared", "-o",
+            [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o",
              str(lib), str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

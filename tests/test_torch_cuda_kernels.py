@@ -20,7 +20,8 @@ tolerance, over every row including the zero rows of unused tiles; the
 dense grouped kernel uses the bank's bf16 weights as they are (f32 sums in
 another order: 1e-2 of the largest value). The split-KV decode kernel sums
 its splits in split order, so two calls give the same bits, as they do for
-the dense grouped kernel, whose blocks each own their outputs.
+the MLA decode kernel (the same in-order merge) and the dense grouped
+kernel, whose blocks each own their outputs.
 """
 
 import pytest
@@ -397,34 +398,55 @@ def test_forward_paged_kernels_match_plain(dev):
         assert (a - b).abs().max().item() <= 5e-2 * span
 
 
+# (heads, row width D, rank, kv_lens, positions a table holds): DeepSeek-V2-
+# Lite's head shapes with sequences of one split beside sequences of several;
+# 20 heads (two head tiles, the second partial); one sequence at 8192
+# positions (64 splits: eight merge groups); rank 576 = D (two column groups,
+# the second of 64 columns); a row of 136 (not a multiple of 16) at rank 128
+MLA_CASES = {
+    "v2lite": (16, 576, 512, (1024, 0, 300, 1, 77), 1024),
+    "heads20": (20, 576, 512, (1024, 0, 300, 1, 77), 1024),
+    "b1_8192": (16, 576, 512, (8192,), 8192),
+    "rank576": (16, 576, 576, (1024, 0, 300, 1, 77), 1024),
+    "d136": (12, 136, 128, (1024, 0, 300, 1, 77), 1024),
+}
+
+
 @pytest.mark.parametrize("bs", [16, 64])
-def test_mla_decode_kernel_matches_plain(dev, bs):
-    """The MLA decode kernel at DeepSeek-V2-Lite's head shapes (16 heads,
-    rank 512, rows of 576) with a dropped write, a kv_len-0 row, a write into
-    the last block of a table and a 2-layer pool: output within 2e-2 (bf16,
-    P rounded to bf16 for the tensor cores), the written layer exact except
-    the trash row, the other layer untouched."""
-    b, nh, rank, d, w = 5, 16, 512, 576, 1024 // bs
+@pytest.mark.parametrize("case", list(MLA_CASES))
+def test_mla_decode_kernel_matches_plain(dev, case, bs):
+    """The MLA decode kernel with a dropped write (when there are several
+    rows: the kv_len-0 row's), a write into the last block of a table and a
+    2-layer pool: output within 2e-2 (bf16, P rounded to bf16 for the tensor
+    cores), the written layer exact except the trash row, the other layer
+    untouched, kv_len 0 giving zeros, and two calls giving the same bits (the
+    splits are merged in split order)."""
+    nh, d, rank, lens, positions = MLA_CASES[case]
+    b, w = len(lens), positions // bs
     g = torch.Generator(device=dev).manual_seed(4)
     bt = torch.randperm(b * w, generator=g, device=dev).to(torch.int32).reshape(b, w)
     pool = torch.randn((2, (b * w + 1) * bs, d), generator=g, device=dev).to(torch.bfloat16)
-    kv_lens = torch.tensor([1024, 0, 300, 1, 77], device=dev, dtype=torch.int32)
+    kv_lens = torch.tensor(lens, device=dev, dtype=torch.int32)
     pos = (kv_lens - 1).clamp_min(0).long()
     slots = (bt.gather(1, (pos // bs)[:, None])[:, 0] * bs + pos % bs).to(torch.int32)
-    slots[1] = -1
+    if b > 1:
+        slots[1] = -1
     q = torch.randn((b, nh, d), generator=g, device=dev).to(torch.bfloat16)
     rows = torch.randn((b, d), generator=g, device=dev).to(torch.bfloat16)
     p1, p2 = pool.clone(), pool.clone()
     reset_counts()
     got = mla_decode(q, p1, rows, slots, bt, kv_lens, 0, rank=rank, block_size=bs, scale=0.07)
+    again = mla_decode(q, p1, rows, slots, bt, kv_lens, 0, rank=rank, block_size=bs, scale=0.07)
     ref = mla_decode(q, p2, rows, slots, bt, kv_lens, 0, rank=rank, block_size=bs, scale=0.07,
                      plain=True)
     torch.cuda.synchronize()
-    assert COUNTS["mla_decode"] == 1 and COUNTS["mla_decode_plain"] == 1
-    assert torch.isfinite(got).all() and (got[1] == 0).all()
+    assert COUNTS["mla_decode"] == 2 and COUNTS["mla_decode_plain"] == 1
+    assert torch.isfinite(got).all() and torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() < 2e-2
     assert torch.equal(p1, p2) and torch.equal(p1[1], pool[1])
-    assert torch.equal(p1[0, -1], rows[1])  # the dropped write in the trash row
+    if b > 1:
+        assert (got[1] == 0).all()  # kv_len 0: zeros
+        assert torch.equal(p1[0, -1], rows[1])  # the dropped write in the trash row
 
 
 @pytest.mark.parametrize("ntok", [6, 192])
