@@ -89,14 +89,22 @@ script in one call:
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
    greedy, half seeded sampling), every kernel's launch count read after the
-   run, then the server and engine threads are shut down and joined; then
-   one decode step of 6 greedy requests on the same engine is timed on the
-   host clock and traced with ``torch.profiler`` for the device's kernel
-   time, its idle share, the kernels that take most of it and the device
-   time of the W4 (decode body, 8-row tile), W4 grouped (decode body,
-   16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode body,
-   16-row tile), dense grouped (both bodies), paged decode and MLA decode
-   kernels;
+   run (a replay of the captured decode step counts the launches its graph
+   recorded), then the server and engine threads are shut down and joined.
+   Then, on the same engine, 6 requests (3 greedy, 3 seeded sampled) past
+   their first decode step: from one saved state (KV pools, sampling
+   state), 8 decode steps through the step function run eagerly and 8
+   through the captured graph, the logits bit-equal and the tokens
+   identical; the first replay with its staging under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync up to the one
+   result wait); the step's wall time, device kernel time and idle share
+   through the graph and eagerly side by side; and one engine step timed on
+   the host clock and traced with ``torch.profiler`` for the device's
+   kernel time, its idle share, the kernels that take most of it and the
+   device time of the W4 (decode body, 8-row tile), W4 grouped (decode
+   body, 16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode
+   body, 16-row tile), dense grouped (both bodies), paged decode and MLA
+   decode kernels;
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -1123,29 +1131,152 @@ class ByteTokenizer:
         return Detokenizer(self)
 
 
-def profile_decode_step(engine, add_request) -> str:
-    """One decode step of 6 running greedy requests (100-token prompts) on
-    the serve run's engine, its server stopped: the step's wall time on the
-    host clock (a step ends in a host sync), the device's kernel time from a
-    ``torch.profiler`` trace of the next step, so the device's idle share,
-    and the kernels that took most of it."""
+def traced_ms(fn):
+    """``fn()``'s wall time on the host clock (it ends in a host sync) and
+    the device's kernel time in a ``torch.profiler`` trace of a later call:
+    ``(wall ms, device ms, {kernel name: device µs})``. A trace now and then
+    loses records, which only lowers its sum: the largest of 3 traces."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.monotonic()
+    fn()
+    wall = (time.monotonic() - t0) * 1e3
+    best: dict = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_kernel = {k: us for k, (us, _) in device_kernels(prof).items()}
+        if sum(by_kernel.values()) > sum(best.values()):
+            best = by_kernel
+    return wall, sum(best.values()) / 1e3, best
+
+
+def step_line(what: str, wall: float, busy: float) -> str:
+    if busy == 0:
+        return f"{what} {wall:.2f} ms wall; device time not measured"
+    return (f"{what} {wall:.2f} ms wall, device kernels {busy:.3f} ms, device idle "
+            f"{100 * (1 - busy / wall):.1f} %")
+
+
+class StepState:
+    """The device state a decode step changes (the KV pools, the sampling
+    state) saved once, so that several runs start from the same state."""
+
+    def __init__(self, engine):
+        cache = engine.cache
+        self.live = [cache.k, cache.v] if hasattr(cache, "k") else [cache]
+        self.live += [getattr(engine.samp_state, k) for k in engine.samp_state._ROWS]
+        self.saved = [t.clone() for t in self.live]
+
+    def restore(self) -> None:
+        for t, s in zip(self.live, self.saved):
+            t.copy_(s)
+        torch.cuda.synchronize()
+
+
+def graph_step_checks(engine, add_request, name_line: str) -> str:
+    """On the serve run's engine (its server stopped), 6 running requests of
+    100-token prompts, 3 greedy and 3 seeded sampled, past their first
+    decode step (so the width's graph is captured):
+
+    * from one saved state, 8 decode steps through the step function run
+      eagerly and 8 through the graph: the logits must be bit-equal and the
+      greedy and sampled tokens identical;
+    * the first replay with its staging runs under
+      ``torch.cuda.set_sync_debug_mode("error")``, up to the one result
+      wait;
+    * the step's wall time (host clock, to the result wait), the device's
+      kernel time (``torch.profiler``) and so its idle share, through the
+      graph and eagerly, from the same state; then one engine step (the
+      scheduler, the staging, the replay and the commits) timed and traced,
+      with the kernels that took most of the device time."""
     seqs = [add_request([(7 * i + j) % 250 + 1 for j in range(100)],
-                        SamplingParams(temperature=0.0, max_tokens=16)) for i in range(6)]
+                        SamplingParams(temperature=0.0, max_tokens=40) if i % 2 == 0 else
+                        SamplingParams(temperature=0.8, top_p=0.95, top_k=40, seed=100 + i,
+                                       max_tokens=40)) for i in range(6)]
     while any(len(s.generated_ids) < 2 for s in seqs):  # prefills and a first decode step
         engine.step()
-    t0 = time.monotonic()
-    engine.step()
-    wall = (time.monotonic() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.step()
-        torch.cuda.synchronize()
+    ds, width, bs = engine.decode_step, engine._max_blocks_bucket(), engine.block_size
+    check(width in ds._graphs, f"decode step: no graph captured at width {width}")
+    saved = StepState(engine)
+    rows = {s.slot: (s.all_ids[-1], s.total_len - 1, engine.kv.block_table(s.request_id))
+            for s in seqs}
+
+    def stage(i, toks):
+        a = ds.staging(width)
+        for slot, (_, pos0, table) in rows.items():
+            pos = pos0 + i
+            check(pos < bs * len(table), "decode step: position past the sequence's blocks")
+            a[slot, :4] = (toks[slot], pos, table[pos // bs] * bs + pos % bs, pos + 1)
+            a[slot, 4:4 + len(table)] = table
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        saved.restore()
+        toks = {slot: r[0] for slot, r in rows.items()}
+        logits, tokens = [], []
+        for i in range(8):
+            stage(i, toks)
+            if mode == "eager":
+                ds.upload(width)
+                out = ds.compute(width)
+                got = out.tokens.cpu().numpy()
+            else:
+                if i == 0:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        ds.launch(width)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                else:
+                    ds.launch(width)
+                got = ds.wait()[0]
+                out = ds.graph_output(width)
+            logits.append(out.logits.clone())
+            tokens.append([int(got[slot]) for slot in sorted(rows)])
+            toks = {slot: int(got[slot]) for slot in rows}
+        runs[mode] = (logits, tokens)
+    for i, (a, b) in enumerate(zip(runs["eager"][0], runs["graph"][0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode step {i}: graph logits differ from the eager step's "
+                                 f"by {(a - b).abs().max().item()}")
+    if runs["eager"][1] != runs["graph"][1]:
+        raise AssertionError(f"decode step: graph tokens {runs['graph'][1]} != eager "
+                             f"{runs['eager'][1]}")
+    n_sampled = sum(1 for s in seqs if not s.params.is_greedy)
+    lines = [f"graph vs eager step function, 8 steps from one state: logits bit-equal, "
+             f"tokens identical ({6 - n_sampled} greedy, {n_sampled} seeded sampled rows); "
+             f"one replay and its staging under sync debug mode 'error': no host sync"]
+
+    def graph_step():
+        stage(0, {slot: r[0] for slot, r in rows.items()})
+        ds.launch(width)
+        ds.wait()
+
+    def eager_step():
+        stage(0, {slot: r[0] for slot, r in rows.items()})
+        ds.upload(width)
+        for t in ds.compute(width)[:4]:
+            t.cpu()
+
+    for name, fn in (("graph", graph_step), ("eager", eager_step)):
+        saved.restore()
+        fn()  # the state after one step: every later call repeats the same work
+        walls = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            fn()
+            walls.append((time.monotonic() - t0) * 1e3)
+        _, busy, _ = traced_ms(fn)
+        lines.append(step_line(f"{name} step function (6 rows), median of 5",
+                               statistics.median(walls), busy))
+    saved.restore()
+    del saved
+    wall, busy, by_kernel = traced_ms(engine.step)
     engine.run_to_completion()
-    by_kernel = {k: us for k, (us, _) in device_kernels(prof).items()}
-    busy = sum(by_kernel.values()) / 1e3
     if busy == 0:
-        return f"decode step (6 rows) {wall:.2f} ms wall; device time not measured"
+        return "; ".join(lines + [step_line("engine step (graph)", wall, busy)])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
     # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs the
@@ -1162,12 +1293,14 @@ def profile_decode_step(engine, add_request) -> str:
                 "paged decode": ("split_decode_kernel", "paged_decode_kernel"),
                 "MLA decode": ("mla_decode_kernel", "mla_decode_split_kernel",
                                "mla_decode_combine_kernel")}
-    fam = ", ".join(
-        f"{f} {sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3:.3f} ms"
-        for f, keys in families.items())
-    return (f"decode step (6 rows) {wall:.2f} ms wall, device kernels {busy:.3f} ms "
-            f"({len(by_kernel)} kernel names), device idle {100 * (1 - busy / wall):.1f} %; "
-            f"{fam}; top: {tops}")
+    fam_ms = {f: sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3
+              for f, keys in families.items()}
+    fam = ", ".join(f"{f} {v:.3f} ms" for f, v in fam_ms.items())
+    ours = sum(fam_ms.values())
+    lines.append(f"{step_line('engine step (graph, 6 rows)', wall, busy)} "
+                 f"({len(by_kernel)} kernel names; the port's kernels {ours:.3f} ms, all "
+                 f"others {busy - ours:.3f} ms); {fam}; top: {tops}")
+    return "\n  ".join(lines) + f" [{name_line}]"
 
 
 def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
@@ -1186,6 +1319,9 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
     engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
                     max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED,
                     adapter=adapter)
+    log(f"  split state reserved for the graphs: "
+        f"{_cuda.split_workspace(dev, 1).numel() * 4 / 2**20:.1f} MiB of workspace, "
+        f"{_cuda.split_counters(dev, 1).numel()} counters")
     seqs = []
     add_request = engine.add_request
 
@@ -1279,14 +1415,17 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
     st = engine.stats
     dec_tokens = st["generated_tokens"] - len(seqs)
     dec_tps = dec_tokens / st["decode_time_s"]
+    cap = engine.decode_step.capture_seconds
     log(f"  served {len(seqs)} requests, prompts {sorted(expected_prompt)} tokens, 24 tokens "
         f"each, in {wall:.2f} s; TTFT median {statistics.median(ttft):.3f} s, max "
         f"{ttft[-1]:.3f} s; decode {dec_tps:.1f} tok/s over {st['decode_steps']} steps "
-        f"({st['decode_time_s'] / st['decode_steps'] * 1e3:.1f} ms/step), "
+        f"({st['decode_time_s'] / st['decode_steps'] * 1e3:.1f} ms/step; of it "
+        f"{cap:.3f} s warming up and capturing {len(engine.decode_step._graphs)} graph(s), "
+        f"without which {dec_tokens / (st['decode_time_s'] - cap):.1f} tok/s), "
         f"{st['prefill_steps']} prefill steps ({st['prefill_time_s']:.2f} s) "
         f"[{name_line}]")
     log(f"  kernel launches in the serve run: {counts}")
-    log(f"  {profile_decode_step(engine, add_request)} [{name_line}]")
+    log(f"  {graph_step_checks(engine, add_request, name_line)}")
     # the recording wrapper on the engine refers back to it: drop it, so that
     # the weights and the KV pools are freed before the next phase
     del engine.add_request

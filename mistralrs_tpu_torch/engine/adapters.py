@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..models.deepseek import deepseek_forward_paged, make_paged_cache
+from ..models.deepseek import deepseek_forward_paged, kernel_workspace, make_paged_cache
 from .engine import weights_to
 
 
@@ -42,6 +42,12 @@ class DeepseekAdapter:
         self._block_size = block_size
         return make_paged_cache(self.cfg, num_blocks, block_size, dtype=self.compute_dtype,
                                 device=self.device)
+
+    def kernel_workspace(self, batch: int, rows, widths, sms: int) -> tuple[int, int]:
+        """The kernels' split state a forward takes
+        (``models/deepseek.py::kernel_workspace``)."""
+        return kernel_workspace(self.weights, self.cfg, batch, rows, widths, self._block_size,
+                                sms)
 
     def kv_bytes_per_token(self) -> int:
         """Latent-pool bytes one token takes over all layers."""

@@ -4,10 +4,16 @@
 * Decode runs a **fixed slot batch** of ``max_batch`` rows
   (``engine/engine.py:73-87`` and ``_run_decode`` in the JAX package); empty
   slots carry dummy tokens whose KV writes are dropped (slot −1). The step
-  runs eagerly; capturing it as one CUDA graph is later work.
+  (``engine/decode_step.py``, the counterpart of the jitted ``_decode_fn``)
+  is the forward plus on-device seeded sampling over every slot: on the
+  card one captured CUDA graph per block-table width bucket, replayed every
+  step, whose only host wait is one copy of the step's results; on the CPU
+  the same function uncaptured. The KV pools and the sampling state are the
+  same tensors for the engine's life, updated in place.
 * Prompt chunks of up to ``prefill_chunk`` tokens from up to four sequences
-  run as one batched prefill (``_run_prefill_batch``); a sequence finishing
-  its prompt samples its first token from the prefill logits.
+  run as one batched prefill (``_run_prefill_batch``), eagerly (not
+  captured); a sequence finishing its prompt samples its first token from
+  the prefill logits through the same sampler.
 * Prefix caching and recompute preemption come from the block manager and
   scheduler, copied from the JAX package.
 
@@ -33,8 +39,10 @@ from .._device import DeviceLike, resolve_device
 from ..kv.manager import KVCacheManager
 from ..kv.paged import PagedKVCache
 from ..models.config import ModelConfig
-from ..models.llama import check_supported, forward_paged
+from ..models.llama import check_supported, forward_paged, kernel_workspace
+from ..ops._cuda import sm_count
 from ..quant.qtensor import QTensor
+from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
 from .sampler import BatchSamplingState, SamplingParams, sample
 from .scheduler import Scheduler
 from .sequence import Sequence, StopReason
@@ -48,6 +56,34 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def decode_widths(max_model_len: int, block_size: int) -> list[int]:
+    """Every block-table width ``Engine._max_blocks_bucket`` can return."""
+    hard_max = -(-max_model_len // block_size)
+    if hard_max < 32:
+        return [hard_max]
+    widths = [32]
+    while widths[-1] < hard_max:
+        widths.append(min(2 * widths[-1], hard_max))
+    return widths
+
+
+def forward_rows(max_batch: int, prefill_chunk: int, max_prefill_seqs: int) -> list[int]:
+    """Every token-row count an engine's forward takes: the decode batch,
+    and each prefill's (rows padded to a power of two, times a token
+    bucket; its logits rows alone)."""
+    rows, r = {max_batch}, 1
+    while True:
+        t = 16
+        while True:
+            rows.update((r, r * t))
+            if t >= _bucket(prefill_chunk):
+                break
+            t *= 2
+        if r >= max_prefill_seqs:
+            return sorted(rows)
+        r *= 2
 
 
 def weights_to(weights, device: torch.device):
@@ -115,6 +151,16 @@ class Engine:
         else:
             self.cache = adapter.create_cache(num_blocks, block_size, max_batch)
         self.samp_state = BatchSamplingState.create(max_batch, cfg.vocab_size, self.device)
+        workspace = (0, 0)
+        if self.device.type == "cuda":
+            args = (max_batch, forward_rows(max_batch, prefill_chunk,
+                                            self.scheduler.max_prefill_seqs),
+                    decode_widths(self.max_model_len, block_size))
+            sms = sm_count(self.device)
+            workspace = (kernel_workspace(self.weights, cfg, *args, block_size, sms)
+                         if adapter is None else adapter.kernel_workspace(*args, sms))
+        self.decode_step = DecodeStep(self._decode_forward, self.samp_state, max_batch,
+                                      self.device, workspace)
         self._req_counter = itertools.count()
         self._slot_seq: list[Optional[Sequence]] = [None] * max_batch
         self.stats = {
@@ -145,10 +191,8 @@ class Engine:
             on_tokens=on_tokens,
             priority=priority,
         )
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(params.seed if params.seed is not None
-                        else (self.seed * 1_000_003 + n) % (2**63))
-        seq.generator = gen  # type: ignore[attr-defined]
+        seq.sample_seed = (params.seed if params.seed is not None
+                           else (self.seed * 1_000_003 + n) % (2**63))
         self.scheduler.add(seq)
         return seq
 
@@ -267,14 +311,15 @@ class Engine:
         ids, pos = self._dev(ids_arr), self._dev(positions)
         args = (self._dev(bt), self._dev(slot_map), self._dev(kv_lens))
         if self.adapter is not None:
-            logits, self.cache = self.adapter.prefill(self.cache, ids, pos, *args,
-                                                      self._dev(last_idx))
+            logits, cache = self.adapter.prefill(self.cache, ids, pos, *args,
+                                                 self._dev(last_idx))
         else:
-            logits, self.cache = forward_paged(
+            logits, cache = forward_paged(
                 self.weights, self.cfg, ids, pos, self.cache, *args, block_size=self.block_size,
                 logits_last_only=True, compute_dtype=self.compute_dtype,
                 last_indices=self._dev(last_idx),
             )
+        self._check_cache(cache)
         finished: list[Sequence] = []
         for row, sp in enumerate(sps):
             seq = sp.seq
@@ -291,51 +336,54 @@ class Engine:
         from the prefill logits. Returns True if the sequence finished."""
         slot = seq.slot
         self._slot_seq[slot] = seq
-        self.samp_state.admit(slot, seq.params, seq.prompt_ids)
-        toks, logprobs, tops = sample(logits_row[None], self.samp_state, [slot],
-                                      [seq.generator])
+        self.samp_state.admit(slot, seq.params, seq.prompt_ids, seq.sample_seed,
+                              drawn=seq.num_generated)
+        toks, logprobs, tops = sample(logits_row[None], self.samp_state,
+                                      rows=torch.tensor([slot], device=self.device))
         seq.first_token_time = time.monotonic()
         return self._commit_token(seq, int(toks[0]), float(logprobs[0]),
                                   tops[0][0].cpu().numpy(), tops[1][0].cpu().numpy())
 
+    def _check_cache(self, cache) -> None:
+        if cache is not self.cache:
+            raise RuntimeError("the forward must update the KV cache in place and return it: "
+                               "a captured decode step holds its tensors")
+
+    def _decode_forward(self, tokens, positions, bt, slot_map, kv_lens) -> torch.Tensor:
+        """The decode step's forward (``DecodeStep``): logits ``[B, 1, V]``,
+        the KV rows written into the engine's cache in place."""
+        if self.adapter is not None:
+            logits, cache = self.adapter.decode(self.cache, tokens, positions, bt, slot_map,
+                                                kv_lens)
+        else:
+            logits, cache = forward_paged(
+                self.weights, self.cfg, tokens, positions, self.cache, bt, slot_map, kv_lens,
+                block_size=self.block_size, logits_last_only=True,
+                compute_dtype=self.compute_dtype,
+            )
+        self._check_cache(cache)
+        return logits
+
     def _run_decode(self, seqs: list[Sequence]) -> list[Sequence]:
-        b = self.max_batch
-        tokens = np.zeros((b, 1), np.int64)
-        positions = np.zeros((b, 1), np.int64)
-        kv_lens = np.zeros((b,), np.int32)
-        slot_map = np.full((b, 1), -1, np.int32)
         width = self._max_blocks_bucket()
-        bt = np.zeros((b, width), np.int32)
+        stage = self.decode_step.staging(width)  # rows without a sequence stay empty
         for seq in seqs:
             s = seq.slot
             # the last generated token's KV is written this step at position
             # total_len - 1 (the first token was sampled from prefill logits)
-            tokens[s, 0] = seq.all_ids[-1]
             pos = seq.total_len - 1
-            positions[s, 0] = pos
-            kv_lens[s] = pos + 1
-            slot_map[s, 0] = self.kv.slot_mapping(seq.request_id, pos, 1)[0]
+            stage[s, TOKEN] = seq.all_ids[-1]
+            stage[s, POSITION] = pos
+            stage[s, SLOT] = self.kv.slot_mapping(seq.request_id, pos, 1)[0]
+            stage[s, KV_LEN] = pos + 1
             table = self.kv.block_table(seq.request_id)[:width]
-            bt[s, : len(table)] = table
-        # rows without a sequence keep slot -1 (the write is dropped) and kv_len 0
-        ids, pos = self._dev(tokens), self._dev(positions)
-        args = (self._dev(bt), self._dev(slot_map), self._dev(kv_lens))
-        if self.adapter is not None:
-            logits, self.cache = self.adapter.decode(self.cache, ids, pos, *args)
-        else:
-            logits, self.cache = forward_paged(
-                self.weights, self.cfg, ids, pos, self.cache, *args, block_size=self.block_size,
-                logits_last_only=True, compute_dtype=self.compute_dtype,
-            )
-        rows = [seq.slot for seq in seqs]
-        toks, logprobs, tops = sample(
-            logits[rows, 0], self.samp_state, rows, [seq.generator for seq in seqs]
-        )
-        toks, logprobs = toks.tolist(), logprobs.tolist()
-        top_vals, top_ids = tops[0].cpu().numpy(), tops[1].cpu().numpy()
+            stage[s, TABLE:TABLE + len(table)] = table
+        toks, logprobs, top_vals, top_ids = self.decode_step.run(width)
         finished: list[Sequence] = []
-        for i, seq in enumerate(seqs):
-            if self._commit_token(seq, toks[i], logprobs[i], top_vals[i], top_ids[i]):
+        for seq in seqs:
+            s = seq.slot
+            if self._commit_token(seq, int(toks[s]), float(logprobs[s]), top_vals[s],
+                                  top_ids[s]):
                 finished.append(seq)
         return finished
 

@@ -52,6 +52,8 @@ class Sequence:
     # content digest chained into block hashes (multimodal prompts repeat
     # placeholder token ids — token-only hashes would collide across images)
     extra_hash: tuple = ()
+    # seed of the sampler's draws: the request's, or one the engine derives
+    sample_seed: int = 0
     # set in __post_init__; stable across preemption-recompute (which folds
     # generated tokens back into prompt_ids)
     original_prompt_len: int = -1

@@ -44,11 +44,12 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
-from ..ops.mla_attention import mla_decode
+from ..ops.mla_attention import mla_blocks, mla_counters, mla_decode, mla_plan
 from ..ops.moe_grouped import moe_grouped_mlp
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import _softmax_attend
 from ..ops.rope import rope_cos_sin, rope_frequencies
+from ..ops.quant_matmul import split_need_tree
 from ..quant.linear import embedding_lookup, linear
 from .llama import _mlp as _dense_mlp
 
@@ -277,6 +278,19 @@ def deepseek_forward_paged(
     if head is None:
         head = weights["embed"]
     return linear(h, head, plain=plain).to(torch.float32), cache
+
+
+def kernel_workspace(weights: dict, cfg: DeepseekConfig, batch: int, rows, widths,
+                     block_size: int, sms: int) -> tuple[int, int]:
+    """``(f32 workspace values, int32 counters)`` of the kernels' split
+    state that a forward takes (``models/llama.py::kernel_workspace``'s
+    rule): any quantized matrix at any row count of ``rows``, and the MLA
+    decode kernel over ``batch`` sequences at any width of ``widths``."""
+    floats, counters = split_need_tree(weights, rows, sms)
+    z = mla_blocks(cfg.num_heads, cfg.kv_lora_rank)
+    for w in widths:
+        counters = max(counters, mla_counters(mla_plan(batch, z, w, block_size, sms), batch, z))
+    return floats, counters
 
 
 def make_paged_cache(cfg: DeepseekConfig, num_blocks: int, block_size: int,

@@ -39,9 +39,12 @@ from ..kv.paged import PagedKVCache
 from ..ops.moe_grouped import moe_grouped_mlp
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (
+    decode_counters,
+    decode_plan,
     paged_decode_attention_fused,
     paged_prefill_attention_fused,
 )
+from ..ops.quant_matmul import split_need_tree
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 from ..quant.linear import embedding_lookup, linear
 from ..quant.qtensor import QTensor
@@ -228,6 +231,21 @@ def forward_paged(
         lm_head = weights["embed"]
     logits = linear(h, lm_head, plain=plain).to(torch.float32)
     return logits, cache
+
+
+def kernel_workspace(weights: dict, cfg: ModelConfig, batch: int, rows, widths,
+                     block_size: int, sms: int) -> tuple[int, int]:
+    """``(f32 workspace values, int32 counters)`` of the kernels' split
+    state (``ops/_cuda.py``) that a forward takes, from the kernels' plans
+    (static shapes): the quantized projections at any row count of
+    ``rows``, and the paged decode kernel over ``batch`` sequences at any
+    block-table width of ``widths``. The grouped MoE kernels never split K."""
+    floats, counters = split_need_tree(weights, rows, sms)
+    group = cfg.num_heads // cfg.num_kv_heads
+    for w in widths:
+        plan = decode_plan(batch, cfg.num_kv_heads, group, w, block_size, sms)
+        counters = max(counters, decode_counters(plan, batch, cfg.num_kv_heads))
+    return floats, counters
 
 
 # ---------------------------------------------------------------------------

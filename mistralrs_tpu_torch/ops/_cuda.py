@@ -20,11 +20,23 @@ The kernels that split their work across blocks share per-device state
 here: :func:`split_workspace` (f32 partials) and :func:`split_counters` (int
 counters, zero between calls: the last block of a tile resets its own).
 Calls that use them on one device must not run on two streams at once.
+
+CUDA graphs: a captured launch keeps the address of the buffer it was given,
+so these buffers must not be replaced while a graph that uses them lives.
+:func:`reserve` sizes both before the first capture (the engine works the
+sizes out from the kernels' plans for every forward it runs), and between
+:func:`hold_buffers` and :func:`release_buffers`, or while the current
+stream captures, a call that would grow one raises in place of
+reallocating it. A capture runs every wrapper once without launching
+anything: :func:`recording_launches` takes those counts back out of
+``COUNTS`` and hands them to the caller, who adds them once per replay
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -75,10 +87,33 @@ build_seconds: float | None = None
 _sm_counts: dict = {}
 _workspaces: dict = {}
 _counters: dict = {}
+_held: collections.Counter = collections.Counter()  # device -> live graphs using the buffers
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the launches the wrappers report inside the block, take them
+    back out of ``COUNTS`` and yield them (a capture launches nothing: its
+    graph adds them once per replay)."""
+    before = COUNTS.copy()
+    recorded: collections.Counter = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        for name, n in COUNTS.items():
+            if n != before[name]:
+                recorded[name] = n - before[name]
+        COUNTS.clear()
+        COUNTS.update(+before)
+
+
+def add_launches(recorded: collections.Counter) -> None:
+    """Add a graph's recorded launches to ``COUNTS`` (one replay)."""
+    COUNTS.update(recorded)
 
 
 def sm_count(device: torch.device) -> int:
@@ -90,11 +125,19 @@ def sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
+def _may_grow(device: torch.device, what: str, n: int) -> None:
+    if _held[device] or (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            f"the split {what} on {device} would grow to {n} while a CUDA graph uses it: "
+            f"reserve() it before the first capture")
+
+
 def split_workspace(device: torch.device, floats: int) -> torch.Tensor:
     """An f32 workspace of at least ``floats`` values on ``device`` (reused
     by every split body; its contents are scratch)."""
     ws = _workspaces.get(device)
     if ws is None or ws.numel() < floats:
+        _may_grow(device, "workspace", floats)
         ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
         _workspaces[device] = ws
     return ws
@@ -105,9 +148,27 @@ def split_counters(device: torch.device, n: int) -> torch.Tensor:
     split body's last block to arrive resets the counter it used."""
     cnt = _counters.get(device)
     if cnt is None or cnt.numel() < n:
+        _may_grow(device, "counters", n)
         cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[device] = cnt
     return cnt
+
+
+def reserve(device: torch.device, floats: int, counters: int) -> None:
+    """Allocate the split workspace and counters on ``device`` at these
+    sizes at least, now (before a graph captures them)."""
+    split_workspace(device, floats)
+    split_counters(device, counters)
+
+
+def hold_buffers(device: torch.device) -> None:
+    """A graph that uses the split buffers on ``device`` is alive: from now
+    until the matching :func:`release_buffers`, growing them raises."""
+    _held[device] += 1
+
+
+def release_buffers(device: torch.device) -> None:
+    _held[device] -= 1
 
 
 def nvcc_path() -> str:

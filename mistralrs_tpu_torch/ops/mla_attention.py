@@ -107,6 +107,13 @@ def mla_blocks(nh: int, rank: int) -> int:
     return -(-nh // MLA_HEADS) * -(-rank // MLA_COLUMNS)
 
 
+def mla_counters(plan: MlaPlan, b: int, z: int) -> int:
+    """The split counters an MLA decode launch of ``plan`` over ``b``
+    sequences of ``z`` blocks each takes: one per (sequence, block, split
+    of a cluster) when it has more than one cluster, else none."""
+    return b * z * plan.cluster if plan.splits > plan.cluster else 0
+
+
 def _mla_cuda(q, plane, row_new, slots, block_tables, kv_lens, block_size, rank, scale,
               plan: Optional[MlaPlan] = None):
     """The kernel's launch, at ``mla_plan``'s split unless a ``plan`` is
@@ -134,10 +141,12 @@ def _mla_cuda(q, plane, row_new, slots, block_tables, kv_lens, block_size, rank,
     z = mla_blocks(nh, rank)
     plan = plan or mla_plan(b, z, w, block_size, sm_count(q.device))
     part = cnt = None
-    if plan.splits > plan.cluster:  # per (sequence, block, cluster): acc [16 x 512], (m, l) x 16
+    # per (sequence, block, cluster): acc [16 x 512], (m, l) x 16; under a
+    # graph capture the allocation comes from the graph's pool
+    if plan.splits > plan.cluster:
         part = torch.empty(b * z * (plan.splits // plan.cluster) * MLA_HEADS * (MLA_COLUMNS + 2),
                            dtype=torch.float32, device=q.device)
-        cnt = split_counters(q.device, b * z * plan.cluster)
+        cnt = split_counters(q.device, mla_counters(plan, b, z))
     code = lib.mrt_mla_decode(
         q.data_ptr(), plane.data_ptr(), row_new.data_ptr(), slots.data_ptr(),
         block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),

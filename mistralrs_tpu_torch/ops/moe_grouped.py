@@ -19,7 +19,9 @@ block, 256 columns).
 ``n * k <= 256`` (decode: 16 pairs over ~7 of 8 experts would pad to 512 rows
 with a 64-row tile) and 64 otherwise. Everything here stays on the device
 with no host round trip (``build_groups`` returns the used-tile count as a
-device scalar), so a later change can capture a step in a CUDA graph.
+device scalar), so the engine's decode step is captured in a CUDA graph
+(``engine/decode_step.py``), and the combine adds each token's
+contributions in a fixed order, so a replay gives the eager step's bits.
 Expert parallelism is not ported and raises.
 """
 
@@ -58,6 +60,12 @@ def build_groups(
     groups fill (an int32 device scalar), and the static padded row count
     (the worst case: ``n*k`` rows plus ``tm - 1`` padding per non-empty
     group)."""
+    return _groups(topi, topw, num_banks, tm)[:6]
+
+
+def _groups(topi, topw, num_banks: int, tm: int):
+    """:func:`build_groups`'s results, then ``order``: the flat (token,
+    choice) index of each sorted pair."""
     n, k = topi.shape
     nk = n * k
     dev = topi.device
@@ -77,7 +85,7 @@ def build_groups(
     tile_start = torch.arange(mp // tm, device=dev) * tm
     tile_idx = (torch.searchsorted(pad_off, tile_start, right=True) - 1).clamp(0, num_banks - 1)
     n_used = (padded.sum() // tm).to(torch.int32).reshape(1)
-    return st, dest, sw, tile_idx.to(torch.int32), n_used, mp
+    return st, dest, sw, tile_idx.to(torch.int32), n_used, mp, order
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +207,7 @@ def moe_grouped_mlp(
     down = experts["down"]
     nb = down.num_banks if isinstance(down, QTensor) else down.shape[0]
     tm = grouped_tile(n * k)
-    st, dest, sw, tile_idx, n_used, mp = build_groups(topi, topw, nb, tm)
+    st, dest, _, tile_idx, n_used, mp, order = _groups(topi, topw, nb, tm)
     xs = torch.zeros((mp, h), dtype=x.dtype, device=x.device)
     xs[dest] = x[st]
 
@@ -218,5 +226,10 @@ def moe_grouped_mlp(
     else:
         hidden = act(gmm(xs, experts["gate"])) * gmm(xs, experts["up"])
     y = gmm(hidden.to(x.dtype), down)
-    contrib = y[dest] * sw[:, None].to(y.dtype)
-    return torch.zeros((n, h), dtype=y.dtype, device=x.device).index_add_(0, st, contrib)
+    # each token's k contributions summed in f32 and rounded once, in a
+    # fixed order on every device (index_add_ on CUDA adds by atomics in any
+    # order, so two runs of one step could differ in their last bits)
+    rows = torch.empty_like(dest)
+    rows[order] = dest  # y's row of each (token, choice) pair
+    contrib = y[rows].reshape(n, k, h) * topw[..., None].to(y.dtype)
+    return contrib.to(torch.float32).sum(dim=1).to(y.dtype)

@@ -134,6 +134,12 @@ def decode_plan(b: int, n_kv: int, group: int, w: int, block_size: int,
     return DecodePlan(DECODE_TILE * per, -(-tiles // per))
 
 
+def decode_counters(plan: DecodePlan, b: int, n_kv: int) -> int:
+    """The split counters a decode launch of ``plan`` takes: one per
+    (sequence, KV head) when it splits, else none."""
+    return b * n_kv if plan.splits > 1 else 0
+
+
 def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale,
                  plan: Optional[DecodePlan] = None):
     """The decode kernel's launch, at ``decode_plan``'s split unless a
@@ -163,7 +169,7 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
     if plan.splits > 1:  # per (sequence, query head, split): acc[hd], then (m, l)
         part = torch.empty(b * n_q * plan.splits * (hd + 2), dtype=torch.float32,
                            device=q.device)
-        cnt = split_counters(q.device, b * n_kv)
+        cnt = split_counters(q.device, decode_counters(plan, b, n_kv))
     code = lib.mrt_paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),

@@ -274,16 +274,54 @@ def w4_split_rows(k: int, splits: int) -> list[tuple[int, int]]:
     return [(a * half, b * half) for a, b in split_steps(k, splits)]
 
 
-def _split_buffers(device: torch.device, plan: Plan, m: int, n: int):
-    """The split-K state on ``device`` for ``plan``: an f32 workspace of at
-    least ``splits * m * n`` values and one int32 counter per column tile
-    (the decode body's: zero between calls, the last block of a tile resets
-    its counter; the W8 prefill body sums its splits in a second kernel);
-    ``(None, None)`` for one split."""
+def split_sizes(plan: Plan, m: int, n: int) -> tuple[int, int]:
+    """The split-K state a call of ``plan`` on ``x [m, k]`` into ``[m, n]``
+    takes: ``splits * m * n`` f32 workspace values and one int32 counter per
+    column tile (the decode body's: zero between calls, the last block of a
+    tile resets its counter; the W8 prefill body sums its splits in a second
+    kernel); none for one split."""
     if plan.splits == 1:
+        return 0, 0
+    return plan.splits * m * n, -(-n // plan.columns)
+
+
+def _plan(qt: QTensor, m: int, sms: int, tm: Optional[int] = None) -> Plan:
+    n, k = qt.out_features, qt.in_features
+    if qt.packed:
+        return w4_plan(m, n, k, tm, sms)
+    return w8_plan(m, n, k, sms, tm, qt.group_size, qt.bias is not None)
+
+
+def _matrices(weights):
+    """The single quantized matrices of a weight tree (dicts, lists,
+    tensors, QTensors)."""
+    if isinstance(weights, dict):
+        weights = list(weights.values())
+    if isinstance(weights, list):
+        return [qt for w in weights for qt in _matrices(w)]
+    return [weights] if isinstance(weights, QTensor) and weights.num_banks is None else []
+
+
+def split_need_tree(weights, rows, sms: int) -> tuple[int, int]:
+    """The largest split-K state (:func:`split_sizes`: workspace floats and
+    counters, each its own largest) that :func:`quant_matmul` takes on a
+    card of ``sms`` SMs for any single quantized matrix of a weight tree at
+    any row count of ``rows`` (the grouped forms never split K)."""
+    floats = counters = 0
+    for qt in _matrices(weights):
+        for m in rows:
+            f, c = split_sizes(_plan(qt, m, sms), m, qt.out_features)
+            floats, counters = max(floats, f), max(counters, c)
+    return floats, counters
+
+
+def _split_buffers(device: torch.device, plan: Plan, m: int, n: int):
+    """The split-K state of :func:`split_sizes` on ``device``; ``(None,
+    None)`` for one split."""
+    floats, counters = split_sizes(plan, m, n)
+    if not floats:
         return None, None
-    return (split_workspace(device, plan.splits * m * n),
-            split_counters(device, -(-n // plan.columns)))
+    return split_workspace(device, floats), split_counters(device, counters)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -305,7 +343,7 @@ def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
     tiles for a bank) into ``out``; returns the CUDA error code."""
     m, k = x2.shape
     n = out.shape[1]
-    plan = w4_plan(m, n, k, tm, sm_count(x2.device))
+    plan = _plan(qt, m, sm_count(x2.device), tm)
     ws, cnt = _split_buffers(x2.device, plan, m, n)
     return library().mrt_w4_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
@@ -322,7 +360,7 @@ def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor, out_b
     returns the CUDA error code."""
     m, k = x2.shape
     n = out.shape[1]
-    plan = w8_plan(m, n, k, sm_count(x2.device), tm, qt.group_size, qt.bias is not None)
+    plan = _plan(qt, m, sm_count(x2.device), tm)
     ws, cnt = _split_buffers(x2.device, plan, m, n)
     return library().mrt_w8_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),

@@ -2,8 +2,9 @@
 is off, as at ``top_k = 0``, in the port and in the JAX package.
 
 Greedy rows are compared token for token. Sampled rows are compared by
-distribution, as ``torch.Generator`` and ``jax.random`` give other draws:
-4000 seeded draws at ``top_k = V + 84`` against the JAX sampler's own
+distribution, as the port's seeded on-device draws and ``jax.random`` give
+other draws: 4000 draws (4000 slots of one batch, seeds 1234 to 5233) at
+``top_k = V + 84`` against the JAX sampler's own
 probabilities at ``top_k = 0`` (``_transformed_probs``), total-variation
 distance at most 0.05. With V = 16 the expected distance of 4000 draws from
 their own distribution is about 0.02, and its standard deviation under
@@ -28,10 +29,10 @@ LOGITS = np.random.default_rng(0).standard_normal((1, V)).astype(np.float32) * 1
 
 
 def _port_draws(params: SamplingParams, n: int):
-    state = BatchSamplingState.create(1, V, "cpu")
-    state.admit(0, params, [])
-    gen = torch.Generator().manual_seed(1234)
-    toks, _, _ = sample(torch.from_numpy(LOGITS).repeat(n, 1), state, [0] * n, [gen] * n)
+    state = BatchSamplingState.create(n, V, "cpu")
+    for slot in range(n):
+        state.admit(slot, params, [], seed=1234 + slot)
+    toks, _, _ = sample(torch.from_numpy(LOGITS).repeat(n, 1), state)
     return toks.numpy()
 
 
