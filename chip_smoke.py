@@ -35,12 +35,14 @@ script in one call:
    write) and at depth, one request at 8192 positions and 8 at 4096 each
    (SDPA's yardstick, PyTorch's own choice of backend, takes no mask there:
    every position is visible), each
-   call checked bit-equal to a second one.
+   call checked bit-equal to a second one and its pools equal to the plain
+   version's but the trash slot.
    The prefill kernel is timed at B=2 T=128 on 300 cached positions and at
    the engine's chunks (4 x 256 tokens from position 0, 512 tokens on 512),
    and checked at GQA groups 1, 2, 4 and 8, blocks of 16, a row with no
    valid token and pasts not a multiple of 64; its pools must equal the
-   plain version's but the trash slot. The
+   plain version's but the trash slot, and a second call on the pools as
+   they were must give the same bits. The
    grouped (MoE) kernels run on Mixtral-8x7B banks (8 experts, top-2) at
    n*k = 16 (decode, 8 tokens) and 1024 (a 512-token prefill) with routings
    drawn from the script's generator, plus one all-to-one routing and one
@@ -70,10 +72,19 @@ script in one call:
    library call is ``scaled_dot_product_attention`` over the
    rows gathered ahead of time (values = rows[:, :512]), on the first backend
    that takes those shapes (no mask at depth, where every position is
-   visible);
+   visible).
+   Last, the paged kernels' quantized forms (int8 and fp8-e4m3 pools with
+   bf16 scales): decode at the B=8 row above and at 8 x 4096, prefill at
+   B=2 T=128 on 300 cached positions and at 512 tokens on 512; each against
+   its plain version (2e-2; the pools' codes and scales bit-equal but at
+   the trash slot, as bytes), a second call bit-equal, its bound counting
+   the codes and bf16 scales it reads and writes, and SDPA on the K/V
+   dequantized to bf16 and gathered ahead of time as its yardstick;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
-   (a 2 x 96-token prefill, then 4 decode steps), logits compared;
+   (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
+   same over int8 and over fp8 pools (the quantized forms launched, no
+   plain version in the kernel run);
 3b. the same at full Mixtral-8x7B width with 2 layers: layer 0 holds Q4_K
    gate/up and a Q6_K down bank, layer 1 Q4_K gate/up and a bf16 down bank,
    so all three grouped kernels run. Both paths record the experts each
@@ -84,7 +95,10 @@ script in one call:
 3c. the same at full DeepSeek-V2-Lite width with 2 layers (the dense layer
    0 and one MoE layer of 64 bf16 experts, top-6, 2 shared), bf16 weights:
    the MLA decode kernel at every decode step, the dense grouped kernel on
-   the routed experts; the same rule on expert choices;
+   the routed experts; the same rule on expert choices; then through the
+   kernels over an int8 latent pool, on the bf16 run's expert choices: the
+   gather path at every step (no MLA launch), logits within 5e-2 of the
+   largest of the bf16 pool's;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -104,7 +118,11 @@ script in one call:
    device time of the W4 (decode body, 8-row tile), W4 grouped (decode
    body, 16-row tile), W8 (decode body, 8-row tile), W8 grouped (decode
    body, 16-row tile), dense grouped (both bodies), paged decode and MLA
-   decode kernels;
+   decode kernels. Then the same weights serve again from int8 KV pools
+   (``Engine(kv_quant="int8")``): the same 6 requests of 12 tokens each,
+   the quantized decode and prefill forms launched and no plain version
+   run, and the same graph checks (the saved state holds the scale planes
+   too);
 5. serve the full 32-layer Mixtral-8x7B geometry (about 39 GB, drawn on the
    device after the Llama weights are freed) in llama.cpp's Q4_K_M recipe:
    Q4_K attention and gate/up banks, Q6_K down banks on the 16
@@ -118,14 +136,16 @@ script in one call:
    the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches in the run of its path
-(phase 4 for the dense-model kernels, phase 5 for the W4/W8 grouped kernels,
-phase 6 for the MLA decode and dense grouped kernels) and its times at the
-main path's dominant shape (``library_device_ms``: the library call's own
-device time).
+(phase 4 for the dense-model kernels, its int8 serve for the int8 forms of
+the paged kernels, phase 3's fp8 model run for their fp8 forms, phase 5 for
+the W4/W8 grouped kernels, phase 6 for the MLA decode and dense grouped
+kernels) and its times at the main path's dominant shape
+(``library_device_ms``: the library call's own device time).
 
-Budget: the whole run at most 8 minutes on an H100 with the build, at most
-8 GB of host memory (all weights are drawn on the device, none on the host),
-at most 60 GB of device memory.
+Budget: the whole run at most 8 minutes on an H100 with the build (the
+int8 serve and the quantized rows add about half a minute), at most 8 GB of
+host memory (all weights are drawn on the device, none on the host), at
+most 60 GB of device memory.
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
 tile) and the dense grouped kernel use the plain version's weights exactly
@@ -171,7 +191,12 @@ from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E40
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
 from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
-from mistralrs_tpu_torch.kv.paged import PagedKVCache, gather_kv  # noqa: E402
+from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
+    CODE_DTYPES,
+    PagedKVCache,
+    gather_kv,
+    quantize_rows,
+)
 from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
 from mistralrs_tpu_torch.models import deepseek, llama  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
@@ -247,7 +272,17 @@ KERNEL_INFO = {
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
                    "mistralrs_tpu/ops/mla_attention.py:218"),
+    # the quantized forms of the paged kernels (the JAX kernels' quantized=True)
+    "paged_decode_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                          "mistralrs_tpu/ops/paged_attention.py:496"),
+    "paged_decode_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                         "mistralrs_tpu/ops/paged_attention.py:496"),
+    "paged_prefill_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                           "mistralrs_tpu/ops/paged_attention.py:1162"),
+    "paged_prefill_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                          "mistralrs_tpu/ops/paged_attention.py:1162"),
 }
+QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_int8")
 
 
 def log(msg: str) -> None:
@@ -759,91 +794,115 @@ def slots_for(bt, pos, bs):
     return (bt.gather(1, (pos // bs).long()) * bs + pos % bs).to(torch.int32)
 
 
-def gathered_err(k1, v1, k2, v2, bt, bs, kv_lens) -> float:
-    """Largest difference of two pool pairs' K/V gathered through the block
-    tables over each row's valid positions (the pools' bytes elsewhere, e.g.
-    the trash block, may differ)."""
-    a, b = gather_kv(k1, v1, bt, bs), gather_kv(k2, v2, bt, bs)
-    return max((x[i, :n].float() - y[i, :n].float()).abs().max().item()
-               for x, y in zip(a, b) for i, n in enumerate(kv_lens.tolist()))
+def kv_pools(gen, n_kv, s_total, hd, kv_quant, dev):
+    """K and V pools [n_kv, S, hd] of random rows: bf16, or with
+    ``kv_quant`` their 1-byte codes, each with its bf16 scale plane [n_kv,
+    S] → (k, k_scale, v, v_scale), the scales None for bf16."""
+    out = []
+    for _ in range(2):
+        rows = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+        if kv_quant is None:
+            out += [rows, None]
+        else:
+            codes, s = quantize_rows(rows, CODE_DTYPES[kv_quant])
+            out += [codes, s.to(torch.bfloat16)]
+    return out
+
+
+def pools_equal(a, b) -> bool:
+    """Two (k, k_scale, v, v_scale) pool sets bit-equal, as bytes, but at the
+    trash slot (the last), where the plain versions park dropped writes."""
+    return all(x is None or torch.equal(x[:, :-1].contiguous().view(torch.uint8),
+                                        y[:, :-1].contiguous().view(torch.uint8))
+               for x, y in zip(a, b))
+
+
+def gathered(pools, bt, bs, group):
+    """Per-sequence K/V [B, n_q, P, hd] gathered (dequantized to bf16) ahead
+    of time, for SDPA."""
+    kk, vv = gather_kv(pools[0], pools[2], bt, bs, k_scale=pools[1], v_scale=pools[3])
+    return (x.permute(0, 2, 1, 3).repeat_interleave(group, dim=1) for x in (kk, vv))
 
 
 def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
-                 dropped=3):
-    """The decode kernel on tables of ``w`` blocks of 64 for rows of
-    ``kv_lens`` (row ``dropped`` drops its write), against the plain
-    version: within 2e-2, the K/V gathered through the tables exact, two
-    calls bit-equal; timed with its bound and SDPA."""
+                 dropped=3, kv_quant=None):
+    """The decode kernel (its quantized form with ``kv_quant``) on tables of
+    ``w`` blocks of 64 for rows of ``kv_lens`` (row ``dropped`` drops its
+    write), against the plain version: within 2e-2, the pools (codes and
+    scales) bit-equal but at the trash slot, two calls bit-equal; timed with
+    its bound (bytes: the visible K/V, or codes and bf16 scales, read once,
+    q read, out written, the step's rows read and written) and SDPA on the
+    K/V gathered (and dequantized) ahead of time."""
     b, n_q, n_kv, hd, bs = len(kv_lens), 32, 8, 128, 64
     kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
-    kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pools = kv_pools(gen, n_kv, s_total, hd, kv_quant, dev)
     q = torch.randn((b, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
     kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     slots = slots_for(bt, (kv_lens - 1)[:, None], bs)[:, 0].contiguous()
     slots[dropped] = -1  # a dropped write
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    mine, ref_p = ([t if t is None else t.clone() for t in pools] for _ in range(2))
     args = (kn, vn, slots, bt, kv_lens)
-    got = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
-    again = paged_decode_attention_fused(q, k1, v1, *args, block_size=bs)
-    ref = paged_decode_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+
+    def run(p, plain=False):
+        return paged_decode_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
+                                            v_scale=p[3], plain=plain)
+
+    got, again, ref = run(mine), run(mine), run(ref_p, plain=True)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
-    gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
-    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0
-            and torch.equal(got, again)):
-        raise AssertionError(f"paged_decode: max err {err}, gathered K/V err {gather_err}, "
-                             f"two calls equal {torch.equal(got, again)}")
+    pools_ok = pools_equal(mine, ref_p)
+    name = "paged_decode" + (f"_{kv_quant}" if kv_quant else "")
+    if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
+        raise AssertionError(f"{name}: max err {err}, pools equal {pools_ok}, two calls equal "
+                             f"{torch.equal(got, again)}")
     del ref
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
     # of time; no mask where every position of the table is visible
-    kk, vv = gather_kv(k1, v1, bt, bs)  # [B, P, n_kv, hd]
-    kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
-    vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    kk, vv = gathered(mine, bt, bs, n_q // n_kv)
     full = bool((kv_lens == kk.shape[2]).all())
     mask = None if full else (torch.arange(kk.shape[2], device=dev)[None]
                               < kv_lens[:, None])[:, None, None]
     q4 = q[:, :, None]
-    ms = time_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
-    dev_ms = device_ms(lambda: paged_decode_attention_fused(q, k1, v1, *args, block_size=bs))
-    plain_ms = time_ms(lambda: paged_decode_attention_fused(q, k2, v2, *args, block_size=bs,
-                                                            plain=True), iters=3, warmup=1)
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, kk, vv, attn_mask=mask))
-    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, kk, vv, attn_mask=mask))
+    ms = time_ms(lambda: run(mine))
+    dev_ms = device_ms(lambda: run(mine))
+    plain_ms = time_ms(lambda: run(ref_p, plain=True), iters=3, warmup=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask)  # noqa: E731
+    lib_ms, lib_dev_ms = time_ms(sdpa), device_ms(sdpa)
     del kk, vv
     tokens = int(kv_lens.sum())
-    nbytes = 2 * tokens * n_kv * hd * 2 + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
+    row_b = hd + 2 if kv_quant else 2 * hd  # a cached row: codes and a bf16 scale, or bf16
+    nbytes = (2 * tokens * n_kv * row_b + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
+              + 2 * b * n_kv * row_b)
     b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
     lens = f"kv_lens={int(kv_lens[0])} x {b}" if full else "kv_lens<=1024"
-    row = dict(shape=f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}",
+    row = dict(shape=(f"{kv_quant} " if kv_quant else "")
+               + f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
-    log(f"  paged_decode {row['shape']}: err {err:.3e} (tol 2e-2), gathered K/V exact, two "
-        f"calls equal | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
+    log(f"  {name} {row['shape']}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
+        f"two calls equal | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{fmt_ms(lib_dev_ms)})")
     return row
 
 
 def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300), n_q=32,
-                  n_kv=8, bs=64, timed=True):
-    """The prefill kernel on a chunk of ``t`` tokens per row on top of
-    ``past`` cached positions, ``n_valid`` of them real (the rest dropped
-    writes): valid rows within 2e-2 of the plain version, the K/V gathered
-    through the tables exact, and the pools bit-equal to the plain
-    version's but the trash slot (where the plain version parks dropped
-    writes); timed with its bound and SDPA when ``timed``."""
+                  n_kv=8, bs=64, timed=True, kv_quant=None):
+    """The prefill kernel (its quantized form with ``kv_quant``) on a chunk
+    of ``t`` tokens per row on top of ``past`` cached positions,
+    ``n_valid`` of them real (the rest dropped writes): valid rows within
+    2e-2 of the plain version, the pools (codes and scales) bit-equal to the
+    plain version's but the trash slot (where the plain version parks
+    dropped writes), a second call on the pools as they were bit-equal;
+    timed with its bound and SDPA when ``timed``."""
     hd = 128
     n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
     kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
     w = -(-(max(past) + t) // bs)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
-    kp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn((n_kv, s_total, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pools = kv_pools(gen, n_kv, s_total, hd, kv_quant, dev)
     q = torch.randn((b, t, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
     kn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -851,51 +910,55 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     pos = (kv_lens - n_valid)[:, None] + tok
     slots = slots_for(bt, pos.clamp_max(w * bs - 1), bs)
     slots[tok.expand(b, t) >= n_valid[:, None]] = -1
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     args = (kn, vn, slots, bt, kv_lens, n_valid)
-    got = paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs)
-    ref = paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs, plain=True)
+
+    def run(p, plain=False):
+        return paged_prefill_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
+                                             v_scale=p[3], plain=plain)
+
+    mine, again_p, ref_p = ([x if x is None else x.clone() for x in pools] for _ in range(3))
+    got, again, ref = run(mine), run(again_p), run(ref_p, plain=True)
     torch.cuda.synchronize()
     err = max([(got[i, :n].float() - ref[i, :n].float()).abs().max().item()
                for i, n in enumerate(n_valid.tolist()) if n] or [0.0])
-    gather_err = gathered_err(k1, v1, k2, v2, bt, bs, kv_lens)
-    pools_ok = torch.equal(k1[:, :-1], k2[:, :-1]) and torch.equal(v1[:, :-1], v2[:, :-1])
-    shape = (f"B={b} T={t} n_valid={tuple(n_valid.tolist())} past={tuple(past)} n_q={n_q} "
+    pools_ok = pools_equal(mine, ref_p)
+    shape = ((f"{kv_quant} " if kv_quant else "")
+             + f"B={b} T={t} n_valid={tuple(n_valid.tolist())} past={tuple(past)} n_q={n_q} "
              f"n_kv={n_kv} hd={hd} bs={bs}")
-    if not (torch.isfinite(got).all() and err <= 2e-2 and gather_err == 0 and pools_ok):
-        raise AssertionError(f"paged_prefill {shape}: max err {err}, gathered K/V err "
-                             f"{gather_err}, pools equal {pools_ok}")
+    name = "paged_prefill" + (f"_{kv_quant}" if kv_quant else "")
+    if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
+        raise AssertionError(f"{name} {shape}: max err {err}, pools equal {pools_ok}, two "
+                             f"calls equal {torch.equal(got, again)}")
+    del ref, again_p
     if not timed:
-        log(f"  paged_prefill {shape}: err {err:.3e} (tol 2e-2), pools exact")
+        log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal")
         return dict(shape=shape, max_abs_err=err)
-    kk, vv = gather_kv(k1, v1, bt, bs)
-    kk = kk.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
-    vv = vv.permute(0, 2, 1, 3).repeat_interleave(n_q // n_kv, dim=1)
+    kk, vv = gathered(mine, bt, bs, n_q // n_kv)
     ppos = torch.arange(kk.shape[2], device=dev)
     lim = (kv_lens - n_valid)[:, None] + tok  # [B, T]
     mask = (ppos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
     qt_ = q.transpose(1, 2)
-    ms = time_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
-    dev_ms = device_ms(lambda: paged_prefill_attention_fused(q, k1, v1, *args, block_size=bs))
-    plain_ms = time_ms(lambda: paged_prefill_attention_fused(q, k2, v2, *args, block_size=bs,
-                                                             plain=True), iters=3, warmup=1)
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt_, kk, vv, attn_mask=mask))
-    lib_dev_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt_, kk, vv, attn_mask=mask))
+    ms = time_ms(lambda: run(mine))
+    dev_ms = device_ms(lambda: run(mine))
+    plain_ms = time_ms(lambda: run(ref_p, plain=True), iters=3, warmup=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt_, kk, vv, attn_mask=mask)  # noqa: E731
+    lib_ms, lib_dev_ms = time_ms(sdpa), device_ms(sdpa)
+    del kk, vv
     ctx = (kv_lens - n_valid).tolist()
     nv = n_valid.tolist()
-    # bytes: past K/V read once, the chunk's K/V read and written, q in, out
-    nbytes = sum(2 * c * n_kv * hd * 2 + 2 * 2 * v * n_kv * hd * 2 + 2 * v * n_q * hd * 2
+    row_b = hd + 2 if kv_quant else 2 * hd  # a cached row: codes and a bf16 scale, or bf16
+    # bytes: the past read once, the chunk's bf16 rows read and written as
+    # cached rows, q in, out
+    nbytes = sum(2 * c * n_kv * row_b + 2 * v * n_kv * (2 * hd + row_b) + 2 * v * n_q * hd * 2
                  for c, v in zip(ctx, nv))
     # ops: causal QK and PV over the positions each valid token sees
     flops = sum(4 * n_q * hd * sum(c + i + 1 for i in range(v)) for c, v in zip(ctx, nv))
     b_ms, b_by = bound(nbytes, flops, rates)
     row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
-    log(f"  paged_prefill {shape}: err {err:.3e} (tol 2e-2), pools exact | "
-        f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
+    log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal | "
+        f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
 
 
@@ -913,17 +976,28 @@ def check_prefill_edges(rows, rates, gen, dev):
 # ---------------------------------------------------------------------------
 
 
-def check_model(dev):
+def check_model(dev) -> dict:
+    """Phase 3: 2 Llama-3-8B layers at full width through the kernels and
+    the plain versions, over bf16 pools, then int8 and fp8 pools (the same
+    weights); returns the kernel runs' launch counts by ``kv_quant``."""
     cfg = ModelConfig(**dict(LLAMA3_8B, num_layers=2))
     weights = build_weights(cfg, dev, SEED + 1)
+    counts = {kvq: check_model_pools(cfg, weights, dev, kvq) for kvq in (None, "int8", "fp8")}
+    del weights
+    return counts
+
+
+def check_model_pools(cfg, weights, dev, kv_quant) -> dict:
     bs, b, t, n_dec = 64, 2, 96, 4
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
     bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
     worst = 0.0
     runs = []
+    counts: dict = {}
     for plain in (False, True):
-        cache = PagedKVCache.create(cfg, b * 4, bs, device=dev)
+        cache = PagedKVCache.create(cfg, b * 4, bs, kv_quant=kv_quant, device=dev)
+        _cuda.reset_counts()
         pos = torch.arange(t, device=dev)[None].expand(b, t)
         logits, _ = forward_paged(weights, cfg, ids[:, :t], pos, cache, bt,
                                   slots_for(bt, pos, bs), torch.full((b,), t, device=dev),
@@ -935,19 +1009,29 @@ def check_model(dev):
                                       slots_for(bt, p, bs), torch.full((b,), t + d + 1, device=dev),
                                       block_size=bs, plain=plain)
             outs.append(logits)
+        torch.cuda.synchronize()
+        if not plain:
+            counts = dict(_cuda.COUNTS)
         runs.append(outs)
-    torch.cuda.synchronize()
+    pools = kv_quant or "bf16"
     for got, ref in zip(*runs):
         if not torch.isfinite(got).all():
-            raise AssertionError("model: non-finite logits through the kernels")
+            raise AssertionError(f"model ({pools} pools): non-finite logits through the kernels")
         err = (got - ref).abs().max().item()
         tol = 5e-2 * ref.abs().max().item()
         worst = max(worst, err / max(ref.abs().max().item(), 1e-30))
         if err > tol:
-            raise AssertionError(f"model: logits differ by {err} > {tol}")
-    log(f"  model 2 layers: 1 prefill (2x{t}) + {n_dec} decode steps, worst |err|/max|logit| "
-        f"{worst:.3e} (tol 5e-2)")
-    del weights
+            raise AssertionError(f"model ({pools} pools): logits differ by {err} > {tol}")
+    want = ("w4_matmul", "w8_matmul") + tuple(
+        f"{k}_{kv_quant}" if kv_quant else k for k in ("paged_decode", "paged_prefill"))
+    missing = [k for k in want if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"model ({pools} pools): kernels not launched {missing}, plain "
+                             f"versions run {plain_run}")
+    log(f"  model 2 layers, {pools} pools: 1 prefill (2x{t}) + {n_dec} decode steps, worst "
+        f"|err|/max|logit| {worst:.3e} (tol 5e-2); kernel run launches {counts}")
+    return counts
 
 
 def check_mixtral_model(dev) -> dict:
@@ -1037,19 +1121,22 @@ def check_mixtral_model(dev) -> dict:
 def check_deepseek_model(dev) -> dict:
     """Phase 3c: 2 DeepSeek-V2-Lite layers at full width (the dense layer 0
     and one MoE layer) through the kernels and the plain versions, with
-    phase 3b's rule on expert choices; returns the kernel run's counts."""
+    phase 3b's rule on expert choices; then through the kernels over an int8
+    latent pool (on the bf16 kernel run's expert choices): the gather path
+    at every step, no MLA launch, logits within 5e-2 of the largest of the
+    bf16 pool's (int8 keys: a step of amax / 127 a value). Returns the bf16
+    kernel run's counts."""
     cfg = deepseek.DeepseekConfig(**dict(DEEPSEEK_V2_LITE, num_layers=2))
     weights = deepseek.init_random_weights(cfg, seed=SEED + 7, device=dev)
     bs, b, t, n_dec = 64, 2, 96, 4
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
     bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
-    runs, choices = [], []
-    counts: dict = {}
+    runs, choices, run_counts = [], [], []
     select = deepseek.select_experts
-    for plain in (False, True):
+    for plain, kv_quant in ((False, None), (True, None), (False, "int8")):
         chosen: list = []
-        forced = iter(choices[0]) if plain else None
+        forced = iter(choices[0]) if choices else None
 
         def recording_select(cfg_, scores, biased, chosen=chosen, forced=forced):
             topw, topi = select(cfg_, scores, biased)
@@ -1062,7 +1149,7 @@ def check_deepseek_model(dev) -> dict:
 
         deepseek.select_experts = recording_select
         try:
-            pool = deepseek.make_paged_cache(cfg, b * 4, bs, device=dev)
+            pool = deepseek.make_paged_cache(cfg, b * 4, bs, kv_quant=kv_quant, device=dev)
             _cuda.reset_counts()
             pos = torch.arange(t, device=dev)[None].expand(b, t)
             logits, _ = deepseek.deepseek_forward_paged(
@@ -1076,14 +1163,14 @@ def check_deepseek_model(dev) -> dict:
                     torch.full((b,), t + d + 1, device=dev), block_size=bs, plain=plain)
                 outs.append(logits)
             torch.cuda.synchronize()
-            if not plain:
-                counts = dict(_cuda.COUNTS)
+            run_counts.append(dict(_cuda.COUNTS))
         finally:
             deepseek.select_experts = select
         runs.append(outs)
         choices.append(chosen)
+    counts = run_counts[0]
     total = same = 0
-    for a, c in zip(*choices):
+    for a, c in zip(choices[0], choices[1]):
         eq = (a == c).all(dim=-1)
         total += eq.numel()
         same += int(eq.sum())
@@ -1091,7 +1178,7 @@ def check_deepseek_model(dev) -> dict:
     if frac < 0.99:
         raise AssertionError(f"deepseek model: only {same}/{total} expert choices agree")
     worst = 0.0
-    for step, (got, ref) in enumerate(zip(*runs)):
+    for step, (got, ref) in enumerate(zip(runs[0], runs[1])):
         if not torch.isfinite(got).all():
             raise AssertionError("deepseek model: non-finite logits through the kernels")
         err = (got - ref).abs().max().item()
@@ -1109,6 +1196,23 @@ def check_deepseek_model(dev) -> dict:
     if missing or plain_run:
         raise AssertionError(f"deepseek model: kernels not launched {missing}, "
                              f"plain versions run {plain_run}")
+    # the int8 latent pool against the bf16 pool, both through the kernels
+    q8 = run_counts[2]
+    worst_q = 0.0
+    for step, (got, ref) in enumerate(zip(runs[2], runs[0])):
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst_q = max(worst_q, err / max(scale, 1e-30))
+        if not torch.isfinite(got).all() or err > 5e-2 * scale:
+            raise AssertionError(f"deepseek model, int8 latent pool: step {step} logits differ "
+                                 f"from the bf16 pool's by {err} > {5e-2 * scale}")
+    plain_q = {k: v for k, v in q8.items() if k.endswith("_plain") and v}
+    if q8.get("mla_decode", 0) or plain_q or not q8.get("dense_matmul_g", 0):
+        raise AssertionError(f"deepseek model, int8 latent pool: launches {q8} (want no MLA "
+                             f"decode, no plain version, the dense grouped kernel)")
+    log(f"  deepseek-v2-lite 2 layers, int8 latent pool (gather path): 1 prefill + {n_dec} "
+        f"decode steps on the bf16 run's expert choices, worst |err|/max|logit| against the "
+        f"bf16 pool's {worst_q:.3e} (tol 5e-2); no MLA launch; launches {q8}")
     del weights
     return counts
 
@@ -1160,12 +1264,13 @@ def step_line(what: str, wall: float, busy: float) -> str:
 
 
 class StepState:
-    """The device state a decode step changes (the KV pools, the sampling
-    state) saved once, so that several runs start from the same state."""
+    """The device state a decode step changes (the KV pools and, for 1-byte
+    pools, their scale planes; the sampling state) saved once, so that
+    several runs start from the same state."""
 
     def __init__(self, engine):
-        cache = engine.cache
-        self.live = [cache.k, cache.v] if hasattr(cache, "k") else [cache]
+        cache = engine.cache  # PagedKVCache or DeepSeek's LatentCache
+        self.live = [t for t in vars(cache).values() if isinstance(t, torch.Tensor)]
         self.live += [getattr(engine.samp_state, k) for k in engine.samp_state._ROWS]
         self.saved = [t.clone() for t in self.live]
 
@@ -1304,21 +1409,40 @@ def graph_step_checks(engine, add_request, name_line: str) -> str:
 
 
 def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
-          required, adapter_cls=None) -> dict:
+          required, adapter_cls=None, quant=None) -> tuple:
     """Serve 6 concurrent requests on ``build(cfg, dev, seed)``'s weights
-    (through ``adapter_cls``'s arch adapter when given); returns the launch
-    counts of the run, which must show every kernel of ``required`` and no
-    plain version."""
+    (through ``adapter_cls``'s arch adapter when given) and, with ``quant``
+    = ``(kv_quant, required, max_tokens)``, a second time on the same
+    weights from 1-byte KV pools; returns the launch counts of each run
+    (None for a run not asked for), which must show every kernel of its
+    ``required`` and no plain version."""
     t_w = time.monotonic()
     weights = build(cfg, dev, seed)
     torch.cuda.synchronize()
     log(f"  {cfg.num_layers}-layer weights drawn on the device in "
         f"{time.monotonic() - t_w:.1f} s "
         f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    counts = serve_once(dev, name_line, cfg, weights, model_id, required, adapter_cls)
+    q_counts = None
+    if quant is not None:
+        kv_quant, q_required, q_tokens = quant
+        log(f"  the same weights served again from {kv_quant} KV pools")
+        q_counts = serve_once(dev, name_line, cfg, weights, f"{model_id}-{kv_quant}-kv",
+                              q_required, adapter_cls, kv_quant, q_tokens)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, q_counts
+
+
+def serve_once(dev, name_line: str, cfg, weights, model_id: str, required, adapter_cls=None,
+               kv_quant=None, max_tokens: int = 24) -> dict:
+    """One serve run of ``serve`` (``kv_quant``: its KV pools), each request
+    ``max_tokens`` tokens long, then the graph checks on its engine."""
     adapter = adapter_cls(cfg, weights, device=dev) if adapter_cls else None
     engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
                     max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED,
-                    adapter=adapter)
+                    adapter=adapter, kv_quant=kv_quant)
     log(f"  split state reserved for the graphs: "
         f"{_cuda.split_workspace(dev, 1).numel() * 4 / 2**20:.1f} MiB of workspace, "
         f"{_cuda.split_counters(dev, 1).numel()} counters")
@@ -1345,7 +1469,7 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
     for i, n in enumerate(sizes):
         content = ("the quick brown fox jumps over the lazy dog " * 20)[:n]
         body = {"model": model_id,
-                "messages": [{"role": "user", "content": content}], "max_tokens": 24}
+                "messages": [{"role": "user", "content": content}], "max_tokens": max_tokens}
         if i % 2 == 0:
             body["temperature"] = 0.0
         else:
@@ -1399,14 +1523,15 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
         else:
             body = json.loads(text)
             usage = body["usage"]
-            check(usage == {"prompt_tokens": expected_prompt[i], "completion_tokens": 24,
-                            "total_tokens": expected_prompt[i] + 24},
+            check(usage == {"prompt_tokens": expected_prompt[i],
+                            "completion_tokens": max_tokens,
+                            "total_tokens": expected_prompt[i] + max_tokens},
                   f"request {i}: usage {usage}, prompt {expected_prompt[i]} tokens")
             finish = body["choices"][0]["finish_reason"]
         check(finish == "length", f"request {i}: finish_reason {finish!r}")
     for seq in seqs:
-        check(len(seq.generated_ids) == 24,
-              f"{seq.request_id}: {len(seq.generated_ids)} tokens, not 24")
+        check(len(seq.generated_ids) == max_tokens,
+              f"{seq.request_id}: {len(seq.generated_ids)} tokens, not {max_tokens}")
     missing = [k for k in required if counts.get(k, 0) == 0]
     plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
     if missing or plain:
@@ -1416,8 +1541,8 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
     dec_tokens = st["generated_tokens"] - len(seqs)
     dec_tps = dec_tokens / st["decode_time_s"]
     cap = engine.decode_step.capture_seconds
-    log(f"  served {len(seqs)} requests, prompts {sorted(expected_prompt)} tokens, 24 tokens "
-        f"each, in {wall:.2f} s; TTFT median {statistics.median(ttft):.3f} s, max "
+    log(f"  served {len(seqs)} requests, prompts {sorted(expected_prompt)} tokens, "
+        f"{max_tokens} tokens each, in {wall:.2f} s; TTFT median {statistics.median(ttft):.3f} s, max "
         f"{ttft[-1]:.3f} s; decode {dec_tps:.1f} tok/s over {st['decode_steps']} steps "
         f"({st['decode_time_s'] / st['decode_steps'] * 1e3:.1f} ms/step; of it "
         f"{cap:.3f} s warming up and capturing {len(engine.decode_step._graphs)} graph(s), "
@@ -1427,9 +1552,9 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
     log(f"  kernel launches in the serve run: {counts}")
     log(f"  {graph_step_checks(engine, add_request, name_line)}")
     # the recording wrapper on the engine refers back to it: drop it, so that
-    # the weights and the KV pools are freed before the next phase
+    # the KV pools are freed before the next run
     del engine.add_request
-    del weights, engine, server, adapter
+    del engine, server, adapter
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -1508,6 +1633,17 @@ def main() -> int:
     rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(8192,), positions=8192))
     rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(4096,) * 8,
                                         positions=4096))
+    # the paged kernels' quantized forms (after every other row, which keep
+    # the generator's stream of earlier runs): decode at the table's row and
+    # at 8 x 4096, prefill at B=2 T=128 on 300 past positions and 512 on 512
+    for kvq in ("int8", "fp8"):
+        dq, pq = rows[f"paged_decode_{kvq}"], rows[f"paged_prefill_{kvq}"]
+        dq.append(check_decode(rates, gen, dev, kv_quant=kvq))
+        dq.append(check_decode(rates, gen, dev, kv_lens=(4096,) * 8, w=64, dropped=7,
+                               kv_quant=kvq))
+        pq.append(check_prefill(rates, gen, dev, kv_quant=kvq))
+        pq.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(512,),
+                                kv_quant=kvq))
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -1515,8 +1651,9 @@ def main() -> int:
         print(json.dumps({"kernel_rows": timed, "card": name_line}), flush=True)
         return 0
     # phase 3
-    log("phase 3: forward_paged at full width, 2 layers, kernels vs plain")
-    check_model(dev)
+    log("phase 3: forward_paged at full width, 2 layers, kernels vs plain (bf16, int8 and "
+        "fp8 pools)")
+    model_counts = check_model(dev)
     torch.cuda.empty_cache()
     log("phase 3b: forward_paged at full Mixtral-8x7B width, 2 layers, kernels vs plain")
     check_mixtral_model(dev)
@@ -1526,27 +1663,28 @@ def main() -> int:
     check_deepseek_model(dev)
     torch.cuda.empty_cache()
     # phase 4
-    log("phase 4: serve the 32-layer Llama-3-8B geometry")
+    log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
     torch.cuda.reset_peak_memory_stats(dev)
-    counts = serve(dev, name_line, ModelConfig(**LLAMA3_8B), build_weights, SEED + 3,
-                   "llama3-8b-geometry-q4k", DENSE_KERNELS)
+    counts, q8_counts = serve(dev, name_line, ModelConfig(**LLAMA3_8B), build_weights,
+                              SEED + 3, "llama3-8b-geometry-q4k", DENSE_KERNELS,
+                              quant=("int8", QUANT_KERNELS, 12))
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     # phase 5
     log("phase 5: serve the 32-layer Mixtral-8x7B geometry (Q4_K_M recipe)")
     torch.cuda.reset_peak_memory_stats(dev)
-    moe_counts = serve(dev, name_line, ModelConfig(**MIXTRAL_8X7B), build_mixtral, SEED + 6,
-                       "mixtral-8x7b-geometry-q4km",
-                       ("w4_matmul_g", "w8_matmul_g") + DENSE_KERNELS)
+    moe_counts, _ = serve(dev, name_line, ModelConfig(**MIXTRAL_8X7B), build_mixtral,
+                          SEED + 6, "mixtral-8x7b-geometry-q4km",
+                          ("w4_matmul_g", "w8_matmul_g") + DENSE_KERNELS)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
     # phase 6
     log("phase 6: serve the 27-layer DeepSeek-V2-Lite geometry (bf16)")
     torch.cuda.reset_peak_memory_stats(dev)
-    ds_counts = serve(dev, name_line, deepseek.DeepseekConfig(**DEEPSEEK_V2_LITE),
-                      lambda cfg, dev_, seed: deepseek.init_random_weights(cfg, seed=seed,
-                                                                           device=dev_),
-                      SEED + 9, "deepseek-v2-lite-geometry-bf16", DEEPSEEK_KERNELS,
-                      adapter_cls=DeepseekAdapter)
+    ds_counts, _ = serve(dev, name_line, deepseek.DeepseekConfig(**DEEPSEEK_V2_LITE),
+                         lambda cfg, dev_, seed: deepseek.init_random_weights(cfg, seed=seed,
+                                                                              device=dev_),
+                         SEED + 9, "deepseek-v2-lite-geometry-bf16", DEEPSEEK_KERNELS,
+                         adapter_cls=DeepseekAdapter)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
@@ -1562,7 +1700,11 @@ def main() -> int:
     launches = {**counts, "w4_matmul_g": moe_counts["w4_matmul_g"],
                 "w8_matmul_g": moe_counts["w8_matmul_g"],
                 "dense_matmul_g": ds_counts["dense_matmul_g"],
-                "mla_decode": ds_counts["mla_decode"]}
+                "mla_decode": ds_counts["mla_decode"],
+                "paged_decode_int8": q8_counts["paged_decode_int8"],
+                "paged_prefill_int8": q8_counts["paged_prefill_int8"],
+                "paged_decode_fp8": model_counts["fp8"]["paged_decode_fp8"],
+                "paged_prefill_fp8": model_counts["fp8"]["paged_prefill_fp8"]}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]

@@ -2,10 +2,13 @@
 ``serve`` command only.
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
+    python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
     python -m mistralrs_tpu_torch.cli serve path/to/DeepSeek-V2-Lite --port 8080
 
 A ``.gguf`` file serves through the llama decoder; a DeepSeek-family HF
 directory (``config.json`` + safetensors) through its arch adapter.
+``--kv-quant int8|fp8`` serves from 1-byte KV pools (or latent pool) with
+per-row scales, sized by their own bytes per token.
 """
 
 from __future__ import annotations
@@ -44,13 +47,15 @@ def cmd_serve(args) -> int:
             pipe.cfg, block_size=args.block_size, max_model_len=max_len,
             max_batch=args.max_batch, device=args.device or "cuda",
             mem_bytes=(16 << 30) if on_cpu else None,  # CPU: a 16 GiB budget
-            bytes_per_token=pipe.adapter.kv_bytes_per_token() if pipe.adapter else None,
+            kv_quant=args.kv_quant is not None,
+            bytes_per_token=(pipe.adapter.kv_bytes_per_token(args.kv_quant)
+                             if pipe.adapter else None),
         )
     eng = Engine(
         pipe.cfg, weights, num_blocks=num_blocks, block_size=args.block_size,
         max_batch=args.max_batch, max_model_len=max_len,
-        prefill_chunk=args.prefill_chunk, tokenizer=pipe.tokenizer, device=args.device,
-        adapter=pipe.adapter,
+        prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant, tokenizer=pipe.tokenizer,
+        device=args.device, adapter=pipe.adapter,
     )
     server = Server(eng, pipe.tokenizer, pipe.chat_template, pipe.model_id,
                     host=args.host, port=args.port)
@@ -79,6 +84,8 @@ def main(argv=None) -> int:
                    help="KV blocks (default: fill free device memory)")
     p.add_argument("--max-seq-len", type=int, default=None)
     p.add_argument("--prefill-chunk", type=int, default=512)
+    p.add_argument("--kv-quant", choices=["int8", "fp8"], default=None,
+                   help="1-byte KV cache with per-row scales (default: the compute dtype)")
     p.add_argument("--chat-template", default=None, help="jinja template override file")
     p.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)

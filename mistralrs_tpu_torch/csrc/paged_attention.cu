@@ -1,9 +1,11 @@
-// Paged attention over a bf16 block-table KV cache, for Hopper (sm_90a).
+// Paged attention over a block-table KV cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of mistralrs_tpu/ops/paged_attention.py:
 //   paged_decode_attention_fused (:496, body _decode_kernel :38) and
 //   paged_prefill_attention_fused (:1162, body _prefill_kernel :525),
-// for bf16 pools without window, softcap or sinks (the wrapper refuses those).
+// for bf16 pools and, in their quantized forms (template argument Q: 1
+// int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools with
+// bf16 scales, without window, softcap or sinks (the wrapper refuses those).
 //
 // Pool layout (one layer plane): [n_kv, S, hd] bf16, slot = block * bs + row.
 // Both kernels write this step's K/V rows into the pools in place, then run
@@ -70,8 +72,38 @@
 // Shared memory: two K/V stages of 32 KB (Q lands in the second one first),
 // two blocks per SM (the registers allow no more). GQA groups dividing 64
 // (1 to 64).
+//
+// Quantized forms (1-byte code pools [n_kv, S, 128], scales [n_kv, S] bf16
+// beside them, head-major; blocks of a multiple of 8 positions). Bound:
+// bytes, as the bf16 forms, on 130 bytes a cached row in place of 256.
+//   - Writes: this step's rows are quantized as they are written, per (token,
+//     KV head) by one warp (quant_row4: the JAX package's qenc, in f32 with a
+//     true division, rint for int8, a saturating round-to-nearest-even cast
+//     for e4m3), codes into the pool and bf16(s) into the scale plane. In
+//     decode the writing block reads the row back after the barrier, as the
+//     bf16 form does; prefill writes in its first launch (below).
+//   - Reads: code tiles of 64 positions (8 KB for K, 8 KB for V) and the
+//     tile's 64 + 64 scales come through the same cp.async ring, then each
+//     warp widens 16 rows of codes to bf16 in shared memory (int8 and e4m3
+//     are exact in bf16), in the swizzled layout the mma.sync fragments of
+//     the bf16 forms read; the scales go to f32 beside them. Widening in
+//     registers is later work.
+//   - The fold, in the score step (decode_scores; the prefill's S loop): a
+//     position's k scale multiplies its f32 score before the mask and the
+//     running max; p enters the running sum l unscaled, and is then
+//     multiplied by the position's v scale before the PV product.
+//   - Prefill: a first launch (quant_chunk_kernel) quantizes each of the
+//     chunk's rows once, writes its codes and scale, and writes its round
+//     trip bf16(code * s), with the unrounded f32 scale, to a scratch like
+//     k_new; the attention launch reads the past (positions < ctx) from the
+//     code pools with its scales, and the chunk's own rows from the scratch,
+//     folding no scale (the JAX kernel's self tiles). Round-tripping them
+//     in every block that reads them cost more than the rest of the tile's
+//     work (probes/quant_attention_parts.py).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,8 +130,7 @@ constexpr int FA_KV_B = FA_TILE * FA_ROW_B;  // one K or V tile (16 KB)
 constexpr int FA_STAGE_B = 2 * FA_KV_B;      // a stage: the K tile, then the V tile
 // Q lands in the last stage's K tile, is read into registers, and that stage
 // is then filled like the others; the output is staged there at the end
-constexpr int FA_Q = (FA_STAGES - 1) * FA_STAGE_B;
-constexpr int FA_SMEM = FA_STAGES * FA_STAGE_B;  // 64 KB
+// (PfLayout below)
 static_assert(FA_ROWS * FA_ROW_B <= FA_KV_B, "Q must fit a K tile");
 
 // 2^x (the MUFU instruction; denormal results flush to zero)
@@ -116,13 +147,141 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * FA_ROW_B + ((c ^ (r & 7)) << 4));
 }
 
+// ---------------------------------------------------------------------------
+// quantized forms: codes, scales and the widening pass
+// ---------------------------------------------------------------------------
+
+constexpr int QC_ROW_B = HD;                    // 128 bytes per row of codes
+constexpr int QC_KV_B = FA_TILE * QC_ROW_B;     // one K or V code tile (8 KB)
+constexpr int QC_SC_B = FA_TILE * 2;            // a tile's 64 bf16 scales
+constexpr int QC_B = 2 * QC_KV_B + 2 * QC_SC_B;  // K codes, V codes, k scales, v scales
+
+// The 4 codes (one byte each, dims 4 * lane + i) of this lane's share of a
+// 128-dim row held 4 dims per lane, and the row's f32 scale s: the JAX
+// package's qenc (ops/paged_attention.py:185-194, kv/paged.py:210-222).
+// Every lane of the warp must call it (the absmax is a warp reduction).
+template <bool FP8>
+__device__ __forceinline__ uint32_t quant_row4(const float (&x)[4], float& s) {
+  float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+#pragma unroll
+  for (int o = 16; o; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  s = a / (FP8 ? 448.f : 127.f);  // a true f32 division (no fast-math flags)
+  const float d = fmaxf(s, 1e-10f);
+  uint32_t out = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float y = x[i] / d;
+    uint32_t c;
+    if constexpr (FP8) {
+      c = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+    } else {
+      c = (uint32_t)(uint8_t)(int8_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f);  // half to even
+    }
+    out |= (c & 0xFFu) << (8 * i);
+  }
+  return out;
+}
+
+// a code byte's value (exact in f32, f16 and bf16)
+template <bool FP8>
+__device__ __forceinline__ float code_f32(uint32_t c) {
+  if constexpr (FP8) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)(c & 0xFFu),
+                                                       __NV_E4M3)));
+  } else {
+    return (float)(int8_t)(c & 0xFFu);
+  }
+}
+
+__device__ __forceinline__ void unpack_bf16x4(uint2 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xFFFF0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xFFFF0000u);
+}
+
+// Quantize row `src` (128 bf16 in global memory) into pool row `dst` (128
+// codes) and its scale: called by a whole warp.
+template <bool FP8>
+__device__ __forceinline__ void quant_write_row(const __nv_bfloat16* src, uint8_t* dst,
+                                                __nv_bfloat16* scale_dst, int lane) {
+  float x[4], s;
+  unpack_bf16x4(*reinterpret_cast<const uint2*>(src + 4 * lane), x);
+  const uint32_t c = quant_row4<FP8>(x, s);
+  *reinterpret_cast<uint32_t*>(dst + 4 * lane) = c;
+  if (lane == 0) *scale_dst = __float2bfloat16_rn(s);
+}
+
+// Row r of a code tile (unswizzled [64][128 B] at byte address `codes`)
+// widened to bf16 into row r of a swizzled [64][256 B] tile at `wide`: each
+// lane 4 codes (dims 4 * lane ...) to 4 bf16.
+template <bool FP8>
+__device__ __forceinline__ void widen_row(const uint8_t* codes, uint8_t* wide, int r, int lane) {
+  const uint32_t c = *reinterpret_cast<const uint32_t*>(codes + r * QC_ROW_B + 4 * lane);
+  uint2 w;
+  w.x = pack_bf16(code_f32<FP8>(c), code_f32<FP8>(c >> 8));
+  w.y = pack_bf16(code_f32<FP8>(c >> 16), code_f32<FP8>(c >> 24));
+  *reinterpret_cast<uint2*>(wide + swz(r, lane >> 1) + 8 * (lane & 1)) = w;
+}
+
+// The quantized prefill's first launch: each valid row of the chunk (t <
+// n_valid) is quantized once, by one warp: its codes and bf16 scale go to
+// slots[b, t] (slot < 0: dropped), and its round trip bf16(code * s), with
+// the f32 scale, to k_rt/v_rt [B, T, n_kv, 128], where the attention
+// launch reads the chunk's own rows. Grid (ceil(T * n_kv / 2), B): a block's
+// warps take (token, KV head) rows 2 x + w / 2, K for even w, V for odd.
+template <bool FP8>
+__global__ void __launch_bounds__(THREADS)
+quant_chunk_kernel(const __nv_bfloat16* __restrict__ k_new,
+                   const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
+                   const int* __restrict__ n_valid_arr, uint8_t* k_pool, uint8_t* v_pool,
+                   __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
+                   __nv_bfloat16* __restrict__ k_rt, __nv_bfloat16* __restrict__ v_rt, int T,
+                   int n_kv, int S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, b = blockIdx.y;
+  const int row = blockIdx.x * (NWARPS / 2) + (warp >> 1);  // t * n_kv + h
+  if (row >= T * n_kv) return;
+  const int t = row / n_kv, h = row % n_kv;
+  if (t >= n_valid_arr[b]) return;
+  const bool is_v = warp & 1;
+  const size_t src = ((size_t)b * T * n_kv + row) * HD + 4 * lane;
+  float x[4], s;
+  unpack_bf16x4(*reinterpret_cast<const uint2*>((is_v ? v_new : k_new) + src), x);
+  const uint32_t c = quant_row4<FP8>(x, s);
+  *reinterpret_cast<uint2*>((is_v ? v_rt : k_rt) + src) =
+      make_uint2(pack_bf16(code_f32<FP8>(c) * s, code_f32<FP8>(c >> 8) * s),
+                 pack_bf16(code_f32<FP8>(c >> 16) * s, code_f32<FP8>(c >> 24) * s));
+  const int slot = slots[(size_t)b * T + t];
+  if (slot < 0) return;
+  const size_t at = (size_t)h * S + slot;
+  *reinterpret_cast<uint32_t*>((is_v ? v_pool : k_pool) + at * QC_ROW_B + 4 * lane) = c;
+  if (lane == 0) (is_v ? v_scale : k_scale)[at] = __float2bfloat16_rn(s);
+}
+
+// Shared memory of the prefill kernel's forms: Q = 0 (bf16) holds two
+// stages of bf16 K/V tiles; a quantized form's stage adds the code tiles and
+// the scales behind them, and the f32 scales of the tile in use follow the
+// stages
+template <int Q>
+struct PfLayout {
+  static constexpr int STAGE_B = FA_STAGE_B + (Q ? QC_B : 0);
+  static constexpr int SF = FA_STAGES * STAGE_B;         // f32 scales [2][64]
+  static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
+  static constexpr int QOFF = (FA_STAGES - 1) * STAGE_B;  // Q lands in the last stage
+};
+
+template <int Q>
 __global__ void __launch_bounds__(THREADS, 2)
-paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
-                     __nv_bfloat16* v_pool, const __nv_bfloat16* __restrict__ k_new,
+paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
+                     __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
+                     const __nv_bfloat16* __restrict__ k_new,
                      const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
                      const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                      const int* __restrict__ n_valid_arr, __nv_bfloat16* __restrict__ out,
                      int T, int n_q, int n_kv, int S, int W, int bs, float scale_log2) {
+  using L = PfLayout<Q>;
+  constexpr bool FP8 = Q == 2;
+  constexpr int ROW_B = Q ? QC_ROW_B : FA_ROW_B;  // bytes of a pool row
   extern __shared__ __align__(128) uint8_t fa_smem[];
   const uint32_t sa = smem_u32(fa_smem);
   // later query tiles see more positions: they start first
@@ -139,22 +298,26 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
   // 1. write this tile's tokens' K/V rows (t < n_valid, slot >= 0). The
   // rows read below never touch these slots: positions >= ctx come from
   // k_new/v_new, so no block of this launch reads a slot another one writes.
-  for (int i = tid; i < qtok * (HD / 8); i += THREADS) {
-    const int t = t_begin + (i >> 4), c = i & 15;
-    if (t >= T || t >= nv) continue;
-    const int slot = slots[(size_t)b * T + t];
-    if (slot < 0) continue;
-    const size_t src = (((size_t)b * T + t) * n_kv + h) * HD + c * 8;
-    const size_t dst = ((size_t)h * S + slot) * HD + c * 8;
-    *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
-    *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+  // (A quantized form's rows were written by quant_chunk_kernel, launched
+  // first; its k_new/v_new are their round trips.)
+  if constexpr (Q == 0) {
+    for (int i = tid; i < qtok * (HD / 8); i += THREADS) {
+      const int t = t_begin + (i >> 4), c = i & 15;
+      if (t >= T || t >= nv) continue;
+      const int slot = slots[(size_t)b * T + t];
+      if (slot < 0) continue;
+      const size_t src = (((size_t)b * T + t) * n_kv + h) * HD + c * 8;
+      const size_t dst = ((size_t)h * S + slot) * ROW_B + c * 16;
+      *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
+      *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+    }
   }
   // 2. the tile's queries into shared memory (rows past T: zeros)
   for (int i = tid; i < FA_ROWS * (HD / 8); i += THREADS) {
     const int r = i >> 4, c = i & 15;
     const int t = t_begin + r / group;
     const bool ok = t < T;
-    cp_async16(sa + FA_Q + swz(r, c),
+    cp_async16(sa + L::QOFF + swz(r, c),
                q + (ok ? (((size_t)b * T + t) * n_q + h * group + r % group) * HD + c * 8 : 0),
                ok);
   }
@@ -182,33 +345,94 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
   // k_new/v_new (>= ctx); rows past block_lim are zero-filled. Thread: chunk
   // tid % 16 of rows tid / 16 + 8 j; (blk, off) is its first row's table
   // entry and offset in the block, advanced by additions, not divisions.
+  // A quantized form loads the past's code rows instead (chunk tid % 8 of
+  // rows tid / 8 + 16 j, walked the same way) and their scales (threads
+  // 0-15, 8 positions each), and leaves the rows past block_lim to widen.
   const int* table = block_tables + (size_t)b * W;
   const size_t pool_h = (size_t)h * S;
   int blk = (tid >> 4) / bs, off0 = (tid >> 4) % bs;
+  int qblk = (tid >> 3) / bs, qoff = (tid >> 3) % bs;
+  int sblk = 8 * (tid & 7) / bs, soff = 8 * (tid & 7) % bs;
   auto load_kv = [&](int buf, int p0) {
+    const uint32_t st = sa + buf * L::STAGE_B;
     const int c = tid & 15;
     int bj = blk, oj = off0;
 #pragma unroll
     for (int j = 0; j < FA_TILE / 8; ++j) {
       const int r = (tid >> 4) + 8 * j, p = p0 + r;
-      const bool ok = p <= block_lim;
-      const __nv_bfloat16* kb = k_pool;
-      const __nv_bfloat16* vb = v_pool;
-      size_t off = 0;
-      if (ok) {
-        if (p < ctx) {
-          off = (pool_h + (size_t)table[bj] * bs + oj) * HD;
-        } else {
-          off = (((size_t)b * T + (p - ctx)) * n_kv + h) * HD;
-          kb = k_new;
-          vb = v_new;
+      if constexpr (Q == 0) {
+        const bool ok = p <= block_lim;
+        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(k_pool);
+        const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(v_pool);
+        size_t off = 0;
+        if (ok) {
+          if (p < ctx) {
+            off = (pool_h + (size_t)table[bj] * bs + oj) * HD;
+          } else {
+            off = (((size_t)b * T + (p - ctx)) * n_kv + h) * HD;
+            kb = k_new;
+            vb = v_new;
+          }
         }
+        cp_async16(st + swz(r, c), kb + off + c * 8, ok);
+        cp_async16(st + FA_KV_B + swz(r, c), vb + off + c * 8, ok);
+        for (oj += 8; oj >= bs; oj -= bs) ++bj;
+      } else if (p >= ctx && p <= block_lim) {  // the chunk's own rows, in bf16
+        const size_t off = (((size_t)b * T + (p - ctx)) * n_kv + h) * HD + c * 8;
+        cp_async16(st + swz(r, c), k_new + off, true);
+        cp_async16(st + FA_KV_B + swz(r, c), v_new + off, true);
       }
-      cp_async16(sa + buf * FA_STAGE_B + swz(r, c), kb + off + c * 8, ok);
-      cp_async16(sa + buf * FA_STAGE_B + FA_KV_B + swz(r, c), vb + off + c * 8, ok);
-      for (oj += 8; oj >= bs; oj -= bs) ++bj;
     }
     for (off0 += FA_TILE; off0 >= bs; off0 -= bs) ++blk;
+    if constexpr (Q != 0) {
+      const int past_end = min(ctx, block_lim + 1);  // the tile's past rows: p < past_end
+      const int cq = tid & 7;
+      int qj = qblk, oq = qoff;
+#pragma unroll
+      for (int j = 0; j < FA_TILE / 16; ++j) {
+        const int r = (tid >> 3) + 16 * j, p = p0 + r;
+        if (p < past_end) {
+          const size_t off = (pool_h + (size_t)table[qj] * bs + oq) * ROW_B + cq * 16;
+          cp_async16(st + FA_STAGE_B + r * QC_ROW_B + cq * 16, k_pool + off, true);
+          cp_async16(st + FA_STAGE_B + QC_KV_B + r * QC_ROW_B + cq * 16, v_pool + off, true);
+        }
+        for (oq += 16; oq >= bs; oq -= bs) ++qj;
+      }
+      for (qoff += FA_TILE; qoff >= bs; qoff -= bs) ++qblk;
+      if (tid < 16) {  // scales of positions p0 + 8 (tid % 8) ... + 7, K (tid < 8) or V
+        if (p0 + 8 * (tid & 7) < past_end) {
+          const size_t at = pool_h + (size_t)table[sblk] * bs + soff;
+          cp_async16(st + FA_STAGE_B + 2 * QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
+                     (tid < 8 ? k_scale : v_scale) + at, true);
+        }
+        for (soff += FA_TILE; soff >= bs; soff -= bs) ++sblk;
+      }
+    }
+  };
+  // The quantized forms' pass over the landed tile (positions p0 ...) in
+  // slot buf: warp w takes rows 16 w ... 16 w + 15 of K and of V. A past
+  // row's codes are widened to bf16 and its scale goes to f32; a row of the
+  // chunk (loaded as its round trip bf16(code * s)) folds 1; a row past
+  // block_lim becomes zeros and folds 0.
+  float* sf = reinterpret_cast<float*>(fa_smem + L::SF);  // k scales [64], v scales [64]
+  auto widen = [&](int buf, int p0) {
+    uint8_t* st = fa_smem + buf * L::STAGE_B;
+    for (int i = 0; i < 32; ++i) {
+      const int r = 16 * warp + (i >> 1), kv = i & 1, p = p0 + r;
+      uint8_t* wide = st + kv * FA_KV_B;
+      float f;
+      if (p > block_lim) {
+        *reinterpret_cast<uint2*>(wide + swz(r, lane >> 1) + 8 * (lane & 1)) = make_uint2(0, 0);
+        f = 0.f;
+      } else if (p < ctx) {
+        widen_row<FP8>(st + FA_STAGE_B + kv * QC_KV_B, wide, r, lane);
+        f = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+            st + FA_STAGE_B + 2 * QC_KV_B + kv * QC_SC_B)[r]);
+      } else {
+        f = 1.f;
+      }
+      if (lane == 0) sf[kv * FA_TILE + r] = f;
+    }
   };
 
   float o[HD / 8][4];  // [16 x 128] output rows of the warp, f32
@@ -228,14 +452,19 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
     if (it == 0) {
 #pragma unroll
       for (int kc = 0; kc < HD / 16; ++kc)
-        ldsm_x4(sa + FA_Q + swz(16 * warp + (lane & 15), 2 * kc + (lane >> 4)), qf[kc][0],
+        ldsm_x4(sa + L::QOFF + swz(16 * warp + (lane & 15), 2 * kc + (lane >> 4)), qf[kc][0],
                 qf[kc][1], qf[kc][2], qf[kc][3]);
       __syncthreads();  // Q's slot is refilled next
     }
     const int nxt = it + FA_STAGES - 1;
     if (nxt < n_tiles) load_kv(nxt % FA_STAGES, nxt * FA_TILE);
     cp_async_commit();
-    const uint32_t kt = sa + (it % FA_STAGES) * FA_STAGE_B, vt = kt + FA_KV_B;
+    const int p0 = it * FA_TILE;
+    if constexpr (Q != 0) {
+      widen(it % FA_STAGES, p0);
+      __syncthreads();  // the widened tile and its scales, for every warp
+    }
+    const uint32_t kt = sa + (it % FA_STAGES) * L::STAGE_B, vt = kt + FA_KV_B;
 
     // S = Q K^T: [16 rows x 64 positions] per warp, 8 n-tiles of 8
     float s[FA_TILE / 8][4];
@@ -252,10 +481,17 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
         mma_bf16(s[2 * jp + 1], qf[kc][0], qf[kc][1], qf[kc][2], qf[kc][3], b2, b3);
       }
     }
+    // the k scales fold into the scores (position 8 j + 2 qd + (e & 1)),
+    // before the mask and the max
+    if constexpr (Q != 0) {
+#pragma unroll
+      for (int j = 0; j < FA_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sf[8 * j + 2 * qd + (e & 1)];
+    }
     // mask per row on diagonal tiles; the running max m is kept in the raw
     // scores' units, and the scale enters the exponent in f32:
     // p = 2^(s * scale_log2 - m * scale_log2), one fma
-    const int p0 = it * FA_TILE;
     const bool diag = p0 + FA_TILE - 1 > min_lim;
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -287,6 +523,13 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
     // the lane's share of l (summed over the quad at the end)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + psum[i];
+    // p entered l unscaled; the v scales fold into p before the PV product
+    if constexpr (Q != 0) {
+#pragma unroll
+      for (int j = 0; j < FA_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sf[FA_TILE + 8 * j + 2 * qd + (e & 1)];
+    }
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       o[j][0] *= alpha[0];
@@ -332,7 +575,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[i] = 1.f / fmaxf(l, 1e-20f);
   }
-  uint8_t* stage = fa_smem + FA_Q;
+  uint8_t* stage = fa_smem + L::QOFF;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
@@ -359,12 +602,23 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
 // NT = 8-column tiles of query heads (1: groups up to 8, 2: up to 16)
 // ---------------------------------------------------------------------------
 
-constexpr int DC_STAGES = 2;                     // K/V tiles in the cp.async ring
-constexpr int DC_SMEM = DC_STAGES * FA_STAGE_B;  // 64 KB: three blocks per SM
+constexpr int DC_STAGES = 2;  // K/V tiles in the cp.async ring
 constexpr int DC_MAX_GROUP = 16;
 constexpr int DC_OLD = HD + 4;  // f32 stride of a warp's output row in the merge
-static_assert(NWARPS * DC_MAX_GROUP * (DC_OLD + 2) * 4 <= DC_SMEM, "the merge must fit the ring");
 static_assert(THREADS == HD, "the merges give each thread one head dim");
+
+// Shared memory of the decode kernel's forms: Q = 0 holds two stages of bf16
+// K/V tiles (64 KB: three blocks per SM); a quantized form holds one widened
+// bf16 K/V tile, then two stages of code tiles and scales, then the widened
+// tile's f32 scales (66.5 KB: three blocks per SM)
+template <int Q>
+struct DcLayout {
+  static constexpr int STAGE0 = Q ? FA_STAGE_B : 0;         // the first stage
+  static constexpr int STAGE_B = Q ? QC_B : FA_STAGE_B;
+  static constexpr int SF = STAGE0 + DC_STAGES * STAGE_B;  // f32 scales [2][64]
+  static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
+  static_assert(NWARPS * DC_MAX_GROUP * (DC_OLD + 2) * 4 <= SMEM, "the merge must fit");
+};
 
 // the 8x8 b16 matrix held in the m16n8k16 fragment layout, transposed
 __device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
@@ -375,12 +629,14 @@ __device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
 
 // The score step of one tile for the warp's 16 positions: S^T [16 positions
 // x 8 NT heads] = K Q^T, lane (g, q) getting positions g and g + 8 of heads
-// 2q and 2q + 1 of each head tile. Positions at or past the split's end are
-// masked here (their rows were zero-filled).
-template <int NT>
+// 2q and 2q + 1 of each head tile. A quantized form's k scales of the two
+// positions (ks0, ks1) multiply the scores first. Positions at or past the
+// split's end are masked here (their rows were zero-filled).
+template <int NT, bool FOLD>
 __device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
                                               const uint32_t (&qb)[NT][HD / 16][2],
-                                              bool in0, bool in1, float (&s)[NT][4]) {
+                                              bool in0, bool in1, float ks0, float ks1,
+                                              float (&s)[NT][4]) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
@@ -393,20 +649,30 @@ __device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
+    if constexpr (FOLD) {
+      s[nt][0] *= ks0;
+      s[nt][1] *= ks0;
+      s[nt][2] *= ks1;
+      s[nt][3] *= ks1;
+    }
     if (!in0) s[nt][0] = s[nt][1] = NEG_INF;
     if (!in1) s[nt][2] = s[nt][3] = NEG_INF;
   }
 }
 
-template <int NT>
+template <int NT, int Q>
 __global__ void __launch_bounds__(THREADS, 3)
-split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
-                    __nv_bfloat16* v_pool, const __nv_bfloat16* __restrict__ k_new,
+split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
+                    __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
+                    const __nv_bfloat16* __restrict__ k_new,
                     const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
                     const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                     int* __restrict__ counters, int n_q, int n_kv, int S, int W, int bs,
                     int span, int splits, float scale_log2) {
+  using L = DcLayout<Q>;
+  constexpr bool FP8 = Q == 2;
+  constexpr int ROW_B = Q ? QC_ROW_B : FA_ROW_B;  // bytes of a pool row
   extern __shared__ __align__(128) uint8_t dc_smem[];
   __shared__ int s_last;
   const uint32_t sa = smem_u32(dc_smem);
@@ -422,16 +688,29 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
   const int p_end = min(p_begin + span, kv_len);
 
   // 1. this step's K/V row -> slots[b] (slot < 0: dropped), by the split
-  // holding position kv_len - 1, before the reads below
+  // holding position kv_len - 1, before the reads below (a quantized form:
+  // warp 0 quantizes the K row, warp 1 the V row, codes and scale written
+  // before the barrier, as the bf16 row is)
   const int slot = slots[b];
-  if (slot >= 0 && s == live - 1 && tid < 2 * (HD / 8)) {
-    const int c = tid & 15;
-    const size_t src = ((size_t)b * n_kv + h) * HD + c * 8;
-    const size_t dst = ((size_t)h * S + slot) * HD + c * 8;
-    if (tid < 16)
-      *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
-    else
-      *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+  if constexpr (Q == 0) {
+    if (slot >= 0 && s == live - 1 && tid < 2 * (HD / 8)) {
+      const int c = tid & 15;
+      const size_t src = ((size_t)b * n_kv + h) * HD + c * 8;
+      const size_t dst = ((size_t)h * S + slot) * ROW_B + c * 16;
+      if (tid < 16)
+        *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
+      else
+        *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
+    }
+  } else {
+    if (slot >= 0 && s == live - 1 && warp < 2) {
+      const size_t src = ((size_t)b * n_kv + h) * HD;
+      const size_t at = (size_t)h * S + slot;
+      if (warp == 0)
+        quant_write_row<FP8>(k_new + src, k_pool + at * ROW_B, k_scale + at, lane);
+      else
+        quant_write_row<FP8>(v_new + src, v_pool + at * ROW_B, v_scale + at, lane);
+    }
   }
   __syncthreads();
 
@@ -452,23 +731,58 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
 
   // 3. the K/V tiles of [p_begin, p_end) in order into the ring. Thread:
   // chunk tid % 16 of rows tid / 16 + 8 j; (blk, off0) is its first row's
-  // table entry and offset in the block, advanced by additions.
+  // table entry and offset in the block, advanced by additions. A quantized
+  // form's code rows: chunk tid % 8 of rows tid / 8 + 16 j; its scales:
+  // threads 0-15, 8 positions each (K below 8, V from 8).
   const int* table = block_tables + (size_t)b * W;
   const size_t pool_h = (size_t)h * S;
-  int blk = (p_begin + (tid >> 4)) / bs, off0 = (p_begin + (tid >> 4)) % bs;
+  constexpr int CPR = ROW_B / 16;   // 16-byte chunks of a pool row
+  constexpr int RPP = THREADS / CPR;  // rows a pass of the block copies
+  int blk = (p_begin + tid / CPR) / bs, off0 = (p_begin + tid / CPR) % bs;
+  int sblk = (p_begin + 8 * (tid & 7)) / bs, soff = (p_begin + 8 * (tid & 7)) % bs;
   auto load_kv = [&](int buf, int p0) {
-    const int c = tid & 15;
+    const uint32_t st = sa + L::STAGE0 + buf * L::STAGE_B;
+    const int c = tid % CPR;
     int bj = blk, oj = off0;
 #pragma unroll
-    for (int j = 0; j < FA_TILE / 8; ++j) {
-      const int r = (tid >> 4) + 8 * j;
+    for (int j = 0; j < FA_TILE / RPP; ++j) {
+      const int r = tid / CPR + RPP * j;
       const bool ok = p0 + r < p_end;
-      const size_t off = ok ? (pool_h + (size_t)table[bj] * bs + oj) * HD : 0;
-      cp_async16(sa + buf * FA_STAGE_B + swz(r, c), k_pool + off + c * 8, ok);
-      cp_async16(sa + buf * FA_STAGE_B + FA_KV_B + swz(r, c), v_pool + off + c * 8, ok);
-      for (oj += 8; oj >= bs; oj -= bs) ++bj;
+      const size_t off = ok ? (pool_h + (size_t)table[bj] * bs + oj) * ROW_B + c * 16 : 0;
+      if constexpr (Q == 0) {
+        cp_async16(st + swz(r, c), k_pool + off, ok);
+        cp_async16(st + FA_KV_B + swz(r, c), v_pool + off, ok);
+      } else {
+        cp_async16(st + r * QC_ROW_B + c * 16, k_pool + off, ok);
+        cp_async16(st + QC_KV_B + r * QC_ROW_B + c * 16, v_pool + off, ok);
+      }
+      for (oj += RPP; oj >= bs; oj -= bs) ++bj;
     }
     for (off0 += FA_TILE; off0 >= bs; off0 -= bs) ++blk;
+    if constexpr (Q != 0) {
+      if (tid < 16) {
+        const bool ok = p0 + 8 * (tid & 7) < p_end;
+        const size_t at = ok ? pool_h + (size_t)table[sblk] * bs + soff : 0;
+        cp_async16(st + 2 * QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
+                   (tid < 8 ? k_scale : v_scale) + at, ok);
+        for (soff += FA_TILE; soff >= bs; soff -= bs) ++sblk;
+      }
+    }
+  };
+  // A quantized form's landed tile in slot buf, widened: warp w widens rows
+  // 16 w ... 16 w + 15 of K and V into the bf16 tile; threads take the
+  // scales of one position each to f32 (0 past the split's end)
+  float* sf = reinterpret_cast<float*>(dc_smem + L::SF);  // k scales [64], v scales [64]
+  auto widen = [&](int buf, int p0) {
+    const uint8_t* st = dc_smem + L::STAGE0 + buf * L::STAGE_B;
+    for (int i = 0; i < 32; ++i) {
+      const int r = 16 * warp + (i >> 1), kv = i & 1;
+      widen_row<FP8>(st + kv * QC_KV_B, dc_smem + kv * FA_KV_B, r, lane);
+    }
+    const int r = tid & (FA_TILE - 1), kv = tid / FA_TILE;
+    const float f = __bfloat162float(
+        reinterpret_cast<const __nv_bfloat16*>(st + 2 * QC_KV_B + kv * QC_SC_B)[r]);
+    sf[tid] = p0 + r < p_end ? f : 0.f;
   };
 
   float o[NT][HD / 16][4];  // O^T [128 head dims x 8 NT heads], f32
@@ -496,10 +810,15 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
     const int nxt = it + DC_STAGES - 1;
     if (nxt < n_tiles) load_kv(nxt % DC_STAGES, p_begin + nxt * FA_TILE);
     cp_async_commit();
-    const uint32_t kt = sa + (it % DC_STAGES) * FA_STAGE_B, vt = kt + FA_KV_B;
+    if constexpr (Q != 0) {
+      widen(it % DC_STAGES, p_begin + it * FA_TILE);
+      __syncthreads();  // the widened tile and its scales, for every warp
+    }
+    const uint32_t kt = sa + (Q ? 0 : (it % DC_STAGES) * FA_STAGE_B), vt = kt + FA_KV_B;
     const int pw = p_begin + it * FA_TILE + r0 + g;
     float sc[NT][4];
-    decode_scores<NT>(kt, r0, lane, qb, pw < p_end, pw + 8 < p_end, sc);
+    decode_scores<NT, Q != 0>(kt, r0, lane, qb, pw < p_end, pw + 8 < p_end,
+                              Q ? sf[r0 + g] : 1.f, Q ? sf[r0 + g + 8] : 1.f, sc);
 
     // online softmax per head; the running max in the raw scores' units,
     // the scale inside the exponent: p = 2^(s * scale_log2 - m * scale_log2)
@@ -525,6 +844,13 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
           o[nt][dt][e] *= alpha;
           o[nt][dt][2 + e] *= alpha;
         }
+      }
+      if constexpr (Q != 0) {  // p entered l unscaled; the v scales fold in before PV
+        const float vs0 = sf[FA_TILE + r0 + g], vs1 = sf[FA_TILE + r0 + g + 8];
+        p[0] *= vs0;
+        p[1] *= vs0;
+        p[2] *= vs1;
+        p[3] *= vs1;
       }
       // (position g | g + 8, heads 2q, 2q + 1) -> (positions 2q, 2q + 1 |
       // + 8, head g): the B fragment of P^T, by movmatrix
@@ -629,19 +955,90 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* k_pool,
   if (tid == 0) counters[(size_t)b * n_kv + h] = 0;  // ready for the next call
 }
 
-template <int NT>
-cudaError_t launch_decode(const __nv_bfloat16* q, __nv_bfloat16* k_pool, __nv_bfloat16* v_pool,
+template <int NT, int Q>
+cudaError_t launch_decode(const __nv_bfloat16* q, uint8_t* k_pool, uint8_t* v_pool,
+                          __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                           const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
                           const int* slots, const int* block_tables, const int* kv_lens,
                           __nv_bfloat16* out, float* part, int* counters, int B, int n_q,
                           int n_kv, int S, int W, int bs, int span, int splits, float scale_log2,
                           cudaStream_t st) {
+  constexpr int smem = DcLayout<Q>::SMEM;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      split_decode_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, DC_SMEM);
+      split_decode_kernel<NT, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  split_decode_kernel<NT><<<dim3(splits, n_kv, B), THREADS, DC_SMEM, st>>>(
-      q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, out, part, counters, n_q,
-      n_kv, S, W, bs, span, splits, scale_log2);
+  split_decode_kernel<NT, Q><<<dim3(splits, n_kv, B), THREADS, smem, st>>>(
+      q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out, part,
+      counters, n_q, n_kv, S, W, bs, span, splits, scale_log2);
+  return cudaSuccess;
+}
+
+template <int Q>
+cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_scale,
+                            void* v_scale, const void* k_new, const void* v_new, const void* slots,
+                            const void* block_tables, const void* kv_lens, void* out,
+                            void* partials, void* counters, int B, int n_q, int n_kv, int S,
+                            int W, int bs, int span, int splits, float scale_log2,
+                            cudaStream_t st) {
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* kp = static_cast<uint8_t*>(k_pool);
+  auto* vp = static_cast<uint8_t*>(v_pool);
+  auto* ks = static_cast<__nv_bfloat16*>(k_scale);
+  auto* vs = static_cast<__nv_bfloat16*>(v_scale);
+  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
+  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
+  const auto* sl = static_cast<const int*>(slots);
+  const auto* bt = static_cast<const int*>(block_tables);
+  const auto* kl = static_cast<const int*>(kv_lens);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* pp = static_cast<float*>(partials);
+  auto* cp = static_cast<int*>(counters);
+  return n_q / n_kv <= 8
+             ? launch_decode<1, Q>(qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q,
+                                   n_kv, S, W, bs, span, splits, scale_log2, st)
+             : launch_decode<2, Q>(qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q,
+                                   n_kv, S, W, bs, span, splits, scale_log2, st);
+}
+
+bool decode_args_ok(int B, int n_q, int n_kv, int hd, int W, int bs, int span, int splits,
+                    const void* partials, const void* counters) {
+  return B >= 0 && hd == HD && n_kv > 0 && n_q % n_kv == 0 && n_q / n_kv <= DC_MAX_GROUP &&
+         span > 0 && span % FA_TILE == 0 && splits >= 1 && bs > 0 &&
+         (long long)splits * span >= (long long)W * bs &&
+         (splits == 1 || (partials != nullptr && counters != nullptr));
+}
+
+template <int Q>
+cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_scale,
+                           void* v_scale, const void* k_new, const void* v_new, const void* slots,
+                           const void* block_tables, const void* kv_lens, const void* n_valid,
+                           void* out, int B, int T, int n_q, int n_kv, int S, int W, int bs,
+                           float scale_log2, cudaStream_t st, void* k_rt = nullptr,
+                           void* v_rt = nullptr) {
+  constexpr int smem = PfLayout<Q>::SMEM;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      paged_prefill_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  if constexpr (Q != 0) {  // the chunk's rows: written, and round-tripped for the attention
+    quant_chunk_kernel<Q == 2><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
+        static_cast<const int*>(slots), static_cast<const int*>(n_valid),
+        static_cast<uint8_t*>(k_pool), static_cast<uint8_t*>(v_pool),
+        static_cast<__nv_bfloat16*>(k_scale), static_cast<__nv_bfloat16*>(v_scale),
+        static_cast<__nv_bfloat16*>(k_rt), static_cast<__nv_bfloat16*>(v_rt), T, n_kv, S);
+    k_new = k_rt;
+    v_new = v_rt;
+  }
+  const int qtok = FA_ROWS / (n_q / n_kv);
+  dim3 grid((T + qtok - 1) / qtok, n_kv, B);
+  paged_prefill_kernel<Q><<<grid, THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<uint8_t*>(k_pool),
+      static_cast<uint8_t*>(v_pool), static_cast<__nv_bfloat16*>(k_scale),
+      static_cast<__nv_bfloat16*>(v_scale), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(slots),
+      static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
+      static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out), T, n_q, n_kv, S, W, bs,
+      scale_log2);
   return cudaSuccess;
 }
 
@@ -658,30 +1055,34 @@ extern "C" int mrt_paged_decode(const void* q, void* k_pool, void* v_pool, const
                                 const void* kv_lens, void* out, void* partials, void* counters,
                                 int B, int n_q, int n_kv, int hd, int S, int W, int bs, int span,
                                 int splits, float scale_log2, void* stream) {
-  const bool ok = hd == HD && n_kv > 0 && n_q % n_kv == 0 && n_q / n_kv <= DC_MAX_GROUP &&
-                  span > 0 && span % FA_TILE == 0 && splits >= 1 && bs > 0 &&
-                  (long long)splits * span >= (long long)W * bs &&
-                  (splits == 1 || (partials != nullptr && counters != nullptr));
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!decode_args_ok(B, n_q, n_kv, hd, W, bs, span, splits, partials, counters))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kp = static_cast<__nv_bfloat16*>(k_pool);
-  auto* vp = static_cast<__nv_bfloat16*>(v_pool);
-  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
-  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
-  const auto* sl = static_cast<const int*>(slots);
-  const auto* bt = static_cast<const int*>(block_tables);
-  const auto* kl = static_cast<const int*>(kv_lens);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* pp = static_cast<float*>(partials);
-  auto* cp = static_cast<int*>(counters);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = launch_decode_q<0>(
+      q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, out,
+      partials, counters, B, n_q, n_kv, S, W, bs, span, splits, scale_log2,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The quantized form: pools of 1-byte codes [n_kv, S, 128] (int8, or e4m3
+// when fp8 != 0) with bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple
+// of 8 (a 16-byte copy of scales stays in one block); the rest as above.
+extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
+                                  const void* v_new, const void* slots, const void* block_tables,
+                                  const void* kv_lens, void* out, void* partials, void* counters,
+                                  int B, int n_q, int n_kv, int hd, int S, int W, int bs,
+                                  int span, int splits, float scale_log2, void* k_scale,
+                                  void* v_scale, int fp8, void* stream) {
+  if (!decode_args_ok(B, n_q, n_kv, hd, W, bs, span, splits, partials, counters) || bs % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
   const cudaError_t e =
-      n_q / n_kv <= 8
-          ? launch_decode<1>(qp, kp, vp, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs,
-                             span, splits, scale_log2, st)
-          : launch_decode<2>(qp, kp, vp, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs,
-                             span, splits, scale_log2, st);
+      (fp8 ? launch_decode_q<2> : launch_decode_q<1>)(
+          q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
+          partials, counters, B, n_q, n_kv, S, W, bs, span, splits, scale_log2,
+          static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -697,17 +1098,28 @@ extern "C" int mrt_paged_prefill(const void* q, void* k_pool, void* v_pool, cons
                                  int n_q, int n_kv, int hd, int S, int W, int bs,
                                  float scale_log2, void* stream) {
   if (hd != HD || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0) return (int)cudaErrorInvalidValue;
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      paged_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FA_SMEM);
-  if (opt_in != cudaSuccess) return (int)opt_in;
-  const int qtok = FA_ROWS / (n_q / n_kv);
-  dim3 grid((T + qtok - 1) / qtok, n_kv, B);
-  paged_prefill_kernel<<<grid, THREADS, FA_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(k_pool),
-      static_cast<__nv_bfloat16*>(v_pool), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(slots),
-      static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
-      static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out), T, n_q, n_kv, S, W, bs,
-      scale_log2);
+  const cudaError_t e = launch_prefill<0>(q, k_pool, v_pool, nullptr, nullptr, k_new, v_new,
+                                          slots, block_tables, kv_lens, n_valid, out, B, T, n_q,
+                                          n_kv, S, W, bs, scale_log2,
+                                          static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The quantized form: 1-byte code pools (int8, or e4m3 when fp8 != 0) with
+// bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple of 8; k_rt/v_rt
+// scratch like k_new/v_new (the chunk's rows' round trips).
+extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
+                                   const void* v_new, const void* slots, const void* block_tables,
+                                   const void* kv_lens, const void* n_valid, void* out, int B,
+                                   int T, int n_q, int n_kv, int hd, int S, int W, int bs,
+                                   float scale_log2, void* k_scale, void* v_scale, int fp8,
+                                   void* k_rt, void* v_rt, void* stream) {
+  if (hd != HD || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0 || bs % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = (fp8 ? launch_prefill<2> : launch_prefill<1>)(
+      q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,
+      out, B, T, n_q, n_kv, S, W, bs, scale_log2, static_cast<cudaStream_t>(stream), k_rt, v_rt);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,8 @@ sampler) and an adapter supplies the family's cache and forward:
   DeepSeek-MoE (DeepSeek V2/V3, GLM-4-MoE-Lite).
 
 The engine samples from the logits an adapter returns (the JAX adapters'
-``decode`` samples inside its jitted step). Speculative ``verify``, quantized
-pools and per-request LoRA are not ported.
+``decode`` samples inside its jitted step). Speculative ``verify`` and
+per-request LoRA are not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +17,12 @@ from __future__ import annotations
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..models.deepseek import deepseek_forward_paged, kernel_workspace, make_paged_cache
+from ..models.deepseek import (
+    LatentCache,
+    deepseek_forward_paged,
+    kernel_workspace,
+    make_paged_cache,
+)
 from .engine import weights_to
 
 
@@ -28,7 +33,7 @@ class DeepseekAdapter:
     caching and recompute preemption need nothing more."""
 
     supports_prefix_cache = True
-    supports_kv_quant = False
+    supports_kv_quant = True  # a 1-byte latent pool (models/deepseek.py)
 
     def __init__(self, cfg, weights: dict, compute_dtype=torch.bfloat16,
                  device: DeviceLike = None):
@@ -38,10 +43,11 @@ class DeepseekAdapter:
         self.compute_dtype = compute_dtype
         self._block_size = None
 
-    def create_cache(self, num_blocks: int, block_size: int, n_slots: int) -> torch.Tensor:
+    def create_cache(self, num_blocks: int, block_size: int, n_slots: int,
+                     kv_quant=None) -> LatentCache:
         self._block_size = block_size
         return make_paged_cache(self.cfg, num_blocks, block_size, dtype=self.compute_dtype,
-                                device=self.device)
+                                kv_quant=kv_quant, device=self.device)
 
     def kernel_workspace(self, batch: int, rows, widths, sms: int) -> tuple[int, int]:
         """The kernels' split state a forward takes
@@ -49,8 +55,11 @@ class DeepseekAdapter:
         return kernel_workspace(self.weights, self.cfg, batch, rows, widths, self._block_size,
                                 sms)
 
-    def kv_bytes_per_token(self) -> int:
-        """Latent-pool bytes one token takes over all layers."""
+    def kv_bytes_per_token(self, kv_quant=None) -> int:
+        """Latent-pool bytes one token takes over all layers (with
+        ``kv_quant``: 1-byte codes and one bf16 scale a row)."""
+        if kv_quant:
+            return self.cfg.num_layers * (self.cfg.row_dim + 2)
         size = torch.empty((), dtype=self.compute_dtype).element_size()
         return self.cfg.num_layers * self.cfg.row_dim * size
 

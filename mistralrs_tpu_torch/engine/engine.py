@@ -20,6 +20,9 @@
 * An arch adapter (``adapter=``, ``engine/adapters.py``) brings its own
   cache and forward: the engine then runs the adapter's ``prefill`` and
   ``decode`` in place of the llama decoder (DeepSeek's absorbed MLA).
+* ``kv_quant`` (``"int8"`` or ``"fp8"``) serves from 1-byte KV pools with
+  per-(layer, head, slot) scales (``kv/paged.py``), or an adapter's own
+  quantized cache where the adapter has one (``supports_kv_quant``).
 
 Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
 constraints and the DRY penalty are not ported yet.
@@ -124,8 +127,6 @@ class Engine:
         adapter's config and the adapter's weights serve; ``weights`` is
         not used."""
         self.device = resolve_device(device)
-        if kv_quant is not None:
-            raise NotImplementedError("quantized KV pools are not ported yet")
         self.adapter = adapter
         if adapter is None:
             check_supported(cfg)
@@ -133,6 +134,9 @@ class Engine:
         else:
             if adapter.device != self.device:
                 raise ValueError(f"adapter on {adapter.device}, engine on {self.device}")
+            if kv_quant is not None and not getattr(adapter, "supports_kv_quant", False):
+                raise NotImplementedError(
+                    f"{type(adapter).__name__} does not support quantized KV")
             if not adapter.supports_prefix_cache:
                 enable_prefix_caching = False
             self.weights = None
@@ -141,15 +145,17 @@ class Engine:
         self.max_batch = max_batch
         self.max_model_len = max_model_len or cfg.max_position_embeddings
         self.compute_dtype = compute_dtype
+        self.kv_quant = kv_quant
         self.tokenizer = tokenizer
         self.seed = seed
         self.kv = KVCacheManager(num_blocks, block_size, enable_prefix_caching)
         self.scheduler = Scheduler(self.kv, max_batch, prefill_chunk)
         if adapter is None:
             self.cache = PagedKVCache.create(cfg, num_blocks, block_size, dtype=compute_dtype,
-                                             device=self.device)
+                                             kv_quant=kv_quant, device=self.device)
         else:
-            self.cache = adapter.create_cache(num_blocks, block_size, max_batch)
+            self.cache = adapter.create_cache(num_blocks, block_size, max_batch,
+                                              kv_quant=kv_quant)
         self.samp_state = BatchSamplingState.create(max_batch, cfg.vocab_size, self.device)
         workspace = (0, 0)
         if self.device.type == "cuda":

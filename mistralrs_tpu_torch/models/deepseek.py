@@ -9,7 +9,12 @@ Only the absorbed, engine-served form is ported: the pool holds one row
 lane padding), ``W_uk`` is folded into the query and ``W_uv`` into the
 output. At decode (one token per row) attention runs the MLA decode kernel
 (``ops/mla_attention.py``); a prefill chunk runs the plain gather path,
-which the JAX package also computes outside any Pallas kernel.
+which the JAX package also computes outside any Pallas kernel. A 1-byte
+latent pool (``make_paged_cache(kv_quant="int8" | "fp8")``: one absmax
+scale per (layer, slot) over the whole row, as JAX ``deepseek.py:435-449``)
+takes the gather path at decode too, as the JAX package sends quantized
+latent pools there (``:404``); the path is chosen from the pool, never as a
+fallback from the kernel.
 
 Weights are a plain dictionary with a LIST of per-layer dictionaries:
 
@@ -29,7 +34,7 @@ as the JAX package leaves them to XLA. Like the JAX package, the port
 ignores ``rope_scaling`` (plain RoPE, scale ``qk_head_dim ** -0.5``), so a
 checkpoint with YaRN scaling (DeepSeek-V2-Lite has one) is not computed as
 Hugging Face computes it; ``DeepseekConfig.from_hf`` logs a warning.
-Quantized latent pools, speculative verify and LoRA are not ported.
+Speculative verify and LoRA are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..kv.paged import CODE_DTYPES, quantize_rows
 from ..ops.mla_attention import mla_blocks, mla_counters, mla_decode, mla_plan
 from ..ops.moe_grouped import moe_grouped_mlp
 from ..ops.norms import rms_norm
@@ -54,6 +60,20 @@ from ..quant.linear import embedding_lookup, linear
 from .llama import _mlp as _dense_mlp
 
 log = logging.getLogger(__name__)
+
+
+@dataclass
+class LatentCache:
+    """The paged latent pool ``[L, S_total, rank + rope]`` (in the compute
+    dtype, or 1-byte codes) and, for codes, one bf16 scale per (layer,
+    slot), ``[L, S_total]``; updated in place."""
+
+    pool: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
 
 
 @dataclass
@@ -187,11 +207,14 @@ def _moe(cfg: DeepseekConfig, lw: dict, x: torch.Tensor, plain: bool = False) ->
     return out
 
 
-def _mla_attention_paged(cfg, lw, x, cos, sin, pool, li, slots, block_tables, gather_slots,
+def _mla_attention_paged(cfg, lw, x, cos, sin, cache, li, slots, block_tables, gather_slots,
                          positions, kv_lens, block_size, plain):
     """Absorbed MLA over the paged latent pool (JAX ``_mla_attention_paged``):
     scores = ``[q_lat ‖ q_pe] · row``, values = ``row[:rank]``; this step's
-    rows are written into ``pool[li]`` (slot < 0 → the trash row)."""
+    rows are written into ``cache.pool[li]`` (slot < 0 → the trash row),
+    quantized with their scales into a 1-byte pool, whose keys are gathered
+    as ``code × scale`` in f32."""
+    pool = cache.pool
     b, t, _ = x.shape
     nh, rank, eps = cfg.num_heads, cfg.kv_lora_rank, cfg.rms_norm_eps
     if cfg.q_lora_rank:
@@ -206,17 +229,26 @@ def _mla_attention_paged(cfg, lw, x, cos, sin, pool, li, slots, block_tables, ga
     ckv = linear(x, lw["kv_a"], plain=plain)
     compressed = rms_norm(ckv[..., :rank], lw["kv_a_norm"], eps)
     k_pe = _interleaved_rope(ckv[..., None, rank:], cos, sin)[:, :, 0]
-    rows = torch.cat([compressed, k_pe], dim=-1).to(pool.dtype)  # [B, T, D]
+    rows = torch.cat([compressed, k_pe], dim=-1)  # [B, T, D]
     scale = cfg.qk_head_dim ** -0.5
-    if t == 1:
+    if t == 1 and not cache.quantized:
+        rows = rows.to(pool.dtype)
         lat = mla_decode(q_comb[:, 0].to(pool.dtype).contiguous(), pool, rows[:, 0].contiguous(),
                          slots[:, 0].contiguous(), block_tables, kv_lens, li, rank=rank,
                          block_size=block_size, scale=scale, plain=plain)[:, None]
-    else:
+    else:  # the gather path: a prefill chunk, or any step over a 1-byte pool
         plane = pool[li]
         flat = slots.reshape(-1).to(torch.long)
-        plane[torch.where(flat < 0, plane.shape[0] - 1, flat)] = rows.reshape(b * t, -1)
-        keys = plane[gather_slots].to(torch.float32)[:, None]  # [B, 1, P, D]
+        safe = torch.where(flat < 0, plane.shape[0] - 1, flat)
+        if cache.quantized:
+            codes, s = quantize_rows(rows.reshape(b * t, -1), pool.dtype)
+            plane[safe] = codes
+            cache.scale[li, safe] = s.to(cache.scale.dtype)
+            keys = (plane[gather_slots].to(torch.float32)
+                    * cache.scale[li][gather_slots].to(torch.float32)[..., None])[:, None]
+        else:
+            plane[safe] = rows.reshape(b * t, -1).to(pool.dtype)
+            keys = plane[gather_slots].to(torch.float32)[:, None]  # [B, 1, P, D]
         pos = torch.arange(keys.shape[2], device=x.device)
         allowed = ((pos[None, None, :] <= positions[:, :, None])
                    & (pos[None, None, :] < kv_lens[:, None, None]))  # [B, T, P]
@@ -233,7 +265,7 @@ def deepseek_forward_paged(
     cfg: DeepseekConfig,
     input_ids: torch.Tensor,  # [B, T]
     positions: torch.Tensor,  # [B, T]
-    cache: torch.Tensor,  # [L, S_total, rank + rope] latent pool, updated in place
+    cache: "LatentCache",  # the paged latent pool, updated in place
     block_tables: torch.Tensor,  # [B, W] int32
     slot_mapping: torch.Tensor,  # [B, T] (or [B*T]) write slots (< 0 → dropped)
     kv_lens: torch.Tensor,  # [B] lengths AFTER this step's writes
@@ -295,16 +327,25 @@ def kernel_workspace(weights: dict, cfg: DeepseekConfig, batch: int, rows, width
 
 def make_paged_cache(cfg: DeepseekConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, kv_quant=None, device: DeviceLike = None
-                     ) -> torch.Tensor:
+                     ) -> LatentCache:
     """The paged latent pool ``[L, (num_blocks + 1) * block_size, rank +
     rope]`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``);
     the trailing block takes dropped writes. One pool for all layers (the
-    JAX package keeps one per dense/MoE segment)."""
-    if kv_quant:
-        raise NotImplementedError("quantized latent pools are not ported yet")
+    JAX package keeps one per dense/MoE segment). With ``kv_quant``
+    (``"int8"`` or ``"fp8"``) the pool holds 1-byte codes and the cache a
+    scale plane ``[L, S_total]`` bf16 (the JAX package's is 128 lanes wide,
+    lane 0 used)."""
+    dev = resolve_device(device)
     s_total = (num_blocks + 1) * block_size
-    return torch.zeros((cfg.num_layers, s_total, cfg.row_dim), dtype=dtype,
-                       device=resolve_device(device))
+    if not kv_quant:
+        return LatentCache(torch.zeros((cfg.num_layers, s_total, cfg.row_dim), dtype=dtype,
+                                       device=dev))
+    if kv_quant not in CODE_DTYPES:
+        raise ValueError(f"kv_quant must be one of {sorted(CODE_DTYPES)}, got {kv_quant!r}")
+    return LatentCache(
+        torch.zeros((cfg.num_layers, s_total, cfg.row_dim), dtype=CODE_DTYPES[kv_quant],
+                    device=dev),
+        torch.zeros((cfg.num_layers, s_total), dtype=torch.bfloat16, device=dev))
 
 
 # ---------------------------------------------------------------------------

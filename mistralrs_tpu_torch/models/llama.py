@@ -19,7 +19,8 @@ MLP's ``gate``/``up``/``down``.
 
 Attention runs through the fused paged kernels (``ops/paged_attention.py``):
 the decode kernel for one token per row, the prefill kernel otherwise; both
-write the step's K/V into the pools in place. The routers of ``mixtral``
+write the step's K/V into the pools in place (quantized as they are written
+when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``
 and of ``llama`` with experts (how GGUF Mixtral files arrive) are ported;
 other routers, shared experts, expert parallelism, LoRA, M-RoPE, logit
 softcaps, sinks and sliding windows are not yet and raise
@@ -199,19 +200,23 @@ def forward_paged(
         q = apply_rope(q.reshape(b, t, cfg.num_heads, cfg.head_dim), cos, sin)
         k = apply_rope(k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim), cos, sin)
         v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        k = k.to(cache.k.dtype)
-        v = v.to(cache.v.dtype)
+        # the step's rows in the pools' dtype, or in the compute dtype for
+        # 1-byte pools: the kernels quantize them as they write them
+        kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
+        k = k.to(kv_dtype)
+        v = v.to(kv_dtype)
+        scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
         if t == 1:
             attn = paged_decode_attention_fused(
                 q[:, 0].contiguous(), cache.k, cache.v, k[:, 0].contiguous(),
                 v[:, 0].contiguous(), slots[:, 0].contiguous(), block_tables,
-                kv_lens, li, block_size=block_size, scale=attn_scale, plain=plain,
+                kv_lens, li, block_size=block_size, scale=attn_scale, plain=plain, **scales,
             )[:, None]
         else:
             attn = paged_prefill_attention_fused(
                 q.contiguous(), cache.k, cache.v, k.contiguous(), v.contiguous(),
                 slots, block_tables, kv_lens, n_valid, li,
-                block_size=block_size, scale=attn_scale, plain=plain,
+                block_size=block_size, scale=attn_scale, plain=plain, **scales,
             )
         h = h + linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], plain=plain)
         x = rms_norm(h, lw["ffn_norm"], eps)

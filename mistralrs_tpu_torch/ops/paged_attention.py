@@ -24,8 +24,23 @@ updated in place; the functions return the attention output only. On CUDA
 tensors the kernels run; on CPU tensors (or with ``plain=True``) the plain
 PyTorch versions below run. Both use the same math as the JAX kernels: an
 f32 softmax with masked logits at ``NEG_INF``, and an output of zeros for a
-row that sees no position. Sliding windows, logit softcap, sinks and
-quantized pools are not ported yet and raise ``NotImplementedError``.
+row that sees no position.
+
+Quantized pools (int8 or fp8-e4m3 codes, ``kv/paged.py``) come with their
+scale planes ``k_scale``/``v_scale`` (``[L, n_kv, S]`` or ``[n_kv, S]``
+bf16) and run the kernels' quantized forms, the JAX kernels'
+``quantized=True`` (``_decode_kernel`` :290-305, ``_prefill_kernel``
+:671-706 and ``flash_head``): the step's rows are quantized as they are
+written (``kv/paged.py::quantize_rows``: the plain versions quantize the
+rows in the dtype they are given, the kernels take bf16 rows), and a
+cached position's k scale multiplies its f32 score before the mask and the
+running max, while its v scale multiplies ``p`` after ``p`` entered the
+running sum ``l``, before the PV product. The prefill's own chunk attends
+to its rows as ``bf16(code × s)`` with the unrounded f32 scale and no fold
+(the JAX kernel's round trip in VMEM; the prefill kernel's quantized form
+quantizes, writes and round-trips the chunk's rows once in a first launch,
+into a scratch its attention launch reads). Sliding windows, logit softcap and
+sinks are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kv.paged import write_kv
+from ..kv.paged import is_quantized, quantize_rows, write_kv
 from ._cuda import COUNTS, check, library, require, sm_count, split_counters, stream_ptr
 
 NEG_INF = -1e30
@@ -47,6 +62,23 @@ def _plane(pool: torch.Tensor, layer: int) -> torch.Tensor:
     return pool[layer] if pool.dim() == 4 else pool
 
 
+def _scale_plane(scale: Optional[torch.Tensor], layer: int) -> Optional[torch.Tensor]:
+    return scale[layer] if scale is not None and scale.dim() == 3 else scale
+
+
+def form(kernel: str, pool: torch.Tensor) -> str:
+    """The launch-count name of ``kernel``'s form for ``pool``: the kernel's
+    own for bf16 pools, ``_int8`` or ``_fp8`` after it for quantized ones."""
+    if not is_quantized(pool):
+        return kernel
+    return f"{kernel}_{'int8' if pool.dtype == torch.int8 else 'fp8'}"
+
+
+def _check_scales(pool, k_scale, v_scale, what: str) -> None:
+    if is_quantized(pool) != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: 1-byte pools need k_scale and v_scale, and only they do")
+
+
 def _unsupported(window, softcap, sinks) -> None:
     if window or softcap or sinks is not None:
         raise NotImplementedError(
@@ -55,22 +87,30 @@ def _unsupported(window, softcap, sinks) -> None:
 
 
 def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int):
-    """[n_kv, S, hd] plane → per-sequence [B, n_kv, W * bs, hd] (f32)."""
+    """[n_kv, S, ...] plane (a pool's or a scale plane's) → per-sequence
+    [B, n_kv, W * bs, ...] (f32)."""
     bt = block_tables.clamp_min(0).to(torch.long)
     slots = (bt[:, :, None] * block_size
              + torch.arange(block_size, device=bt.device)).reshape(bt.shape[0], -1)
     return plane[:, slots].transpose(0, 1).to(torch.float32)
 
 
-def _softmax_attend(q, k, v, allowed):
+def _softmax_attend(q, k, v, allowed, ks=None, vs=None):
     """q [B, n_kv, R, hd] (pre-scaled), k/v [B, n_kv, P, hd], allowed
     [B, 1|n_kv, R, P] bool → [B, n_kv, R, hd] f32, zeros where nothing is
-    allowed (the kernels' flash form: acc / max(l, 1e-20))."""
+    allowed (the kernels' flash form: acc / max(l, 1e-20)). With the per
+    position scales ``ks``/``vs`` [B, n_kv, P] of codes ``k``/``v``, the k
+    scale multiplies the scores before the mask and the max, the v scale
+    multiplies ``p`` after the sum ``l`` took it (the JAX kernels' fold)."""
     s = torch.einsum("bkrd,bkpd->bkrp", q, k)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * allowed
     l = p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[:, :, None, :]
     return torch.einsum("bkrp,bkpd->bkrd", p, v) / torch.clamp_min(l, 1e-20)
 
 
@@ -81,21 +121,28 @@ def _softmax_attend(q, k, v, allowed):
 
 def paged_decode_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer=0,
-    *, block_size: int, scale: float,
+    *, block_size: int, scale: float, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
-    """Plain version of the decode kernel (same arguments, same result)."""
-    COUNTS["paged_decode_plain"] += 1
+    """Plain version of the decode kernel and its quantized forms (same
+    arguments, same result)."""
+    _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
+    COUNTS[form("paged_decode", k_pool) + "_plain"] += 1
     kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
-    write_kv(kp, vp, k_new, v_new, slots)
+    ks, vs = _scale_plane(k_scale, layer), _scale_plane(v_scale, layer)
+    write_kv(kp, vp, k_new, v_new, slots, ks, vs)
     b, n_q, hd = q.shape
     n_kv = kp.shape[0]
     group = n_q // n_kv
     k = _gather_seq(kp, block_tables, block_size)
     v = _gather_seq(vp, block_tables, block_size)
+    ksg = vsg = None
+    if ks is not None:
+        ksg = _gather_seq(ks, block_tables, block_size)
+        vsg = _gather_seq(vs, block_tables, block_size)
     qg = q.to(torch.float32).reshape(b, n_kv, group, hd) * scale
     pos = torch.arange(k.shape[2], device=q.device)
     allowed = (pos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
-    out = _softmax_attend(qg, k, v, allowed)
+    out = _softmax_attend(qg, k, v, allowed, ksg, vsg)
     return out.reshape(b, n_q, hd).to(q.dtype)
 
 
@@ -140,17 +187,43 @@ def decode_counters(plan: DecodePlan, b: int, n_kv: int) -> int:
     return b * n_kv if plan.splits > 1 else 0
 
 
+def _check_pools(q, kp, vp, ks, vs, block_size: int) -> None:
+    """The kernels' pool arguments: contiguous bf16 pools, or contiguous
+    1-byte pools of one code type with contiguous bf16 scale planes
+    ``[n_kv, S]`` and blocks of a multiple of 8 positions (a tile's scales
+    are copied 8 positions at a time)."""
+    n_kv, s_total, _ = kp.shape
+    if ks is None:
+        for name, t in (("k_pool", kp), ("v_pool", vp)):
+            require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device,
+                    f"{name} must be contiguous bf16 on {q.device}")
+        return
+    for name, t in (("k_pool", kp), ("v_pool", vp)):
+        require(t.dtype == kp.dtype and is_quantized(t) and t.is_contiguous()
+                and t.device == q.device, f"{name} must be contiguous int8 or fp8 on {q.device}")
+    for name, t in (("k_scale", ks), ("v_scale", vs)):
+        require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device
+                and tuple(t.shape) == (n_kv, s_total),
+                f"{name} must be contiguous bf16 [{n_kv}, {s_total}] on {q.device}")
+    require(block_size % 8 == 0, f"quantized pools need blocks of a multiple of 8, got {block_size}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale,
-                 plan: Optional[DecodePlan] = None):
-    """The decode kernel's launch, at ``decode_plan``'s split unless a
-    ``plan`` is given (``probes/split_plans.py`` times other splits)."""
+                 plan: Optional[DecodePlan] = None, ks=None, vs=None):
+    """The decode kernel's launch (its quantized form with the scale planes
+    ``ks``/``vs``), at ``decode_plan``'s split unless a ``plan`` is given
+    (``probes/split_plans.py`` times other splits)."""
     b, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
     require(hd == 128, f"decode kernel needs head_dim 128, got {hd}")
     require(n_q % n_kv == 0 and n_q // n_kv <= DECODE_MAX_GROUP,
             f"GQA group {n_q}/{n_kv} unsupported")
-    for name, t in (("q", q), ("k_pool", kp), ("v_pool", vp), ("k_new", k_new),
-                    ("v_new", v_new)):
+    _check_pools(q, kp, vp, ks, vs, block_size)
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device,
                 f"{name} must be contiguous bf16 on {q.device}")
     require(tuple(k_new.shape) == (b, n_kv, hd) and v_new.shape == k_new.shape,
@@ -170,15 +243,18 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
         part = torch.empty(b * n_q * plan.splits * (hd + 2), dtype=torch.float32,
                            device=q.device)
         cnt = split_counters(q.device, decode_counters(plan, b, n_kv))
-    code = lib.mrt_paged_decode(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
-        b, n_q, n_kv, hd, s_total, w, block_size, plan.positions, plan.splits,
-        float(scale * LOG2E), stream_ptr(q),
-    )
-    check(code, "paged_decode")
-    COUNTS["paged_decode"] += 1
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            _ptr(part), _ptr(cnt), b, n_q, n_kv, hd, s_total, w, block_size, plan.positions,
+            plan.splits, float(scale * LOG2E))
+    name = form("paged_decode", kp)
+    if ks is None:
+        code = lib.mrt_paged_decode(*args, stream_ptr(q))
+    else:
+        code = lib.mrt_paged_decode_q(*args, ks.data_ptr(), vs.data_ptr(),
+                                      int(kp.dtype != torch.int8), stream_ptr(q))
+    check(code, name)
+    COUNTS[name] += 1
     return out
 
 
@@ -199,19 +275,23 @@ def paged_decode_attention_fused(
     softcap: float = 0.0,
     sinks: Optional[torch.Tensor] = None,
     plain: bool = False,
+    k_scale: Optional[torch.Tensor] = None,  # [L, n_kv, S] or [n_kv, S] bf16 (1-byte pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused reshape_and_cache + paged decode attention → out [B, n_q, hd]."""
     _unsupported(window, softcap, sinks)
+    _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer,
-            block_size=block_size, scale=scale,
+            block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged decode attention: unsupported device {q.device}")
     return _decode_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
-                        slots, block_tables, kv_lens, block_size, scale)
+                        slots, block_tables, kv_lens, block_size, scale,
+                        ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer))
 
 
 # ---------------------------------------------------------------------------
@@ -221,12 +301,15 @@ def paged_decode_attention_fused(
 
 def paged_prefill_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid, layer=0,
-    *, block_size: int, scale: float,
+    *, block_size: int, scale: float, k_scale=None, v_scale=None,
 ) -> torch.Tensor:
-    """Plain version of the prefill kernel. Rows past ``n_valid`` write
-    nothing and return zeros (the kernel's output there is never read)."""
-    COUNTS["paged_prefill_plain"] += 1
+    """Plain version of the prefill kernel and its quantized forms. Rows
+    past ``n_valid`` write nothing and return zeros (the kernel's output
+    there is never read)."""
+    _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
+    COUNTS[form("paged_prefill", k_pool) + "_plain"] += 1
     kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
+    ks, vs = _scale_plane(k_scale, layer), _scale_plane(v_scale, layer)
     b, t, n_q, hd = q.shape
     n_kv = kp.shape[0]
     group = n_q // n_kv
@@ -238,18 +321,32 @@ def paged_prefill_attention_plain(
     # past K/V come from the pool as it was; the chunk's own from k_new/v_new
     k = _gather_seq(kp, block_tables, block_size)  # [B, n_kv, P, hd]
     v = _gather_seq(vp, block_tables, block_size)
+    quant = ks is not None
+    ksg = vsg = None
+    if quant:  # the past's scales [B, n_kv, P]
+        ksg = _gather_seq(ks, block_tables, block_size)
+        vsg = _gather_seq(vs, block_tables, block_size)
     ctx = kv_lens - n_valid
     n_pos = max(k.shape[2], int((ctx + t).max()) if b else 0)
     if n_pos > k.shape[2]:
         pad = n_pos - k.shape[2]
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        if quant:
+            ksg = torch.nn.functional.pad(ksg, (0, pad))
+            vsg = torch.nn.functional.pad(vsg, (0, pad))
     for i in range(b):
         nv, c = int(n_valid[i]), int(ctx[i])
-        k[i, :, c:c + nv] = k_new[i, :nv].transpose(0, 1).to(torch.float32)
-        v[i, :, c:c + nv] = v_new[i, :nv].transpose(0, 1).to(torch.float32)
+        for x, new, sc in ((k, k_new, ksg), (v, v_new, vsg)):
+            rows = new[i, :nv].transpose(0, 1)  # [n_kv, nv, hd]
+            if quant:  # round-tripped as bf16(code × s) with the f32 scale; no fold
+                codes, s = quantize_rows(rows, kp.dtype)
+                rows = (codes.to(torch.float32) * s[..., None]).to(torch.bfloat16)
+                sc[i, :, c:c + nv] = 1.0
+            x[i, :, c:c + nv] = rows.to(torch.float32)
     write_kv(kp, vp, k_new.reshape(b * t, n_kv, hd), v_new.reshape(b * t, n_kv, hd),
-             torch.where(valid, slots.to(dev), torch.full_like(slots.to(dev), -1)).reshape(-1))
+             torch.where(valid, slots.to(dev), torch.full_like(slots.to(dev), -1)).reshape(-1),
+             ks, vs)
     # rows ordered (token, head-in-group) like the kernel's query tile
     qg = (q.to(torch.float32).reshape(b, t, n_kv, group, hd).permute(0, 2, 1, 3, 4)
           .reshape(b, n_kv, t * group, hd) * scale)
@@ -257,20 +354,20 @@ def paged_prefill_attention_plain(
     lim = ctx[:, None] + tok[None, :]  # [B, T] last visible position
     allowed = (pos[None, None, :] <= lim[:, :, None]) & valid[:, :, None]
     allowed = allowed.repeat_interleave(group, dim=1)[:, None]  # [B, 1, T*G, P]
-    out = _softmax_attend(qg, k, v, allowed)
+    out = _softmax_attend(qg, k, v, allowed, ksg, vsg)
     out = out.reshape(b, n_kv, t, group, hd).permute(0, 2, 1, 3, 4).reshape(b, t, n_q, hd)
     return out.to(q.dtype)
 
 
 def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-                  block_size, scale):
+                  block_size, scale, ks=None, vs=None):
     b, t, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
     require(hd == 128, f"prefill kernel needs head_dim 128, got {hd}")
     require(n_q % n_kv == 0 and 64 % (n_q // n_kv) == 0,
             f"GQA group {n_q}/{n_kv} unsupported")
-    for name, x in (("q", q), ("k_pool", kp), ("v_pool", vp), ("k_new", k_new),
-                    ("v_new", v_new)):
+    _check_pools(q, kp, vp, ks, vs, block_size)
+    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.device == q.device,
                 f"{name} must be contiguous bf16 on {q.device}")
     require(tuple(k_new.shape) == (b, t, n_kv, hd) and v_new.shape == k_new.shape,
@@ -282,14 +379,22 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
     require(tuple(slots.shape) == (b, t) and kv_lens.shape == (b,) and n_valid.shape == (b,)
             and block_tables.shape[0] == b, "slots/kv_lens/n_valid/block_tables mismatch")
     out = torch.empty_like(q)
-    code = library().mrt_paged_prefill(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), n_valid.data_ptr(),
-        out.data_ptr(), b, t, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
-        float(scale * LOG2E), stream_ptr(q),
-    )
-    check(code, "paged_prefill")
-    COUNTS["paged_prefill"] += 1
+    lib = library()
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), n_valid.data_ptr(),
+            out.data_ptr(), b, t, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
+            float(scale * LOG2E))
+    name = form("paged_prefill", kp)
+    if ks is None:
+        code = lib.mrt_paged_prefill(*args, stream_ptr(q))
+    else:
+        # the chunk's rows' round trips, which the attention launch reads
+        k_rt, v_rt = torch.empty_like(k_new), torch.empty_like(v_new)
+        code = lib.mrt_paged_prefill_q(*args, ks.data_ptr(), vs.data_ptr(),
+                                       int(kp.dtype != torch.int8), k_rt.data_ptr(),
+                                       v_rt.data_ptr(), stream_ptr(q))
+    check(code, name)
+    COUNTS[name] += 1
     return out
 
 
@@ -311,19 +416,23 @@ def paged_prefill_attention_fused(
     softcap: float = 0.0,
     sinks: Optional[torch.Tensor] = None,
     plain: bool = False,
+    k_scale: Optional[torch.Tensor] = None,  # [L, n_kv, S] or [n_kv, S] bf16 (1-byte pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused reshape_and_cache + causal paged attention for T > 1 → out
     [B, T, n_q, hd]. Each row's valid tokens [0, n_valid) are the
     consecutive positions [kv_len − n_valid, kv_len) (the engine's prefill
     invariant, as in the JAX kernel)."""
     _unsupported(window, softcap, sinks)
+    _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-            layer, block_size=block_size, scale=scale,
+            layer, block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged prefill attention: unsupported device {q.device}")
     return _prefill_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
-                         slots, block_tables, kv_lens, n_valid, block_size, scale)
+                         slots, block_tables, kv_lens, n_valid, block_size, scale,
+                         ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer))

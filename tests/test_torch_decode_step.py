@@ -72,11 +72,14 @@ def _jax():
 
 
 def _engines(model):
-    """(JAX engine, port engine) on one tiny model, f32 compute and pools."""
+    """(JAX engine, port engine) on one tiny model, f32 compute and pools
+    (``..._int8``: int8 pools on both sides)."""
     _, jnp, _ = _jax()
     from mistralrs_tpu.engine.engine import Engine as JaxEngine
 
     kw = dict(num_blocks=40, block_size=16, max_batch=3)
+    if model.endswith("_int8"):
+        model, kw["kv_quant"] = model[:-len("_int8")], "int8"
     if model == "deepseek":
         from mistralrs_tpu.engine.adapters import DeepseekAdapter as JaxAdapter
         from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter
@@ -105,11 +108,12 @@ def _engines(model):
             Engine(cfg, tw, compute_dtype=torch.float32, device="cpu", **kw))
 
 
-@pytest.mark.parametrize("model", ["llama", "mixtral", "deepseek"])
+@pytest.mark.parametrize("model", ["llama", "mixtral", "deepseek", "deepseek_int8"])
 def test_greedy_matches_jax_with_requests_joining_and_leaving(model):
     """3 slots, 5 requests of 9-12 tokens: two start, three more arrive
     after 3 steps, and each takes a slot another left; every request's
-    greedy tokens equal the JAX engine's."""
+    greedy tokens equal the JAX engine's (DeepSeek's uncaptured decode step
+    over an int8 latent pool too)."""
     _, _, js = _jax()
     je, te = _engines(model)
     rng = np.random.default_rng(17)

@@ -292,12 +292,30 @@ def test_engine_greedy_matches_jax():
 
 
 def test_engine_refuses_quantized_pool():
+    """The engine refuses ``kv_quant`` only where it cannot serve it: an
+    adapter without ``supports_kv_quant``, or an unknown code type. The
+    DeepSeek adapter's 1-byte latent pool is created (codes and a bf16
+    scale per (layer, slot)) and served."""
     _, _, cfg, tw = both(V2)
     ad = DeepseekAdapter(cfg, tw, compute_dtype=torch.float32, device="cpu")
+
+    class NoQuant(DeepseekAdapter):
+        supports_kv_quant = False
+
     with pytest.raises(NotImplementedError):
-        Engine(cfg, None, adapter=ad, device="cpu", kv_quant="int8")
-    with pytest.raises(NotImplementedError):
-        tds.make_paged_cache(cfg, 4, 16, kv_quant="int8", device="cpu")
+        Engine(cfg, None, adapter=NoQuant(cfg, tw, compute_dtype=torch.float32, device="cpu"),
+               device="cpu", kv_quant="int8")
+    with pytest.raises(ValueError):
+        tds.make_paged_cache(cfg, 4, 16, kv_quant="int4", device="cpu")
+    cache = tds.make_paged_cache(cfg, 4, 16, kv_quant="int8", device="cpu")
+    assert cache.pool.dtype == torch.int8 and cache.pool.shape == (3, 80, cfg.row_dim)
+    assert cache.scale.dtype == torch.bfloat16 and cache.scale.shape == (3, 80)
+    te = Engine(cfg, None, adapter=ad, device="cpu", kv_quant="int8", num_blocks=8,
+                block_size=16, max_batch=2)
+    assert te.cache.quantized and te.cache.pool.dtype == torch.int8
+    seq = te.add_request([5, 9, 17, 3], SamplingParams(temperature=0.0, max_tokens=4))
+    te.run_to_completion()
+    assert len(seq.generated_ids) == 4 and te.cache.scale.abs().sum() > 0
 
 
 # ---------------------------------------------------------------------------

@@ -124,8 +124,6 @@ def test_unported_features_raise():
     te = Engine(CFG, TW, device="cpu", num_blocks=16, block_size=16, max_batch=2)
     with pytest.raises(NotImplementedError):
         te.add_request([1, 2], SamplingParams(constraint="json_object"))
-    with pytest.raises(NotImplementedError):
-        Engine(CFG, TW, device="cpu", num_blocks=16, kv_quant="int8")
 
 
 def test_cache_config_sizes_from_memory():

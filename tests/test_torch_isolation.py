@@ -142,7 +142,7 @@ def test_constructors_take_the_cpu_when_asked():
     assert qt.device.type == cache.k.device.type == w["embed"].device.type == "cpu"
     dw = from_jax_deepseek_params(_jax_deepseek_numpy(), DS_CFG, device="cpu")
     ad = DeepseekAdapter(DS_CFG, dw, device="cpu")
-    pool = ad.create_cache(4, 16, 2)
+    pool = ad.create_cache(4, 16, 2).pool  # the cache's latent pool (LatentCache)
     assert pool.device.type == dw["layers"][1]["experts"]["gateup"].device.type == "cpu"
     assert tuple(pool.shape) == (2, 5 * 16, 24)
 
