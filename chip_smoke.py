@@ -13,7 +13,7 @@ script in one call:
 
 0. watchdog and device: a hang ends in a traceback after 900 s; no CUDA
    device is an error; prints ``nvidia-smi``'s name and power limit;
-1. build: compiles the eight CUDA kernels (one ``nvcc`` per source under
+1. build: compiles the CUDA kernels (one ``nvcc`` per source under
    ``csrc/``, all started together, then a link) and prints the build time;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16), with its median time (CUDA events), its bound at
@@ -79,7 +79,17 @@ script in one call:
    its plain version (2e-2; the pools' codes and scales bit-equal but at
    the trash slot, as bytes), a second call bit-equal, its bound counting
    the codes and bf16 scales it reads and writes, and SDPA on the K/V
-   dequantized to bf16 and gathered ahead of time as its yardstick;
+   dequantized to bf16 and gathered ahead of time as its yardstick.
+   Then the head_dim-256 forms at Gemma-2-9B's attention (16/8 heads,
+   softcap 50): decode at the B=8 row above (a full layer), at 8 x 8192 with
+   a 4096-position window (a sliding layer: its bound counts 4096 positions
+   a row) and with a window of 100 (off the tile edge); prefill at B=2 T=128
+   on 300 cached positions and 512 tokens on 3840 (the chunk passes the
+   window's edge); and the head_dim-128 forms with Mistral-7B's
+   4096-position window at 32/8 heads (decode at 8 x 8192, prefill 512 on
+   3840). Each against its plain version (2e-2), a second call bit-equal,
+   the pools equal but at the trash slot; SDPA's yardstick takes the window
+   as a boolean mask and has no softcap;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -99,6 +109,10 @@ script in one call:
    kernels over an int8 latent pool, on the bf16 run's expert choices: the
    gather path at every step (no MLA launch), logits within 5e-2 of the
    largest of the bf16 pool's;
+3d. the same at full Gemma-2-9B width with 2 layers (layer 0 sliding with
+   its 4096-position window, layer 1 full; both softcaps; head_dim 256),
+   bf16 weights: a 4160-token prompt in 512-token chunks and a 100-token
+   one, then 4 decode steps of both; logits within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -132,15 +146,22 @@ script in one call:
    the device after the Mixtral weights are freed) through the engine's
    DeepSeek adapter: the same 6 requests and checks, the MLA decode and
    dense grouped kernels launched and no plain version run;
-7. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
+7. serve the full 42-layer Gemma-2-9B geometry (bf16, ~18.5 GB drawn on the
+   device after the DeepSeek weights are freed; 192 KV blocks of 64
+   positions, ~4.2 GB): the same 6 requests but one prompt of 4400 tokens,
+   so that its positions pass 4096 and the sliding layers' windows bite in
+   prefill and in decode; the same checks; the head_dim-256 forms of the
+   paged kernels launched and no plain version run;
+8. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
    the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches in the run of its path
 (phase 4 for the dense-model kernels, its int8 serve for the int8 forms of
 the paged kernels, phase 3's fp8 model run for their fp8 forms, phase 5 for
 the W4/W8 grouped kernels, phase 6 for the MLA decode and dense grouped
-kernels) and its times at the main path's dominant shape
-(``library_device_ms``: the library call's own device time).
+kernels, phase 7 for the head_dim-256 forms) and its times at the main
+path's dominant shape (``library_device_ms``: the library call's own device
+time).
 
 Budget: the whole run at most 8 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute), at most 8 GB of
@@ -247,8 +268,17 @@ DEEPSEEK_V2_LITE = dict(
     routed_scaling_factor=1.0, scoring_func="softmax", norm_topk_prob=False, n_group=1,
     topk_group=1, max_position_embeddings=163840,
 )
+# Gemma-2-9B (google/gemma-2-9b config.json; tie_word_embeddings set, as the
+# checkpoint has no lm_head.weight)
+GEMMA2_9B = dict(
+    arch="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336, num_layers=42,
+    num_heads=16, num_kv_heads=8, head_dim=256, sliding_window=4096, attn_logit_softcap=50.0,
+    logit_softcap=30.0, attn_scale=256 ** -0.5, rms_norm_eps=1e-6, rope_theta=10000.0,
+    max_position_embeddings=8192, hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True,
+)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
+GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -281,6 +311,11 @@ KERNEL_INFO = {
                            "mistralrs_tpu/ops/paged_attention.py:1162"),
     "paged_prefill_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                           "mistralrs_tpu/ops/paged_attention.py:1162"),
+    # the head_dim-256 instances of the bf16 forms (Gemma-2)
+    "paged_decode_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                           "mistralrs_tpu/ops/paged_attention.py:496"),
+    "paged_prefill_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                            "mistralrs_tpu/ops/paged_attention.py:1162"),
 }
 QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_int8")
 
@@ -469,6 +504,30 @@ def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
         "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
         "lm_head": q8(cfg.vocab_size, h, gen, dev),
     }
+
+
+def build_gemma(cfg: ModelConfig, dev, seed: int) -> dict:
+    """Gemma-2 weights of ``cfg`` in bf16, drawn on the device: fused
+    projections (wqkv, wgateup) of N(0, 0.02^2), the four norms of a layer
+    and the final norm N(0, 0.1^2) (stored as w - 1, so applied near 1, and
+    not ones), the tied embedding, the config's layer windows: ~18.5 GB at
+    42 layers."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+
+    def draw(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).mul_(std)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            **{k: draw(h, std=0.1) for k in ("attn_norm", "post_attn_norm", "ffn_norm",
+                                              "post_ffn_norm")},
+            "wqkv": draw(cfg.q_dim + 2 * cfg.kv_dim, h), "wo": draw(h, cfg.q_dim),
+            "wgateup": draw(2 * i, h), "down": draw(h, i),
+        })
+    return {"embed": draw(cfg.vocab_size, h), "layers": layers,
+            "final_norm": draw(h, std=0.1), "lm_head": None}
 
 
 # ---------------------------------------------------------------------------
@@ -817,6 +876,22 @@ def pools_equal(a, b) -> bool:
                for x, y in zip(a, b))
 
 
+CAP_Q = 8.0  # q's scale with a softcap: scores of std ~8, so a cap of 50 moves the top ones
+CAP_CONTROL = 0.1  # the least that the cap must move the plain version's output (5x the tol)
+
+
+def check_cap_bites(name, capped, uncapped) -> float:
+    """The control of a softcapped row: the plain version with the cap and
+    without it (f32 values of the rows compared) differ by more than
+    ``CAP_CONTROL``, so a kernel that dropped the tanh could not pass within
+    2e-2."""
+    moved = (capped - uncapped).abs().max().item()
+    if not moved > CAP_CONTROL:
+        raise AssertionError(f"{name}: the softcap moves the plain version by {moved} only "
+                             f"(needs > {CAP_CONTROL})")
+    return moved
+
+
 def gathered(pools, bt, bs, group):
     """Per-sequence K/V [B, n_q, P, hd] gathered (dequantized to bf16) ahead
     of time, for SDPA."""
@@ -825,19 +900,27 @@ def gathered(pools, bt, bs, group):
 
 
 def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
-                 dropped=3, kv_quant=None):
-    """The decode kernel (its quantized form with ``kv_quant``) on tables of
-    ``w`` blocks of 64 for rows of ``kv_lens`` (row ``dropped`` drops its
-    write), against the plain version: within 2e-2, the pools (codes and
-    scales) bit-equal but at the trash slot, two calls bit-equal; timed with
-    its bound (bytes: the visible K/V, or codes and bf16 scales, read once,
-    q read, out written, the step's rows read and written) and SDPA on the
-    K/V gathered (and dequantized) ahead of time."""
-    b, n_q, n_kv, hd, bs = len(kv_lens), 32, 8, 128, 64
+                 dropped=3, kv_quant=None, n_q=32, n_kv=8, hd=128, window=0, softcap=0.0):
+    """The decode kernel (its quantized form with ``kv_quant``, its
+    head_dim-256 form with ``hd=256``) on tables of ``w`` blocks of 64 for
+    rows of ``kv_lens`` (row ``dropped`` drops its write), with a sliding
+    ``window`` and a ``softcap`` when given, against the plain version:
+    within 2e-2, the pools (codes and scales) bit-equal but at the trash
+    slot, two calls bit-equal; timed with its bound (bytes: the visible K/V,
+    or codes and bf16 scales, read once, q read, out written, the step's
+    rows read and written; a window's row sees min(kv_len, window)
+    positions) and SDPA on the K/V gathered (and dequantized) ahead of time,
+    the window as a boolean mask (SDPA has no softcap: that row's yardstick
+    computes less). With a softcap q is ``CAP_Q`` times larger, and the
+    plain version without the cap must differ from it by more than
+    ``CAP_CONTROL``."""
+    b, bs = len(kv_lens), 64
     kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
     pools = kv_pools(gen, n_kv, s_total, hd, kv_quant, dev)
     q = torch.randn((b, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+    if softcap:
+        q *= CAP_Q  # exact in bf16
     kn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     slots = slots_for(bt, (kv_lens - 1)[:, None], bs)[:, 0].contiguous()
@@ -845,25 +928,33 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     mine, ref_p = ([t if t is None else t.clone() for t in pools] for _ in range(2))
     args = (kn, vn, slots, bt, kv_lens)
 
-    def run(p, plain=False):
+    def run(p, plain=False, cap=softcap):
         return paged_decode_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
-                                            v_scale=p[3], plain=plain)
+                                            v_scale=p[3], window=window, softcap=cap,
+                                            plain=plain)
 
     got, again, ref = run(mine), run(mine), run(ref_p, plain=True)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     pools_ok = pools_equal(mine, ref_p)
-    name = "paged_decode" + (f"_{kv_quant}" if kv_quant else "")
+    name = "paged_decode" + (f"_{kv_quant}" if kv_quant else "_hd256" if hd == 256 else "")
     if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
         raise AssertionError(f"{name}: max err {err}, pools equal {pools_ok}, two calls equal "
                              f"{torch.equal(got, again)}")
+    if softcap:
+        ctl_p = [t if t is None else t.clone() for t in pools]
+        moved = check_cap_bites(name, ref.float(), run(ctl_p, plain=True, cap=0.0).float())
+        del ctl_p
     del ref
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
     # of time; no mask where every position of the table is visible
     kk, vv = gathered(mine, bt, bs, n_q // n_kv)
-    full = bool((kv_lens == kk.shape[2]).all())
-    mask = None if full else (torch.arange(kk.shape[2], device=dev)[None]
-                              < kv_lens[:, None])[:, None, None]
+    ppos = torch.arange(kk.shape[2], device=dev)[None]
+    visible = ppos < kv_lens[:, None]
+    if window:
+        visible &= kv_lens[:, None] - 1 - ppos < window
+    full = bool(visible.all())
+    mask = None if full else visible[:, None, None]
     q4 = q[:, :, None]
     ms = time_ms(lambda: run(mine))
     dev_ms = device_ms(lambda: run(mine))
@@ -871,39 +962,51 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask)  # noqa: E731
     lib_ms, lib_dev_ms = time_ms(sdpa), device_ms(sdpa)
     del kk, vv
-    tokens = int(kv_lens.sum())
+    tokens = int((kv_lens.clamp_max(window) if window else kv_lens).sum())  # visible positions
     row_b = hd + 2 if kv_quant else 2 * hd  # a cached row: codes and a bf16 scale, or bf16
     nbytes = (2 * tokens * n_kv * row_b + 2 * b * n_q * hd * 2 + 2 * b * n_kv * hd * 2
               + 2 * b * n_kv * row_b)
     b_ms, b_by = bound(nbytes, 4.0 * tokens * n_q * hd, rates)
-    lens = f"kv_lens={int(kv_lens[0])} x {b}" if full else "kv_lens<=1024"
+    same = bool((kv_lens == kv_lens[0]).all())
+    lens = (f"kv_lens={int(kv_lens[0])} x {b}" if same
+            else f"kv_lens<={int(kv_lens.max())}")
+    opts = (f" window={window}" if window else "") + (
+        f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "")
     row = dict(shape=(f"{kv_quant} " if kv_quant else "")
-               + f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}",
+               + f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}{opts}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
+    if softcap:
+        row["cap_moves_plain"] = moved
     log(f"  {name} {row['shape']}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
-        f"two calls equal | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
+        f"two calls equal" + (f", the cap moves the plain version {moved:.3e} (> "
+                              f"{CAP_CONTROL})" if softcap else "") + f" | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{fmt_ms(lib_dev_ms)})")
     return row
 
 
 def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300), n_q=32,
-                  n_kv=8, bs=64, timed=True, kv_quant=None):
-    """The prefill kernel (its quantized form with ``kv_quant``) on a chunk
-    of ``t`` tokens per row on top of ``past`` cached positions,
-    ``n_valid`` of them real (the rest dropped writes): valid rows within
-    2e-2 of the plain version, the pools (codes and scales) bit-equal to the
-    plain version's but the trash slot (where the plain version parks
-    dropped writes), a second call on the pools as they were bit-equal;
-    timed with its bound and SDPA when ``timed``."""
-    hd = 128
+                  n_kv=8, bs=64, timed=True, kv_quant=None, hd=128, window=0, softcap=0.0):
+    """The prefill kernel (its quantized form with ``kv_quant``, its
+    head_dim-256 form with ``hd=256``) on a chunk of ``t`` tokens per row on
+    top of ``past`` cached positions, ``n_valid`` of them real (the rest
+    dropped writes), with a sliding ``window`` and a ``softcap`` when given:
+    valid rows within 2e-2 of the plain version, the pools (codes and
+    scales) bit-equal to the plain version's but the trash slot (where the
+    plain version parks dropped writes), a second call on the pools as they
+    were bit-equal; timed with its bound and SDPA (the window as a boolean
+    mask, no softcap) when ``timed``. With a softcap q is ``CAP_Q`` times
+    larger, and the plain version without the cap must differ from it on
+    the valid rows by more than ``CAP_CONTROL``."""
     n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
     kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
     w = -(-(max(past) + t) // bs)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
     pools = kv_pools(gen, n_kv, s_total, hd, kv_quant, dev)
     q = torch.randn((b, t, n_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+    if softcap:
+        q *= CAP_Q  # exact in bf16
     kn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((b, t, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     tok = torch.arange(t, device=dev)[None]
@@ -912,31 +1015,43 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     slots[tok.expand(b, t) >= n_valid[:, None]] = -1
     args = (kn, vn, slots, bt, kv_lens, n_valid)
 
-    def run(p, plain=False):
+    def run(p, plain=False, cap=softcap):
         return paged_prefill_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
-                                             v_scale=p[3], plain=plain)
+                                             v_scale=p[3], window=window, softcap=cap,
+                                             plain=plain)
 
     mine, again_p, ref_p = ([x if x is None else x.clone() for x in pools] for _ in range(3))
     got, again, ref = run(mine), run(again_p), run(ref_p, plain=True)
     torch.cuda.synchronize()
-    err = max([(got[i, :n].float() - ref[i, :n].float()).abs().max().item()
-               for i, n in enumerate(n_valid.tolist()) if n] or [0.0])
+    valid = torch.arange(t, device=dev)[None] < n_valid[:, None]  # [B, T]
+    err = (got.float() - ref.float())[valid].abs().max().item() if bool(valid.any()) else 0.0
     pools_ok = pools_equal(mine, ref_p)
     shape = ((f"{kv_quant} " if kv_quant else "")
              + f"B={b} T={t} n_valid={tuple(n_valid.tolist())} past={tuple(past)} n_q={n_q} "
-             f"n_kv={n_kv} hd={hd} bs={bs}")
-    name = "paged_prefill" + (f"_{kv_quant}" if kv_quant else "")
+             f"n_kv={n_kv} hd={hd} bs={bs}"
+             + (f" window={window}" if window else "")
+             + (f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else ""))
+    name = "paged_prefill" + (f"_{kv_quant}" if kv_quant else "_hd256" if hd == 256 else "")
     if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
         raise AssertionError(f"{name} {shape}: max err {err}, pools equal {pools_ok}, two "
                              f"calls equal {torch.equal(got, again)}")
+    cap_note = ""
+    if softcap:
+        uncapped = run([x if x is None else x.clone() for x in pools], plain=True, cap=0.0)
+        moved = check_cap_bites(name, ref.float()[valid], uncapped.float()[valid])
+        cap_note = f", the cap moves the plain version {moved:.3e} (> {CAP_CONTROL})"
+        del uncapped
     del ref, again_p
     if not timed:
-        log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal")
+        log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note}")
         return dict(shape=shape, max_abs_err=err)
     kk, vv = gathered(mine, bt, bs, n_q // n_kv)
     ppos = torch.arange(kk.shape[2], device=dev)
     lim = (kv_lens - n_valid)[:, None] + tok  # [B, T]
-    mask = (ppos[None, None] <= lim[:, :, None])[:, None]  # [B, 1, T, P]
+    mask = ppos[None, None] <= lim[:, :, None]
+    if window:
+        mask &= lim[:, :, None] - ppos[None, None] < window
+    mask = mask[:, None]  # [B, 1, T, P]
     qt_ = q.transpose(1, 2)
     ms = time_ms(lambda: run(mine))
     dev_ms = device_ms(lambda: run(mine))
@@ -947,16 +1062,21 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     ctx = (kv_lens - n_valid).tolist()
     nv = n_valid.tolist()
     row_b = hd + 2 if kv_quant else 2 * hd  # a cached row: codes and a bf16 scale, or bf16
-    # bytes: the past read once, the chunk's bf16 rows read and written as
+    # bytes: the past a valid token sees read once (with a window, the last
+    # window - 1 positions of it), the chunk's bf16 rows read and written as
     # cached rows, q in, out
-    nbytes = sum(2 * c * n_kv * row_b + 2 * v * n_kv * (2 * hd + row_b) + 2 * v * n_q * hd * 2
+    seen = (lambda n: min(n, window)) if window else (lambda n: n)  # noqa: E731
+    nbytes = sum(2 * (seen(c + 1) - 1 if v else 0) * n_kv * row_b
+                 + 2 * v * n_kv * (2 * hd + row_b) + 2 * v * n_q * hd * 2
                  for c, v in zip(ctx, nv))
     # ops: causal QK and PV over the positions each valid token sees
-    flops = sum(4 * n_q * hd * sum(c + i + 1 for i in range(v)) for c, v in zip(ctx, nv))
+    flops = sum(4 * n_q * hd * sum(seen(c + i + 1) for i in range(v)) for c, v in zip(ctx, nv))
     b_ms, b_by = bound(nbytes, flops, rates)
     row = dict(shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
-    log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal | "
+    if softcap:
+        row["cap_moves_plain"] = moved
+    log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note} | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
     return row
@@ -1217,8 +1337,73 @@ def check_deepseek_model(dev) -> dict:
     return counts
 
 
+def check_gemma_model(dev) -> dict:
+    """Phase 3d: 2 Gemma-2-9B layers at full width (layer 0 sliding with its
+    4096-position window, layer 1 full; both softcaps; head_dim 256) through
+    the kernels and through the plain versions on the same device weights:
+    one row with a 4160-token prompt in 512-token chunks (its last chunk
+    passes position 4096, where the window starts to hide positions), one
+    row with a 100-token prompt, then 4 decode steps of both rows (the
+    sliding layer's decode walk then starts past the first tile); every
+    step's logits within 5e-2 of the largest. Returns the kernel run's
+    launch counts."""
+    cfg = ModelConfig(**dict(GEMMA2_9B, num_layers=2))
+    weights = build_gemma(cfg, dev, SEED + 10)
+    bs, chunk, n_dec = 64, 512, 4
+    lens = (4160, 100)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    ids = torch.randint(0, cfg.vocab_size, (2, max(lens) + n_dec), generator=gen, device=dev)
+    w = -(-(max(lens) + n_dec) // bs)
+    bt = torch.arange(2 * w, device=dev, dtype=torch.int32).reshape(2, w)
+    runs, counts = [], {}
+    for plain in (False, True):
+        cache = PagedKVCache.create(cfg, 2 * w, bs, device=dev)
+        _cuda.reset_counts()
+        outs = []
+        for row, n in enumerate(lens):
+            tb = bt[row:row + 1]
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                pos = torch.arange(lo, hi, device=dev)[None]
+                logits, _ = forward_paged(weights, cfg, ids[row:row + 1, lo:hi], pos, cache, tb,
+                                          slots_for(tb, pos, bs), torch.tensor([hi], device=dev),
+                                          block_size=bs, plain=plain)
+                outs.append(logits)
+        kv = torch.tensor(lens, device=dev)
+        for d in range(n_dec):
+            p = (kv + d)[:, None]
+            logits, _ = forward_paged(weights, cfg, ids.gather(1, p), p, cache, bt,
+                                      slots_for(bt, p, bs), kv + d + 1, block_size=bs,
+                                      plain=plain)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        if not plain:
+            counts = dict(_cuda.COUNTS)
+        runs.append(outs)
+    worst = 0.0
+    for step, (got, ref) in enumerate(zip(*runs)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gemma model: step {step}: non-finite logits through the kernels")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > 5e-2 * scale:
+            raise AssertionError(f"gemma model: step {step} logits differ by {err} > "
+                                 f"{5e-2 * scale}")
+    missing = [k for k in GEMMA_KERNELS if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"gemma model: kernels not launched {missing}, plain versions run "
+                             f"{plain_run}")
+    log(f"  gemma-2-9b 2 layers (window 4096, full): prefill of {lens[0]} tokens in chunks of "
+        f"{chunk} and of {lens[1]}, {n_dec} decode steps of both rows; worst |err|/max|logit| "
+        f"{worst:.3e} (tol 5e-2); kernel run launches {counts}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4, 5 and 6: serve
+# phases 4, 5, 6 and 7: serve
 # ---------------------------------------------------------------------------
 
 
@@ -1398,10 +1583,15 @@ def graph_step_checks(engine, add_request, name_line: str) -> str:
                 "paged decode": ("split_decode_kernel", "paged_decode_kernel"),
                 "MLA decode": ("mla_decode_kernel", "mla_decode_split_kernel",
                                "mla_decode_combine_kernel")}
+    # of the others: the dense bf16 products (cuBLAS, whose kernels are
+    # named nvjet_*, *gemm* or cutlass*) and PyTorch's own elementwise and
+    # reduction kernels (norms, RoPE, activations, casts, residual adds)
+    others = {"cuBLAS": ("nvjet", "gemm", "cutlass"),
+              "PyTorch elementwise/reduce": ("elementwise_kernel", "reduce_kernel")}
     fam_ms = {f: sum(v for k, v in by_kernel.items() if any(c in k for c in keys)) / 1e3
-              for f, keys in families.items()}
+              for f, keys in {**families, **others}.items()}
     fam = ", ".join(f"{f} {v:.3f} ms" for f, v in fam_ms.items())
-    ours = sum(fam_ms.values())
+    ours = sum(fam_ms[f] for f in families)
     lines.append(f"{step_line('engine step (graph, 6 rows)', wall, busy)} "
                  f"({len(by_kernel)} kernel names; the port's kernels {ours:.3f} ms, all "
                  f"others {busy - ours:.3f} ms); {fam}; top: {tops}")
@@ -1409,26 +1599,28 @@ def graph_step_checks(engine, add_request, name_line: str) -> str:
 
 
 def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
-          required, adapter_cls=None, quant=None) -> tuple:
+          required, adapter_cls=None, quant=None, **serve_kw) -> tuple:
     """Serve 6 concurrent requests on ``build(cfg, dev, seed)``'s weights
     (through ``adapter_cls``'s arch adapter when given) and, with ``quant``
     = ``(kv_quant, required, max_tokens)``, a second time on the same
     weights from 1-byte KV pools; returns the launch counts of each run
     (None for a run not asked for), which must show every kernel of its
-    ``required`` and no plain version."""
+    ``required`` and no plain version. ``serve_kw`` goes to
+    :func:`serve_once`."""
     t_w = time.monotonic()
     weights = build(cfg, dev, seed)
     torch.cuda.synchronize()
     log(f"  {cfg.num_layers}-layer weights drawn on the device in "
         f"{time.monotonic() - t_w:.1f} s "
         f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
-    counts = serve_once(dev, name_line, cfg, weights, model_id, required, adapter_cls)
+    counts = serve_once(dev, name_line, cfg, weights, model_id, required, adapter_cls,
+                        **serve_kw)
     q_counts = None
     if quant is not None:
         kv_quant, q_required, q_tokens = quant
         log(f"  the same weights served again from {kv_quant} KV pools")
         q_counts = serve_once(dev, name_line, cfg, weights, f"{model_id}-{kv_quant}-kv",
-                              q_required, adapter_cls, kv_quant, q_tokens)
+                              q_required, adapter_cls, kv_quant, q_tokens, **serve_kw)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -1436,12 +1628,14 @@ def serve(dev, name_line: str, cfg, build, seed: int, model_id: str,
 
 
 def serve_once(dev, name_line: str, cfg, weights, model_id: str, required, adapter_cls=None,
-               kv_quant=None, max_tokens: int = 24) -> dict:
-    """One serve run of ``serve`` (``kv_quant``: its KV pools), each request
-    ``max_tokens`` tokens long, then the graph checks on its engine."""
+               kv_quant=None, max_tokens: int = 24, num_blocks: int = 8 * 16,
+               max_model_len: int = 1024, sizes=(40, 97, 180, 290, 430, 600)) -> dict:
+    """One serve run of ``serve`` (``kv_quant``: its KV pools; ``num_blocks``
+    KV blocks of 64 positions), requests of ``sizes`` prompt tokens,
+    each ``max_tokens`` tokens long, then the graph checks on its engine."""
     adapter = adapter_cls(cfg, weights, device=dev) if adapter_cls else None
-    engine = Engine(cfg, weights, num_blocks=8 * 16, block_size=64, max_batch=8,
-                    max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED,
+    engine = Engine(cfg, weights, num_blocks=num_blocks, block_size=64, max_batch=8,
+                    max_model_len=max_model_len, prefill_chunk=256, device=dev, seed=SEED,
                     adapter=adapter, kv_quant=kv_quant)
     log(f"  split state reserved for the graphs: "
         f"{_cuda.split_workspace(dev, 1).numel() * 4 / 2**20:.1f} MiB of workspace, "
@@ -1463,11 +1657,11 @@ def serve_once(dev, name_line: str, cfg, weights, model_id: str, required, adapt
     threads_before = set(threading.enumerate())
     server = Server(engine, tok, template, model_id, host="127.0.0.1", port=0)
     server.start()
-    # prompts of 40 to 600 tokens; three are longer than one prefill chunk
-    sizes = [40, 97, 180, 290, 430, 600]
+    # prompts of 40 to 600 tokens (three longer than one prefill chunk), or
+    # the caller's
     bodies = []
     for i, n in enumerate(sizes):
-        content = ("the quick brown fox jumps over the lazy dog " * 20)[:n]
+        content = ("the quick brown fox jumps over the lazy dog " * (n // 44 + 1))[:n]
         body = {"model": model_id,
                 "messages": [{"role": "user", "content": content}], "max_tokens": max_tokens}
         if i % 2 == 0:
@@ -1644,6 +1838,26 @@ def main() -> int:
         pq.append(check_prefill(rates, gen, dev, kv_quant=kvq))
         pq.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(512,),
                                 kv_quant=kvq))
+    # Gemma-2-9B's attention (16/8 heads, head_dim 256, softcap 50; after
+    # every other row, which keep the generator's stream of earlier runs):
+    # decode at the table's row (a full layer), at 8 x 8192 on a sliding
+    # layer (window 4096: the walk reads half the table), with a window off
+    # the tile edge; prefill at B=2 T=128 on 300 past and 512 tokens on 3840
+    # past through the window's edge; then Mistral-7B's 32/8 heads at
+    # head_dim 128 with its 4096-position window
+    gemma_attn = dict(n_q=16, n_kv=8, hd=256, softcap=50.0)
+    dh, ph = rows["paged_decode_hd256"], rows["paged_prefill_hd256"]
+    dh.append(check_decode(rates, gen, dev, **gemma_attn))
+    dh.append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128, dropped=7, window=4096,
+                           **gemma_attn))
+    dh.append(check_decode(rates, gen, dev, window=100, **gemma_attn))
+    ph.append(check_prefill(rates, gen, dev, **gemma_attn))
+    ph.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(3840,),
+                            window=4096, **gemma_attn))
+    rows["paged_decode"].append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128,
+                                             dropped=7, window=4096))
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
+                                               past=(3840,), window=4096))
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -1661,6 +1875,10 @@ def main() -> int:
     log("phase 3c: deepseek_forward_paged at full DeepSeek-V2-Lite width, 2 layers, "
         "kernels vs plain")
     check_deepseek_model(dev)
+    torch.cuda.empty_cache()
+    log("phase 3d: forward_paged at full Gemma-2-9B width, 2 layers (sliding, full), kernels "
+        "vs plain")
+    check_gemma_model(dev)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -1687,6 +1905,14 @@ def main() -> int:
                          adapter_cls=DeepseekAdapter)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 7
+    log("phase 7: serve the 42-layer Gemma-2-9B geometry (bf16; one prompt past position 4096)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gemma_counts, _ = serve(dev, name_line, ModelConfig(**GEMMA2_9B), build_gemma, SEED + 12,
+                            "gemma-2-9b-geometry-bf16", GEMMA_KERNELS, num_blocks=192,
+                            max_model_len=8192, sizes=(40, 97, 180, 290, 430, 4400))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -1704,7 +1930,8 @@ def main() -> int:
                 "paged_decode_int8": q8_counts["paged_decode_int8"],
                 "paged_prefill_int8": q8_counts["paged_prefill_int8"],
                 "paged_decode_fp8": model_counts["fp8"]["paged_decode_fp8"],
-                "paged_prefill_fp8": model_counts["fp8"]["paged_prefill_fp8"]}
+                "paged_prefill_fp8": model_counts["fp8"]["paged_prefill_fp8"],
+                **{k: gemma_counts[k] for k in GEMMA_KERNELS}}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]

@@ -3,10 +3,13 @@
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
+    python -m mistralrs_tpu_torch.cli serve path/to/gemma-2-9b --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/DeepSeek-V2-Lite --port 8080
 
-A ``.gguf`` file serves through the llama decoder; a DeepSeek-family HF
-directory (``config.json`` + safetensors) through its arch adapter.
+A ``.gguf`` file and a llama-family HF directory (``config.json`` +
+safetensors + ``tokenizer.json``: Llama, Mistral, Mixtral, Gemma-2, dense
+bf16/f16/f32 tensors) serve through the llama decoder; a DeepSeek-family HF
+directory through its arch adapter.
 ``--kv-quant int8|fp8`` serves from 1-byte KV pools (or latent pool) with
 per-row scales, sized by their own bytes per token.
 """
@@ -74,7 +77,8 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
-    p.add_argument("model", help="a llama .gguf file or a DeepSeek-family HF directory")
+    p.add_argument("model", help="a llama .gguf file, or a llama- or DeepSeek-family HF "
+                                 "directory")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")

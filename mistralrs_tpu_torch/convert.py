@@ -9,6 +9,11 @@ package: a quantized leaf is anything with ``data``, ``scale``, ``bias``,
 ``group_size``, ``packed`` and ``code_bits`` fields, as a mapping or as
 attributes.
 
+Gemma-2's post norms (``post_attn_norm``, ``post_ffn_norm``) come across
+with the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
+the port computes each layer's window from the config
+(``models/llama.py::layer_windows``).
+
 MoE layers carry their ``router`` (``[L, E, H]``) and ``experts`` (a
 mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
 as per-layer ``[E, ...]`` banks. Banks the JAX loader widened to int8 codes
@@ -91,12 +96,10 @@ def from_jax_params(
     their integer codes and f32 scales bit for bit."""
     check_supported(cfg)
     device = resolve_device(device)
-    windows = params.get("layer_windows")
-    if windows is not None and np.any(np.asarray(windows) != 0):
-        raise NotImplementedError("sliding-window layers are not ported")
     stacked = params["layers"]
     unknown = set(stacked) - {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo",
-                              "gate", "up", "wgateup", "down", "router", "experts"}
+                              "gate", "up", "wgateup", "down", "router", "experts",
+                              "post_attn_norm", "post_ffn_norm"}
     if unknown:
         raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")
     experts = stacked.get("experts", {})

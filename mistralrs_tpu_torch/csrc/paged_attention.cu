@@ -3,9 +3,12 @@
 // Replaces the TPU kernels of mistralrs_tpu/ops/paged_attention.py:
 //   paged_decode_attention_fused (:496, body _decode_kernel :38) and
 //   paged_prefill_attention_fused (:1162, body _prefill_kernel :525),
-// for bf16 pools and, in their quantized forms (template argument Q: 1
-// int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools with
-// bf16 scales, without window, softcap or sinks (the wrapper refuses those).
+// for bf16 pools at head_dim 128 or 256 (template argument D) with a
+// sliding window and an attention logit softcap (Gemma-2; the JAX kernels'
+// window and softcap), and, in their quantized forms (template argument Q:
+// 1 int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools
+// with bf16 scales at head_dim 128, without window or softcap. No form
+// takes sinks (the wrapper refuses them).
 //
 // Pool layout (one layer plane): [n_kv, S, hd] bf16, slot = block * bs + row.
 // Both kernels write this step's K/V rows into the pools in place, then run
@@ -47,7 +50,23 @@
 //   - This step's K/V row is written to slots[b] (dropped when < 0) by the
 //     block whose split holds position kv_len - 1, before it reads that
 //     position; no other block reads it. kv_len 0 gives zeros
-//     (acc / max(l, 1e-20)). GQA groups 1 to 16, head_dim 128.
+//     (acc / max(l, 1e-20)). GQA groups 1 to 16, head_dim 128 or 256.
+//   - A sliding window (a query at kv_len - 1 sees kv_len - window ...
+//     kv_len - 1) moves the walk's start to the tile that holds kv_len -
+//     window, and the wrapper's plan (decode_plan with the window) splits
+//     only the positions from there, at most window + 63: at 8 x 8192 with
+//     a 4096 window the kernel reads half the table (the JAX kernel masks
+//     and walks every chunk). The positions of that first tile below the
+//     window are masked in the score step.
+//   - A softcap c maps each score s (q k, unscaled) to c tanh(s scale / c),
+//     the true logit capped, before the mask and the running max; log2(e)
+//     then multiplies in the exponent (the wrapper's scale_log2 is log2(e),
+//     not scale log2(e)). It is a template argument (CAP): the forms
+//     without one compile no tanh.
+//   - At head_dim 256 a block keeps its 4 warps and 64-position tiles, so
+//     its two stages take 128 KB of shared memory and one block fits an
+//     SM (three at 128); each warp's O^T accumulators double to 64
+//     registers a head tile.
 //
 // Prefill (a chunk of T tokens on top of the cached past). Bound: the bf16
 // tensor-core rate at the engine's chunks (causal work T * kv_len), so the
@@ -71,7 +90,18 @@
 // last visible position are skipped, and later query tiles start first.
 // Shared memory: two K/V stages of 32 KB (Q lands in the second one first),
 // two blocks per SM (the registers allow no more). GQA groups dividing 64
-// (1 to 64).
+// (1 to 64). A sliding window skips the KV tiles wholly below the smallest
+// query's horizon (row 0's position - window + 1; JAX _prefill_kernel
+// :869-875) and masks per row on the tiles below the largest one; the
+// softcap is applied as in decode (template argument CAP).
+// At head_dim 256 a warp's Q fragments (64 registers) would not fit beside
+// its accumulators (the head_dim-128 form takes 221-235 registers, 32 of Q, 64
+// of O): the block has 8 warps, warps w and w + 4 own the same 16 query rows
+// and each half of O's head dims (64 registers of O each), both compute
+// the whole S = Q K^T (the QK product twice, a simple first design), and
+// they re-read Q's fragments from shared memory every tile, where Q keeps
+// a region of its own behind the stages (2 x 64 KB of K/V tiles + 32 KB of
+// Q: one block of 8 warps per SM).
 //
 // Quantized forms (1-byte code pools [n_kv, S, 128], scales [n_kv, S] bf16
 // beside them, head-major; blocks of a multiple of 8 positions). Bound:
@@ -111,7 +141,7 @@
 
 namespace {
 
-constexpr int HD = 128;      // head_dim (the wrapper requires it)
+constexpr int HD = 128;      // head_dim of the quantized forms (the wrapper requires it)
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
@@ -140,11 +170,20 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// byte offset of 16-byte chunk c (8 head dims) of row r in a [rows][256 B]
-// tile: chunks XOR-swizzled by r % 8, so the 8 rows an ldmatrix reads at
-// one logical chunk lie in 8 different bank groups
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * FA_ROW_B + ((c ^ (r & 7)) << 4));
+// byte offset of 16-byte chunk c (8 head dims) of row r in a [rows][2 D B]
+// tile of D head dims: chunks XOR-swizzled by r % 8, so the 8 rows an
+// ldmatrix reads at one logical chunk lie in 8 different bank groups
+template <int D>
+__device__ __forceinline__ uint32_t swzh(int r, int c) {
+  return (uint32_t)(r * (2 * D) + ((c ^ (r & 7)) << 4));
+}
+__device__ __forceinline__ uint32_t swz(int r, int c) { return swzh<HD>(r, c); }
+
+// the scores of a softcapped layer: softcap * tanh(s * cap_in), the true
+// logit capped (cap_in = scale / softcap); the exponent then multiplies by
+// log2(e) alone (the wrapper's scale_log2)
+__device__ __forceinline__ float capped(float s, float softcap, float cap_in) {
+  return softcap * tanhf(s * cap_in);
 }
 
 // ---------------------------------------------------------------------------
@@ -261,32 +300,51 @@ quant_chunk_kernel(const __nv_bfloat16* __restrict__ k_new,
 // Shared memory of the prefill kernel's forms: Q = 0 (bf16) holds two
 // stages of bf16 K/V tiles; a quantized form's stage adds the code tiles and
 // the scales behind them, and the f32 scales of the tile in use follow the
-// stages
-template <int Q>
+// stages. At head_dim 128 Q lands in the last stage and is read into
+// registers; at 256 (two stages of 64 KB) Q keeps a region of its own behind
+// the stages and each warp re-reads its fragments from there every tile:
+// its 64 registers would not fit beside the accumulators.
+template <int Q, int D>
 struct PfLayout {
-  static constexpr int STAGE_B = FA_STAGE_B + (Q ? QC_B : 0);
-  static constexpr int SF = FA_STAGES * STAGE_B;         // f32 scales [2][64]
-  static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
-  static constexpr int QOFF = (FA_STAGES - 1) * STAGE_B;  // Q lands in the last stage
+  static_assert(Q == 0 || D == HD, "the quantized forms take head_dim 128");
+  static constexpr int ROW_B = 2 * D;                    // a bf16 row of Q, K or V
+  static constexpr int KV_B = FA_TILE * ROW_B;           // one K or V tile
+  static constexpr int STAGE_B = 2 * KV_B + (Q ? QC_B : 0);
+  static constexpr bool QREG = D == HD;                  // Q fragments in registers
+  // 4 warps of 16 query rows for every 128 head dims of O: at 256, warps w
+  // and w + 4 own the same rows and each half of the head dims
+  static constexpr int THREADS = 128 * (D / 128);
+  static constexpr int QOFF = QREG ? (FA_STAGES - 1) * STAGE_B : FA_STAGES * STAGE_B;
+  static constexpr int SF = FA_STAGES * STAGE_B + (QREG ? 0 : FA_ROWS * ROW_B);
+  static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);  // f32 scales [2][64]
 };
 
-template <int Q>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int Q, int D, bool CAP>
+__global__ void __launch_bounds__(PfLayout<Q, D>::THREADS, D == HD ? 2 : 1)
 paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
                      __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                      const __nv_bfloat16* __restrict__ k_new,
                      const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
                      const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                      const int* __restrict__ n_valid_arr, __nv_bfloat16* __restrict__ out,
-                     int T, int n_q, int n_kv, int S, int W, int bs, float scale_log2) {
-  using L = PfLayout<Q>;
+                     int T, int n_q, int n_kv, int S, int W, int bs, int window, float softcap,
+                     float cap_in, float scale_log2) {
+  using L = PfLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
-  constexpr int ROW_B = Q ? QC_ROW_B : FA_ROW_B;  // bytes of a pool row
+  constexpr int NT = L::THREADS;
+  constexpr int ROW_B = Q ? QC_ROW_B : L::ROW_B;  // bytes of a pool row
+  // (thread indices divide by CPR as unsigned: a signed division's fix-up
+  // for negative values cost the issue-bound body 5 % at head_dim 128)
+  constexpr int CPR = D / 8;                      // 16-byte chunks of a bf16 row
+  constexpr int RPP = NT / CPR;                   // rows one pass of the block copies
+  constexpr int DW = 128;                         // head dims of O a warp owns
   extern __shared__ __align__(128) uint8_t fa_smem[];
   const uint32_t sa = smem_u32(fa_smem);
   // later query tiles see more positions: they start first
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp's 16 rows and its half of O's head dims (compile-time 0 at 128)
+  const int rw = D == HD ? warp : warp & 3, dh = D == HD ? 0 : warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
   const int group = n_q / n_kv;
   const int qtok = FA_ROWS / group;
@@ -301,24 +359,24 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   // (A quantized form's rows were written by quant_chunk_kernel, launched
   // first; its k_new/v_new are their round trips.)
   if constexpr (Q == 0) {
-    for (int i = tid; i < qtok * (HD / 8); i += THREADS) {
-      const int t = t_begin + (i >> 4), c = i & 15;
+    for (int i = tid; i < qtok * CPR; i += NT) {
+      const int t = t_begin + (int)((unsigned)i / CPR), c = (int)((unsigned)i % CPR);
       if (t >= T || t >= nv) continue;
       const int slot = slots[(size_t)b * T + t];
       if (slot < 0) continue;
-      const size_t src = (((size_t)b * T + t) * n_kv + h) * HD + c * 8;
+      const size_t src = (((size_t)b * T + t) * n_kv + h) * D + c * 8;
       const size_t dst = ((size_t)h * S + slot) * ROW_B + c * 16;
       *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
       *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
     }
   }
   // 2. the tile's queries into shared memory (rows past T: zeros)
-  for (int i = tid; i < FA_ROWS * (HD / 8); i += THREADS) {
-    const int r = i >> 4, c = i & 15;
+  for (int i = tid; i < FA_ROWS * CPR; i += NT) {
+    const int r = (int)((unsigned)i / CPR), c = (int)((unsigned)i % CPR);
     const int t = t_begin + r / group;
     const bool ok = t < T;
-    cp_async16(sa + L::QOFF + swz(r, c),
-               q + (ok ? (((size_t)b * T + t) * n_q + h * group + r % group) * HD + c * 8 : 0),
+    cp_async16(sa + L::QOFF + swzh<D>(r, c),
+               q + (ok ? (((size_t)b * T + t) * n_q + h * group + r % group) * D + c * 8 : 0),
                ok);
   }
   cp_async_commit();
@@ -327,39 +385,50 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   // rows past n_valid see the whole cache (their output is never read).
   // block_lim is the tile's largest, min_lim its smallest (row 0's): KV
   // tiles past block_lim are skipped (a tile with no valid token reads
-  // nothing and writes zeros), tiles wholly at or below min_lim need no mask.
+  // nothing and writes zeros), tiles wholly at or below min_lim need no
+  // causal mask. A sliding window (JAX _prefill_kernel :869-875) hides the
+  // positions below lim - window + 1 (lo) from a row: the walk starts at
+  // the tile holding row 0's lo, and only tiles below the largest lo need
+  // the window's mask.
   const int last_valid_t = min(t_begin + qtok, nv) - 1;
   const int block_lim = t_begin >= nv ? -1
                         : (t_begin + qtok <= nv) ? ctx + last_valid_t : kv_len - 1;
   const int min_lim = ctx + t_begin;
-  int lim[2];  // this lane's rows 16 warp + g and + 8
+  const int win = Q ? 0 : window;  // the quantized forms take no window (constant 0)
+  const int max_lo = win > 0 ? block_lim - win + 1 : 0;
+  int lim[2], lo[2];  // this lane's rows 16 rw + g and + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int t = t_begin + (16 * warp + g + 8 * i) / group;
+    const int t = t_begin + (16 * rw + g + 8 * i) / group;
     lim[i] = t < nv ? ctx + t : kv_len - 1;
+    lo[i] = win > 0 ? lim[i] - win + 1 : -1;
   }
-  const int n_tiles = block_lim < 0 ? 0 : block_lim / FA_TILE + 1;
+  const int c0 = win > 0 ? max(0, min_lim - win + 1) / FA_TILE : 0;  // first tile
+  const int n_tiles = block_lim < 0 ? 0 : block_lim / FA_TILE + 1 - c0;
 
-  // The next K/V tile (positions [p0, p0 + 64), tiles loaded in order) into
-  // slot buf, gathered through the block table (positions < ctx) or from
-  // k_new/v_new (>= ctx); rows past block_lim are zero-filled. Thread: chunk
-  // tid % 16 of rows tid / 16 + 8 j; (blk, off) is its first row's table
-  // entry and offset in the block, advanced by additions, not divisions.
-  // A quantized form loads the past's code rows instead (chunk tid % 8 of
-  // rows tid / 8 + 16 j, walked the same way) and their scales (threads
-  // 0-15, 8 positions each), and leaves the rows past block_lim to widen.
+  // The next K/V tile (positions [p0, p0 + 64), tiles loaded in order from
+  // tile c0) into slot buf, gathered through the block table (positions <
+  // ctx) or from k_new/v_new (>= ctx); rows past block_lim are zero-filled.
+  // Thread: chunk tc = tid % CPR of rows tr + RPP j (tr = tid / CPR); (blk, off) is its
+  // first row's table entry and offset in the block, advanced by additions,
+  // not divisions. A quantized form loads the past's code rows instead
+  // (chunk tid % 8 of rows tid / 8 + 16 j, walked the same way) and their
+  // scales (threads 0-15, 8 positions each), and leaves the rows past
+  // block_lim to widen.
   const int* table = block_tables + (size_t)b * W;
   const size_t pool_h = (size_t)h * S;
-  int blk = (tid >> 4) / bs, off0 = (tid >> 4) % bs;
+  const int p_start = c0 * FA_TILE;
+  const int tr = (int)((unsigned)tid / CPR), tc = (int)((unsigned)tid % CPR);
+  int blk = (p_start + tr) / bs, off0 = (p_start + tr) % bs;
   int qblk = (tid >> 3) / bs, qoff = (tid >> 3) % bs;
   int sblk = 8 * (tid & 7) / bs, soff = 8 * (tid & 7) % bs;
   auto load_kv = [&](int buf, int p0) {
     const uint32_t st = sa + buf * L::STAGE_B;
-    const int c = tid & 15;
+    const int c = tc;
     int bj = blk, oj = off0;
 #pragma unroll
-    for (int j = 0; j < FA_TILE / 8; ++j) {
-      const int r = (tid >> 4) + 8 * j, p = p0 + r;
+    for (int j = 0; j < FA_TILE / RPP; ++j) {
+      const int r = tr + RPP * j, p = p0 + r;
       if constexpr (Q == 0) {
         const bool ok = p <= block_lim;
         const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(k_pool);
@@ -367,18 +436,18 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
         size_t off = 0;
         if (ok) {
           if (p < ctx) {
-            off = (pool_h + (size_t)table[bj] * bs + oj) * HD;
+            off = (pool_h + (size_t)table[bj] * bs + oj) * D;
           } else {
-            off = (((size_t)b * T + (p - ctx)) * n_kv + h) * HD;
+            off = (((size_t)b * T + (p - ctx)) * n_kv + h) * D;
             kb = k_new;
             vb = v_new;
           }
         }
-        cp_async16(st + swz(r, c), kb + off + c * 8, ok);
-        cp_async16(st + FA_KV_B + swz(r, c), vb + off + c * 8, ok);
-        for (oj += 8; oj >= bs; oj -= bs) ++bj;
+        cp_async16(st + swzh<D>(r, c), kb + off + c * 8, ok);
+        cp_async16(st + L::KV_B + swzh<D>(r, c), vb + off + c * 8, ok);
+        for (oj += RPP; oj >= bs; oj -= bs) ++bj;
       } else if (p >= ctx && p <= block_lim) {  // the chunk's own rows, in bf16
-        const size_t off = (((size_t)b * T + (p - ctx)) * n_kv + h) * HD + c * 8;
+        const size_t off = (((size_t)b * T + (p - ctx)) * n_kv + h) * D + c * 8;
         cp_async16(st + swz(r, c), k_new + off, true);
         cp_async16(st + FA_KV_B + swz(r, c), v_new + off, true);
       }
@@ -435,50 +504,63 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
     }
   };
 
-  float o[HD / 8][4];  // [16 x 128] output rows of the warp, f32
+  float o[DW / 8][4];  // [16 x 128] output rows of the warp (its head dims), f32
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DW / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-  uint32_t qf[HD / 16][4];  // Q as A fragments, 8 chunks of 16 head dims
+  uint32_t qf[L::QREG ? D / 16 : 1][4];  // Q as A fragments, chunks of 16 head dims
+  const uint32_t qrow = sa + L::QOFF;    // Q's tile (its own region at head_dim 256)
 
 #pragma unroll
   for (int i = 0; i < FA_STAGES - 1; ++i) {
-    if (i < n_tiles) load_kv(i, i * FA_TILE);
+    if (i < n_tiles) load_kv(i, (c0 + i) * FA_TILE);
     cp_async_commit();
   }
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<FA_STAGES - 2>();  // Q and this tile have landed
     __syncthreads();  // ... for every thread; the slot refilled below is free
-    if (it == 0) {
+    if constexpr (L::QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc)
-        ldsm_x4(sa + L::QOFF + swz(16 * warp + (lane & 15), 2 * kc + (lane >> 4)), qf[kc][0],
-                qf[kc][1], qf[kc][2], qf[kc][3]);
-      __syncthreads();  // Q's slot is refilled next
+        for (int kc = 0; kc < D / 16; ++kc)
+          ldsm_x4(qrow + swzh<D>(16 * rw + (lane & 15), 2 * kc + (lane >> 4)), qf[kc][0],
+                  qf[kc][1], qf[kc][2], qf[kc][3]);
+        __syncthreads();  // Q's slot is refilled next
+      }
     }
     const int nxt = it + FA_STAGES - 1;
-    if (nxt < n_tiles) load_kv(nxt % FA_STAGES, nxt * FA_TILE);
+    if (nxt < n_tiles) load_kv(nxt % FA_STAGES, (c0 + nxt) * FA_TILE);
     cp_async_commit();
-    const int p0 = it * FA_TILE;
+    const int p0 = (c0 + it) * FA_TILE;
     if constexpr (Q != 0) {
       widen(it % FA_STAGES, p0);
       __syncthreads();  // the widened tile and its scales, for every warp
     }
-    const uint32_t kt = sa + (it % FA_STAGES) * L::STAGE_B, vt = kt + FA_KV_B;
+    const uint32_t kt = sa + (it % FA_STAGES) * L::STAGE_B, vt = kt + L::KV_B;
 
-    // S = Q K^T: [16 rows x 64 positions] per warp, 8 n-tiles of 8
+    // S = Q K^T: [16 rows x 64 positions] per warp, 8 n-tiles of 8 (at
+    // head_dim 256 both warps of a row group compute the same S)
     float s[FA_TILE / 8][4];
 #pragma unroll
     for (int j = 0; j < FA_TILE / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a0, a1, a2, a3;
+      if constexpr (L::QREG) {
+        a0 = qf[kc][0];
+        a1 = qf[kc][1];
+        a2 = qf[kc][2];
+        a3 = qf[kc][3];
+      } else {
+        ldsm_x4(qrow + swzh<D>(16 * rw + (lane & 15), 2 * kc + (lane >> 4)), a0, a1, a2, a3);
+      }
 #pragma unroll
       for (int jp = 0; jp < FA_TILE / 16; ++jp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(kt + swz(16 * jp + (lane & 7) + ((lane >> 4) << 3), 2 * kc + ((lane >> 3) & 1)),
+        ldsm_x4(kt + swzh<D>(16 * jp + (lane & 7) + ((lane >> 4) << 3), 2 * kc + ((lane >> 3) & 1)),
                 b0, b1, b2, b3);
-        mma_bf16(s[2 * jp], qf[kc][0], qf[kc][1], qf[kc][2], qf[kc][3], b0, b1);
-        mma_bf16(s[2 * jp + 1], qf[kc][0], qf[kc][1], qf[kc][2], qf[kc][3], b2, b3);
+        mma_bf16(s[2 * jp], a0, a1, a2, a3, b0, b1);
+        mma_bf16(s[2 * jp + 1], a0, a1, a2, a3, b2, b3);
       }
     }
     // the k scales fold into the scores (position 8 j + 2 qd + (e & 1)),
@@ -489,16 +571,23 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= sf[8 * j + 2 * qd + (e & 1)];
     }
-    // mask per row on diagonal tiles; the running max m is kept in the raw
-    // scores' units, and the scale enters the exponent in f32:
-    // p = 2^(s * scale_log2 - m * scale_log2), one fma
-    const bool diag = p0 + FA_TILE - 1 > min_lim;
+    if constexpr (CAP) {  // the capped logit, before the mask and the max
+#pragma unroll
+      for (int j = 0; j < FA_TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = capped(s[j][e], softcap, cap_in);
+    }
+    // mask per row on diagonal tiles and on tiles below a row's window; the
+    // running max m is kept in the scores' units, and the scale enters the
+    // exponent in f32: p = 2^(s * scale_log2 - m * scale_log2), one fma
+    const bool masked = p0 + FA_TILE - 1 > min_lim || p0 < max_lo;
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < FA_TILE / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (diag && p0 + 8 * j + 2 * qd + (e & 1) > lim[e >> 1]) s[j][e] = NEG_INF;
+        const int p = p0 + 8 * j + 2 * qd + (e & 1);
+        if (masked && (p > lim[e >> 1] || p < lo[e >> 1])) s[j][e] = NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
     float alpha[2], mc[2], psum[2] = {0.f, 0.f};
@@ -531,7 +620,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
         for (int e = 0; e < 4; ++e) s[j][e] *= sf[FA_TILE + 8 * j + 2 * qd + (e & 1)];
     }
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DW / 8; ++j) {
       o[j][0] *= alpha[0];
       o[j][1] *= alpha[0];
       o[j][2] *= alpha[1];
@@ -542,31 +631,33 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
     // ~16 bits as the plain version's f32 P does
 #pragma unroll
     for (int kc = 0; kc < FA_TILE / 16; ++kc) {
-      uint32_t hi[4], lo[4];
+      uint32_t hi[4], lo_[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float x = s[2 * kc + (i >> 1)][2 * (i & 1)];
         const float y = s[2 * kc + (i >> 1)][2 * (i & 1) + 1];
         hi[i] = pack_bf16(x, y);
-        lo[i] = pack_bf16(x - __uint_as_float(hi[i] << 16),
-                          y - __uint_as_float(hi[i] & 0xFFFF0000u));
+        lo_[i] = pack_bf16(x - __uint_as_float(hi[i] << 16),
+                           y - __uint_as_float(hi[i] & 0xFFFF0000u));
       }
 #pragma unroll
-      for (int jp = 0; jp < HD / 16; ++jp) {
+      for (int jp = 0; jp < DW / 16; ++jp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(vt + swz(16 * kc + (lane & 15), 2 * jp + (lane >> 4)), b0, b1, b2, b3);
+        ldsm_x4_trans(vt + swzh<D>(16 * kc + (lane & 15), 2 * (8 * dh + jp) + (lane >> 4)), b0,
+                      b1, b2, b3);
         mma_bf16(o[2 * jp], hi[0], hi[1], hi[2], hi[3], b0, b1);
         mma_bf16(o[2 * jp + 1], hi[0], hi[1], hi[2], hi[3], b2, b3);
-        mma_bf16(o[2 * jp], lo[0], lo[1], lo[2], lo[3], b0, b1);
-        mma_bf16(o[2 * jp + 1], lo[0], lo[1], lo[2], lo[3], b2, b3);
+        mma_bf16(o[2 * jp], lo_[0], lo_[1], lo_[2], lo_[3], b0, b1);
+        mma_bf16(o[2 * jp + 1], lo_[0], lo_[1], lo_[2], lo_[3], b2, b3);
       }
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // every thread's copies into the Q buffer have landed
+  __syncthreads();  // every copy into the Q buffer has landed; no warp reads Q any more
 
   // 3. normalise (zeros where no position was seen) and write the warp's
-  // rows, staged through its own rows of the Q buffer for 16-byte stores
+  // rows and head dims, staged through its own part of the Q buffer for
+  // 16-byte stores
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -577,22 +668,22 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   }
   uint8_t* stage = fa_smem + L::QOFF;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < DW / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = 16 * warp + g + 8 * i;
-      *reinterpret_cast<uint32_t*>(stage + swz(r, j) + 4 * qd) =
+      const int r = 16 * rw + g + 8 * i;
+      *reinterpret_cast<uint32_t*>(stage + swzh<D>(r, 16 * dh + j) + 4 * qd) =
           pack_bf16(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
     }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 16 * (HD / 8) / 32; ++k) {
+  for (int k = 0; k < 16 * (DW / 8) / 32; ++k) {
     const int i = lane + 32 * k;
-    const int r = 16 * warp + (i >> 4), c = i & 15;
+    const int r = 16 * rw + (i >> 4), c = 16 * dh + (i & 15);
     const int t = t_begin + r / group;
     if (t < T)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * T + t) * n_q + h * group + r % group) * HD +
-                                c * 8) = *reinterpret_cast<const uint4*>(stage + swz(r, c));
+      *reinterpret_cast<uint4*>(out + (((size_t)b * T + t) * n_q + h * group + r % group) * D +
+                                c * 8) = *reinterpret_cast<const uint4*>(stage + swzh<D>(r, c));
   }
 }
 
@@ -604,20 +695,23 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
 
 constexpr int DC_STAGES = 2;  // K/V tiles in the cp.async ring
 constexpr int DC_MAX_GROUP = 16;
-constexpr int DC_OLD = HD + 4;  // f32 stride of a warp's output row in the merge
-static_assert(THREADS == HD, "the merges give each thread one head dim");
 
 // Shared memory of the decode kernel's forms: Q = 0 holds two stages of bf16
-// K/V tiles (64 KB: three blocks per SM); a quantized form holds one widened
-// bf16 K/V tile, then two stages of code tiles and scales, then the widened
-// tile's f32 scales (66.5 KB: three blocks per SM)
-template <int Q>
+// K/V tiles (64 KB at head_dim 128: three blocks per SM; 128 KB at 256: one);
+// a quantized form holds one widened bf16 K/V tile, then two stages of code
+// tiles and scales, then the widened tile's f32 scales (66.5 KB: three
+// blocks per SM)
+template <int Q, int D>
 struct DcLayout {
+  static_assert(Q == 0 || D == HD, "the quantized forms take head_dim 128");
+  static constexpr int KV_B = FA_TILE * 2 * D;             // one bf16 K or V tile
   static constexpr int STAGE0 = Q ? FA_STAGE_B : 0;         // the first stage
-  static constexpr int STAGE_B = Q ? QC_B : FA_STAGE_B;
+  static constexpr int STAGE_B = Q ? QC_B : 2 * KV_B;
   static constexpr int SF = STAGE0 + DC_STAGES * STAGE_B;  // f32 scales [2][64]
   static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
-  static_assert(NWARPS * DC_MAX_GROUP * (DC_OLD + 2) * 4 <= SMEM, "the merge must fit");
+  static constexpr int OLD = D + 4;  // f32 stride of a warp's output row in the merge
+  static_assert(NWARPS * DC_MAX_GROUP * (OLD + 2) * 4 <= SMEM, "the merge must fit");
+  static_assert(D % THREADS == 0, "the merges give each thread D / 128 head dims");
 };
 
 // the 8x8 b16 matrix held in the m16n8k16 fragment layout, transposed
@@ -630,20 +724,21 @@ __device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
 // The score step of one tile for the warp's 16 positions: S^T [16 positions
 // x 8 NT heads] = K Q^T, lane (g, q) getting positions g and g + 8 of heads
 // 2q and 2q + 1 of each head tile. A quantized form's k scales of the two
-// positions (ks0, ks1) multiply the scores first. Positions at or past the
-// split's end are masked here (their rows were zero-filled).
-template <int NT, bool FOLD>
+// positions (ks0, ks1) multiply the scores first; a softcap then caps them.
+// Positions outside [the window's first, the split's end) are masked here
+// (those past the end were zero-filled).
+template <int NT, bool FOLD, int D, bool CAP>
 __device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
-                                              const uint32_t (&qb)[NT][HD / 16][2],
+                                              const uint32_t (&qb)[NT][D / 16][2],
                                               bool in0, bool in1, float ks0, float ks1,
-                                              float (&s)[NT][4]) {
+                                              float softcap, float cap_in, float (&s)[NT][4]) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) {
+  for (int kc = 0; kc < D / 16; ++kc) {
     uint32_t a0, a1, a2, a3;
-    ldsm_x4(kt + swz(r0 + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * kc + (lane >> 4)), a0, a1,
-            a2, a3);
+    ldsm_x4(kt + swzh<D>(r0 + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * kc + (lane >> 4)), a0,
+            a1, a2, a3);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) mma_bf16(s[nt], a0, a1, a2, a3, qb[nt][kc][0], qb[nt][kc][1]);
   }
@@ -655,13 +750,17 @@ __device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
       s[nt][2] *= ks1;
       s[nt][3] *= ks1;
     }
+    if constexpr (CAP) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = capped(s[nt][e], softcap, cap_in);
+    }
     if (!in0) s[nt][0] = s[nt][1] = NEG_INF;
     if (!in1) s[nt][2] = s[nt][3] = NEG_INF;
   }
 }
 
-template <int NT, int Q>
-__global__ void __launch_bounds__(THREADS, 3)
+template <int NT, int Q, int D, bool CAP>
+__global__ void __launch_bounds__(THREADS, D == HD ? 3 : 1)
 split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
                     __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                     const __nv_bfloat16* __restrict__ k_new,
@@ -669,10 +768,12 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
                     const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                     int* __restrict__ counters, int n_q, int n_kv, int S, int W, int bs,
-                    int span, int splits, float scale_log2) {
-  using L = DcLayout<Q>;
+                    int span, int splits, int window, float softcap, float cap_in,
+                    float scale_log2) {
+  using L = DcLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
-  constexpr int ROW_B = Q ? QC_ROW_B : FA_ROW_B;  // bytes of a pool row
+  constexpr int ROW_B = Q ? QC_ROW_B : 2 * D;  // bytes of a pool row
+  constexpr int OLD = L::OLD;
   extern __shared__ __align__(128) uint8_t dc_smem[];
   __shared__ int s_last;
   const uint32_t sa = smem_u32(dc_smem);
@@ -681,10 +782,16 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   const int g = lane >> 2, qd = lane & 3;
   const int group = n_q / n_kv;
   const int kv_len = kv_lens[b];
+  // A sliding window hides the positions below kv_len - window (p_lo): the
+  // walk starts at the tile that holds it, and the plan's splits cover
+  // [start, kv_len) only
+  const int win = Q ? 0 : window;  // the quantized forms take no window (constant 0)
+  const int start = win > 0 && kv_len > win ? (kv_len - win) / FA_TILE * FA_TILE : 0;
+  const int p_lo = win > 0 ? kv_len - win : 0;
   // splits that hold a position (split 0 alone for kv_len 0)
-  const int live = kv_len > span ? (kv_len + span - 1) / span : 1;
+  const int live = kv_len - start > span ? (kv_len - start + span - 1) / span : 1;
   if (s >= live) return;
-  const int p_begin = s * span;
+  const int p_begin = start + s * span;
   const int p_end = min(p_begin + span, kv_len);
 
   // 1. this step's K/V row -> slots[b] (slot < 0: dropped), by the split
@@ -693,11 +800,11 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   // before the barrier, as the bf16 row is)
   const int slot = slots[b];
   if constexpr (Q == 0) {
-    if (slot >= 0 && s == live - 1 && tid < 2 * (HD / 8)) {
-      const int c = tid & 15;
-      const size_t src = ((size_t)b * n_kv + h) * HD + c * 8;
+    if (slot >= 0 && s == live - 1 && tid < 2 * (D / 8)) {
+      const int c = tid % (D / 8);
+      const size_t src = ((size_t)b * n_kv + h) * D + c * 8;
       const size_t dst = ((size_t)h * S + slot) * ROW_B + c * 16;
-      if (tid < 16)
+      if (tid < D / 8)
         *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src);
       else
         *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
@@ -716,42 +823,43 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
 
   // 2. the group's queries as B fragments: head 8 nt + g (zeros past the
   // group), head dims 16 kc + 2q (+1) and + 8
-  uint32_t qb[NT][HD / 16][2];
+  uint32_t qb[NT][D / 16][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int head = 8 * nt + g;
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
-        q + ((size_t)b * n_q + h * group + (head < group ? head : 0)) * HD + 2 * qd);
+        q + ((size_t)b * n_q + h * group + (head < group ? head : 0)) * D + 2 * qd);
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
       qb[nt][kc][0] = head < group ? qr[8 * kc] : 0u;
       qb[nt][kc][1] = head < group ? qr[8 * kc + 4] : 0u;
     }
   }
 
   // 3. the K/V tiles of [p_begin, p_end) in order into the ring. Thread:
-  // chunk tid % 16 of rows tid / 16 + 8 j; (blk, off0) is its first row's
-  // table entry and offset in the block, advanced by additions. A quantized
-  // form's code rows: chunk tid % 8 of rows tid / 8 + 16 j; its scales:
-  // threads 0-15, 8 positions each (K below 8, V from 8).
+  // chunk tc = tid % CPR of rows tr + RPP j (tr = tid / CPR); (blk, off0) is its first
+  // row's table entry and offset in the block, advanced by additions. A
+  // quantized form's code rows: chunk tid % 8 of rows tid / 8 + 16 j; its
+  // scales: threads 0-15, 8 positions each (K below 8, V from 8).
   const int* table = block_tables + (size_t)b * W;
   const size_t pool_h = (size_t)h * S;
   constexpr int CPR = ROW_B / 16;   // 16-byte chunks of a pool row
   constexpr int RPP = THREADS / CPR;  // rows a pass of the block copies
-  int blk = (p_begin + tid / CPR) / bs, off0 = (p_begin + tid / CPR) % bs;
+  const int tr = (int)((unsigned)tid / CPR), tc = (int)((unsigned)tid % CPR);
+  int blk = (p_begin + tr) / bs, off0 = (p_begin + tr) % bs;
   int sblk = (p_begin + 8 * (tid & 7)) / bs, soff = (p_begin + 8 * (tid & 7)) % bs;
   auto load_kv = [&](int buf, int p0) {
     const uint32_t st = sa + L::STAGE0 + buf * L::STAGE_B;
-    const int c = tid % CPR;
+    const int c = tc;
     int bj = blk, oj = off0;
 #pragma unroll
     for (int j = 0; j < FA_TILE / RPP; ++j) {
-      const int r = tid / CPR + RPP * j;
+      const int r = tr + RPP * j;
       const bool ok = p0 + r < p_end;
       const size_t off = ok ? (pool_h + (size_t)table[bj] * bs + oj) * ROW_B + c * 16 : 0;
       if constexpr (Q == 0) {
-        cp_async16(st + swz(r, c), k_pool + off, ok);
-        cp_async16(st + FA_KV_B + swz(r, c), v_pool + off, ok);
+        cp_async16(st + swzh<D>(r, c), k_pool + off, ok);
+        cp_async16(st + L::KV_B + swzh<D>(r, c), v_pool + off, ok);
       } else {
         cp_async16(st + r * QC_ROW_B + c * 16, k_pool + off, ok);
         cp_async16(st + QC_KV_B + r * QC_ROW_B + c * 16, v_pool + off, ok);
@@ -785,11 +893,11 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
     sf[tid] = p0 + r < p_end ? f : 0.f;
   };
 
-  float o[NT][HD / 16][4];  // O^T [128 head dims x 8 NT heads], f32
+  float o[NT][D / 16][4];  // O^T [D head dims x 8 NT heads], f32
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int dt = 0; dt < HD / 16; ++dt) o[nt][dt][0] = o[nt][dt][1] = o[nt][dt][2] = o[nt][dt][3] = 0.f;
+    for (int dt = 0; dt < D / 16; ++dt) o[nt][dt][0] = o[nt][dt][1] = o[nt][dt][2] = o[nt][dt][3] = 0.f;
   float m_run[NT][2], l_run[NT][2];  // heads 2q, 2q + 1 of each head tile
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -814,14 +922,15 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
       widen(it % DC_STAGES, p_begin + it * FA_TILE);
       __syncthreads();  // the widened tile and its scales, for every warp
     }
-    const uint32_t kt = sa + (Q ? 0 : (it % DC_STAGES) * FA_STAGE_B), vt = kt + FA_KV_B;
+    const uint32_t kt = sa + (Q ? 0 : (it % DC_STAGES) * L::STAGE_B), vt = kt + L::KV_B;
     const int pw = p_begin + it * FA_TILE + r0 + g;
     float sc[NT][4];
-    decode_scores<NT, Q != 0>(kt, r0, lane, qb, pw < p_end, pw + 8 < p_end,
-                              Q ? sf[r0 + g] : 1.f, Q ? sf[r0 + g + 8] : 1.f, sc);
+    decode_scores<NT, Q != 0, D, CAP>(kt, r0, lane, qb, pw >= p_lo && pw < p_end,
+                                      pw + 8 >= p_lo && pw + 8 < p_end, Q ? sf[r0 + g] : 1.f,
+                                      Q ? sf[r0 + g + 8] : 1.f, softcap, cap_in, sc);
 
-    // online softmax per head; the running max in the raw scores' units,
-    // the scale inside the exponent: p = 2^(s * scale_log2 - m * scale_log2)
+    // online softmax per head; the running max in the scores' units, the
+    // scale inside the exponent: p = 2^(s * scale_log2 - m * scale_log2)
     uint32_t bh[NT][2], bl[NT][2];  // P^T as B fragments: hi and lo parts
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -840,7 +949,7 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
         p[2 + e] = sc[nt][2 + e] > 0.5f * NEG_INF ? ex2(fmaf(sc[nt][2 + e], scale_log2, -mc)) : 0.f;
         l_run[nt][e] = l_run[nt][e] * alpha + p[e] + p[2 + e];  // the lane's share
 #pragma unroll
-        for (int dt = 0; dt < HD / 16; ++dt) {
+        for (int dt = 0; dt < D / 16; ++dt) {
           o[nt][dt][e] *= alpha;
           o[nt][dt][2 + e] *= alpha;
         }
@@ -866,9 +975,9 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
     }
     // O^T += V^T P^T: V^T [16 head dims x 16 positions] by ldmatrix.trans
 #pragma unroll
-    for (int dt = 0; dt < HD / 16; ++dt) {
+    for (int dt = 0; dt < D / 16; ++dt) {
       uint32_t a0, a1, a2, a3;
-      ldsm_x4_trans(vt + swz(r0 + (lane & 7) + ((lane >> 4) << 3), 2 * dt + ((lane >> 3) & 1)),
+      ldsm_x4_trans(vt + swzh<D>(r0 + (lane & 7) + ((lane >> 4) << 3), 2 * dt + ((lane >> 3) & 1)),
                     a0, a1, a2, a3);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -881,9 +990,9 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   __syncthreads();  // the ring is free for the merge
 
   // 4. merge the 4 warps in warp order: each warp's (m, l) and O^T rows per
-  // head into shared memory, then thread d combines head dim d
-  float* so = reinterpret_cast<float*>(dc_smem);  // [warp][head][DC_OLD]
-  float* sml = so + NWARPS * DC_MAX_GROUP * DC_OLD;  // [warp][head][2]
+  // head into shared memory, then thread d combines head dims d, d + 128
+  float* so = reinterpret_cast<float*>(dc_smem);  // [warp][head][OLD]
+  float* sml = so + NWARPS * DC_MAX_GROUP * OLD;  // [warp][head][2]
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -898,37 +1007,41 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
         sml[2 * row + 1] = l;
       }
 #pragma unroll
-      for (int dt = 0; dt < HD / 16; ++dt) {
-        so[row * DC_OLD + 16 * dt + g] = o[nt][dt][e];
-        so[row * DC_OLD + 16 * dt + g + 8] = o[nt][dt][2 + e];
+      for (int dt = 0; dt < D / 16; ++dt) {
+        so[row * OLD + 16 * dt + g] = o[nt][dt][e];
+        so[row * OLD + 16 * dt + g + 8] = o[nt][dt][2 + e];
       }
     }
   __syncthreads();
-  const int d = tid;
   const size_t row0 = (size_t)b * n_q + h * group;  // the group's first query head
-  float* pacc = part;                                         // [B, n_q, splits, HD]
-  float* pml = part + (size_t)gridDim.z * n_q * splits * HD;  // [B, n_q, splits, 2]
+  float* pacc = part;                                        // [B, n_q, splits, D]
+  float* pml = part + (size_t)gridDim.z * n_q * splits * D;  // [B, n_q, splits, 2]
   for (int hh = 0; hh < group; ++hh) {
     float mb = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) mb = fmaxf(mb, sml[2 * (w * DC_MAX_GROUP + hh)]);
-    float acc = 0.f, l = 0.f;
+    float f[NWARPS], l = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
       const int row = w * DC_MAX_GROUP + hh;
-      const float f = ex2((sml[2 * row] - mb) * scale_log2);
-      acc = fmaf(f, so[row * DC_OLD + d], acc);
-      l = fmaf(f, sml[2 * row + 1], l);
+      f[w] = ex2((sml[2 * row] - mb) * scale_log2);
+      l = fmaf(f[w], sml[2 * row + 1], l);
     }
-    if (live == 1) {
-      out[(row0 + hh) * HD + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
-    } else {
-      const size_t at = (row0 + hh) * splits + s;
-      pacc[at * HD + d] = acc;
-      if (d == 0) {
-        pml[2 * at] = mb;
-        pml[2 * at + 1] = l;
-      }
+    const size_t at = (row0 + hh) * splits + s;
+#pragma unroll
+    for (int i = 0; i < D / THREADS; ++i) {
+      const int d = tid + THREADS * i;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) acc = fmaf(f[w], so[(w * DC_MAX_GROUP + hh) * OLD + d], acc);
+      if (live == 1)
+        out[(row0 + hh) * D + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
+      else
+        pacc[at * D + d] = acc;
+    }
+    if (live != 1 && tid == 0) {
+      pml[2 * at] = mb;
+      pml[2 * at + 1] = l;
     }
   }
   if (live == 1) return;
@@ -944,42 +1057,46 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
     const size_t at = (row0 + hh) * splits;
     float mb = NEG_INF;
     for (int sp = 0; sp < live; ++sp) mb = fmaxf(mb, __ldcg(pml + 2 * (at + sp)));
-    float acc = 0.f, l = 0.f;
-    for (int sp = 0; sp < live; ++sp) {
-      const float f = ex2((__ldcg(pml + 2 * (at + sp)) - mb) * scale_log2);
-      acc = fmaf(f, __ldcg(pacc + (at + sp) * HD + d), acc);
-      l = fmaf(f, __ldcg(pml + 2 * (at + sp) + 1), l);
+#pragma unroll
+    for (int i = 0; i < D / THREADS; ++i) {
+      const int d = tid + THREADS * i;
+      float acc = 0.f, l = 0.f;
+      for (int sp = 0; sp < live; ++sp) {
+        const float f = ex2((__ldcg(pml + 2 * (at + sp)) - mb) * scale_log2);
+        acc = fmaf(f, __ldcg(pacc + (at + sp) * D + d), acc);
+        l = fmaf(f, __ldcg(pml + 2 * (at + sp) + 1), l);
+      }
+      out[(row0 + hh) * D + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
     }
-    out[(row0 + hh) * HD + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
   }
   if (tid == 0) counters[(size_t)b * n_kv + h] = 0;  // ready for the next call
 }
 
-template <int NT, int Q>
+template <int NT, int Q, int D, bool CAP>
 cudaError_t launch_decode(const __nv_bfloat16* q, uint8_t* k_pool, uint8_t* v_pool,
                           __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                           const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
                           const int* slots, const int* block_tables, const int* kv_lens,
                           __nv_bfloat16* out, float* part, int* counters, int B, int n_q,
-                          int n_kv, int S, int W, int bs, int span, int splits, float scale_log2,
-                          cudaStream_t st) {
-  constexpr int smem = DcLayout<Q>::SMEM;
+                          int n_kv, int S, int W, int bs, int span, int splits, int window,
+                          float softcap, float cap_in, float scale_log2, cudaStream_t st) {
+  constexpr int smem = DcLayout<Q, D>::SMEM;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      split_decode_kernel<NT, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      split_decode_kernel<NT, Q, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  split_decode_kernel<NT, Q><<<dim3(splits, n_kv, B), THREADS, smem, st>>>(
+  split_decode_kernel<NT, Q, D, CAP><<<dim3(splits, n_kv, B), THREADS, smem, st>>>(
       q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out, part,
-      counters, n_q, n_kv, S, W, bs, span, splits, scale_log2);
+      counters, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in, scale_log2);
   return cudaSuccess;
 }
 
-template <int Q>
+template <int Q, int D>
 cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_scale,
                             void* v_scale, const void* k_new, const void* v_new, const void* slots,
                             const void* block_tables, const void* kv_lens, void* out,
                             void* partials, void* counters, int B, int n_q, int n_kv, int S,
-                            int W, int bs, int span, int splits, float scale_log2,
-                            cudaStream_t st) {
+                            int W, int bs, int span, int splits, int window, float softcap,
+                            float cap_in, float scale_log2, cudaStream_t st) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* kp = static_cast<uint8_t*>(k_pool);
   auto* vp = static_cast<uint8_t*>(v_pool);
@@ -993,31 +1110,41 @@ cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_s
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(partials);
   auto* cp = static_cast<int*>(counters);
-  return n_q / n_kv <= 8
-             ? launch_decode<1, Q>(qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q,
-                                   n_kv, S, W, bs, span, splits, scale_log2, st)
-             : launch_decode<2, Q>(qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q,
-                                   n_kv, S, W, bs, span, splits, scale_log2, st);
+  // a softcap is its own instance (CAP), so the forms without one run no tanh code
+  const bool wide = n_q / n_kv > 8;
+  if constexpr (Q == 0) {
+    if (softcap > 0.f)
+      return (wide ? launch_decode<2, Q, D, true> : launch_decode<1, Q, D, true>)(
+          qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs, span,
+          splits, window, softcap, cap_in, scale_log2, st);
+  }
+  return (wide ? launch_decode<2, Q, D, false> : launch_decode<1, Q, D, false>)(
+      qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs, span, splits,
+      window, softcap, cap_in, scale_log2, st);
 }
 
-bool decode_args_ok(int B, int n_q, int n_kv, int hd, int W, int bs, int span, int splits,
-                    const void* partials, const void* counters) {
-  return B >= 0 && hd == HD && n_kv > 0 && n_q % n_kv == 0 && n_q / n_kv <= DC_MAX_GROUP &&
-         span > 0 && span % FA_TILE == 0 && splits >= 1 && bs > 0 &&
-         (long long)splits * span >= (long long)W * bs &&
+// The plan must cover every walk: [0, kv_len) with kv_len <= W * bs, or with
+// a window [the tile holding kv_len - window, kv_len), < window + 64 positions
+bool decode_args_ok(int B, int n_q, int n_kv, int W, int bs, int span, int splits, int window,
+                    float softcap, const void* partials, const void* counters) {
+  const long long table = (long long)W * bs, win = (long long)window + FA_TILE - 1;
+  const long long walk = window > 0 && win < table ? win : table;
+  return B >= 0 && n_kv > 0 && n_q % n_kv == 0 && n_q / n_kv <= DC_MAX_GROUP && span > 0 &&
+         span % FA_TILE == 0 && splits >= 1 && bs > 0 && window >= 0 && softcap >= 0.f &&
+         (long long)splits * span >= walk &&
          (splits == 1 || (partials != nullptr && counters != nullptr));
 }
 
-template <int Q>
+template <int Q, int D, bool CAP>
 cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_scale,
                            void* v_scale, const void* k_new, const void* v_new, const void* slots,
                            const void* block_tables, const void* kv_lens, const void* n_valid,
                            void* out, int B, int T, int n_q, int n_kv, int S, int W, int bs,
-                           float scale_log2, cudaStream_t st, void* k_rt = nullptr,
-                           void* v_rt = nullptr) {
-  constexpr int smem = PfLayout<Q>::SMEM;
+                           int window, float softcap, float cap_in, float scale_log2,
+                           cudaStream_t st, void* k_rt = nullptr, void* v_rt = nullptr) {
+  using L = PfLayout<Q, D>;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      paged_prefill_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      paged_prefill_kernel<Q, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (opt_in != cudaSuccess) return opt_in;
   if constexpr (Q != 0) {  // the chunk's rows: written, and round-tripped for the attention
     quant_chunk_kernel<Q == 2><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(
@@ -1031,84 +1158,100 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
   }
   const int qtok = FA_ROWS / (n_q / n_kv);
   dim3 grid((T + qtok - 1) / qtok, n_kv, B);
-  paged_prefill_kernel<Q><<<grid, THREADS, smem, st>>>(
+  paged_prefill_kernel<Q, D, CAP><<<grid, L::THREADS, L::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<uint8_t*>(k_pool),
       static_cast<uint8_t*>(v_pool), static_cast<__nv_bfloat16*>(k_scale),
       static_cast<__nv_bfloat16*>(v_scale), static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(slots),
       static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
       static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out), T, n_q, n_kv, S, W, bs,
-      scale_log2);
+      window, softcap, cap_in, scale_log2);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// q [B, n_q, 128], pools [n_kv, S, 128] (one layer plane), k_new/v_new
-// [B, n_kv, 128], slots [B], block_tables [B, W], kv_lens [B] (length after
-// this step's write), out [B, n_q, 128]. group = n_q / n_kv <= 16. The plan:
-// `splits` splits of `span` positions (a multiple of 64) covering W * bs;
-// with splits > 1, partials f32 [B * n_q * splits * 130] and counters int32
-// [B * n_kv] (all zero, left zero).
+// q [B, n_q, hd], pools [n_kv, S, hd] (one layer plane), k_new/v_new
+// [B, n_kv, hd], slots [B], block_tables [B, W], kv_lens [B] (length after
+// this step's write), out [B, n_q, hd]; hd 128 or 256. group = n_q / n_kv
+// <= 16. window: 0 (full attention) or the positions a query sees, its own
+// included; softcap: 0 (none) or the cap, with cap_in = scale / softcap and
+// scale_log2 = log2(e) (else scale * log2(e)). The plan: `splits` splits of
+// `span` positions (a multiple of 64) covering the walk (W * bs, or less
+// than window + 64 with a window); with splits > 1, partials f32
+// [B * n_q * splits * (hd + 2)] and counters int32 [B * n_kv] (all zero,
+// left zero).
 extern "C" int mrt_paged_decode(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                 const void* v_new, const void* slots, const void* block_tables,
                                 const void* kv_lens, void* out, void* partials, void* counters,
-                                int B, int n_q, int n_kv, int hd, int S, int W, int bs, int span,
-                                int splits, float scale_log2, void* stream) {
-  if (!decode_args_ok(B, n_q, n_kv, hd, W, bs, span, splits, partials, counters))
+                                int B, int n_q, int n_kv, int hd, int window, float softcap,
+                                float cap_in, int S, int W, int bs, int span, int splits,
+                                float scale_log2, void* stream) {
+  if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, window, softcap, partials, counters) ||
+      (hd != 128 && hd != 256))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const cudaError_t e = launch_decode_q<0>(
+  const cudaError_t e = (hd == 128 ? launch_decode_q<0, 128> : launch_decode_q<0, 256>)(
       q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, out,
-      partials, counters, B, n_q, n_kv, S, W, bs, span, splits, scale_log2,
-      static_cast<cudaStream_t>(stream));
+      partials, counters, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
+      scale_log2, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The quantized form: pools of 1-byte codes [n_kv, S, 128] (int8, or e4m3
 // when fp8 != 0) with bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple
-// of 8 (a 16-byte copy of scales stays in one block); the rest as above.
+// of 8 (a 16-byte copy of scales stays in one block); no window, no
+// softcap; the rest as above.
 extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                   const void* v_new, const void* slots, const void* block_tables,
                                   const void* kv_lens, void* out, void* partials, void* counters,
                                   int B, int n_q, int n_kv, int hd, int S, int W, int bs,
                                   int span, int splits, float scale_log2, void* k_scale,
                                   void* v_scale, int fp8, void* stream) {
-  if (!decode_args_ok(B, n_q, n_kv, hd, W, bs, span, splits, partials, counters) || bs % 8 != 0)
+  if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, 0, 0.f, partials, counters) ||
+      hd != HD || bs % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const cudaError_t e =
-      (fp8 ? launch_decode_q<2> : launch_decode_q<1>)(
+      (fp8 ? launch_decode_q<2, HD> : launch_decode_q<1, HD>)(
           q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
-          partials, counters, B, n_q, n_kv, S, W, bs, span, splits, scale_log2,
+          partials, counters, B, n_q, n_kv, S, W, bs, span, splits, 0, 0.f, 0.f, scale_log2,
           static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 
-// q [B, T, n_q, 128], pools [n_kv, S, 128], k_new/v_new [B, T, n_kv, 128],
+// q [B, T, n_q, hd], pools [n_kv, S, hd], k_new/v_new [B, T, n_kv, hd],
 // slots [B, T], block_tables [B, W], kv_lens [B] (after the chunk's writes),
-// n_valid [B], out [B, T, n_q, 128]. The chunk's valid tokens sit at
-// positions [kv_len - n_valid, kv_len). 64 % (n_q / n_kv) == 0.
+// n_valid [B], out [B, T, n_q, hd]; hd 128 or 256. The chunk's valid tokens
+// sit at positions [kv_len - n_valid, kv_len). 64 % (n_q / n_kv) == 0.
+// window, softcap, cap_in and scale_log2 as for the decode kernel.
 extern "C" int mrt_paged_prefill(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                  const void* v_new, const void* slots, const void* block_tables,
                                  const void* kv_lens, const void* n_valid, void* out, int B, int T,
-                                 int n_q, int n_kv, int hd, int S, int W, int bs,
-                                 float scale_log2, void* stream) {
-  if (hd != HD || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = launch_prefill<0>(q, k_pool, v_pool, nullptr, nullptr, k_new, v_new,
-                                          slots, block_tables, kv_lens, n_valid, out, B, T, n_q,
-                                          n_kv, S, W, bs, scale_log2,
-                                          static_cast<cudaStream_t>(stream));
+                                 int n_q, int n_kv, int hd, int window, float softcap,
+                                 float cap_in, int S, int W, int bs, float scale_log2,
+                                 void* stream) {
+  if ((hd != 128 && hd != 256) || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0 ||
+      window < 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = (hd == 128 ? (softcap > 0.f ? launch_prefill<0, 128, true>
+                                                     : launch_prefill<0, 128, false>)
+                                   : (softcap > 0.f ? launch_prefill<0, 256, true>
+                                                    : launch_prefill<0, 256, false>))(
+      q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, n_valid,
+      out, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in, scale_log2,
+      static_cast<cudaStream_t>(stream), nullptr, nullptr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The quantized form: 1-byte code pools (int8, or e4m3 when fp8 != 0) with
 // bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple of 8; k_rt/v_rt
-// scratch like k_new/v_new (the chunk's rows' round trips).
+// scratch like k_new/v_new (the chunk's rows' round trips); head_dim 128,
+// no window, no softcap.
 extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                    const void* v_new, const void* slots, const void* block_tables,
                                    const void* kv_lens, const void* n_valid, void* out, int B,
@@ -1117,9 +1260,10 @@ extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, co
                                    void* k_rt, void* v_rt, void* stream) {
   if (hd != HD || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0 || bs % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = (fp8 ? launch_prefill<2> : launch_prefill<1>)(
+  const cudaError_t e = (fp8 ? launch_prefill<2, HD, false> : launch_prefill<1, HD, false>)(
       q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-      out, B, T, n_q, n_kv, S, W, bs, scale_log2, static_cast<cudaStream_t>(stream), k_rt, v_rt);
+      out, B, T, n_q, n_kv, S, W, bs, 0, 0.f, 0.f, scale_log2, static_cast<cudaStream_t>(stream),
+      k_rt, v_rt);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,9 @@
   ``decode`` in place of the llama decoder (DeepSeek's absorbed MLA).
 * ``kv_quant`` (``"int8"`` or ``"fp8"``) serves from 1-byte KV pools with
   per-(layer, head, slot) scales (``kv/paged.py``), or an adapter's own
-  quantized cache where the adapter has one (``supports_kv_quant``).
+  quantized cache where the adapter has one (``supports_kv_quant``). A
+  llama-family model with a sliding window, a logit softcap or head_dim 256
+  is refused there, since the 1-byte kernel forms take none of them.
 
 Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
 constraints and the DRY penalty are not ported yet.
@@ -42,8 +44,9 @@ from .._device import DeviceLike, resolve_device
 from ..kv.manager import KVCacheManager
 from ..kv.paged import PagedKVCache
 from ..models.config import ModelConfig
-from ..models.llama import check_supported, forward_paged, kernel_workspace
+from ..models.llama import check_supported, forward_paged, kernel_workspace, layer_windows
 from ..ops._cuda import sm_count
+from ..ops.paged_attention import refuse_quantized_options
 from ..quant.qtensor import QTensor
 from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
 from .sampler import BatchSamplingState, SamplingParams, sample
@@ -130,6 +133,9 @@ class Engine:
         self.adapter = adapter
         if adapter is None:
             check_supported(cfg)
+            if kv_quant is not None:  # before the pools: the 1-byte forms take none of these
+                refuse_quantized_options(int(layer_windows(cfg).max(initial=0)),
+                                         cfg.attn_logit_softcap, cfg.head_dim)
             self.weights = weights_to(weights, self.device)
         else:
             if adapter.device != self.device:

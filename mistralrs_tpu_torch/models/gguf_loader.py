@@ -108,7 +108,9 @@ def load_gguf_model(
         md = content.metadata
         cfg = config_from_gguf(md)
         if cfg.arch != "llama":
-            raise NotImplementedError(f"GGUF arch {cfg.arch!r}: only llama is ported")
+            raise NotImplementedError(
+                f"GGUF arch {cfg.arch!r}: only llama is ported (Gemma-2 loads from its "
+                "Hugging Face directory: GGUF metadata carries no softcaps)")
         check_supported(cfg)
 
         def load(name, dense=False, heads=0):

@@ -1,7 +1,7 @@
 """Llama-family decoder over the paged KV cache (counterpart of
 ``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, the dense MLP
 and the Mixtral-style mixture of experts (``_moe_mlp`` at :272), plus
-``fuse_projections`` and ``init_random_weights``).
+``fuse_projections``, ``layer_windows`` and ``init_random_weights``).
 
 Weights are a plain dictionary. Per-layer weights are a LIST of dictionaries
 (one per layer) and the decoder is a Python loop over it, where the JAX
@@ -10,7 +10,17 @@ package stacks them and runs ``lax.scan``. A projection is a dense
 
     {"embed": [V, H], "final_norm": [H], "lm_head": [V, H] | None (tied),
      "layers": [{"attn_norm", "ffn_norm", "wq", "wk", "wv" | "wqkv", "wo",
-                 "gate", "up" | "wgateup", "down"}, ...]}
+                 "gate", "up" | "wgateup", "down",
+                 "post_attn_norm", "post_ffn_norm" (Gemma-2, optional)}, ...]}
+
+The gemma family (JAX ``forward_paged`` :940-950, :1064-1067, :1195-1208,
+:1324-1325) scales the embedding by ``sqrt(hidden)`` cast to the compute
+dtype, applies its norms as ``1 + w`` (``rms_norm_gemma``) and the post
+norms where the layer has them; ``cfg.hidden_act`` picks the MLP's
+activation; each layer's window (``layer_windows(cfg)``, a Python int, so a
+captured step keeps it) and ``cfg.attn_logit_softcap`` go to both attention
+kernels, and
+``cfg.logit_softcap`` caps the f32 logits.
 
 An MoE layer holds ``"router"`` (dense ``[E, H]``) and ``"experts"``
 (``{"gate", "up" | "gateup", "down"}``, each a ``[E, out, in]`` bank: a
@@ -22,13 +32,15 @@ the decode kernel for one token per row, the prefill kernel otherwise; both
 write the step's K/V into the pools in place (quantized as they are written
 when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``
 and of ``llama`` with experts (how GGUF Mixtral files arrive) are ported;
-other routers, shared experts, expert parallelism, LoRA, M-RoPE, logit
-softcaps, sinks and sliding windows are not yet and raise
-``NotImplementedError``.
+other routers, shared experts, expert parallelism, LoRA, M-RoPE, q/k norms,
+a local rope base, NoPE layers, sinks, biases, partial or interleaved
+rotary, layernorm, parallel residuals and granite's multipliers are not yet
+and raise ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -38,7 +50,7 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kv.paged import PagedKVCache
 from ..ops.moe_grouped import moe_grouped_mlp
-from ..ops.norms import rms_norm
+from ..ops.norms import rms_norm, rms_norm_gemma
 from ..ops.paged_attention import (
     decode_counters,
     decode_plan,
@@ -52,6 +64,14 @@ from ..quant.qtensor import QTensor
 from .config import ModelConfig
 
 
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": F.gelu,
+    "gelu_new": functools.partial(F.gelu, approximate="tanh"),
+    "gelu_pytorch_tanh": functools.partial(F.gelu, approximate="tanh"),
+    "relu": F.relu,
+}
+
 # archs whose MoE router is ported: mixtral (softmax over all experts, top-k,
 # renormalise) and llama with experts (top-k of the logits, softmax over k)
 _MOE_ARCHS = ("llama", "mixtral")
@@ -63,6 +83,7 @@ _SPARSE_MIN_E, _SPARSE_MAX_TOKENS = 16, 64
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for config features the port lacks."""
     moe = cfg.num_experts > 0
+    gemma = cfg.arch.startswith("gemma")
     unsupported = {
         f"mixture-of-experts router of arch {cfg.arch!r}": moe and cfg.arch not in _MOE_ARCHS,
         "top-k wider than the expert count": moe and not (
@@ -70,20 +91,17 @@ def check_supported(cfg: ModelConfig) -> None:
         "shared expert": bool(cfg.shared_expert_intermediate_size),
         "dense first-k layers": bool(cfg.first_k_dense),
         "M-RoPE": bool(cfg.mrope_section),
-        "attention logit softcap": bool(cfg.attn_logit_softcap),
-        "final logit softcap": bool(cfg.logit_softcap),
-        "sliding window": bool(cfg.sliding_window),
         "q/k norm": cfg.qk_norm,
-        "gemma family": cfg.arch.startswith("gemma"),
         f"norm type {cfg.norm_type!r}": cfg.norm_type != "rmsnorm",
-        f"activation {cfg.hidden_act!r}": cfg.hidden_act != "silu",
+        f"activation {cfg.hidden_act!r}": cfg.hidden_act not in ACTIVATIONS,
         "parallel residual": cfg.parallel_residual,
         "partial rotary": cfg.partial_rotary_factor != 1.0,
         "interleaved rope": cfg.rope_interleaved,
         "local rope base": cfg.rope_local_theta is not None,
         "NoPE layers": bool(cfg.no_rope_layers),
         "residual/logit/embedding multipliers": bool(
-            cfg.residual_multiplier or cfg.logits_scaling or cfg.embedding_multiplier
+            cfg.residual_multiplier or cfg.logits_scaling
+            or (cfg.embedding_multiplier and not gemma)
         ),
         "attention/MLP biases": cfg.attention_bias or cfg.mlp_bias,
     }
@@ -92,14 +110,39 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
-def _mlp(x: torch.Tensor, lw: dict, plain: bool) -> torch.Tensor:
-    """Dense SwiGLU MLP (``gate``/``up`` or fused ``wgateup``, ``down``)."""
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer sliding window sizes [L] (0 = full attention): a copy of
+    JAX ``models/llama.py::layer_windows``. ``layer_types`` names the
+    sliding layers where the config has it; else gemma2 slides on its even
+    layers, gemma3 on all but every sixth, any other arch on every layer."""
+    out = np.zeros(cfg.num_layers, dtype=np.int32)
+    if cfg.sliding_window:
+        if cfg.layer_types:
+            for i, lt in enumerate(cfg.layer_types):
+                if lt == "sliding_attention":
+                    out[i] = cfg.sliding_window
+        elif cfg.arch in ("gemma2", "gemma3"):
+            for i in range(cfg.num_layers):
+                if (i % 2 == 0) if cfg.arch == "gemma2" else ((i + 1) % 6 != 0):
+                    out[i] = cfg.sliding_window
+        else:  # mistral-style: uniform sliding window
+            out[:] = cfg.sliding_window
+    return out
+
+
+def _maybe_norm(x: torch.Tensor, w: torch.Tensor, eps: float, gemma: bool) -> torch.Tensor:
+    return rms_norm_gemma(x, w, eps) if gemma else rms_norm(x, w, eps)
+
+
+def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
+    """Dense gated MLP (``gate``/``up`` or fused ``wgateup``, ``down``):
+    ``down(act(gate x) * up x)``."""
     if "wgateup" in lw:
         gu = linear(x, lw["wgateup"], plain=plain)
         half = gu.shape[-1] // 2
-        hidden = F.silu(gu[..., :half]) * gu[..., half:]
+        hidden = act(gu[..., :half]) * gu[..., half:]
     else:
-        hidden = F.silu(linear(x, lw["gate"], plain=plain)) * linear(x, lw["up"], plain=plain)
+        hidden = act(linear(x, lw["gate"], plain=plain)) * linear(x, lw["up"], plain=plain)
     return linear(hidden, lw["down"], plain=plain)
 
 
@@ -121,7 +164,8 @@ def route(router_logits: torch.Tensor, cfg: ModelConfig):
     return topw, topi
 
 
-def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
+             act=F.silu) -> torch.Tensor:
     """Mixture-of-experts MLP (JAX ``_moe_mlp``, ``models/llama.py:272``).
 
     A bank with any quantized leaf runs the grouped kernels
@@ -135,7 +179,7 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False) -
     experts = lw["experts"]
     if any(isinstance(v, QTensor) for v in experts.values()):
         out = moe_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
-                              topi.reshape(b * t, -1), F.silu, plain=plain)
+                              topi.reshape(b * t, -1), act, plain=plain)
         return out.reshape(b, t, h)
     if cfg.num_experts >= _SPARSE_MIN_E and b * t <= _SPARSE_MAX_TOKENS:
         raise NotImplementedError(
@@ -145,7 +189,7 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False) -
     out = torch.zeros_like(x)
     for e in range(cfg.num_experts):
         ew = {("wgateup" if key == "gateup" else key): w[e] for key, w in experts.items()}
-        y = _mlp(x, ew, plain)
+        y = _mlp(x, ew, plain, act)
         out = out + y * full_w[..., e, None].to(y.dtype)
     return out
 
@@ -173,8 +217,14 @@ def forward_paged(
     one) and ``[B, T, V]`` otherwise. ``plain=True`` runs the plain PyTorch
     version of every kernel on any device (the card's smoke run compares)."""
     check_supported(cfg)
+    act = ACTIVATIONS[cfg.hidden_act]
+    gemma = cfg.arch.startswith("gemma")
     b, t = input_ids.shape
     h = embedding_lookup(input_ids, weights["embed"], dtype=compute_dtype)
+    if gemma:  # the multiplier in the compute dtype first, as the JAX package casts it
+        h = h * torch.tensor(cfg.embedding_multiplier or cfg.hidden_size ** 0.5, dtype=h.dtype)
+    windows = layer_windows(cfg).tolist()
+    softcap = float(cfg.attn_logit_softcap or 0.0)
     inv = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                            device=input_ids.device)
     cos, sin = rope_cos_sin(positions, inv)
@@ -189,7 +239,7 @@ def forward_paged(
     )
     eps = cfg.rms_norm_eps
     for li, lw in enumerate(weights["layers"]):
-        x = rms_norm(h, lw["attn_norm"], eps)
+        x = _maybe_norm(h, lw["attn_norm"], eps, gemma)
         if "wqkv" in lw:
             qkv = linear(x, lw["wqkv"], plain=plain)
             q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -205,7 +255,8 @@ def forward_paged(
         kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
         k = k.to(kv_dtype)
         v = v.to(kv_dtype)
-        scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+        scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale,
+                      window=int(windows[li]), softcap=softcap)
         if t == 1:
             attn = paged_decode_attention_fused(
                 q[:, 0].contiguous(), cache.k, cache.v, k[:, 0].contiguous(),
@@ -218,13 +269,19 @@ def forward_paged(
                 slots, block_tables, kv_lens, n_valid, li,
                 block_size=block_size, scale=attn_scale, plain=plain, **scales,
             )
-        h = h + linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], plain=plain)
-        x = rms_norm(h, lw["ffn_norm"], eps)
+        attn_out = linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], plain=plain)
+        if "post_attn_norm" in lw:
+            attn_out = _maybe_norm(attn_out, lw["post_attn_norm"], eps, gemma)
+        h = h + attn_out
+        x = _maybe_norm(h, lw["ffn_norm"], eps, gemma)
         if "experts" in lw:
-            h = h + _moe_mlp(x, lw, cfg, plain)
+            mlp_out = _moe_mlp(x, lw, cfg, plain, act)
         else:
-            h = h + _mlp(x, lw, plain)
-    h = rms_norm(h, weights["final_norm"], eps)
+            mlp_out = _mlp(x, lw, plain, act)
+        if "post_ffn_norm" in lw:
+            mlp_out = _maybe_norm(mlp_out, lw["post_ffn_norm"], eps, gemma)
+        h = h + mlp_out
+    h = _maybe_norm(h, weights["final_norm"], eps, gemma)
     if logits_last_only:
         if last_indices is not None:
             idx = last_indices.to(device=h.device, dtype=torch.long)
@@ -235,6 +292,8 @@ def forward_paged(
     if lm_head is None:
         lm_head = weights["embed"]
     logits = linear(h, lm_head, plain=plain).to(torch.float32)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits, cache
 
 
@@ -244,12 +303,16 @@ def kernel_workspace(weights: dict, cfg: ModelConfig, batch: int, rows, widths,
     state (``ops/_cuda.py``) that a forward takes, from the kernels' plans
     (static shapes): the quantized projections at any row count of
     ``rows``, and the paged decode kernel over ``batch`` sequences at any
-    block-table width of ``widths``. The grouped MoE kernels never split K."""
+    block-table width of ``widths``, for each layer window the model has
+    (a sliding layer's plan splits only its window's positions). The
+    grouped MoE kernels never split K."""
     floats, counters = split_need_tree(weights, rows, sms)
     group = cfg.num_heads // cfg.num_kv_heads
+    windows = set(layer_windows(cfg).tolist())
     for w in widths:
-        plan = decode_plan(batch, cfg.num_kv_heads, group, w, block_size, sms)
-        counters = max(counters, decode_counters(plan, batch, cfg.num_kv_heads))
+        for win in windows:
+            plan = decode_plan(batch, cfg.num_kv_heads, group, w, block_size, sms, int(win))
+            counters = max(counters, decode_counters(plan, batch, cfg.num_kv_heads))
     return floats, counters
 
 
@@ -318,11 +381,12 @@ def init_random_weights(
     caller asks for ``"cpu"``), drawn from numpy in the same order as
     ``mistralrs_tpu.models.llama.init_random_weights`` (the layer stacks,
     then the embedding and the head), so the two packages start from the
-    same numbers. An MoE config then draws, after those, the router
-    ``[L, E, H]`` and the expert banks gate ``[L, E, I, H]``, up and down
-    ``[L, E, H, I]`` (``I`` = ``moe_intermediate_size`` or the dense
-    width), which replace the layers' dense MLP (the JAX function draws no
-    experts)."""
+    same numbers. An MoE config
+    then draws, after those, the router ``[L, E, H]`` and the expert banks
+    gate ``[L, E, I, H]``, up and down ``[L, E, H, I]`` (``I`` =
+    ``moe_intermediate_size`` or the dense width), which replace the layers'
+    dense MLP (the JAX function draws no experts). Like the JAX function it
+    makes no post norms."""
     check_supported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)

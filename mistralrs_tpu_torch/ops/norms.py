@@ -1,4 +1,5 @@
-"""RMSNorm (counterpart of ``mistralrs_tpu/ops/norms.py::rms_norm``)."""
+"""RMSNorm (counterpart of ``mistralrs_tpu/ops/norms.py``: ``rms_norm`` and
+``rms_norm_gemma``)."""
 
 from __future__ import annotations
 
@@ -11,3 +12,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * weight.to(torch.float32)).to(x.dtype)
+
+
+def rms_norm_gemma(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Gemma's RMSNorm: the weight is stored as ``w - 1`` and applied as
+    ``1 + w``, the sum taken in f32 (not in the weight's dtype)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + weight.to(torch.float32))).to(x.dtype)

@@ -39,8 +39,19 @@ running sum ``l``, before the PV product. The prefill's own chunk attends
 to its rows as ``bf16(code × s)`` with the unrounded f32 scale and no fold
 (the JAX kernel's round trip in VMEM; the prefill kernel's quantized form
 quantizes, writes and round-trips the chunk's rows once in a first launch,
-into a scratch its attention launch reads). Sliding windows, logit softcap and
-sinks are not ported yet and raise ``NotImplementedError``.
+into a scratch its attention launch reads).
+
+Sliding windows and the attention logit softcap (Gemma-2), the JAX kernels'
+``window`` and ``softcap``, follow ``sdpa`` (JAX ``ops/attention.py:54-89``):
+a query at position ``p`` sees a cached position ``s`` iff ``s <= p``, ``s <
+kv_len`` and ``p - s < window`` (0: no window; in decode ``p = kv_len - 1``),
+and a softcap ``c`` maps the scaled score ``x`` to ``tanh(x / c) * c``
+before the mask and the running max. The bf16 forms take both, at head_dim
+128 and 256 (the head_dim-256 forms count as ``paged_decode_hd256`` and
+``paged_prefill_hd256``); a windowed decode walks only the tiles its window
+reaches, and its splits (:func:`decode_plan` with the window) cover only
+those. The quantized forms take neither, and head_dim 128 only; sinks are
+not ported. What a kernel refuses raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,11 +77,13 @@ def _scale_plane(scale: Optional[torch.Tensor], layer: int) -> Optional[torch.Te
     return scale[layer] if scale is not None and scale.dim() == 3 else scale
 
 
-def form(kernel: str, pool: torch.Tensor) -> str:
-    """The launch-count name of ``kernel``'s form for ``pool``: the kernel's
-    own for bf16 pools, ``_int8`` or ``_fp8`` after it for quantized ones."""
+def form(kernel: str, pool: torch.Tensor, hd: int = 128) -> str:
+    """The launch-count name of ``kernel``'s form for ``pool`` and head_dim
+    ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_hd256``
+    after it at 256 (its own template instance), ``_int8`` or ``_fp8`` for
+    quantized pools."""
     if not is_quantized(pool):
-        return kernel
+        return f"{kernel}_hd256" if hd == 256 else kernel
     return f"{kernel}_{'int8' if pool.dtype == torch.int8 else 'fp8'}"
 
 
@@ -79,11 +92,25 @@ def _check_scales(pool, k_scale, v_scale, what: str) -> None:
         raise ValueError(f"{what}: 1-byte pools need k_scale and v_scale, and only they do")
 
 
-def _unsupported(window, softcap, sinks) -> None:
-    if window or softcap or sinks is not None:
+def _unsupported(window, softcap, sinks, pool: torch.Tensor, hd: int) -> None:
+    """Raise ``NotImplementedError`` for what no form takes: sinks, and a
+    window, a softcap or head_dim 256 on 1-byte pools (the quantized forms
+    stay at head_dim 128; the CUDA wrapper refuses other head dims)."""
+    if sinks is not None:
+        raise NotImplementedError("paged attention: sinks are not ported yet")
+    if is_quantized(pool):
+        refuse_quantized_options(window, softcap, hd)
+
+
+def refuse_quantized_options(window, softcap, hd: int) -> None:
+    """Raise ``NotImplementedError`` naming a window, a softcap or head_dim
+    256, which the int8/fp8 forms do not take."""
+    named = {"sliding window": bool(window), "logit softcap": bool(softcap),
+             "head_dim 256": hd == 256}
+    missing = [k for k, on in named.items() if on]
+    if missing:
         raise NotImplementedError(
-            "paged attention: sliding window, softcap and sinks are not ported yet"
-        )
+            f"paged attention over int8/fp8 pools: {', '.join(missing)} not ported yet")
 
 
 def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int):
@@ -95,16 +122,20 @@ def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int
     return plane[:, slots].transpose(0, 1).to(torch.float32)
 
 
-def _softmax_attend(q, k, v, allowed, ks=None, vs=None):
+def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0):
     """q [B, n_kv, R, hd] (pre-scaled), k/v [B, n_kv, P, hd], allowed
     [B, 1|n_kv, R, P] bool → [B, n_kv, R, hd] f32, zeros where nothing is
     allowed (the kernels' flash form: acc / max(l, 1e-20)). With the per
     position scales ``ks``/``vs`` [B, n_kv, P] of codes ``k``/``v``, the k
     scale multiplies the scores before the mask and the max, the v scale
-    multiplies ``p`` after the sum ``l`` took it (the JAX kernels' fold)."""
+    multiplies ``p`` after the sum ``l`` took it (the JAX kernels' fold).
+    A ``softcap`` maps the scores to ``tanh(s / softcap) * softcap`` before
+    the mask."""
     s = torch.einsum("bkrd,bkpd->bkrp", q, k)
     if ks is not None:
         s = s * ks[:, :, None, :]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * allowed
@@ -121,12 +152,13 @@ def _softmax_attend(q, k, v, allowed, ks=None, vs=None):
 
 def paged_decode_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer=0,
-    *, block_size: int, scale: float, k_scale=None, v_scale=None,
+    *, block_size: int, scale: float, k_scale=None, v_scale=None, window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain version of the decode kernel and its quantized forms (same
     arguments, same result)."""
     _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
-    COUNTS[form("paged_decode", k_pool) + "_plain"] += 1
+    COUNTS[form("paged_decode", k_pool, q.shape[-1]) + "_plain"] += 1
     kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
     ks, vs = _scale_plane(k_scale, layer), _scale_plane(v_scale, layer)
     write_kv(kp, vp, k_new, v_new, slots, ks, vs)
@@ -141,8 +173,11 @@ def paged_decode_attention_plain(
         vsg = _gather_seq(vs, block_tables, block_size)
     qg = q.to(torch.float32).reshape(b, n_kv, group, hd) * scale
     pos = torch.arange(k.shape[2], device=q.device)
-    allowed = (pos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
-    out = _softmax_attend(qg, k, v, allowed, ksg, vsg)
+    lens = kv_lens.to(q.device).to(torch.long)[:, None]
+    allowed = pos[None, :] < lens
+    if window:
+        allowed &= lens - 1 - pos[None, :] < window
+    out = _softmax_attend(qg, k, v, allowed[:, None, None, :], ksg, vsg, softcap)
     return out.reshape(b, n_q, hd).to(q.dtype)
 
 
@@ -159,10 +194,12 @@ class DecodePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)
 def decode_plan(b: int, n_kv: int, group: int, w: int, block_size: int,
-                sms: int = 132) -> DecodePlan:
+                sms: int = 132, window: int = 0) -> DecodePlan:
     """The decode kernel's split of a table of ``w`` blocks of ``block_size``
     positions, for ``b`` sequences of ``n_kv`` KV heads (GQA ``group``) on a
-    card of ``sms`` SMs.
+    card of ``sms`` SMs. With a sliding ``window`` the kernel walks only the
+    positions from the tile that holds ``kv_len - window`` on, at most
+    ``window`` positions and one tile: the splits cover those.
 
     It reads static shapes only, never ``kv_lens``: the step can be captured
     in a CUDA graph, with no host sync. The grid (splits, n_kv, b) gets at
@@ -174,6 +211,8 @@ def decode_plan(b: int, n_kv: int, group: int, w: int, block_size: int,
     allow, and a split past a sequence's length exits at once."""
     require(1 <= group <= DECODE_MAX_GROUP, f"GQA group {group} not in 1..{DECODE_MAX_GROUP}")
     tiles = max(1, -(-w * block_size // DECODE_TILE))
+    if window > 0:
+        tiles = min(tiles, -(-window // DECODE_TILE) + 1)
     want = max(1, -(-DECODE_BLOCKS_PER_SM * sms // max(1, b * n_kv)))
     # tiles a split, at the fewest splits that reach the floor
     per = min(tiles, max(DECODE_MIN_TILES, tiles // want))
@@ -212,14 +251,31 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _exponent(scale: float, softcap: float) -> tuple[float, float]:
+    """The kernels' score arithmetic: ``(e_mul, cap_in)``. Without a
+    softcap the running max stays in raw score units and the exponent is
+    ``2^((s - m) * scale * log2(e))``; with one, each raw score becomes
+    ``softcap * tanh(s * cap_in)``, the true capped logit, and log2(e)
+    multiplies after it (JAX ``_decode_kernel`` :244-246, :298-299)."""
+    if softcap:
+        return LOG2E, scale / softcap
+    return scale * LOG2E, 0.0
+
+
+def _check_head_dim(hd: int, ks, what: str) -> None:
+    require(hd == 128 or (hd == 256 and ks is None),
+            f"{what} kernel needs head_dim 128 (or 256 on bf16 pools), got {hd}")
+
+
 def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale,
-                 plan: Optional[DecodePlan] = None, ks=None, vs=None):
+                 plan: Optional[DecodePlan] = None, ks=None, vs=None, window: int = 0,
+                 softcap: float = 0.0):
     """The decode kernel's launch (its quantized form with the scale planes
     ``ks``/``vs``), at ``decode_plan``'s split unless a ``plan`` is given
     (``probes/split_plans.py`` times other splits)."""
     b, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
-    require(hd == 128, f"decode kernel needs head_dim 128, got {hd}")
+    _check_head_dim(hd, ks, "decode")
     require(n_q % n_kv == 0 and n_q // n_kv <= DECODE_MAX_GROUP,
             f"GQA group {n_q}/{n_kv} unsupported")
     _check_pools(q, kp, vp, ks, vs, block_size)
@@ -236,22 +292,25 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
             "slots/kv_lens/block_tables batch mismatch")
     lib = library()
     w = block_tables.shape[1]
-    plan = plan or decode_plan(b, n_kv, n_q // n_kv, w, block_size, sm_count(q.device))
+    plan = plan or decode_plan(b, n_kv, n_q // n_kv, w, block_size, sm_count(q.device),
+                               window)
     out = torch.empty_like(q)
     part = cnt = None
     if plan.splits > 1:  # per (sequence, query head, split): acc[hd], then (m, l)
         part = torch.empty(b * n_q * plan.splits * (hd + 2), dtype=torch.float32,
                            device=q.device)
         cnt = split_counters(q.device, decode_counters(plan, b, n_kv))
-    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    e_mul, cap_in = _exponent(scale, softcap)
+    ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            _ptr(part), _ptr(cnt), b, n_q, n_kv, hd, s_total, w, block_size, plan.positions,
-            plan.splits, float(scale * LOG2E))
-    name = form("paged_decode", kp)
+            _ptr(part), _ptr(cnt), b, n_q, n_kv, hd)
+    tail = (s_total, w, block_size, plan.positions, plan.splits, float(e_mul))
+    name = form("paged_decode", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_decode(*args, stream_ptr(q))
+        code = lib.mrt_paged_decode(*ptrs, int(window), float(softcap), float(cap_in), *tail,
+                                    stream_ptr(q))
     else:
-        code = lib.mrt_paged_decode_q(*args, ks.data_ptr(), vs.data_ptr(),
+        code = lib.mrt_paged_decode_q(*ptrs, *tail, ks.data_ptr(), vs.data_ptr(),
                                       int(kp.dtype != torch.int8), stream_ptr(q))
     check(code, name)
     COUNTS[name] += 1
@@ -278,20 +337,24 @@ def paged_decode_attention_fused(
     k_scale: Optional[torch.Tensor] = None,  # [L, n_kv, S] or [n_kv, S] bf16 (1-byte pools)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused reshape_and_cache + paged decode attention → out [B, n_q, hd]."""
-    _unsupported(window, softcap, sinks)
+    """Fused reshape_and_cache + paged decode attention → out [B, n_q, hd].
+    ``window`` (0: none) and ``softcap`` (0: none) are Python numbers: a
+    captured step keeps them as they were at capture."""
+    _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer,
             block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
+            window=window, softcap=softcap,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged decode attention: unsupported device {q.device}")
     return _decode_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
                         slots, block_tables, kv_lens, block_size, scale,
-                        ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer))
+                        ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer),
+                        window=window, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -301,13 +364,14 @@ def paged_decode_attention_fused(
 
 def paged_prefill_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid, layer=0,
-    *, block_size: int, scale: float, k_scale=None, v_scale=None,
+    *, block_size: int, scale: float, k_scale=None, v_scale=None, window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain version of the prefill kernel and its quantized forms. Rows
     past ``n_valid`` write nothing and return zeros (the kernel's output
     there is never read)."""
     _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
-    COUNTS[form("paged_prefill", k_pool) + "_plain"] += 1
+    COUNTS[form("paged_prefill", k_pool, q.shape[-1]) + "_plain"] += 1
     kp, vp = _plane(k_pool, layer), _plane(v_pool, layer)
     ks, vs = _scale_plane(k_scale, layer), _scale_plane(v_scale, layer)
     b, t, n_q, hd = q.shape
@@ -353,17 +417,19 @@ def paged_prefill_attention_plain(
     pos = torch.arange(k.shape[2], device=dev)
     lim = ctx[:, None] + tok[None, :]  # [B, T] last visible position
     allowed = (pos[None, None, :] <= lim[:, :, None]) & valid[:, :, None]
+    if window:
+        allowed &= lim[:, :, None] - pos[None, None, :] < window
     allowed = allowed.repeat_interleave(group, dim=1)[:, None]  # [B, 1, T*G, P]
-    out = _softmax_attend(qg, k, v, allowed, ksg, vsg)
+    out = _softmax_attend(qg, k, v, allowed, ksg, vsg, softcap)
     out = out.reshape(b, n_kv, t, group, hd).permute(0, 2, 1, 3, 4).reshape(b, t, n_q, hd)
     return out.to(q.dtype)
 
 
 def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-                  block_size, scale, ks=None, vs=None):
+                  block_size, scale, ks=None, vs=None, window: int = 0, softcap: float = 0.0):
     b, t, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
-    require(hd == 128, f"prefill kernel needs head_dim 128, got {hd}")
+    _check_head_dim(hd, ks, "prefill")
     require(n_q % n_kv == 0 and 64 % (n_q // n_kv) == 0,
             f"GQA group {n_q}/{n_kv} unsupported")
     _check_pools(q, kp, vp, ks, vs, block_size)
@@ -380,17 +446,19 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
             and block_tables.shape[0] == b, "slots/kv_lens/n_valid/block_tables mismatch")
     out = torch.empty_like(q)
     lib = library()
-    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    e_mul, cap_in = _exponent(scale, softcap)
+    ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), n_valid.data_ptr(),
-            out.data_ptr(), b, t, n_q, n_kv, hd, s_total, block_tables.shape[1], block_size,
-            float(scale * LOG2E))
-    name = form("paged_prefill", kp)
+            out.data_ptr(), b, t, n_q, n_kv, hd)
+    tail = (s_total, block_tables.shape[1], block_size, float(e_mul))
+    name = form("paged_prefill", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_prefill(*args, stream_ptr(q))
+        code = lib.mrt_paged_prefill(*ptrs, int(window), float(softcap), float(cap_in), *tail,
+                                     stream_ptr(q))
     else:
         # the chunk's rows' round trips, which the attention launch reads
         k_rt, v_rt = torch.empty_like(k_new), torch.empty_like(v_new)
-        code = lib.mrt_paged_prefill_q(*args, ks.data_ptr(), vs.data_ptr(),
+        code = lib.mrt_paged_prefill_q(*ptrs, *tail, ks.data_ptr(), vs.data_ptr(),
                                        int(kp.dtype != torch.int8), k_rt.data_ptr(),
                                        v_rt.data_ptr(), stream_ptr(q))
     check(code, name)
@@ -423,16 +491,18 @@ def paged_prefill_attention_fused(
     [B, T, n_q, hd]. Each row's valid tokens [0, n_valid) are the
     consecutive positions [kv_len − n_valid, kv_len) (the engine's prefill
     invariant, as in the JAX kernel)."""
-    _unsupported(window, softcap, sinks)
+    _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid,
             layer, block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
+            window=window, softcap=softcap,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged prefill attention: unsupported device {q.device}")
     return _prefill_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
                          slots, block_tables, kv_lens, n_valid, block_size, scale,
-                         ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer))
+                         ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer),
+                         window=window, softcap=softcap)

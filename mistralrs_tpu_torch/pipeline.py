@@ -1,9 +1,12 @@
 """Model loading entry point (counterpart of ``mistralrs_tpu/pipeline.py``):
-a llama ``.gguf`` path, or a HF directory of the DeepSeek family
-(``model_type`` ``deepseek_v2``, ``deepseek_v3``, ``glm4_moe_lite``) →
-config, weights on the device, tokenizer, chat template and, for DeepSeek,
-the engine's arch adapter. Other HF directories, UQFF files and in-situ
-quantization are not ported yet and raise ``NotImplementedError``."""
+a llama ``.gguf`` path, a HF directory of the llama family (dense
+checkpoints whose ``architectures[0]`` is in ``HF_ARCH_MAP`` and whose
+features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, ...), or a HF
+directory of the DeepSeek family (``model_type`` ``deepseek_v2``,
+``deepseek_v3``, ``glm4_moe_lite``) → config, weights on the device,
+tokenizer, chat template and, for DeepSeek, the engine's arch adapter.
+Other HF directories, UQFF files and in-situ quantization are not ported
+yet and raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .chat_template import ChatTemplate, resolve_chat_template
-from .models.config import ModelConfig
+from .models.config import HF_ARCH_MAP, ModelConfig
 from .models.gguf_loader import load_gguf_model
 from .tokenizer import TokenizerWrapper, from_gguf_metadata, from_hf_dir
 
@@ -45,16 +48,16 @@ def load_pipeline(
     chat_template_override: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Pipeline:
-    """Load a llama ``.gguf`` checkpoint or a DeepSeek-family HF directory
-    onto ``device`` (``cuda`` unless the caller asks for ``"cpu"``)."""
+    """Load a llama ``.gguf`` checkpoint, or a llama- or DeepSeek-family
+    HF directory, onto ``device`` (``cuda`` unless the caller asks for
+    ``"cpu"``)."""
     dev = resolve_device(device)
     path = Path(model_path)
     if path.is_dir():
         return _load_hf_dir(path, dtype, chat_template_override, dev)
     if not (path.is_file() and path.suffix == ".gguf"):
         raise NotImplementedError(
-            f"model path {model_path!r}: only .gguf files and DeepSeek HF directories "
-            "are ported so far"
+            f"model path {model_path!r}: only .gguf files and HF directories are ported so far"
         )
     cfg, weights, md = load_gguf_model(str(path), dtype=dtype, device=dev)
     try:
@@ -68,26 +71,36 @@ def load_pipeline(
     return Pipeline(cfg, weights, tokenizer, ct, path.stem, md)
 
 
+def _tokenizer(path: Path):
+    try:
+        return from_hf_dir(path)
+    except FileNotFoundError:
+        return None
+
+
 def _load_hf_dir(path: Path, dtype, chat_template_override, dev) -> Pipeline:
-    """A DeepSeek-family HF directory (JAX ``pipeline.py:240-257`` and
-    ``make_adapter`` at :325-352)."""
+    """A llama-family HF directory (JAX ``pipeline.py``'s HF branch, through
+    ``models/hf_loader.py::load_hf_model``), or a DeepSeek-family one (JAX
+    ``pipeline.py:240-257`` and ``make_adapter`` at :325-352)."""
     from .engine.adapters import DeepseekAdapter
     from .models.deepseek import DeepseekConfig, deepseek_weights_from_state_dict
-    from .models.hf_loader import load_safetensors_dir
+    from .models.hf_loader import load_hf_model, load_safetensors_dir
 
     cfg_file = path / "config.json"
     hf_cfg = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
     model_type = hf_cfg.get("model_type", "")
+    archs = hf_cfg.get("architectures") or []
     if model_type not in DEEPSEEK_ARCHS:
-        raise NotImplementedError(
-            f"HF model_type {model_type!r}: only {DEEPSEEK_ARCHS} directories are ported")
+        if not archs or archs[0] not in HF_ARCH_MAP:
+            raise NotImplementedError(
+                f"HF directory {path}: architectures {archs} / model_type {model_type!r} are "
+                f"not ported (llama family: {sorted(HF_ARCH_MAP)}; {DEEPSEEK_ARCHS})")
+        cfg, weights, hf_cfg = load_hf_model(path, dtype=dtype, device=dev)
+        ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=cfg.arch)
+        return Pipeline(cfg, weights, _tokenizer(path), ct, path.name, hf_cfg)
     cfg = DeepseekConfig.from_hf(hf_cfg)
     weights = deepseek_weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
                                                device=dev)
-    try:
-        tokenizer = from_hf_dir(path)
-    except FileNotFoundError:
-        tokenizer = None
     ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=model_type)
     adapter = DeepseekAdapter(cfg, weights, compute_dtype=dtype, device=dev)
-    return Pipeline(cfg, weights, tokenizer, ct, path.name, hf_cfg, adapter=adapter)
+    return Pipeline(cfg, weights, _tokenizer(path), ct, path.name, hf_cfg, adapter=adapter)

@@ -6,9 +6,12 @@ parts, on the card:
 Builds ``csrc/paged_attention.cu`` alone, as it is and in variants (all
 built together, each into its own library under ``_build/``): the prefill
 form without its first launch (the chunk's rows quantized, written and
-round-tripped once), without the widening of the past's codes, and without
-the whole pass over the landed tile (and its second barrier); the decode
-form without its pass over the landed tile.
+round-tripped once), without the widening of the past's codes, without
+the whole pass over the landed tile (and its second barrier), and with the
+thread's row and chunk in the copies (``tid / CPR``, ``tid % CPR``)
+divided as signed ``int`` inside the per-tile copy code, as an earlier
+form of the source did (the source divides them once, as unsigned); the
+decode form without its pass over the landed tile.
 Times each (the device's kernel time per call, ``probes/split_plans.py``'s
 profiler measure) beside the bf16 forms of the same library at the same
 shapes: prefill at B=2 T=128 on 300 cached positions and 512 tokens on 512,
@@ -43,11 +46,15 @@ NO_PASS = [("""      widen(it % FA_STAGES, p0);
 NO_DECODE_PASS = [("""      widen(it % DC_STAGES, p_begin + it * FA_TILE);
       __syncthreads();  // the widened tile and its scales, for every warp
 """, "")]
+SIGNED_DIVISION = [("    const int c = tc;\n", "    const int c = tid % CPR;\n"),
+                   ("      const int r = tr + RPP * j, p = p0 + r;",
+                    "      const int r = tid / CPR + RPP * j, p = p0 + r;")]
 VARIANTS = {
     "full": [],
     "prefill no chunk launch": NO_CHUNK_PASS,
     "prefill no widening": NO_WIDEN,
     "prefill no pass": NO_PASS,
+    "prefill signed division": SIGNED_DIVISION,
     "decode no pass": NO_DECODE_PASS,
 }
 ENTRIES = ("mrt_paged_decode", "mrt_paged_decode_q", "mrt_paged_prefill", "mrt_paged_prefill_q")
