@@ -89,7 +89,16 @@ script in one call:
    4096-position window at 32/8 heads (decode at 8 x 8192, prefill 512 on
    3840). Each against its plain version (2e-2), a second call bit-equal,
    the pools equal but at the trash slot; SDPA's yardstick takes the window
-   as a boolean mask and has no softcap;
+   as a boolean mask and has no softcap.
+   Then the head_dim-64 forms with sinks at gpt-oss-20b's attention (64/8
+   heads, f32 sinks of N(6, 1) per head): decode at the B=8 row above and at
+   8 x 8192 with its 128-position window, prefill at B=2 T=128 on 300 past
+   and 512 tokens on 3840 with the window; the same checks, and on each row
+   the plain version without the sinks must differ from it by more than 0.1
+   (so a kernel that dropped them could not pass); SDPA's yardstick has no
+   sinks. Last, the dense grouped kernel on gpt-oss-20b's banks (32 experts,
+   top-4: gate/up [32, 5760, 2880], down [32, 2880, 2880], K = 45 x 64) at
+   n*k = 32 (8 decode tokens) and 2048 (a 512-token prefill);
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -113,6 +122,12 @@ script in one call:
    its 4096-position window, layer 1 full; both softcaps; head_dim 256),
    bf16 weights: a 4160-token prompt in 512-token chunks and a 100-token
    one, then 4 decode steps of both; logits within 5e-2 of the largest;
+3e. the same at full gpt-oss-20b width with 2 layers (layer 0 sliding with
+   its 128-position window, layer 1 full; sinks, q/k/v/o biases, YaRN,
+   head_dim 64, 32 bf16 experts top-4 with biases and the clamped SwiGLU):
+   two 300-token prompts in 128-token chunks, then 4 decode steps; phase
+   3b's rule on expert choices (>= 99 % agree, then the plain run takes the
+   kernel run's choices); logits within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -152,21 +167,28 @@ script in one call:
    so that its positions pass 4096 and the sliding layers' windows bite in
    prefill and in decode; the same checks; the head_dim-256 forms of the
    paged kernels launched and no plain version run;
-8. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
+8. serve the full 24-layer gpt-oss-20b geometry (bf16, ~41.8 GB drawn on
+   the device after the Gemma weights are freed; its MXFP4 expert banks as
+   the loader decodes them, to bf16): the same 6 requests (40-600 prompt
+   tokens: the 128-position windows bite in prefill and in decode) and
+   checks; the head_dim-64 forms of the paged kernels and the dense grouped
+   kernel launched and no plain version run;
+9. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
    the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches in the run of its path
 (phase 4 for the dense-model kernels, its int8 serve for the int8 forms of
 the paged kernels, phase 3's fp8 model run for their fp8 forms, phase 5 for
 the W4/W8 grouped kernels, phase 6 for the MLA decode and dense grouped
-kernels, phase 7 for the head_dim-256 forms) and its times at the main
+kernels, phase 7 for the head_dim-256 forms, phase 8 for the head_dim-64
+forms) and its times at the main
 path's dominant shape (``library_device_ms``: the library call's own device
 time).
 
 Budget: the whole run at most 8 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute), at most 8 GB of
 host memory (all weights are drawn on the device, none on the host), at
-most 60 GB of device memory.
+most 60 GB of device memory (phase 8's gpt-oss-20b weights take 41.8 GB).
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
 tile) and the dense grouped kernel use the plain version's weights exactly
@@ -187,6 +209,7 @@ its splits in split order, so two calls give the same bits.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import gc
 import itertools
@@ -276,9 +299,22 @@ GEMMA2_9B = dict(
     logit_softcap=30.0, attn_scale=256 ** -0.5, rms_norm_eps=1e-6, rope_theta=10000.0,
     max_position_embeddings=8192, hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True,
 )
+# gpt-oss-20b (openai/gpt-oss-20b config.json: 24 layers alternating sliding
+# and full, window 128, YaRN, attention biases and sinks, 32 experts top-4
+# with the clamped SwiGLU; its MXFP4 expert banks drawn here in bf16)
+GPT_OSS_20B = dict(
+    arch="gpt_oss", vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_layers=24,
+    num_heads=64, num_kv_heads=8, head_dim=64, num_experts=32, num_experts_per_tok=4,
+    sliding_window=128, layer_types=["sliding_attention", "full_attention"] * 12,
+    rope_theta=150000.0, attention_bias=True, rms_norm_eps=1e-5,
+    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
+                  "original_max_position_embeddings": 4096, "truncate": False},
+    max_position_embeddings=131072,
+)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
 GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
+GPT_OSS_KERNELS = ("paged_decode_hd64", "paged_prefill_hd64", "dense_matmul_g")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -316,6 +352,11 @@ KERNEL_INFO = {
                            "mistralrs_tpu/ops/paged_attention.py:496"),
     "paged_prefill_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                             "mistralrs_tpu/ops/paged_attention.py:1162"),
+    # the head_dim-64 instances of the bf16 forms (gpt-oss)
+    "paged_decode_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                          "mistralrs_tpu/ops/paged_attention.py:496"),
+    "paged_prefill_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                           "mistralrs_tpu/ops/paged_attention.py:1162"),
 }
 QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_int8")
 
@@ -528,6 +569,37 @@ def build_gemma(cfg: ModelConfig, dev, seed: int) -> dict:
         })
     return {"embed": draw(cfg.vocab_size, h), "layers": layers,
             "final_norm": draw(h, std=0.1), "lm_head": None}
+
+
+def build_gpt_oss(cfg: ModelConfig, dev, seed: int) -> dict:
+    """gpt-oss weights of ``cfg`` in bf16, drawn on the device: fused q/k/v
+    (``wqkv``) and o of N(0, 0.02^2) with biases of N(0, 0.1^2), f32 sinks
+    of N(0, 1), a router of N(0, 0.02^2) with a bias of N(0, 0.1^2), the
+    expert banks in the port's layout (``gateup`` [E, 2I, H], ``down`` [E,
+    H, I]) of N(0, 0.02^2) with biases of N(0, 0.1^2), norms of ones, an
+    untied head: ~41.8 GB at 24 layers (20.9 G parameters)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+
+    def draw(*shape, std=0.02, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(std)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "attn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "ffn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "wqkv": draw(cfg.q_dim + 2 * cfg.kv_dim, h),
+            "wqkv_bias": draw(cfg.q_dim + 2 * cfg.kv_dim, std=0.1),
+            "wo": draw(h, cfg.q_dim), "wo_bias": draw(h, std=0.1),
+            "sinks": draw(cfg.num_heads, std=1.0, dtype=torch.float32),
+            "router": draw(e, h), "router_bias": draw(e, std=0.1),
+            "experts": {"gateup": draw(e, 2 * i, h), "gateup_bias": draw(e, 2 * i, std=0.1),
+                        "down": draw(e, h, i), "down_bias": draw(e, h, std=0.1)},
+        })
+    return {"embed": draw(cfg.vocab_size, h), "layers": layers,
+            "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "lm_head": draw(cfg.vocab_size, h)}
 
 
 # ---------------------------------------------------------------------------
@@ -759,6 +831,22 @@ def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408, tokens=
         torch.cuda.empty_cache()
 
 
+def check_gpt_oss_grouped(rows, rates, gen, dev, e=32, h=2880, mi=2880, tokens=(8, 512)):
+    """Phase 2's dense grouped kernel on gpt-oss-20b's expert banks (gate-up
+    [32, 5760, 2880], down [32, 2880, 2880]: K = 2880 = 45 x 64, N not a
+    multiple of the prefill body's 256 columns), top-4, at 8 decode tokens
+    (n*k = 32) and a 512-token prefill (n*k = 2048)."""
+    for what, make in (("gpt-oss gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
+                       ("gpt-oss down", lambda: bf16_bank(h, mi, gen, dev, e))):
+        w = make()
+        for ntok in tokens:
+            r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=4)
+            r["shape"] = f"{what}: {r['shape']}"
+            rows["dense_matmul_g"].append(r)
+        del w
+        torch.cuda.empty_cache()
+
+
 def sdpa_timed(q, k, v, mask):
     """Time ``scaled_dot_product_attention`` on the first backend that takes
     these inputs → (ms, device ms, backend name)."""
@@ -877,19 +965,29 @@ def pools_equal(a, b) -> bool:
 
 
 CAP_Q = 8.0  # q's scale with a softcap: scores of std ~8, so a cap of 50 moves the top ones
-CAP_CONTROL = 0.1  # the least that the cap must move the plain version's output (5x the tol)
+CAP_CONTROL = 0.1  # the least that an option must move the plain version's output (5x the tol)
+SINK_MEAN = 6.0  # sinks of N(6, 1): e^6 ~ 400 positions' worth of softmax mass at scores N(0, 1)
 
 
-def check_cap_bites(name, capped, uncapped) -> float:
-    """The control of a softcapped row: the plain version with the cap and
-    without it (f32 values of the rows compared) differ by more than
-    ``CAP_CONTROL``, so a kernel that dropped the tanh could not pass within
-    2e-2."""
+def check_cap_bites(name, capped, uncapped, what: str = "softcap") -> float:
+    """The control of a softcapped (or sinks) row: the plain version with
+    the option and without it (f32 values of the rows compared) differ by
+    more than ``CAP_CONTROL``, so a kernel that dropped the tanh (or the
+    sink) could not pass within 2e-2."""
     moved = (capped - uncapped).abs().max().item()
     if not moved > CAP_CONTROL:
-        raise AssertionError(f"{name}: the softcap moves the plain version by {moved} only "
+        raise AssertionError(f"{name}: the {what} moves the plain version by {moved} only "
                              f"(needs > {CAP_CONTROL})")
     return moved
+
+
+def draw_sinks(gen, n_q, dev):
+    """Per-head f32 sinks of N(``SINK_MEAN``, 1), on the device."""
+    return torch.randn(n_q, generator=gen, device=dev).add_(SINK_MEAN)
+
+
+def attn_name(kernel, kv_quant, hd) -> str:
+    return kernel + (f"_{kv_quant}" if kv_quant else f"_hd{hd}" if hd in (64, 256) else "")
 
 
 def gathered(pools, bt, bs, group):
@@ -900,7 +998,8 @@ def gathered(pools, bt, bs, group):
 
 
 def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
-                 dropped=3, kv_quant=None, n_q=32, n_kv=8, hd=128, window=0, softcap=0.0):
+                 dropped=3, kv_quant=None, n_q=32, n_kv=8, hd=128, window=0, softcap=0.0,
+                 sinks=False):
     """The decode kernel (its quantized form with ``kv_quant``, its
     head_dim-256 form with ``hd=256``) on tables of ``w`` blocks of 64 for
     rows of ``kv_lens`` (row ``dropped`` drops its write), with a sliding
@@ -913,7 +1012,8 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     the window as a boolean mask (SDPA has no softcap: that row's yardstick
     computes less). With a softcap q is ``CAP_Q`` times larger, and the
     plain version without the cap must differ from it by more than
-    ``CAP_CONTROL``."""
+    ``CAP_CONTROL``; with ``sinks`` (f32 per head, ``draw_sinks``) the
+    plain version without them must too (SDPA has no sinks)."""
     b, bs = len(kv_lens), 64
     kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
@@ -925,25 +1025,31 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     vn = torch.randn((b, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     slots = slots_for(bt, (kv_lens - 1)[:, None], bs)[:, 0].contiguous()
     slots[dropped] = -1  # a dropped write
+    sk = draw_sinks(gen, n_q, dev) if sinks else None
     mine, ref_p = ([t if t is None else t.clone() for t in pools] for _ in range(2))
     args = (kn, vn, slots, bt, kv_lens)
 
-    def run(p, plain=False, cap=softcap):
+    def run(p, plain=False, cap=softcap, sink=sk):
         return paged_decode_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
                                             v_scale=p[3], window=window, softcap=cap,
-                                            plain=plain)
+                                            sinks=sink, plain=plain)
 
     got, again, ref = run(mine), run(mine), run(ref_p, plain=True)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     pools_ok = pools_equal(mine, ref_p)
-    name = "paged_decode" + (f"_{kv_quant}" if kv_quant else "_hd256" if hd == 256 else "")
+    name = attn_name("paged_decode", kv_quant, hd)
     if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
         raise AssertionError(f"{name}: max err {err}, pools equal {pools_ok}, two calls equal "
                              f"{torch.equal(got, again)}")
     if softcap:
         ctl_p = [t if t is None else t.clone() for t in pools]
         moved = check_cap_bites(name, ref.float(), run(ctl_p, plain=True, cap=0.0).float())
+        del ctl_p
+    if sinks:
+        ctl_p = [t if t is None else t.clone() for t in pools]
+        sink_moved = check_cap_bites(name, ref.float(),
+                                     run(ctl_p, plain=True, sink=None).float(), "sinks")
         del ctl_p
     del ref
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
@@ -971,23 +1077,29 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     lens = (f"kv_lens={int(kv_lens[0])} x {b}" if same
             else f"kv_lens<={int(kv_lens.max())}")
     opts = (f" window={window}" if window else "") + (
-        f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "")
+        f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "") + (" sinks" if sinks else "")
     row = dict(shape=(f"{kv_quant} " if kv_quant else "")
                + f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}{opts}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
     if softcap:
         row["cap_moves_plain"] = moved
+    if sinks:
+        row["sinks_move_plain"] = sink_moved
     log(f"  {name} {row['shape']}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
         f"two calls equal" + (f", the cap moves the plain version {moved:.3e} (> "
-                              f"{CAP_CONTROL})" if softcap else "") + f" | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
+                              f"{CAP_CONTROL})" if softcap else "")
+        + (f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
+           if sinks else "")
+        + f" | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{fmt_ms(lib_dev_ms)})")
     return row
 
 
 def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300), n_q=32,
-                  n_kv=8, bs=64, timed=True, kv_quant=None, hd=128, window=0, softcap=0.0):
+                  n_kv=8, bs=64, timed=True, kv_quant=None, hd=128, window=0, softcap=0.0,
+                  sinks=False):
     """The prefill kernel (its quantized form with ``kv_quant``, its
     head_dim-256 form with ``hd=256``) on a chunk of ``t`` tokens per row on
     top of ``past`` cached positions, ``n_valid`` of them real (the rest
@@ -998,7 +1110,8 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     were bit-equal; timed with its bound and SDPA (the window as a boolean
     mask, no softcap) when ``timed``. With a softcap q is ``CAP_Q`` times
     larger, and the plain version without the cap must differ from it on
-    the valid rows by more than ``CAP_CONTROL``."""
+    the valid rows by more than ``CAP_CONTROL``; so must the plain version
+    without ``sinks`` (``draw_sinks``), where the row has them."""
     n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
     kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
     w = -(-(max(past) + t) // bs)
@@ -1014,11 +1127,12 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     slots = slots_for(bt, pos.clamp_max(w * bs - 1), bs)
     slots[tok.expand(b, t) >= n_valid[:, None]] = -1
     args = (kn, vn, slots, bt, kv_lens, n_valid)
+    sk = draw_sinks(gen, n_q, dev) if sinks else None
 
-    def run(p, plain=False, cap=softcap):
+    def run(p, plain=False, cap=softcap, sink=sk):
         return paged_prefill_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
                                              v_scale=p[3], window=window, softcap=cap,
-                                             plain=plain)
+                                             sinks=sink, plain=plain)
 
     mine, again_p, ref_p = ([x if x is None else x.clone() for x in pools] for _ in range(3))
     got, again, ref = run(mine), run(again_p), run(ref_p, plain=True)
@@ -1030,8 +1144,9 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
              + f"B={b} T={t} n_valid={tuple(n_valid.tolist())} past={tuple(past)} n_q={n_q} "
              f"n_kv={n_kv} hd={hd} bs={bs}"
              + (f" window={window}" if window else "")
-             + (f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else ""))
-    name = "paged_prefill" + (f"_{kv_quant}" if kv_quant else "_hd256" if hd == 256 else "")
+             + (f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "")
+             + (" sinks" if sinks else ""))
+    name = attn_name("paged_prefill", kv_quant, hd)
     if not (torch.isfinite(got).all() and err <= 2e-2 and pools_ok and torch.equal(got, again)):
         raise AssertionError(f"{name} {shape}: max err {err}, pools equal {pools_ok}, two "
                              f"calls equal {torch.equal(got, again)}")
@@ -1041,6 +1156,11 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
         moved = check_cap_bites(name, ref.float()[valid], uncapped.float()[valid])
         cap_note = f", the cap moves the plain version {moved:.3e} (> {CAP_CONTROL})"
         del uncapped
+    if sinks:
+        sinkless = run([x if x is None else x.clone() for x in pools], plain=True, sink=None)
+        sink_moved = check_cap_bites(name, ref.float()[valid], sinkless.float()[valid], "sinks")
+        cap_note += f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
+        del sinkless
     del ref, again_p
     if not timed:
         log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note}")
@@ -1076,6 +1196,8 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
     if softcap:
         row["cap_moves_plain"] = moved
+    if sinks:
+        row["sinks_move_plain"] = sink_moved
     log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note} | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
@@ -1154,6 +1276,45 @@ def check_model_pools(cfg, weights, dev, kv_quant) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def recorded_routing(chosen: list, forced=None):
+    """``llama.route`` records the experts it picks into ``chosen`` (sorted,
+    ``[b, t, k]`` per layer and forward); with ``forced`` (another run's
+    ``chosen``), it picks those experts instead, weighted from this run's
+    own logits: routing over the logits of those experts alone gives the
+    same weights as the router does when it picks them."""
+    route = llama.route
+    forced = None if forced is None else iter(forced)
+
+    def recording_route(logits, cfg_):
+        topw, topi = route(logits, cfg_)
+        chosen.append(topi.sort(dim=-1).values)
+        if forced is None:
+            return topw, topi
+        keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, next(forced), True)
+        return route(logits.masked_fill(~keep, float("-inf")), cfg_)
+
+    llama.route = recording_route
+    try:
+        yield
+    finally:
+        llama.route = route
+
+
+def choice_agreement(what: str, kernel_run: list, plain_run: list) -> tuple[int, int]:
+    """``(same, total)`` (token, layer) expert choices of two runs; fails
+    under 99 % (near-tied router logits may pick differently under the two
+    sum orders)."""
+    total = same = 0
+    for a, c in zip(kernel_run, plain_run):
+        eq = (a == c).all(dim=-1)  # [b, t]
+        total += eq.numel()
+        same += int(eq.sum())
+    if same < 0.99 * total:
+        raise AssertionError(f"{what}: only {same}/{total} expert choices agree")
+    return same, total
+
+
 def check_mixtral_model(dev) -> dict:
     """Phase 3b: 2 Mixtral layers at full width through the kernels and the
     plain versions; returns the kernel run's launch counts."""
@@ -1165,24 +1326,9 @@ def check_mixtral_model(dev) -> dict:
     bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
     runs, choices = [], []
     counts: dict = {}
-    route = llama.route
     for plain in (False, True):
         chosen: list = []
-        forced = iter(choices[0]) if plain else None
-
-        def recording_route(logits, cfg_, chosen=chosen, forced=forced):
-            topw, topi = route(logits, cfg_)
-            chosen.append(topi.sort(dim=-1).values)  # [b, t, k] per layer and forward
-            if forced is None:
-                return topw, topi
-            # the kernel run's experts, weighted from this run's own logits:
-            # routing over the logits of those experts alone gives the same
-            # weights as the router does when it picks them
-            keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, next(forced), True)
-            return route(logits.masked_fill(~keep, float("-inf")), cfg_)
-
-        llama.route = recording_route
-        try:
+        with recorded_routing(chosen, choices[0] if plain else None):
             cache = PagedKVCache.create(cfg, b * 4, bs, device=dev)
             _cuda.reset_counts()
             pos = torch.arange(t, device=dev)[None].expand(b, t)
@@ -1200,19 +1346,11 @@ def check_mixtral_model(dev) -> dict:
             torch.cuda.synchronize()
             if not plain:
                 counts = dict(_cuda.COUNTS)
-        finally:
-            llama.route = route
         runs.append(outs)
         choices.append(chosen)
     # agreement of the experts each path's own router chose per (token, layer)
-    total = same = 0
-    for a, c in zip(*choices):
-        eq = (a == c).all(dim=-1)  # [b, t]
-        total += eq.numel()
-        same += int(eq.sum())
+    same, total = choice_agreement("mixtral model", *choices)
     frac = same / total
-    if frac < 0.99:
-        raise AssertionError(f"mixtral model: only {same}/{total} expert choices agree")
     worst = 0.0
     for step, (got, ref) in enumerate(zip(*runs)):
         if not torch.isfinite(got).all():
@@ -1402,8 +1540,77 @@ def check_gemma_model(dev) -> dict:
     return counts
 
 
+def check_gpt_oss_model(dev) -> dict:
+    """Phase 3e: 2 gpt-oss-20b layers at full width (layer 0 sliding with
+    its 128-position window, layer 1 full; sinks, biases, YaRN, head_dim 64,
+    32 bf16 experts top-4) through the kernels and the plain versions on the
+    same device weights: two 300-token prompts in 128-token chunks (the
+    chunks pass the window's edge), then 4 decode steps of both rows; phase
+    3b's rule on expert choices, then the plain run on the kernel run's
+    choices; every step's logits within 5e-2 of the largest. Returns the
+    kernel run's launch counts."""
+    cfg = ModelConfig(**dict(GPT_OSS_20B, num_layers=2,
+                             layer_types=GPT_OSS_20B["layer_types"][:2]))
+    weights = build_gpt_oss(cfg, dev, SEED + 13)
+    bs, b, n, chunk, n_dec = 64, 2, 300, 128, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    ids = torch.randint(0, cfg.vocab_size, (b, n + n_dec), generator=gen, device=dev)
+    w = -(-(n + n_dec) // bs)
+    bt = torch.arange(b * w, device=dev, dtype=torch.int32).reshape(b, w)
+    runs, choices, counts = [], [], {}
+    for plain in (False, True):
+        chosen: list = []
+        with recorded_routing(chosen, choices[0] if plain else None):
+            cache = PagedKVCache.create(cfg, b * w, bs, device=dev)
+            _cuda.reset_counts()
+            outs = []
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
+                logits, _ = forward_paged(weights, cfg, ids[:, lo:hi], pos, cache, bt,
+                                          slots_for(bt, pos, bs),
+                                          torch.full((b,), hi, device=dev), block_size=bs,
+                                          plain=plain)
+                outs.append(logits)
+            for d in range(n_dec):
+                p = torch.full((b, 1), n + d, device=dev)
+                logits, _ = forward_paged(weights, cfg, ids[:, n + d:n + d + 1], p, cache, bt,
+                                          slots_for(bt, p, bs),
+                                          torch.full((b,), n + d + 1, device=dev),
+                                          block_size=bs, plain=plain)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            if not plain:
+                counts = dict(_cuda.COUNTS)
+        runs.append(outs)
+        choices.append(chosen)
+    same, total = choice_agreement("gpt-oss model", *choices)
+    worst = 0.0
+    for step, (got, ref) in enumerate(zip(*runs)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gpt-oss model: step {step}: non-finite logits through the "
+                                 f"kernels")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > 5e-2 * scale:
+            raise AssertionError(f"gpt-oss model: step {step} logits differ by {err} > "
+                                 f"{5e-2 * scale}")
+    missing = [k for k in GPT_OSS_KERNELS if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"gpt-oss model: kernels not launched {missing}, plain versions "
+                             f"run {plain_run}")
+    log(f"  gpt-oss-20b 2 layers (window 128, full): prefill of 2 x {n} tokens in chunks of "
+        f"{chunk}, {n_dec} decode steps; expert choices agree {same}/{total} "
+        f"({100 * same / total:.2f} %, need 99 %); worst |err|/max|logit| on the kernel run's "
+        f"routing {worst:.3e} (tol 5e-2); kernel run launches {counts}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4, 5, 6 and 7: serve
+# phases 4 to 8: serve
 # ---------------------------------------------------------------------------
 
 
@@ -1858,6 +2065,21 @@ def main() -> int:
                                              dropped=7, window=4096))
     rows["paged_prefill"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
                                                past=(3840,), window=4096))
+    # gpt-oss-20b's attention (64/8 heads, head_dim 64, sinks; after every
+    # other row, which keep the generator's stream of earlier runs): decode
+    # at the table's row (a full layer) and at 8 x 8192 on a sliding layer
+    # (window 128); prefill at B=2 T=128 on 300 past and 512 tokens on 3840
+    # past through the window; then its expert banks on the dense grouped
+    # kernel (K = 2880)
+    oss_attn = dict(n_q=64, n_kv=8, hd=64, sinks=True)
+    d64, p64 = rows["paged_decode_hd64"], rows["paged_prefill_hd64"]
+    d64.append(check_decode(rates, gen, dev, **oss_attn))
+    d64.append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128, dropped=7, window=128,
+                            **oss_attn))
+    p64.append(check_prefill(rates, gen, dev, **oss_attn))
+    p64.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(3840,),
+                             window=128, **oss_attn))
+    check_gpt_oss_grouped(rows, rates, gen, dev)
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -1879,6 +2101,10 @@ def main() -> int:
     log("phase 3d: forward_paged at full Gemma-2-9B width, 2 layers (sliding, full), kernels "
         "vs plain")
     check_gemma_model(dev)
+    torch.cuda.empty_cache()
+    log("phase 3e: forward_paged at full gpt-oss-20b width, 2 layers (sliding, full), "
+        "kernels vs plain")
+    check_gpt_oss_model(dev)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -1913,6 +2139,13 @@ def main() -> int:
                             max_model_len=8192, sizes=(40, 97, 180, 290, 430, 4400))
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 8
+    log("phase 8: serve the 24-layer gpt-oss-20b geometry (bf16; windows of 128)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    oss_counts, _ = serve(dev, name_line, ModelConfig(**GPT_OSS_20B), build_gpt_oss, SEED + 15,
+                          "gpt-oss-20b-geometry-bf16", GPT_OSS_KERNELS)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -1931,7 +2164,8 @@ def main() -> int:
                 "paged_prefill_int8": q8_counts["paged_prefill_int8"],
                 "paged_decode_fp8": model_counts["fp8"]["paged_decode_fp8"],
                 "paged_prefill_fp8": model_counts["fp8"]["paged_prefill_fp8"],
-                **{k: gemma_counts[k] for k in GEMMA_KERNELS}}
+                **{k: gemma_counts[k] for k in GEMMA_KERNELS},
+                **{k: oss_counts[k] for k in GPT_OSS_KERNELS if k != "dense_matmul_g"}}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]

@@ -14,6 +14,14 @@ with the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
 the port computes each layer's window from the config
 (``models/llama.py::layer_windows``).
 
+gpt-oss's leaves come across in the port's layout: the q/k/v/o biases and
+the router bias as they are, the sinks as f32, and the expert banks (JAX
+``{gate_up [L, E, H, 2I], gate_up_bias, down [L, E, I, H], down_bias}``,
+gate and up interleaved in gate_up's columns) as ``{gateup [E, 2I, H]``
+(gate rows, then up rows), ``gateup_bias``, ``down [E, H, I]``,
+``down_bias}``, the layout of ``models/hf_loader.py`` (a permutation and
+transposes: no value changes).
+
 MoE layers carry their ``router`` (``[L, E, H]``) and ``experts`` (a
 mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
 as per-layer ``[E, ...]`` banks. Banks the JAX loader widened to int8 codes
@@ -33,6 +41,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .models.config import ModelConfig
+from .models.hf_loader import _deinterleave
 from .models.llama import check_supported
 from .quant.qtensor import QTensor
 
@@ -97,22 +106,34 @@ def from_jax_params(
     check_supported(cfg)
     device = resolve_device(device)
     stacked = params["layers"]
-    unknown = set(stacked) - {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo",
-                              "gate", "up", "wgateup", "down", "router", "experts",
-                              "post_attn_norm", "post_ffn_norm"}
+    gpt_oss = cfg.arch == "gpt_oss"
+    known = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo", "gate", "up", "wgateup",
+             "down", "router", "experts", "post_attn_norm", "post_ffn_norm", "wq_bias",
+             "wk_bias", "wv_bias", "wo_bias"} | ({"sinks", "router_bias"} if gpt_oss else set())
+    unknown = set(stacked) - known
     if unknown:
         raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")
     experts = stacked.get("experts", {})
-    unknown = set(experts) - {"gate", "up", "down"}
+    unknown = set(experts) - ({"gate_up", "gate_up_bias", "down", "down_bias"} if gpt_oss
+                              else {"gate", "up", "down"})
     if unknown:
         raise NotImplementedError(f"expert weights not ported: {sorted(unknown)}")
+
+    def gpt_oss_experts(i):
+        ex = {key: _leaf(w, device, dtype, layer=i) for key, w in experts.items()}
+        return {"gateup": _deinterleave(ex["gate_up"]).transpose(1, 2).contiguous(),
+                "gateup_bias": _deinterleave(ex["gate_up_bias"]).contiguous(),
+                "down": ex["down"].transpose(1, 2).contiguous(),
+                "down_bias": ex["down_bias"]}
 
     def layer(i):
         lw = {key: _leaf(w, device, dtype, layer=i)
               for key, w in stacked.items() if key != "experts"}
+        if "sinks" in lw:
+            lw["sinks"] = lw["sinks"].to(torch.float32)
         if experts:
-            lw["experts"] = {key: _leaf(w, device, dtype, layer=i)
-                             for key, w in experts.items()}
+            lw["experts"] = gpt_oss_experts(i) if gpt_oss else {
+                key: _leaf(w, device, dtype, layer=i) for key, w in experts.items()}
         return lw
 
     layers = [layer(i) for i in range(cfg.num_layers)]

@@ -3,12 +3,12 @@
 // Replaces the TPU kernels of mistralrs_tpu/ops/paged_attention.py:
 //   paged_decode_attention_fused (:496, body _decode_kernel :38) and
 //   paged_prefill_attention_fused (:1162, body _prefill_kernel :525),
-// for bf16 pools at head_dim 128 or 256 (template argument D) with a
-// sliding window and an attention logit softcap (Gemma-2; the JAX kernels'
-// window and softcap), and, in their quantized forms (template argument Q:
-// 1 int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools
-// with bf16 scales at head_dim 128, without window or softcap. No form
-// takes sinks (the wrapper refuses them).
+// for bf16 pools at head_dim 64, 128 or 256 (template argument D) with a
+// sliding window, an attention logit softcap (Gemma-2, gpt-oss; the JAX
+// kernels' window and softcap) and attention sinks (gpt-oss; the JAX
+// kernels' sinks), and, in their quantized forms (template argument Q: 1
+// int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools with
+// bf16 scales at head_dim 128, without window, softcap or sinks.
 //
 // Pool layout (one layer plane): [n_kv, S, hd] bf16, slot = block * bs + row.
 // Both kernels write this step's K/V rows into the pools in place, then run
@@ -66,7 +66,18 @@
 //   - At head_dim 256 a block keeps its 4 warps and 64-position tiles, so
 //     its two stages take 128 KB of shared memory and one block fits an
 //     SM (three at 128); each warp's O^T accumulators double to 64
-//     registers a head tile.
+//     registers a head tile. At head_dim 64 (gpt-oss) the stages take 32
+//     KB, a row is one 128-byte line, and the merges leave threads 64-127
+//     idle.
+//   - Sinks (gpt-oss: one f32 logit per query head, JAX _decode_kernel
+//     :318-327) enter the softmax once per (sequence, head) as one more
+//     term of the merge: a partial with m = sink and l = 1 and no value.
+//     A sequence that fits one split adds it where its warps merge; one
+//     that splits adds it in the last block's merge of the splits, and in
+//     no split's partials, so a split that the window leaves empty adds
+//     nothing. The sink is a true logit (the softcap does not reach it), in
+//     the kernel's score units sink * log2(e) / scale_log2. A null pointer
+//     means no sinks.
 //
 // Prefill (a chunk of T tokens on top of the cached past). Bound: the bf16
 // tensor-core rate at the engine's chunks (causal work T * kv_len), so the
@@ -93,7 +104,11 @@
 // (1 to 64). A sliding window skips the KV tiles wholly below the smallest
 // query's horizon (row 0's position - window + 1; JAX _prefill_kernel
 // :869-875) and masks per row on the tiles below the largest one; the
-// softcap is applied as in decode (template argument CAP).
+// softcap is applied as in decode (template argument CAP). Sinks (JAX
+// :786-795) enter each row's softmax once, at the end of the walk: the
+// row's (m, l) takes the sink as one more term before the output is
+// normalised. At head_dim 64 a block keeps its 4 warps, each with its 16
+// rows' Q in registers (16 registers) and O at 32.
 // At head_dim 256 a warp's Q fragments (64 registers) would not fit beside
 // its accumulators (the head_dim-128 form takes 221-235 registers, 32 of Q, 64
 // of O): the block has 8 warps, warps w and w + 4 own the same 16 query rows
@@ -145,6 +160,7 @@ constexpr int HD = 128;      // head_dim of the quantized forms (the wrapper req
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E_F = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // prefill: FlashAttention-2 style on the tensor cores. grid (query tiles, n_kv,
@@ -310,25 +326,27 @@ struct PfLayout {
   static constexpr int ROW_B = 2 * D;                    // a bf16 row of Q, K or V
   static constexpr int KV_B = FA_TILE * ROW_B;           // one K or V tile
   static constexpr int STAGE_B = 2 * KV_B + (Q ? QC_B : 0);
-  static constexpr bool QREG = D == HD;                  // Q fragments in registers
-  // 4 warps of 16 query rows for every 128 head dims of O: at 256, warps w
-  // and w + 4 own the same rows and each half of the head dims
-  static constexpr int THREADS = 128 * (D / 128);
+  static constexpr bool QREG = D <= HD;                  // Q fragments in registers
+  static_assert(!QREG || FA_ROWS * ROW_B <= KV_B, "Q must fit a K tile");
+  // 4 warps of 16 query rows for every 128 head dims of O (at most 128 a
+  // warp): at 256, warps w and w + 4 own the same rows and each half of the
+  // head dims
+  static constexpr int THREADS = D <= HD ? 128 : 128 * (D / 128);
   static constexpr int QOFF = QREG ? (FA_STAGES - 1) * STAGE_B : FA_STAGES * STAGE_B;
   static constexpr int SF = FA_STAGES * STAGE_B + (QREG ? 0 : FA_ROWS * ROW_B);
   static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);  // f32 scales [2][64]
 };
 
 template <int Q, int D, bool CAP>
-__global__ void __launch_bounds__(PfLayout<Q, D>::THREADS, D == HD ? 2 : 1)
+__global__ void __launch_bounds__(PfLayout<Q, D>::THREADS, D == HD ? 2 : (D < HD ? 3 : 1))
 paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
                      __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                      const __nv_bfloat16* __restrict__ k_new,
                      const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
                      const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                      const int* __restrict__ n_valid_arr, __nv_bfloat16* __restrict__ out,
-                     int T, int n_q, int n_kv, int S, int W, int bs, int window, float softcap,
-                     float cap_in, float scale_log2) {
+                     const float* __restrict__ sinks, int T, int n_q, int n_kv, int S, int W,
+                     int bs, int window, float softcap, float cap_in, float scale_log2) {
   using L = PfLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
   constexpr int NT = L::THREADS;
@@ -337,14 +355,15 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   // for negative values cost the issue-bound body 5 % at head_dim 128)
   constexpr int CPR = D / 8;                      // 16-byte chunks of a bf16 row
   constexpr int RPP = NT / CPR;                   // rows one pass of the block copies
-  constexpr int DW = 128;                         // head dims of O a warp owns
+  constexpr int DW = D < 128 ? D : 128;           // head dims of O a warp owns
+  constexpr int CW = DW / 8;                      // 16-byte chunks of them a row
   extern __shared__ __align__(128) uint8_t fa_smem[];
   const uint32_t sa = smem_u32(fa_smem);
   // later query tiles see more positions: they start first
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the warp's 16 rows and its half of O's head dims (compile-time 0 at 128)
-  const int rw = D == HD ? warp : warp & 3, dh = D == HD ? 0 : warp >> 2;
+  const int rw = D <= HD ? warp : warp & 3, dh = D <= HD ? 0 : warp >> 2;
   const int g = lane >> 2, qd = lane & 3;
   const int group = n_q / n_kv;
   const int qtok = FA_ROWS / group;
@@ -643,8 +662,8 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
 #pragma unroll
       for (int jp = 0; jp < DW / 16; ++jp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(vt + swzh<D>(16 * kc + (lane & 15), 2 * (8 * dh + jp) + (lane >> 4)), b0,
-                      b1, b2, b3);
+        ldsm_x4_trans(vt + swzh<D>(16 * kc + (lane & 15), 2 * (CW / 2 * dh + jp) + (lane >> 4)),
+                      b0, b1, b2, b3);
         mma_bf16(o[2 * jp], hi[0], hi[1], hi[2], hi[3], b0, b1);
         mma_bf16(o[2 * jp + 1], hi[0], hi[1], hi[2], hi[3], b2, b3);
         mma_bf16(o[2 * jp], lo_[0], lo_[1], lo_[2], lo_[3], b0, b1);
@@ -657,14 +676,22 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
 
   // 3. normalise (zeros where no position was seen) and write the warp's
   // rows and head dims, staged through its own part of the Q buffer for
-  // 16-byte stores
+  // 16-byte stores. A sink takes its share of the row's softmax here: the
+  // row's (m, l) and the sink's (sink, 1) merged, O rescaled with them.
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[i] = 1.f / fmaxf(l, 1e-20f);
+    if (sinks != nullptr) {
+      const int head = h * group + (16 * rw + g + 8 * i) % group;
+      const float su = sinks[head] * (LOG2E_F / scale_log2);  // in the scores' units
+      const float m = fmaxf(m_run[i], su), f = ex2((m_run[i] - m) * scale_log2);
+      inv[i] = f / fmaxf(fmaf(l, f, ex2((su - m) * scale_log2)), 1e-20f);
+    } else {
+      inv[i] = 1.f / fmaxf(l, 1e-20f);
+    }
   }
   uint8_t* stage = fa_smem + L::QOFF;
 #pragma unroll
@@ -672,14 +699,14 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = 16 * rw + g + 8 * i;
-      *reinterpret_cast<uint32_t*>(stage + swzh<D>(r, 16 * dh + j) + 4 * qd) =
+      *reinterpret_cast<uint32_t*>(stage + swzh<D>(r, CW * dh + j) + 4 * qd) =
           pack_bf16(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
     }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 16 * (DW / 8) / 32; ++k) {
+  for (int k = 0; k < 16 * CW / 32; ++k) {
     const int i = lane + 32 * k;
-    const int r = 16 * rw + (i >> 4), c = 16 * dh + (i & 15);
+    const int r = 16 * rw + i / CW, c = CW * dh + i % CW;
     const int t = t_begin + r / group;
     if (t < T)
       *reinterpret_cast<uint4*>(out + (((size_t)b * T + t) * n_q + h * group + r % group) * D +
@@ -697,7 +724,8 @@ constexpr int DC_STAGES = 2;  // K/V tiles in the cp.async ring
 constexpr int DC_MAX_GROUP = 16;
 
 // Shared memory of the decode kernel's forms: Q = 0 holds two stages of bf16
-// K/V tiles (64 KB at head_dim 128: three blocks per SM; 128 KB at 256: one);
+// K/V tiles (32 KB at head_dim 64; 64 KB at 128: three blocks per SM; 128 KB
+// at 256: one);
 // a quantized form holds one widened bf16 K/V tile, then two stages of code
 // tiles and scales, then the widened tile's f32 scales (66.5 KB: three
 // blocks per SM)
@@ -711,7 +739,8 @@ struct DcLayout {
   static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
   static constexpr int OLD = D + 4;  // f32 stride of a warp's output row in the merge
   static_assert(NWARPS * DC_MAX_GROUP * (OLD + 2) * 4 <= SMEM, "the merge must fit");
-  static_assert(D % THREADS == 0, "the merges give each thread D / 128 head dims");
+  static_assert(D % THREADS == 0 || THREADS % D == 0, "the merges' head dims a thread");
+  static constexpr int DPT = (D + THREADS - 1) / THREADS;  // head dims a thread merges
 };
 
 // the 8x8 b16 matrix held in the m16n8k16 fragment layout, transposed
@@ -760,16 +789,16 @@ __device__ __forceinline__ void decode_scores(uint32_t kt, int r0, int lane,
 }
 
 template <int NT, int Q, int D, bool CAP>
-__global__ void __launch_bounds__(THREADS, D == HD ? 3 : 1)
+__global__ void __launch_bounds__(THREADS, D == HD ? 3 : (D < HD ? 4 : 1))
 split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_t* v_pool,
                     __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                     const __nv_bfloat16* __restrict__ k_new,
                     const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
                     const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ part,
-                    int* __restrict__ counters, int n_q, int n_kv, int S, int W, int bs,
-                    int span, int splits, int window, float softcap, float cap_in,
-                    float scale_log2) {
+                    int* __restrict__ counters, const float* __restrict__ sinks, int n_q,
+                    int n_kv, int S, int W, int bs, int span, int splits, int window,
+                    float softcap, float cap_in, float scale_log2) {
   using L = DcLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
   constexpr int ROW_B = Q ? QC_ROW_B : 2 * D;  // bytes of a pool row
@@ -991,6 +1020,8 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
 
   // 4. merge the 4 warps in warp order: each warp's (m, l) and O^T rows per
   // head into shared memory, then thread d combines head dims d, d + 128
+  // (threads past D idle at head_dim 64); a sequence that fits this split
+  // takes its sink here
   float* so = reinterpret_cast<float*>(dc_smem);  // [warp][head][OLD]
   float* sml = so + NWARPS * DC_MAX_GROUP * OLD;  // [warp][head][2]
 #pragma unroll
@@ -1016,10 +1047,15 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   const size_t row0 = (size_t)b * n_q + h * group;  // the group's first query head
   float* pacc = part;                                        // [B, n_q, splits, D]
   float* pml = part + (size_t)gridDim.z * n_q * splits * D;  // [B, n_q, splits, 2]
+  const bool sink_here = live == 1 && sinks != nullptr;
   for (int hh = 0; hh < group; ++hh) {
-    float mb = NEG_INF;
+    float mb = NEG_INF, su = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) mb = fmaxf(mb, sml[2 * (w * DC_MAX_GROUP + hh)]);
+    if (sink_here) {
+      su = sinks[row0 - (size_t)b * n_q + hh] * (LOG2E_F / scale_log2);  // the scores' units
+      mb = fmaxf(mb, su);
+    }
     float f[NWARPS], l = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
@@ -1027,10 +1063,12 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
       f[w] = ex2((sml[2 * row] - mb) * scale_log2);
       l = fmaf(f[w], sml[2 * row + 1], l);
     }
+    if (sink_here) l += ex2((su - mb) * scale_log2);
     const size_t at = (row0 + hh) * splits + s;
 #pragma unroll
-    for (int i = 0; i < D / THREADS; ++i) {
+    for (int i = 0; i < L::DPT; ++i) {
       const int d = tid + THREADS * i;
+      if (D % THREADS != 0 && d >= D) break;
       float acc = 0.f;
 #pragma unroll
       for (int w = 0; w < NWARPS; ++w) acc = fmaf(f[w], so[(w * DC_MAX_GROUP + hh) * OLD + d], acc);
@@ -1046,7 +1084,8 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   }
   if (live == 1) return;
 
-  // 5. the last split block of (b, h) to arrive merges the splits in order
+  // 5. the last split block of (b, h) to arrive merges the splits in order,
+  // then the sink
   __threadfence();
   __syncthreads();
   if (tid == 0) s_last = atomicAdd(counters + (size_t)b * n_kv + h, 1) == live - 1;
@@ -1055,17 +1094,23 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   __threadfence();
   for (int hh = 0; hh < group; ++hh) {
     const size_t at = (row0 + hh) * splits;
-    float mb = NEG_INF;
+    float mb = NEG_INF, su = 0.f;
     for (int sp = 0; sp < live; ++sp) mb = fmaxf(mb, __ldcg(pml + 2 * (at + sp)));
+    if (sinks != nullptr) {
+      su = sinks[row0 - (size_t)b * n_q + hh] * (LOG2E_F / scale_log2);
+      mb = fmaxf(mb, su);
+    }
 #pragma unroll
-    for (int i = 0; i < D / THREADS; ++i) {
+    for (int i = 0; i < L::DPT; ++i) {
       const int d = tid + THREADS * i;
+      if (D % THREADS != 0 && d >= D) break;
       float acc = 0.f, l = 0.f;
       for (int sp = 0; sp < live; ++sp) {
         const float f = ex2((__ldcg(pml + 2 * (at + sp)) - mb) * scale_log2);
         acc = fmaf(f, __ldcg(pacc + (at + sp) * D + d), acc);
         l = fmaf(f, __ldcg(pml + 2 * (at + sp) + 1), l);
       }
+      if (sinks != nullptr) l += ex2((su - mb) * scale_log2);
       out[(row0 + hh) * D + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-20f));
     }
   }
@@ -1077,16 +1122,17 @@ cudaError_t launch_decode(const __nv_bfloat16* q, uint8_t* k_pool, uint8_t* v_po
                           __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                           const __nv_bfloat16* k_new, const __nv_bfloat16* v_new,
                           const int* slots, const int* block_tables, const int* kv_lens,
-                          __nv_bfloat16* out, float* part, int* counters, int B, int n_q,
-                          int n_kv, int S, int W, int bs, int span, int splits, int window,
-                          float softcap, float cap_in, float scale_log2, cudaStream_t st) {
+                          __nv_bfloat16* out, float* part, int* counters, const float* sinks,
+                          int B, int n_q, int n_kv, int S, int W, int bs, int span, int splits,
+                          int window, float softcap, float cap_in, float scale_log2,
+                          cudaStream_t st) {
   constexpr int smem = DcLayout<Q, D>::SMEM;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       split_decode_kernel<NT, Q, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opt_in != cudaSuccess) return opt_in;
   split_decode_kernel<NT, Q, D, CAP><<<dim3(splits, n_kv, B), THREADS, smem, st>>>(
       q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out, part,
-      counters, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in, scale_log2);
+      counters, sinks, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in, scale_log2);
   return cudaSuccess;
 }
 
@@ -1094,9 +1140,9 @@ template <int Q, int D>
 cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_scale,
                             void* v_scale, const void* k_new, const void* v_new, const void* slots,
                             const void* block_tables, const void* kv_lens, void* out,
-                            void* partials, void* counters, int B, int n_q, int n_kv, int S,
-                            int W, int bs, int span, int splits, int window, float softcap,
-                            float cap_in, float scale_log2, cudaStream_t st) {
+                            void* partials, void* counters, const void* sinks, int B, int n_q,
+                            int n_kv, int S, int W, int bs, int span, int splits, int window,
+                            float softcap, float cap_in, float scale_log2, cudaStream_t st) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* kp = static_cast<uint8_t*>(k_pool);
   auto* vp = static_cast<uint8_t*>(v_pool);
@@ -1110,17 +1156,18 @@ cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_s
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(partials);
   auto* cp = static_cast<int*>(counters);
+  const auto* sk = static_cast<const float*>(sinks);
   // a softcap is its own instance (CAP), so the forms without one run no tanh code
   const bool wide = n_q / n_kv > 8;
   if constexpr (Q == 0) {
     if (softcap > 0.f)
       return (wide ? launch_decode<2, Q, D, true> : launch_decode<1, Q, D, true>)(
-          qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs, span,
+          qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, sk, B, n_q, n_kv, S, W, bs, span,
           splits, window, softcap, cap_in, scale_log2, st);
   }
   return (wide ? launch_decode<2, Q, D, false> : launch_decode<1, Q, D, false>)(
-      qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, B, n_q, n_kv, S, W, bs, span, splits,
-      window, softcap, cap_in, scale_log2, st);
+      qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, sk, B, n_q, n_kv, S, W, bs, span,
+      splits, window, softcap, cap_in, scale_log2, st);
 }
 
 // The plan must cover every walk: [0, kv_len) with kv_len <= W * bs, or with
@@ -1139,9 +1186,10 @@ template <int Q, int D, bool CAP>
 cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_scale,
                            void* v_scale, const void* k_new, const void* v_new, const void* slots,
                            const void* block_tables, const void* kv_lens, const void* n_valid,
-                           void* out, int B, int T, int n_q, int n_kv, int S, int W, int bs,
-                           int window, float softcap, float cap_in, float scale_log2,
-                           cudaStream_t st, void* k_rt = nullptr, void* v_rt = nullptr) {
+                           void* out, const void* sinks, int B, int T, int n_q, int n_kv, int S,
+                           int W, int bs, int window, float softcap, float cap_in,
+                           float scale_log2, cudaStream_t st, void* k_rt = nullptr,
+                           void* v_rt = nullptr) {
   using L = PfLayout<Q, D>;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       paged_prefill_kernel<Q, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
@@ -1164,8 +1212,9 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
       static_cast<__nv_bfloat16*>(v_scale), static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(slots),
       static_cast<const int*>(block_tables), static_cast<const int*>(kv_lens),
-      static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out), T, n_q, n_kv, S, W, bs,
-      window, softcap, cap_in, scale_log2);
+      static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(sinks), T, n_q, n_kv, S, W, bs, window, softcap, cap_in,
+      scale_log2);
   return cudaSuccess;
 }
 
@@ -1173,10 +1222,11 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
 
 // q [B, n_q, hd], pools [n_kv, S, hd] (one layer plane), k_new/v_new
 // [B, n_kv, hd], slots [B], block_tables [B, W], kv_lens [B] (length after
-// this step's write), out [B, n_q, hd]; hd 128 or 256. group = n_q / n_kv
-// <= 16. window: 0 (full attention) or the positions a query sees, its own
-// included; softcap: 0 (none) or the cap, with cap_in = scale / softcap and
-// scale_log2 = log2(e) (else scale * log2(e)). The plan: `splits` splits of
+// this step's write), out [B, n_q, hd]; hd 64, 128 or 256. group = n_q /
+// n_kv <= 16. window: 0 (full attention) or the positions a query sees, its
+// own included; softcap: 0 (none) or the cap, with cap_in = scale / softcap
+// and scale_log2 = log2(e) (else scale * log2(e)); sinks: null (none) or
+// f32 [n_q], each head's sink logit. The plan: `splits` splits of
 // `span` positions (a multiple of 64) covering the walk (W * bs, or less
 // than window + 64 with a window); with splits > 1, partials f32
 // [B * n_q * splits * (hd + 2)] and counters int32 [B * n_kv] (all zero,
@@ -1184,16 +1234,18 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
 extern "C" int mrt_paged_decode(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                 const void* v_new, const void* slots, const void* block_tables,
                                 const void* kv_lens, void* out, void* partials, void* counters,
-                                int B, int n_q, int n_kv, int hd, int window, float softcap,
-                                float cap_in, int S, int W, int bs, int span, int splits,
-                                float scale_log2, void* stream) {
+                                const void* sinks, int B, int n_q, int n_kv, int hd, int window,
+                                float softcap, float cap_in, int S, int W, int bs, int span,
+                                int splits, float scale_log2, void* stream) {
   if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, window, softcap, partials, counters) ||
-      (hd != 128 && hd != 256))
+      (hd != 64 && hd != 128 && hd != 256))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const cudaError_t e = (hd == 128 ? launch_decode_q<0, 128> : launch_decode_q<0, 256>)(
+  const cudaError_t e = (hd == 64    ? launch_decode_q<0, 64>
+                         : hd == 128 ? launch_decode_q<0, 128>
+                                     : launch_decode_q<0, 256>)(
       q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, out,
-      partials, counters, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
+      partials, counters, sinks, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
       scale_log2, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1216,8 +1268,8 @@ extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, con
   const cudaError_t e =
       (fp8 ? launch_decode_q<2, HD> : launch_decode_q<1, HD>)(
           q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
-          partials, counters, B, n_q, n_kv, S, W, bs, span, splits, 0, 0.f, 0.f, scale_log2,
-          static_cast<cudaStream_t>(stream));
+          partials, counters, nullptr, B, n_q, n_kv, S, W, bs, span, splits, 0, 0.f, 0.f,
+          scale_log2, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1225,25 +1277,26 @@ extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, con
 
 // q [B, T, n_q, hd], pools [n_kv, S, hd], k_new/v_new [B, T, n_kv, hd],
 // slots [B, T], block_tables [B, W], kv_lens [B] (after the chunk's writes),
-// n_valid [B], out [B, T, n_q, hd]; hd 128 or 256. The chunk's valid tokens
-// sit at positions [kv_len - n_valid, kv_len). 64 % (n_q / n_kv) == 0.
-// window, softcap, cap_in and scale_log2 as for the decode kernel.
+// n_valid [B], out [B, T, n_q, hd]; hd 64, 128 or 256. The chunk's valid
+// tokens sit at positions [kv_len - n_valid, kv_len). 64 % (n_q / n_kv) ==
+// 0. window, softcap, cap_in, scale_log2 and sinks as for the decode kernel.
 extern "C" int mrt_paged_prefill(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                  const void* v_new, const void* slots, const void* block_tables,
-                                 const void* kv_lens, const void* n_valid, void* out, int B, int T,
-                                 int n_q, int n_kv, int hd, int window, float softcap,
-                                 float cap_in, int S, int W, int bs, float scale_log2,
-                                 void* stream) {
-  if ((hd != 128 && hd != 256) || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0 ||
-      window < 0 || softcap < 0.f)
+                                 const void* kv_lens, const void* n_valid, void* out,
+                                 const void* sinks, int B, int T, int n_q, int n_kv, int hd,
+                                 int window, float softcap, float cap_in, int S, int W, int bs,
+                                 float scale_log2, void* stream) {
+  if ((hd != 64 && hd != 128 && hd != 256) || n_q % n_kv != 0 ||
+      FA_ROWS % (n_q / n_kv) != 0 || window < 0 || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = (hd == 128 ? (softcap > 0.f ? launch_prefill<0, 128, true>
-                                                     : launch_prefill<0, 128, false>)
-                                   : (softcap > 0.f ? launch_prefill<0, 256, true>
-                                                    : launch_prefill<0, 256, false>))(
-      q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-      out, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in, scale_log2,
-      static_cast<cudaStream_t>(stream), nullptr, nullptr);
+  const bool cap = softcap > 0.f;
+  const cudaError_t e =
+      (hd == 64    ? (cap ? launch_prefill<0, 64, true> : launch_prefill<0, 64, false>)
+       : hd == 128 ? (cap ? launch_prefill<0, 128, true> : launch_prefill<0, 128, false>)
+                   : (cap ? launch_prefill<0, 256, true> : launch_prefill<0, 256, false>))(
+          q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens,
+          n_valid, out, sinks, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in, scale_log2,
+          static_cast<cudaStream_t>(stream), nullptr, nullptr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1262,8 +1315,8 @@ extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, co
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = (fp8 ? launch_prefill<2, HD, false> : launch_prefill<1, HD, false>)(
       q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-      out, B, T, n_q, n_kv, S, W, bs, 0, 0.f, 0.f, scale_log2, static_cast<cudaStream_t>(stream),
-      k_rt, v_rt);
+      out, nullptr, B, T, n_q, n_kv, S, W, bs, 0, 0.f, 0.f, scale_log2,
+      static_cast<cudaStream_t>(stream), k_rt, v_rt);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,9 @@ replays it. A capture or replay error raises: there is no eager fallback.
 The kernels' split workspace and counters are reserved before the first
 capture, at the size the engine works out from the kernels' plans for every
 width and every forward it runs (the eager prefill included, which must not
-grow them while a graph lives; ``ops/_cuda.py``). On the CPU (the caller
+grow them while a graph lives; ``ops/_cuda.py``). The weights the kernels
+read in place (gpt-oss's f32 sinks among them) are the engine's own
+tensors, so their addresses hold for a graph's life. On the CPU (the caller
 asked for it) the same function runs uncaptured.
 """
 

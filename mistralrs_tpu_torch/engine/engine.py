@@ -23,8 +23,9 @@
 * ``kv_quant`` (``"int8"`` or ``"fp8"``) serves from 1-byte KV pools with
   per-(layer, head, slot) scales (``kv/paged.py``), or an adapter's own
   quantized cache where the adapter has one (``supports_kv_quant``). A
-  llama-family model with a sliding window, a logit softcap or head_dim 256
-  is refused there, since the 1-byte kernel forms take none of them.
+  llama-family model with a sliding window, a logit softcap, attention
+  sinks or head_dim 64 or 256 is refused there, since the 1-byte kernel
+  forms take none of them.
 
 Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
 constraints and the DRY penalty are not ported yet.
@@ -135,7 +136,8 @@ class Engine:
             check_supported(cfg)
             if kv_quant is not None:  # before the pools: the 1-byte forms take none of these
                 refuse_quantized_options(int(layer_windows(cfg).max(initial=0)),
-                                         cfg.attn_logit_softcap, cfg.head_dim)
+                                         cfg.attn_logit_softcap, cfg.head_dim,
+                                         any("sinks" in lw for lw in weights["layers"]))
             self.weights = weights_to(weights, self.device)
         else:
             if adapter.device != self.device:

@@ -15,11 +15,20 @@ projections, the norms (Gemma-2's pre- and post-norms through the JAX
 package's ``_GEMMA_LAYER_MAP``), Mixtral's router and expert banks, the
 embedding, and the head (tied to the embedding when the checkpoint has no
 ``lm_head.weight``, as the JAX loader does whatever ``tie_word_embeddings``
-says). Everything else raises ``NotImplementedError`` naming it: quantized
-checkpoints (GPTQ, AWQ, bitsandbytes: a ``quantization_config``), phi3's
-fused projections, biases, and expert banks other than Mixtral's. In-situ
-quantization, UQFF overlays, importance matrices and topologies are not
-ported: the loader takes no such argument.
+says); the q/k/v/o biases of a config with ``attention_bias``; and
+gpt-oss's sinks, router bias and expert banks (JAX ``hf_loader.py:98-104``,
+:342-349), dense or in MXFP4 (``quantization_config.quant_method ==
+"mxfp4"``: ``<stem>_blocks``/``_scales`` uint8, stored transposed,
+``[E, out, in / 32, 16]``, decoded on the device by ``quant/mxfp4.py``).
+gpt-oss's banks are stored as the dense grouped kernel reads them:
+K-contiguous ``[E, N, K]``, the gate-up bank's interleaved columns (gate
+even, up odd) as a gate half then an up half, its bias permuted alike (a
+permutation: no value changes). Everything else raises
+``NotImplementedError`` naming it: other quantized checkpoints (GPTQ, AWQ,
+bitsandbytes), phi3's fused projections, MLP biases, and expert banks other
+than Mixtral's and gpt-oss's. In-situ quantization, UQFF overlays,
+importance matrices and topologies are not ported: the loader takes no such
+argument.
 """
 
 from __future__ import annotations
@@ -34,16 +43,18 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..quant.mxfp4 import decode_mxfp4_param
 from .config import ModelConfig, config_from_hf
 from .llama import check_supported
 
-_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+           "U8": torch.uint8}
 
 
 def read_safetensors(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file as a CPU tensor in its own
-    dtype (F32, F16 or BF16; other dtypes raise). The file is memory-mapped
-    and each tensor copied out of it."""
+    dtype (F32, F16, BF16, or U8 for MXFP4 blocks and scales; other dtypes
+    raise). The file is memory-mapped and each tensor copied out of it."""
     path = Path(path)
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
@@ -103,6 +114,37 @@ _GEMMA_LAYER_MAP = dict(_HF_LAYER_MAP)
 _GEMMA_LAYER_MAP["post_attention_layernorm.weight"] = "post_attn_norm"
 # Mixtral's expert banks: block_sparse_moe.experts.N.{w1, w3, w2}
 _MIXTRAL_EXPERTS = {"w1": "gate", "w3": "up", "w2": "down"}
+# q/k/v/o biases (a config with attention_bias)
+_ATTN_BIASES = {f"self_attn.{p}_proj.bias": f"w{p}_bias" for p in "qkvo"}
+# gpt-oss's layer tensors besides the attention projections and norms
+_GPT_OSS_MAP = {"self_attn.sinks": "sinks", "mlp.router.weight": "router",
+                "mlp.router.bias": "router_bias"}
+# gpt-oss's pre-stacked expert banks (HF layout [E, in, out], or the MXFP4
+# <stem>_blocks/_scales of the transposed [E, out, in]) and their biases
+_GPT_OSS_BANKS = {"gate_up_proj": "gateup", "down_proj": "down"}
+
+
+def _deinterleave(t: torch.Tensor) -> torch.Tensor:
+    """Columns (last axis) 0, 2, 4, ... then 1, 3, 5, ...: gpt-oss's
+    interleaved gate/up outputs as a gate half and an up half."""
+    return torch.cat([t[..., 0::2], t[..., 1::2]], dim=-1)
+
+
+def _gpt_oss_experts(sd, lp: str, dtype, dev, mxfp4: bool) -> dict:
+    """One layer's gpt-oss banks in the port's layout: ``gateup`` [E, 2I,
+    H], ``gateup_bias`` [E, 2I], ``down`` [E, H, I], ``down_bias`` [E, H]."""
+    out = {}
+    for hf, key in _GPT_OSS_BANKS.items():
+        stem = f"{lp}mlp.experts.{hf}"
+        if mxfp4 and stem + "_blocks" in sd:  # decoded [E, out, in]
+            bank = decode_mxfp4_param(sd, stem, dev, dtype).transpose(1, 2)
+        else:
+            bank = sd[stem].to(device=dev, dtype=dtype)
+        bias = sd[stem + "_bias"].to(device=dev, dtype=dtype)
+        if key == "gateup":
+            bank, bias = _deinterleave(bank), _deinterleave(bias)
+        out[key], out[key + "_bias"] = bank.transpose(1, 2).contiguous(), bias.contiguous()
+    return out
 
 
 def weights_from_state_dict(
@@ -114,25 +156,37 @@ def weights_from_state_dict(
     quant_config: Optional[Mapping[str, Any]] = None,
 ) -> dict:
     """The port's llama-family weight dict (``models/llama.py``) from a HF
-    state dict of dense tensors, every leaf cast to ``dtype`` on ``device``
-    (``cuda`` unless the caller asks for ``"cpu"``): JAX
-    ``weights_from_state_dict``'s dense path, the
-    same tensors to the same weights. A tensor of any other name (biases,
-    phi3's fused projections, q/k norms, sinks, expert banks other than
-    Mixtral's) raises ``NotImplementedError`` naming it."""
-    if quant_config:
+    state dict (dense tensors, and gpt-oss's MXFP4 banks with
+    ``quant_config`` ``{"quant_method": "mxfp4"}``), every leaf cast to
+    ``dtype`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``;
+    gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
+    path, the same tensors to the same weights (gpt-oss's banks in the
+    kernel's layout, above). A tensor of any other name (MLP biases,
+    attention biases without ``attention_bias``, phi3's fused projections,
+    q/k norms, expert banks other than Mixtral's and gpt-oss's) raises
+    ``NotImplementedError`` naming it."""
+    gpt_oss = cfg.arch == "gpt_oss"
+    method = (quant_config or {}).get("quant_method")
+    if quant_config and not (gpt_oss and method == "mxfp4"):
         raise NotImplementedError(
-            f"HF loader: quantized checkpoint (quantization_config "
-            f"{quant_config.get('quant_method')!r}: GPTQ, AWQ and bitsandbytes) not ported yet")
+            f"HF loader: quantized checkpoint (quantization_config {method!r}: GPTQ, AWQ, "
+            f"bitsandbytes, or MXFP4 outside gpt-oss) not ported yet")
     check_supported(cfg)
     dev = resolve_device(device)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
-    layer_map = _GEMMA_LAYER_MAP if cfg.arch in ("gemma2", "gemma3") else _HF_LAYER_MAP
+    layer_map = dict(_GEMMA_LAYER_MAP if cfg.arch in ("gemma2", "gemma3") else _HF_LAYER_MAP)
+    if cfg.attention_bias:
+        layer_map.update(_ATTN_BIASES)
+    if gpt_oss:
+        layer_map.update(_GPT_OSS_MAP)
     experts = {f"block_sparse_moe.experts.{j}.{w}.weight": (j, key)
                for j in range(cfg.num_experts) for w, key in _MIXTRAL_EXPERTS.items()}
+    banks = [f"mlp.experts.{hf}{tail}" for hf in _GPT_OSS_BANKS
+             for tail in ("", "_bias", "_blocks", "_scales")] if gpt_oss else []
     known = {prefix + "embed_tokens.weight", prefix + "norm.weight", "lm_head.weight"}
     for i in range(cfg.num_layers):
-        known.update(f"{prefix}layers.{i}.{suffix}" for suffix in (*layer_map, *experts))
+        known.update(f"{prefix}layers.{i}.{suffix}"
+                     for suffix in (*layer_map, *experts, *banks))
     unknown = sorted(n for n in sd if n not in known and not n.endswith("rotary_emb.inv_freq"))
     if unknown:
         raise NotImplementedError(f"HF loader: tensors not ported: {unknown[:8]}")
@@ -145,7 +199,11 @@ def weights_from_state_dict(
     for i in range(cfg.num_layers):
         lp = f"{prefix}layers.{i}."
         lw = {key: t for suffix, key in layer_map.items() if (t := take(lp + suffix)) is not None}
-        if cfg.num_experts:
+        if gpt_oss:
+            lw["experts"] = _gpt_oss_experts(sd, lp, dtype, dev, method == "mxfp4")
+            if "sinks" in lw:
+                lw["sinks"] = lw["sinks"].to(torch.float32)
+        elif cfg.num_experts:
             bank: dict[str, list] = {key: [None] * cfg.num_experts
                                      for key in _MIXTRAL_EXPERTS.values()}
             for suffix, (j, key) in experts.items():
@@ -153,7 +211,9 @@ def weights_from_state_dict(
             if all(x is not None for xs in bank.values() for x in xs):
                 lw["experts"] = {key: torch.stack(xs) for key, xs in bank.items()}
         want = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wo"} | (
-            {"router", "experts"} if cfg.num_experts else {"gate", "up", "down"})
+            {"router", "experts"} if cfg.num_experts else {"gate", "up", "down"}) | (
+            set(_ATTN_BIASES.values()) if cfg.attention_bias else set()) | (
+            set(_GPT_OSS_MAP.values()) if gpt_oss else set())
         missing = want - set(lw)
         if missing:
             raise ValueError(f"HF loader: layer {i} lacks {sorted(missing)}")

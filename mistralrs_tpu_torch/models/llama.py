@@ -1,7 +1,8 @@
 """Llama-family decoder over the paged KV cache (counterpart of
-``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, the dense MLP
-and the Mixtral-style mixture of experts (``_moe_mlp`` at :272), plus
-``fuse_projections``, ``layer_windows`` and ``init_random_weights``).
+``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, the dense MLP,
+the Mixtral-style mixture of experts (``_moe_mlp`` at :272) and gpt-oss's
+(``_gpt_oss_experts`` at :496), plus ``fuse_projections``,
+``layer_windows`` and ``init_random_weights``).
 
 Weights are a plain dictionary. Per-layer weights are a LIST of dictionaries
 (one per layer) and the decoder is a Python loop over it, where the JAX
@@ -11,7 +12,9 @@ package stacks them and runs ``lax.scan``. A projection is a dense
     {"embed": [V, H], "final_norm": [H], "lm_head": [V, H] | None (tied),
      "layers": [{"attn_norm", "ffn_norm", "wq", "wk", "wv" | "wqkv", "wo",
                  "gate", "up" | "wgateup", "down",
-                 "post_attn_norm", "post_ffn_norm" (Gemma-2, optional)}, ...]}
+                 "post_attn_norm", "post_ffn_norm" (Gemma-2, optional),
+                 "wq_bias", "wk_bias", "wv_bias" | "wqkv_bias", "wo_bias",
+                 "sinks" (gpt-oss, optional)}, ...]}
 
 The gemma family (JAX ``forward_paged`` :940-950, :1064-1067, :1195-1208,
 :1324-1325) scales the embedding by ``sqrt(hidden)`` cast to the compute
@@ -25,17 +28,26 @@ kernels, and
 An MoE layer holds ``"router"`` (dense ``[E, H]``) and ``"experts"``
 (``{"gate", "up" | "gateup", "down"}``, each a ``[E, out, in]`` bank: a
 :class:`QTensor` with a bank axis or a dense tensor) in place of the dense
-MLP's ``gate``/``up``/``down``.
+MLP's ``gate``/``up``/``down``. gpt-oss's layers add ``"router_bias"``
+``[E]`` and hold ``"experts"`` as ``{"gateup" [E, 2I, H] (the gate rows,
+then the up rows), "gateup_bias" [E, 2I], "down" [E, H, I], "down_bias"
+[E, H]}`` bf16 banks, run by the dense grouped kernel
+(``ops/moe_grouped.py::gpt_oss_grouped_mlp``); its attention has q/k/v/o
+biases and a sink per query head (``"sinks"``, f32 ``[n_q]``, read in
+place by both attention kernels), and YaRN's attention factor multiplies
+cos and sin (JAX ``_rope_sets``, :671-684).
 
 Attention runs through the fused paged kernels (``ops/paged_attention.py``):
 the decode kernel for one token per row, the prefill kernel otherwise; both
 write the step's K/V into the pools in place (quantized as they are written
-when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``
-and of ``llama`` with experts (how GGUF Mixtral files arrive) are ported;
-other routers, shared experts, expert parallelism, LoRA, M-RoPE, q/k norms,
-a local rope base, NoPE layers, sinks, biases, partial or interleaved
-rotary, layernorm, parallel residuals and granite's multipliers are not yet
-and raise ``NotImplementedError`` (:func:`check_supported`).
+when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``,
+of ``llama`` with experts (how GGUF Mixtral files arrive) and of ``gpt_oss``
+(top-k of the biased logits, softmax over the k, no renormalisation) are
+ported; other routers, shared experts, expert parallelism, LoRA, M-RoPE,
+q/k norms, a local rope base, NoPE layers, MLP biases (but gpt-oss's
+expert biases), partial or interleaved rotary, layernorm, parallel
+residuals and granite's multipliers are not yet and raise
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..kv.paged import PagedKVCache
-from ..ops.moe_grouped import moe_grouped_mlp
+from ..ops.moe_grouped import gpt_oss_grouped_mlp, moe_grouped_mlp
 from ..ops.norms import rms_norm, rms_norm_gemma
 from ..ops.paged_attention import (
     decode_counters,
@@ -58,7 +70,7 @@ from ..ops.paged_attention import (
     paged_prefill_attention_fused,
 )
 from ..ops.quant_matmul import split_need_tree
-from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies
+from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies, yarn_attention_factor
 from ..quant.linear import embedding_lookup, linear
 from ..quant.qtensor import QTensor
 from .config import ModelConfig
@@ -73,8 +85,9 @@ ACTIVATIONS = {
 }
 
 # archs whose MoE router is ported: mixtral (softmax over all experts, top-k,
-# renormalise) and llama with experts (top-k of the logits, softmax over k)
-_MOE_ARCHS = ("llama", "mixtral")
+# renormalise), llama with experts (top-k of the logits, softmax over k) and
+# gpt_oss (the same on logits plus the router bias, never renormalised)
+_MOE_ARCHS = ("llama", "mixtral", "gpt_oss")
 # the JAX package's _sparse_expert_combine takes dense banks from this many
 # experts on, for at most _SPARSE_MAX_TOKENS tokens (not ported)
 _SPARSE_MIN_E, _SPARSE_MAX_TOKENS = 16, 64
@@ -103,7 +116,7 @@ def check_supported(cfg: ModelConfig) -> None:
             cfg.residual_multiplier or cfg.logits_scaling
             or (cfg.embedding_multiplier and not gemma)
         ),
-        "attention/MLP biases": cfg.attention_bias or cfg.mlp_bias,
+        "MLP biases": cfg.mlp_bias,
     }
     missing = [name for name, on in unsupported.items() if on]
     if missing:
@@ -159,7 +172,7 @@ def route(router_logits: torch.Tensor, cfg: ModelConfig):
     else:
         topw, topi = torch.topk(router_logits, k, dim=-1)
         topw = torch.softmax(topw, dim=-1)
-        if cfg.norm_topk_prob:
+        if cfg.norm_topk_prob and cfg.arch != "gpt_oss":
             topw = topw / topw.sum(dim=-1, keepdim=True)
     return topw, topi
 
@@ -175,8 +188,14 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
     b, t, h = x.shape
     # router logits follow the JAX dtype path: linear in the compute dtype, then f32
     router_logits = linear(x, lw["router"], plain=plain).to(torch.float32)
+    if "router_bias" in lw:  # gpt_oss
+        router_logits = router_logits + lw["router_bias"].to(torch.float32)
     topw, topi = route(router_logits, cfg)
     experts = lw["experts"]
+    if cfg.arch == "gpt_oss":
+        out = gpt_oss_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
+                                  topi.reshape(b * t, -1), plain=plain)
+        return out.reshape(b, t, h)
     if any(isinstance(v, QTensor) for v in experts.values()):
         out = moe_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
                               topi.reshape(b * t, -1), act, plain=plain)
@@ -228,6 +247,9 @@ def forward_paged(
     inv = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                            device=input_ids.device)
     cos, sin = rope_cos_sin(positions, inv)
+    mscale = yarn_attention_factor(cfg.rope_scaling)
+    if mscale != 1.0:  # YaRN's attention factor folded into cos/sin, as HF and JAX do
+        cos, sin = cos * mscale, sin * mscale
     attn_scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
     i32 = dict(dtype=torch.int32, device=input_ids.device)
     block_tables = block_tables.to(**i32).contiguous()
@@ -241,12 +263,12 @@ def forward_paged(
     for li, lw in enumerate(weights["layers"]):
         x = _maybe_norm(h, lw["attn_norm"], eps, gemma)
         if "wqkv" in lw:
-            qkv = linear(x, lw["wqkv"], plain=plain)
+            qkv = linear(x, lw["wqkv"], lw.get("wqkv_bias"), plain=plain)
             q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
         else:
-            q = linear(x, lw["wq"], plain=plain)
-            k = linear(x, lw["wk"], plain=plain)
-            v = linear(x, lw["wv"], plain=plain)
+            q = linear(x, lw["wq"], lw.get("wq_bias"), plain=plain)
+            k = linear(x, lw["wk"], lw.get("wk_bias"), plain=plain)
+            v = linear(x, lw["wv"], lw.get("wv_bias"), plain=plain)
         q = apply_rope(q.reshape(b, t, cfg.num_heads, cfg.head_dim), cos, sin)
         k = apply_rope(k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim), cos, sin)
         v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
@@ -256,7 +278,7 @@ def forward_paged(
         k = k.to(kv_dtype)
         v = v.to(kv_dtype)
         scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale,
-                      window=int(windows[li]), softcap=softcap)
+                      window=int(windows[li]), softcap=softcap, sinks=lw.get("sinks"))
         if t == 1:
             attn = paged_decode_attention_fused(
                 q[:, 0].contiguous(), cache.k, cache.v, k[:, 0].contiguous(),
@@ -269,7 +291,8 @@ def forward_paged(
                 slots, block_tables, kv_lens, n_valid, li,
                 block_size=block_size, scale=attn_scale, plain=plain, **scales,
             )
-        attn_out = linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], plain=plain)
+        attn_out = linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], lw.get("wo_bias"),
+                          plain=plain)
         if "post_attn_norm" in lw:
             attn_out = _maybe_norm(attn_out, lw["post_attn_norm"], eps, gemma)
         h = h + attn_out
@@ -356,17 +379,25 @@ def _fuse(d: dict, parts: tuple[str, ...], fused_key: str) -> dict:
 
 
 def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
-    """Merge each layer's q/k/v into ``wqkv``, gate/up into ``wgateup`` and
-    an expert bank's gate/up into ``gateup`` (fewer kernel launches per
-    layer); parts that differ in kind stay unfused.
+    """Merge each layer's q/k/v into ``wqkv`` (their biases, where all three
+    have one, into ``wqkv_bias``), gate/up into ``wgateup`` and an expert
+    bank's gate/up into ``gateup`` (fewer kernel launches per layer); parts
+    that differ in kind, or of which only some have a bias, stay unfused.
 
     Fuses in place: each entry of ``weights["layers"]`` is replaced by its
     fused layer as soon as that exists, so the unfused parts are released
     layer by layer (the peak is one layer's parts over the model) and the
     model holds no second copy afterwards. Returns ``weights``."""
     layers = weights["layers"]
+    qkv, biases = ("wq", "wk", "wv"), ("wq_bias", "wk_bias", "wv_bias")
     for i, lw in enumerate(layers):
-        lw = _fuse(_fuse(dict(lw), ("wq", "wk", "wv"), "wqkv"), ("gate", "up"), "wgateup")
+        lw = dict(lw)
+        n_bias = sum(k in lw for k in biases)
+        if n_bias in (0, 3):
+            lw = _fuse(lw, qkv, "wqkv")
+        if n_bias == 3 and "wqkv" in lw:
+            lw["wqkv_bias"] = torch.cat([lw.pop(k) for k in biases])
+        lw = _fuse(lw, ("gate", "up"), "wgateup")
         if "experts" in lw:
             lw["experts"] = _fuse(lw["experts"], ("gate", "up"), "gateup")
         layers[i] = lw
@@ -386,8 +417,12 @@ def init_random_weights(
     gate ``[L, E, I, H]``, up and down ``[L, E, H, I]`` (``I`` =
     ``moe_intermediate_size`` or the dense width), which replace the layers'
     dense MLP (the JAX function draws no experts). Like the JAX function it
-    makes no post norms."""
+    makes no post norms, and draws no gpt-oss layers (its expert banks,
+    biases and sinks come from a checkpoint or the JAX package's weights)."""
     check_supported(cfg)
+    if cfg.arch == "gpt_oss":
+        raise NotImplementedError("init_random_weights draws no gpt-oss experts, biases or "
+                                  "sinks")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 

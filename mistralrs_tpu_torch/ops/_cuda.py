@@ -60,7 +60,8 @@ NVCC_FLAGS = (
 KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
            "w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "mla_decode",
            "paged_decode_int8", "paged_decode_fp8", "paged_prefill_int8", "paged_prefill_fp8",
-           "paged_decode_hd256", "paged_prefill_hd256")
+           "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",
+           "paged_prefill_hd64")
 COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -75,9 +76,9 @@ _SIGNATURES = {
                       _P, _P, _P],
     "mrt_w8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _L, _L, _P, _P, _P],
-    "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "mrt_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _F, _P],
-    "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _F, _P],
     "mrt_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P],

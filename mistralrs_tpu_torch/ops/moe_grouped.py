@@ -23,6 +23,14 @@ device scalar), so the engine's decode step is captured in a CUDA graph
 (``engine/decode_step.py``), and the combine adds each token's
 contributions in a fixed order, so a replay gives the eager step's bits.
 Expert parallelism is not ported and raises.
+
+:func:`gpt_oss_grouped_mlp` is gpt-oss's expert MLP (JAX
+``_gpt_oss_experts``, ``models/llama.py:496-529``) on the same route: two
+launches of the dense grouped kernel over the bf16 banks, each row's
+expert bias gathered by its tile's expert, and the clamped SwiGLU between
+them. The JAX package runs every expert on every token there, outside any
+Pallas kernel; at gpt-oss-20b's width that would read all 32 experts'
+weights (1.6 GB a layer) at every step.
 """
 
 from __future__ import annotations
@@ -136,8 +144,8 @@ def _dense_matmul_grouped_cuda(
             f"the CUDA kernel takes bf16 rows and bank, not {x2.dtype}, {w.dtype}")
     require(w.device == x2.device, "weight and input on different devices")
     require(w.is_contiguous() and w.data_ptr() % 16 == 0, "bank must be contiguous")
-    require(k % 128 == 0 and n % 16 == 0,
-            f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
+    require(k % 64 == 0 and n % 16 == 0,
+            f"kernel needs K % 64 == 0 and N % 16 == 0, got K={k}, N={n}")
     n_used = check_groups(x2, tile_idx, n_used_tiles, tm)
     x2 = _bf16_rows(x2)
     out = torch.empty((mp, n), dtype=torch.bfloat16, device=x2.device)
@@ -226,10 +234,56 @@ def moe_grouped_mlp(
     else:
         hidden = act(gmm(xs, experts["gate"])) * gmm(xs, experts["up"])
     y = gmm(hidden.to(x.dtype), down)
-    # each token's k contributions summed in f32 and rounded once, in a
-    # fixed order on every device (index_add_ on CUDA adds by atomics in any
-    # order, so two runs of one step could differ in their last bits)
+    return _combine(y, dest, order, topw)
+
+
+def _combine(y, dest, order, topw):
+    """Each token's k contributions (rows of ``y``, weighted by ``topw``)
+    summed in f32 and rounded once, in a fixed order on every device
+    (index_add_ on CUDA adds by atomics in any order, so two runs of one
+    step could differ in their last bits)."""
+    n, k = topw.shape
     rows = torch.empty_like(dest)
     rows[order] = dest  # y's row of each (token, choice) pair
-    contrib = y[rows].reshape(n, k, h) * topw[..., None].to(y.dtype)
+    contrib = y[rows].reshape(n, k, y.shape[-1]) * topw[..., None].to(y.dtype)
     return contrib.to(torch.float32).sum(dim=1).to(y.dtype)
+
+
+SWIGLU_LIMIT = 7.0  # gpt-oss's clamp (JAX _gpt_oss_experts: limit)
+SWIGLU_ALPHA = 1.702
+
+
+def gpt_oss_grouped_mlp(
+    x: torch.Tensor,  # [n, H]
+    experts: dict,  # gateup [E, 2I, H], gateup_bias [E, 2I], down [E, H, I], down_bias [E, H]
+    topw: torch.Tensor,  # [n, k]
+    topi: torch.Tensor,  # [n, k]
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """gpt-oss's expert MLP: ``gate, up = x W_gu[e] + b_gu[e]`` (``gateup``
+    holds the gate rows, then the up rows: the checkpoint's interleave
+    undone at load), ``gate = min(gate, 7)``, ``up = clip(up, -7, 7)``,
+    ``h = (up + 1) * gate * sigmoid(1.702 gate)``, ``y = h W_d[e] +
+    b_d[e]``, each in ``x``'s dtype as the JAX package computes it, and the
+    k choices combined as :func:`moe_grouped_mlp` does."""
+    n, h = x.shape
+    k = topi.shape[-1]
+    gateup, down = experts["gateup"], experts["down"]
+    tm = grouped_tile(n * k)
+    st, dest, _, tile_idx, n_used, mp, order = _groups(topi, topw, down.shape[0], tm)
+    xs = torch.zeros((mp, h), dtype=x.dtype, device=x.device)
+    xs[dest] = x[st]
+    row_e = tile_idx.long()[:, None].expand(-1, tm).reshape(-1)  # each row's expert
+
+    def gmm(rows, w, bias):
+        out = dense_matmul_grouped(rows, w, tile_idx, tm=tm, n_used_tiles=n_used, plain=plain)
+        return out + bias[row_e].to(out.dtype)
+
+    gu = gmm(xs, gateup, experts["gateup_bias"])
+    half = gu.shape[-1] // 2
+    gate = gu[:, :half].clamp(max=SWIGLU_LIMIT)
+    up = gu[:, half:].clamp(-SWIGLU_LIMIT, SWIGLU_LIMIT)
+    hidden = (up + 1.0) * (gate * torch.sigmoid(gate * SWIGLU_ALPHA))
+    y = gmm(hidden, down, experts["down_bias"])
+    return _combine(y, dest, order, topw)

@@ -16,8 +16,8 @@
   **Prefill kernel** (same file), replaces ``paged_prefill_attention_fused``:
   FlashAttention-2 on the tensor cores (``mma.sync``: QKᵀ and PV in bf16
   with f32 sums, P as two bf16 parts), K/V tiles gathered through the block
-  table into a ``cp.async`` double buffer. It takes head_dim 128 and GQA
-  groups that divide 64.
+  table into a ``cp.async`` double buffer. It takes GQA groups that divide
+  64.
 
 Pools are ``[L, n_kv, S, hd]`` (or one ``[n_kv, S, hd]`` plane) bf16 and are
 updated in place; the functions return the attention output only. On CUDA
@@ -41,17 +41,21 @@ to its rows as ``bf16(code × s)`` with the unrounded f32 scale and no fold
 quantizes, writes and round-trips the chunk's rows once in a first launch,
 into a scratch its attention launch reads).
 
-Sliding windows and the attention logit softcap (Gemma-2), the JAX kernels'
-``window`` and ``softcap``, follow ``sdpa`` (JAX ``ops/attention.py:54-89``):
-a query at position ``p`` sees a cached position ``s`` iff ``s <= p``, ``s <
-kv_len`` and ``p - s < window`` (0: no window; in decode ``p = kv_len - 1``),
-and a softcap ``c`` maps the scaled score ``x`` to ``tanh(x / c) * c``
-before the mask and the running max. The bf16 forms take both, at head_dim
-128 and 256 (the head_dim-256 forms count as ``paged_decode_hd256`` and
-``paged_prefill_hd256``); a windowed decode walks only the tiles its window
-reaches, and its splits (:func:`decode_plan` with the window) cover only
-those. The quantized forms take neither, and head_dim 128 only; sinks are
-not ported. What a kernel refuses raises ``NotImplementedError``.
+Sliding windows, the attention logit softcap (Gemma-2, gpt-oss) and
+attention sinks (gpt-oss), the JAX kernels' ``window``, ``softcap`` and
+``sinks``, follow ``sdpa`` (JAX ``ops/attention.py:54-89``): a query at
+position ``p`` sees a cached position ``s`` iff ``s <= p``, ``s < kv_len``
+and ``p - s < window`` (0: no window; in decode ``p = kv_len - 1``), a
+softcap ``c`` maps the scaled score ``x`` to ``tanh(x / c) * c`` before the
+mask and the running max, and a head's sink is one more logit in its
+softmax, uncapped, whose probability is dropped (its value is zero): a row
+that sees no position still gives zeros. The bf16 forms take all three, at
+head_dim 64, 128 and 256 (the head_dim-64 and -256 forms count as
+``paged_decode_hd64``/``_hd256`` and ``paged_prefill_hd64``/``_hd256``); a
+windowed decode walks only the tiles its window reaches, and its splits
+(:func:`decode_plan` with the window) cover only those. The quantized forms
+take none of them, and head_dim 128 only. What a kernel refuses raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,11 +83,11 @@ def _scale_plane(scale: Optional[torch.Tensor], layer: int) -> Optional[torch.Te
 
 def form(kernel: str, pool: torch.Tensor, hd: int = 128) -> str:
     """The launch-count name of ``kernel``'s form for ``pool`` and head_dim
-    ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_hd256``
-    after it at 256 (its own template instance), ``_int8`` or ``_fp8`` for
-    quantized pools."""
+    ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_hd64`` or
+    ``_hd256`` after it at 64 or 256 (their own template instances),
+    ``_int8`` or ``_fp8`` for quantized pools."""
     if not is_quantized(pool):
-        return f"{kernel}_hd256" if hd == 256 else kernel
+        return f"{kernel}_hd{hd}" if hd in (64, 256) else kernel
     return f"{kernel}_{'int8' if pool.dtype == torch.int8 else 'fp8'}"
 
 
@@ -93,20 +97,18 @@ def _check_scales(pool, k_scale, v_scale, what: str) -> None:
 
 
 def _unsupported(window, softcap, sinks, pool: torch.Tensor, hd: int) -> None:
-    """Raise ``NotImplementedError`` for what no form takes: sinks, and a
-    window, a softcap or head_dim 256 on 1-byte pools (the quantized forms
+    """Raise ``NotImplementedError`` for what no form takes: a window, a
+    softcap, sinks, head_dim 64 or 256 on 1-byte pools (the quantized forms
     stay at head_dim 128; the CUDA wrapper refuses other head dims)."""
-    if sinks is not None:
-        raise NotImplementedError("paged attention: sinks are not ported yet")
     if is_quantized(pool):
-        refuse_quantized_options(window, softcap, hd)
+        refuse_quantized_options(window, softcap, hd, sinks is not None)
 
 
-def refuse_quantized_options(window, softcap, hd: int) -> None:
-    """Raise ``NotImplementedError`` naming a window, a softcap or head_dim
-    256, which the int8/fp8 forms do not take."""
+def refuse_quantized_options(window, softcap, hd: int, sinks: bool = False) -> None:
+    """Raise ``NotImplementedError`` naming a window, a softcap, head_dim 64
+    or 256, or sinks, which the int8/fp8 forms do not take."""
     named = {"sliding window": bool(window), "logit softcap": bool(softcap),
-             "head_dim 256": hd == 256}
+             f"head_dim {hd}": hd in (64, 256), "attention sinks": sinks}
     missing = [k for k, on in named.items() if on]
     if missing:
         raise NotImplementedError(
@@ -122,7 +124,7 @@ def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int
     return plane[:, slots].transpose(0, 1).to(torch.float32)
 
 
-def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0):
+def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0, sink=None):
     """q [B, n_kv, R, hd] (pre-scaled), k/v [B, n_kv, P, hd], allowed
     [B, 1|n_kv, R, P] bool → [B, n_kv, R, hd] f32, zeros where nothing is
     allowed (the kernels' flash form: acc / max(l, 1e-20)). With the per
@@ -130,7 +132,8 @@ def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0):
     scale multiplies the scores before the mask and the max, the v scale
     multiplies ``p`` after the sum ``l`` took it (the JAX kernels' fold).
     A ``softcap`` maps the scores to ``tanh(s / softcap) * softcap`` before
-    the mask."""
+    the mask. A ``sink`` [n_kv, R] (f32 logits, not capped) enters each
+    row's max and sum as one more term with no value."""
     s = torch.einsum("bkrd,bkpd->bkrp", q, k)
     if ks is not None:
         s = s * ks[:, :, None, :]
@@ -138,8 +141,12 @@ def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0):
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
+    if sink is not None:
+        m = torch.maximum(m, sink[None, :, :, None])
     p = torch.exp(s - m) * allowed
     l = p.sum(dim=-1, keepdim=True)
+    if sink is not None:
+        l = l + torch.exp(sink[None, :, :, None] - m)
     if vs is not None:
         p = p * vs[:, :, None, :]
     return torch.einsum("bkrp,bkpd->bkrd", p, v) / torch.clamp_min(l, 1e-20)
@@ -150,10 +157,19 @@ def _softmax_attend(q, k, v, allowed, ks=None, vs=None, softcap: float = 0.0):
 # ---------------------------------------------------------------------------
 
 
+def _sink_rows(sinks, n_kv: int, group: int, t: int = 1):
+    """Per-head sinks [n_q] → the plain versions' [n_kv, t * group] f32 rows
+    ordered (token, head in group), or None."""
+    if sinks is None:
+        return None
+    return sinks.to(torch.float32).reshape(n_kv, 1, group).expand(n_kv, t, group).reshape(
+        n_kv, t * group)
+
+
 def paged_decode_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer=0,
     *, block_size: int, scale: float, k_scale=None, v_scale=None, window: int = 0,
-    softcap: float = 0.0,
+    softcap: float = 0.0, sinks=None,
 ) -> torch.Tensor:
     """Plain version of the decode kernel and its quantized forms (same
     arguments, same result)."""
@@ -177,7 +193,8 @@ def paged_decode_attention_plain(
     allowed = pos[None, :] < lens
     if window:
         allowed &= lens - 1 - pos[None, :] < window
-    out = _softmax_attend(qg, k, v, allowed[:, None, None, :], ksg, vsg, softcap)
+    out = _softmax_attend(qg, k, v, allowed[:, None, None, :], ksg, vsg, softcap,
+                          _sink_rows(sinks, n_kv, group))
     return out.reshape(b, n_q, hd).to(q.dtype)
 
 
@@ -263,13 +280,22 @@ def _exponent(scale: float, softcap: float) -> tuple[float, float]:
 
 
 def _check_head_dim(hd: int, ks, what: str) -> None:
-    require(hd == 128 or (hd == 256 and ks is None),
-            f"{what} kernel needs head_dim 128 (or 256 on bf16 pools), got {hd}")
+    require(hd == 128 or (hd in (64, 256) and ks is None),
+            f"{what} kernel needs head_dim 128 (or 64 or 256 on bf16 pools), got {hd}")
+
+
+def _check_sinks(sinks, n_q: int, q: torch.Tensor) -> None:
+    """The kernels read the sinks in place, one f32 per query head: a
+    captured step keeps their address, so they are never converted here."""
+    if sinks is not None:
+        require(sinks.dtype == torch.float32 and sinks.is_contiguous()
+                and tuple(sinks.shape) == (n_q,) and sinks.device == q.device,
+                f"sinks must be contiguous f32 [{n_q}] on {q.device}")
 
 
 def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_size, scale,
                  plan: Optional[DecodePlan] = None, ks=None, vs=None, window: int = 0,
-                 softcap: float = 0.0):
+                 softcap: float = 0.0, sinks=None):
     """The decode kernel's launch (its quantized form with the scale planes
     ``ks``/``vs``), at ``decode_plan``'s split unless a ``plan`` is given
     (``probes/split_plans.py`` times other splits)."""
@@ -279,6 +305,7 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
     require(n_q % n_kv == 0 and n_q // n_kv <= DECODE_MAX_GROUP,
             f"GQA group {n_q}/{n_kv} unsupported")
     _check_pools(q, kp, vp, ks, vs, block_size)
+    _check_sinks(sinks, n_q, q)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == q.device,
                 f"{name} must be contiguous bf16 on {q.device}")
@@ -307,8 +334,8 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
     tail = (s_total, w, block_size, plan.positions, plan.splits, float(e_mul))
     name = form("paged_decode", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_decode(*ptrs, int(window), float(softcap), float(cap_in), *tail,
-                                    stream_ptr(q))
+        code = lib.mrt_paged_decode(*ptrs[:11], _ptr(sinks), *ptrs[11:], int(window),
+                                    float(softcap), float(cap_in), *tail, stream_ptr(q))
     else:
         code = lib.mrt_paged_decode_q(*ptrs, *tail, ks.data_ptr(), vs.data_ptr(),
                                       int(kp.dtype != torch.int8), stream_ptr(q))
@@ -339,7 +366,8 @@ def paged_decode_attention_fused(
 ) -> torch.Tensor:
     """Fused reshape_and_cache + paged decode attention → out [B, n_q, hd].
     ``window`` (0: none) and ``softcap`` (0: none) are Python numbers: a
-    captured step keeps them as they were at capture."""
+    captured step keeps them as they were at capture. ``sinks``: f32
+    ``[n_q]`` logits (or None), read in place by the kernel."""
     _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -347,14 +375,14 @@ def paged_decode_attention_fused(
         return paged_decode_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, layer,
             block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
-            window=window, softcap=softcap,
+            window=window, softcap=softcap, sinks=sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged decode attention: unsupported device {q.device}")
     return _decode_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
                         slots, block_tables, kv_lens, block_size, scale,
                         ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer),
-                        window=window, softcap=softcap)
+                        window=window, softcap=softcap, sinks=sinks)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +393,7 @@ def paged_decode_attention_fused(
 def paged_prefill_attention_plain(
     q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid, layer=0,
     *, block_size: int, scale: float, k_scale=None, v_scale=None, window: int = 0,
-    softcap: float = 0.0,
+    softcap: float = 0.0, sinks=None,
 ) -> torch.Tensor:
     """Plain version of the prefill kernel and its quantized forms. Rows
     past ``n_valid`` write nothing and return zeros (the kernel's output
@@ -420,19 +448,22 @@ def paged_prefill_attention_plain(
     if window:
         allowed &= lim[:, :, None] - pos[None, None, :] < window
     allowed = allowed.repeat_interleave(group, dim=1)[:, None]  # [B, 1, T*G, P]
-    out = _softmax_attend(qg, k, v, allowed, ksg, vsg, softcap)
+    out = _softmax_attend(qg, k, v, allowed, ksg, vsg, softcap,
+                          _sink_rows(sinks, n_kv, group, t))
     out = out.reshape(b, n_kv, t, group, hd).permute(0, 2, 1, 3, 4).reshape(b, t, n_q, hd)
     return out.to(q.dtype)
 
 
 def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-                  block_size, scale, ks=None, vs=None, window: int = 0, softcap: float = 0.0):
+                  block_size, scale, ks=None, vs=None, window: int = 0, softcap: float = 0.0,
+                  sinks=None):
     b, t, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
     _check_head_dim(hd, ks, "prefill")
     require(n_q % n_kv == 0 and 64 % (n_q // n_kv) == 0,
             f"GQA group {n_q}/{n_kv} unsupported")
     _check_pools(q, kp, vp, ks, vs, block_size)
+    _check_sinks(sinks, n_q, q)
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.device == q.device,
                 f"{name} must be contiguous bf16 on {q.device}")
@@ -453,8 +484,8 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
     tail = (s_total, block_tables.shape[1], block_size, float(e_mul))
     name = form("paged_prefill", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_prefill(*ptrs, int(window), float(softcap), float(cap_in), *tail,
-                                     stream_ptr(q))
+        code = lib.mrt_paged_prefill(*ptrs[:10], _ptr(sinks), *ptrs[10:], int(window),
+                                     float(softcap), float(cap_in), *tail, stream_ptr(q))
     else:
         # the chunk's rows' round trips, which the attention launch reads
         k_rt, v_rt = torch.empty_like(k_new), torch.empty_like(v_new)
@@ -490,7 +521,7 @@ def paged_prefill_attention_fused(
     """Fused reshape_and_cache + causal paged attention for T > 1 → out
     [B, T, n_q, hd]. Each row's valid tokens [0, n_valid) are the
     consecutive positions [kv_len − n_valid, kv_len) (the engine's prefill
-    invariant, as in the JAX kernel)."""
+    invariant, as in the JAX kernel). ``sinks`` as for the decode."""
     _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -498,11 +529,11 @@ def paged_prefill_attention_fused(
         return paged_prefill_attention_plain(
             q, k_pool, v_pool, k_new, v_new, slots, block_tables, kv_lens, n_valid,
             layer, block_size=block_size, scale=scale, k_scale=k_scale, v_scale=v_scale,
-            window=window, softcap=softcap,
+            window=window, softcap=softcap, sinks=sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged prefill attention: unsupported device {q.device}")
     return _prefill_cuda(q, _plane(k_pool, layer), _plane(v_pool, layer), k_new, v_new,
                          slots, block_tables, kv_lens, n_valid, block_size, scale,
                          ks=_scale_plane(k_scale, layer), vs=_scale_plane(v_scale, layer),
-                         window=window, softcap=softcap)
+                         window=window, softcap=softcap, sinks=sinks)

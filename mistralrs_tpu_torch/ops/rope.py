@@ -1,6 +1,8 @@
 """Rotary position embeddings (counterpart of ``mistralrs_tpu/ops/rope.py``):
-the default and llama3-scaled frequencies with HF rotate-half pairing.
-Other scaling kinds raise ``NotImplementedError``."""
+the default, llama3-scaled and YaRN frequencies with HF rotate-half
+pairing, and YaRN's attention factor (:func:`yarn_attention_factor`, which
+the decoder folds into cos and sin as the JAX package does). Other scaling
+kinds raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ def rope_frequencies(
     kind = scaling.get("rope_type") or scaling.get("type") or "default"
     if kind in ("default", "none"):
         return inv_freq
+    if kind == "yarn":
+        return _yarn(inv_freq, head_dim, theta, scaling)
     if kind != "llama3":
         raise NotImplementedError(f"rope scaling type {kind!r}")
     factor = float(scaling["factor"])
@@ -41,6 +45,43 @@ def rope_frequencies(
             (1 - smooth) * inv_freq / factor + smooth * inv_freq,
         ),
     )
+
+
+def _yarn(inv_freq: torch.Tensor, head_dim: int, theta: float, scaling: dict[str, Any]):
+    """YaRN's frequencies (JAX ``ops/rope.py:65-85``): dims below the fast
+    correction dim keep their frequency, dims above the slow one are
+    divided by ``factor``, a linear ramp between (``truncate``, default
+    true, rounds the correction dims outward to integers)."""
+    factor = float(scaling["factor"])
+    orig = float(scaling.get("original_max_position_embeddings", 4096))
+    beta_fast = float(scaling.get("beta_fast", 32.0))
+    beta_slow = float(scaling.get("beta_slow", 1.0))
+
+    def correction_dim(num_rot: float) -> float:
+        return (head_dim * math.log(orig / (num_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    dims = torch.arange(head_dim // 2, dtype=torch.float32, device=inv_freq.device)
+    # ramp 0: a high-frequency dim (extrapolated, unscaled); 1: a low one (/ factor)
+    ramp = torch.clamp((dims - low) / max(high - low, 1e-3), 0.0, 1.0)
+    return inv_freq / factor * ramp + inv_freq * (1.0 - ramp)
+
+
+def yarn_attention_factor(scaling: Optional[dict[str, Any]]) -> float:
+    """YaRN's mscale, ``0.1 ln(factor) + 1`` (1.0 without YaRN or with a
+    factor of at most 1): a copy of JAX ``yarn_attention_factor``."""
+    if not scaling:
+        return 1.0
+    kind = scaling.get("rope_type") or scaling.get("type")
+    if kind != "yarn":
+        return 1.0
+    factor = float(scaling["factor"])
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * math.log(factor) + 1.0
 
 
 def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):

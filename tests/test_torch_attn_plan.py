@@ -119,18 +119,36 @@ def test_plan_reads_no_device_value(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _emulate(q, kp, vp, k_new, v_new, slots, bt, kv_lens, bs, scale, plan):
+def _emulate(q, kp, vp, k_new, v_new, slots, bt, kv_lens, bs, scale, plan, window=0,
+             sinks=None):
     """The decode kernel's arithmetic, in f32 → out [B, n_q, hd] f32 (pools
-    written in place, as the kernel writes them)."""
+    written in place, as the kernel writes them). With a ``window`` the walk
+    starts at the tile holding ``kv_len - window`` and masks the positions
+    below it; splits past the walk's last position exit (they add no
+    partial). ``sinks`` [n_q] enter once per head: in the warps' merge when
+    one split holds the walk, else in the merge of the splits."""
     write_kv(kp, vp, k_new, v_new, slots)
     b_, n_q, hd = q.shape
     n_kv = kp.shape[0]
     group = n_q // n_kv
     sl = scale * LOG2E
     out = torch.zeros((b_, n_q, hd))
+
+    def with_sink(m, l, h):
+        """(m, l) merged with the heads' sinks (m = sink, l = 1, no value)."""
+        if sinks is None:
+            return m, l, torch.ones_like(m)
+        su = sinks[h * group:(h + 1) * group].float() / scale  # the scores' units
+        mb = torch.maximum(m, su)
+        f = torch.exp2((m - mb) * sl)
+        return mb, l * f + torch.exp2((su - mb) * sl), f
+
     for b in range(b_):
         kv_len = int(kv_lens[b])
-        live = max(1, -(-kv_len // plan.positions))
+        start = (kv_len - window) // DECODE_TILE * DECODE_TILE if 0 < window < kv_len else 0
+        p_lo = kv_len - window if window else 0
+        live = max(1, -(-(kv_len - start) // plan.positions))
+        assert live <= plan.splits
         pos = torch.arange(kv_len)
         phys = bt[b].long()[pos // bs] * bs + pos % bs
         for h in range(n_kv):
@@ -138,7 +156,8 @@ def _emulate(q, kp, vp, k_new, v_new, slots, bt, kv_lens, bs, scale, plan):
             qh = q[b, h * group:(h + 1) * group].float()  # [group, hd]
             parts = []
             for s in range(live):
-                lo, hi = s * plan.positions, min((s + 1) * plan.positions, kv_len)
+                lo = start + s * plan.positions
+                hi = min(lo + plan.positions, kv_len)
                 warps = []
                 for w in range(4):
                     m = torch.full((group,), pa.NEG_INF)
@@ -149,9 +168,10 @@ def _emulate(q, kp, vp, k_new, v_new, slots, bt, kv_lens, bs, scale, plan):
                             continue
                         idx = torch.arange(t0 + 16 * w, min(t0 + 16 * w + 16, hi))
                         sc = qh @ keys[idx].T  # raw scores [group, n]
+                        sc = torch.where(idx[None] >= p_lo, sc, torch.full_like(sc, pa.NEG_INF))
                         m_new = torch.maximum(m, sc.amax(dim=1))
                         alpha = torch.exp2((m - m_new) * sl)
-                        p = torch.exp2(sc * sl - (m_new * sl)[:, None])
+                        p = torch.exp2(sc * sl - (m_new * sl)[:, None]) * (sc > 0.5 * pa.NEG_INF)
                         l = l * alpha + p.sum(dim=1)
                         acc = acc * alpha[:, None] + p @ vals[idx]
                         m = m_new
@@ -164,11 +184,13 @@ def _emulate(q, kp, vp, k_new, v_new, slots, bt, kv_lens, bs, scale, plan):
             f = [torch.exp2((x[0] - mt) * sl) for x in parts]
             l = sum(fi * x[1] for fi, x in zip(f, parts))
             acc = sum(fi[:, None] * x[2] for fi, x in zip(f, parts))
-            out[b, h * group:(h + 1) * group] = acc / torch.clamp_min(l, 1e-20)[:, None]
+            _, l, f_sink = with_sink(mt, l, h)
+            out[b, h * group:(h + 1) * group] = (
+                acc * f_sink[:, None] / torch.clamp_min(l, 1e-20)[:, None])
     return out
 
 
-def _plain_f32(q, kp, vp, bt, kv_lens, bs, scale):
+def _plain_f32(q, kp, vp, bt, kv_lens, bs, scale, window=0, sinks=None):
     """The plain version's softmax on pools already written, before its
     bf16 rounding."""
     b, n_q, hd = q.shape
@@ -176,8 +198,12 @@ def _plain_f32(q, kp, vp, bt, kv_lens, bs, scale):
     k, v = pa._gather_seq(kp, bt, bs), pa._gather_seq(vp, bt, bs)
     qg = q.float().reshape(b, n_kv, n_q // n_kv, hd) * scale
     pos = torch.arange(k.shape[2])
-    allowed = (pos[None, :] < kv_lens[:, None])[:, None, None, :]
-    return pa._softmax_attend(qg, k, v, allowed).reshape(b, n_q, hd)
+    lens = torch.as_tensor(kv_lens).long()[:, None]
+    allowed = pos[None, :] < lens
+    if window:
+        allowed &= lens - 1 - pos[None, :] < window
+    sink = pa._sink_rows(sinks, n_kv, n_q // n_kv)
+    return pa._softmax_attend(qg, k, v, allowed[:, None, None, :], sink=sink).reshape(b, n_q, hd)
 
 
 @pytest.mark.parametrize("group", [1, 4, 16])
@@ -221,3 +247,51 @@ def test_split_arithmetic_matches_jax_and_plain(group):
                                atol=1e-2)
     ref = _plain_f32(tb(q), k1, v1, torch.from_numpy(bt), torch.from_numpy(kv_lens), bs, scale)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("plan", [pa.DecodePlan(64, 3), pa.DecodePlan(192, 1)])
+@pytest.mark.parametrize("group", [1, 8])
+def test_split_merge_with_sinks_matches_jax(group, plan):
+    """gpt-oss's sliding layers: a window of 128 and a sink per head, at
+    head_dim 64. Plans of 3 splits of 64 positions (the walk covers at most
+    window + 63) and of one split of 192 (``decode_plan``'s at this window):
+    rows of kv_len 0, 100 (no window bite), 129 (start 0, 3 live splits),
+    256 (start 128: only 2 of the 3 splits hold a position, the third one
+    exits and must add no second l = 1) and 300 (start 128, a first tile
+    partly below the window). The model (the sink merged once per head)
+    against JAX ``paged_decode_attention_fused`` in interpret mode with its
+    rows padded to 128 (bf16, atol 1e-2) and against the plain version's
+    f32 softmax (atol 1e-5)."""
+    hd, n_kv, bs, w, window = 64, 2, 16, 20, 128
+    n_q = n_kv * group
+    kv_lens = np.array([0, 100, 129, 256, 300], np.int32)
+    b = len(kv_lens)
+    rng = np.random.default_rng(100 + group)
+    s_total = (b * w + 1) * bs
+    bt = rng.permutation(b * w).astype(np.int32).reshape(b, w)
+    slots = np.array([-1] + [bt[i, (n - 1) // bs] * bs + (n - 1) % bs
+                             for i, n in enumerate(kv_lens) if i], np.int32)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, kp, vp = f32(b, n_q, hd), f32(n_kv, s_total, hd), f32(n_kv, s_total, hd)
+    kn, vn = f32(b, n_kv, hd), f32(b, n_kv, hd)
+    # sinks of N(4, 2^2): against ~100 positions of scores N(0, 1) they take
+    # a good share of the softmax
+    sinks = (rng.standard_normal(n_q) * 2 + 4).astype(np.float32)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    pad = lambda a: jnp.asarray(np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, 128 - hd)]),  # noqa: E731
+                                jnp.bfloat16)
+    scale = 1.0 / math.sqrt(hd)
+    jo, _, _ = jax_decode(pad(q), pad(kp), pad(vp), pad(kn), pad(vn), jnp.asarray(slots),
+                          jnp.asarray(bt), jnp.asarray(kv_lens), window, 0, None,
+                          jnp.asarray(sinks), block_size=bs, scale=scale, interpret=True)
+    k1, v1 = tb(kp), tb(vp)
+    got = _emulate(tb(q), k1, v1, tb(kn), tb(vn), torch.from_numpy(slots), torch.from_numpy(bt),
+                   kv_lens, bs, scale, plan, window, torch.from_numpy(sinks))
+    assert (got[0] == 0).all()  # kv_len 0: zeros, sink or not
+    np.testing.assert_allclose(got.to(torch.bfloat16).float().numpy(),
+                               np.asarray(jo, np.float32)[..., :hd], atol=1e-2)
+    ref = _plain_f32(tb(q), k1, v1, torch.from_numpy(bt), kv_lens, bs, scale, window,
+                     torch.from_numpy(sinks))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    no_sink = _plain_f32(tb(q), k1, v1, torch.from_numpy(bt), kv_lens, bs, scale, window)
+    assert (ref - no_sink).abs().max() > 0.05  # the sinks bite

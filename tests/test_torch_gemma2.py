@@ -346,10 +346,10 @@ def _attend(kind, hd=128, pool_dtype=torch.int8, **opts):
 @pytest.mark.parametrize("kind", ["decode", "prefill"])
 @pytest.mark.parametrize("case", ["sinks", "window", "softcap", "hd256"])
 def test_refused_attention_options(kind, case):
-    """Sinks on any pool; a window, a softcap or head_dim 256 on 1-byte
-    pools (the quantized forms take none of them)."""
+    """Sinks, a window, a softcap or head_dim 256 on 1-byte pools (the
+    quantized forms take none of them)."""
     if case == "sinks":
-        opts = dict(pool_dtype=torch.bfloat16, sinks=torch.zeros(N_KV * 2))
+        opts = dict(sinks=torch.zeros(N_KV * 2))
     else:
         opts = {"window": dict(window=4), "softcap": dict(softcap=50.0),
                 "hd256": dict(hd=256)}[case]

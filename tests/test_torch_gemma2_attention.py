@@ -284,13 +284,14 @@ def test_launch_arguments_carry_window_and_softcap(monkeypatch, softcap):
     args = fake.calls["mrt_paged_decode"]
     plan = decode_plan(b, n_kv, 2, w, bs, 132, win)
     assert plan != decode_plan(b, n_kv, 2, w, bs, 132)
-    assert args[11:15] == (b, n_q, n_kv, hd)
-    assert args[15] == win and args[16] == softcap
+    assert args[11] is None  # no sinks
+    assert args[12:16] == (b, n_q, n_kv, hd)
+    assert args[16] == win and args[17] == softcap
     assert args[-6:-2] == (w, bs) + tuple(plan)
     if softcap:
-        assert args[17] == pytest.approx(scale / softcap) and args[-2] == pytest.approx(LOG2E)
+        assert args[18] == pytest.approx(scale / softcap) and args[-2] == pytest.approx(LOG2E)
     else:
-        assert args[17] == 0.0 and args[-2] == pytest.approx(scale * LOG2E)
+        assert args[18] == 0.0 and args[-2] == pytest.approx(scale * LOG2E)
     t = 32
     pa._prefill_cuda(torch.empty((2, t, n_q, hd), **bf), pool, pool,
                      torch.empty((2, t, n_kv, hd), **bf), torch.empty((2, t, n_kv, hd), **bf),
@@ -298,7 +299,8 @@ def test_launch_arguments_carry_window_and_softcap(monkeypatch, softcap):
                      torch.empty(2, **i32), torch.empty(2, **i32), bs, scale, window=win,
                      softcap=softcap)
     args = fake.calls["mrt_paged_prefill"]
-    assert args[10:19] == (2, t, n_q, n_kv, hd, win, softcap, args[17], s_total)
+    assert args[10] is None  # no sinks
+    assert args[11:20] == (2, t, n_q, n_kv, hd, win, softcap, args[18], s_total)
     assert args[-4:-1] == (w, bs, pytest.approx(LOG2E if softcap else scale * LOG2E))
     assert COUNTS["paged_decode_hd256"] == 1 and COUNTS["paged_prefill_hd256"] == 1
     assert COUNTS["paged_decode"] == 0 and COUNTS["paged_prefill"] == 0

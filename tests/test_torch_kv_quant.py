@@ -310,7 +310,7 @@ def test_decode_fold_order_is_checked(monkeypatch):
     """A plain version that folds the v scale into p before the running sum
     l takes it (semantic 2 broken) is caught by the comparison above."""
 
-    def wrong(q, k, v, allowed, ks=None, vs=None, softcap=0.0):
+    def wrong(q, k, v, allowed, ks=None, vs=None, softcap=0.0, sink=None):
         s = torch.einsum("bkrd,bkpd->bkrp", q, k) * ks[:, :, None, :]
         s = torch.where(allowed, s, torch.full_like(s, pa.NEG_INF))
         p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * allowed * vs[:, :, None, :]

@@ -127,17 +127,17 @@ def test_four_dim_pools_touch_only_their_layer():
 
 
 def test_unported_options_raise():
-    """Sinks raise on any pool; a sliding window raises on a 1-byte pool
-    (the quantized forms take no window)."""
+    """Sinks and a sliding window raise on a 1-byte pool (the quantized
+    forms take neither)."""
     q = torch.zeros((1, N_Q, HD), dtype=torch.bfloat16)
-    pool = torch.zeros((N_KV, S, HD), dtype=torch.bfloat16)
     new = torch.zeros((1, N_KV, HD), dtype=torch.bfloat16)
     i1 = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sinks"):
-        paged_decode_attention_fused(q, pool, pool, new, new, i1, i1[None], i1,
-                                     block_size=BS, sinks=torch.zeros(N_Q))
     codes = torch.zeros((N_KV, S, HD), dtype=torch.int8)
     scale = torch.ones((N_KV, S), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="sinks"):
+        paged_decode_attention_fused(q, codes, codes, new, new, i1, i1[None], i1,
+                                     block_size=BS, sinks=torch.zeros(N_Q), k_scale=scale,
+                                     v_scale=scale)
     with pytest.raises(NotImplementedError, match="sliding window"):
         paged_decode_attention_fused(q, codes, codes, new, new, i1, i1[None], i1,
                                      block_size=BS, window=8, k_scale=scale, v_scale=scale)
