@@ -96,9 +96,16 @@ script in one call:
    and 512 tokens on 3840 with the window; the same checks, and on each row
    the plain version without the sinks must differ from it by more than 0.1
    (so a kernel that dropped them could not pass); SDPA's yardstick has no
-   sinks. Last, the dense grouped kernel on gpt-oss-20b's banks (32 experts,
+   sinks. Then the dense grouped kernel on gpt-oss-20b's banks (32 experts,
    top-4: gate/up [32, 5760, 2880], down [32, 2880, 2880], K = 45 x 64) at
-   n*k = 32 (8 decode tokens) and 2048 (a 512-token prefill);
+   n*k = 32 (8 decode tokens) and 2048 (a 512-token prefill). Last, the
+   Qwen family: the prefill kernel at Qwen2.5-7B's heads (28/4, GQA group 7:
+   9 tokens a 64-row query tile, its last row dead) at B=2 T=128 on 300 past
+   and 512 tokens on 512, at group 5 (40/8, Qwen2.5-14B's) at B=2 T=128, its
+   int8 form at group 7 at B=2 T=128; the decode kernel at group 7 at the
+   table's row; and the dense grouped kernel on Qwen3-30B-A3B's banks (128
+   experts, top-8: gate/up [128, 1536, 2048], down [128, 2048, 768]) at n*k
+   = 48 (6 decode tokens) and 2048 (a 256-token chunk); the same checks;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -127,7 +134,22 @@ script in one call:
    head_dim 64, 32 bf16 experts top-4 with biases and the clamped SwiGLU):
    two 300-token prompts in 128-token chunks, then 4 decode steps; phase
    3b's rule on expert choices (>= 99 % agree, then the plain run takes the
-   kernel run's choices); logits within 5e-2 of the largest;
+   kernel run's choices); logits within 5e-2 of the largest. Phases 3b, 3e
+   and 3g log, beside the count of expert choices that agree, the plain
+   run's router-logit gap at the top-k edge (the k-th largest logit less the
+   (k+1)-th) of each choice that differs: near-ties flip under another sum
+   order, a kernel fault would flip clear choices too;
+3f. the same schedule at full Qwen2.5-7B width with 2 layers (GQA group 7,
+   q/k/v biases; each 128-token chunk spans 15 query tiles of 9 tokens),
+   bf16 weights; logits within 5e-2 of the largest;
+3g. the same at full Qwen3-30B-A3B width with 2 layers (q/k norm, q_dim 4096
+   against a hidden 2048, 128 bf16 experts top-8 on the dense grouped
+   kernel); its bf16 router logits tie at the top-8 edge in about one
+   (token, layer) in fifty, so in place of phase 3b's 99 % every expert
+   choice that differs must be a near-tie, the plain run's gap at most
+   ``NEAR_TIE_ULPS`` bf16 ulps of the 8th logit (a kernel fault that flips
+   a clear choice fails it), then the plain run on the kernel run's
+   choices;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -173,22 +195,30 @@ script in one call:
    tokens: the 128-position windows bite in prefill and in decode) and
    checks; the head_dim-64 forms of the paged kernels and the dense grouped
    kernel launched and no plain version run;
-9. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises and
-   the script exits non-zero without that line.
+9. serve the full 28-layer Qwen2.5-7B geometry (bf16, ~15.2 GB drawn on the
+   device after the gpt-oss weights are freed; q/k/v biases, GQA group 7):
+   the same 6 requests (the 600-token prompt runs 3 prefill chunks of many
+   group-7 query tiles) and checks; the paged kernels launched and no plain
+   version run;
+10. serve the full 48-layer Qwen3-30B-A3B geometry (bf16, ~61.1 GB drawn on
+   the device after the Qwen2.5 weights are freed; q/k norm, 128 experts
+   top-8): the same 6 requests and checks; the paged kernels and the dense
+   grouped kernel on the 128-expert banks launched and no plain version run;
+11. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+   and the script exits non-zero without that line.
 
-The ``kernels`` line gives each kernel's launches in the run of its path
-(phase 4 for the dense-model kernels, its int8 serve for the int8 forms of
-the paged kernels, phase 3's fp8 model run for their fp8 forms, phase 5 for
-the W4/W8 grouped kernels, phase 6 for the MLA decode and dense grouped
-kernels, phase 7 for the head_dim-256 forms, phase 8 for the head_dim-64
-forms) and its times at the main
+The ``kernels`` line gives each kernel's launches summed over the runs of
+its path, and each run's count beside them (``launches_by_run``): the serve
+phases 4-10 (4's int8 serve for the int8 forms of the paged kernels), and
+phase 3's fp8 model run for their fp8 forms; and its times at the main
 path's dominant shape (``library_device_ms``: the library call's own device
 time).
 
 Budget: the whole run at most 8 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute), at most 8 GB of
 host memory (all weights are drawn on the device, none on the host), at
-most 60 GB of device memory (phase 8's gpt-oss-20b weights take 41.8 GB).
+most 72 GB of device memory (phase 10's Qwen3-30B-A3B weights take 61.1 GB,
+its KV pools 0.8 GB).
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
 tile) and the dense grouped kernel use the plain version's weights exactly
@@ -311,10 +341,29 @@ GPT_OSS_20B = dict(
                   "original_max_position_embeddings": 4096, "truncate": False},
     max_position_embeddings=131072,
 )
+# Qwen2.5-7B-Instruct (Qwen/Qwen2.5-7B-Instruct config.json: 28 query heads on
+# 4 KV heads, GQA group 7; q/k/v biases; its sliding_window of 131072 windows
+# every layer, as both packages read the config, and never bites)
+QWEN25_7B = dict(
+    arch="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_layers=28,
+    num_heads=28, num_kv_heads=4, head_dim=128, sliding_window=131072, rms_norm_eps=1e-6,
+    rope_theta=1e6, max_position_embeddings=32768,
+)
+# Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json: 32 query heads on 4 KV heads,
+# head_dim 128 so q_dim 4096 against a hidden 2048, q/k norm, 128 bf16
+# experts top-8 of width 768, renormalised)
+QWEN3_30B_A3B = dict(
+    arch="qwen3moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144, num_layers=48,
+    num_heads=32, num_kv_heads=4, head_dim=128, qk_norm=True, num_experts=128,
+    num_experts_per_tok=8, moe_intermediate_size=768, norm_topk_prob=True, rms_norm_eps=1e-6,
+    rope_theta=1e6, max_position_embeddings=40960,
+)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
 GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
 GPT_OSS_KERNELS = ("paged_decode_hd64", "paged_prefill_hd64", "dense_matmul_g")
+QWEN_KERNELS = ("paged_decode", "paged_prefill")
+QWEN_MOE_KERNELS = ("paged_decode", "paged_prefill", "dense_matmul_g")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -602,6 +651,43 @@ def build_gpt_oss(cfg: ModelConfig, dev, seed: int) -> dict:
             "lm_head": draw(cfg.vocab_size, h)}
 
 
+def build_qwen(cfg: ModelConfig, dev, seed: int) -> dict:
+    """Qwen2.5 or Qwen3-MoE weights of ``cfg`` in bf16, drawn on the device:
+    fused q/k/v (``wqkv``, with its biases of N(0, 0.1^2) for qwen2) and o
+    of N(0, 0.02^2), q/k norms of 1 + N(0, 0.1^2) where the config has them,
+    the dense MLP fused (``wgateup``, ``down``) or the router and the
+    expert banks in the grouped kernels' layout (``gateup`` [E, 2I, H],
+    ``down`` [E, H, I]) of N(0, 0.02^2), norms of ones, an untied head:
+    ~15.2 GB for Qwen2.5-7B, ~61.1 GB for Qwen3-30B-A3B at 48 layers."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = cfg.hidden_size
+
+    def draw(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).mul_(std)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        lw = {"attn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+              "ffn_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+              "wqkv": draw(cfg.q_dim + 2 * cfg.kv_dim, h), "wo": draw(h, cfg.q_dim)}
+        if cfg.arch == "qwen2":
+            lw["wqkv_bias"] = draw(cfg.q_dim + 2 * cfg.kv_dim, std=0.1)
+        if cfg.qk_norm:
+            lw["q_norm"] = draw(cfg.head_dim, std=0.1).add_(1.0)
+            lw["k_norm"] = draw(cfg.head_dim, std=0.1).add_(1.0)
+        if cfg.num_experts:
+            e, mi = cfg.num_experts, cfg.moe_intermediate_size
+            lw["router"] = draw(e, h)
+            lw["experts"] = {"gateup": draw(e, 2 * mi, h), "down": draw(e, h, mi)}
+        else:
+            lw["wgateup"] = draw(2 * cfg.intermediate_size, h)
+            lw["down"] = draw(h, cfg.intermediate_size)
+        layers.append(lw)
+    return {"embed": draw(cfg.vocab_size, h), "layers": layers,
+            "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
+            "lm_head": draw(cfg.vocab_size, h)}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -811,38 +897,22 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
         torch.cuda.empty_cache()
 
 
-def check_deepseek_grouped(rows, rates, gen, dev, e=64, h=2048, mi=1408, tokens=(6, 192),
-                           edges=True):
-    """Phase 2's dense grouped kernel on DeepSeek-V2-Lite's expert banks,
-    top-6, at ``tokens``: 6 decode tokens (n*k = 36), a 2 x 96-token prefill
-    (1152) or phase 6's decode step of 1 token (n*k = 6); ``edges`` adds an
-    untimed routing with an empty expert."""
-    for what, make in (("V2-Lite gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
-                       ("V2-Lite down", lambda: bf16_bank(h, mi, gen, dev, e))):
+def check_expert_banks(rows, rates, gen, dev, model: str, e: int, h: int, mi: int, top: int,
+                       tokens, edges: bool = False):
+    """Phase 2's dense grouped kernel on ``model``'s bf16 expert banks
+    (gate/up [e, 2 mi, h], down [e, h, mi]), top-``top``, at each token
+    count of ``tokens``; ``edges`` adds an untimed routing of 6 tokens with
+    an empty expert."""
+    for what, make in ((f"{model} gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
+                       (f"{model} down", lambda: bf16_bank(h, mi, gen, dev, e))):
         w = make()
         for ntok in tokens:
-            r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=6)
+            r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=top)
             r["shape"] = f"{what}: {r['shape']}"
             rows["dense_matmul_g"].append(r)
         if edges:
             rows["dense_matmul_g"].append(check_grouped(
-                "dense_matmul_g", w, 6, rates, gen, dev, "empty_expert", timed=False, top=6))
-        del w
-        torch.cuda.empty_cache()
-
-
-def check_gpt_oss_grouped(rows, rates, gen, dev, e=32, h=2880, mi=2880, tokens=(8, 512)):
-    """Phase 2's dense grouped kernel on gpt-oss-20b's expert banks (gate-up
-    [32, 5760, 2880], down [32, 2880, 2880]: K = 2880 = 45 x 64, N not a
-    multiple of the prefill body's 256 columns), top-4, at 8 decode tokens
-    (n*k = 32) and a 512-token prefill (n*k = 2048)."""
-    for what, make in (("gpt-oss gate/up", lambda: bf16_bank(2 * mi, h, gen, dev, e)),
-                       ("gpt-oss down", lambda: bf16_bank(h, mi, gen, dev, e))):
-        w = make()
-        for ntok in tokens:
-            r = check_grouped("dense_matmul_g", w, ntok, rates, gen, dev, top=4)
-            r["shape"] = f"{what}: {r['shape']}"
-            rows["dense_matmul_g"].append(r)
+                "dense_matmul_g", w, 6, rates, gen, dev, "empty_expert", timed=False, top=top))
         del w
         torch.cuda.empty_cache()
 
@@ -1277,18 +1347,27 @@ def check_model_pools(cfg, weights, dev, kv_quant) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_routing(chosen: list, forced=None):
+def recorded_routing(chosen: list, forced=None, gaps=None):
     """``llama.route`` records the experts it picks into ``chosen`` (sorted,
-    ``[b, t, k]`` per layer and forward); with ``forced`` (another run's
-    ``chosen``), it picks those experts instead, weighted from this run's
-    own logits: routing over the logits of those experts alone gives the
-    same weights as the router does when it picks them."""
+    ``[b, t, k]`` per layer and forward), and into ``gaps`` (when given) the
+    router-logit gap at the top-k edge, the k-th largest logit less the
+    (k+1)-th, and that gap in bf16 ulps of the k-th logit (``[b, t, 2]``:
+    how near a tie the choice was); with ``forced``
+    (another run's ``chosen``), it picks those experts instead, weighted
+    from this run's own logits: routing over the logits of those experts
+    alone gives the same weights as the router does when it picks them."""
     route = llama.route
     forced = None if forced is None else iter(forced)
 
     def recording_route(logits, cfg_):
         topw, topi = route(logits, cfg_)
         chosen.append(topi.sort(dim=-1).values)
+        k = topi.shape[-1]
+        if gaps is not None and k < logits.shape[-1]:
+            edge = logits.topk(k + 1, dim=-1).values
+            gap = edge[..., k - 1] - edge[..., k]
+            ulp = torch.exp2(torch.floor(torch.log2(edge[..., k - 1].abs().clamp_min(1e-30))) - 7)
+            gaps.append(torch.stack([gap, gap / ulp], dim=-1))
         if forced is None:
             return topw, topi
         keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, next(forced), True)
@@ -1301,18 +1380,41 @@ def recorded_routing(chosen: list, forced=None):
         llama.route = route
 
 
-def choice_agreement(what: str, kernel_run: list, plain_run: list) -> tuple[int, int]:
-    """``(same, total)`` (token, layer) expert choices of two runs; fails
-    under 99 % (near-tied router logits may pick differently under the two
-    sum orders)."""
+NEAR_TIE_ULPS = 4  # phase 3g's rule: a choice that differs is a near-tie within this
+
+
+def choice_agreement(what: str, kernel_run: list, plain_run: list, plain_gaps: list,
+                     near_tie_ulps=None) -> tuple[int, int, list]:
+    """``(same, total, gaps)``: the (token, layer) expert choices of two
+    runs that agree, of all, and the plain run's router-logit gaps at the
+    top-k edge (``recorded_routing``: ``[gap, gap in bf16 ulps]``) of those
+    that do not, largest first. The gaps tell near-ties, which flip under
+    another sum order, from a kernel fault that flips a clear choice. Fails
+    under 99 % agreement (phases 3b and 3e), or, with ``near_tie_ulps``, if
+    a choice that differs had a gap of more than that many bf16 ulps of the
+    k-th logit (phase 3g: 128 experts top-8, whose bf16 router logits tie
+    at the top-8 edge in about one (token, layer) in fifty)."""
     total = same = 0
-    for a, c in zip(kernel_run, plain_run):
+    gaps: list = []
+    for a, c, gap in zip(kernel_run, plain_run, plain_gaps):
         eq = (a == c).all(dim=-1)  # [b, t]
         total += eq.numel()
         same += int(eq.sum())
-    if same < 0.99 * total:
+        gaps += gap[~eq].tolist()
+    gaps.sort(reverse=True)
+    rule = ("99 %" if near_tie_ulps is None
+            else f"every one that differs within {near_tie_ulps} bf16 ulps of a tie")
+    log(f"  {what}: expert choices agree {same}/{total} ({100 * same / total:.2f} %; rule: "
+        f"{rule}); router-logit gaps at the top-k edge of the {len(gaps)} that differ (plain "
+        f"run): " + (f"largest {gaps[0][0]:.3e} ({max(u for _, u in gaps):.2f} ulps), then "
+                     + ", ".join(f"{g:.2e}" for g, _ in gaps[1:32]) if gaps else "none"))
+    if near_tie_ulps is None and same < 0.99 * total:
         raise AssertionError(f"{what}: only {same}/{total} expert choices agree")
-    return same, total
+    if near_tie_ulps is not None and any(u > near_tie_ulps for _, u in gaps):
+        raise AssertionError(f"{what}: a choice with a router-logit gap of "
+                             f"{max(u for _, u in gaps):.2f} bf16 ulps differs (a near-tie "
+                             f"is at most {near_tie_ulps})")
+    return same, total, gaps
 
 
 def check_mixtral_model(dev) -> dict:
@@ -1324,11 +1426,12 @@ def check_mixtral_model(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     ids = torch.randint(0, cfg.vocab_size, (b, t + n_dec), generator=gen, device=dev)
     bt = torch.arange(b * 4, device=dev, dtype=torch.int32).reshape(b, 4)
-    runs, choices = [], []
+    runs, choices, gaps = [], [], []
     counts: dict = {}
     for plain in (False, True):
         chosen: list = []
-        with recorded_routing(chosen, choices[0] if plain else None):
+        gaps.append([])
+        with recorded_routing(chosen, choices[0] if plain else None, gaps[-1]):
             cache = PagedKVCache.create(cfg, b * 4, bs, device=dev)
             _cuda.reset_counts()
             pos = torch.arange(t, device=dev)[None].expand(b, t)
@@ -1349,7 +1452,7 @@ def check_mixtral_model(dev) -> dict:
         runs.append(outs)
         choices.append(chosen)
     # agreement of the experts each path's own router chose per (token, layer)
-    same, total = choice_agreement("mixtral model", *choices)
+    same, total, _ = choice_agreement("mixtral model", *choices, gaps[1])
     frac = same / total
     worst = 0.0
     for step, (got, ref) in enumerate(zip(*runs)):
@@ -1540,27 +1643,27 @@ def check_gemma_model(dev) -> dict:
     return counts
 
 
-def check_gpt_oss_model(dev) -> dict:
-    """Phase 3e: 2 gpt-oss-20b layers at full width (layer 0 sliding with
-    its 128-position window, layer 1 full; sinks, biases, YaRN, head_dim 64,
-    32 bf16 experts top-4) through the kernels and the plain versions on the
-    same device weights: two 300-token prompts in 128-token chunks (the
-    chunks pass the window's edge), then 4 decode steps of both rows; phase
-    3b's rule on expert choices, then the plain run on the kernel run's
-    choices; every step's logits within 5e-2 of the largest. Returns the
-    kernel run's launch counts."""
-    cfg = ModelConfig(**dict(GPT_OSS_20B, num_layers=2,
-                             layer_types=GPT_OSS_20B["layer_types"][:2]))
-    weights = build_gpt_oss(cfg, dev, SEED + 13)
+def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
+                   near_tie_ulps=None) -> tuple:
+    """``cfg``'s 2 layers through the kernels and through the plain versions
+    on the same device weights: two 300-token prompts in 128-token chunks,
+    then 4 decode steps of both rows; with experts, phase 3b's rule on
+    expert choices or, with ``near_tie_ulps``, the near-tie rule of
+    ``choice_agreement`` (their router-logit gaps logged either way), then
+    the plain run on the kernel run's choices; every step's logits within
+    5e-2 of the
+    largest, every kernel of ``required`` launched and no plain version in
+    the kernel run. Returns ``(kernel run launch counts, log note)``."""
     bs, b, n, chunk, n_dec = 64, 2, 300, 128, 4
-    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     ids = torch.randint(0, cfg.vocab_size, (b, n + n_dec), generator=gen, device=dev)
     w = -(-(n + n_dec) // bs)
     bt = torch.arange(b * w, device=dev, dtype=torch.int32).reshape(b, w)
-    runs, choices, counts = [], [], {}
+    runs, choices, gaps, counts = [], [], [], {}
     for plain in (False, True):
         chosen: list = []
-        with recorded_routing(chosen, choices[0] if plain else None):
+        gaps.append([])
+        with recorded_routing(chosen, choices[0] if plain else None, gaps[-1]):
             cache = PagedKVCache.create(cfg, b * w, bs, device=dev)
             _cuda.reset_counts()
             outs = []
@@ -1584,27 +1687,60 @@ def check_gpt_oss_model(dev) -> dict:
                 counts = dict(_cuda.COUNTS)
         runs.append(outs)
         choices.append(chosen)
-    same, total = choice_agreement("gpt-oss model", *choices)
+    note = ""
+    if cfg.num_experts:
+        same, total, near = choice_agreement(what, *choices, gaps[1], near_tie_ulps)
+        note = (f"expert choices agree {same}/{total} ({100 * same / total:.2f} %; largest "
+                f"gap of those that differ {near[0][0] if near else 0.0:.3e}); ")
     worst = 0.0
     for step, (got, ref) in enumerate(zip(*runs)):
         if not torch.isfinite(got).all():
-            raise AssertionError(f"gpt-oss model: step {step}: non-finite logits through the "
-                                 f"kernels")
+            raise AssertionError(f"{what}: step {step}: non-finite logits through the kernels")
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         worst = max(worst, err / max(scale, 1e-30))
         if err > 5e-2 * scale:
-            raise AssertionError(f"gpt-oss model: step {step} logits differ by {err} > "
-                                 f"{5e-2 * scale}")
-    missing = [k for k in GPT_OSS_KERNELS if counts.get(k, 0) == 0]
+            raise AssertionError(f"{what}: step {step} logits differ by {err} > {5e-2 * scale}")
+    missing = [k for k in required if counts.get(k, 0) == 0]
     plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
     if missing or plain_run:
-        raise AssertionError(f"gpt-oss model: kernels not launched {missing}, plain versions "
-                             f"run {plain_run}")
-    log(f"  gpt-oss-20b 2 layers (window 128, full): prefill of 2 x {n} tokens in chunks of "
-        f"{chunk}, {n_dec} decode steps; expert choices agree {same}/{total} "
-        f"({100 * same / total:.2f} %, need 99 %); worst |err|/max|logit| on the kernel run's "
-        f"routing {worst:.3e} (tol 5e-2); kernel run launches {counts}")
+        raise AssertionError(f"{what}: kernels not launched {missing}, plain versions run "
+                             f"{plain_run}")
+    note += (f"prefill of {b} x {n} tokens in chunks of {chunk}, {n_dec} decode steps; worst "
+             f"|err|/max|logit| {worst:.3e} (tol 5e-2)"
+             + (" on the kernel run's routing" if cfg.num_experts else "")
+             + f"; kernel run launches {counts}")
+    return counts, note
+
+
+def check_gpt_oss_model(dev) -> dict:
+    """Phase 3e: 2 gpt-oss-20b layers at full width (layer 0 sliding with
+    its 128-position window, layer 1 full; sinks, biases, YaRN, head_dim 64,
+    32 bf16 experts top-4) through the kernels and the plain versions
+    (``two_layer_runs``: the chunks pass the window's edge). Returns the
+    kernel run's launch counts."""
+    cfg = ModelConfig(**dict(GPT_OSS_20B, num_layers=2,
+                             layer_types=GPT_OSS_20B["layer_types"][:2]))
+    weights = build_gpt_oss(cfg, dev, SEED + 13)
+    counts, note = two_layer_runs(dev, cfg, weights, SEED + 14, "gpt-oss model", GPT_OSS_KERNELS)
+    log(f"  gpt-oss-20b 2 layers (window 128, full): {note}")
+    del weights
+    return counts
+
+
+def check_qwen_model(dev, base: dict, seed: int, what: str, required) -> dict:
+    """Phases 3f and 3g: 2 layers of ``base`` at full width through the
+    kernels and the plain versions (``two_layer_runs``): Qwen2.5-7B (q/k/v
+    biases; GQA group 7, so a 128-token chunk fills 14 query tiles of 9
+    tokens and 2 tokens of a fifteenth) and Qwen3-30B-A3B (q/k norm, q_dim
+    4096 against a hidden 2048, 128 bf16 experts top-8 on the dense grouped
+    kernel; the near-tie rule on its expert choices). Returns the kernel
+    run's launch counts."""
+    cfg = ModelConfig(**dict(base, num_layers=2))
+    weights = build_qwen(cfg, dev, seed)
+    counts, note = two_layer_runs(dev, cfg, weights, seed + 1, what, required,
+                                  NEAR_TIE_ULPS if cfg.num_experts else None)
+    log(f"  {what} 2 layers: {note}")
     del weights
     return counts
 
@@ -2020,7 +2156,9 @@ def main() -> int:
     check_w4_edges(rows, rates, gen, dev)
     check_w8_edges(rows, rates, gen, dev)
     check_grouped_kernels(rows, rates, gen, dev)
-    check_deepseek_grouped(rows, rates, gen, dev)
+    # DeepSeek-V2-Lite's banks (64 experts, top-6) at 6 decode tokens (n*k =
+    # 36) and a 2 x 96-token prefill (1152)
+    check_expert_banks(rows, rates, gen, dev, "V2-Lite", 64, 2048, 1408, 6, (6, 192), edges=True)
     for bs in (16, 64):
         rows["mla_decode"].append(check_mla(rates, gen, dev, bs))
     # paged decode at depth: one request at 8192 positions, 8 at 4096 each
@@ -2029,7 +2167,8 @@ def main() -> int:
                                              dropped=0))
     rows["paged_decode"].append(check_decode(rates, gen, dev, kv_lens=(4096,) * 8, w=64,
                                              dropped=7))
-    check_deepseek_grouped(rows, rates, gen, dev, tokens=(1,), edges=False)
+    # phase 6's decode step of 1 token (n*k = 6)
+    check_expert_banks(rows, rates, gen, dev, "V2-Lite", 64, 2048, 1408, 6, (1,))
     # MLA decode at depth: one request at 8192 positions, 8 at 4096 each
     rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(8192,), positions=8192))
     rows["mla_decode"].append(check_mla(rates, gen, dev, 64, kv_lens=(4096,) * 8,
@@ -2079,7 +2218,25 @@ def main() -> int:
     p64.append(check_prefill(rates, gen, dev, **oss_attn))
     p64.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(3840,),
                              window=128, **oss_attn))
-    check_gpt_oss_grouped(rows, rates, gen, dev)
+    # gpt-oss-20b's banks (32 experts, top-4; K = 2880 = 45 x 64, N not a
+    # multiple of the prefill body's 256 columns) at 8 decode tokens (n*k =
+    # 32) and a 512-token prefill (2048)
+    check_expert_banks(rows, rates, gen, dev, "gpt-oss", 32, 2880, 2880, 4, (8, 512))
+    # the Qwen family (after every other row, which keep the generator's
+    # stream of earlier runs): prefill at Qwen2.5-7B's heads (28/4, GQA group
+    # 7: 9 tokens a query tile and one dead row) at B=2 T=128 on 300 past and
+    # 512 tokens on 512, at group 5 (Qwen2.5-14B's 40/8), and its int8 form at
+    # group 7; decode at group 7; the dense grouped kernel on Qwen3-30B-A3B's
+    # 128-expert banks
+    qwen_attn = dict(n_q=28, n_kv=4)
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, **qwen_attn))
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
+                                               past=(512,), **qwen_attn))
+    rows["paged_prefill"].append(check_prefill(rates, gen, dev, n_q=40, n_kv=8))
+    rows["paged_prefill_int8"].append(check_prefill(rates, gen, dev, kv_quant="int8",
+                                                    **qwen_attn))
+    rows["paged_decode"].append(check_decode(rates, gen, dev, **qwen_attn))
+    check_expert_banks(rows, rates, gen, dev, "Qwen3-30B-A3B", 128, 2048, 768, 8, (6, 256))
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -2105,6 +2262,14 @@ def main() -> int:
     log("phase 3e: forward_paged at full gpt-oss-20b width, 2 layers (sliding, full), "
         "kernels vs plain")
     check_gpt_oss_model(dev)
+    torch.cuda.empty_cache()
+    log("phase 3f: forward_paged at full Qwen2.5-7B width, 2 layers (GQA group 7, q/k/v "
+        "biases), kernels vs plain")
+    check_qwen_model(dev, QWEN25_7B, SEED + 16, "qwen2.5-7b model", QWEN_KERNELS)
+    torch.cuda.empty_cache()
+    log("phase 3g: forward_paged at full Qwen3-30B-A3B width, 2 layers (q/k norm, 128 experts "
+        "top-8), kernels vs plain")
+    check_qwen_model(dev, QWEN3_30B_A3B, SEED + 18, "qwen3-30b-a3b model", QWEN_MOE_KERNELS)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -2146,26 +2311,42 @@ def main() -> int:
                           "gpt-oss-20b-geometry-bf16", GPT_OSS_KERNELS)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 9
+    log("phase 9: serve the 28-layer Qwen2.5-7B geometry (bf16; GQA group 7, a 600-token "
+        "prompt over 3 chunks)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    q25_counts, _ = serve(dev, name_line, ModelConfig(**QWEN25_7B), build_qwen, SEED + 20,
+                          "qwen2.5-7b-geometry-bf16", QWEN_KERNELS)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
+    # phase 10
+    log(f"phase 10: serve the {QWEN3_30B_A3B['num_layers']}-layer Qwen3-30B-A3B geometry "
+        f"(bf16; 128 experts top-8)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    q3_counts, _ = serve(dev, name_line, ModelConfig(**QWEN3_30B_A3B), build_qwen, SEED + 21,
+                         "qwen3-30b-a3b-geometry-bf16", QWEN_MOE_KERNELS)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
     # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
-    # checks; launches from the run of each kernel's path (module docstring)
+    # checks; launches summed over the runs of each kernel's path (module
+    # docstring), each run's beside them
     main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096",
                   "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
                   "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64 kv_lens 0..2048"}
-    launches = {**counts, "w4_matmul_g": moe_counts["w4_matmul_g"],
-                "w8_matmul_g": moe_counts["w8_matmul_g"],
-                "dense_matmul_g": ds_counts["dense_matmul_g"],
-                "mla_decode": ds_counts["mla_decode"],
-                "paged_decode_int8": q8_counts["paged_decode_int8"],
-                "paged_prefill_int8": q8_counts["paged_prefill_int8"],
-                "paged_decode_fp8": model_counts["fp8"]["paged_decode_fp8"],
-                "paged_prefill_fp8": model_counts["fp8"]["paged_prefill_fp8"],
-                **{k: gemma_counts[k] for k in GEMMA_KERNELS},
-                **{k: oss_counts[k] for k in GPT_OSS_KERNELS if k != "dense_matmul_g"}}
+    runs = {"llama3-8b serve": counts, "llama3-8b int8-kv serve": q8_counts,
+            # the fp8 forms run in phase 3's model check alone
+            "phase 3 fp8-kv model": {k: model_counts["fp8"][k]
+                                     for k in ("paged_decode_fp8", "paged_prefill_fp8")},
+            "mixtral-8x7b serve": moe_counts,
+            "deepseek-v2-lite serve": ds_counts, "gemma-2-9b serve": gemma_counts,
+            "gpt-oss-20b serve": oss_counts, "qwen2.5-7b serve": q25_counts,
+            "qwen3-30b-a3b serve": q3_counts}
+    by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]
@@ -2174,7 +2355,8 @@ def main() -> int:
         src, replaces = KERNEL_INFO[kname]
         entries.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": max(r["max_abs_err"] for r in kr),
+            "launches": sum(by_run[kname].values()), "launches_by_run": by_run[kname],
+            "max_abs_err": max(r["max_abs_err"] for r in kr),
             "ms": pick["ms"], "device_ms": pick["device_ms"], "plain_ms": pick["plain_ms"],
             "bound_ms": pick["bound_ms"],
             "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],

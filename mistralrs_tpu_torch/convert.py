@@ -9,8 +9,9 @@ package: a quantized leaf is anything with ``data``, ``scale``, ``bias``,
 ``group_size``, ``packed`` and ``code_bits`` fields, as a mapping or as
 attributes.
 
-Gemma-2's post norms (``post_attn_norm``, ``post_ffn_norm``) come across
-with the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
+Gemma-2's post norms (``post_attn_norm``, ``post_ffn_norm``), Qwen3's q/k
+norms (``q_norm``, ``k_norm``) and Qwen2's q/k/v biases come across with
+the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
 the port computes each layer's window from the config
 (``models/llama.py::layer_windows``).
 
@@ -24,9 +25,10 @@ transposes: no value changes).
 
 MoE layers carry their ``router`` (``[L, E, H]``) and ``experts`` (a
 mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
-as per-layer ``[E, ...]`` banks. Banks the JAX loader widened to int8 codes
-at group 16 with a bias plane are carried as they are and run through the
-W8 grouped kernel in its signed-with-bias form.
+as per-layer ``[E, ...]`` banks (Mixtral's and Qwen3-MoE's alike). Banks
+the JAX loader widened to int8 codes at group 16 with a bias plane are
+carried as they are and run through the W8 grouped kernel in its
+signed-with-bias form.
 
 :func:`from_jax_deepseek_params` does the same for the JAX package's
 DeepSeek weights (absorbed MLA, DeepSeek-MoE).
@@ -109,7 +111,8 @@ def from_jax_params(
     gpt_oss = cfg.arch == "gpt_oss"
     known = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo", "gate", "up", "wgateup",
              "down", "router", "experts", "post_attn_norm", "post_ffn_norm", "wq_bias",
-             "wk_bias", "wv_bias", "wo_bias"} | ({"sinks", "router_bias"} if gpt_oss else set())
+             "wk_bias", "wv_bias", "wo_bias"} | ({"sinks", "router_bias"} if gpt_oss else set()) | (
+                 {"q_norm", "k_norm"} if cfg.qk_norm else set())
     unknown = set(stacked) - known
     if unknown:
         raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")

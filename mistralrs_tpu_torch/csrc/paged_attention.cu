@@ -100,8 +100,11 @@
 // block table by additions, not divisions. KV tiles past the query tile's
 // last visible position are skipped, and later query tiles start first.
 // Shared memory: two K/V stages of 32 KB (Q lands in the second one first),
-// two blocks per SM (the registers allow no more). GQA groups dividing 64
-// (1 to 64). A sliding window skips the KV tiles wholly below the smallest
+// two blocks per SM (the registers allow no more). GQA groups 1 to 64: a
+// tile holds qtok = 64 / group tokens (integer division), so a group that
+// does not divide 64 (Qwen2.5-7B's 7: 9 tokens, 63 rows) leaves the last
+// 64 - qtok * group rows dead; they load zeros, see the tile's last visible
+// position and are never stored. A sliding window skips the KV tiles wholly below the smallest
 // query's horizon (row 0's position - window + 1; JAX _prefill_kernel
 // :869-875) and masks per row on the tiles below the largest one; the
 // softcap is applied as in decode (template argument CAP). Sinks (JAX
@@ -164,8 +167,9 @@ constexpr float LOG2E_F = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // prefill: FlashAttention-2 style on the tensor cores. grid (query tiles, n_kv,
-// B); a tile is FA_ROWS = qtok * group query rows (row R -> token
-// qt * qtok + R / group, head R % group), each warp 16 of them.
+// B); a tile is FA_ROWS query rows, each warp 16 of them: rows R < qtok *
+// group (qtok = FA_ROWS / group) are token qt * qtok + R / group, head
+// R % group; the rest (when group does not divide FA_ROWS) are dead.
 // ---------------------------------------------------------------------------
 
 constexpr int FA_ROWS = 64;                  // query rows per block (4 warps x 16)
@@ -367,6 +371,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   const int g = lane >> 2, qd = lane & 3;
   const int group = n_q / n_kv;
   const int qtok = FA_ROWS / group;
+  const int real = qtok * group;  // rows past it are dead: zeros in, nothing out
   const int t_begin = qt * qtok;
   const int kv_len = kv_lens[b];
   const int nv = n_valid_arr[b];
@@ -389,11 +394,11 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
       *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(v_new + src);
     }
   }
-  // 2. the tile's queries into shared memory (rows past T: zeros)
+  // 2. the tile's queries into shared memory (rows past T, dead rows: zeros)
   for (int i = tid; i < FA_ROWS * CPR; i += NT) {
     const int r = (int)((unsigned)i / CPR), c = (int)((unsigned)i % CPR);
     const int t = t_begin + r / group;
-    const bool ok = t < T;
+    const bool ok = t < T && r < real;
     cp_async16(sa + L::QOFF + swzh<D>(r, c),
                q + (ok ? (((size_t)b * T + t) * n_q + h * group + r % group) * D + c * 8 : 0),
                ok);
@@ -401,7 +406,8 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   cp_async_commit();
 
   // Each row's last visible position: its own (ctx + t) for valid tokens;
-  // rows past n_valid see the whole cache (their output is never read).
+  // rows past n_valid see the whole cache (their output is never read), dead
+  // rows the tile's last (block_lim; they hold no token).
   // block_lim is the tile's largest, min_lim its smallest (row 0's): KV
   // tiles past block_lim are skipped (a tile with no valid token reads
   // nothing and writes zeros), tiles wholly at or below min_lim need no
@@ -418,8 +424,8 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   int lim[2], lo[2];  // this lane's rows 16 rw + g and + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int t = t_begin + (16 * rw + g + 8 * i) / group;
-    lim[i] = t < nv ? ctx + t : kv_len - 1;
+    const int r = 16 * rw + g + 8 * i, t = t_begin + r / group;
+    lim[i] = r >= real ? block_lim : t < nv ? ctx + t : kv_len - 1;
     lo[i] = win > 0 ? lim[i] - win + 1 : -1;
   }
   const int c0 = win > 0 ? max(0, min_lim - win + 1) / FA_TILE : 0;  // first tile
@@ -708,7 +714,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
     const int i = lane + 32 * k;
     const int r = 16 * rw + i / CW, c = CW * dh + i % CW;
     const int t = t_begin + r / group;
-    if (t < T)
+    if (t < T && r < real)
       *reinterpret_cast<uint4*>(out + (((size_t)b * T + t) * n_q + h * group + r % group) * D +
                                 c * 8) = *reinterpret_cast<const uint4*>(stage + swzh<D>(r, c));
   }
@@ -1182,6 +1188,11 @@ bool decode_args_ok(int B, int n_q, int n_kv, int W, int bs, int span, int split
          (splits == 1 || (partials != nullptr && counters != nullptr));
 }
 
+// a query tile holds FA_ROWS / group >= 1 tokens
+bool prefill_group_ok(int n_q, int n_kv) {
+  return n_kv > 0 && n_q > 0 && n_q % n_kv == 0 && n_q / n_kv <= FA_ROWS;
+}
+
 template <int Q, int D, bool CAP>
 cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_scale,
                            void* v_scale, const void* k_new, const void* v_new, const void* slots,
@@ -1278,16 +1289,17 @@ extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, con
 // q [B, T, n_q, hd], pools [n_kv, S, hd], k_new/v_new [B, T, n_kv, hd],
 // slots [B, T], block_tables [B, W], kv_lens [B] (after the chunk's writes),
 // n_valid [B], out [B, T, n_q, hd]; hd 64, 128 or 256. The chunk's valid
-// tokens sit at positions [kv_len - n_valid, kv_len). 64 % (n_q / n_kv) ==
-// 0. window, softcap, cap_in, scale_log2 and sinks as for the decode kernel.
+// tokens sit at positions [kv_len - n_valid, kv_len). group = n_q / n_kv
+// <= 64 (one token a query tile at least). window, softcap, cap_in,
+// scale_log2 and sinks as for the decode kernel.
 extern "C" int mrt_paged_prefill(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                  const void* v_new, const void* slots, const void* block_tables,
                                  const void* kv_lens, const void* n_valid, void* out,
                                  const void* sinks, int B, int T, int n_q, int n_kv, int hd,
                                  int window, float softcap, float cap_in, int S, int W, int bs,
                                  float scale_log2, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 256) || n_q % n_kv != 0 ||
-      FA_ROWS % (n_q / n_kv) != 0 || window < 0 || softcap < 0.f)
+  if ((hd != 64 && hd != 128 && hd != 256) || !prefill_group_ok(n_q, n_kv) || window < 0 ||
+      softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   const bool cap = softcap > 0.f;
   const cudaError_t e =
@@ -1311,7 +1323,7 @@ extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, co
                                    int T, int n_q, int n_kv, int hd, int S, int W, int bs,
                                    float scale_log2, void* k_scale, void* v_scale, int fp8,
                                    void* k_rt, void* v_rt, void* stream) {
-  if (hd != HD || n_q % n_kv != 0 || FA_ROWS % (n_q / n_kv) != 0 || bs % 8 != 0)
+  if (hd != HD || !prefill_group_ok(n_q, n_kv) || bs % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = (fp8 ? launch_prefill<2, HD, false> : launch_prefill<1, HD, false>)(
       q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,

@@ -26,6 +26,9 @@
   llama-family model with a sliding window, a logit softcap, attention
   sinks or head_dim 64 or 256 is refused there, since the 1-byte kernel
   forms take none of them.
+* A llama-family model whose GQA group (query heads per KV head) is over 16
+  is refused before the pools are reserved: the decode kernel takes groups
+  1 to 16.
 
 Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
 constraints and the DRY penalty are not ported yet.
@@ -47,7 +50,7 @@ from ..kv.paged import PagedKVCache
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward_paged, kernel_workspace, layer_windows
 from ..ops._cuda import sm_count
-from ..ops.paged_attention import refuse_quantized_options
+from ..ops.paged_attention import DECODE_MAX_GROUP, refuse_quantized_options
 from ..quant.qtensor import QTensor
 from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
 from .sampler import BatchSamplingState, SamplingParams, sample
@@ -134,6 +137,13 @@ class Engine:
         self.adapter = adapter
         if adapter is None:
             check_supported(cfg)
+            group = cfg.num_heads // cfg.num_kv_heads
+            if cfg.num_heads % cfg.num_kv_heads or not 1 <= group <= DECODE_MAX_GROUP:
+                # before the pools: the decode kernel takes groups 1..16 (the
+                # prefill kernel 1..64)
+                raise NotImplementedError(
+                    f"GQA group {cfg.num_heads}/{cfg.num_kv_heads}: the paged decode kernel "
+                    f"takes groups 1..{DECODE_MAX_GROUP}")
             if kv_quant is not None:  # before the pools: the 1-byte forms take none of these
                 refuse_quantized_options(int(layer_windows(cfg).max(initial=0)),
                                          cfg.attn_logit_softcap, cfg.head_dim,

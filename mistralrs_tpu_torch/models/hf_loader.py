@@ -12,11 +12,16 @@ the shards named by ``model.safetensors.index.json``.
 
 The loader takes dense bf16, f16 or f32 tensors: the attention and MLP
 projections, the norms (Gemma-2's pre- and post-norms through the JAX
-package's ``_GEMMA_LAYER_MAP``), Mixtral's router and expert banks, the
+package's ``_GEMMA_LAYER_MAP``; Qwen3's per-head ``q_norm``/``k_norm``),
+Mixtral's router and expert banks, Qwen3-MoE's router (``mlp.gate``) and
+expert banks (``mlp.experts.N.{gate,up,down}_proj``, stacked as Mixtral's:
+``gate``, ``up`` [E, I, H], ``down`` [E, H, I]; ``fuse_projections`` fuses
+gate and up into one ``gateup`` bank for the grouped kernels), the
 embedding, and the head (tied to the embedding when the checkpoint has no
 ``lm_head.weight``, as the JAX loader does whatever ``tie_word_embeddings``
-says); the q/k/v/o biases of a config with ``attention_bias``; and
-gpt-oss's sinks, router bias and expert banks (JAX ``hf_loader.py:98-104``,
+says); the q/k/v/o biases wherever the checkpoint has them (JAX
+``hf_loader.py:56-59`` maps them by name: a Qwen2 ``config.json`` has no
+``attention_bias`` key, yet its q/k/v carry biases); and gpt-oss's sinks, router bias and expert banks (JAX ``hf_loader.py:98-104``,
 :342-349), dense or in MXFP4 (``quantization_config.quant_method ==
 "mxfp4"``: ``<stem>_blocks``/``_scales`` uint8, stored transposed,
 ``[E, out, in / 32, 16]``, decoded on the device by ``quant/mxfp4.py``).
@@ -26,9 +31,9 @@ even, up odd) as a gate half then an up half, its bias permuted alike (a
 permutation: no value changes). Everything else raises
 ``NotImplementedError`` naming it: other quantized checkpoints (GPTQ, AWQ,
 bitsandbytes), phi3's fused projections, MLP biases, and expert banks other
-than Mixtral's and gpt-oss's. In-situ quantization, UQFF overlays,
-importance matrices and topologies are not ported: the loader takes no such
-argument.
+than Mixtral's, Qwen3-MoE's and gpt-oss's. In-situ quantization, UQFF
+overlays, importance matrices and topologies are not ported: the loader
+takes no such argument.
 """
 
 from __future__ import annotations
@@ -114,8 +119,13 @@ _GEMMA_LAYER_MAP = dict(_HF_LAYER_MAP)
 _GEMMA_LAYER_MAP["post_attention_layernorm.weight"] = "post_attn_norm"
 # Mixtral's expert banks: block_sparse_moe.experts.N.{w1, w3, w2}
 _MIXTRAL_EXPERTS = {"w1": "gate", "w3": "up", "w2": "down"}
-# q/k/v/o biases (a config with attention_bias)
+# Qwen3-MoE's router and expert banks: mlp.experts.N.{gate, up, down}_proj
+_QWEN_MOE_MAP = {"mlp.gate.weight": "router"}
+_QWEN_MOE_EXPERTS = {"gate_proj": "gate", "up_proj": "up", "down_proj": "down"}
+# q/k/v/o biases (required with attention_bias, taken wherever present)
 _ATTN_BIASES = {f"self_attn.{p}_proj.bias": f"w{p}_bias" for p in "qkvo"}
+# Qwen3's per-head q/k norms ([head_dim], applied before RoPE)
+_QK_NORMS = {"self_attn.q_norm.weight": "q_norm", "self_attn.k_norm.weight": "k_norm"}
 # gpt-oss's layer tensors besides the attention projections and norms
 _GPT_OSS_MAP = {"self_attn.sinks": "sinks", "mlp.router.weight": "router",
                 "mlp.router.bias": "router_bias"}
@@ -161,9 +171,9 @@ def weights_from_state_dict(
     ``dtype`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``;
     gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
     path, the same tensors to the same weights (gpt-oss's banks in the
-    kernel's layout, above). A tensor of any other name (MLP biases,
-    attention biases without ``attention_bias``, phi3's fused projections,
-    q/k norms, expert banks other than Mixtral's and gpt-oss's) raises
+    kernel's layout, above). A tensor of any other name (MLP biases, phi3's
+    fused projections, q/k norms of a config without ``qk_norm``, expert
+    banks other than Mixtral's, Qwen3-MoE's and gpt-oss's) raises
     ``NotImplementedError`` naming it."""
     gpt_oss = cfg.arch == "gpt_oss"
     method = (quant_config or {}).get("quant_method")
@@ -175,12 +185,18 @@ def weights_from_state_dict(
     dev = resolve_device(device)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
     layer_map = dict(_GEMMA_LAYER_MAP if cfg.arch in ("gemma2", "gemma3") else _HF_LAYER_MAP)
-    if cfg.attention_bias:
-        layer_map.update(_ATTN_BIASES)
+    layer_map.update(_ATTN_BIASES)
+    if cfg.qk_norm:
+        layer_map.update(_QK_NORMS)
     if gpt_oss:
         layer_map.update(_GPT_OSS_MAP)
-    experts = {f"block_sparse_moe.experts.{j}.{w}.weight": (j, key)
-               for j in range(cfg.num_experts) for w, key in _MIXTRAL_EXPERTS.items()}
+    qwen_moe = cfg.arch == "qwen3moe"
+    if qwen_moe:
+        layer_map.update(_QWEN_MOE_MAP)
+    stem, names = (("mlp.experts", _QWEN_MOE_EXPERTS) if qwen_moe
+                   else ("block_sparse_moe.experts", _MIXTRAL_EXPERTS))
+    experts = {f"{stem}.{j}.{w}.weight": (j, key)
+               for j in range(cfg.num_experts) for w, key in names.items()}
     banks = [f"mlp.experts.{hf}{tail}" for hf in _GPT_OSS_BANKS
              for tail in ("", "_bias", "_blocks", "_scales")] if gpt_oss else []
     known = {prefix + "embed_tokens.weight", prefix + "norm.weight", "lm_head.weight"}
@@ -213,6 +229,7 @@ def weights_from_state_dict(
         want = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wo"} | (
             {"router", "experts"} if cfg.num_experts else {"gate", "up", "down"}) | (
             set(_ATTN_BIASES.values()) if cfg.attention_bias else set()) | (
+            set(_QK_NORMS.values()) if cfg.qk_norm else set()) | (
             set(_GPT_OSS_MAP.values()) if gpt_oss else set())
         missing = want - set(lw)
         if missing:

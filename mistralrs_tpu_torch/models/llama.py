@@ -14,6 +14,7 @@ package stacks them and runs ``lax.scan``. A projection is a dense
                  "gate", "up" | "wgateup", "down",
                  "post_attn_norm", "post_ffn_norm" (Gemma-2, optional),
                  "wq_bias", "wk_bias", "wv_bias" | "wqkv_bias", "wo_bias",
+                 "q_norm", "k_norm" (qwen3, qwen3moe: [head_dim]),
                  "sinks" (gpt-oss, optional)}, ...]}
 
 The gemma family (JAX ``forward_paged`` :940-950, :1064-1067, :1195-1208,
@@ -28,23 +29,32 @@ kernels, and
 An MoE layer holds ``"router"`` (dense ``[E, H]``) and ``"experts"``
 (``{"gate", "up" | "gateup", "down"}``, each a ``[E, out, in]`` bank: a
 :class:`QTensor` with a bank axis or a dense tensor) in place of the dense
-MLP's ``gate``/``up``/``down``. gpt-oss's layers add ``"router_bias"``
-``[E]`` and hold ``"experts"`` as ``{"gateup" [E, 2I, H] (the gate rows,
-then the up rows), "gateup_bias" [E, 2I], "down" [E, H, I], "down_bias"
-[E, H]}`` bf16 banks, run by the dense grouped kernel
+MLP's ``gate``/``up``/``down``. Quantized banks, and dense banks of 16
+experts or more (Qwen3-MoE's 128), run the grouped kernels
+(``ops/moe_grouped.py::moe_grouped_mlp``); smaller dense banks run every
+expert on every token, as the JAX package does. gpt-oss's layers add
+``"router_bias"`` ``[E]`` and hold ``"experts"`` as ``{"gateup" [E, 2I, H]
+(the gate rows, then the up rows), "gateup_bias" [E, 2I], "down" [E, H,
+I], "down_bias" [E, H]}`` bf16 banks, run by the dense grouped kernel
 (``ops/moe_grouped.py::gpt_oss_grouped_mlp``); its attention has q/k/v/o
 biases and a sink per query head (``"sinks"``, f32 ``[n_q]``, read in
 place by both attention kernels), and YaRN's attention factor multiplies
 cos and sin (JAX ``_rope_sets``, :671-684).
 
+Qwen3's q/k norm (``cfg.qk_norm``, JAX ``forward_paged`` :1082-1084) is
+an RMSNorm of each head's q and k over head_dim, after the projections and
+before RoPE; Qwen2's q/k/v biases are the attention biases above.
+
 Attention runs through the fused paged kernels (``ops/paged_attention.py``):
 the decode kernel for one token per row, the prefill kernel otherwise; both
 write the step's K/V into the pools in place (quantized as they are written
 when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``,
-of ``llama`` with experts (how GGUF Mixtral files arrive) and of ``gpt_oss``
-(top-k of the biased logits, softmax over the k, no renormalisation) are
-ported; other routers, shared experts, expert parallelism, LoRA, M-RoPE,
-q/k norms, a local rope base, NoPE layers, MLP biases (but gpt-oss's
+of ``llama`` with experts (how GGUF Mixtral files arrive), of ``qwen3moe``
+(top-k of the logits, softmax over the k, renormalised with
+``norm_topk_prob``) and of ``gpt_oss`` (top-k of the biased logits, softmax
+over the k, no renormalisation) are ported; other routers, shared experts,
+expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan), a local
+rope base, NoPE layers, MLP biases (but gpt-oss's
 expert biases), partial or interleaved rotary, layernorm, parallel
 residuals and granite's multipliers are not yet and raise
 ``NotImplementedError`` (:func:`check_supported`).
@@ -85,12 +95,14 @@ ACTIVATIONS = {
 }
 
 # archs whose MoE router is ported: mixtral (softmax over all experts, top-k,
-# renormalise), llama with experts (top-k of the logits, softmax over k) and
-# gpt_oss (the same on logits plus the router bias, never renormalised)
-_MOE_ARCHS = ("llama", "mixtral", "gpt_oss")
-# the JAX package's _sparse_expert_combine takes dense banks from this many
-# experts on, for at most _SPARSE_MAX_TOKENS tokens (not ported)
-_SPARSE_MIN_E, _SPARSE_MAX_TOKENS = 16, 64
+# renormalise), llama with experts and qwen3moe (top-k of the logits, softmax
+# over k, renormalised with norm_topk_prob) and gpt_oss (the same on logits
+# plus the router bias, never renormalised)
+_MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt_oss")
+# dense banks of at least this many experts run the grouped kernels; the JAX
+# package runs them through its _sparse_expert_combine (at most 64 tokens) or
+# its every-expert scan, the same function up to f32 sum order
+_GROUPED_MIN_E = 16
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -104,7 +116,7 @@ def check_supported(cfg: ModelConfig) -> None:
         "shared expert": bool(cfg.shared_expert_intermediate_size),
         "dense first-k layers": bool(cfg.first_k_dense),
         "M-RoPE": bool(cfg.mrope_section),
-        "q/k norm": cfg.qk_norm,
+        "q/k norm after RoPE": cfg.qk_norm and cfg.qk_norm_after_rope,
         f"norm type {cfg.norm_type!r}": cfg.norm_type != "rmsnorm",
         f"activation {cfg.hidden_act!r}": cfg.hidden_act not in ACTIVATIONS,
         "parallel residual": cfg.parallel_residual,
@@ -162,8 +174,9 @@ def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
 def route(router_logits: torch.Tensor, cfg: ModelConfig):
     """Top-k routing from f32 router logits → ``(topw, topi)`` ``[..., k]``.
     ``mixtral``: softmax over all experts, top-k, renormalise; ``llama``
-    with experts: top-k of the logits, softmax over the k (optionally
-    renormalised). The two are the same function up to rounding."""
+    with experts and ``qwen3moe``: top-k of the logits, softmax over the k
+    (renormalised with ``norm_topk_prob``, as JAX divides at :347-348;
+    ``gpt_oss`` never). The two are the same function up to rounding."""
     k = cfg.num_experts_per_tok
     if cfg.arch == "mixtral":
         probs = torch.softmax(router_logits, dim=-1)
@@ -181,10 +194,12 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
              act=F.silu) -> torch.Tensor:
     """Mixture-of-experts MLP (JAX ``_moe_mlp``, ``models/llama.py:272``).
 
-    A bank with any quantized leaf runs the grouped kernels
-    (:func:`~mistralrs_tpu_torch.ops.moe_grouped.moe_grouped_mlp`); a bank
-    of dense leaves only runs every expert on every token with a masked
-    combine, as the JAX package does outside any Pallas kernel."""
+    A bank with any quantized leaf, or of at least ``_GROUPED_MIN_E`` dense
+    experts (Qwen3-MoE's 128 bf16 experts: the dense grouped kernel), runs
+    the grouped kernels
+    (:func:`~mistralrs_tpu_torch.ops.moe_grouped.moe_grouped_mlp`); a
+    smaller bank of dense leaves runs every expert on every token with a
+    masked combine, as the JAX package does outside any Pallas kernel."""
     b, t, h = x.shape
     # router logits follow the JAX dtype path: linear in the compute dtype, then f32
     router_logits = linear(x, lw["router"], plain=plain).to(torch.float32)
@@ -196,13 +211,11 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
         out = gpt_oss_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
                                   topi.reshape(b * t, -1), plain=plain)
         return out.reshape(b, t, h)
-    if any(isinstance(v, QTensor) for v in experts.values()):
+    if (cfg.num_experts >= _GROUPED_MIN_E
+            or any(isinstance(v, QTensor) for v in experts.values())):
         out = moe_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
                               topi.reshape(b * t, -1), act, plain=plain)
         return out.reshape(b, t, h)
-    if cfg.num_experts >= _SPARSE_MIN_E and b * t <= _SPARSE_MAX_TOKENS:
-        raise NotImplementedError(
-            "the sparse expert combine for dense banks of >= 16 experts is not ported yet")
     full_w = torch.zeros((b, t, cfg.num_experts), dtype=torch.float32, device=x.device)
     full_w.scatter_add_(-1, topi, topw)
     out = torch.zeros_like(x)
@@ -269,9 +282,14 @@ def forward_paged(
             q = linear(x, lw["wq"], lw.get("wq_bias"), plain=plain)
             k = linear(x, lw["wk"], lw.get("wk_bias"), plain=plain)
             v = linear(x, lw["wv"], lw.get("wv_bias"), plain=plain)
-        q = apply_rope(q.reshape(b, t, cfg.num_heads, cfg.head_dim), cos, sin)
-        k = apply_rope(k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim), cos, sin)
+        q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:  # each head's q and k over head_dim, before RoPE (qwen3)
+            q = _maybe_norm(q, lw["q_norm"], eps, gemma)
+            k = _maybe_norm(k, lw["k_norm"], eps, gemma)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
         # the step's rows in the pools' dtype, or in the compute dtype for
         # 1-byte pools: the kernels quantize them as they write them
         kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
@@ -412,11 +430,12 @@ def init_random_weights(
     caller asks for ``"cpu"``), drawn from numpy in the same order as
     ``mistralrs_tpu.models.llama.init_random_weights`` (the layer stacks,
     then the embedding and the head), so the two packages start from the
-    same numbers. An MoE config
-    then draws, after those, the router ``[L, E, H]`` and the expert banks
-    gate ``[L, E, I, H]``, up and down ``[L, E, H, I]`` (``I`` =
-    ``moe_intermediate_size`` or the dense width), which replace the layers'
-    dense MLP (the JAX function draws no experts). Like the JAX function it
+    same numbers; a q/k-norm config (qwen3) gets ``q_norm``/``k_norm`` of
+    ones ``[head_dim]``, as the JAX function makes them. An MoE config
+    (mixtral, qwen3moe) then draws, after those, the router ``[L, E, H]``
+    and the expert banks gate and up ``[L, E, I, H]``, down ``[L, E, H, I]``
+    (``I`` = ``moe_intermediate_size`` or the dense width), which replace
+    the layers' dense MLP (the JAX function draws no experts). Like the JAX function it
     makes no post norms, and draws no gpt-oss layers (its expert banks,
     biases and sinks come from a checkpoint or the JAX package's weights)."""
     check_supported(cfg)
@@ -444,6 +463,10 @@ def init_random_weights(
          **{k: v[i].contiguous() for k, v in stacked.items()}}
         for i in range(L)
     ]
+    if cfg.qk_norm:
+        for lw in layers:
+            lw["q_norm"] = torch.ones(cfg.head_dim, dtype=dtype, device=dev)
+            lw["k_norm"] = torch.ones(cfg.head_dim, dtype=dtype, device=dev)
     if cfg.num_experts:
         e, mi = cfg.num_experts, cfg.moe_intermediate_size or I
         router = arr(L, e, H)

@@ -7,7 +7,11 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 accumulation (HF Llama semantics), result in x.dtype."""
+    """RMSNorm over the last axis with f32 accumulation (HF Llama
+    semantics), result in x.dtype: a layer's hidden states ``[..., H]`` with
+    an ``[H]`` weight, or Qwen3's per-head q/k norm, ``[b, t, heads,
+    head_dim]`` with a ``[head_dim]`` weight (JAX ``rms_norm`` on the same
+    shapes, in the same dtype steps)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)

@@ -16,8 +16,9 @@
   **Prefill kernel** (same file), replaces ``paged_prefill_attention_fused``:
   FlashAttention-2 on the tensor cores (``mma.sync``: QKᵀ and PV in bf16
   with f32 sums, P as two bf16 parts), K/V tiles gathered through the block
-  table into a ``cp.async`` double buffer. It takes GQA groups that divide
-  64.
+  table into a ``cp.async`` double buffer. It takes GQA groups 1 to 64: a
+  query tile holds ``64 // group`` tokens, so a group that does not divide
+  64 (Qwen2.5-7B's 7) leaves its last ``64 % group`` rows dead.
 
 Pools are ``[L, n_kv, S, hd]`` (or one ``[n_kv, S, hd]`` plane) bf16 and are
 updated in place; the functions return the attention output only. On CUDA
@@ -202,6 +203,7 @@ DECODE_TILE = 64  # K/V positions per tile of the decode kernel; a split is a mu
 DECODE_BLOCKS_PER_SM = 2  # the decode grid's floor ...
 DECODE_MIN_TILES = 4  # ... where each split keeps at least this many tiles
 DECODE_MAX_GROUP = 16  # query heads per KV head: two 8-column tiles of the MMA
+PREFILL_MAX_GROUP = 64  # query rows of a prefill tile: at least one token a tile
 
 
 class DecodePlan(NamedTuple):
@@ -460,8 +462,8 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
     b, t, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
     _check_head_dim(hd, ks, "prefill")
-    require(n_q % n_kv == 0 and 64 % (n_q // n_kv) == 0,
-            f"GQA group {n_q}/{n_kv} unsupported")
+    require(n_q % n_kv == 0 and 1 <= n_q // n_kv <= PREFILL_MAX_GROUP,
+            f"GQA group {n_q}/{n_kv} not in 1..{PREFILL_MAX_GROUP}")
     _check_pools(q, kp, vp, ks, vs, block_size)
     _check_sinks(sinks, n_q, q)
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):

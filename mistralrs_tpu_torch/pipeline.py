@@ -1,8 +1,9 @@
 """Model loading entry point (counterpart of ``mistralrs_tpu/pipeline.py``):
 a llama ``.gguf`` path, a HF directory of the llama family (dense
 checkpoints whose ``architectures[0]`` is in ``HF_ARCH_MAP`` and whose
-features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, ...; and
-gpt-oss, in bf16 or with its MXFP4 expert banks), or a HF
+features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, Qwen2 and
+Qwen2.5, Qwen3, Qwen3-MoE, ...; and gpt-oss, in bf16 or with its MXFP4
+expert banks), or a HF
 directory of the DeepSeek family (``model_type`` ``deepseek_v2``,
 ``deepseek_v3``, ``glm4_moe_lite``) → config, weights on the device,
 tokenizer, chat template and, for DeepSeek, the engine's arch adapter.

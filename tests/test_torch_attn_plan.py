@@ -114,6 +114,44 @@ def test_plan_reads_no_device_value(monkeypatch):
         assert _launch(monkeypatch, "cpu", torch.tensor(lens, dtype=torch.int32)) == want
 
 
+class _FakePrefillLibrary:
+    """Records the prefill kernel's launch arguments instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def mrt_paged_prefill(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("group", [3, 5, 6, 7, 12, 17, 65])
+def test_prefill_wrapper_takes_groups_that_do_not_divide_64(monkeypatch, group):
+    """The prefill wrapper hands the kernel any GQA group up to 64 (a query
+    tile then holds 64 // group tokens; Qwen2.5-7B's 7, Qwen2.5-14B's 5),
+    on meta tensors, with n_q and n_kv as given; a group over 64 (no token
+    would fit a tile) raises, and the decode kernel's plan refuses groups
+    over 16 (``test_plan_refuses_groups_over_16``)."""
+    fake = _FakePrefillLibrary()
+    monkeypatch.setattr(pa, "library", lambda: fake)
+    monkeypatch.setattr(pa, "stream_ptr", lambda t: 0)
+    b, t, n_kv, bs, w = 2, 20, 2, 16, 4
+    bf, i32 = dict(dtype=torch.bfloat16, device="meta"), dict(dtype=torch.int32, device="meta")
+    s_total = (b * w + 1) * bs
+    args = (torch.zeros((b, t, n_kv * group, HD), **bf), torch.zeros((n_kv, s_total, HD), **bf),
+            torch.zeros((n_kv, s_total, HD), **bf), torch.zeros((b, t, n_kv, HD), **bf),
+            torch.zeros((b, t, n_kv, HD), **bf), torch.zeros((b, t), **i32),
+            torch.zeros((b, w), **i32), torch.zeros(b, **i32), torch.zeros(b, **i32), bs, 0.1)
+    if group > pa.PREFILL_MAX_GROUP:
+        with pytest.raises(ValueError, match="GQA group"):
+            pa._prefill_cuda(*args)
+        assert not fake.calls
+        return
+    pa._prefill_cuda(*args)
+    (call,) = fake.calls
+    assert call[11:15] == (b, t, n_kv * group, n_kv)  # B, T, n_q, n_kv
+
+
 # ---------------------------------------------------------------------------
 # the kernel's split arithmetic, modelled in f32
 # ---------------------------------------------------------------------------

@@ -403,10 +403,10 @@ def test_hf_refusals(tmp_path, case):
     cfg_d, sd = _hf_case("llama", np.random.default_rng(0))
     if case == "quantization_config":
         cfg_d["quantization_config"] = {"quant_method": "gptq", "bits": 4}
-    elif case == "bias":
-        sd["model.layers.0.self_attn.q_proj.bias"] = np.zeros(64, np.float32)
-    elif case == "qk_norm":
-        cfg_d.update(architectures=["Qwen3ForCausalLM"], model_type="qwen3")
+    elif case == "bias":  # attention biases load by name (Qwen2); MLP biases do not
+        sd["model.layers.0.mlp.down_proj.bias"] = np.zeros(32, np.float32)
+    elif case == "qk_norm":  # q/k norm before RoPE is ported (Qwen3); after it is not
+        cfg_d.update(architectures=["HunYuanDenseV1ForCausalLM"], model_type="hunyuan")
     else:
         sd["model.layers.0.self_attn.qkv_proj.weight"] = np.zeros((128, 32), np.float32)
     _write_hf(tmp_path, cfg_d, sd)

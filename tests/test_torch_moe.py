@@ -297,18 +297,35 @@ def test_moe_mlp_matches_jax(arch, kinds):
 
 
 def test_routers_agree_and_sparse_combine_refused():
-    """The two routers choose the same experts with the same weights; dense
-    banks of 16 experts at few tokens (the JAX sparse combine) raise."""
-    logits = torch.from_numpy(np.random.default_rng(10).standard_normal((6, 8)).astype(np.float32))
+    """The two routers choose the same experts with the same weights. Dense
+    banks of 16 experts at few tokens, where the JAX package takes its
+    sparse combine, run the grouped route (the dense grouped kernel's plain
+    version) and give JAX ``_moe_mlp``'s output (f32, 1e-5); qwen2moe's
+    router (softmax over all experts with a gated shared expert) stays
+    refused."""
+    rng = np.random.default_rng(10)
+    logits = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32))
     wm, im = route(logits, ModelConfig(**dict(MOE_KW, arch="mixtral", num_experts=8)))
     wl, il = route(logits, ModelConfig(**dict(MOE_KW, arch="llama", num_experts=8)))
     assert torch.equal(im, il)
     np.testing.assert_allclose(wm.numpy(), wl.numpy(), rtol=1e-6)
-    cfg = ModelConfig(**dict(MOE_KW, arch="mixtral", num_experts=16))
-    lw = {"router": torch.zeros(16, 8),
-          "experts": {k: torch.zeros(16, 8, 8) for k in ("gate", "up", "down")}}
-    with pytest.raises(NotImplementedError, match="sparse expert combine"):
-        _moe_mlp(torch.zeros(1, 2, 8), lw, cfg)
+    kw = dict(MOE_KW, arch="mixtral", num_experts=16)
+    cfg = ModelConfig(**kw)
+    banks = {k: (rng.standard_normal(shape) * 0.3).astype(np.float32)
+             for k, shape in (("gate", (16, 8, 8)), ("up", (16, 8, 8)), ("down", (16, 8, 8)))}
+    router = (rng.standard_normal((16, 8)) * 0.5).astype(np.float32)
+    x = rng.standard_normal((1, 2, 8)).astype(np.float32)
+    lw = {"router": torch.from_numpy(router),
+          "experts": {k: torch.from_numpy(v) for k, v in banks.items()}}
+    reset_counts()
+    got = _moe_mlp(torch.from_numpy(x), lw, cfg)
+    assert COUNTS["dense_matmul_g_plain"] == 3
+    ref = jax_moe_mlp(jnp.asarray(x), {"router": jnp.asarray(router),
+                                       "experts": {k: jnp.asarray(v) for k, v in banks.items()}},
+                      JaxConfig(**kw), jax.nn.silu, "xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="qwen2moe"):
+        init_random_weights(ModelConfig(**dict(kw, arch="qwen2moe")), device="cpu")
 
 
 @pytest.mark.parametrize("arch,field", [("qwen2moe", {}), ("glm4moe", {}), ("phimoe", {}),
