@@ -105,7 +105,16 @@ script in one call:
    int8 form at group 7 at B=2 T=128; the decode kernel at group 7 at the
    table's row; and the dense grouped kernel on Qwen3-30B-A3B's banks (128
    experts, top-8: gate/up [128, 1536, 2048], down [128, 2048, 768]) at n*k
-   = 48 (6 decode tokens) and 2048 (a 256-token chunk); the same checks;
+   = 48 (6 decode tokens) and 2048 (a 256-token chunk); the same checks.
+   Last, the quantized forms (int8, then fp8) with every option: at
+   Gemma-2-9B's attention (head_dim 256, softcap 50) decode at the table's
+   row, at 8 x 8192 with the 4096 window and with a window of 100, prefill
+   at B=2 T=128 on 300 past, with a window of 100 (untimed) and 512 on 3840
+   through the window; at gpt-oss-20b's (head_dim 64, sinks) the shapes of
+   its bf16 rows; the int8 form at head_dim 128 with Mistral-7B's window
+   (decode 8 x 8192, prefill 512 on 3840); the same checks, and on the
+   window-100 rows the plain version without the window must differ from
+   it by more than 0.1 (the softcap's and the sinks' controls as above);
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -129,12 +138,17 @@ script in one call:
    its 4096-position window, layer 1 full; both softcaps; head_dim 256),
    bf16 weights: a 4160-token prompt in 512-token chunks and a 100-token
    one, then 4 decode steps of both; logits within 5e-2 of the largest;
+   over bf16, int8 and fp8 pools;
 3e. the same at full gpt-oss-20b width with 2 layers (layer 0 sliding with
    its 128-position window, layer 1 full; sinks, q/k/v/o biases, YaRN,
    head_dim 64, 32 bf16 experts top-4 with biases and the clamped SwiGLU):
    two 300-token prompts in 128-token chunks, then 4 decode steps; phase
    3b's rule on expert choices (>= 99 % agree, then the plain run takes the
-   kernel run's choices); logits within 5e-2 of the largest. Phases 3b, 3e
+   kernel run's choices); logits within 5e-2 of the largest; then over int8
+   and fp8 pools on the bf16 kernel run's expert choices (as 3c's int8
+   latent pool: a 1-byte cache quantizes the two paths' slightly different
+   K/V rows to codes a step apart, which flips more near-ties, 24 of 1216
+   at int8 where bf16 pools flip 12). Phases 3b, 3e
    and 3g log, beside the count of expert choices that agree, the plain
    run's router-logit gap at the top-k edge (the k-th largest logit less the
    (k+1)-th) of each choice that differs: near-ties flip under another sum
@@ -150,6 +164,13 @@ script in one call:
    ``NEAR_TIE_ULPS`` bf16 ulps of the 8th logit (a kernel fault that flips
    a clear choice fails it), then the plain run on the kernel run's
    choices;
+3h. the same schedule at full Gemma-3-27B width with 2 layers (layer 0
+   sliding, window 1024, with the local rope base 10^4; layer 1 full with
+   the global base 10^6 and linear scaling 8; head_dim 128, 32/16 heads, a
+   scale of 168^-0.5, q/k norms), over fp8 pools; logits within 5e-2 of the
+   largest, and the same weights with the two rope bases swapped must move
+   the kernel run's logits by more than ten times the kernels' worst
+   difference from the plain run (both relative to the largest logit);
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -204,15 +225,23 @@ script in one call:
    the device after the Qwen2.5 weights are freed; q/k norm, 128 experts
    top-8): the same 6 requests and checks; the paged kernels and the dense
    grouped kernel on the 128-expert banks launched and no plain version run;
-11. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+11. serve the full 48-layer Gemma-3-12B geometry (bf16, ~23.5 GB drawn on
+   the device after the Qwen3 weights are freed; head_dim 256, five sliding
+   layers of six with a 1024 window and the local rope base, linear
+   scaling 8 on the global base, q/k norms) from int8 KV pools (160 blocks
+   of 64 positions): the same 6 requests but one prompt of 2500 tokens,
+   over 10 prefill chunks and past the window; the same checks; the int8
+   head_dim-256 forms of the paged kernels launched and no plain version;
+12. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-10 (4's int8 serve for the int8 forms of the paged kernels), and
-phase 3's fp8 model run for their fp8 forms; and its times at the main
-path's dominant shape (``library_device_ms``: the library call's own device
-time).
+phases 4-11 (4's int8 serve and 11 for the int8 forms of the paged
+kernels), and the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
+and the int8 head_dim-64 forms (3e); a kernel launched in none fails the
+run; and its times at the main path's dominant shape
+(``library_device_ms``: the library call's own device time).
 
 Budget: the whole run at most 8 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute), at most 8 GB of
@@ -358,6 +387,21 @@ QWEN3_30B_A3B = dict(
     num_experts_per_tok=8, moe_intermediate_size=768, norm_topk_prob=True, rms_norm_eps=1e-6,
     rope_theta=1e6, max_position_embeddings=40960,
 )
+# Gemma-3-12B (the text_config of google/gemma-3-12b-it's config.json, with
+# Gemma3TextConfig's defaults: head_dim 256, query_pre_attn_scalar 256,
+# rope_theta 1e6, rope_local_base_freq 1e4, vocab 262208, a tied head; its
+# layer pattern slides on all but every sixth layer, window 1024)
+GEMMA3_12B = dict(
+    arch="gemma3", vocab_size=262208, hidden_size=3840, intermediate_size=15360, num_layers=48,
+    num_heads=16, num_kv_heads=8, head_dim=256, sliding_window=1024, attn_scale=256 ** -0.5,
+    rms_norm_eps=1e-6, rope_theta=1e6, rope_local_theta=1e4, qk_norm=True,
+    rope_scaling={"rope_type": "linear", "factor": 8.0}, hidden_act="gelu_pytorch_tanh",
+    tie_word_embeddings=True, max_position_embeddings=131072,
+)
+# Gemma-3-27B (google/gemma-3-27b-it's text_config: 62 layers, head_dim 128,
+# 32 query heads on 16 KV heads, query_pre_attn_scalar 168)
+GEMMA3_27B = dict(GEMMA3_12B, hidden_size=5376, intermediate_size=21504, num_layers=62,
+                  num_heads=32, num_kv_heads=16, head_dim=128, attn_scale=168 ** -0.5)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
 GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
@@ -406,6 +450,11 @@ KERNEL_INFO = {
                           "mistralrs_tpu/ops/paged_attention.py:496"),
     "paged_prefill_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                            "mistralrs_tpu/ops/paged_attention.py:1162"),
+    # the quantized forms at head_dim 256 and 64 (Gemma, gpt-oss)
+    **{f"paged_{k}_{q}_hd{d}": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+                                "mistralrs_tpu/ops/paged_attention.py:"
+                                + ("496" if k == "decode" else "1162"))
+       for k in ("decode", "prefill") for q in ("int8", "fp8") for d in (256, 64)},
 }
 QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_int8")
 
@@ -597,11 +646,12 @@ def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
 
 
 def build_gemma(cfg: ModelConfig, dev, seed: int) -> dict:
-    """Gemma-2 weights of ``cfg`` in bf16, drawn on the device: fused
-    projections (wqkv, wgateup) of N(0, 0.02^2), the four norms of a layer
-    and the final norm N(0, 0.1^2) (stored as w - 1, so applied near 1, and
-    not ones), the tied embedding, the config's layer windows: ~18.5 GB at
-    42 layers."""
+    """Gemma-2 or Gemma-3 weights of ``cfg`` in bf16, drawn on the device:
+    fused projections (wqkv, wgateup) of N(0, 0.02^2), the four norms of a
+    layer, Gemma-3's q/k norms and the final norm N(0, 0.1^2) (stored as w
+    - 1, so applied near 1, and not ones), the tied embedding, the config's
+    layer windows: ~18.5 GB for Gemma-2-9B at 42 layers, ~23.5 GB for
+    Gemma-3-12B at 48."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, i = cfg.hidden_size, cfg.intermediate_size
 
@@ -615,6 +665,8 @@ def build_gemma(cfg: ModelConfig, dev, seed: int) -> dict:
                                               "post_ffn_norm")},
             "wqkv": draw(cfg.q_dim + 2 * cfg.kv_dim, h), "wo": draw(h, cfg.q_dim),
             "wgateup": draw(2 * i, h), "down": draw(h, i),
+            **({k: draw(cfg.head_dim, std=0.1) for k in ("q_norm", "k_norm")}
+               if cfg.qk_norm else {}),
         })
     return {"embed": draw(cfg.vocab_size, h), "layers": layers,
             "final_norm": draw(h, std=0.1), "lm_head": None}
@@ -1057,7 +1109,22 @@ def draw_sinks(gen, n_q, dev):
 
 
 def attn_name(kernel, kv_quant, hd) -> str:
-    return kernel + (f"_{kv_quant}" if kv_quant else f"_hd{hd}" if hd in (64, 256) else "")
+    return kernel + (f"_{kv_quant}" if kv_quant else "") + (f"_hd{hd}" if hd in (64, 256) else "")
+
+
+def quant_names(names, kv_quant) -> tuple:
+    """The launch-count names of the paged kernels of ``names`` in their
+    ``kv_quant`` forms (``paged_decode_hd256`` → ``paged_decode_int8_hd256``);
+    the other kernels' as they are."""
+    if kv_quant is None:
+        return tuple(names)
+    out = []
+    for n in names:
+        if n.startswith("paged_"):
+            base, _, hd = n.partition("_hd")
+            n = f"{base}_{kv_quant}" + (f"_hd{hd}" if hd else "")
+        out.append(n)
+    return tuple(out)
 
 
 def gathered(pools, bt, bs, group):
@@ -1069,7 +1136,7 @@ def gathered(pools, bt, bs, group):
 
 def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
                  dropped=3, kv_quant=None, n_q=32, n_kv=8, hd=128, window=0, softcap=0.0,
-                 sinks=False):
+                 sinks=False, window_control=False):
     """The decode kernel (its quantized form with ``kv_quant``, its
     head_dim-256 form with ``hd=256``) on tables of ``w`` blocks of 64 for
     rows of ``kv_lens`` (row ``dropped`` drops its write), with a sliding
@@ -1083,7 +1150,8 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     computes less). With a softcap q is ``CAP_Q`` times larger, and the
     plain version without the cap must differ from it by more than
     ``CAP_CONTROL``; with ``sinks`` (f32 per head, ``draw_sinks``) the
-    plain version without them must too (SDPA has no sinks)."""
+    plain version without them must too (SDPA has no sinks), and with
+    ``window_control`` the plain version without the window."""
     b, bs = len(kv_lens), 64
     kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
@@ -1099,9 +1167,9 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     mine, ref_p = ([t if t is None else t.clone() for t in pools] for _ in range(2))
     args = (kn, vn, slots, bt, kv_lens)
 
-    def run(p, plain=False, cap=softcap, sink=sk):
+    def run(p, plain=False, cap=softcap, sink=sk, win=window):
         return paged_decode_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
-                                            v_scale=p[3], window=window, softcap=cap,
+                                            v_scale=p[3], window=win, softcap=cap,
                                             sinks=sink, plain=plain)
 
     got, again, ref = run(mine), run(mine), run(ref_p, plain=True)
@@ -1120,6 +1188,11 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
         ctl_p = [t if t is None else t.clone() for t in pools]
         sink_moved = check_cap_bites(name, ref.float(),
                                      run(ctl_p, plain=True, sink=None).float(), "sinks")
+        del ctl_p
+    if window_control:
+        ctl_p = [t if t is None else t.clone() for t in pools]
+        win_moved = check_cap_bites(name, ref.float(), run(ctl_p, plain=True, win=0).float(),
+                                    "window")
         del ctl_p
     del ref
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
@@ -1156,11 +1229,15 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
         row["cap_moves_plain"] = moved
     if sinks:
         row["sinks_move_plain"] = sink_moved
+    if window_control:
+        row["window_moves_plain"] = win_moved
     log(f"  {name} {row['shape']}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
         f"two calls equal" + (f", the cap moves the plain version {moved:.3e} (> "
                               f"{CAP_CONTROL})" if softcap else "")
         + (f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
            if sinks else "")
+        + (f", the window moves the plain version {win_moved:.3e} (> {CAP_CONTROL})"
+           if window_control else "")
         + f" | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{fmt_ms(lib_dev_ms)})")
@@ -1169,7 +1246,7 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
 
 def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300), n_q=32,
                   n_kv=8, bs=64, timed=True, kv_quant=None, hd=128, window=0, softcap=0.0,
-                  sinks=False):
+                  sinks=False, window_control=False):
     """The prefill kernel (its quantized form with ``kv_quant``, its
     head_dim-256 form with ``hd=256``) on a chunk of ``t`` tokens per row on
     top of ``past`` cached positions, ``n_valid`` of them real (the rest
@@ -1181,7 +1258,8 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     mask, no softcap) when ``timed``. With a softcap q is ``CAP_Q`` times
     larger, and the plain version without the cap must differ from it on
     the valid rows by more than ``CAP_CONTROL``; so must the plain version
-    without ``sinks`` (``draw_sinks``), where the row has them."""
+    without ``sinks`` (``draw_sinks``), where the row has them, and the
+    plain version without the window, with ``window_control``."""
     n_valid = torch.tensor(n_valid, device=dev, dtype=torch.int32)
     kv_lens = n_valid + torch.tensor(past, device=dev, dtype=torch.int32)
     w = -(-(max(past) + t) // bs)
@@ -1199,9 +1277,9 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
     args = (kn, vn, slots, bt, kv_lens, n_valid)
     sk = draw_sinks(gen, n_q, dev) if sinks else None
 
-    def run(p, plain=False, cap=softcap, sink=sk):
+    def run(p, plain=False, cap=softcap, sink=sk, win=window):
         return paged_prefill_attention_fused(q, p[0], p[2], *args, block_size=bs, k_scale=p[1],
-                                             v_scale=p[3], window=window, softcap=cap,
+                                             v_scale=p[3], window=win, softcap=cap,
                                              sinks=sink, plain=plain)
 
     mine, again_p, ref_p = ([x if x is None else x.clone() for x in pools] for _ in range(3))
@@ -1231,6 +1309,12 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
         sink_moved = check_cap_bites(name, ref.float()[valid], sinkless.float()[valid], "sinks")
         cap_note += f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
         del sinkless
+    if window_control:
+        unwindowed = run([x if x is None else x.clone() for x in pools], plain=True, win=0)
+        win_moved = check_cap_bites(name, ref.float()[valid], unwindowed.float()[valid],
+                                    "window")
+        cap_note += f", the window moves the plain version {win_moved:.3e} (> {CAP_CONTROL})"
+        del unwindowed
     del ref, again_p
     if not timed:
         log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note}")
@@ -1268,6 +1352,8 @@ def check_prefill(rates, gen, dev, b=2, t=128, n_valid=(128, 70), past=(300, 300
         row["cap_moves_plain"] = moved
     if sinks:
         row["sinks_move_plain"] = sink_moved
+    if window_control:
+        row["window_moves_plain"] = win_moved
     log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact, two calls equal{cap_note} | "
         f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms ({b_by}), plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)})")
@@ -1581,15 +1667,21 @@ def check_deepseek_model(dev) -> dict:
 def check_gemma_model(dev) -> dict:
     """Phase 3d: 2 Gemma-2-9B layers at full width (layer 0 sliding with its
     4096-position window, layer 1 full; both softcaps; head_dim 256) through
-    the kernels and through the plain versions on the same device weights:
-    one row with a 4160-token prompt in 512-token chunks (its last chunk
-    passes position 4096, where the window starts to hide positions), one
-    row with a 100-token prompt, then 4 decode steps of both rows (the
-    sliding layer's decode walk then starts past the first tile); every
-    step's logits within 5e-2 of the largest. Returns the kernel run's
-    launch counts."""
+    the kernels and through the plain versions on the same device weights,
+    over bf16, int8 and fp8 pools: one row with a 4160-token prompt in
+    512-token chunks (its last chunk passes position 4096, where the window
+    starts to hide positions), one row with a 100-token prompt, then 4
+    decode steps of both rows (the sliding layer's decode walk then starts
+    past the first tile); every step's logits within 5e-2 of the largest.
+    Returns the kernel runs' launch counts by ``kv_quant``."""
     cfg = ModelConfig(**dict(GEMMA2_9B, num_layers=2))
     weights = build_gemma(cfg, dev, SEED + 10)
+    counts = {kvq: check_gemma_pools(dev, cfg, weights, kvq) for kvq in (None, "int8", "fp8")}
+    del weights
+    return counts
+
+
+def check_gemma_pools(dev, cfg, weights, kv_quant) -> dict:
     bs, chunk, n_dec = 64, 512, 4
     lens = (4160, 100)
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -1598,7 +1690,7 @@ def check_gemma_model(dev) -> dict:
     bt = torch.arange(2 * w, device=dev, dtype=torch.int32).reshape(2, w)
     runs, counts = [], {}
     for plain in (False, True):
-        cache = PagedKVCache.create(cfg, 2 * w, bs, device=dev)
+        cache = PagedKVCache.create(cfg, 2 * w, bs, kv_quant=kv_quant, device=dev)
         _cuda.reset_counts()
         outs = []
         for row, n in enumerate(lens):
@@ -1622,73 +1714,89 @@ def check_gemma_model(dev) -> dict:
             counts = dict(_cuda.COUNTS)
         runs.append(outs)
     worst = 0.0
+    pools = kv_quant or "bf16"
     for step, (got, ref) in enumerate(zip(*runs)):
         if not torch.isfinite(got).all():
-            raise AssertionError(f"gemma model: step {step}: non-finite logits through the kernels")
+            raise AssertionError(f"gemma model ({pools} pools): step {step}: non-finite logits "
+                                 f"through the kernels")
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         worst = max(worst, err / max(scale, 1e-30))
         if err > 5e-2 * scale:
-            raise AssertionError(f"gemma model: step {step} logits differ by {err} > "
-                                 f"{5e-2 * scale}")
-    missing = [k for k in GEMMA_KERNELS if counts.get(k, 0) == 0]
+            raise AssertionError(f"gemma model ({pools} pools): step {step} logits differ by "
+                                 f"{err} > {5e-2 * scale}")
+    missing = [k for k in quant_names(GEMMA_KERNELS, kv_quant) if counts.get(k, 0) == 0]
     plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
     if missing or plain_run:
-        raise AssertionError(f"gemma model: kernels not launched {missing}, plain versions run "
-                             f"{plain_run}")
-    log(f"  gemma-2-9b 2 layers (window 4096, full): prefill of {lens[0]} tokens in chunks of "
-        f"{chunk} and of {lens[1]}, {n_dec} decode steps of both rows; worst |err|/max|logit| "
-        f"{worst:.3e} (tol 5e-2); kernel run launches {counts}")
-    del weights
+        raise AssertionError(f"gemma model ({pools} pools): kernels not launched {missing}, "
+                             f"plain versions run {plain_run}")
+    log(f"  gemma-2-9b 2 layers (window 4096, full), {pools} pools: prefill of {lens[0]} tokens "
+        f"in chunks of {chunk} and of {lens[1]}, {n_dec} decode steps of both rows; worst "
+        f"|err|/max|logit| {worst:.3e} (tol 5e-2); kernel run launches {counts}")
     return counts
 
 
 def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
-                   near_tie_ulps=None) -> tuple:
+                   near_tie_ulps=None, kv_quant=None, control=None, forced=None) -> tuple:
     """``cfg``'s 2 layers through the kernels and through the plain versions
-    on the same device weights: two 300-token prompts in 128-token chunks,
-    then 4 decode steps of both rows; with experts, phase 3b's rule on
-    expert choices or, with ``near_tie_ulps``, the near-tie rule of
-    ``choice_agreement`` (their router-logit gaps logged either way), then
-    the plain run on the kernel run's choices; every step's logits within
-    5e-2 of the
-    largest, every kernel of ``required`` launched and no plain version in
-    the kernel run. Returns ``(kernel run launch counts, log note)``."""
+    on the same device weights (``kv_quant``: the pools' codes): two
+    300-token prompts in 128-token chunks, then 4 decode steps of both rows;
+    with experts, phase 3b's rule on expert choices or, with
+    ``near_tie_ulps``, the near-tie rule of ``choice_agreement`` (their
+    router-logit gaps logged either way), then the plain run on the kernel
+    run's choices; every step's logits within 5e-2 of the largest, every
+    kernel of ``required`` (in its ``kv_quant`` form) launched and no plain
+    version in the kernel run. With ``forced`` (another run's expert
+    choices), both runs take those choices and no rule is applied to them
+    (phase 3c's int8 latent pool does the same: a 1-byte cache quantizes
+    the two paths' slightly different K/V rows to codes a step apart, which
+    flips more near-ties). With ``control`` (another config of the same
+    weights), a third run through the kernels whose logits must move, at
+    some step, by more than ten times the kernel run's worst difference
+    from the plain run (both relative to the largest logit). Returns ``(kernel run
+    launch counts, log note, the kernel run's expert choices)``."""
     bs, b, n, chunk, n_dec = 64, 2, 300, 128, 4
     gen = torch.Generator(device=dev).manual_seed(seed)
     ids = torch.randint(0, cfg.vocab_size, (b, n + n_dec), generator=gen, device=dev)
     w = -(-(n + n_dec) // bs)
     bt = torch.arange(b * w, device=dev, dtype=torch.int32).reshape(b, w)
     runs, choices, gaps, counts = [], [], [], {}
+
+    def run(run_cfg, plain):
+        cache = PagedKVCache.create(run_cfg, b * w, bs, kv_quant=kv_quant, device=dev)
+        outs = []
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
+            logits, _ = forward_paged(weights, run_cfg, ids[:, lo:hi], pos, cache, bt,
+                                      slots_for(bt, pos, bs), torch.full((b,), hi, device=dev),
+                                      block_size=bs, plain=plain)
+            outs.append(logits)
+        for d in range(n_dec):
+            p = torch.full((b, 1), n + d, device=dev)
+            logits, _ = forward_paged(weights, run_cfg, ids[:, n + d:n + d + 1], p, cache, bt,
+                                      slots_for(bt, p, bs),
+                                      torch.full((b,), n + d + 1, device=dev),
+                                      block_size=bs, plain=plain)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return outs
+
     for plain in (False, True):
         chosen: list = []
         gaps.append([])
-        with recorded_routing(chosen, choices[0] if plain else None, gaps[-1]):
-            cache = PagedKVCache.create(cfg, b * w, bs, device=dev)
+        force = forced if forced is not None else choices[0] if plain else None
+        with recorded_routing(chosen, force, gaps[-1]):
             _cuda.reset_counts()
-            outs = []
-            for lo in range(0, n, chunk):
-                hi = min(lo + chunk, n)
-                pos = torch.arange(lo, hi, device=dev)[None].expand(b, hi - lo)
-                logits, _ = forward_paged(weights, cfg, ids[:, lo:hi], pos, cache, bt,
-                                          slots_for(bt, pos, bs),
-                                          torch.full((b,), hi, device=dev), block_size=bs,
-                                          plain=plain)
-                outs.append(logits)
-            for d in range(n_dec):
-                p = torch.full((b, 1), n + d, device=dev)
-                logits, _ = forward_paged(weights, cfg, ids[:, n + d:n + d + 1], p, cache, bt,
-                                          slots_for(bt, p, bs),
-                                          torch.full((b,), n + d + 1, device=dev),
-                                          block_size=bs, plain=plain)
-                outs.append(logits)
-            torch.cuda.synchronize()
+            outs = run(cfg, plain)
             if not plain:
                 counts = dict(_cuda.COUNTS)
         runs.append(outs)
         choices.append(chosen)
     note = ""
-    if cfg.num_experts:
+    if cfg.num_experts and forced is not None:
+        note = "on the bf16 pools' kernel run's expert choices; "
+    elif cfg.num_experts:
         same, total, near = choice_agreement(what, *choices, gaps[1], near_tie_ulps)
         note = (f"expert choices agree {same}/{total} ({100 * same / total:.2f} %; largest "
                 f"gap of those that differ {near[0][0] if near else 0.0:.3e}); ")
@@ -1701,29 +1809,64 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
         worst = max(worst, err / max(scale, 1e-30))
         if err > 5e-2 * scale:
             raise AssertionError(f"{what}: step {step} logits differ by {err} > {5e-2 * scale}")
-    missing = [k for k in required if counts.get(k, 0) == 0]
+    missing = [k for k in quant_names(required, kv_quant) if counts.get(k, 0) == 0]
     plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
     if missing or plain_run:
         raise AssertionError(f"{what}: kernels not launched {missing}, plain versions run "
                              f"{plain_run}")
-    note += (f"prefill of {b} x {n} tokens in chunks of {chunk}, {n_dec} decode steps; worst "
-             f"|err|/max|logit| {worst:.3e} (tol 5e-2)"
-             + (" on the kernel run's routing" if cfg.num_experts else "")
-             + f"; kernel run launches {counts}")
-    return counts, note
+    note += (f"{kv_quant or 'bf16'} pools, prefill of {b} x {n} tokens in chunks of {chunk}, "
+             f"{n_dec} decode steps; worst |err|/max|logit| {worst:.3e} (tol 5e-2)"
+             + (" on the kernel run's routing" if cfg.num_experts and forced is None else ""))
+    if control is not None:
+        moved = max((a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+                    for a, c in zip(run(control, False), runs[0]))
+        if not moved > 10 * worst:
+            raise AssertionError(f"{what}: the control config moves the logits by {moved} of the "
+                                 f"largest only (needs > {10 * worst}, ten times the kernels' "
+                                 f"worst difference)")
+        note += (f"; the control config moves the logits {moved:.3e} of the largest (> "
+                 f"{10 * worst:.3e}, ten times the kernels' worst difference)")
+    return counts, note + f"; kernel run launches {counts}", choices[0]
 
 
 def check_gpt_oss_model(dev) -> dict:
     """Phase 3e: 2 gpt-oss-20b layers at full width (layer 0 sliding with
     its 128-position window, layer 1 full; sinks, biases, YaRN, head_dim 64,
     32 bf16 experts top-4) through the kernels and the plain versions
-    (``two_layer_runs``: the chunks pass the window's edge). Returns the
-    kernel run's launch counts."""
+    (``two_layer_runs``: the chunks pass the window's edge), over bf16, int8
+    and fp8 pools (these two on the bf16 run's expert choices, as phase 3c's
+    int8 latent pool). Returns the kernel runs' launch counts by
+    ``kv_quant``."""
     cfg = ModelConfig(**dict(GPT_OSS_20B, num_layers=2,
                              layer_types=GPT_OSS_20B["layer_types"][:2]))
     weights = build_gpt_oss(cfg, dev, SEED + 13)
-    counts, note = two_layer_runs(dev, cfg, weights, SEED + 14, "gpt-oss model", GPT_OSS_KERNELS)
-    log(f"  gpt-oss-20b 2 layers (window 128, full): {note}")
+    counts, chosen = {}, None
+    for kvq in (None, "int8", "fp8"):
+        counts[kvq], note, choices = two_layer_runs(dev, cfg, weights, SEED + 14,
+                                                    "gpt-oss model", GPT_OSS_KERNELS,
+                                                    kv_quant=kvq, forced=chosen)
+        chosen = chosen or choices
+        log(f"  gpt-oss-20b 2 layers (window 128, full): {note}")
+    del weights
+    return counts
+
+
+def check_gemma3_model(dev) -> dict:
+    """Phase 3h: 2 Gemma-3-27B layers at full width (layer 0 sliding with
+    its 1024-position window and the local rope base, layer 1 full with the
+    global base and linear scaling 8; head_dim 128, 32/16 heads, a scale of
+    168^-0.5, q/k norms) through the kernels and the plain versions over fp8
+    pools (``two_layer_runs``), and a control: the same weights with the
+    two rope bases swapped move the logits. Returns the kernel run's launch
+    counts."""
+    cfg = ModelConfig(**dict(GEMMA3_27B, num_layers=2,
+                             layer_types=["sliding_attention", "full_attention"]))
+    swapped = ModelConfig(**dict(vars(cfg), rope_theta=cfg.rope_local_theta,
+                                 rope_local_theta=cfg.rope_theta))
+    weights = build_gemma(cfg, dev, SEED + 22)
+    counts, note, _ = two_layer_runs(dev, cfg, weights, SEED + 23, "gemma-3-27b model",
+                                     QWEN_KERNELS, kv_quant="fp8", control=swapped)
+    log(f"  gemma-3-27b 2 layers (window 1024, full): {note}")
     del weights
     return counts
 
@@ -1738,8 +1881,8 @@ def check_qwen_model(dev, base: dict, seed: int, what: str, required) -> dict:
     run's launch counts."""
     cfg = ModelConfig(**dict(base, num_layers=2))
     weights = build_qwen(cfg, dev, seed)
-    counts, note = two_layer_runs(dev, cfg, weights, seed + 1, what, required,
-                                  NEAR_TIE_ULPS if cfg.num_experts else None)
+    counts, note, _ = two_layer_runs(dev, cfg, weights, seed + 1, what, required,
+                                     NEAR_TIE_ULPS if cfg.num_experts else None)
     log(f"  {what} 2 layers: {note}")
     del weights
     return counts
@@ -2237,6 +2380,38 @@ def main() -> int:
                                                     **qwen_attn))
     rows["paged_decode"].append(check_decode(rates, gen, dev, **qwen_attn))
     check_expert_banks(rows, rates, gen, dev, "Qwen3-30B-A3B", 128, 2048, 768, 8, (6, 256))
+    # the quantized forms with every option (after every other row, which
+    # keep the generator's stream of earlier runs): at Gemma-2-9B's heads,
+    # decode at the table's row, at 8 x 8192 on a sliding layer (window
+    # 4096) and with a window of 100 (the window's control), prefill at B=2
+    # T=128 on 300 past (and with a window of 100: its control, untimed)
+    # and 512 tokens on 3840 past through the window; at gpt-oss-20b's
+    # heads the shapes of its bf16 rows (sinks: their control); then the
+    # int8 form at head_dim 128 with Mistral-7B's 4096-position window
+    for kvq in ("int8", "fp8"):
+        dg, pg = rows[f"paged_decode_{kvq}_hd256"], rows[f"paged_prefill_{kvq}_hd256"]
+        dg.append(check_decode(rates, gen, dev, kv_quant=kvq, **gemma_attn))
+        dg.append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128, dropped=7,
+                               window=4096, kv_quant=kvq, **gemma_attn))
+        dg.append(check_decode(rates, gen, dev, window=100, window_control=True, kv_quant=kvq,
+                               **gemma_attn))
+        pg.append(check_prefill(rates, gen, dev, kv_quant=kvq, **gemma_attn))
+        pg.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(3840,),
+                                window=4096, kv_quant=kvq, **gemma_attn))
+        pg.append(check_prefill(rates, gen, dev, window=100, window_control=True, timed=False,
+                                kv_quant=kvq, **gemma_attn))
+        do, po = rows[f"paged_decode_{kvq}_hd64"], rows[f"paged_prefill_{kvq}_hd64"]
+        do.append(check_decode(rates, gen, dev, kv_quant=kvq, **oss_attn))
+        do.append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128, dropped=7,
+                               window=128, kv_quant=kvq, **oss_attn))
+        po.append(check_prefill(rates, gen, dev, kv_quant=kvq, **oss_attn))
+        po.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(3840,),
+                                window=128, kv_quant=kvq, **oss_attn))
+    rows["paged_decode_int8"].append(check_decode(rates, gen, dev, kv_lens=(8192,) * 8, w=128,
+                                                  dropped=7, window=4096, kv_quant="int8"))
+    rows["paged_prefill_int8"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
+                                                    past=(3840,), window=4096,
+                                                    kv_quant="int8"))
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -2256,12 +2431,12 @@ def main() -> int:
     check_deepseek_model(dev)
     torch.cuda.empty_cache()
     log("phase 3d: forward_paged at full Gemma-2-9B width, 2 layers (sliding, full), kernels "
-        "vs plain")
-    check_gemma_model(dev)
+        "vs plain (bf16, int8 and fp8 pools)")
+    gemma_model = check_gemma_model(dev)
     torch.cuda.empty_cache()
     log("phase 3e: forward_paged at full gpt-oss-20b width, 2 layers (sliding, full), "
-        "kernels vs plain")
-    check_gpt_oss_model(dev)
+        "kernels vs plain (bf16, int8 and fp8 pools)")
+    oss_model = check_gpt_oss_model(dev)
     torch.cuda.empty_cache()
     log("phase 3f: forward_paged at full Qwen2.5-7B width, 2 layers (GQA group 7, q/k/v "
         "biases), kernels vs plain")
@@ -2270,6 +2445,10 @@ def main() -> int:
     log("phase 3g: forward_paged at full Qwen3-30B-A3B width, 2 layers (q/k norm, 128 experts "
         "top-8), kernels vs plain")
     check_qwen_model(dev, QWEN3_30B_A3B, SEED + 18, "qwen3-30b-a3b model", QWEN_MOE_KERNELS)
+    torch.cuda.empty_cache()
+    log("phase 3h: forward_paged at full Gemma-3-27B width, 2 layers (sliding with the local "
+        "rope base, full with the global one), kernels vs plain over fp8 pools")
+    gemma3_model = check_gemma3_model(dev)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -2327,6 +2506,16 @@ def main() -> int:
                          "qwen3-30b-a3b-geometry-bf16", QWEN_MOE_KERNELS)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 11
+    log(f"phase 11: serve the {GEMMA3_12B['num_layers']}-layer Gemma-3-12B geometry from int8 KV "
+        f"pools (bf16 weights; one prompt of 2500 tokens past its 1024 window)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    g3_counts, _ = serve(dev, name_line, ModelConfig(**GEMMA3_12B), build_gemma, SEED + 24,
+                         "gemma-3-12b-geometry-int8-kv", quant_names(GEMMA_KERNELS, "int8"),
+                         kv_quant="int8", num_blocks=160, max_model_len=4096,
+                         sizes=(40, 97, 180, 290, 430, 2500))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -2338,15 +2527,26 @@ def main() -> int:
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
                   "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64 kv_lens 0..2048"}
+    # the fp8 forms and the int8 head_dim-64 forms run in the phase-3 model
+    # checks alone (their kernel runs' counts of those forms)
+    fp8 = ("paged_decode_fp8", "paged_prefill_fp8")
     runs = {"llama3-8b serve": counts, "llama3-8b int8-kv serve": q8_counts,
-            # the fp8 forms run in phase 3's model check alone
-            "phase 3 fp8-kv model": {k: model_counts["fp8"][k]
-                                     for k in ("paged_decode_fp8", "paged_prefill_fp8")},
+            "phase 3 fp8-kv model": {k: model_counts["fp8"][k] for k in fp8},
+            "phase 3d fp8-kv model": {k: gemma_model["fp8"][k]
+                                      for k in quant_names(GEMMA_KERNELS, "fp8")},
+            "phase 3e int8-kv model": {k: oss_model["int8"][k]
+                                       for k in quant_names(GPT_OSS_KERNELS[:2], "int8")},
+            "phase 3e fp8-kv model": {k: oss_model["fp8"][k]
+                                      for k in quant_names(GPT_OSS_KERNELS[:2], "fp8")},
+            "phase 3h fp8-kv model": {k: gemma3_model[k] for k in fp8},
             "mixtral-8x7b serve": moe_counts,
             "deepseek-v2-lite serve": ds_counts, "gemma-2-9b serve": gemma_counts,
             "gpt-oss-20b serve": oss_counts, "qwen2.5-7b serve": q25_counts,
-            "qwen3-30b-a3b serve": q3_counts}
+            "qwen3-30b-a3b serve": q3_counts, "gemma-3-12b int8-kv serve": g3_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
+    unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
+    if unlaunched:
+        raise AssertionError(f"kernels launched in no run of the main path: {unlaunched}")
     entries = []
     for kname in _cuda.KERNELS:
         kr = rows[kname]

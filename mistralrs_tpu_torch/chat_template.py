@@ -4,7 +4,10 @@ the analog of the reference's minijinja-based
 
 Templates come from (in priority order): explicit override, HF
 `tokenizer_config.json` `chat_template`, GGUF `tokenizer.chat_template`
-metadata, or a per-arch fallback.
+metadata, or a per-arch fallback. The port adds one fallback to the JAX
+package's: the gemma family's turns (``<start_of_turn>user`` ...
+``<end_of_turn>``, the assistant as ``model``, a system message put before
+the first user turn's text, as Gemma-3's own template does).
 """
 
 from __future__ import annotations
@@ -28,6 +31,19 @@ FALLBACK_TEMPLATES = {
         "{{'<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n' + message['content'] | trim + '<|eot_id|>'}}"
         "{% endfor %}"
         "{% if add_generation_prompt %}{{'<|start_header_id|>assistant<|end_header_id|>\n\n'}}{% endif %}"
+    ),
+    "gemma": (
+        "{{ bos_token }}"
+        "{% set ns = namespace(prefix='') %}"
+        "{% for message in messages %}"
+        "{% if message['role'] == 'system' %}{% set ns.prefix = message['content'] + '\n\n' %}"
+        "{% else %}"
+        "{{ '<start_of_turn>' + ('model' if message['role'] == 'assistant' else message['role'])"
+        " + '\n' + ns.prefix + message['content'] | trim + '<end_of_turn>\n' }}"
+        "{% set ns.prefix = '' %}"
+        "{% endif %}"
+        "{% endfor %}"
+        "{% if add_generation_prompt %}{{ '<start_of_turn>model\n' }}{% endif %}"
     ),
     "mistral": (
         "{% for message in messages %}"
@@ -116,6 +132,9 @@ def resolve_chat_template(
         key = {
             "llama": "llama3",
             "mistral": "mistral",
+            "gemma": "gemma",
+            "gemma2": "gemma",
+            "gemma3": "gemma",
         }.get(arch or "", "chatml")
         src = FALLBACK_TEMPLATES[key]
     return ChatTemplate(src, bos_token=bos_token, eos_token=eos_token)

@@ -4,19 +4,21 @@
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
     python -m mistralrs_tpu_torch.cli serve path/to/gemma-2-9b --port 8080
+    python -m mistralrs_tpu_torch.cli serve path/to/gemma-3-12b --kv-quant int8
     python -m mistralrs_tpu_torch.cli serve path/to/DeepSeek-V2-Lite --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/gpt-oss-20b --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen2.5-7B-Instruct --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen3-30B-A3B --port 8080
 
 A ``.gguf`` file and a llama-family HF directory (``config.json`` +
-safetensors + ``tokenizer.json``: Llama, Mistral, Mixtral, Gemma-2, Qwen2
-and Qwen2.5, Qwen3, Qwen3-MoE, dense bf16/f16/f32 tensors; gpt-oss with
+safetensors + ``tokenizer.json``: Llama, Mistral, Mixtral, Gemma-2, Gemma-3
+text, Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, dense bf16/f16/f32 tensors; gpt-oss with
 dense or MXFP4 expert banks, decoded to bf16 at load) serve through the
 llama decoder; a DeepSeek-family HF
 directory through its arch adapter.
 ``--kv-quant int8|fp8`` serves from 1-byte KV pools (or latent pool) with
-per-row scales, sized by their own bytes per token.
+per-row scales, sized by their own bytes per token, for every model of the
+llama decoder (windows, softcaps, sinks, head_dim 64, 128 and 256).
 """
 
 from __future__ import annotations

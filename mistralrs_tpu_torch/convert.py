@@ -9,8 +9,9 @@ package: a quantized leaf is anything with ``data``, ``scale``, ``bias``,
 ``group_size``, ``packed`` and ``code_bits`` fields, as a mapping or as
 attributes.
 
-Gemma-2's post norms (``post_attn_norm``, ``post_ffn_norm``), Qwen3's q/k
-norms (``q_norm``, ``k_norm``) and Qwen2's q/k/v biases come across with
+Gemma-2's and Gemma-3's post norms (``post_attn_norm``, ``post_ffn_norm``),
+Qwen3's and Gemma-3's q/k norms (``q_norm``, ``k_norm``) and Qwen2's q/k/v
+biases come across with
 the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
 the port computes each layer's window from the config
 (``models/llama.py::layer_windows``).

@@ -8,7 +8,7 @@
 // kernels' window and softcap) and attention sinks (gpt-oss; the JAX
 // kernels' sinks), and, in their quantized forms (template argument Q: 1
 // int8, 2 fp8-e4m3; the JAX kernels' quantized=True), for 1-byte pools with
-// bf16 scales at head_dim 128, without window, softcap or sinks.
+// bf16 scales, at the same head dims and with the same options.
 //
 // Pool layout (one layer plane): [n_kv, S, hd] bf16, slot = block * bs + row.
 // Both kernels write this step's K/V rows into the pools in place, then run
@@ -50,7 +50,7 @@
 //   - This step's K/V row is written to slots[b] (dropped when < 0) by the
 //     block whose split holds position kv_len - 1, before it reads that
 //     position; no other block reads it. kv_len 0 gives zeros
-//     (acc / max(l, 1e-20)). GQA groups 1 to 16, head_dim 128 or 256.
+//     (acc / max(l, 1e-20)). GQA groups 1 to 16, head_dim 64, 128 or 256.
 //   - A sliding window (a query at kv_len - 1 sees kv_len - window ...
 //     kv_len - 1) moves the walk's start to the tile that holds kv_len -
 //     window, and the wrapper's plan (decode_plan with the window) splits
@@ -121,25 +121,30 @@
 // a region of its own behind the stages (2 x 64 KB of K/V tiles + 32 KB of
 // Q: one block of 8 warps per SM).
 //
-// Quantized forms (1-byte code pools [n_kv, S, 128], scales [n_kv, S] bf16
+// Quantized forms (1-byte code pools [n_kv, S, D], scales [n_kv, S] bf16
 // beside them, head-major; blocks of a multiple of 8 positions). Bound:
-// bytes, as the bf16 forms, on 130 bytes a cached row in place of 256.
+// bytes, as the bf16 forms, on D + 2 bytes a cached row in place of 2 D.
 //   - Writes: this step's rows are quantized as they are written, per (token,
-//     KV head) by one warp (quant_row4: the JAX package's qenc, in f32 with a
+//     KV head) by one warp (quant_row: the JAX package's qenc over the whole
+//     head, each lane D / 32 dims, the absmax a warp reduction; in f32 with a
 //     true division, rint for int8, a saturating round-to-nearest-even cast
 //     for e4m3), codes into the pool and bf16(s) into the scale plane. In
 //     decode the writing block reads the row back after the barrier, as the
 //     bf16 form does; prefill writes in its first launch (below).
-//   - Reads: code tiles of 64 positions (8 KB for K, 8 KB for V) and the
-//     tile's 64 + 64 scales come through the same cp.async ring, then each
-//     warp widens 16 rows of codes to bf16 in shared memory (int8 and e4m3
-//     are exact in bf16), in the swizzled layout the mma.sync fragments of
-//     the bf16 forms read; the scales go to f32 beside them. Widening in
-//     registers is later work.
+//   - Reads: code tiles of 64 positions (64 D bytes for K, as many for V)
+//     and the tile's 64 + 64 scales come through the same cp.async ring,
+//     then the block's warps widen the codes to bf16 in shared memory (int8
+//     and e4m3 are exact in bf16), in the swizzled layout the mma.sync
+//     fragments of the bf16 forms read at that D; the scales go to f32
+//     beside them. Widening in registers is later work.
 //   - The fold, in the score step (decode_scores; the prefill's S loop): a
-//     position's k scale multiplies its f32 score before the mask and the
-//     running max; p enters the running sum l unscaled, and is then
-//     multiplied by the position's v scale before the PV product.
+//     position's k scale multiplies its f32 score first, then the softcap
+//     caps it (c tanh(s scale / c), JAX _decode_kernel :292-299), then the
+//     window masks it, before the running max; p enters the running sum l
+//     unscaled, and is then multiplied by the position's v scale before the
+//     PV product. Sinks enter the merges as in the bf16 forms, untouched by
+//     the scales and the cap. A window starts the walk, the code copies and
+//     the scale copies at the tile that holds its first position.
 //   - Prefill: a first launch (quant_chunk_kernel) quantizes each of the
 //     chunk's rows once, writes its codes and scale, and writes its round
 //     trip bf16(code * s), with the unrounded f32 scale, to a scratch like
@@ -148,6 +153,15 @@
 //     folding no scale (the JAX kernel's self tiles). Round-tripping them
 //     in every block that reads them cost more than the rest of the tile's
 //     work (probes/quant_attention_parts.py).
+//   - Shared memory: a stage keeps its widened bf16 K/V tiles beside its
+//     code tiles and scales, in both kernels' layouts, because the prefill's
+//     chunk rows land (cp.async, bf16) straight in the next stage's widened
+//     tile while this one is read. At head_dim 256 the prefill's two stages
+//     (2 x 98,560 B), its Q region (32,768 B) and the f32 scales (512 B) take
+//     230,400 of the 232,448 bytes a block may opt into: it fits, so all
+//     three head dims keep one layout (one widened buffer would take ~164 KB
+//     but needs a staging copy of the chunk's rows). Decode widens into one
+//     tile ahead of its code ring (132,096 B at 256: one block per SM).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -159,7 +173,7 @@
 
 namespace {
 
-constexpr int HD = 128;      // head_dim of the quantized forms (the wrapper requires it)
+constexpr int HD = 128;      // the middle head_dim: its forms' launch bounds and Q layout
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
@@ -175,13 +189,9 @@ constexpr float LOG2E_F = 1.4426950408889634f;
 constexpr int FA_ROWS = 64;                  // query rows per block (4 warps x 16)
 constexpr int FA_TILE = 64;                  // KV positions per tile
 constexpr int FA_STAGES = 2;                 // K/V tiles in the cp.async ring
-constexpr int FA_ROW_B = HD * 2;             // 256 bytes per row of Q, K or V
-constexpr int FA_KV_B = FA_TILE * FA_ROW_B;  // one K or V tile (16 KB)
-constexpr int FA_STAGE_B = 2 * FA_KV_B;      // a stage: the K tile, then the V tile
 // Q lands in the last stage's K tile, is read into registers, and that stage
 // is then filled like the others; the output is staged there at the end
 // (PfLayout below)
-static_assert(FA_ROWS * FA_ROW_B <= FA_KV_B, "Q must fit a K tile");
 
 // 2^x (the MUFU instruction; denormal results flush to zero)
 __device__ __forceinline__ float ex2(float x) {
@@ -197,7 +207,6 @@ template <int D>
 __device__ __forceinline__ uint32_t swzh(int r, int c) {
   return (uint32_t)(r * (2 * D) + ((c ^ (r & 7)) << 4));
 }
-__device__ __forceinline__ uint32_t swz(int r, int c) { return swzh<HD>(r, c); }
 
 // the scores of a softcapped layer: softcap * tanh(s * cap_in), the true
 // logit capped (cap_in = scale / softcap); the exponent then multiplies by
@@ -207,38 +216,100 @@ __device__ __forceinline__ float capped(float s, float softcap, float cap_in) {
 }
 
 // ---------------------------------------------------------------------------
-// quantized forms: codes, scales and the widening pass
+// quantized forms: codes, scales and the widening pass. A D-dim row is held
+// by one warp, lane l owning dims K l ... K l + K - 1 (K = D / 32: 2, 4 or 8)
 // ---------------------------------------------------------------------------
 
-constexpr int QC_ROW_B = HD;                    // 128 bytes per row of codes
-constexpr int QC_KV_B = FA_TILE * QC_ROW_B;     // one K or V code tile (8 KB)
-constexpr int QC_SC_B = FA_TILE * 2;            // a tile's 64 bf16 scales
-constexpr int QC_B = 2 * QC_KV_B + 2 * QC_SC_B;  // K codes, V codes, k scales, v scales
+constexpr int QC_SC_B = FA_TILE * 2;  // a tile's 64 bf16 scales
 
-// The 4 codes (one byte each, dims 4 * lane + i) of this lane's share of a
-// 128-dim row held 4 dims per lane, and the row's f32 scale s: the JAX
-// package's qenc (ops/paged_attention.py:185-194, kv/paged.py:210-222).
-// Every lane of the warp must call it (the absmax is a warp reduction).
-template <bool FP8>
-__device__ __forceinline__ uint32_t quant_row4(const float (&x)[4], float& s) {
-  float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+// K bf16 at p (one 4-, 8- or 16-byte load) to f32
+template <int K>
+__device__ __forceinline__ void load_bf16_lane(const __nv_bfloat16* p, float (&x)[K]) {
+  static_assert(K == 2 || K == 4 || K == 8, "head_dim 64, 128 or 256");
+  uint32_t w[K / 2];
+  if constexpr (K == 2) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (K == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// K / 2 words (K bf16) to p in one store
+template <int K>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[K / 2]) {
+  if constexpr (K == 2) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else if constexpr (K == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// K code bytes (byte i in word i / 4) from or to p in one access
+template <int K>
+__device__ __forceinline__ void load_codes(const uint8_t* p, uint32_t (&c)[(K + 3) / 4]) {
+  if constexpr (K == 2) {
+    c[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else if constexpr (K == 4) {
+    c[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    c[0] = v.x;
+    c[1] = v.y;
+  }
+}
+template <int K>
+__device__ __forceinline__ void store_codes(uint8_t* p, const uint32_t (&c)[(K + 3) / 4]) {
+  if constexpr (K == 2) {
+    *reinterpret_cast<uint16_t*>(p) = (uint16_t)c[0];
+  } else if constexpr (K == 4) {
+    *reinterpret_cast<uint32_t*>(p) = c[0];
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(c[0], c[1]);
+  }
+}
+
+// The K codes of this lane's share of a row and the row's f32 scale s: the
+// JAX package's qenc (ops/paged_attention.py:185-194, kv/paged.py:210-222),
+// the absmax over the whole head. Every lane of the warp must call it (the
+// absmax is a warp reduction).
+template <bool FP8, int K>
+__device__ __forceinline__ void quant_row(const float (&x)[K], float& s,
+                                          uint32_t (&c)[(K + 3) / 4]) {
+  float a = fabsf(x[0]);
+#pragma unroll
+  for (int i = 1; i < K; ++i) a = fmaxf(a, fabsf(x[i]));
 #pragma unroll
   for (int o = 16; o; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
   s = a / (FP8 ? 448.f : 127.f);  // a true f32 division (no fast-math flags)
   const float d = fmaxf(s, 1e-10f);
-  uint32_t out = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < (K + 3) / 4; ++i) c[i] = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
     const float y = x[i] / d;
-    uint32_t c;
+    uint32_t b;
     if constexpr (FP8) {
-      c = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+      b = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
     } else {
-      c = (uint32_t)(uint8_t)(int8_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f);  // half to even
+      b = (uint32_t)(uint8_t)(int8_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f);  // half to even
     }
-    out |= (c & 0xFFu) << (8 * i);
+    c[i / 4] |= (b & 0xFFu) << (8 * (i % 4));
   }
-  return out;
 }
 
 // a code byte's value (exact in f32, f16 and bf16)
@@ -252,44 +323,54 @@ __device__ __forceinline__ float code_f32(uint32_t c) {
   }
 }
 
-__device__ __forceinline__ void unpack_bf16x4(uint2 v, float (&x)[4]) {
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xFFFF0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xFFFF0000u);
+// code byte i of a lane's codes, times f
+template <bool FP8, int K>
+__device__ __forceinline__ float code_at(const uint32_t (&c)[(K + 3) / 4], int i, float f) {
+  return code_f32<FP8>(c[i / 4] >> (8 * (i % 4))) * f;
 }
 
-// Quantize row `src` (128 bf16 in global memory) into pool row `dst` (128
-// codes) and its scale: called by a whole warp.
-template <bool FP8>
+// byte offset of this lane's K bf16 in row r of a swizzled [64][2 D B] tile
+template <int D>
+__device__ __forceinline__ uint32_t wide_at(int r, int lane) {
+  constexpr int K = D / 32;
+  return swzh<D>(r, (K * lane) >> 3) + 2 * ((K * lane) & 7);
+}
+
+// Quantize row `src` (D bf16 in global memory) into pool row `dst` (D codes)
+// and its scale: called by a whole warp.
+template <bool FP8, int D>
 __device__ __forceinline__ void quant_write_row(const __nv_bfloat16* src, uint8_t* dst,
                                                 __nv_bfloat16* scale_dst, int lane) {
-  float x[4], s;
-  unpack_bf16x4(*reinterpret_cast<const uint2*>(src + 4 * lane), x);
-  const uint32_t c = quant_row4<FP8>(x, s);
-  *reinterpret_cast<uint32_t*>(dst + 4 * lane) = c;
+  constexpr int K = D / 32;
+  float x[K], s;
+  uint32_t c[(K + 3) / 4];
+  load_bf16_lane<K>(src + K * lane, x);
+  quant_row<FP8, K>(x, s, c);
+  store_codes<K>(dst + K * lane, c);
   if (lane == 0) *scale_dst = __float2bfloat16_rn(s);
 }
 
-// Row r of a code tile (unswizzled [64][128 B] at byte address `codes`)
-// widened to bf16 into row r of a swizzled [64][256 B] tile at `wide`: each
-// lane 4 codes (dims 4 * lane ...) to 4 bf16.
-template <bool FP8>
+// Row r of a code tile (unswizzled [64][D B] at byte address `codes`)
+// widened to bf16 into row r of a swizzled [64][2 D B] tile at `wide`: each
+// lane its K codes to K bf16.
+template <bool FP8, int D>
 __device__ __forceinline__ void widen_row(const uint8_t* codes, uint8_t* wide, int r, int lane) {
-  const uint32_t c = *reinterpret_cast<const uint32_t*>(codes + r * QC_ROW_B + 4 * lane);
-  uint2 w;
-  w.x = pack_bf16(code_f32<FP8>(c), code_f32<FP8>(c >> 8));
-  w.y = pack_bf16(code_f32<FP8>(c >> 16), code_f32<FP8>(c >> 24));
-  *reinterpret_cast<uint2*>(wide + swz(r, lane >> 1) + 8 * (lane & 1)) = w;
+  constexpr int K = D / 32;
+  uint32_t c[(K + 3) / 4], w[K / 2];
+  load_codes<K>(codes + r * D + K * lane, c);
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i)
+    w[i] = pack_bf16(code_at<FP8, K>(c, 2 * i, 1.f), code_at<FP8, K>(c, 2 * i + 1, 1.f));
+  store_words<K>(wide + wide_at<D>(r, lane), w);
 }
 
 // The quantized prefill's first launch: each valid row of the chunk (t <
 // n_valid) is quantized once, by one warp: its codes and bf16 scale go to
 // slots[b, t] (slot < 0: dropped), and its round trip bf16(code * s), with
-// the f32 scale, to k_rt/v_rt [B, T, n_kv, 128], where the attention
+// the f32 scale, to k_rt/v_rt [B, T, n_kv, D], where the attention
 // launch reads the chunk's own rows. Grid (ceil(T * n_kv / 2), B): a block's
 // warps take (token, KV head) rows 2 x + w / 2, K for even w, V for odd.
-template <bool FP8>
+template <bool FP8, int D>
 __global__ void __launch_bounds__(THREADS)
 quant_chunk_kernel(const __nv_bfloat16* __restrict__ k_new,
                    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
@@ -297,39 +378,44 @@ quant_chunk_kernel(const __nv_bfloat16* __restrict__ k_new,
                    __nv_bfloat16* k_scale, __nv_bfloat16* v_scale,
                    __nv_bfloat16* __restrict__ k_rt, __nv_bfloat16* __restrict__ v_rt, int T,
                    int n_kv, int S) {
+  constexpr int K = D / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, b = blockIdx.y;
   const int row = blockIdx.x * (NWARPS / 2) + (warp >> 1);  // t * n_kv + h
   if (row >= T * n_kv) return;
   const int t = row / n_kv, h = row % n_kv;
   if (t >= n_valid_arr[b]) return;
   const bool is_v = warp & 1;
-  const size_t src = ((size_t)b * T * n_kv + row) * HD + 4 * lane;
-  float x[4], s;
-  unpack_bf16x4(*reinterpret_cast<const uint2*>((is_v ? v_new : k_new) + src), x);
-  const uint32_t c = quant_row4<FP8>(x, s);
-  *reinterpret_cast<uint2*>((is_v ? v_rt : k_rt) + src) =
-      make_uint2(pack_bf16(code_f32<FP8>(c) * s, code_f32<FP8>(c >> 8) * s),
-                 pack_bf16(code_f32<FP8>(c >> 16) * s, code_f32<FP8>(c >> 24) * s));
+  const size_t src = ((size_t)b * T * n_kv + row) * D + K * lane;
+  float x[K], s;
+  uint32_t c[(K + 3) / 4], w[K / 2];
+  load_bf16_lane<K>((is_v ? v_new : k_new) + src, x);
+  quant_row<FP8, K>(x, s, c);
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i)
+    w[i] = pack_bf16(code_at<FP8, K>(c, 2 * i, s), code_at<FP8, K>(c, 2 * i + 1, s));
+  store_words<K>((is_v ? v_rt : k_rt) + src, w);
   const int slot = slots[(size_t)b * T + t];
   if (slot < 0) return;
   const size_t at = (size_t)h * S + slot;
-  *reinterpret_cast<uint32_t*>((is_v ? v_pool : k_pool) + at * QC_ROW_B + 4 * lane) = c;
+  store_codes<K>((is_v ? v_pool : k_pool) + at * D + K * lane, c);
   if (lane == 0) (is_v ? v_scale : k_scale)[at] = __float2bfloat16_rn(s);
 }
 
 // Shared memory of the prefill kernel's forms: Q = 0 (bf16) holds two
 // stages of bf16 K/V tiles; a quantized form's stage adds the code tiles and
 // the scales behind them, and the f32 scales of the tile in use follow the
-// stages. At head_dim 128 Q lands in the last stage and is read into
-// registers; at 256 (two stages of 64 KB) Q keeps a region of its own behind
-// the stages and each warp re-reads its fragments from there every tile:
-// its 64 registers would not fit beside the accumulators.
+// stages. At head_dim 64 and 128 Q lands in the last stage and is read into
+// registers; at 256 (two stages of 64 KB, or 96.25 KB with the codes) Q
+// keeps a region of its own behind the stages and each warp re-reads its
+// fragments from there every tile: its 64 registers would not fit beside
+// the accumulators.
 template <int Q, int D>
 struct PfLayout {
-  static_assert(Q == 0 || D == HD, "the quantized forms take head_dim 128");
   static constexpr int ROW_B = 2 * D;                    // a bf16 row of Q, K or V
   static constexpr int KV_B = FA_TILE * ROW_B;           // one K or V tile
-  static constexpr int STAGE_B = 2 * KV_B + (Q ? QC_B : 0);
+  static constexpr int QC = 2 * KV_B;                    // the codes' offset in a stage
+  static constexpr int QC_KV_B = FA_TILE * D;            // one K or V code tile
+  static constexpr int STAGE_B = 2 * KV_B + (Q ? 2 * QC_KV_B + 2 * QC_SC_B : 0);
   static constexpr bool QREG = D <= HD;                  // Q fragments in registers
   static_assert(!QREG || FA_ROWS * ROW_B <= KV_B, "Q must fit a K tile");
   // 4 warps of 16 query rows for every 128 head dims of O (at most 128 a
@@ -339,6 +425,7 @@ struct PfLayout {
   static constexpr int QOFF = QREG ? (FA_STAGES - 1) * STAGE_B : FA_STAGES * STAGE_B;
   static constexpr int SF = FA_STAGES * STAGE_B + (QREG ? 0 : FA_ROWS * ROW_B);
   static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);  // f32 scales [2][64]
+  static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
 template <int Q, int D, bool CAP>
@@ -354,7 +441,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   using L = PfLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
   constexpr int NT = L::THREADS;
-  constexpr int ROW_B = Q ? QC_ROW_B : L::ROW_B;  // bytes of a pool row
+  constexpr int ROW_B = Q ? D : L::ROW_B;         // bytes of a pool row
   // (thread indices divide by CPR as unsigned: a signed division's fix-up
   // for negative values cost the issue-bound body 5 % at head_dim 128)
   constexpr int CPR = D / 8;                      // 16-byte chunks of a bf16 row
@@ -419,7 +506,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   const int block_lim = t_begin >= nv ? -1
                         : (t_begin + qtok <= nv) ? ctx + last_valid_t : kv_len - 1;
   const int min_lim = ctx + t_begin;
-  const int win = Q ? 0 : window;  // the quantized forms take no window (constant 0)
+  const int win = window;
   const int max_lo = win > 0 ? block_lim - win + 1 : 0;
   int lim[2], lo[2];  // this lane's rows 16 rw + g and + 8
 #pragma unroll
@@ -437,16 +524,19 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
   // Thread: chunk tc = tid % CPR of rows tr + RPP j (tr = tid / CPR); (blk, off) is its
   // first row's table entry and offset in the block, advanced by additions,
   // not divisions. A quantized form loads the past's code rows instead
-  // (chunk tid % 8 of rows tid / 8 + 16 j, walked the same way) and their
-  // scales (threads 0-15, 8 positions each), and leaves the rows past
-  // block_lim to widen.
+  // (chunk tid % QCPR of rows tid / QCPR + QRPP j, walked the same way from
+  // the first tile) and their scales (threads 0-15, 8 positions each), and
+  // leaves the rows past block_lim to widen.
   const int* table = block_tables + (size_t)b * W;
   const size_t pool_h = (size_t)h * S;
   const int p_start = c0 * FA_TILE;
   const int tr = (int)((unsigned)tid / CPR), tc = (int)((unsigned)tid % CPR);
   int blk = (p_start + tr) / bs, off0 = (p_start + tr) % bs;
-  int qblk = (tid >> 3) / bs, qoff = (tid >> 3) % bs;
-  int sblk = 8 * (tid & 7) / bs, soff = 8 * (tid & 7) % bs;
+  constexpr int QCPR = D / 16;      // 16-byte chunks of a code row
+  constexpr int QRPP = NT / QCPR;   // code rows one pass of the block copies
+  const int qr = (int)((unsigned)tid / QCPR), cq = (int)((unsigned)tid % QCPR);
+  int qblk = (p_start + qr) / bs, qoff = (p_start + qr) % bs;
+  int sblk = (p_start + 8 * (tid & 7)) / bs, soff = (p_start + 8 * (tid & 7)) % bs;
   auto load_kv = [&](int buf, int p0) {
     const uint32_t st = sa + buf * L::STAGE_B;
     const int c = tc;
@@ -473,30 +563,29 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
         for (oj += RPP; oj >= bs; oj -= bs) ++bj;
       } else if (p >= ctx && p <= block_lim) {  // the chunk's own rows, in bf16
         const size_t off = (((size_t)b * T + (p - ctx)) * n_kv + h) * D + c * 8;
-        cp_async16(st + swz(r, c), k_new + off, true);
-        cp_async16(st + FA_KV_B + swz(r, c), v_new + off, true);
+        cp_async16(st + swzh<D>(r, c), k_new + off, true);
+        cp_async16(st + L::KV_B + swzh<D>(r, c), v_new + off, true);
       }
     }
     for (off0 += FA_TILE; off0 >= bs; off0 -= bs) ++blk;
     if constexpr (Q != 0) {
       const int past_end = min(ctx, block_lim + 1);  // the tile's past rows: p < past_end
-      const int cq = tid & 7;
       int qj = qblk, oq = qoff;
 #pragma unroll
-      for (int j = 0; j < FA_TILE / 16; ++j) {
-        const int r = (tid >> 3) + 16 * j, p = p0 + r;
+      for (int j = 0; j < FA_TILE / QRPP; ++j) {
+        const int r = qr + QRPP * j, p = p0 + r;
         if (p < past_end) {
           const size_t off = (pool_h + (size_t)table[qj] * bs + oq) * ROW_B + cq * 16;
-          cp_async16(st + FA_STAGE_B + r * QC_ROW_B + cq * 16, k_pool + off, true);
-          cp_async16(st + FA_STAGE_B + QC_KV_B + r * QC_ROW_B + cq * 16, v_pool + off, true);
+          cp_async16(st + L::QC + r * D + cq * 16, k_pool + off, true);
+          cp_async16(st + L::QC + L::QC_KV_B + r * D + cq * 16, v_pool + off, true);
         }
-        for (oq += 16; oq >= bs; oq -= bs) ++qj;
+        for (oq += QRPP; oq >= bs; oq -= bs) ++qj;
       }
       for (qoff += FA_TILE; qoff >= bs; qoff -= bs) ++qblk;
       if (tid < 16) {  // scales of positions p0 + 8 (tid % 8) ... + 7, K (tid < 8) or V
         if (p0 + 8 * (tid & 7) < past_end) {
           const size_t at = pool_h + (size_t)table[sblk] * bs + soff;
-          cp_async16(st + FA_STAGE_B + 2 * QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
+          cp_async16(st + L::QC + 2 * L::QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
                      (tid < 8 ? k_scale : v_scale) + at, true);
         }
         for (soff += FA_TILE; soff >= bs; soff -= bs) ++sblk;
@@ -504,24 +593,26 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8
     }
   };
   // The quantized forms' pass over the landed tile (positions p0 ...) in
-  // slot buf: warp w takes rows 16 w ... 16 w + 15 of K and of V. A past
+  // slot buf: each of the NT / 32 warps takes RPW rows of K and of V. A past
   // row's codes are widened to bf16 and its scale goes to f32; a row of the
   // chunk (loaded as its round trip bf16(code * s)) folds 1; a row past
   // block_lim becomes zeros and folds 0.
   float* sf = reinterpret_cast<float*>(fa_smem + L::SF);  // k scales [64], v scales [64]
   auto widen = [&](int buf, int p0) {
+    constexpr int RPW = FA_TILE / (NT / 32);  // rows a warp widens
     uint8_t* st = fa_smem + buf * L::STAGE_B;
-    for (int i = 0; i < 32; ++i) {
-      const int r = 16 * warp + (i >> 1), kv = i & 1, p = p0 + r;
-      uint8_t* wide = st + kv * FA_KV_B;
+    for (int i = 0; i < 2 * RPW; ++i) {
+      const int r = RPW * warp + (i >> 1), kv = i & 1, p = p0 + r;
+      uint8_t* wide = st + kv * L::KV_B;
       float f;
       if (p > block_lim) {
-        *reinterpret_cast<uint2*>(wide + swz(r, lane >> 1) + 8 * (lane & 1)) = make_uint2(0, 0);
+        const uint32_t zero[D / 64] = {};
+        store_words<D / 32>(wide + wide_at<D>(r, lane), zero);
         f = 0.f;
       } else if (p < ctx) {
-        widen_row<FP8>(st + FA_STAGE_B + kv * QC_KV_B, wide, r, lane);
+        widen_row<FP8, D>(st + L::QC + kv * L::QC_KV_B, wide, r, lane);
         f = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
-            st + FA_STAGE_B + 2 * QC_KV_B + kv * QC_SC_B)[r]);
+            st + L::QC + 2 * L::QC_KV_B + kv * QC_SC_B)[r]);
       } else {
         f = 1.f;
       }
@@ -733,14 +824,14 @@ constexpr int DC_MAX_GROUP = 16;
 // K/V tiles (32 KB at head_dim 64; 64 KB at 128: three blocks per SM; 128 KB
 // at 256: one);
 // a quantized form holds one widened bf16 K/V tile, then two stages of code
-// tiles and scales, then the widened tile's f32 scales (66.5 KB: three
-// blocks per SM)
+// tiles and scales, then the widened tile's f32 scales (33 KB at head_dim
+// 64; 66.5 KB at 128: three blocks per SM; 129 KB at 256: one)
 template <int Q, int D>
 struct DcLayout {
-  static_assert(Q == 0 || D == HD, "the quantized forms take head_dim 128");
   static constexpr int KV_B = FA_TILE * 2 * D;             // one bf16 K or V tile
-  static constexpr int STAGE0 = Q ? FA_STAGE_B : 0;         // the first stage
-  static constexpr int STAGE_B = Q ? QC_B : 2 * KV_B;
+  static constexpr int QC_KV_B = FA_TILE * D;              // one K or V code tile
+  static constexpr int STAGE0 = Q ? 2 * KV_B : 0;           // the widened K and V tiles
+  static constexpr int STAGE_B = Q ? 2 * QC_KV_B + 2 * QC_SC_B : 2 * KV_B;
   static constexpr int SF = STAGE0 + DC_STAGES * STAGE_B;  // f32 scales [2][64]
   static constexpr int SMEM = SF + (Q ? 2 * FA_TILE * 4 : 0);
   static constexpr int OLD = D + 4;  // f32 stride of a warp's output row in the merge
@@ -807,7 +898,7 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
                     float softcap, float cap_in, float scale_log2) {
   using L = DcLayout<Q, D>;
   constexpr bool FP8 = Q == 2;
-  constexpr int ROW_B = Q ? QC_ROW_B : 2 * D;  // bytes of a pool row
+  constexpr int ROW_B = Q ? D : 2 * D;  // bytes of a pool row
   constexpr int OLD = L::OLD;
   extern __shared__ __align__(128) uint8_t dc_smem[];
   __shared__ int s_last;
@@ -820,7 +911,7 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
   // A sliding window hides the positions below kv_len - window (p_lo): the
   // walk starts at the tile that holds it, and the plan's splits cover
   // [start, kv_len) only
-  const int win = Q ? 0 : window;  // the quantized forms take no window (constant 0)
+  const int win = window;
   const int start = win > 0 && kv_len > win ? (kv_len - win) / FA_TILE * FA_TILE : 0;
   const int p_lo = win > 0 ? kv_len - win : 0;
   // splits that hold a position (split 0 alone for kv_len 0)
@@ -846,12 +937,12 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
     }
   } else {
     if (slot >= 0 && s == live - 1 && warp < 2) {
-      const size_t src = ((size_t)b * n_kv + h) * HD;
+      const size_t src = ((size_t)b * n_kv + h) * D;
       const size_t at = (size_t)h * S + slot;
       if (warp == 0)
-        quant_write_row<FP8>(k_new + src, k_pool + at * ROW_B, k_scale + at, lane);
+        quant_write_row<FP8, D>(k_new + src, k_pool + at * ROW_B, k_scale + at, lane);
       else
-        quant_write_row<FP8>(v_new + src, v_pool + at * ROW_B, v_scale + at, lane);
+        quant_write_row<FP8, D>(v_new + src, v_pool + at * ROW_B, v_scale + at, lane);
     }
   }
   __syncthreads();
@@ -896,8 +987,8 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
         cp_async16(st + swzh<D>(r, c), k_pool + off, ok);
         cp_async16(st + L::KV_B + swzh<D>(r, c), v_pool + off, ok);
       } else {
-        cp_async16(st + r * QC_ROW_B + c * 16, k_pool + off, ok);
-        cp_async16(st + QC_KV_B + r * QC_ROW_B + c * 16, v_pool + off, ok);
+        cp_async16(st + r * ROW_B + c * 16, k_pool + off, ok);
+        cp_async16(st + L::QC_KV_B + r * ROW_B + c * 16, v_pool + off, ok);
       }
       for (oj += RPP; oj >= bs; oj -= bs) ++bj;
     }
@@ -906,7 +997,7 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
       if (tid < 16) {
         const bool ok = p0 + 8 * (tid & 7) < p_end;
         const size_t at = ok ? pool_h + (size_t)table[sblk] * bs + soff : 0;
-        cp_async16(st + 2 * QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
+        cp_async16(st + 2 * L::QC_KV_B + (tid >> 3) * QC_SC_B + 16 * (tid & 7),
                    (tid < 8 ? k_scale : v_scale) + at, ok);
         for (soff += FA_TILE; soff >= bs; soff -= bs) ++sblk;
       }
@@ -920,11 +1011,11 @@ split_decode_kernel(const __nv_bfloat16* __restrict__ q, uint8_t* k_pool, uint8_
     const uint8_t* st = dc_smem + L::STAGE0 + buf * L::STAGE_B;
     for (int i = 0; i < 32; ++i) {
       const int r = 16 * warp + (i >> 1), kv = i & 1;
-      widen_row<FP8>(st + kv * QC_KV_B, dc_smem + kv * FA_KV_B, r, lane);
+      widen_row<FP8, D>(st + kv * L::QC_KV_B, dc_smem + kv * L::KV_B, r, lane);
     }
     const int r = tid & (FA_TILE - 1), kv = tid / FA_TILE;
     const float f = __bfloat162float(
-        reinterpret_cast<const __nv_bfloat16*>(st + 2 * QC_KV_B + kv * QC_SC_B)[r]);
+        reinterpret_cast<const __nv_bfloat16*>(st + 2 * L::QC_KV_B + kv * QC_SC_B)[r]);
     sf[tid] = p0 + r < p_end ? f : 0.f;
   };
 
@@ -1165,12 +1256,10 @@ cudaError_t launch_decode_q(const void* q, void* k_pool, void* v_pool, void* k_s
   const auto* sk = static_cast<const float*>(sinks);
   // a softcap is its own instance (CAP), so the forms without one run no tanh code
   const bool wide = n_q / n_kv > 8;
-  if constexpr (Q == 0) {
-    if (softcap > 0.f)
-      return (wide ? launch_decode<2, Q, D, true> : launch_decode<1, Q, D, true>)(
-          qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, sk, B, n_q, n_kv, S, W, bs, span,
-          splits, window, softcap, cap_in, scale_log2, st);
-  }
+  if (softcap > 0.f)
+    return (wide ? launch_decode<2, Q, D, true> : launch_decode<1, Q, D, true>)(
+        qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, sk, B, n_q, n_kv, S, W, bs, span,
+        splits, window, softcap, cap_in, scale_log2, st);
   return (wide ? launch_decode<2, Q, D, false> : launch_decode<1, Q, D, false>)(
       qp, kp, vp, ks, vs, kn, vn, sl, bt, kl, op, pp, cp, sk, B, n_q, n_kv, S, W, bs, span,
       splits, window, softcap, cap_in, scale_log2, st);
@@ -1206,7 +1295,7 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
       paged_prefill_kernel<Q, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (opt_in != cudaSuccess) return opt_in;
   if constexpr (Q != 0) {  // the chunk's rows: written, and round-tripped for the attention
-    quant_chunk_kernel<Q == 2><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(
+    quant_chunk_kernel<Q == 2, D><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
         static_cast<const int*>(slots), static_cast<const int*>(n_valid),
         static_cast<uint8_t*>(k_pool), static_cast<uint8_t*>(v_pool),
@@ -1229,6 +1318,39 @@ cudaError_t launch_prefill(const void* q, void* k_pool, void* v_pool, void* k_sc
   return cudaSuccess;
 }
 
+// A form of each head dim, with and without a softcap (its own instance)
+template <int Q>
+cudaError_t prefill_form(int hd, bool cap, const void* q, void* k_pool, void* v_pool,
+                         void* k_scale, void* v_scale, const void* k_new, const void* v_new,
+                         const void* slots, const void* block_tables, const void* kv_lens,
+                         const void* n_valid, void* out, const void* sinks, int B, int T,
+                         int n_q, int n_kv, int S, int W, int bs, int window, float softcap,
+                         float cap_in, float scale_log2, cudaStream_t st, void* k_rt,
+                         void* v_rt) {
+  return (hd == 64    ? (cap ? launch_prefill<Q, 64, true> : launch_prefill<Q, 64, false>)
+          : hd == 128 ? (cap ? launch_prefill<Q, 128, true> : launch_prefill<Q, 128, false>)
+                      : (cap ? launch_prefill<Q, 256, true> : launch_prefill<Q, 256, false>))(
+      q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,
+      out, sinks, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in, scale_log2, st, k_rt,
+      v_rt);
+}
+
+template <int Q>
+cudaError_t decode_form(int hd, const void* q, void* k_pool, void* v_pool, void* k_scale,
+                        void* v_scale, const void* k_new, const void* v_new, const void* slots,
+                        const void* block_tables, const void* kv_lens, void* out,
+                        void* partials, void* counters, const void* sinks, int B, int n_q,
+                        int n_kv, int S, int W, int bs, int span, int splits, int window,
+                        float softcap, float cap_in, float scale_log2, cudaStream_t st) {
+  return (hd == 64 ? launch_decode_q<Q, 64> : hd == 128 ? launch_decode_q<Q, 128>
+                                                         : launch_decode_q<Q, 256>)(
+      q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
+      partials, counters, sinks, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
+      scale_log2, st);
+}
+
+bool head_dim_ok(int hd) { return hd == 64 || hd == 128 || hd == 256; }
+
 }  // namespace
 
 // q [B, n_q, hd], pools [n_kv, S, hd] (one layer plane), k_new/v_new
@@ -1249,38 +1371,36 @@ extern "C" int mrt_paged_decode(const void* q, void* k_pool, void* v_pool, const
                                 float softcap, float cap_in, int S, int W, int bs, int span,
                                 int splits, float scale_log2, void* stream) {
   if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, window, softcap, partials, counters) ||
-      (hd != 64 && hd != 128 && hd != 256))
+      !head_dim_ok(hd))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const cudaError_t e = (hd == 64    ? launch_decode_q<0, 64>
-                         : hd == 128 ? launch_decode_q<0, 128>
-                                     : launch_decode_q<0, 256>)(
-      q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, out,
+  const cudaError_t e = decode_form<0>(
+      hd, q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens, out,
       partials, counters, sinks, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
       scale_log2, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The quantized form: pools of 1-byte codes [n_kv, S, 128] (int8, or e4m3
+// The quantized form: pools of 1-byte codes [n_kv, S, hd] (int8, or e4m3
 // when fp8 != 0) with bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple
-// of 8 (a 16-byte copy of scales stays in one block); no window, no
-// softcap; the rest as above.
+// of 8 (a 16-byte copy of scales stays in one block); the rest, options
+// included, as above.
 extern "C" int mrt_paged_decode_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                   const void* v_new, const void* slots, const void* block_tables,
                                   const void* kv_lens, void* out, void* partials, void* counters,
-                                  int B, int n_q, int n_kv, int hd, int S, int W, int bs,
-                                  int span, int splits, float scale_log2, void* k_scale,
-                                  void* v_scale, int fp8, void* stream) {
-  if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, 0, 0.f, partials, counters) ||
-      hd != HD || bs % 8 != 0)
+                                  const void* sinks, int B, int n_q, int n_kv, int hd, int window,
+                                  float softcap, float cap_in, int S, int W, int bs, int span,
+                                  int splits, float scale_log2, void* k_scale, void* v_scale,
+                                  int fp8, void* stream) {
+  if (!decode_args_ok(B, n_q, n_kv, W, bs, span, splits, window, softcap, partials, counters) ||
+      !head_dim_ok(hd) || bs % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const cudaError_t e =
-      (fp8 ? launch_decode_q<2, HD> : launch_decode_q<1, HD>)(
-          q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
-          partials, counters, nullptr, B, n_q, n_kv, S, W, bs, span, splits, 0, 0.f, 0.f,
-          scale_log2, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = (fp8 ? decode_form<2> : decode_form<1>)(
+      hd, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, out,
+      partials, counters, sinks, B, n_q, n_kv, S, W, bs, span, splits, window, softcap, cap_in,
+      scale_log2, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1298,37 +1418,34 @@ extern "C" int mrt_paged_prefill(const void* q, void* k_pool, void* v_pool, cons
                                  const void* sinks, int B, int T, int n_q, int n_kv, int hd,
                                  int window, float softcap, float cap_in, int S, int W, int bs,
                                  float scale_log2, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 256) || !prefill_group_ok(n_q, n_kv) || window < 0 ||
-      softcap < 0.f)
+  if (!head_dim_ok(hd) || !prefill_group_ok(n_q, n_kv) || window < 0 || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
-  const bool cap = softcap > 0.f;
-  const cudaError_t e =
-      (hd == 64    ? (cap ? launch_prefill<0, 64, true> : launch_prefill<0, 64, false>)
-       : hd == 128 ? (cap ? launch_prefill<0, 128, true> : launch_prefill<0, 128, false>)
-                   : (cap ? launch_prefill<0, 256, true> : launch_prefill<0, 256, false>))(
-          q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables, kv_lens,
-          n_valid, out, sinks, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in, scale_log2,
-          static_cast<cudaStream_t>(stream), nullptr, nullptr);
+  const cudaError_t e = prefill_form<0>(
+      hd, softcap > 0.f, q, k_pool, v_pool, nullptr, nullptr, k_new, v_new, slots, block_tables,
+      kv_lens, n_valid, out, sinks, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in,
+      scale_log2, static_cast<cudaStream_t>(stream), nullptr, nullptr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The quantized form: 1-byte code pools (int8, or e4m3 when fp8 != 0) with
 // bf16 scales k_scale/v_scale [n_kv, S]; bs a multiple of 8; k_rt/v_rt
-// scratch like k_new/v_new (the chunk's rows' round trips); head_dim 128,
-// no window, no softcap.
+// scratch like k_new/v_new (the chunk's rows' round trips); the rest,
+// options included, as above.
 extern "C" int mrt_paged_prefill_q(const void* q, void* k_pool, void* v_pool, const void* k_new,
                                    const void* v_new, const void* slots, const void* block_tables,
-                                   const void* kv_lens, const void* n_valid, void* out, int B,
-                                   int T, int n_q, int n_kv, int hd, int S, int W, int bs,
+                                   const void* kv_lens, const void* n_valid, void* out,
+                                   const void* sinks, int B, int T, int n_q, int n_kv, int hd,
+                                   int window, float softcap, float cap_in, int S, int W, int bs,
                                    float scale_log2, void* k_scale, void* v_scale, int fp8,
                                    void* k_rt, void* v_rt, void* stream) {
-  if (hd != HD || !prefill_group_ok(n_q, n_kv) || bs % 8 != 0)
+  if (!head_dim_ok(hd) || !prefill_group_ok(n_q, n_kv) || window < 0 || softcap < 0.f ||
+      bs % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = (fp8 ? launch_prefill<2, HD, false> : launch_prefill<1, HD, false>)(
-      q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables, kv_lens, n_valid,
-      out, nullptr, B, T, n_q, n_kv, S, W, bs, 0, 0.f, 0.f, scale_log2,
-      static_cast<cudaStream_t>(stream), k_rt, v_rt);
+  const cudaError_t e = (fp8 ? prefill_form<2> : prefill_form<1>)(
+      hd, softcap > 0.f, q, k_pool, v_pool, k_scale, v_scale, k_new, v_new, slots, block_tables,
+      kv_lens, n_valid, out, sinks, B, T, n_q, n_kv, S, W, bs, window, softcap, cap_in,
+      scale_log2, static_cast<cudaStream_t>(stream), k_rt, v_rt);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

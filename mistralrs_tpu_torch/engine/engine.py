@@ -22,10 +22,9 @@
   ``decode`` in place of the llama decoder (DeepSeek's absorbed MLA).
 * ``kv_quant`` (``"int8"`` or ``"fp8"``) serves from 1-byte KV pools with
   per-(layer, head, slot) scales (``kv/paged.py``), or an adapter's own
-  quantized cache where the adapter has one (``supports_kv_quant``). A
-  llama-family model with a sliding window, a logit softcap, attention
-  sinks or head_dim 64 or 256 is refused there, since the 1-byte kernel
-  forms take none of them.
+  quantized cache where the adapter has one (``supports_kv_quant``). The
+  1-byte kernel forms take every option of the bf16 ones (sliding windows,
+  logit softcaps, attention sinks, head_dim 64, 128 and 256).
 * A llama-family model whose GQA group (query heads per KV head) is over 16
   is refused before the pools are reserved: the decode kernel takes groups
   1 to 16.
@@ -48,9 +47,9 @@ from .._device import DeviceLike, resolve_device
 from ..kv.manager import KVCacheManager
 from ..kv.paged import PagedKVCache
 from ..models.config import ModelConfig
-from ..models.llama import check_supported, forward_paged, kernel_workspace, layer_windows
+from ..models.llama import check_supported, forward_paged, kernel_workspace
 from ..ops._cuda import sm_count
-from ..ops.paged_attention import DECODE_MAX_GROUP, refuse_quantized_options
+from ..ops.paged_attention import DECODE_MAX_GROUP
 from ..quant.qtensor import QTensor
 from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
 from .sampler import BatchSamplingState, SamplingParams, sample
@@ -144,10 +143,6 @@ class Engine:
                 raise NotImplementedError(
                     f"GQA group {cfg.num_heads}/{cfg.num_kv_heads}: the paged decode kernel "
                     f"takes groups 1..{DECODE_MAX_GROUP}")
-            if kv_quant is not None:  # before the pools: the 1-byte forms take none of these
-                refuse_quantized_options(int(layer_windows(cfg).max(initial=0)),
-                                         cfg.attn_logit_softcap, cfg.head_dim,
-                                         any("sinks" in lw for lw in weights["layers"]))
             self.weights = weights_to(weights, self.device)
         else:
             if adapter.device != self.device:

@@ -43,7 +43,14 @@ cos and sin (JAX ``_rope_sets``, :671-684).
 
 Qwen3's q/k norm (``cfg.qk_norm``, JAX ``forward_paged`` :1082-1084) is
 an RMSNorm of each head's q and k over head_dim, after the projections and
-before RoPE; Qwen2's q/k/v biases are the attention biases above.
+before RoPE (Gemma-3's in the gemma form, ``1 + w``); Qwen2's q/k/v biases
+are the attention biases above.
+
+Gemma-3 has two rope sets (JAX ``_rope_sets``, :671-684): the global one of
+``rope_theta`` with ``rope_scaling`` (linear, factor 8, on the 4B-27B
+models), and a local one of ``rope_local_theta`` without scaling, which
+each sliding layer takes (JAX :551-556); the choice is per layer and
+static, as the window is.
 
 Attention runs through the fused paged kernels (``ops/paged_attention.py``):
 the decode kernel for one token per row, the prefill kernel otherwise; both
@@ -53,8 +60,8 @@ of ``llama`` with experts (how GGUF Mixtral files arrive), of ``qwen3moe``
 (top-k of the logits, softmax over the k, renormalised with
 ``norm_topk_prob``) and of ``gpt_oss`` (top-k of the biased logits, softmax
 over the k, no renormalisation) are ported; other routers, shared experts,
-expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan), a local
-rope base, NoPE layers, MLP biases (but gpt-oss's
+expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan),
+NoPE layers, MLP biases (but gpt-oss's
 expert biases), partial or interleaved rotary, layernorm, parallel
 residuals and granite's multipliers are not yet and raise
 ``NotImplementedError`` (:func:`check_supported`).
@@ -122,7 +129,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "parallel residual": cfg.parallel_residual,
         "partial rotary": cfg.partial_rotary_factor != 1.0,
         "interleaved rope": cfg.rope_interleaved,
-        "local rope base": cfg.rope_local_theta is not None,
         "NoPE layers": bool(cfg.no_rope_layers),
         "residual/logit/embedding multipliers": bool(
             cfg.residual_multiplier or cfg.logits_scaling
@@ -257,12 +263,7 @@ def forward_paged(
         h = h * torch.tensor(cfg.embedding_multiplier or cfg.hidden_size ** 0.5, dtype=h.dtype)
     windows = layer_windows(cfg).tolist()
     softcap = float(cfg.attn_logit_softcap or 0.0)
-    inv = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                           device=input_ids.device)
-    cos, sin = rope_cos_sin(positions, inv)
-    mscale = yarn_attention_factor(cfg.rope_scaling)
-    if mscale != 1.0:  # YaRN's attention factor folded into cos/sin, as HF and JAX do
-        cos, sin = cos * mscale, sin * mscale
+    ropes = rope_sets(cfg, positions)
     attn_scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
     i32 = dict(dtype=torch.int32, device=input_ids.device)
     block_tables = block_tables.to(**i32).contiguous()
@@ -288,6 +289,7 @@ def forward_paged(
         if cfg.qk_norm:  # each head's q and k over head_dim, before RoPE (qwen3)
             q = _maybe_norm(q, lw["q_norm"], eps, gemma)
             k = _maybe_norm(k, lw["k_norm"], eps, gemma)
+        cos, sin = ropes[1] if windows[li] > 0 else ropes[0]  # a sliding layer: the local set
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # the step's rows in the pools' dtype, or in the compute dtype for
@@ -336,6 +338,24 @@ def forward_paged(
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits, cache
+
+
+def rope_sets(cfg: ModelConfig, positions: torch.Tensor):
+    """``((cos, sin), (cos_local, sin_local))`` at ``positions``: a copy of
+    JAX ``_rope_sets``. The global set takes ``rope_scaling`` (and YaRN's
+    attention factor, folded into cos and sin as HF and JAX do); the local
+    set, for sliding layers, is ``rope_local_theta``'s without scaling, or
+    the global set itself where the config has no local base."""
+    inv = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                           device=positions.device)
+    cos, sin = rope_cos_sin(positions, inv)
+    mscale = yarn_attention_factor(cfg.rope_scaling)
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
+    if cfg.rope_local_theta is None:
+        return (cos, sin), (cos, sin)
+    inv_l = rope_frequencies(cfg.head_dim, cfg.rope_local_theta, None, device=positions.device)
+    return (cos, sin), rope_cos_sin(positions, inv_l)
 
 
 def kernel_workspace(weights: dict, cfg: ModelConfig, batch: int, rows, widths,
@@ -430,8 +450,9 @@ def init_random_weights(
     caller asks for ``"cpu"``), drawn from numpy in the same order as
     ``mistralrs_tpu.models.llama.init_random_weights`` (the layer stacks,
     then the embedding and the head), so the two packages start from the
-    same numbers; a q/k-norm config (qwen3) gets ``q_norm``/``k_norm`` of
-    ones ``[head_dim]``, as the JAX function makes them. An MoE config
+    same numbers; a q/k-norm config (qwen3, gemma3) gets ``q_norm``/``k_norm``
+    of ones ``[head_dim]``, as the JAX function makes them (gemma3 applies
+    them in the gemma form, ``1 + w``, as every gemma norm). An MoE config
     (mixtral, qwen3moe) then draws, after those, the router ``[L, E, H]``
     and the expert banks gate and up ``[L, E, I, H]``, down ``[L, E, H, I]``
     (``I`` = ``moe_intermediate_size`` or the dense width), which replace

@@ -61,7 +61,9 @@ KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
            "w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "mla_decode",
            "paged_decode_int8", "paged_decode_fp8", "paged_prefill_int8", "paged_prefill_fp8",
            "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",
-           "paged_prefill_hd64")
+           "paged_prefill_hd64", "paged_decode_int8_hd256", "paged_decode_int8_hd64",
+           "paged_decode_fp8_hd256", "paged_decode_fp8_hd64", "paged_prefill_int8_hd256",
+           "paged_prefill_int8_hd64", "paged_prefill_fp8_hd256", "paged_prefill_fp8_hd64")
 COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -80,10 +82,14 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _F, _P],
     "mrt_paged_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _F, _P],
-    "mrt_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P],
-    "mrt_paged_prefill_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P],
+    # the quantized forms: the bf16 form's arguments, then the scale planes
+    # and the code type before the stream (prefill: and the round trips)
+    "mrt_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _F,
+                           _P, _P, _I, _P],
+    "mrt_paged_prefill_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _F,
+                            _P, _P, _I, _P, _P, _P],
     "mrt_mla_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }

@@ -50,13 +50,14 @@ and ``p - s < window`` (0: no window; in decode ``p = kv_len - 1``), a
 softcap ``c`` maps the scaled score ``x`` to ``tanh(x / c) * c`` before the
 mask and the running max, and a head's sink is one more logit in its
 softmax, uncapped, whose probability is dropped (its value is zero): a row
-that sees no position still gives zeros. The bf16 forms take all three, at
-head_dim 64, 128 and 256 (the head_dim-64 and -256 forms count as
-``paged_decode_hd64``/``_hd256`` and ``paged_prefill_hd64``/``_hd256``); a
-windowed decode walks only the tiles its window reaches, and its splits
-(:func:`decode_plan` with the window) cover only those. The quantized forms
-take none of them, and head_dim 128 only. What a kernel refuses raises
-``NotImplementedError``.
+that sees no position still gives zeros. Every form, bf16 or quantized,
+takes all three, at head_dim 64, 128 and 256 (:func:`form` names the
+launch count of each: ``paged_decode``, ``paged_decode_hd64``,
+``paged_decode_int8``, ``paged_decode_fp8_hd256``, ...); with 1-byte pools
+the k scale multiplies the raw score before the softcap, the window's mask
+and the running max, and no scale reaches a sink (JAX ``_decode_kernel``
+:292-327). A windowed decode walks only the tiles its window reaches, and
+its splits (:func:`decode_plan` with the window) cover only those.
 """
 
 from __future__ import annotations
@@ -84,36 +85,17 @@ def _scale_plane(scale: Optional[torch.Tensor], layer: int) -> Optional[torch.Te
 
 def form(kernel: str, pool: torch.Tensor, hd: int = 128) -> str:
     """The launch-count name of ``kernel``'s form for ``pool`` and head_dim
-    ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_hd64`` or
-    ``_hd256`` after it at 64 or 256 (their own template instances),
-    ``_int8`` or ``_fp8`` for quantized pools."""
-    if not is_quantized(pool):
-        return f"{kernel}_hd{hd}" if hd in (64, 256) else kernel
-    return f"{kernel}_{'int8' if pool.dtype == torch.int8 else 'fp8'}"
+    ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_int8`` or
+    ``_fp8`` after it for quantized pools, then ``_hd64`` or ``_hd256`` at
+    head_dim 64 or 256 (their own template instances)."""
+    if is_quantized(pool):
+        kernel += "_int8" if pool.dtype == torch.int8 else "_fp8"
+    return f"{kernel}_hd{hd}" if hd in (64, 256) else kernel
 
 
 def _check_scales(pool, k_scale, v_scale, what: str) -> None:
     if is_quantized(pool) != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: 1-byte pools need k_scale and v_scale, and only they do")
-
-
-def _unsupported(window, softcap, sinks, pool: torch.Tensor, hd: int) -> None:
-    """Raise ``NotImplementedError`` for what no form takes: a window, a
-    softcap, sinks, head_dim 64 or 256 on 1-byte pools (the quantized forms
-    stay at head_dim 128; the CUDA wrapper refuses other head dims)."""
-    if is_quantized(pool):
-        refuse_quantized_options(window, softcap, hd, sinks is not None)
-
-
-def refuse_quantized_options(window, softcap, hd: int, sinks: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming a window, a softcap, head_dim 64
-    or 256, or sinks, which the int8/fp8 forms do not take."""
-    named = {"sliding window": bool(window), "logit softcap": bool(softcap),
-             f"head_dim {hd}": hd in (64, 256), "attention sinks": sinks}
-    missing = [k for k, on in named.items() if on]
-    if missing:
-        raise NotImplementedError(
-            f"paged attention over int8/fp8 pools: {', '.join(missing)} not ported yet")
 
 
 def _gather_seq(plane: torch.Tensor, block_tables: torch.Tensor, block_size: int):
@@ -281,9 +263,8 @@ def _exponent(scale: float, softcap: float) -> tuple[float, float]:
     return scale * LOG2E, 0.0
 
 
-def _check_head_dim(hd: int, ks, what: str) -> None:
-    require(hd == 128 or (hd in (64, 256) and ks is None),
-            f"{what} kernel needs head_dim 128 (or 64 or 256 on bf16 pools), got {hd}")
+def _check_head_dim(hd: int, what: str) -> None:
+    require(hd in (64, 128, 256), f"{what} kernel needs head_dim 64, 128 or 256, got {hd}")
 
 
 def _check_sinks(sinks, n_q: int, q: torch.Tensor) -> None:
@@ -303,7 +284,7 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
     (``probes/split_plans.py`` times other splits)."""
     b, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
-    _check_head_dim(hd, ks, "decode")
+    _check_head_dim(hd, "decode")
     require(n_q % n_kv == 0 and n_q // n_kv <= DECODE_MAX_GROUP,
             f"GQA group {n_q}/{n_kv} unsupported")
     _check_pools(q, kp, vp, ks, vs, block_size)
@@ -330,16 +311,15 @@ def _decode_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, block_si
                            device=q.device)
         cnt = split_counters(q.device, decode_counters(plan, b, n_kv))
     e_mul, cap_in = _exponent(scale, softcap)
-    ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            _ptr(part), _ptr(cnt), b, n_q, n_kv, hd)
-    tail = (s_total, w, block_size, plan.positions, plan.splits, float(e_mul))
+            _ptr(part), _ptr(cnt), _ptr(sinks), b, n_q, n_kv, hd, int(window), float(softcap),
+            float(cap_in), s_total, w, block_size, plan.positions, plan.splits, float(e_mul))
     name = form("paged_decode", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_decode(*ptrs[:11], _ptr(sinks), *ptrs[11:], int(window),
-                                    float(softcap), float(cap_in), *tail, stream_ptr(q))
+        code = lib.mrt_paged_decode(*args, stream_ptr(q))
     else:
-        code = lib.mrt_paged_decode_q(*ptrs, *tail, ks.data_ptr(), vs.data_ptr(),
+        code = lib.mrt_paged_decode_q(*args, ks.data_ptr(), vs.data_ptr(),
                                       int(kp.dtype != torch.int8), stream_ptr(q))
     check(code, name)
     COUNTS[name] += 1
@@ -370,7 +350,6 @@ def paged_decode_attention_fused(
     ``window`` (0: none) and ``softcap`` (0: none) are Python numbers: a
     captured step keeps them as they were at capture. ``sinks``: f32
     ``[n_q]`` logits (or None), read in place by the kernel."""
-    _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged decode attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":
@@ -390,6 +369,14 @@ def paged_decode_attention_fused(
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
+
+
+def chunk_round_trip(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """How the quantized prefill reads its chunk's own rows: ``bf16(code ×
+    s)`` with the unrounded f32 scale, as the JAX prefill kernel does in
+    VMEM (the JAX package's XLA path reads them back from the pool as
+    ``code × bf16(s)`` instead)."""
+    return (codes.to(torch.float32) * s[..., None]).to(torch.bfloat16)
 
 
 def paged_prefill_attention_plain(
@@ -433,9 +420,8 @@ def paged_prefill_attention_plain(
         nv, c = int(n_valid[i]), int(ctx[i])
         for x, new, sc in ((k, k_new, ksg), (v, v_new, vsg)):
             rows = new[i, :nv].transpose(0, 1)  # [n_kv, nv, hd]
-            if quant:  # round-tripped as bf16(code × s) with the f32 scale; no fold
-                codes, s = quantize_rows(rows, kp.dtype)
-                rows = (codes.to(torch.float32) * s[..., None]).to(torch.bfloat16)
+            if quant:  # round-tripped, no fold
+                rows = chunk_round_trip(*quantize_rows(rows, kp.dtype))
                 sc[i, :, c:c + nv] = 1.0
             x[i, :, c:c + nv] = rows.to(torch.float32)
     write_kv(kp, vp, k_new.reshape(b * t, n_kv, hd), v_new.reshape(b * t, n_kv, hd),
@@ -461,7 +447,7 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
                   sinks=None):
     b, t, n_q, hd = q.shape
     n_kv, s_total, _ = kp.shape
-    _check_head_dim(hd, ks, "prefill")
+    _check_head_dim(hd, "prefill")
     require(n_q % n_kv == 0 and 1 <= n_q // n_kv <= PREFILL_MAX_GROUP,
             f"GQA group {n_q}/{n_kv} not in 1..{PREFILL_MAX_GROUP}")
     _check_pools(q, kp, vp, ks, vs, block_size)
@@ -480,18 +466,17 @@ def _prefill_cuda(q, kp, vp, k_new, v_new, slots, block_tables, kv_lens, n_valid
     out = torch.empty_like(q)
     lib = library()
     e_mul, cap_in = _exponent(scale, softcap)
-    ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             slots.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(), n_valid.data_ptr(),
-            out.data_ptr(), b, t, n_q, n_kv, hd)
-    tail = (s_total, block_tables.shape[1], block_size, float(e_mul))
+            out.data_ptr(), _ptr(sinks), b, t, n_q, n_kv, hd, int(window), float(softcap),
+            float(cap_in), s_total, block_tables.shape[1], block_size, float(e_mul))
     name = form("paged_prefill", kp, hd)
     if ks is None:
-        code = lib.mrt_paged_prefill(*ptrs[:10], _ptr(sinks), *ptrs[10:], int(window),
-                                     float(softcap), float(cap_in), *tail, stream_ptr(q))
+        code = lib.mrt_paged_prefill(*args, stream_ptr(q))
     else:
         # the chunk's rows' round trips, which the attention launch reads
         k_rt, v_rt = torch.empty_like(k_new), torch.empty_like(v_new)
-        code = lib.mrt_paged_prefill_q(*ptrs, *tail, ks.data_ptr(), vs.data_ptr(),
+        code = lib.mrt_paged_prefill_q(*args, ks.data_ptr(), vs.data_ptr(),
                                        int(kp.dtype != torch.int8), k_rt.data_ptr(),
                                        v_rt.data_ptr(), stream_ptr(q))
     check(code, name)
@@ -524,7 +509,6 @@ def paged_prefill_attention_fused(
     [B, T, n_q, hd]. Each row's valid tokens [0, n_valid) are the
     consecutive positions [kv_len − n_valid, kv_len) (the engine's prefill
     invariant, as in the JAX kernel). ``sinks`` as for the decode."""
-    _unsupported(window, softcap, sinks, k_pool, q.shape[-1])
     _check_scales(k_pool, k_scale, v_scale, "paged prefill attention")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if plain or q.device.type == "cpu":

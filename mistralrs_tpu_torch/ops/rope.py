@@ -1,6 +1,6 @@
 """Rotary position embeddings (counterpart of ``mistralrs_tpu/ops/rope.py``):
-the default, llama3-scaled and YaRN frequencies with HF rotate-half
-pairing, and YaRN's attention factor (:func:`yarn_attention_factor`, which
+the default, linear-scaled (Gemma-3's global layers), llama3-scaled and
+YaRN frequencies with HF rotate-half pairing, and YaRN's attention factor (:func:`yarn_attention_factor`, which
 the decoder folds into cos and sin as the JAX package does). Other scaling
 kinds raise ``NotImplementedError``."""
 
@@ -25,6 +25,8 @@ def rope_frequencies(
     kind = scaling.get("rope_type") or scaling.get("type") or "default"
     if kind in ("default", "none"):
         return inv_freq
+    if kind == "linear":  # positions divided by the factor (JAX ops/rope.py:44-45)
+        return inv_freq / float(scaling["factor"])
     if kind == "yarn":
         return _yarn(inv_freq, head_dim, theta, scaling)
     if kind != "llama3":

@@ -1,13 +1,14 @@
 """Model loading entry point (counterpart of ``mistralrs_tpu/pipeline.py``):
 a llama ``.gguf`` path, a HF directory of the llama family (dense
 checkpoints whose ``architectures[0]`` is in ``HF_ARCH_MAP`` and whose
-features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, Qwen2 and
-Qwen2.5, Qwen3, Qwen3-MoE, ...; and gpt-oss, in bf16 or with its MXFP4
-expert banks), or a HF
+features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, Gemma-3 text
+(``Gemma3ForCausalLM``), Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, ...; and
+gpt-oss, in bf16 or with its MXFP4 expert banks), or a HF
 directory of the DeepSeek family (``model_type`` ``deepseek_v2``,
 ``deepseek_v3``, ``glm4_moe_lite``) → config, weights on the device,
 tokenizer, chat template and, for DeepSeek, the engine's arch adapter.
-Other HF directories, UQFF files and in-situ quantization are not ported
+Other HF directories (``Gemma3ForConditionalGeneration``, Gemma-3 with its
+vision tower, by name), UQFF files and in-situ quantization are not ported
 yet and raise ``NotImplementedError``."""
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ from .tokenizer import TokenizerWrapper, from_gguf_metadata, from_hf_dir
 # HF model types served through an arch adapter (JAX pipeline.py:61): the
 # DeepSeek family, to which GLM-4-MoE-Lite belongs
 DEEPSEEK_ARCHS = ("deepseek_v2", "deepseek_v3", "glm4_moe_lite")
+# multimodal HF architectures whose text model the port has, refused by name:
+# their towers come with the multimodal work
+MULTIMODAL_ARCHS = {
+    "Gemma3ForConditionalGeneration": "Gemma-3 with its vision tower (the JAX package "
+    "serves it through models/gemma3_vl.py); a Gemma3ForCausalLM directory serves",
+}
 
 
 @dataclass
@@ -92,6 +99,9 @@ def _load_hf_dir(path: Path, dtype, chat_template_override, dev) -> Pipeline:
     hf_cfg = json.loads(cfg_file.read_text()) if cfg_file.exists() else {}
     model_type = hf_cfg.get("model_type", "")
     archs = hf_cfg.get("architectures") or []
+    if archs and archs[0] in MULTIMODAL_ARCHS:
+        raise NotImplementedError(f"HF directory {path}: {archs[0]} is not ported: "
+                                  f"{MULTIMODAL_ARCHS[archs[0]]}")
     if model_type not in DEEPSEEK_ARCHS:
         if not archs or archs[0] not in HF_ARCH_MAP:
             raise NotImplementedError(

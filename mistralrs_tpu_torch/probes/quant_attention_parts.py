@@ -36,10 +36,10 @@ from ..ops.paged_attention import paged_decode_attention_fused, paged_prefill_at
 from .split_plans import device_ms
 from .w4_prefill_parts import build
 
-NO_CHUNK_PASS = [("quant_chunk_kernel<Q == 2><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(",
-                  "if (0) quant_chunk_kernel<Q == 2><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, "
-                  "st>>>(")]
-NO_WIDEN = [("        widen_row<FP8>(st + FA_STAGE_B + kv * QC_KV_B, wide, r, lane);\n", "")]
+NO_CHUNK_PASS = [("quant_chunk_kernel<Q == 2, D><<<dim3((T * n_kv + 1) / 2, B), THREADS, 0, st>>>(",
+                  "if (0) quant_chunk_kernel<Q == 2, D><<<dim3((T * n_kv + 1) / 2, B), THREADS, "
+                  "0, st>>>(")]
+NO_WIDEN = [("        widen_row<FP8, D>(st + L::QC + kv * L::QC_KV_B, wide, r, lane);\n", "")]
 NO_PASS = [("""      widen(it % FA_STAGES, p0);
       __syncthreads();  // the widened tile and its scales, for every warp
 """, "")]

@@ -14,7 +14,11 @@ llama-family HF loader and the engine, each held against the JAX package.
   Llama with an untied and a tied head, Mixtral) written as safetensors: the port's
   ``load_pipeline`` gives the weights of JAX ``load_hf_model`` →
   ``from_jax_params`` exactly, and the same logits (atol 1e-4, f32).
-* The engine's greedy tokens against the JAX engine's across the window.
+* The engine's greedy tokens against the JAX engine's across the window,
+  over bf16, int8 and fp8 pools.
+* The options the 1-byte kernel forms once refused (sinks, windows,
+  softcaps, head_dim 256) compute, against the f32 plain versions over the
+  same values dequantized, and engines over int8 pools build with each.
 * What stays refused raises ``NotImplementedError``.
 """
 
@@ -39,10 +43,11 @@ from mistralrs_tpu.ops.norms import rms_norm_gemma as jax_rms_norm_gemma
 from mistralrs_tpu_torch.convert import from_jax_params
 from mistralrs_tpu_torch.engine.engine import Engine
 from mistralrs_tpu_torch.engine.sampler import SamplingParams
-from mistralrs_tpu_torch.kv.paged import PagedKVCache
+from mistralrs_tpu_torch.kv.paged import PagedKVCache, quantize_rows
 from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.models.gguf_loader import load_gguf_model
-from mistralrs_tpu_torch.models.llama import forward_paged, init_random_weights, layer_windows
+from mistralrs_tpu_torch.models.llama import forward_paged, layer_windows
+from mistralrs_tpu_torch.ops import paged_attention as pa
 from mistralrs_tpu_torch.ops._cuda import COUNTS, reset_counts
 from mistralrs_tpu_torch.ops.norms import rms_norm_gemma
 from mistralrs_tpu_torch.ops.paged_attention import (
@@ -52,9 +57,10 @@ from mistralrs_tpu_torch.ops.paged_attention import (
 from mistralrs_tpu_torch.pipeline import load_pipeline
 
 from test_torch_deepseek import write_safetensors
+from test_torch_kv_quant_options import engines_agree, xla_chunk_reading
 from test_torch_llama import jax_to_numpy
 
-BS, N_KV = 16, 2  # the refusal checks' tiny pools
+BS, N_KV = 16, 2  # the 1-byte option checks' small pools
 
 
 # ---------------------------------------------------------------------------
@@ -320,66 +326,106 @@ def test_engine_greedy_matches_jax_across_the_window():
 # ---------------------------------------------------------------------------
 
 
-def _attend(kind, hd=128, pool_dtype=torch.int8, **opts):
-    """One decode or prefill call on tiny pools (1-byte codes with scales,
-    or bf16), with ``opts``."""
-    n_q = N_KV * 2
-    s_total = 2 * BS
-    pool = torch.zeros((N_KV, s_total, hd), dtype=pool_dtype)
-    scales = {}
-    if pool_dtype != torch.bfloat16:
-        sc = torch.ones((N_KV, s_total), dtype=torch.bfloat16)
-        scales = dict(k_scale=sc, v_scale=sc)
-    i1 = torch.ones(1, dtype=torch.int32)
-    bt = torch.zeros((1, 1), dtype=torch.int32)
-    if kind == "decode":
-        q = torch.zeros((1, n_q, hd), dtype=torch.bfloat16)
-        new = torch.zeros((1, N_KV, hd), dtype=torch.bfloat16)
-        return paged_decode_attention_fused(q, pool, pool, new, new, i1, bt, i1, block_size=BS,
-                                            **scales, **opts)
-    q = torch.zeros((1, 2, n_q, hd), dtype=torch.bfloat16)
-    new = torch.zeros((1, 2, N_KV, hd), dtype=torch.bfloat16)
-    return paged_prefill_attention_fused(q, pool, pool, new, new, torch.ones((1, 2), dtype=torch.int32),
-                                         bt, i1 * 2, i1 * 2, block_size=BS, **scales, **opts)
+def _attend(kind, hd=128, seed=0, **opts):
+    """One decode or prefill call on small random int8 pools with their
+    scales, with ``opts``, and the same call on f32 pools of the same
+    values dequantized, the step's rows as the quantized form reads them
+    back (decode: code x bf16(s) from the pool; prefill: the chunk's
+    bf16(code x s)) → (quantized output, f32 output, f32 output without
+    ``opts``)."""
+    rng = np.random.default_rng(seed)
+    n_q, s_total = N_KV * 2, 4 * BS
+    rows = [torch.from_numpy(rng.standard_normal((N_KV, s_total, hd)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2)]
+    coded = [quantize_rows(r, torch.int8) for r in rows]
+    codes = [c for c, _ in coded]
+    scales = [sc.to(torch.bfloat16) for _, sc in coded]
+    deq = [c.float() * sc.float()[..., None] for c, sc in zip(codes, scales)]
+    t = 1 if kind == "decode" else 6
+    new = [torch.from_numpy(rng.standard_normal((1, t, N_KV, hd)).astype(np.float32))
+           .to(torch.bfloat16).float() for _ in range(2)]
+    back = []
+    for x in new:
+        c, sc = quantize_rows(x, torch.int8)
+        back.append(c.float() * sc.to(torch.bfloat16).float()[..., None] if kind == "decode"
+                    else pa.chunk_round_trip(c, sc).float())
+    q = torch.from_numpy(rng.standard_normal((1, t, n_q, hd)).astype(np.float32)) * 3
+    bt = torch.arange(3, dtype=torch.int32)[None]
+    kv_len = torch.tensor([40], dtype=torch.int32)
+    slots = torch.arange(40 - t, 40, dtype=torch.int32)[None]
+
+    def call(pools, rows, **kw):
+        if kind == "decode":
+            return paged_decode_attention_fused(q[:, 0], *pools, rows[0][:, 0], rows[1][:, 0],
+                                                slots[:, 0], bt, kv_len, block_size=BS, **kw)
+        return paged_prefill_attention_fused(q, *pools, *rows, slots, bt, kv_len,
+                                             torch.tensor([t], dtype=torch.int32),
+                                             block_size=BS, **kw)
+
+    got = call([c.clone() for c in codes], new, k_scale=scales[0].clone(),
+               v_scale=scales[1].clone(), **opts)
+    return (got, call([d.clone() for d in deq], back, **opts),
+            call([d.clone() for d in deq], back))
 
 
 @pytest.mark.parametrize("kind", ["decode", "prefill"])
 @pytest.mark.parametrize("case", ["sinks", "window", "softcap", "hd256"])
 def test_refused_attention_options(kind, case):
-    """Sinks, a window, a softcap or head_dim 256 on 1-byte pools (the
-    quantized forms take none of them)."""
-    if case == "sinks":
-        opts = dict(sinks=torch.zeros(N_KV * 2))
-    else:
-        opts = {"window": dict(window=4), "softcap": dict(softcap=50.0),
-                "hd256": dict(hd=256)}[case]
-    with pytest.raises(NotImplementedError):
-        _attend(kind, **opts)
+    """Sinks, a window, a softcap or head_dim 256 on 1-byte pools, which the
+    quantized forms once refused, compute: the int8 form's plain version
+    (counted under its form's name) equals the f32 plain version over the
+    same values dequantized within 1e-5, and each option but the head_dim
+    moves the result by more than 1e-2."""
+    hd = 256 if case == "hd256" else 128
+    sinks = torch.from_numpy(np.linspace(-1, 3, N_KV * 2, dtype=np.float32))
+    opts = {"sinks": dict(sinks=sinks), "window": dict(window=4),
+            "softcap": dict(softcap=5.0), "hd256": {}}[case]
+    reset_counts()
+    got, want, without = _attend(kind, hd, seed=hd, **opts)
+    name = f"paged_{kind}_int8" + ("_hd256" if hd == 256 else "")
+    assert COUNTS[name + "_plain"] == 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    if case != "hd256":
+        assert (want - without).abs().max() > 1e-2
 
 
 @pytest.mark.parametrize("case", ["window", "softcap", "hd256", "plain_llama"])
-def test_engine_refuses_quantized_kv_options(case):
-    """An engine over int8 pools refuses, as it is built and before it
-    reserves the pools, a model with a sliding window, an attention softcap
-    or head_dim 256 (the 1-byte kernel forms take none of them); a plain
-    llama builds."""
-    kw = dict(arch="llama", vocab_size=16, hidden_size=16, intermediate_size=32,
-              num_layers=2, num_heads=2, num_kv_heads=1, head_dim=8)
+def test_engine_refuses_quantized_kv_options(monkeypatch, case):
+    """An engine over int8 pools, which once refused a model with a sliding
+    window, an attention softcap or head_dim 256, builds with each, as with
+    a plain llama, and serves the JAX engine's greedy tokens (int8 pools,
+    ``backend="xla"``, f32; the port reading a prefill chunk's own rows as
+    the JAX XLA path does: ``test_torch_kv_quant_options.py``)."""
+    xla_chunk_reading(monkeypatch)
+    kw = dict(arch="llama", vocab_size=64, hidden_size=16, intermediate_size=32,
+              num_layers=2, num_heads=2, num_kv_heads=1, head_dim=8,
+              max_position_embeddings=64)
     kw.update({"window": dict(arch="mistral", sliding_window=4),
-               "softcap": dict(attn_logit_softcap=50.0), "hd256": dict(head_dim=256),
+               "softcap": dict(attn_logit_softcap=5.0), "hd256": dict(head_dim=256),
                "plain_llama": {}}[case])
-    cfg = ModelConfig(**kw)
-    weights = init_random_weights(cfg, dtype=torch.float32, device="cpu")
+    jcfg, cfg = JaxConfig(**kw), ModelConfig(**kw)
+    jw = jax_init(jcfg, seed=1, dtype=jnp.float32, scale=0.3)
+    tw = from_jax_params(jax_to_numpy(jw), cfg, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    engines_agree(jcfg, jw, cfg, tw, "int8", [rng.integers(0, 64, n).tolist() for n in (11, 6)],
+                  max_tokens=6)
 
-    def build():
-        return Engine(cfg, weights, num_blocks=4, block_size=8, max_batch=1,
-                      compute_dtype=torch.float32, kv_quant="int8", device="cpu")
 
-    if case == "plain_llama":
-        assert build().cache.quantized
-    else:
-        with pytest.raises(NotImplementedError, match="int8/fp8 pools"):
-            build()
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_engine_greedy_matches_jax_over_1byte_pools(monkeypatch, kv_quant):
+    """The tiny Gemma-2 (window 8, both softcaps, head_dim 256) over int8
+    and fp8 pools: the engines' greedy tokens across the window, as
+    ``test_engine_greedy_matches_jax_across_the_window`` over bf16 pools
+    (the port reading a prefill chunk's own rows as the JAX XLA path does:
+    ``test_torch_kv_quant_options.py``)."""
+    xla_chunk_reading(monkeypatch)
+    kw = dict(GEMMA_KW, max_position_embeddings=64)
+    jcfg, cfg = JaxConfig(**kw), ModelConfig(**kw)
+    jw = _gemma_weights(jcfg, 4, jnp.float32)
+    tw = from_jax_params(jax_to_numpy(jw), cfg, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    engines_agree(jcfg, jw, cfg, tw, kv_quant, [rng.integers(0, 256, n).tolist()
+                                                for n in (20, 13)])
 
 
 def test_gguf_gemma2_is_refused(tmp_path):

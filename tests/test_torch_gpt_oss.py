@@ -26,10 +26,10 @@ loader and the engine, each held against the JAX package.
   (blocks from JAX ``quantize_mxfp4``): both loaders give the same weights
   (after ``from_jax_params``) and the same logits.
 * ``cli serve`` answers a chat request on the MXFP4 directory.
-* The engine's greedy tokens equal the JAX engine's across the window, and
-  the uncaptured decode step's logits equal JAX ``forward_paged``'s.
-* What stays refused: sinks on 1-byte pools (``test_torch_gemma2.py``), an
-  int8-KV engine over gpt-oss, random gpt-oss weights, another
+* The engine's greedy tokens equal the JAX engine's across the window,
+  over bf16, int8 and fp8 pools, and the uncaptured decode step's logits
+  equal JAX ``forward_paged``'s.
+* What stays refused: random gpt-oss weights, another
   ``quantization_config``.
 """
 
@@ -87,6 +87,7 @@ from mistralrs_tpu_torch.quant.mxfp4 import dequantize_mxfp4
 
 from test_torch_deepseek import write_safetensors
 from test_torch_gemma2 import _gemma_steps, _tree_equal
+from test_torch_kv_quant_options import engines_agree, xla_chunk_reading
 from test_torch_llama import jax_to_numpy
 
 # gpt-oss-20b's config.json (huggingface.co/openai/gpt-oss-20b)
@@ -605,16 +606,21 @@ def test_uncaptured_decode_step_matches_jax_forward():
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
-def test_engine_refuses_quantized_kv_for_gpt_oss(kv_quant):
-    """The 1-byte kernel forms take no sinks, window or head_dim 64: an
-    engine over gpt-oss with 1-byte pools is refused as it is built."""
+def test_engine_refuses_quantized_kv_for_gpt_oss(monkeypatch, kv_quant):
+    """An engine over gpt-oss (sinks, windows of 8, head_dim 64) with 1-byte
+    pools, which was once refused as it was built, builds and serves the JAX
+    engine's greedy tokens (the same ``kv_quant``, ``backend="xla"``, f32;
+    the port reading a prefill chunk's own rows as the JAX XLA path does:
+    ``test_torch_kv_quant_options.py``): a 20- and a 13-token prompt in
+    8-token chunks, 10 tokens each."""
+    xla_chunk_reading(monkeypatch)
     kw = _kw(64)
-    _, jw = _jax_weights(kw, 4, jnp.float32)
+    jcfg, jw = _jax_weights(kw, 4, jnp.float32)
     cfg = ModelConfig(**kw)
     tw = from_jax_params(jax_to_numpy(jw), cfg, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="attention sinks"):
-        Engine(cfg, tw, num_blocks=4, block_size=8, max_batch=1, compute_dtype=torch.float32,
-               kv_quant=kv_quant, device="cpu")
+    rng = np.random.default_rng(2)
+    engines_agree(jcfg, jw, cfg, tw, kv_quant, [rng.integers(0, 256, n).tolist()
+                                                for n in (20, 13)])
 
 
 @pytest.mark.parametrize("case", ["random_weights", "gptq_config", "mlp_bias"])

@@ -17,7 +17,7 @@ from mistralrs_tpu.ops.paged_attention import (
     paged_decode_attention_fused as jax_decode,
     paged_prefill_attention_fused as jax_prefill,
 )
-from mistralrs_tpu_torch.kv.paged import gather_kv
+from mistralrs_tpu_torch.kv.paged import gather_kv, quantize_rows
 from mistralrs_tpu_torch.ops._cuda import COUNTS, reset_counts
 from mistralrs_tpu_torch.ops.paged_attention import (
     paged_decode_attention_fused,
@@ -127,17 +127,37 @@ def test_four_dim_pools_touch_only_their_layer():
 
 
 def test_unported_options_raise():
-    """Sinks and a sliding window raise on a 1-byte pool (the quantized
-    forms take neither)."""
-    q = torch.zeros((1, N_Q, HD), dtype=torch.bfloat16)
-    new = torch.zeros((1, N_KV, HD), dtype=torch.bfloat16)
-    i1 = torch.zeros(1, dtype=torch.int32)
-    codes = torch.zeros((N_KV, S, HD), dtype=torch.int8)
-    scale = torch.ones((N_KV, S), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="sinks"):
-        paged_decode_attention_fused(q, codes, codes, new, new, i1, i1[None], i1,
-                                     block_size=BS, sinks=torch.zeros(N_Q), k_scale=scale,
-                                     v_scale=scale)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        paged_decode_attention_fused(q, codes, codes, new, new, i1, i1[None], i1,
-                                     block_size=BS, window=8, k_scale=scale, v_scale=scale)
+    """Sinks and a sliding window on a 1-byte pool, which the quantized
+    forms once refused, compute: each call (the int8 form's plain version)
+    equals the f32 plain version over the same values dequantized, the
+    step's row as it reads back from the pool (code x bf16(s)), within
+    1e-5, and differs from the call without the option by more than
+    1e-2."""
+    rng = np.random.default_rng(12)
+    rows = [_tb(rng.standard_normal((N_KV, S, HD))) for _ in range(2)]
+    coded = [quantize_rows(r, torch.int8) for r in rows]
+    codes = [c for c, _ in coded]
+    scales = [sc.to(torch.bfloat16) for _, sc in coded]
+    deq = [c.float() * sc.float()[..., None] for c, sc in zip(codes, scales)]
+    q = torch.from_numpy(rng.standard_normal((1, N_Q, HD)).astype(np.float32))
+    new = [_tb(rng.standard_normal((1, N_KV, HD))).float() for _ in range(2)]
+    back = []  # the step's rows as they read back from the pool
+    for x in new:
+        c, sc = quantize_rows(x, torch.int8)
+        back.append(c.float() * sc.to(torch.bfloat16).float()[..., None])
+    bt = torch.arange(W, dtype=torch.int32)[None]
+    kv_len = torch.tensor([45], dtype=torch.int32)
+    slot = torch.tensor([44], dtype=torch.int32)
+    sinks = torch.from_numpy(rng.standard_normal(N_Q).astype(np.float32) * 2 + 1)
+    for opts in (dict(sinks=sinks), dict(window=8)):
+        reset_counts()
+        got = paged_decode_attention_fused(q, codes[0].clone(), codes[1].clone(), *new, slot, bt,
+                                           kv_len, block_size=BS, k_scale=scales[0].clone(),
+                                           v_scale=scales[1].clone(), **opts)
+        assert COUNTS["paged_decode_int8_plain"] == 1 and sum(COUNTS.values()) == 1
+        want = paged_decode_attention_fused(q, deq[0].clone(), deq[1].clone(), *back, slot, bt,
+                                            kv_len, block_size=BS, **opts)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        without = paged_decode_attention_fused(q, deq[0].clone(), deq[1].clone(), *back, slot,
+                                               bt, kv_len, block_size=BS)
+        assert (want - without).abs().max() > 1e-2
