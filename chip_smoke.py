@@ -114,7 +114,16 @@ script in one call:
    its bf16 rows; the int8 form at head_dim 128 with Mistral-7B's window
    (decode 8 x 8192, prefill 512 on 3840); the same checks, and on the
    window-100 rows the plain version without the window must differ from
-   it by more than 0.1 (the softcap's and the sinks' controls as above);
+   it by more than 0.1 (the softcap's and the sinks' controls as above).
+   Last, the W4 and W8 kernels' wide-group forms (groups of 64 and more),
+   on layers drawn as GPTQ and AWQ checkpoints store them (int32 words, f16
+   scales) and decoded on the device by ``quant/gptq_awq.py``: W4 at group
+   128 at Llama-3.1-8B's shapes as its AWQ checkpoint stores them (M=8
+   gate-up, o, qkv and down, M=512 gate-up), W8 at group 128 at
+   Qwen2.5-7B-GPTQ-Int8's (M=8 gate-up N=37888 K=3584 and down K=18944,
+   M=512 gate-up), timed as the group-32 rows are; then untimed edges: W4
+   at group 64, W8 at 64 and per-column (g = K), K splits that cut groups,
+   M of 1, 16, 17 and 130, bf16 and f32 output;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -171,6 +180,13 @@ script in one call:
    largest, and the same weights with the two rope bases swapped must move
    the kernel run's logits by more than ten times the kernels' worst
    difference from the plain run (both relative to the largest logit);
+3i. the phase-3f schedule at full Qwen2.5-7B width with 2 layers as its
+   GPTQ-Int4 and then its GPTQ-Int8 checkpoint stores them (group 128,
+   symmetric v1 zeros, f16 q/k/v biases, embedding and head), drawn on the
+   device and loaded through the HF loader (``weights_from_state_dict``),
+   q/k/v fused with their biases: the W4 and then the W8 wide-group form
+   in both bodies, no plain version in the kernel run; logits within 5e-2
+   of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -232,14 +248,21 @@ script in one call:
    of 64 positions): the same 6 requests but one prompt of 2500 tokens,
    over 10 prefill chunks and past the window; the same checks; the int8
    head_dim-256 forms of the paged kernels launched and no plain version;
-12. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+12. serve the full 32-layer Llama-3.1-8B geometry (llama3 rope scaling) as
+   hugging-quants' AWQ INT4 checkpoint stores it (gemm packing, group 128,
+   zero points; ~6.0 GB on the device: 3.93 GB of W4 planes, 2.1 GB of
+   embedding and head), drawn on the device and loaded through the HF
+   loader: the same 6 requests and checks; the W4 wide-group form launched
+   in both bodies and no plain version;
+13. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-11 (4's int8 serve and 11 for the int8 forms of the paged
-kernels), and the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
-and the int8 head_dim-64 forms (3e); a kernel launched in none fails the
+phases 4-12 (4's int8 serve and 11 for the int8 forms of the paged
+kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
+and the int8 head_dim-64 forms (3e), and phase 3i's two runs (the W8
+wide-group form runs there alone); a kernel launched in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
 
@@ -301,7 +324,7 @@ from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
     quantize_rows,
 )
 from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
-from mistralrs_tpu_torch.models import deepseek, llama  # noqa: E402
+from mistralrs_tpu_torch.models import deepseek, hf_loader, llama  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
 from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
 from mistralrs_tpu_torch.ops import moe_grouped as _moe_grouped  # noqa: E402
@@ -319,6 +342,7 @@ from mistralrs_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quant_matmul,
     quant_matmul_grouped,
 )
+from mistralrs_tpu_torch.quant import gptq_awq  # noqa: E402
 from mistralrs_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from mistralrs_tpu_torch.serving.server import Server  # noqa: E402
 from mistralrs_tpu_torch.tokenizer import Detokenizer  # noqa: E402
@@ -402,7 +426,24 @@ GEMMA3_12B = dict(
 # 32 query heads on 16 KV heads, query_pre_attn_scalar 168)
 GEMMA3_27B = dict(GEMMA3_12B, hidden_size=5376, intermediate_size=21504, num_layers=62,
                   num_heads=32, num_kv_heads=16, head_dim=128, attn_scale=168 ** -0.5)
+# Llama-3.1-8B-Instruct as hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4
+# ships it (its config.json: llama3 rope scaling, factor 8, on Llama-3-8B's
+# geometry; AWQ gemm, 4 bits, group 128, zero_point; f16 embedding and an
+# untied f16 head, cast to bf16 by the loader)
+LLAMA31_8B = dict(LLAMA3_8B, max_position_embeddings=131072,
+                  rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                                "high_freq_factor": 4.0,
+                                "original_max_position_embeddings": 8192})
+AWQ_INT4 = {"quant_method": "awq", "bits": 4, "group_size": 128, "zero_point": True,
+            "version": "gemm"}
+# Qwen/Qwen2.5-7B-Instruct-GPTQ-Int4 and -Int8's quantization_config: group 128,
+# sym, no act-order, v1 zeros (stored less 1)
+GPTQ_INT4 = {"quant_method": "gptq", "bits": 4, "group_size": 128, "sym": True,
+             "desc_act": False}
+GPTQ_INT8 = dict(GPTQ_INT4, bits=8)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
+WIDE_W4_KERNELS = ("w4_matmul_wide", "paged_decode", "paged_prefill")
+WIDE_W8_KERNELS = ("w8_matmul_wide", "paged_decode", "paged_prefill")
 DEEPSEEK_KERNELS = ("mla_decode", "dense_matmul_g")
 GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
 GPT_OSS_KERNELS = ("paged_decode_hd64", "paged_prefill_hd64", "dense_matmul_g")
@@ -419,6 +460,11 @@ KERNEL_INFO = {
                   "mistralrs_tpu/ops/quant_matmul.py:350"),
     "w8_matmul": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:411"),
+    # the wide-group forms (groups of 64 and more: GPTQ, AWQ, per-column)
+    "w4_matmul_wide": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
+                       "mistralrs_tpu/ops/quant_matmul.py:350"),
+    "w8_matmul_wide": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
+                       "mistralrs_tpu/ops/quant_matmul.py:411"),
     "paged_decode": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
                      "mistralrs_tpu/ops/paged_attention.py:496"),
     "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
@@ -579,6 +625,86 @@ def widened(n: int, k: int, gen: torch.Generator, dev, e: int) -> QTensor:
 def bf16_bank(n: int, k: int, gen: torch.Generator, dev, e: int) -> torch.Tensor:
     """A dense bf16 expert bank [E, N, K] of variance 1/K."""
     return (torch.randn((e, n, k), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+
+
+def quant_words(n: int, k: int, gen: torch.Generator, dev, bits: int = 4, group: int = 128,
+                awq: bool = False) -> dict:
+    """One projection ``[n, k]`` as a GPTQ (symmetric: zeros stored as
+    2^(bits-1) - 1, read with v1's + 1) or AWQ (``zero_point``: zeros drawn)
+    checkpoint stores it, drawn on the device: int32 ``qweight`` and
+    ``qzeros`` over the whole 32-bit range, f16 ``scales`` giving weights of
+    variance ~1/K, and for GPTQ a trivial ``g_idx``; ``group`` 0 is
+    per-column (g = K)."""
+    g = group or k
+    per, levels = 32 // bits, 1 << bits
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    var_q = (levels * levels - 1) / 12
+    if awq:
+        out = {"qweight": words(k, n // per), "qzeros": words(k // g, n // per)}
+        e2 = 2 * var_q  # E[(q - z)^2], both uniform
+    else:
+        word = sum((levels // 2 - 1) << (i * bits) for i in range(per))
+        out = {"qweight": words(k // per, n),
+               "qzeros": torch.full((k // g, n // per), word, dtype=torch.int32, device=dev),
+               "g_idx": torch.arange(k, dtype=torch.int32, device=dev) // g}
+        e2 = var_q + 0.25  # the codes' mean is half a step from the zero
+    out["scales"] = ((0.75 + 0.5 * torch.rand((k // g, n), generator=gen, device=dev))
+                     / math.sqrt(e2 * k)).to(torch.float16)
+    return out
+
+
+def wide_layer(n: int, k: int, gen: torch.Generator, dev, bits: int = 4, group: int = 128,
+               awq: bool = False, zero_offset: int = 1) -> QTensor:
+    """:func:`quant_words` decoded on the device by ``quant/gptq_awq.py``."""
+    w = quant_words(n, k, gen, dev, bits, group, awq)
+    if awq:
+        return gptq_awq.awq_to_qtensor(w["qweight"], w["qzeros"], w["scales"])
+    return gptq_awq.gptq_to_qtensor(w["qweight"], w["qzeros"], w["scales"], g_idx=w["g_idx"],
+                                    bits=bits, zero_offset=zero_offset)
+
+
+def build_quantized(cfg: ModelConfig, dev, seed: int, qc: dict) -> dict:
+    """``cfg``'s weights as a GPTQ or AWQ checkpoint (``quantization_config``
+    ``qc``) stores them, drawn on the device: every projection's words
+    (:func:`quant_words`), f16 norms of ones, Qwen2's q/k/v biases of N(0,
+    0.1^2), an f16 embedding and untied head of N(0, 0.02^2); loaded through
+    the HF loader (``weights_from_state_dict``: the words decoded on the
+    device into planar QTensors, the f16 tensors cast to bf16), the source
+    tensors freed, then q/k/v and gate/up fused: ~6.0 GB for Llama-3.1-8B's
+    32 layers at 4 bits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    bits, awq = qc["bits"], qc["quant_method"] == "awq"
+
+    def f16(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float16).mul_(std)
+
+    projections = {"self_attn.q_proj": (cfg.q_dim, h), "self_attn.k_proj": (cfg.kv_dim, h),
+                   "self_attn.v_proj": (cfg.kv_dim, h), "self_attn.o_proj": (h, cfg.q_dim),
+                   "mlp.gate_proj": (i, h), "mlp.up_proj": (i, h), "mlp.down_proj": (h, i)}
+    sd = {}
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{p}{norm}.weight"] = torch.ones(h, device=dev, dtype=torch.float16)
+        for name, (n, k) in projections.items():
+            for part, t in quant_words(n, k, gen, dev, bits, qc["group_size"], awq).items():
+                sd[f"{p}{name}.{part}"] = t
+        if cfg.arch == "qwen2":
+            for t in "qkv":
+                sd[f"{p}self_attn.{t}_proj.bias"] = f16(projections[f"self_attn.{t}_proj"][0],
+                                                         std=0.1)
+    sd["model.embed_tokens.weight"] = f16(cfg.vocab_size, h)
+    sd["model.norm.weight"] = torch.ones(h, device=dev, dtype=torch.float16)
+    sd["lm_head.weight"] = f16(cfg.vocab_size, h)
+    weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev, quant_config=qc)
+    del sd
+    torch.cuda.empty_cache()
+    return llama.fuse_projections(weights, cfg)
 
 
 def use_more_bits(i: int, n: int) -> bool:
@@ -843,6 +969,29 @@ def check_w8_edges(rows, rates, gen, dev):
                     r["shape"] += f" {fmt}"
                     rows["w8_matmul"].append(r)
             del qt
+
+
+def check_wide_edges(rows, rates, gen, dev):
+    """The wide-group forms at edge shapes (untimed), on layers decoded from
+    checkpoint words: W4 at group 64 (GPTQ, v2 zeros) and 128 (AWQ), W8 at
+    64, 128 and per-column (g = K); N a multiple of 16 but not of 64; K of one
+    step; N 1024 at K 4096, whose decode splits cut groups (W4's groups of
+    128 span two steps, a per-column group every split); M of 1, 16, 17 and
+    130; bf16 and f32 output."""
+    cases = (("w4_matmul_wide", (336, 512), dict(bits=4, group=64, zero_offset=0)),
+             ("w4_matmul_wide", (1024, 4096), dict(bits=4, group=128, awq=True)),
+             ("w8_matmul_wide", (336, 512), dict(bits=8, group=64)),
+             ("w8_matmul_wide", (336, 128), dict(bits=8, group=0)),
+             ("w8_matmul_wide", (1024, 4096), dict(bits=8, group=128)),
+             ("w8_matmul_wide", (1024, 4096), dict(bits=8, group=0)))
+    for name, (n, k), kw in cases:
+        qt = wide_layer(n, k, gen, dev, **kw)
+        for m in (1, 16, 17, 130):
+            for out_dtype in (None, torch.float32):
+                r = check_matmul(name, m, qt, rates, gen, dev, timed=False, out_dtype=out_dtype)
+                r["shape"] += f" group {qt.group_size}"
+                rows[name].append(r)
+        del qt
 
 
 def grouped_routing(ntok, e, routing, gen, dev, top=2):
@@ -1888,8 +2037,28 @@ def check_qwen_model(dev, base: dict, seed: int, what: str, required) -> dict:
     return counts
 
 
+def check_wide_model(dev, qc: dict, seed: int, what: str, required) -> dict:
+    """Phase 3i: 2 layers at full Qwen2.5-7B width as its GPTQ checkpoint
+    ``qc`` stores them (:func:`build_quantized`) through the kernels and the
+    plain versions (``two_layer_runs``): the wide-group form of ``required``
+    in both its bodies (decode and prefill), no plain version in the kernel
+    run. Returns the kernel run's launch counts."""
+    cfg = ModelConfig(**dict(QWEN25_7B, num_layers=2))
+    weights = build_quantized(cfg, dev, seed, qc)
+    lw = weights["layers"][0]
+    check(all(isinstance(lw[k], QTensor) and lw[k].group_size == 128 for k in
+              ("wqkv", "wo", "wgateup", "down")) and "wqkv_bias" in lw,
+          f"{what}: projections not fused planar QTensors of group 128 with q/k/v biases")
+    counts, note, _ = two_layer_runs(dev, cfg, weights, seed + 1, what, required)
+    bodies = {b: counts.get(f"{required[0]}.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"{what}: {required[0]} bodies launched {bodies}")
+    log(f"  {what} 2 layers: {note}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 8: serve
+# phases 4 to 12: serve
 # ---------------------------------------------------------------------------
 
 
@@ -2412,6 +2581,22 @@ def main() -> int:
     rows["paged_prefill_int8"].append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,),
                                                     past=(3840,), window=4096,
                                                     kv_quant="int8"))
+    # the wide-group forms (after every other row, which keep the generator's
+    # stream of earlier runs): W4 at group 128 at Llama-3.1-8B's shapes as its
+    # AWQ checkpoint stores them (gate-up, o, qkv, down), W8 at group 128 at
+    # Qwen2.5-7B-GPTQ-Int8's (gate-up, down), then their edges
+    for n, k, ms in ((28672, 4096, (8, 512)), (4096, 4096, (8,)), (6144, 4096, (8,)),
+                     (4096, 14336, (8,))):
+        qt = wide_layer(n, k, gen, dev, bits=4, awq=True)
+        for m in ms:
+            rows["w4_matmul_wide"].append(check_matmul("w4_matmul_wide", m, qt, rates, gen, dev))
+        del qt
+    for n, k, ms in ((37888, 3584, (8, 512)), (3584, 18944, (8,))):
+        qt = wide_layer(n, k, gen, dev, bits=8)
+        for m in ms:
+            rows["w8_matmul_wide"].append(check_matmul("w8_matmul_wide", m, qt, rates, gen, dev))
+        del qt
+    check_wide_edges(rows, rates, gen, dev)
     torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
@@ -2449,6 +2634,14 @@ def main() -> int:
     log("phase 3h: forward_paged at full Gemma-3-27B width, 2 layers (sliding with the local "
         "rope base, full with the global one), kernels vs plain over fp8 pools")
     gemma3_model = check_gemma3_model(dev)
+    torch.cuda.empty_cache()
+    log("phase 3i: forward_paged at full Qwen2.5-7B width, 2 layers, as its GPTQ-Int4 and "
+        "GPTQ-Int8 checkpoints (group 128), kernels vs plain")
+    gptq4_model = check_wide_model(dev, GPTQ_INT4, SEED + 30, "qwen2.5-7b gptq-int4 model",
+                                   WIDE_W4_KERNELS)
+    torch.cuda.empty_cache()
+    gptq8_model = check_wide_model(dev, GPTQ_INT8, SEED + 32, "qwen2.5-7b gptq-int8 model",
+                                   WIDE_W8_KERNELS)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -2516,6 +2709,17 @@ def main() -> int:
                          sizes=(40, 97, 180, 290, 430, 2500))
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 12
+    log(f"phase 12: serve the {LLAMA31_8B['num_layers']}-layer Llama-3.1-8B geometry as its AWQ "
+        f"INT4 checkpoint stores it (group 128; f16 embedding and head as bf16)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    awq_counts, _ = serve(dev, name_line, ModelConfig(**LLAMA31_8B),
+                          lambda cfg, dev_, seed: build_quantized(cfg, dev_, seed, AWQ_INT4),
+                          SEED + 27, "llama-3.1-8b-awq-int4-geometry", WIDE_W4_KERNELS)
+    bodies = {b: awq_counts.get(f"w4_matmul_wide.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 12: w4_matmul_wide bodies launched {bodies}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -2523,6 +2727,7 @@ def main() -> int:
     # checks; launches summed over the runs of each kernel's path (module
     # docstring), each run's beside them
     main_shape = {"w4_matmul": "M=8 N=28672 K=4096", "w8_matmul": "M=8 N=128256 K=4096",
+                  "w4_matmul_wide": "M=8 N=28672 K=4096", "w8_matmul_wide": "M=8 N=37888 K=3584",
                   "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
@@ -2542,7 +2747,9 @@ def main() -> int:
             "mixtral-8x7b serve": moe_counts,
             "deepseek-v2-lite serve": ds_counts, "gemma-2-9b serve": gemma_counts,
             "gpt-oss-20b serve": oss_counts, "qwen2.5-7b serve": q25_counts,
-            "qwen3-30b-a3b serve": q3_counts, "gemma-3-12b int8-kv serve": g3_counts}
+            "qwen3-30b-a3b serve": q3_counts, "gemma-3-12b int8-kv serve": g3_counts,
+            "phase 3i gptq-int4 model": gptq4_model, "phase 3i gptq-int8 model": gptq8_model,
+            "llama-3.1-8b awq-int4 serve": awq_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

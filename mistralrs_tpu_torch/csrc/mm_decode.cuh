@@ -52,8 +52,16 @@
 //     codes -128..127 become u = q + 128 by XOR 0x80, so OFF' = 2176 (U8) or
 //     2304 (S8). tests/test_torch_w8_plan.py holds the conversion exact for
 //     all 256 byte values.
-// Scale and bias planes are f32 [K/gs, N] (gs 32, or 16 for U8/S8); bias
-// may be absent. The grouped form (every format) multiplies row tile t by
+// Scale and bias planes are f32 [K/gs, N]; bias may be absent. Group sizes:
+// PACKED4 32, 64 or 128 (those over 32 dividing K/2: GPTQ, AWQ);
+// U8/S8 16, 32, 64, or any multiple of 128 that divides K (GPTQ's 128, and
+// per-column scales: gs = K). A group smaller than a step's span (PACKED4:
+// each half's 64 rows; U8/S8: 128 rows) is a template constant (GS) and a
+// step reads span / GS rows of the planes; a group of a span or more is a
+// runtime value (GS = 0) and a step reads the one row its span lies in,
+// k0 / gs: by linearity a group's sum is the sum of its steps' parts, so a
+// group that spans several steps, or that a K split cuts, needs nothing
+// more. The grouped form (every format) multiplies row tile t by
 // expert tile_idx[t] of a bank (planes code_stride bytes and sb_stride
 // floats apart), one split a tile; tiles at or past *n_used write zeros and
 // read no weights.
@@ -114,22 +122,31 @@ constexpr int D_XLD = 272;  // bytes per staged x row: 128 bf16 of the step, 16 
 constexpr uint32_t BF16_ONES = 0x3F803F80u;
 
 // The block's shape and shared-memory stage: MT row tiles of 8 rows, GS the
-// group size, HB a bias plane, NW warps of 16 output columns each.
+// group size (0: a runtime group of a span or more), HB a bias plane, NW
+// warps of 16 output columns each.
 template <int FMT, int MT, bool HB, int GS, int NW>
 struct Decode {
   static constexpr int BN = 16 * NW;                      // output columns per block
   static constexpr int THREADS = 32 * NW;
   static constexpr int CHUNKS = BN / 16;                  // 16-byte chunks per code row
   static constexpr int ROWS = FMT == PACKED4 ? 64 : 128;  // code rows per step
-  static constexpr int GROUPS = 128 / GS;                 // groups per step
+  // logical K a step reads contiguously (PACKED4: each half), the K of a
+  // group within it, and the groups a span holds
+  static constexpr int SPAN = FMT == PACKED4 ? 64 : 128;
+  static constexpr int G = GS ? GS : SPAN;
+  static constexpr int GPS = SPAN / G;
+  static constexpr int GROUPS = (FMT == PACKED4 ? 2 : 1) * GPS;  // plane rows per step
   static constexpr int CODES = 0;                         // [ROWS][BN B], swizzled
-  // [GROUPS][BN] f32; PACKED4's four groups in the order lo0 lo1 hi0 hi1
+  // [GROUPS][BN] f32; PACKED4's low half's groups, then the high half's
   static constexpr int SCALE = ROWS * BN;
   static constexpr int BIAS = SCALE + GROUPS * BN * 4;  // none without a bias plane
   static constexpr int X = BIAS + (HB ? GROUPS * BN * 4 : 0);  // [8 MT rows][D_XLD B]
   static constexpr int STAGE = X + 8 * MT * D_XLD;
   static constexpr int TOTAL = D_STAGES * STAGE;
-  static_assert(FMT != PACKED4 || GS == 32, "packed codes have groups of 32");
+  static_assert(FMT == PACKED4 ? (GS == 32 || GS == 0)
+                                : (GS == 16 || GS == 32 || GS == 64 || GS == 0),
+                "PACKED4: groups of 32 or a runtime 64 or 128; U8/S8: 16, 32, 64 or "
+                "a runtime multiple of 128");
   static_assert(NW == 4 || NW == 8, "code rows of 64 or 128 bytes");
   // chunk c of code row r sits at c ^ swz(r): the 8 rows one ldmatrix reads
   // at one logical chunk land in 8 different 16-byte bank groups
@@ -149,7 +166,7 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
                  void* __restrict__ out, int M, int N, int K, int out_bf16, int splits,
                  const int* __restrict__ tile_idx, const int* __restrict__ n_used,
                  long long code_stride, long long sb_stride, float* __restrict__ ws,
-                 int* __restrict__ counters) {
+                 int* __restrict__ counters, int gs) {
   using L = Decode<FMT, MT, HAS_BIAS, GS, NW>;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int s_last;
@@ -171,7 +188,10 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
     split = blockIdx.y;
   }
   const int kh = K / 2;
-  const int gh = kh / 32;  // PACKED4: the first group of the high half
+  // the group size (unsigned: the body is bound by instruction issue) and,
+  // for PACKED4, the first group of the high half
+  const unsigned gsz = GS ? GS : (unsigned)gs;
+  const int gh = (int)((unsigned)kh / gsz);
   const int nsteps = K / 128;
   const int s_begin = (int)((long long)split * nsteps / splits);
   const int n = (int)((long long)(split + 1) * nsteps / splits) - s_begin;
@@ -192,6 +212,12 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   constexpr int SB = L::GROUPS * (L::BN / 4);        // 16-byte chunks per plane
   constexpr int SB_ALL = (HAS_BIAS ? 2 : 1) * SB;    // of the scale and bias
   static_assert(L::ROWS * L::CHUNKS % L::THREADS == 0, "whole code rows per pass");
+  // GS = 0: a group spans gsteps steps; the plane row of the next step to
+  // load is kept as (row, steps into it), as steps are loaded in order (no
+  // division a step: the body is bound by instruction issue)
+  const unsigned gsteps = GS ? 1u : gsz / L::SPAN;
+  unsigned next_row = GS ? 0u : (unsigned)s_begin / gsteps;
+  unsigned next_rem = GS ? 0u : (unsigned)s_begin % gsteps;
   auto load = [&](int slot, int step) {
     const uint32_t st = smem_a + slot * L::STAGE;
     // codes: ROWS rows x CHUNKS chunks of 16 columns, swizzled
@@ -210,16 +236,22 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
       const unsigned i = threadIdx.x + j * L::THREADS;
       if (SB_ALL % L::THREADS != 0 && i >= SB_ALL) break;
       const unsigned which = i / SB, g = i % SB / (L::BN / 4), c = i % (L::BN / 4);
+      // the first plane row of the step's span (of each half for PACKED4)
+      const int g0 = GS ? step * L::GPS : (int)next_row;
       int grow;
       if constexpr (FMT == PACKED4)
-        grow = g < 2 ? 2 * step + (int)g : gh + 2 * step + ((int)g - 2);
+        grow = g < L::GPS ? g0 + (int)g : gh + g0 + ((int)g - L::GPS);
       else
-        grow = step * L::GROUPS + (int)g;
+        grow = g0 + (int)g;
       const int col = n0 + 4 * (int)c;
       const bool ok = col < N;
       const float* plane = which ? bias : scale;
       cp_async16(st + (which ? L::BIAS : L::SCALE) + (g * L::BN + c * 4) * 4,
                  plane + (ok ? (size_t)grow * N + col : 0), ok);
+    }
+    if (!GS && ++next_rem == gsteps) {
+      next_rem = 0;
+      ++next_row;
     }
     // x: the tile's real rows, 128 values each (PACKED4: 64 lo and 64 hi)
     for (int i = tid; i < rows * 16; i += L::THREADS) {
@@ -276,8 +308,10 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
                     cw[2 * p][1], cw[2 * p + 1][0], cw[2 * p + 1][1]);
     }
     if constexpr (FMT == PACKED4) {
+      // each half's 4 chunks of 16 rows in GPS groups of CPG chunks
+      constexpr int CPG = 4 / L::GPS;
 #pragma unroll
-      for (int gi = 0; gi < 2; ++gi) {
+      for (int gi = 0; gi < L::GPS; ++gi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float tq[MT][4], t1[MT][4];
@@ -286,8 +320,8 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 #pragma unroll
             for (int j = 0; j < 4; ++j) tq[mt][j] = t1[mt][j] = 0.0f;
 #pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int ch = 2 * gi + cc;
+          for (int cc = 0; cc < CPG; ++cc) {
+            const int ch = CPG * gi + cc;
             // one mask-and-or (lop3) makes each bf16 pair
             const uint32_t a0 = nib_pair(cw[ch][0] >> (4 * h));
             const uint32_t a1 = nib_pair(cw[ch][0] >> (8 + 4 * h));
@@ -301,7 +335,7 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
               mma_bf16(t1[mt], BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[mt][0], b[mt][1]);
             }
           }
-          apply(ss, bs, 2 * h + gi, 128.0f, tq, t1);
+          apply(ss, bs, h * L::GPS + gi, 128.0f, tq, t1);
         }
       }
     } else {
@@ -314,8 +348,8 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 #pragma unroll
           for (int j = 0; j < 4; ++j) tq[mt][j] = t1[mt][j] = 0.0f;
 #pragma unroll
-        for (int cc = 0; cc < GS / 16; ++cc) {
-          const int ch = gi * (GS / 16) + cc;
+        for (int cc = 0; cc < L::G / 16; ++cc) {
+          const int ch = gi * (L::G / 16) + cc;
           uint32_t c0 = cw[ch][0], c1 = cw[ch][1];
           if (FMT == S8) {  // signed q -> u = q + 128
             c0 ^= 0x80808080u;
@@ -417,6 +451,7 @@ struct DecodeArgs {
   long long code_stride, sb_stride;
   float* ws;
   int* counters;
+  int gs;  // the group size (the runtime one of GS = 0)
 };
 
 // Launch the decode body; returns the error of the shared-memory opt-in
@@ -434,7 +469,8 @@ cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t st) {
   const dim3 grid((a.N + L::BN - 1) / L::BN, a.tile_idx ? a.M / 16 : a.splits);
   kernel<<<grid, L::THREADS, L::TOTAL, st>>>(a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K,
                                             a.out_bf16, a.splits, a.tile_idx, a.n_used,
-                                            a.code_stride, a.sb_stride, a.ws, a.counters);
+                                            a.code_stride, a.sb_stride, a.ws, a.counters,
+                                            a.gs);
   return cudaSuccess;
 }
 

@@ -4,12 +4,14 @@
 //   _w4_matmul (:350), _w4_matmul_l (:527) and _w4_matmul_g (:830), body
 //   _w4_kernel (:182) with _deq_dot (:106).
 //
-//   out[m, n] = sum_k x[m, k] * (scale[k / 32, n] * q[k, n] + bias[k / 32, n])
+//   out[m, n] = sum_k x[m, k] * (scale[k / gs, n] * q[k, n] + bias[k / gs, n])
 //
 // Codes are [K/2, N] uint8: byte row r holds k = r in its low nibble and
 // k = K/2 + r in its high nibble, so a step over byte rows [r0, r1)
 // contracts two column ranges of x: [r0, r1) and [K/2 + r0, K/2 + r1).
-// Scale and bias planes are f32 [K/32, N]; bias may be absent. The grouped
+// Scale and bias planes are f32 [K/gs, N]; bias may be absent. Groups of 32
+// (Q4_K), or of 64 or 128 (GPTQ, AWQ) that divide K/2, so that each half of
+// the codes holds whole groups; the grouped form takes 32 only. The grouped
 // form multiplies row tile t by expert tile_idx[t] of a bank (planes
 // code_stride bytes and sb_stride floats apart); tiles at or past *n_used
 // write zeros and read no weights.
@@ -25,7 +27,9 @@
 // PREFILL (a row tile of 64 or 128 rows: dense M > 16, grouped tm = 64).
 //   Bound: the bf16 tensor-core rate; wgmma is the only way to it on Hopper.
 //   A step is 32 byte rows: x's columns [32 s, 32 s + 32) and
-//   [K/2 + 32 s, ...) side by side as one 64-column box.
+//   [K/2 + 32 s, ...) side by side as one 64-column box, each half within
+//   one group: plane rows 32 s / gs and (K/2 + 32 s) / gs (consecutive
+//   steps read the same rows when gs > 32).
 //   - Two producer warps and two consumer warpgroups; a block owns 128 rows
 //     (a warpgroup each, 64 x 256) or 64 rows (grouped, or M <= 64: each
 //     warpgroup takes 128 of the 256 columns, so eight warps still share the
@@ -77,10 +81,10 @@ struct PrefillSmem {
   static constexpr int BM = BM_;
   static constexpr int WN = BM == 128 ? 256 : 128;  // columns per warpgroup
   static constexpr int STAGES = BM == 128 ? 5 : 7;
-  // a step is 32 byte rows: logical k = [lo 32 | hi 32], one group each
+  // a step is 32 byte rows: logical k = [lo 32 | hi 32], within a group each
   static constexpr int X = 0;                        // [BM][64 k = 128 B], SW128
   static constexpr int CODES = BM * 128;             // [32 byte rows][256 B]
-  static constexpr int SCALE = CODES + 32 * P_BN;    // [2 groups: lo, hi][256] f32
+  static constexpr int SCALE = CODES + 32 * P_BN;    // [2 rows: lo, hi][256] f32
   static constexpr int BIAS = SCALE + 2 * P_BN * 4;
   static constexpr int STAGE = BIAS + 2 * P_BN * 4;  // a multiple of 1024
   static constexpr int BT = P_BN * 128;              // B tile [64 k][256 n], N-major SW128
@@ -97,13 +101,15 @@ struct PrefillSmem {
 // of the next 64 n lbo = 8192 B on
 constexpr uint32_t B_LBO = 8192, B_SBO = 1024;
 
-template <int BM, bool HAS_BIAS>
+// WIDE: groups of 64 or 128 (one matrix), the plane rows by a runtime
+// shift; else groups of 32, one row a step
+template <int BM, bool HAS_BIAS, bool WIDE>
 __global__ void __launch_bounds__(256 + P_PRODUCERS, 1)
 w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
                   const float* __restrict__ scale, const float* __restrict__ bias,
                   void* __restrict__ out, int M, int N, int K, int out_bf16,
                   const int* __restrict__ tile_idx, const int* __restrict__ n_used,
-                  long long code_stride, long long sb_stride) {
+                  long long code_stride, long long sb_stride, int gs) {
   using L = PrefillSmem<BM>;
   constexpr int WN = L::WN;
   extern __shared__ uint8_t dsmem[];
@@ -124,7 +130,10 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     scale += e * sb_stride;
     if (HAS_BIAS) bias += e * sb_stride;
   }
-  const int kh = K / 2, gh = kh / 32, nsteps = kh / 32;
+  // a step's plane rows by a shift of its index (steps of 32 rows; gs 64
+  // or 128 when WIDE), no division in the producers' loop
+  const int gsh = WIDE ? __ffs(gs) - 6 : 0;
+  const int kh = K / 2, gh = (kh >> 5) >> gsh, nsteps = kh / 32;
   const uint32_t full = smem_a + L::BARS, empty = full + 8 * L::STAGES;
   if (tid == 0) {
     for (int i = 0; i < L::STAGES; ++i) {
@@ -159,9 +168,10 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
         cp_async16(st + L::CODES + r * 256 + (j << 4),
                    codes + (ok ? (size_t)(s * 32 + r) * N + col : 0), ok);
       }
+      const int g0 = s >> gsh;
       for (int i = p; i < 2 * 64; i += P_PRODUCERS) {
         const int g = i >> 6, c = i & 63;
-        const int grow = g ? gh + s : s;
+        const int grow = g ? gh + g0 : g0;
         const int col = n0 + 4 * c;
         const bool ok = col < N;
         cp_async16(st + L::SCALE + (g * P_BN + 4 * c) * 4,
@@ -313,24 +323,27 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 
 using Args = DecodeArgs;
 
-template <int BM, bool HB>
+template <int BM, bool HB, bool WIDE>
 void launch_prefill(const Args& a, cudaStream_t st) {
   using L = PrefillSmem<BM>;
-  auto kernel = w4_prefill_kernel<BM, HB>;
+  auto kernel = w4_prefill_kernel<BM, HB, WIDE>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
   const dim3 grid((a.M + L::BM - 1) / L::BM, (a.N + P_BN - 1) / P_BN);
   kernel<<<grid, L::THREADS, L::TOTAL, st>>>(a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K,
                                              a.out_bf16, a.tile_idx, a.n_used, a.code_stride,
-                                             a.sb_stride);
+                                             a.sb_stride, a.gs);
 }
 
-// returns cudaErrorInvalidValue for a body and tile it does not have
-template <bool HB>
+// returns cudaErrorInvalidValue for a body and tile it does not have; at
+// groups over 32 the decode body is its runtime-group form (GS = 0) and the
+// prefill body its WIDE form
+template <bool HB, bool WIDE>
 cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
-  if (body == 0 && tile == 8) return launch_decode<PACKED4, 1, HB, 32, 4>(a, st);
-  if (body == 0 && tile == 16) return launch_decode<PACKED4, 2, HB, 32, 4>(a, st);
-  if (body == 1 && tile == 64) launch_prefill<64, HB>(a, st);
-  else if (body == 1 && tile == 128) launch_prefill<128, HB>(a, st);
+  constexpr int GS = WIDE ? 0 : 32;
+  if (body == 0 && tile == 8) return launch_decode<PACKED4, 1, HB, GS, 4>(a, st);
+  if (body == 0 && tile == 16) return launch_decode<PACKED4, 2, HB, GS, 4>(a, st);
+  if (body == 1 && tile == 64) launch_prefill<64, HB, WIDE>(a, st);
+  else if (body == 1 && tile == 128) launch_prefill<128, HB, WIDE>(a, st);
   else return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -338,7 +351,8 @@ cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
 }  // namespace
 
 // W4 matmul: x [M, K] bf16, codes [(E,) K/2, N] uint8, scale and bias
-// [(E,) K/32, N] f32 (bias may be NULL), out [M, N] (bf16 or f32).
+// [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32); gs 32,
+// or (one matrix only) 64 or 128 dividing K/2.
 // body 0 (decode): tile 8 or 16 rows; dense: M <= tile, grid.y = splits of
 //   K, workspace f32 [splits, M, N] and counters int32 [ceil(N / 64)] (all
 //   zero, left zero) when splits > 1; grouped: tile 16, one split.
@@ -347,12 +361,14 @@ cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
 // int32 experts, n_used one int32 on the device.
 extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale,
                              const void* bias, void* out, const void* tile_idx,
-                             const void* n_used, int M, int N, int K, int out_bf16, int body,
-                             int tile, int splits, long long code_stride, long long sb_stride,
-                             void* workspace, void* counters, void* stream) {
+                             const void* n_used, int M, int N, int K, int gs, int out_bf16,
+                             int body, int tile, int splits, long long code_stride,
+                             long long sb_stride, void* workspace, void* counters,
+                             void* stream) {
   const bool grouped = tile_idx != nullptr;
   const int nsteps = K / 128;
   const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
+                  (gs == 32 || (!grouped && (gs == 64 || gs == 128) && (K / 2) % gs == 0)) &&
                   splits <= nsteps &&
                   (grouped ? (n_used != nullptr && M % tile == 0 && splits == 1 &&
                               (body == 0 ? tile == 16 : tile == 64))
@@ -363,9 +379,13 @@ extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale
                static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, N, K,
                out_bf16, splits, static_cast<const int*>(tile_idx),
                static_cast<const int*>(n_used), code_stride, sb_stride,
-               static_cast<float*>(workspace), static_cast<int*>(counters)};
+               static_cast<float*>(workspace), static_cast<int*>(counters), gs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = bias ? launch<true>(a, body, tile, st) : launch<false>(a, body, tile, st);
+  const bool wide = gs != 32;
+  const cudaError_t e = bias ? (wide ? launch<true, true>(a, body, tile, st)
+                                     : launch<true, false>(a, body, tile, st))
+                             : (wide ? launch<false, true>(a, body, tile, st)
+                                     : launch<false, false>(a, body, tile, st));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

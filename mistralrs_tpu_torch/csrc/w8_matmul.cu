@@ -9,9 +9,11 @@
 //   out[m, n] = sum_k x[m, k] * (scale[k / gs, n] * q[k, n] + bias[k / gs, n])
 //
 // Codes are [K, N] (a bank: [E, K, N]), scale and bias planes f32 [K/gs, N]
-// (gs 16 or 32); bias may be absent. The grouped form multiplies row tile t
-// by expert tile_idx[t] of a bank (planes code_stride bytes and sb_stride
-// floats apart); tiles at or past *n_used write zeros and read no weights.
+// (gs 16 or 32; for one matrix also 64, or any multiple of 128 that divides
+// K: GPTQ's group 128, and per-column scales, gs = K); bias may be absent.
+// The grouped form multiplies row tile t by expert tile_idx[t] of a bank
+// (planes code_stride bytes and sb_stride floats apart); tiles at or past
+// *n_used write zeros and read no weights.
 //
 // Two bodies, chosen by the wrapper's w8_plan (ops/quant_matmul.py):
 //
@@ -59,13 +61,19 @@ cudaError_t launch_body(const DecodeArgs& a, int tile, int columns, cudaStream_t
   return cudaErrorInvalidValue;
 }
 
+// groups of 16, 32 and 64 are template constants; a multiple of 128 is the
+// runtime-group form (GS = 0), one plane row a step
 template <bool HB>
 cudaError_t launch(const DecodeArgs& a, int fmt, int gs, int tile, int columns,
                    cudaStream_t st) {
   if (fmt == U8 && gs == 32) return launch_body<U8, HB, 32>(a, tile, columns, st);
   if (fmt == U8 && gs == 16) return launch_body<U8, HB, 16>(a, tile, columns, st);
+  if (fmt == U8 && gs == 64) return launch_body<U8, HB, 64>(a, tile, columns, st);
+  if (fmt == U8 && gs % 128 == 0) return launch_body<U8, HB, 0>(a, tile, columns, st);
   if (fmt == S8 && gs == 32) return launch_body<S8, HB, 32>(a, tile, columns, st);
   if (fmt == S8 && gs == 16) return launch_body<S8, HB, 16>(a, tile, columns, st);
+  if (fmt == S8 && gs == 64) return launch_body<S8, HB, 64>(a, tile, columns, st);
+  if (fmt == S8 && gs % 128 == 0) return launch_body<S8, HB, 0>(a, tile, columns, st);
   return cudaErrorInvalidValue;
 }
 
@@ -81,7 +89,7 @@ extern "C" int mrt_w8_prefill(const void* x, const void* codes, const void* scal
 
 // W8 matmul: x [M, K] bf16, codes [(E,) K, N] (fmt 1: uint8, 2: int8), scale
 // and bias [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32);
-// gs 16 or 32.
+// gs 16 or 32, or (one matrix only) 64 or a multiple of 128 dividing K.
 // body 0 (decode): tile 8 or 16 rows, `columns` 64 or 128 per block; dense:
 //   M <= tile, grid.y = splits of K's K/128 steps, workspace f32 [splits, M,
 //   N] and counters int32 [ceil(N / columns)] (all zero, left zero) when
@@ -102,6 +110,8 @@ extern "C" int mrt_w8_matmul(const void* x, const void* codes, const void* scale
   const int steps = body == 0 ? K / 128 : K / 64;
   const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
                   splits <= steps &&
+                  (gs == 16 || gs == 32 ||
+                   (!grouped && (gs == 64 || (gs > 0 && gs % 128 == 0 && K % gs == 0)))) &&
                   (grouped ? (n_used != nullptr && splits == 1 &&
                               (body == 0 ? tile == 16 && M % 16 == 0 : M % 64 == 0))
                            : (body == 1 || M <= tile)) &&
@@ -116,7 +126,7 @@ extern "C" int mrt_w8_matmul(const void* x, const void* codes, const void* scale
                      static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, N,
                      K, out_bf16, splits, static_cast<const int*>(tile_idx),
                      static_cast<const int*>(n_used), code_stride, sb_stride,
-                     static_cast<float*>(workspace), static_cast<int*>(counters)};
+                     static_cast<float*>(workspace), static_cast<int*>(counters), gs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bias ? launch<true>(a, fmt, gs, tile, columns, st)
                              : launch<false>(a, fmt, gs, tile, columns, st);

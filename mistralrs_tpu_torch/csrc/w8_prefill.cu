@@ -19,8 +19,10 @@
 //   warpgroup, and two producer warps. Row tiles vary fastest in the grid,
 //   so the blocks that share a weight column tile run together.
 // - The producers keep a ring of 5-8 stages (64 k rows each: x [BM x 64]
-//   in the 128-byte swizzle, codes [64 x 256 B], the stage's 2 or 4 scale
-//   and bias rows) in flight with cp.async.cg, each stage signalled by
+//   in the 128-byte swizzle, codes [64 x 256 B], the stage's 4, 2 or 1
+//   scale and bias rows: groups of 16, of 32, or of 64 and more, a runtime
+//   group size (GS = 0) whose row is k0 / gs) in flight with cp.async.cg,
+//   each stage signalled by
 //   cp.async.mbarrier.arrive on a "full" mbarrier; consumer warps free a
 //   stage on an "empty" mbarrier once the wgmma that read it has retired.
 // - A consumer warp reads its 16-column code chunks with ldmatrix.trans,
@@ -64,9 +66,11 @@ constexpr int P8_PRODUCERS = 64;   // two producer warps
 constexpr int P8_STEP = 64;        // k rows per stage
 constexpr int P8_SMEM = 232448;    // the most shared memory a block may have
 
+// GS: the group size, or 0 for a runtime one of 64 or more
 template <int BM, bool HB, int GS>
 struct W8Prefill {
-  static constexpr int GROUPS = P8_STEP / GS;             // scale rows per stage
+  static_assert(GS == 16 || GS == 32 || GS == 0, "groups of 16, 32, or a runtime gs >= 64");
+  static constexpr int GROUPS = GS ? P8_STEP / GS : 1;    // scale rows per stage
   static constexpr int X = 0;                              // [BM][64 k = 128 B], SW128
   static constexpr int CODES = BM * 128;                   // [64 k][256 B], swizzled
   static constexpr int SCALE = CODES + P8_STEP * P8_BN;    // [GROUPS][256] f32
@@ -129,7 +133,7 @@ w8_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
                   const float* __restrict__ scale, const float* __restrict__ bias,
                   void* __restrict__ out, int M, int N, int K, int out_bf16, int splits,
                   const int* __restrict__ tile_idx, const int* __restrict__ n_used,
-                  long long code_stride, long long sb_stride, float* __restrict__ ws) {
+                  long long code_stride, long long sb_stride, float* __restrict__ ws, int gs) {
   using L = W8Prefill<BM, HB, GS>;
   extern __shared__ uint8_t dsmem[];
   const uint32_t raw = smem_u32(dsmem);
@@ -204,12 +208,13 @@ w8_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
                    codes + (ok ? (size_t)(k0 + r) * N + col : 0), ok);
       }
       // scale and bias: GROUPS rows x 64 chunks of 4 columns
+      const int g0 = GS ? k0 / GS : (int)((unsigned)k0 / (unsigned)gs);
 #pragma unroll
       for (int jj = 0; jj < L::GROUPS * 64 / P8_PRODUCERS; ++jj) {
         const int j = p + jj * P8_PRODUCERS, g = j >> 6, c = j & 63;
         const int col = n0 + 4 * c;
         const bool ok = col < N;
-        const size_t at = ok ? (size_t)(k0 / GS + g) * N + col : 0;
+        const size_t at = ok ? (size_t)(g0 + g) * N + col : 0;
         cp_async16(st + L::SCALE + (g * P8_BN + 4 * c) * 4, scale + at, ok);
         if (HB) cp_async16(st + L::BIAS + (g * P8_BN + 4 * c) * 4, bias + at, ok);
       }
@@ -248,7 +253,7 @@ w8_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
       }
 #pragma unroll
       for (int kh = 0; kh < 2; ++kh) {
-        const int kk = 2 * h + kh, grp = kk * 16 / GS;
+        const int kk = 2 * h + kh, grp = GS ? kk * 16 / GS : 0;
         uint32_t(&cur)[2][4] = a[kk % L::SETS];
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
@@ -345,7 +350,7 @@ cudaError_t launch_prefill(const DecodeArgs& a, cudaStream_t st) {
                   grouped ? 1 : a.splits);
   kernel<<<grid, L::THREADS, L::TOTAL, st>>>(a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K,
                                              a.out_bf16, a.splits, a.tile_idx, a.n_used,
-                                             a.code_stride, a.sb_stride, a.ws);
+                                             a.code_stride, a.sb_stride, a.ws, a.gs);
   if (a.splits > 1) {
     const size_t quads = (size_t)a.M * a.N / 4;
     w8_split_sum_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(a.ws, a.out, a.M, a.N,
@@ -367,6 +372,8 @@ cudaError_t launch(const DecodeArgs& a, int fmt, int gs, int tile, cudaStream_t 
   if (fmt == U8 && gs == 16) return launch_tile<U8, HB, 16>(a, tile, st);
   if (fmt == S8 && gs == 32) return launch_tile<S8, HB, 32>(a, tile, st);
   if (fmt == S8 && gs == 16) return launch_tile<S8, HB, 16>(a, tile, st);
+  if (fmt == U8 && gs % 64 == 0) return launch_tile<U8, HB, 0>(a, tile, st);
+  if (fmt == S8 && gs % 64 == 0) return launch_tile<S8, HB, 0>(a, tile, st);
   return cudaErrorInvalidValue;
 }
 
@@ -386,7 +393,7 @@ extern "C" int mrt_w8_prefill(const void* x, const void* codes, const void* scal
                      static_cast<const float*>(scale), static_cast<const float*>(bias), out, M, N,
                      K, out_bf16, splits, static_cast<const int*>(tile_idx),
                      static_cast<const int*>(n_used), code_stride, sb_stride,
-                     static_cast<float*>(workspace), static_cast<int*>(counters)};
+                     static_cast<float*>(workspace), static_cast<int*>(counters), gs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bias ? launch<true>(a, fmt, gs, tile, st)
                              : launch<false>(a, fmt, gs, tile, st);

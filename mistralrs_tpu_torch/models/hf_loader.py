@@ -28,12 +28,21 @@ says); the q/k/v/o biases wherever the checkpoint has them (JAX
 gpt-oss's banks are stored as the dense grouped kernel reads them:
 K-contiguous ``[E, N, K]``, the gate-up bank's interleaved columns (gate
 even, up odd) as a gate half then an up half, its bias permuted alike (a
-permutation: no value changes). Everything else raises
-``NotImplementedError`` naming it: other quantized checkpoints (GPTQ, AWQ,
-bitsandbytes), phi3's fused projections, MLP biases, and expert banks other
-than Mixtral's, Qwen3-MoE's and gpt-oss's. In-situ quantization, UQFF
-overlays, importance matrices and topologies are not ported: the loader
-takes no such argument.
+permutation: no value changes). GPTQ and AWQ checkpoints
+(``quantization_config.quant_method`` ``"gptq"`` or ``"awq"``, JAX
+``hf_loader.py:184-216``) store a projection ``<stem>.weight`` as the int32
+``<stem>.qweight``/``qzeros`` and f16 ``<stem>.scales`` (GPTQ: and
+``g_idx``), decoded on the device by ``quant/gptq_awq.py`` into planar
+QTensors for the W4 and W8 kernels (v1 GPTQ zeros take the offset 1,
+``checkpoint_format`` ``"gptq_v2"`` none); their f16 embedding and head are
+cast to ``dtype``. Everything else raises ``NotImplementedError`` naming
+it: bitsandbytes, MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits
+(AWQ: 4 only), AWQ packings other than ``"gemm"``, GPTQ act-order (a
+non-trivial ``g_idx``, which the JAX package refuses too), GPTQ/AWQ expert
+banks, a quantized ``lm_head``, phi3's fused projections, MLP biases, and
+expert banks other than Mixtral's, Qwen3-MoE's and gpt-oss's. In-situ
+quantization, UQFF overlays, importance matrices and topologies are not
+ported: the loader takes no such argument.
 """
 
 from __future__ import annotations
@@ -48,18 +57,20 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..quant.gptq_awq import awq_to_qtensor, gptq_to_qtensor
 from ..quant.mxfp4 import decode_mxfp4_param
 from .config import ModelConfig, config_from_hf
 from .llama import check_supported
 
 _DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
-           "U8": torch.uint8}
+           "U8": torch.uint8, "I32": torch.int32}
 
 
 def read_safetensors(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file as a CPU tensor in its own
-    dtype (F32, F16, BF16, or U8 for MXFP4 blocks and scales; other dtypes
-    raise). The file is memory-mapped and each tensor copied out of it."""
+    dtype (F32, F16, BF16, U8 for MXFP4 blocks and scales, or I32 for GPTQ
+    and AWQ words and ``g_idx``; other dtypes raise). The file is
+    memory-mapped and each tensor copied out of it."""
     path = Path(path)
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
@@ -132,6 +143,33 @@ _GPT_OSS_MAP = {"self_attn.sinks": "sinks", "mlp.router.weight": "router",
 # gpt-oss's pre-stacked expert banks (HF layout [E, in, out], or the MXFP4
 # <stem>_blocks/_scales of the transposed [E, out, in]) and their biases
 _GPT_OSS_BANKS = {"gate_up_proj": "gateup", "down_proj": "down"}
+# the tensors a GPTQ/AWQ checkpoint stores for a projection <stem>.weight
+_GPTQ_PARTS = (".qweight", ".qzeros", ".scales", ".g_idx")
+
+
+def _quant_method(quant_config: Optional[Mapping[str, Any]], cfg: ModelConfig) -> Optional[str]:
+    """The checkpoint's quantization, ``"mxfp4"``, ``"gptq"``, ``"awq"`` or
+    None, once it is known to be ported; raises ``NotImplementedError``
+    naming what is not."""
+    if not quant_config:
+        return None
+    method = quant_config.get("quant_method")
+    if method == "mxfp4" and cfg.arch == "gpt_oss":
+        return method
+    if method in ("gptq", "awq"):
+        bits = int(quant_config.get("bits", 4))
+        version = str(quant_config.get("version", "gemm")).lower()
+        if cfg.num_experts:
+            raise NotImplementedError(
+                f"HF loader: {method} expert banks ({cfg.num_experts} experts) not ported yet")
+        if bits not in ((4,) if method == "awq" else (4, 8)):
+            raise NotImplementedError(f"HF loader: {method} at {bits} bits not ported")
+        if method == "awq" and version != "gemm":
+            raise NotImplementedError(f"HF loader: AWQ packing {version!r} not ported (gemm only)")
+        return method
+    raise NotImplementedError(
+        f"HF loader: quantized checkpoint (quantization_config {method!r}: bitsandbytes, "
+        f"MXFP4 outside gpt-oss, ...) not ported yet")
 
 
 def _deinterleave(t: torch.Tensor) -> torch.Tensor:
@@ -166,21 +204,19 @@ def weights_from_state_dict(
     quant_config: Optional[Mapping[str, Any]] = None,
 ) -> dict:
     """The port's llama-family weight dict (``models/llama.py``) from a HF
-    state dict (dense tensors, and gpt-oss's MXFP4 banks with
-    ``quant_config`` ``{"quant_method": "mxfp4"}``), every leaf cast to
+    state dict (dense tensors; gpt-oss's MXFP4 banks with ``quant_config``
+    ``{"quant_method": "mxfp4"}``; GPTQ/AWQ projections with ``"gptq"`` or
+    ``"awq"``, decoded to planar QTensors), every dense leaf cast to
     ``dtype`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``;
     gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
     path, the same tensors to the same weights (gpt-oss's banks in the
     kernel's layout, above). A tensor of any other name (MLP biases, phi3's
     fused projections, q/k norms of a config without ``qk_norm``, expert
-    banks other than Mixtral's, Qwen3-MoE's and gpt-oss's) raises
-    ``NotImplementedError`` naming it."""
+    banks other than Mixtral's, Qwen3-MoE's and gpt-oss's, a quantized
+    ``lm_head``) raises ``NotImplementedError`` naming it."""
     gpt_oss = cfg.arch == "gpt_oss"
-    method = (quant_config or {}).get("quant_method")
-    if quant_config and not (gpt_oss and method == "mxfp4"):
-        raise NotImplementedError(
-            f"HF loader: quantized checkpoint (quantization_config {method!r}: GPTQ, AWQ, "
-            f"bitsandbytes, or MXFP4 outside gpt-oss) not ported yet")
+    method = _quant_method(quant_config, cfg)
+    gptq_awq = method in ("gptq", "awq")
     check_supported(cfg)
     dev = resolve_device(device)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
@@ -199,17 +235,32 @@ def weights_from_state_dict(
                for j in range(cfg.num_experts) for w, key in names.items()}
     banks = [f"mlp.experts.{hf}{tail}" for hf in _GPT_OSS_BANKS
              for tail in ("", "_bias", "_blocks", "_scales")] if gpt_oss else []
+    quantized = [suffix[:-len(".weight")] + part for suffix in layer_map
+                 if suffix.endswith("_proj.weight") for part in _GPTQ_PARTS] if gptq_awq else []
     known = {prefix + "embed_tokens.weight", prefix + "norm.weight", "lm_head.weight"}
     for i in range(cfg.num_layers):
         known.update(f"{prefix}layers.{i}.{suffix}"
-                     for suffix in (*layer_map, *experts, *banks))
+                     for suffix in (*layer_map, *experts, *banks, *quantized))
     unknown = sorted(n for n in sd if n not in known and not n.endswith("rotary_emb.inv_freq"))
     if unknown:
         raise NotImplementedError(f"HF loader: tensors not ported: {unknown[:8]}")
 
-    def take(name: str) -> Optional[torch.Tensor]:
+    bits = int((quant_config or {}).get("bits", 4))
+    zero_offset = 0 if (quant_config or {}).get("checkpoint_format") == "gptq_v2" else 1
+
+    def take(name: str):
         t = sd.get(name)
-        return None if t is None else t.to(device=dev, dtype=dtype)
+        if t is not None:
+            return t.to(device=dev, dtype=dtype)
+        stem = name[:-len(".weight")]
+        if not (gptq_awq and name.endswith(".weight") and stem + ".qweight" in sd):
+            return None
+        qw, qz, sc = (sd[stem + p].to(dev) for p in _GPTQ_PARTS[:3])
+        if method == "awq":
+            return awq_to_qtensor(qw, qz, sc, bits=bits)
+        g_idx = sd.get(stem + ".g_idx")
+        return gptq_to_qtensor(qw, qz, sc, g_idx=None if g_idx is None else g_idx.to(dev),
+                               bits=bits, zero_offset=zero_offset)
 
     layers = []
     for i in range(cfg.num_layers):

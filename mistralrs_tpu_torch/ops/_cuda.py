@@ -13,8 +13,10 @@ wrappers raise on a non-zero code (:func:`check`).
 
 Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
 launches its kernel, and every plain PyTorch version adds one to
-``COUNTS[name + "_plain"]``. A run resets them with :func:`reset_counts` and
-reads them afterwards to show which path it went through.
+``COUNTS[name + "_plain"]``; the dense W4 and W8 launches also add one to
+``COUNTS[name + ".decode"]`` or ``COUNTS[name + ".prefill"]``, the body their
+plan ran. A run resets them with :func:`reset_counts` and reads them
+afterwards to show which path it went through.
 
 The kernels that split their work across blocks share per-device state
 here: :func:`split_workspace` (f32 partials) and :func:`split_counters` (int
@@ -57,7 +59,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill",
+KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide",
+           "paged_decode", "paged_prefill",
            "w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "mla_decode",
            "paged_decode_int8", "paged_decode_fp8", "paged_prefill_int8", "paged_prefill_fp8",
            "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",
@@ -74,7 +77,7 @@ _L = ctypes.c_longlong
 # every bank stride c_longlong
 _SIGNATURES = {
     "mrt_dense_matmul_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
-    "mrt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L,
+    "mrt_w4_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                       _P, _P, _P],
     "mrt_w8_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _L, _L, _P, _P, _P],

@@ -3,9 +3,15 @@
 ``quant_matmul(x, qt)`` computes ``x @ w.T`` for a planar-quantized weight
 ``w = [N, K]``. On a CUDA tensor it launches a hand-written kernel: the **W4
 kernel** (``csrc/w4_matmul.cu``) for split-half packed 4-bit codes (Q4_K;
-replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8 kernel**
-(``csrc/w8_matmul.cu``) for one byte per code (Q8_0, Q6_K, unsigned with
-bias, the widened form; replaces ``_w8_matmul``/``_w8_matmul_l``). On a CPU
+GPTQ and AWQ 4-bit; replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8
+kernel** (``csrc/w8_matmul.cu``) for one byte per code (Q8_0, Q6_K,
+unsigned with bias, the widened form, GPTQ 8-bit and per-column GPTQ;
+replaces ``_w8_matmul``/``_w8_matmul_l``). Group sizes (:func:`_check_planes`):
+W4 32, or 64 and 128 dividing K/2; W8 16 and 32, or 64 and any multiple of
+128 dividing K (``group_size: -1``'s per-column scales are g = K). The
+groups over the k-quants' 32 are the kernels' wide-group forms, counted
+apart as ``w4_matmul_wide`` and ``w8_matmul_wide``; the grouped forms take
+the k-quant sizes only. On a CPU
 tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX package and the card's
 smoke run holds the kernels against.
@@ -60,7 +66,9 @@ _FMT_PACKED4, _FMT_U8, _FMT_S8 = 0, 1, 2
 
 
 def _kernel_name(qt: QTensor) -> str:
-    return "w4_matmul" if qt.packed else "w8_matmul"
+    """The launch count's name: the W4 or W8 kernel, ``_wide`` for its
+    wide-group forms (groups over 32: GPTQ, AWQ)."""
+    return ("w4_matmul" if qt.packed else "w8_matmul") + ("_wide" if qt.group_size > 32 else "")
 
 
 def quant_matmul_plain(
@@ -79,10 +87,15 @@ def _check_planes(qt: QTensor) -> int:
     and return the kernel's code format."""
     n, k = qt.out_features, qt.in_features
     lead = tuple(qt.data.shape[:-2])
+    gs, bank = qt.group_size, qt.num_banks is not None
     if qt.packed:
-        require(qt.group_size == 32, f"the W4 kernel takes group size 32, not {qt.group_size}")
+        require(gs == 32 or (not bank and gs in (64, 128) and (k // 2) % gs == 0),
+                f"the W4 kernel takes group size 32 (a bank: 32 only), or 64 or 128 dividing "
+                f"K/2 = {k // 2}; not {gs}")
     else:
-        require(qt.group_size in (16, 32), f"group size {qt.group_size} not in (16, 32)")
+        require(gs in (16, 32) or (not bank and (gs == 64 or (gs % 128 == 0 and k % gs == 0))),
+                f"the W8 kernel takes group size 16 or 32 (a bank: those only), 64, or a "
+                f"multiple of 128 dividing K = {k}; not {gs}")
     require(k % 128 == 0 and n % 16 == 0,
             f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
     require(qt.scale.dtype == torch.float32 and qt.scale.is_contiguous()
@@ -174,13 +187,14 @@ def prefill_cost(m: int, n: int, k: int, tile: int, splits: int, sms: int, gs: i
     not) in ``tile``-row blocks of ``PREFILL_COLUMNS`` columns with K in
     ``splits``: the body is bound by those reads (PERF.md), one block
     an SM (its ring fills the SM's shared memory). Each of its waves of
-    blocks reads a stage (x, codes, scale and bias rows) per step, plus
+    blocks reads a stage (x, codes, scale and bias rows: one row each for
+    groups of 64 and more) per step, plus
     ``PREFILL_RAMP_STEPS`` for filling its ring and its epilogue; the K
     splits' f32 partials are written and read back once, spread over the
     card."""
     tiles = -(-m // tile) * -(-n // PREFILL_COLUMNS)
     stage = (tile * PREFILL_STEP * 2 + PREFILL_STEP * PREFILL_COLUMNS
-             + PREFILL_STEP // gs * PREFILL_COLUMNS * 4 * (2 if bias else 1))
+             + -(-PREFILL_STEP // gs) * PREFILL_COLUMNS * 4 * (2 if bias else 1))
     waves = -(-tiles * splits // sms)
     per_split = -(-(k // PREFILL_STEP) // splits)
     partials = 0 if splits == 1 else 2 * splits * m * n * 4 / sms
@@ -347,7 +361,8 @@ def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
     ws, cnt = _split_buffers(x2.device, plan, m, n)
     return library().mrt_w4_matmul(
         x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
-        _ptr(tile_idx), _ptr(n_used), m, n, k, int(out_bf16), _BODIES[plan.body], plan.tile,
+        _ptr(tile_idx), _ptr(n_used), m, n, k, qt.group_size, int(out_bf16),
+        _BODIES[plan.body], plan.tile,
         plan.splits, *_bank_strides(qt), _ptr(ws), _ptr(cnt), stream_ptr(x2),
     )
 
@@ -393,6 +408,7 @@ def _quant_matmul_cuda(
         code = _w8_launch(x2, qt, fmt, out, out_bf16)
     check(code, name)
     COUNTS[name] += 1
+    COUNTS[f"{name}.{_plan(qt, m, sm_count(x2.device)).body}"] += 1  # the body it ran
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 

@@ -322,7 +322,8 @@ def test_engine_refuses_quantized_pool():
 # safetensors and load_pipeline
 # ---------------------------------------------------------------------------
 
-_ST_CODES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16", np.dtype(np.uint8): "U8"}
+_ST_CODES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16", np.dtype(np.uint8): "U8",
+             np.dtype(np.int32): "I32"}
 
 
 def write_safetensors(path, tensors):

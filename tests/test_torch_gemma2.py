@@ -447,8 +447,8 @@ def test_gguf_gemma2_is_refused(tmp_path):
 @pytest.mark.parametrize("case", ["quantization_config", "bias", "qk_norm", "phi3_fused"])
 def test_hf_refusals(tmp_path, case):
     cfg_d, sd = _hf_case("llama", np.random.default_rng(0))
-    if case == "quantization_config":
-        cfg_d["quantization_config"] = {"quant_method": "gptq", "bits": 4}
+    if case == "quantization_config":  # GPTQ/AWQ load since they were ported; bnb does not
+        cfg_d["quantization_config"] = {"quant_method": "bitsandbytes"}
     elif case == "bias":  # attention biases load by name (Qwen2); MLP biases do not
         sd["model.layers.0.mlp.down_proj.bias"] = np.zeros(32, np.float32)
     elif case == "qk_norm":  # q/k norm before RoPE is ported (Qwen3); after it is not
