@@ -123,7 +123,23 @@ script in one call:
    Qwen2.5-7B-GPTQ-Int8's (M=8 gate-up N=37888 K=3584 and down K=18944,
    M=512 gate-up), timed as the group-32 rows are; then untimed edges: W4
    at group 64, W8 at 64 and per-column (g = K), K splits that cut groups,
-   M of 1, 16, 17 and 130, bf16 and f32 output;
+   M of 1, 16, 17 and 130, bf16 and f32 output.
+   Last, the grouped forms' wide groups (``w4_matmul_wide_g``,
+   ``w8_matmul_wide_g``) on expert banks drawn as GPTQ and AWQ checkpoints
+   store them, each expert decoded on the device and the experts stacked
+   (``QTensor.stack``): Mixtral-8x7B's AWQ banks at group 128 (gate/up fused
+   [8, 28672, 4096], down [8, 4096, 14336], both W4) at n*k = 16 and 1024,
+   each beside a Q4_K bank of its shape (group 32) on the same routing and
+   tokens; Qwen1.5-MoE-A2.7B's GPTQ-Int4 banks at group
+   128 (W4 gate/up fused [60, 2816, 2048], W8 down [60, 2048, 1408] with
+   unsigned codes and a bias) at n*k = 32 (8 decode tokens, top-4) and 2048
+   (a 512-token prefill), timed as the group-32 rows are (bound: the
+   touched experts' codes and f32 planes plus the n*k real rows; library:
+   one ``torch.matmul`` per non-empty group); then untimed: those Qwen
+   banks in the all-to-one and empty-expert routings at both row tiles, W4
+   grouped at group 64, W8 grouped at 64 and per-column (g = K = 1408) in
+   those routings at both row tiles, bf16 and f32 output, and the decode
+   kernel at GQA group 1 (16/16 heads) at the table's B=8 row;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -161,7 +177,9 @@ script in one call:
    and 3g log, beside the count of expert choices that agree, the plain
    run's router-logit gap at the top-k edge (the k-th largest logit less the
    (k+1)-th) of each choice that differs: near-ties flip under another sum
-   order, a kernel fault would flip clear choices too;
+   order, a kernel fault would flip clear choices too; beside them, how far
+   the two runs' router logits lie apart (on one path: the plain run takes
+   the kernel run's choices), in bf16 ulps of each row's top-k edge;
 3f. the same schedule at full Qwen2.5-7B width with 2 layers (GQA group 7,
    q/k/v biases; each 128-token chunk spans 15 query tiles of 9 tokens),
    bf16 weights; logits within 5e-2 of the largest;
@@ -187,6 +205,18 @@ script in one call:
    q/k/v fused with their biases: the W4 and then the W8 wide-group form
    in both bodies, no plain version in the kernel run; logits within 5e-2
    of the largest;
+3j. the phase-3f schedule at full Qwen1.5-MoE-A2.7B width with 2 layers as
+   its GPTQ-Int4 checkpoint stores them (16/16 heads with q/k/v biases, 60
+   experts top-4 without renormalisation, the gated shared expert; group
+   128; f16 routers and shared-expert gates), drawn on the device a layer
+   at a time and loaded through the HF loader: W4 grouped (gate/up) and W8
+   grouped (down) in both bodies, the W4 wide form for attention and the
+   shared expert, no plain version in the kernel run; phase 3g's near-tie
+   rule on expert choices, then the plain run on the kernel run's choices;
+   logits within 5e-2 of the largest;
+3k. the same at full Mixtral-8x7B width with 2 layers as TheBloke's AWQ
+   checkpoint stores them (group 128, zero points, f16 router): W4 grouped
+   for both banks in both bodies; phase 3b's rule on expert choices;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -254,15 +284,23 @@ script in one call:
    embedding and head), drawn on the device and loaded through the HF
    loader: the same 6 requests and checks; the W4 wide-group form launched
    in both bodies and no plain version;
-13. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+13. serve the full 24-layer Qwen1.5-MoE-A2.7B geometry as its GPTQ-Int4
+   checkpoint stores it (~11 GB on the device: 9.1 GB of expert planes, the
+   shared experts, attention, a bf16 embedding and head), drawn on the
+   device a layer at a time as the loader reads it (the words of one layer
+   at a time beside the planes) after the Llama-3.1 weights are freed: the
+   same 6 requests and checks; W4 grouped and W8 grouped launched in both
+   bodies, the W4 wide form, and no plain version;
+14. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-12 (4's int8 serve and 11 for the int8 forms of the paged
+phases 4-13 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
-and the int8 head_dim-64 forms (3e), and phase 3i's two runs (the W8
-wide-group form runs there alone); a kernel launched in none fails the
+and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
+wide-group form runs there alone) and phases 3j and 3k; a kernel launched
+in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
 
@@ -291,6 +329,7 @@ its splits in split order, so two calls give the same bits.
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import faulthandler
 import gc
@@ -441,6 +480,22 @@ AWQ_INT4 = {"quant_method": "awq", "bits": 4, "group_size": 128, "zero_point": T
 GPTQ_INT4 = {"quant_method": "gptq", "bits": 4, "group_size": 128, "sym": True,
              "desc_act": False}
 GPTQ_INT8 = dict(GPTQ_INT4, bits=8)
+# Qwen1.5-MoE-A2.7B as Qwen/Qwen1.5-MoE-A2.7B-Chat-GPTQ-Int4 ships it (its
+# config.json: 16/16 heads of 128, q/k/v biases, 60 experts top-4 of width
+# 1408 without renormalisation, a gated shared expert of 5632, rope_theta
+# 1e6; its sliding_window of 32768 windows every layer, as both packages
+# read the config, and never bites at 8192 positions; quantization_config
+# GPTQ_INT4's, the routers and shared-expert gates left f16): the experts'
+# gate/up (K = 2048) land on W4 grouped, their down (K = 1408, K/2 % 128 =
+# 64) keeps a byte a code and lands on W8 grouped, attention and the shared
+# expert on W4, all at group 128
+QWEN15_MOE_A27B = dict(
+    arch="qwen2moe", vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+    num_layers=24, num_heads=16, num_kv_heads=16, head_dim=128, num_experts=60,
+    num_experts_per_tok=4, moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+    norm_topk_prob=False, sliding_window=32768, rms_norm_eps=1e-6, rope_theta=1e6,
+    max_position_embeddings=8192,
+)
 DENSE_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode", "paged_prefill")
 WIDE_W4_KERNELS = ("w4_matmul_wide", "paged_decode", "paged_prefill")
 WIDE_W8_KERNELS = ("w8_matmul_wide", "paged_decode", "paged_prefill")
@@ -449,6 +504,10 @@ GEMMA_KERNELS = ("paged_decode_hd256", "paged_prefill_hd256")
 GPT_OSS_KERNELS = ("paged_decode_hd64", "paged_prefill_hd64", "dense_matmul_g")
 QWEN_KERNELS = ("paged_decode", "paged_prefill")
 QWEN_MOE_KERNELS = ("paged_decode", "paged_prefill", "dense_matmul_g")
+# the wide-group grouped forms: GPTQ/AWQ expert banks
+QWEN15_MOE_KERNELS = ("w4_matmul_wide_g", "w8_matmul_wide_g", "w4_matmul_wide", "paged_decode",
+                      "paged_prefill")
+MIXTRAL_AWQ_KERNELS = ("w4_matmul_wide_g", "w4_matmul_wide", "paged_decode", "paged_prefill")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -473,6 +532,11 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:830"),
     "w8_matmul_g": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:895"),
+    # the grouped forms' wide groups (GPTQ and AWQ expert banks)
+    "w4_matmul_wide_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
+                         "mistralrs_tpu/ops/quant_matmul.py:830"),
+    "w8_matmul_wide_g": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
+                         "mistralrs_tpu/ops/quant_matmul.py:895"),
     "dense_matmul_g": ("mistralrs_tpu_torch/csrc/dense_grouped.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
@@ -632,9 +696,16 @@ def quant_words(n: int, k: int, gen: torch.Generator, dev, bits: int = 4, group:
     """One projection ``[n, k]`` as a GPTQ (symmetric: zeros stored as
     2^(bits-1) - 1, read with v1's + 1) or AWQ (``zero_point``: zeros drawn)
     checkpoint stores it, drawn on the device: int32 ``qweight`` and
-    ``qzeros`` over the whole 32-bit range, f16 ``scales`` giving weights of
-    variance ~1/K, and for GPTQ a trivial ``g_idx``; ``group`` 0 is
-    per-column (g = K)."""
+    ``qzeros``, f16 ``scales`` giving weights of variance ~1/K, and for
+    GPTQ a trivial ``g_idx``; ``group`` 0 is per-column (g = K). AWQ's
+    words lie over the whole 32-bit range (codes and zeros uniform, so
+    ``q - z`` has mean 0). GPTQ's codes are uniform over 1 .. 2^bits - 1,
+    centred on the symmetric zero 2^(bits-1) as the codes of zero-mean
+    weights are (the words still reach bit 31): codes over every value
+    would give every weight a mean of half a step, a common-mode term that
+    each 4-bit product of K inputs multiplies by ~sqrt(K) / 9, so that two
+    layers of it lift activations ~20x and peak the attention until
+    last-bit differences move its output."""
     g = group or k
     per, levels = 32 // bits, 1 << bits
 
@@ -642,16 +713,21 @@ def quant_words(n: int, k: int, gen: torch.Generator, dev, bits: int = 4, group:
         return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
                              dtype=torch.int64).to(torch.int32)
 
-    var_q = (levels * levels - 1) / 12
+    def centred_words(*shape):  # codes uniform over 1 .. levels - 1, packed along dim 0
+        codes = torch.randint(1, levels, (per, *shape), generator=gen, device=dev,
+                              dtype=torch.int64)
+        w = sum(codes[i] << (i * bits) for i in range(per))
+        return (w - ((w >> 31) << 32)).to(torch.int32)  # as the int32 the checkpoint holds
+
     if awq:
         out = {"qweight": words(k, n // per), "qzeros": words(k // g, n // per)}
-        e2 = 2 * var_q  # E[(q - z)^2], both uniform
+        e2 = (levels * levels - 1) / 6  # E[(q - z)^2], both uniform over every value
     else:
         word = sum((levels // 2 - 1) << (i * bits) for i in range(per))
-        out = {"qweight": words(k // per, n),
+        out = {"qweight": centred_words(k // per, n),
                "qzeros": torch.full((k // g, n // per), word, dtype=torch.int32, device=dev),
                "g_idx": torch.arange(k, dtype=torch.int32, device=dev) // g}
-        e2 = var_q + 0.25  # the codes' mean is half a step from the zero
+        e2 = ((levels - 1) ** 2 - 1) / 12  # the codes' variance about the zero
     out["scales"] = ((0.75 + 0.5 * torch.rand((k // g, n), generator=gen, device=dev))
                      / math.sqrt(e2 * k)).to(torch.float16)
     return out
@@ -667,40 +743,135 @@ def wide_layer(n: int, k: int, gen: torch.Generator, dev, bits: int = 4, group: 
                                     bits=bits, zero_offset=zero_offset)
 
 
+def quant_bank(e: int, n: int, k: int, gen: torch.Generator, dev, bits: int = 4,
+               group: int = 128, awq: bool = False) -> QTensor:
+    """A bank of ``e`` experts ``[n, k]``, each drawn as a GPTQ or AWQ
+    checkpoint stores it (:func:`quant_words`), decoded on the device by
+    ``quant/gptq_awq.py`` one by one and stacked (``QTensor.stack``), as the
+    HF loader builds a bank; a fused gate/up bank is drawn as one ``[2 I,
+    H]`` layer an expert (both formats pack columns independently, so the
+    planes equal those of gate and up decoded apart and concatenated)."""
+    return QTensor.stack([wide_layer(n, k, gen, dev, bits, group, awq) for _ in range(e)])
+
+
+def checkpoint_layer(cfg: ModelConfig, qc: dict) -> dict:
+    """The tensors of one layer as a GPTQ or AWQ checkpoint of ``cfg``
+    stores them: ``{suffix: ("words", (n, k)) | ("f16", shape, std) |
+    ("ones", shape)}``; every projection (q/k/v/o, the dense MLP, Mixtral's
+    and qwen2moe's experts, qwen2moe's shared expert) as words, the norms
+    of ones, Qwen's q/k/v biases of N(0, 0.1^2), the routers and qwen2moe's
+    shared-expert gate in f16 of N(0, 1/H) (AutoGPTQ and AutoAWQ leave them
+    unquantized)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    spec = {f"{norm}.weight": ("ones", (h,))
+            for norm in ("input_layernorm", "post_attention_layernorm")}
+    projs = {"self_attn.q_proj": (cfg.q_dim, h), "self_attn.k_proj": (cfg.kv_dim, h),
+             "self_attn.v_proj": (cfg.kv_dim, h), "self_attn.o_proj": (h, cfg.q_dim)}
+    e, mi = cfg.num_experts, cfg.moe_intermediate_size or i
+    if cfg.arch == "mixtral":
+        spec["block_sparse_moe.gate.weight"] = ("f16", (e, h), h ** -0.5)
+        for j in range(e):
+            projs.update({f"block_sparse_moe.experts.{j}.w1": (mi, h),
+                          f"block_sparse_moe.experts.{j}.w3": (mi, h),
+                          f"block_sparse_moe.experts.{j}.w2": (h, mi)})
+    elif cfg.arch == "qwen2moe":
+        si = cfg.shared_expert_intermediate_size
+        spec["mlp.gate.weight"] = ("f16", (e, h), h ** -0.5)
+        spec["mlp.shared_expert_gate.weight"] = ("f16", (1, h), h ** -0.5)
+        for j in range(e):
+            projs.update({f"mlp.experts.{j}.gate_proj": (mi, h),
+                          f"mlp.experts.{j}.up_proj": (mi, h),
+                          f"mlp.experts.{j}.down_proj": (h, mi)})
+        projs.update({"mlp.shared_expert.gate_proj": (si, h),
+                      "mlp.shared_expert.up_proj": (si, h),
+                      "mlp.shared_expert.down_proj": (h, si)})
+    else:
+        projs.update({"mlp.gate_proj": (i, h), "mlp.up_proj": (i, h), "mlp.down_proj": (h, i)})
+    spec.update({name: ("words", nk) for name, nk in projs.items()})
+    if cfg.arch in ("qwen2", "qwen2moe"):
+        for t in "qkv":
+            spec[f"self_attn.{t}_proj.bias"] = ("f16", (projs[f"self_attn.{t}_proj"][0],), 0.1)
+    return spec
+
+
+class LayerwiseCheckpoint(collections.abc.Mapping):
+    """A GPTQ or AWQ checkpoint of ``cfg`` (``quantization_config`` ``qc``)
+    drawn on the device a layer at a time, as the HF loader reads it: its
+    names are known up front, and a layer's tensors are drawn (from a
+    generator of that layer's own seed) when one of them is first read,
+    and the layer before dropped, so that the int32 words of the whole
+    model never sit on the device beside the planes decoded from them. The
+    embedding and the untied head are f16 of N(0, 0.02^2), the final norm
+    ones."""
+
+    def __init__(self, cfg: ModelConfig, dev, seed: int, qc: dict):
+        self.cfg, self.dev, self.seed, self.qc = cfg, dev, seed, qc
+        self.spec = checkpoint_layer(cfg, qc)
+        parts = ("qweight", "qzeros", "scales") + (() if qc["quant_method"] == "awq"
+                                                   else ("g_idx",))
+        self.names = {}  # name → (layer, suffix, part)
+        for li in range(cfg.num_layers):
+            for suffix, kind in self.spec.items():
+                if kind[0] == "words":
+                    for part in parts:
+                        self.names[f"model.layers.{li}.{suffix}.{part}"] = (li, suffix, part)
+                else:
+                    self.names[f"model.layers.{li}.{suffix}"] = (li, suffix, None)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        h, v = cfg.hidden_size, cfg.vocab_size
+        self.top = {"model.embed_tokens.weight": self._f16(gen, (v, h), 0.02),
+                    "model.norm.weight": torch.ones(h, device=dev, dtype=torch.float16),
+                    "lm_head.weight": self._f16(gen, (v, h), 0.02)}
+        self.layer, self.tensors = None, {}
+
+    def _f16(self, gen, shape, std):
+        return torch.randn(shape, generator=gen, device=self.dev, dtype=torch.float16).mul_(std)
+
+    def _draw(self, li: int) -> None:
+        self.tensors = {}  # the layer before is dropped first
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed + 7919 * (li + 1))
+        qc = self.qc
+        for suffix, kind in self.spec.items():
+            if kind[0] == "words":
+                n, k = kind[1]
+                words = quant_words(n, k, gen, self.dev, qc["bits"], qc["group_size"],
+                                    qc["quant_method"] == "awq")
+                self.tensors.update({(suffix, part): t for part, t in words.items()})
+            elif kind[0] == "f16":
+                self.tensors[(suffix, None)] = self._f16(gen, kind[1], kind[2])
+            else:
+                self.tensors[(suffix, None)] = torch.ones(kind[1], device=self.dev,
+                                                          dtype=torch.float16)
+        self.layer = li
+
+    def __getitem__(self, name):
+        if name in self.top:
+            return self.top[name]
+        li, suffix, part = self.names[name]
+        if li != self.layer:
+            self._draw(li)
+        return self.tensors[(suffix, part)]
+
+    def __contains__(self, name):  # a name's layer is drawn only when it is read
+        return name in self.top or name in self.names
+
+    def __iter__(self):
+        return itertools.chain(self.top, self.names)
+
+    def __len__(self):
+        return len(self.top) + len(self.names)
+
+
 def build_quantized(cfg: ModelConfig, dev, seed: int, qc: dict) -> dict:
     """``cfg``'s weights as a GPTQ or AWQ checkpoint (``quantization_config``
-    ``qc``) stores them, drawn on the device: every projection's words
-    (:func:`quant_words`), f16 norms of ones, Qwen2's q/k/v biases of N(0,
-    0.1^2), an f16 embedding and untied head of N(0, 0.02^2); loaded through
-    the HF loader (``weights_from_state_dict``: the words decoded on the
-    device into planar QTensors, the f16 tensors cast to bf16), the source
-    tensors freed, then q/k/v and gate/up fused: ~6.0 GB for Llama-3.1-8B's
-    32 layers at 4 bits."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    bits, awq = qc["bits"], qc["quant_method"] == "awq"
-
-    def f16(*shape, std=0.02):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float16).mul_(std)
-
-    projections = {"self_attn.q_proj": (cfg.q_dim, h), "self_attn.k_proj": (cfg.kv_dim, h),
-                   "self_attn.v_proj": (cfg.kv_dim, h), "self_attn.o_proj": (h, cfg.q_dim),
-                   "mlp.gate_proj": (i, h), "mlp.up_proj": (i, h), "mlp.down_proj": (h, i)}
-    sd = {}
-    for li in range(cfg.num_layers):
-        p = f"model.layers.{li}."
-        for norm in ("input_layernorm", "post_attention_layernorm"):
-            sd[f"{p}{norm}.weight"] = torch.ones(h, device=dev, dtype=torch.float16)
-        for name, (n, k) in projections.items():
-            for part, t in quant_words(n, k, gen, dev, bits, qc["group_size"], awq).items():
-                sd[f"{p}{name}.{part}"] = t
-        if cfg.arch == "qwen2":
-            for t in "qkv":
-                sd[f"{p}self_attn.{t}_proj.bias"] = f16(projections[f"self_attn.{t}_proj"][0],
-                                                         std=0.1)
-    sd["model.embed_tokens.weight"] = f16(cfg.vocab_size, h)
-    sd["model.norm.weight"] = torch.ones(h, device=dev, dtype=torch.float16)
-    sd["lm_head.weight"] = f16(cfg.vocab_size, h)
+    ``qc``) stores them (:class:`LayerwiseCheckpoint`: a layer's words drawn
+    on the device as the loader reads it), loaded through the HF loader
+    (``weights_from_state_dict``: the words decoded on the device into
+    planar QTensors, the experts stacked into banks, the f16 tensors cast
+    to bf16), then q/k/v, gate/up and the experts' gate/up fused: ~6.0 GB
+    for Llama-3.1-8B's 32 layers at 4 bits, ~11 GB for Qwen1.5-MoE-A2.7B's
+    24."""
+    sd = LayerwiseCheckpoint(cfg, dev, seed, qc)
     weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev, quant_config=qc)
     del sd
     torch.cuda.empty_cache()
@@ -1011,12 +1182,18 @@ def grouped_routing(ntok, e, routing, gen, dev, top=2):
     return topi, torch.rand((ntok, top), generator=gen, device=dev)
 
 
-def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, top=2):
+def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, top=2,
+                  out_dtype=None, route_seed=None):
     """One grouped kernel on a bank ``w`` ([E, N, K]: QTensor or bf16) for
-    ``ntok`` tokens routed top-``top``, against its plain version; timed with
-    its bound and library yardstick when ``timed``."""
+    ``ntok`` tokens routed top-``top``, against its plain version (a
+    quantized bank's output in ``out_dtype`` when given); timed with its
+    bound and library yardstick when ``timed``. With ``route_seed`` the
+    routing and the tokens come from a generator of that seed, so that two
+    banks of one shape see the same ones."""
     dense = isinstance(w, torch.Tensor)
     e, n, k = w.shape
+    if route_seed is not None:
+        gen = torch.Generator(device=dev).manual_seed(route_seed)
     topi, topw = grouped_routing(ntok, e, routing, gen, dev, top)
     tm = grouped_tile(ntok * top)
     st, dest, _, tiles, n_used, mp = build_groups(topi, topw, e, tm)
@@ -1024,9 +1201,10 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, 
     xs = torch.zeros((mp, k), device=dev, dtype=torch.bfloat16)
     xs[dest] = x[st]
     fn = dense_matmul_grouped if dense else quant_matmul_grouped
+    kw = {} if out_dtype is None else dict(out_dtype=out_dtype)
 
     def run(plain=False):
-        return fn(xs, w, tiles, tm=tm, n_used_tiles=n_used, plain=plain)
+        return fn(xs, w, tiles, tm=tm, n_used_tiles=n_used, plain=plain, **kw)
 
     got, again, ref = run(), run(), run(plain=True)
     torch.cuda.synchronize()
@@ -1038,6 +1216,8 @@ def check_grouped(name, w, ntok, rates, gen, dev, routing="random", timed=True, 
         raise AssertionError(f"{name} {routing} E={e} N={n} K={k} tokens={ntok}: "
                              f"max err {err} > {tol}, unused tiles not zero or two calls differ")
     shape = f"E={e} N={n} K={k} n*k={top * ntok} tm={tm} used tiles={used} ({routing})"
+    if not dense and w.group_size > 32:
+        shape += f" group {w.group_size}" + (f" out {got.dtype}" if out_dtype else "")
     plan_of = getattr(_moe_grouped, "dense_grouped_plan", None)  # absent in older trees
     if dense and plan_of is not None:
         plan = plan_of(tm)
@@ -1096,6 +1276,68 @@ def check_grouped_kernels(rows, rates, gen, dev, e=8, h=4096, mi=14336):
                                                 timed=False))
         del w
         torch.cuda.empty_cache()
+
+
+def check_wide_grouped(rows, rates, gen, dev):
+    """Phase 2's wide-group grouped forms on expert banks drawn as GPTQ and
+    AWQ checkpoints store them (:func:`quant_bank`): Mixtral-8x7B's AWQ
+    banks at group 128 (gate/up fused [8, 28672, 4096] and down [8, 4096,
+    14336], both W4, top-2) at n*k = 16 and 1024, each beside a Q4_K bank
+    of its shape (group 32) on the same routing and tokens;
+    Qwen1.5-MoE-A2.7B's GPTQ-Int4 banks at group 128 (W4 gate/up fused [60,
+    2816, 2048], W8 down [60, 2048, 1408], unsigned codes with a bias,
+    top-4) at n*k = 32 (8 decode tokens) and 2048 (a 512-token prefill),
+    with the all-to-one and empty-expert routings at both row tiles; then
+    untimed edges on Qwen1.5-MoE's shapes: W4 at group 64, W8 at 64 and
+    per-column (g = K = 1408), each at both row tiles in those routings,
+    with bf16 and f32 output; last the decode kernel at GQA group 1
+    (Qwen1.5-MoE's 16/16 heads) at the table's B=8 row."""
+    for what, (n, k) in (("gate/up, fused", (28672, 4096)), ("down", (4096, 14336))):
+        for name, w in (("w4_matmul_wide_g", quant_bank(8, n, k, gen, dev, awq=True)),
+                        ("w4_matmul_g", q4k(n, k, gen, dev, e=8))):
+            for ntok in (8, 512):
+                r = check_grouped(name, w, ntok, rates, gen, dev, route_seed=SEED + 40 + ntok)
+                r["shape"] = (f"Mixtral {'AWQ' if w.group_size == 128 else 'Q4_K'} {what} "
+                              f"(same routing): {r['shape']}")
+                rows[name].append(r)
+            del w
+            torch.cuda.empty_cache()
+    banks = [
+        ("w4_matmul_wide_g", "Qwen1.5-MoE gate/up, fused", 4,
+         lambda: quant_bank(60, 2816, 2048, gen, dev), (8, 512), ("all_to_one", "empty_expert")),
+        ("w8_matmul_wide_g", "Qwen1.5-MoE down (u8, bias)", 4,
+         lambda: quant_bank(60, 2048, 1408, gen, dev), (8, 512), ("all_to_one", "empty_expert")),
+    ]
+    for name, what, top, make, sizes, routings in banks:
+        w = make()
+        check(w.group_size == 128 and w.packed == name.startswith("w4"),
+              f"{what}: group {w.group_size}, packed {w.packed}")
+        for ntok in sizes:
+            r = check_grouped(name, w, ntok, rates, gen, dev, top=top)
+            r["shape"] = f"{what}: {r['shape']}"
+            rows[name].append(r)
+        for routing in routings:
+            for ntok in sizes:
+                rows[name].append(check_grouped(name, w, ntok, rates, gen, dev, routing,
+                                                timed=False, top=top))
+        del w
+        torch.cuda.empty_cache()
+    # (kernel, (N, K), bits, group): GPTQ 4-bit at 64 packs (K/2 = 1024); 8-bit
+    # at 64 and 4-bit per-column keep a byte a code
+    edges = [("w4_matmul_wide_g", (2816, 2048), 4, 64), ("w8_matmul_wide_g", (2048, 1408), 8, 64),
+             ("w8_matmul_wide_g", (2048, 1408), 4, 0)]
+    for name, (n, k), bits, group in edges:
+        w = quant_bank(60, n, k, gen, dev, bits=bits, group=group)
+        check(w.packed == name.startswith("w4"), f"{name} group {group}: packed {w.packed}")
+        for routing, ntok, out_dtype in (("random", 8, torch.float32), ("all_to_one", 8, None),
+                                         ("empty_expert", 8, None), ("random", 512, None),
+                                         ("all_to_one", 512, torch.float32),
+                                         ("empty_expert", 512, None)):
+            rows[name].append(check_grouped(name, w, ntok, rates, gen, dev, routing, timed=False,
+                                            top=4, out_dtype=out_dtype))
+        del w
+        torch.cuda.empty_cache()
+    rows["paged_decode"].append(check_decode(rates, gen, dev, n_q=16, n_kv=16, timed=False))
 
 
 def check_expert_banks(rows, rates, gen, dev, model: str, e: int, h: int, mi: int, top: int,
@@ -1285,7 +1527,7 @@ def gathered(pools, bt, bs, group):
 
 def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512), w=16,
                  dropped=3, kv_quant=None, n_q=32, n_kv=8, hd=128, window=0, softcap=0.0,
-                 sinks=False, window_control=False):
+                 sinks=False, window_control=False, timed=True):
     """The decode kernel (its quantized form with ``kv_quant``, its
     head_dim-256 form with ``hd=256``) on tables of ``w`` blocks of 64 for
     rows of ``kv_lens`` (row ``dropped`` drops its write), with a sliding
@@ -1300,7 +1542,8 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     plain version without the cap must differ from it by more than
     ``CAP_CONTROL``; with ``sinks`` (f32 per head, ``draw_sinks``) the
     plain version without them must too (SDPA has no sinks), and with
-    ``window_control`` the plain version without the window."""
+    ``window_control`` the plain version without the window. Untimed
+    (``timed=False``): the checks alone."""
     b, bs = len(kv_lens), 64
     kv_lens = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     bt, s_total = paged_layout(b, bs, w, gen, dev)
@@ -1344,6 +1587,11 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
                                     "window")
         del ctl_p
     del ref
+    if not timed:
+        shape = f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<={int(kv_lens.max())}"
+        log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
+            f"two calls equal")
+        return dict(shape=shape, max_abs_err=err)
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
     # of time; no mask where every position of the table is visible
     kk, vv = gathered(mine, bt, bs, n_q // n_kv)
@@ -1582,7 +1830,7 @@ def check_model_pools(cfg, weights, dev, kv_quant) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_routing(chosen: list, forced=None, gaps=None):
+def recorded_routing(chosen: list, forced=None, gaps=None, logits_seen=None):
     """``llama.route`` records the experts it picks into ``chosen`` (sorted,
     ``[b, t, k]`` per layer and forward), and into ``gaps`` (when given) the
     router-logit gap at the top-k edge, the k-th largest logit less the
@@ -1590,13 +1838,18 @@ def recorded_routing(chosen: list, forced=None, gaps=None):
     how near a tie the choice was); with ``forced``
     (another run's ``chosen``), it picks those experts instead, weighted
     from this run's own logits: routing over the logits of those experts
-    alone gives the same weights as the router does when it picks them."""
+    alone gives the same weights as the router does when it picks them,
+    but for qwen2moe without ``norm_topk_prob``, whose weights are the
+    softmax over all experts at those experts. ``logits_seen`` (when given)
+    collects the router logits of every call."""
     route = llama.route
     forced = None if forced is None else iter(forced)
 
     def recording_route(logits, cfg_):
         topw, topi = route(logits, cfg_)
         chosen.append(topi.sort(dim=-1).values)
+        if logits_seen is not None:
+            logits_seen.append(logits.clone())
         k = topi.shape[-1]
         if gaps is not None and k < logits.shape[-1]:
             edge = logits.topk(k + 1, dim=-1).values
@@ -1605,7 +1858,10 @@ def recorded_routing(chosen: list, forced=None, gaps=None):
             gaps.append(torch.stack([gap, gap / ulp], dim=-1))
         if forced is None:
             return topw, topi
-        keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, next(forced), True)
+        idx = next(forced)
+        if cfg_.arch == "qwen2moe" and not cfg_.norm_topk_prob:
+            return torch.softmax(logits, dim=-1).gather(-1, idx), idx
+        keep = torch.zeros_like(logits, dtype=torch.bool).scatter_(-1, idx, True)
         return route(logits.masked_fill(~keep, float("-inf")), cfg_)
 
     llama.route = recording_route
@@ -1650,6 +1906,28 @@ def choice_agreement(what: str, kernel_run: list, plain_run: list, plain_gaps: l
                              f"{max(u for _, u in gaps):.2f} bf16 ulps differs (a near-tie "
                              f"is at most {near_tie_ulps})")
     return same, total, gaps
+
+
+def router_noise(what: str, k: int, kernel_run: list, plain_run: list) -> str:
+    """How far the router logits of the kernel run and of the plain run (on
+    the kernel run's expert choices, so the same path) lie apart: the
+    largest |difference|, and the differences in bf16 ulps of each (token,
+    layer)'s k-th largest logit, the top-k edge that a choice must cross to
+    flip (the largest, and the 99th and 99.9th percentiles)."""
+    diffs, ulps = [], []
+    for a, b in zip(kernel_run, plain_run):
+        d = (a - b).float().abs().reshape(-1, a.shape[-1])
+        edge = b.float().reshape(-1, b.shape[-1]).topk(k, dim=-1).values[:, -1:]
+        diffs.append(d.flatten())
+        ulps.append((d / torch.exp2(torch.floor(torch.log2(edge.abs().clamp_min(1e-30))) - 7))
+                    .flatten())
+    diff, ulp = torch.cat(diffs), torch.cat(ulps)
+    q = torch.quantile(ulp[:1 << 24], torch.tensor([0.99, 0.999], device=ulp.device)).tolist()
+    line = (f"router logits of the two runs differ by at most {diff.max().item():.3e} "
+            f"({ulp.max().item():.2f} bf16 ulps of the row's top-k edge; 99th / 99.9th "
+            f"percentile {q[0]:.2f} / {q[1]:.2f}) over {diff.numel()} logits")
+    log(f"  {what}: {line}")
+    return line + "; "
 
 
 def check_mixtral_model(dev) -> dict:
@@ -1909,7 +2187,7 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
     ids = torch.randint(0, cfg.vocab_size, (b, n + n_dec), generator=gen, device=dev)
     w = -(-(n + n_dec) // bs)
     bt = torch.arange(b * w, device=dev, dtype=torch.int32).reshape(b, w)
-    runs, choices, gaps, counts = [], [], [], {}
+    runs, choices, gaps, counts, router = [], [], [], {}, []
 
     def run(run_cfg, plain):
         cache = PagedKVCache.create(run_cfg, b * w, bs, kv_quant=kv_quant, device=dev)
@@ -1935,7 +2213,8 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
         chosen: list = []
         gaps.append([])
         force = forced if forced is not None else choices[0] if plain else None
-        with recorded_routing(chosen, force, gaps[-1]):
+        router.append([])
+        with recorded_routing(chosen, force, gaps[-1], router[-1]):
             _cuda.reset_counts()
             outs = run(cfg, plain)
             if not plain:
@@ -1943,11 +2222,13 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
         runs.append(outs)
         choices.append(chosen)
     note = ""
+    if cfg.num_experts:
+        note = router_noise(what, cfg.num_experts_per_tok, *router)
     if cfg.num_experts and forced is not None:
-        note = "on the bf16 pools' kernel run's expert choices; "
+        note += "on the bf16 pools' kernel run's expert choices; "
     elif cfg.num_experts:
         same, total, near = choice_agreement(what, *choices, gaps[1], near_tie_ulps)
-        note = (f"expert choices agree {same}/{total} ({100 * same / total:.2f} %; largest "
+        note += (f"expert choices agree {same}/{total} ({100 * same / total:.2f} %; largest "
                 f"gap of those that differ {near[0][0] if near else 0.0:.3e}); ")
     worst = 0.0
     for step, (got, ref) in enumerate(zip(*runs)):
@@ -2057,8 +2338,37 @@ def check_wide_model(dev, qc: dict, seed: int, what: str, required) -> dict:
     return counts
 
 
+def check_quantized_moe_model(dev, base: dict, qc: dict, seed: int, what: str, required,
+                              near_tie_ulps=None) -> dict:
+    """Phases 3j and 3k: 2 layers at full width of ``base`` as its GPTQ or
+    AWQ checkpoint ``qc`` stores them (:func:`build_quantized`: the experts
+    decoded one by one and stacked into banks of group 128) through the
+    kernels and the plain versions (``two_layer_runs``; ``near_tie_ulps``:
+    phase 3g's rule on expert choices, else phase 3b's), then the plain run
+    on the kernel run's choices: Qwen1.5-MoE-A2.7B
+    GPTQ-Int4 (W4 grouped gate/up, W8 grouped down, the W4 wide form for
+    attention and the gated shared expert) and Mixtral-8x7B AWQ (W4 grouped
+    for both banks). Every grouped wide form of ``required`` in both its
+    bodies, no plain version in the kernel run. Returns the kernel run's
+    launch counts."""
+    cfg = ModelConfig(**dict(base, num_layers=2))
+    weights = build_quantized(cfg, dev, seed, qc)
+    ex = weights["layers"][0]["experts"]
+    check(set(ex) == {"gateup", "down"} and all(
+        isinstance(b, QTensor) and b.group_size == 128 and b.num_banks == cfg.num_experts
+        for b in ex.values()), f"{what}: expert banks not fused planar banks of group 128")
+    counts, note, _ = two_layer_runs(dev, cfg, weights, seed + 1, what, required, near_tie_ulps)
+    grouped = [k for k in required if k.endswith("_wide_g")]
+    bodies = {f"{k}.{b}": counts.get(f"{k}.{b}", 0) for k in grouped
+              for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"{what}: grouped bodies launched {bodies}")
+    log(f"  {what} 2 layers: {note}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 12: serve
+# phases 4 to 13: serve
 # ---------------------------------------------------------------------------
 
 
@@ -2598,6 +2908,11 @@ def main() -> int:
         del qt
     check_wide_edges(rows, rates, gen, dev)
     torch.cuda.empty_cache()
+    # the grouped forms' wide groups on GPTQ and AWQ expert banks, and the
+    # decode kernel at GQA group 1 (after every other row, which keep the
+    # generator's stream of earlier runs)
+    check_wide_grouped(rows, rates, gen, dev)
+    torch.cuda.empty_cache()
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
         log(f"kernels only: {len(timed)} timed rows [{name_line}]")
@@ -2642,6 +2957,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     gptq8_model = check_wide_model(dev, GPTQ_INT8, SEED + 32, "qwen2.5-7b gptq-int8 model",
                                    WIDE_W8_KERNELS)
+    torch.cuda.empty_cache()
+    log("phase 3j: forward_paged at full Qwen1.5-MoE-A2.7B width, 2 layers, as its GPTQ-Int4 "
+        "checkpoint (60 experts top-4, gated shared expert; group 128), kernels vs plain")
+    q15_model = check_quantized_moe_model(dev, QWEN15_MOE_A27B, GPTQ_INT4, SEED + 34,
+                                          "qwen1.5-moe-a2.7b gptq-int4 model",
+                                          QWEN15_MOE_KERNELS, NEAR_TIE_ULPS)
+    torch.cuda.empty_cache()
+    log("phase 3k: forward_paged at full Mixtral-8x7B width, 2 layers, as its AWQ checkpoint "
+        "(group 128), kernels vs plain")
+    mixtral_awq_model = check_quantized_moe_model(dev, MIXTRAL_8X7B, AWQ_INT4, SEED + 36,
+                                                  "mixtral-8x7b awq model", MIXTRAL_AWQ_KERNELS)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -2720,6 +3046,19 @@ def main() -> int:
     check(all(bodies.values()), f"phase 12: w4_matmul_wide bodies launched {bodies}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 13
+    log(f"phase 13: serve the {QWEN15_MOE_A27B['num_layers']}-layer Qwen1.5-MoE-A2.7B geometry "
+        f"as its GPTQ-Int4 checkpoint stores it (group 128; f16 embedding, head, routers and "
+        f"shared-expert gates as bf16)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    q15_counts, _ = serve(dev, name_line, ModelConfig(**QWEN15_MOE_A27B),
+                          lambda cfg, dev_, seed: build_quantized(cfg, dev_, seed, GPTQ_INT4),
+                          SEED + 38, "qwen1.5-moe-a2.7b-gptq-int4-geometry", QWEN15_MOE_KERNELS)
+    bodies = {f"{k}.{b}": q15_counts.get(f"{k}.{b}", 0)
+              for k in QWEN15_MOE_KERNELS[:2] for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 13: grouped wide bodies launched {bodies}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -2730,6 +3069,8 @@ def main() -> int:
                   "w4_matmul_wide": "M=8 N=28672 K=4096", "w8_matmul_wide": "M=8 N=37888 K=3584",
                   "w4_matmul_g": "gate/up, fused: E=8 N=28672 K=4096 n*k=16",
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
+                  "w4_matmul_wide_g": "Qwen1.5-MoE gate/up, fused: E=60 N=2816 K=2048 n*k=32",
+                  "w8_matmul_wide_g": "Qwen1.5-MoE down (u8, bias): E=60 N=2048 K=1408 n*k=32",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
                   "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64 kv_lens 0..2048"}
     # the fp8 forms and the int8 head_dim-64 forms run in the phase-3 model
@@ -2749,7 +3090,10 @@ def main() -> int:
             "gpt-oss-20b serve": oss_counts, "qwen2.5-7b serve": q25_counts,
             "qwen3-30b-a3b serve": q3_counts, "gemma-3-12b int8-kv serve": g3_counts,
             "phase 3i gptq-int4 model": gptq4_model, "phase 3i gptq-int8 model": gptq8_model,
-            "llama-3.1-8b awq-int4 serve": awq_counts}
+            "llama-3.1-8b awq-int4 serve": awq_counts,
+            "phase 3j qwen1.5-moe gptq-int4 model": q15_model,
+            "phase 3k mixtral awq model": mixtral_awq_model,
+            "qwen1.5-moe-a2.7b gptq-int4 serve": q15_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

@@ -26,10 +26,13 @@ transposes: no value changes).
 
 MoE layers carry their ``router`` (``[L, E, H]``) and ``experts`` (a
 mapping of ``[L, E, ...]`` planes or dense ``[L, E, out, in]`` banks) across
-as per-layer ``[E, ...]`` banks (Mixtral's and Qwen3-MoE's alike). Banks
-the JAX loader widened to int8 codes at group 16 with a bias plane are
-carried as they are and run through the W8 grouped kernel in its
-signed-with-bias form.
+as per-layer ``[E, ...]`` banks (Mixtral's, Qwen3-MoE's and qwen2moe's
+alike; GPTQ and AWQ banks at any group size, split-half packed or one byte
+a code, plane for plane). Banks the JAX loader widened to int8 codes at
+group 16 with a bias plane are carried as they are and run through the W8
+grouped kernel in its signed-with-bias form. qwen2moe's ``shared_expert``
+(``{gate, up, down}`` of stacked ``[L, ...]`` leaves, plain or planar) and
+``shared_expert_gate`` (``[L, 1, H]``) come across per layer.
 
 :func:`from_jax_deepseek_params` does the same for the JAX package's
 DeepSeek weights (absorbed MLA, DeepSeek-MoE).
@@ -113,7 +116,8 @@ def from_jax_params(
     known = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo", "gate", "up", "wgateup",
              "down", "router", "experts", "post_attn_norm", "post_ffn_norm", "wq_bias",
              "wk_bias", "wv_bias", "wo_bias"} | ({"sinks", "router_bias"} if gpt_oss else set()) | (
-                 {"q_norm", "k_norm"} if cfg.qk_norm else set())
+                 {"q_norm", "k_norm"} if cfg.qk_norm else set()) | (
+                 {"shared_expert", "shared_expert_gate"} if cfg.arch == "qwen2moe" else set())
     unknown = set(stacked) - known
     if unknown:
         raise NotImplementedError(f"layer weights not ported: {sorted(unknown)}")
@@ -122,6 +126,10 @@ def from_jax_params(
                               else {"gate", "up", "down"})
     if unknown:
         raise NotImplementedError(f"expert weights not ported: {sorted(unknown)}")
+    shared = stacked.get("shared_expert", {})
+    unknown = set(shared) - {"gate", "up", "down"}
+    if unknown:
+        raise NotImplementedError(f"shared expert weights not ported: {sorted(unknown)}")
 
     def gpt_oss_experts(i):
         ex = {key: _leaf(w, device, dtype, layer=i) for key, w in experts.items()}
@@ -132,7 +140,10 @@ def from_jax_params(
 
     def layer(i):
         lw = {key: _leaf(w, device, dtype, layer=i)
-              for key, w in stacked.items() if key != "experts"}
+              for key, w in stacked.items() if key not in ("experts", "shared_expert")}
+        if shared:
+            lw["shared_expert"] = {key: _leaf(w, device, dtype, layer=i)
+                                   for key, w in shared.items()}
         if "sinks" in lw:
             lw["sinks"] = lw["sinks"].to(torch.float32)
         if experts:

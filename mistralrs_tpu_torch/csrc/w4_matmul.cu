@@ -11,7 +11,7 @@
 // contracts two column ranges of x: [r0, r1) and [K/2 + r0, K/2 + r1).
 // Scale and bias planes are f32 [K/gs, N]; bias may be absent. Groups of 32
 // (Q4_K), or of 64 or 128 (GPTQ, AWQ) that divide K/2, so that each half of
-// the codes holds whole groups; the grouped form takes 32 only. The grouped
+// the codes holds whole groups, for one matrix and a bank alike. The grouped
 // form multiplies row tile t by expert tile_idx[t] of a bank (planes
 // code_stride bytes and sb_stride floats apart); tiles at or past *n_used
 // write zeros and read no weights.
@@ -101,8 +101,8 @@ struct PrefillSmem {
 // of the next 64 n lbo = 8192 B on
 constexpr uint32_t B_LBO = 8192, B_SBO = 1024;
 
-// WIDE: groups of 64 or 128 (one matrix), the plane rows by a runtime
-// shift; else groups of 32, one row a step
+// WIDE: groups of 64 or 128, the plane rows by a runtime shift (a bank's
+// planes offset to its expert first); else groups of 32, one row a step
 template <int BM, bool HAS_BIAS, bool WIDE>
 __global__ void __launch_bounds__(256 + P_PRODUCERS, 1)
 w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
@@ -352,7 +352,7 @@ cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
 
 // W4 matmul: x [M, K] bf16, codes [(E,) K/2, N] uint8, scale and bias
 // [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32); gs 32,
-// or (one matrix only) 64 or 128 dividing K/2.
+// or 64 or 128 dividing K/2.
 // body 0 (decode): tile 8 or 16 rows; dense: M <= tile, grid.y = splits of
 //   K, workspace f32 [splits, M, N] and counters int32 [ceil(N / 64)] (all
 //   zero, left zero) when splits > 1; grouped: tile 16, one split.
@@ -368,7 +368,7 @@ extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale
   const bool grouped = tile_idx != nullptr;
   const int nsteps = K / 128;
   const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
-                  (gs == 32 || (!grouped && (gs == 64 || gs == 128) && (K / 2) % gs == 0)) &&
+                  (gs == 32 || ((gs == 64 || gs == 128) && (K / 2) % gs == 0)) &&
                   splits <= nsteps &&
                   (grouped ? (n_used != nullptr && M % tile == 0 && splits == 1 &&
                               (body == 0 ? tile == 16 : tile == 64))

@@ -9,8 +9,9 @@
 //   out[m, n] = sum_k x[m, k] * (scale[k / gs, n] * q[k, n] + bias[k / gs, n])
 //
 // Codes are [K, N] (a bank: [E, K, N]), scale and bias planes f32 [K/gs, N]
-// (gs 16 or 32; for one matrix also 64, or any multiple of 128 that divides
-// K: GPTQ's group 128, and per-column scales, gs = K); bias may be absent.
+// (gs 16, 32, 64, or any multiple of 128 that divides K: GPTQ's group 128,
+// and per-column scales, gs = K; for one matrix and a bank alike); bias may
+// be absent.
 // The grouped form multiplies row tile t by expert tile_idx[t] of a bank
 // (planes code_stride bytes and sb_stride floats apart); tiles at or past
 // *n_used write zeros and read no weights.
@@ -89,7 +90,7 @@ extern "C" int mrt_w8_prefill(const void* x, const void* codes, const void* scal
 
 // W8 matmul: x [M, K] bf16, codes [(E,) K, N] (fmt 1: uint8, 2: int8), scale
 // and bias [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32);
-// gs 16 or 32, or (one matrix only) 64 or a multiple of 128 dividing K.
+// gs 16, 32, 64 or a multiple of 128 dividing K.
 // body 0 (decode): tile 8 or 16 rows, `columns` 64 or 128 per block; dense:
 //   M <= tile, grid.y = splits of K's K/128 steps, workspace f32 [splits, M,
 //   N] and counters int32 [ceil(N / columns)] (all zero, left zero) when
@@ -110,8 +111,7 @@ extern "C" int mrt_w8_matmul(const void* x, const void* codes, const void* scale
   const int steps = body == 0 ? K / 128 : K / 64;
   const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
                   splits <= steps &&
-                  (gs == 16 || gs == 32 ||
-                   (!grouped && (gs == 64 || (gs > 0 && gs % 128 == 0 && K % gs == 0)))) &&
+                  (gs == 16 || gs == 32 || gs == 64 || (gs > 0 && gs % 128 == 0 && K % gs == 0)) &&
                   (grouped ? (n_used != nullptr && splits == 1 &&
                               (body == 0 ? tile == 16 && M % 16 == 0 : M % 64 == 0))
                            : (body == 1 || M <= tile)) &&

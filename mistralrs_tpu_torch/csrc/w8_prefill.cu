@@ -21,7 +21,8 @@
 // - The producers keep a ring of 5-8 stages (64 k rows each: x [BM x 64]
 //   in the 128-byte swizzle, codes [64 x 256 B], the stage's 4, 2 or 1
 //   scale and bias rows: groups of 16, of 32, or of 64 and more, a runtime
-//   group size (GS = 0) whose row is k0 / gs) in flight with cp.async.cg,
+//   group size (GS = 0) whose row is k0 / gs, read past a bank's expert
+//   offset as every group is) in flight with cp.async.cg,
 //   each stage signalled by
 //   cp.async.mbarrier.arrive on a "full" mbarrier; consumer warps free a
 //   stage on an "empty" mbarrier once the wgmma that read it has retired.

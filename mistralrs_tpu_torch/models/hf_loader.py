@@ -13,13 +13,16 @@ the shards named by ``model.safetensors.index.json``.
 The loader takes dense bf16, f16 or f32 tensors: the attention and MLP
 projections, the norms (Gemma-2's pre- and post-norms through the JAX
 package's ``_GEMMA_LAYER_MAP``; Qwen3's per-head ``q_norm``/``k_norm``),
-Mixtral's router and expert banks, Qwen3-MoE's router (``mlp.gate``) and
-expert banks (``mlp.experts.N.{gate,up,down}_proj``, stacked as Mixtral's:
-``gate``, ``up`` [E, I, H], ``down`` [E, H, I]; ``fuse_projections`` fuses
-gate and up into one ``gateup`` bank for the grouped kernels), the
-embedding, and the head (tied to the embedding when the checkpoint has no
-``lm_head.weight``, as the JAX loader does whatever ``tie_word_embeddings``
-says); the q/k/v/o biases wherever the checkpoint has them (JAX
+Mixtral's router and expert banks, Qwen3-MoE's and Qwen1.5-MoE's
+(qwen2moe) router (``mlp.gate``) and expert banks
+(``mlp.experts.N.{gate,up,down}_proj``, stacked as Mixtral's: ``gate``,
+``up`` [E, I, H], ``down`` [E, H, I]; ``fuse_projections`` fuses gate and
+up into one ``gateup`` bank for the grouped kernels), qwen2moe's shared
+expert (``mlp.shared_expert.{gate,up,down}_proj`` into the layer's
+``shared_expert`` dict, JAX ``hf_loader.py:335-340``) and its gate
+(``mlp.shared_expert_gate``, ``[1, H]``), the embedding, and the head
+(tied to the embedding when the checkpoint has no ``lm_head.weight``, as
+the JAX loader does whatever ``tie_word_embeddings`` says); the q/k/v/o biases wherever the checkpoint has them (JAX
 ``hf_loader.py:56-59`` maps them by name: a Qwen2 ``config.json`` has no
 ``attention_bias`` key, yet its q/k/v carry biases); and gpt-oss's sinks, router bias and expert banks (JAX ``hf_loader.py:98-104``,
 :342-349), dense or in MXFP4 (``quantization_config.quant_method ==
@@ -35,12 +38,20 @@ permutation: no value changes). GPTQ and AWQ checkpoints
 ``g_idx``), decoded on the device by ``quant/gptq_awq.py`` into planar
 QTensors for the W4 and W8 kernels (v1 GPTQ zeros take the offset 1,
 ``checkpoint_format`` ``"gptq_v2"`` none); their f16 embedding and head are
-cast to ``dtype``. Everything else raises ``NotImplementedError`` naming
-it: bitsandbytes, MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits
-(AWQ: 4 only), AWQ packings other than ``"gemm"``, GPTQ act-order (a
-non-trivial ``g_idx``, which the JAX package refuses too), GPTQ/AWQ expert
-banks, a quantized ``lm_head``, phi3's fused projections, MLP biases, and
-expert banks other than Mixtral's, Qwen3-MoE's and gpt-oss's. In-situ
+cast to ``dtype``. Mixtral's, Qwen3-MoE's and qwen2moe's experts are
+decoded one by one as they are read (the int32 words of one expert on the
+device at a time) and stacked into a bank (``QTensor.stack``: JAX
+``build_stacked``, :272-273, stacks them alike); the grouped W4 and W8
+kernels take them at groups 64 and 128. Their routers and qwen2moe's
+shared-expert gate stay dense, as AutoGPTQ and AutoAWQ leave them.
+Everything else raises ``NotImplementedError`` naming it: bitsandbytes,
+MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits (AWQ: 4 only),
+AWQ packings other than ``"gemm"``, GPTQ act-order (a non-trivial
+``g_idx``, which the JAX package refuses too; an expert's as well),
+GPTQ/AWQ on gpt-oss's pre-stacked banks or on any other MoE arch, a
+quantized router, shared-expert gate or ``lm_head``, phi3's fused
+projections, MLP biases, and expert banks other than Mixtral's,
+Qwen3-MoE's, qwen2moe's and gpt-oss's. In-situ
 quantization, UQFF overlays, importance matrices and topologies are not
 ported: the loader takes no such argument.
 """
@@ -59,6 +70,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..quant.gptq_awq import awq_to_qtensor, gptq_to_qtensor
 from ..quant.mxfp4 import decode_mxfp4_param
+from ..quant.qtensor import QTensor
 from .config import ModelConfig, config_from_hf
 from .llama import check_supported
 
@@ -130,9 +142,17 @@ _GEMMA_LAYER_MAP = dict(_HF_LAYER_MAP)
 _GEMMA_LAYER_MAP["post_attention_layernorm.weight"] = "post_attn_norm"
 # Mixtral's expert banks: block_sparse_moe.experts.N.{w1, w3, w2}
 _MIXTRAL_EXPERTS = {"w1": "gate", "w3": "up", "w2": "down"}
-# Qwen3-MoE's router and expert banks: mlp.experts.N.{gate, up, down}_proj
+# Qwen3-MoE's and qwen2moe's router and expert banks: mlp.experts.N.{gate,
+# up, down}_proj
 _QWEN_MOE_MAP = {"mlp.gate.weight": "router"}
 _QWEN_MOE_EXPERTS = {"gate_proj": "gate", "up_proj": "up", "down_proj": "down"}
+# qwen2moe's shared expert (gathered into the layer's "shared_expert" dict)
+# and its per-token gate
+_SHARED_EXPERT = {f"mlp.shared_expert.{hf}.weight": f"shared_{key}"
+                  for hf, key in _QWEN_MOE_EXPERTS.items()}
+_QWEN2_MOE_MAP = {**_SHARED_EXPERT, "mlp.shared_expert_gate.weight": "shared_expert_gate"}
+# the MoE archs whose expert banks may come as GPTQ/AWQ triplets
+_QUANT_MOE_ARCHS = ("mixtral", "qwen3moe", "qwen2moe")
 # q/k/v/o biases (required with attention_bias, taken wherever present)
 _ATTN_BIASES = {f"self_attn.{p}_proj.bias": f"w{p}_bias" for p in "qkvo"}
 # Qwen3's per-head q/k norms ([head_dim], applied before RoPE)
@@ -159,9 +179,10 @@ def _quant_method(quant_config: Optional[Mapping[str, Any]], cfg: ModelConfig) -
     if method in ("gptq", "awq"):
         bits = int(quant_config.get("bits", 4))
         version = str(quant_config.get("version", "gemm")).lower()
-        if cfg.num_experts:
+        if cfg.num_experts and cfg.arch not in _QUANT_MOE_ARCHS:
             raise NotImplementedError(
-                f"HF loader: {method} expert banks ({cfg.num_experts} experts) not ported yet")
+                f"HF loader: {method} expert banks of arch {cfg.arch!r} ({cfg.num_experts} "
+                f"experts) not ported (only {', '.join(_QUANT_MOE_ARCHS)})")
         if bits not in ((4,) if method == "awq" else (4, 8)):
             raise NotImplementedError(f"HF loader: {method} at {bits} bits not ported")
         if method == "awq" and version != "gemm":
@@ -195,6 +216,16 @@ def _gpt_oss_experts(sd, lp: str, dtype, dev, mxfp4: bool) -> dict:
     return out
 
 
+def _stack_bank(xs: list):
+    """A layer's decoded experts as one bank: planar QTensors through
+    ``QTensor.stack``, dense tensors through ``torch.stack``."""
+    if all(isinstance(x, QTensor) for x in xs):
+        return QTensor.stack(xs)
+    if any(isinstance(x, QTensor) for x in xs):
+        raise NotImplementedError("HF loader: a bank mixing quantized and dense experts")
+    return torch.stack(xs)
+
+
 def weights_from_state_dict(
     sd: Mapping[str, torch.Tensor],
     cfg: ModelConfig,
@@ -210,10 +241,12 @@ def weights_from_state_dict(
     ``dtype`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``;
     gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
     path, the same tensors to the same weights (gpt-oss's banks in the
-    kernel's layout, above). A tensor of any other name (MLP biases, phi3's
-    fused projections, q/k norms of a config without ``qk_norm``, expert
-    banks other than Mixtral's, Qwen3-MoE's and gpt-oss's, a quantized
-    ``lm_head``) raises ``NotImplementedError`` naming it."""
+    kernel's layout, above; GPTQ/AWQ experts stacked into planar banks). A
+    tensor of any other name (MLP biases, phi3's fused projections, q/k
+    norms of a config without ``qk_norm``, expert banks other than
+    Mixtral's, Qwen3-MoE's, qwen2moe's and gpt-oss's, a quantized router,
+    shared-expert gate or ``lm_head``) raises ``NotImplementedError``
+    naming it."""
     gpt_oss = cfg.arch == "gpt_oss"
     method = _quant_method(quant_config, cfg)
     gptq_awq = method in ("gptq", "awq")
@@ -226,17 +259,20 @@ def weights_from_state_dict(
         layer_map.update(_QK_NORMS)
     if gpt_oss:
         layer_map.update(_GPT_OSS_MAP)
-    qwen_moe = cfg.arch == "qwen3moe"
+    qwen_moe = cfg.arch in ("qwen3moe", "qwen2moe")
     if qwen_moe:
         layer_map.update(_QWEN_MOE_MAP)
+    if cfg.arch == "qwen2moe":
+        layer_map.update(_QWEN2_MOE_MAP)
     stem, names = (("mlp.experts", _QWEN_MOE_EXPERTS) if qwen_moe
                    else ("block_sparse_moe.experts", _MIXTRAL_EXPERTS))
     experts = {f"{stem}.{j}.{w}.weight": (j, key)
                for j in range(cfg.num_experts) for w, key in names.items()}
     banks = [f"mlp.experts.{hf}{tail}" for hf in _GPT_OSS_BANKS
              for tail in ("", "_bias", "_blocks", "_scales")] if gpt_oss else []
-    quantized = [suffix[:-len(".weight")] + part for suffix in layer_map
-                 if suffix.endswith("_proj.weight") for part in _GPTQ_PARTS] if gptq_awq else []
+    projections = [suffix for suffix in layer_map if suffix.endswith("_proj.weight")]
+    quantized = [suffix[:-len(".weight")] + part for suffix in (*projections, *experts)
+                 for part in _GPTQ_PARTS] if gptq_awq else []
     known = {prefix + "embed_tokens.weight", prefix + "norm.weight", "lm_head.weight"}
     for i in range(cfg.num_layers):
         known.update(f"{prefix}layers.{i}.{suffix}"
@@ -276,9 +312,15 @@ def weights_from_state_dict(
             for suffix, (j, key) in experts.items():
                 bank[key][j] = take(lp + suffix)
             if all(x is not None for xs in bank.values() for x in xs):
-                lw["experts"] = {key: torch.stack(xs) for key, xs in bank.items()}
+                lw["experts"] = {key: _stack_bank(xs) for key, xs in bank.items()}
+            del bank  # each expert's own planes: gone before the next layer's are decoded
+            shared = {key[len("shared_"):]: lw.pop(key) for key in _SHARED_EXPERT.values()
+                      if key in lw}
+            if len(shared) == len(_SHARED_EXPERT):
+                lw["shared_expert"] = shared
         want = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wo"} | (
             {"router", "experts"} if cfg.num_experts else {"gate", "up", "down"}) | (
+            {"shared_expert", "shared_expert_gate"} if cfg.arch == "qwen2moe" else set()) | (
             set(_ATTN_BIASES.values()) if cfg.attention_bias else set()) | (
             set(_QK_NORMS.values()) if cfg.qk_norm else set()) | (
             set(_GPT_OSS_MAP.values()) if gpt_oss else set())

@@ -29,10 +29,15 @@ kernels, and
 An MoE layer holds ``"router"`` (dense ``[E, H]``) and ``"experts"``
 (``{"gate", "up" | "gateup", "down"}``, each a ``[E, out, in]`` bank: a
 :class:`QTensor` with a bank axis or a dense tensor) in place of the dense
-MLP's ``gate``/``up``/``down``. Quantized banks, and dense banks of 16
-experts or more (Qwen3-MoE's 128), run the grouped kernels
+MLP's ``gate``/``up``/``down``. Quantized banks (GPTQ and AWQ expert banks
+at groups 64 and 128 too), and dense banks of 16 experts or more
+(Qwen3-MoE's 128, Qwen1.5-MoE's 60), run the grouped kernels
 (``ops/moe_grouped.py::moe_grouped_mlp``); smaller dense banks run every
-expert on every token, as the JAX package does. gpt-oss's layers add
+expert on every token, as the JAX package does. qwen2moe's layers add
+``"shared_expert"`` (a dense MLP's ``{"gate", "up" | "wgateup", "down"}``,
+plain or planar) and ``"shared_expert_gate"`` (dense ``[1, H]``): the
+shared expert's output, times ``sigmoid`` of the gate's f32 logit, joins
+the routed experts' (JAX ``_moe_mlp``, :450-456). gpt-oss's layers add
 ``"router_bias"`` ``[E]`` and hold ``"experts"`` as ``{"gateup" [E, 2I, H]
 (the gate rows, then the up rows), "gateup_bias" [E, 2I], "down" [E, H,
 I], "down_bias" [E, H]}`` bf16 banks, run by the dense grouped kernel
@@ -58,9 +63,11 @@ write the step's K/V into the pools in place (quantized as they are written
 when the cache holds int8 or fp8 pools, ``kv/paged.py``). The routers of ``mixtral``,
 of ``llama`` with experts (how GGUF Mixtral files arrive), of ``qwen3moe``
 (top-k of the logits, softmax over the k, renormalised with
-``norm_topk_prob``) and of ``gpt_oss`` (top-k of the biased logits, softmax
-over the k, no renormalisation) are ported; other routers, shared experts,
-expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan),
+``norm_topk_prob``), of ``qwen2moe`` (softmax over all experts, top-k,
+renormalised only with ``norm_topk_prob``) and of ``gpt_oss`` (top-k of
+the biased logits, softmax over the k, no renormalisation) are ported;
+other routers (hunyuan_moe, glm4moe, phimoe), shared experts outside
+qwen2moe, expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan),
 NoPE layers, MLP biases (but gpt-oss's
 expert biases), partial or interleaved rotary, layernorm, parallel
 residuals and granite's multipliers are not yet and raise
@@ -102,10 +109,11 @@ ACTIVATIONS = {
 }
 
 # archs whose MoE router is ported: mixtral (softmax over all experts, top-k,
-# renormalise), llama with experts and qwen3moe (top-k of the logits, softmax
-# over k, renormalised with norm_topk_prob) and gpt_oss (the same on logits
-# plus the router bias, never renormalised)
-_MOE_ARCHS = ("llama", "mixtral", "qwen3moe", "gpt_oss")
+# renormalise), qwen2moe (the same, renormalised only with norm_topk_prob),
+# llama with experts and qwen3moe (top-k of the logits, softmax over k,
+# renormalised with norm_topk_prob) and gpt_oss (the same on logits plus the
+# router bias, never renormalised)
+_MOE_ARCHS = ("llama", "mixtral", "qwen2moe", "qwen3moe", "gpt_oss")
 # dense banks of at least this many experts run the grouped kernels; the JAX
 # package runs them through its _sparse_expert_combine (at most 64 tokens) or
 # its every-expert scan, the same function up to f32 sum order
@@ -120,7 +128,8 @@ def check_supported(cfg: ModelConfig) -> None:
         f"mixture-of-experts router of arch {cfg.arch!r}": moe and cfg.arch not in _MOE_ARCHS,
         "top-k wider than the expert count": moe and not (
             0 < cfg.num_experts_per_tok <= cfg.num_experts),
-        "shared expert": bool(cfg.shared_expert_intermediate_size),
+        "shared expert outside qwen2moe": (bool(cfg.shared_expert_intermediate_size)
+                                           and cfg.arch != "qwen2moe"),
         "dense first-k layers": bool(cfg.first_k_dense),
         "M-RoPE": bool(cfg.mrope_section),
         "q/k norm after RoPE": cfg.qk_norm and cfg.qk_norm_after_rope,
@@ -178,16 +187,20 @@ def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
 
 
 def route(router_logits: torch.Tensor, cfg: ModelConfig):
-    """Top-k routing from f32 router logits → ``(topw, topi)`` ``[..., k]``.
-    ``mixtral``: softmax over all experts, top-k, renormalise; ``llama``
+    """Top-k routing from f32 router logits → ``(topw, topi)`` ``[..., k]``
+    (JAX ``_moe_mlp``, :337-348). ``mixtral`` and ``qwen2moe``: softmax over
+    all experts, top-k, renormalised (qwen2moe only with
+    ``norm_topk_prob``: else the k weights sum to less than 1); ``llama``
     with experts and ``qwen3moe``: top-k of the logits, softmax over the k
     (renormalised with ``norm_topk_prob``, as JAX divides at :347-348;
-    ``gpt_oss`` never). The two are the same function up to rounding."""
+    ``gpt_oss`` never). Mixtral's and llama's are the same function up to
+    rounding."""
     k = cfg.num_experts_per_tok
-    if cfg.arch == "mixtral":
+    if cfg.arch in ("mixtral", "qwen2moe"):
         probs = torch.softmax(router_logits, dim=-1)
         topw, topi = torch.topk(probs, k, dim=-1)
-        topw = topw / topw.sum(dim=-1, keepdim=True)
+        if cfg.arch == "mixtral" or cfg.norm_topk_prob:
+            topw = topw / topw.sum(dim=-1, keepdim=True)
     else:
         topw, topi = torch.topk(router_logits, k, dim=-1)
         topw = torch.softmax(topw, dim=-1)
@@ -205,7 +218,10 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
     the grouped kernels
     (:func:`~mistralrs_tpu_torch.ops.moe_grouped.moe_grouped_mlp`); a
     smaller bank of dense leaves runs every expert on every token with a
-    masked combine, as the JAX package does outside any Pallas kernel."""
+    masked combine, as the JAX package does outside any Pallas kernel.
+    qwen2moe's shared expert (JAX :450-456) then adds its MLP's output
+    times ``sigmoid`` of the f32 logit of ``shared_expert_gate``, cast to
+    that output's dtype, after the routed experts."""
     b, t, h = x.shape
     # router logits follow the JAX dtype path: linear in the compute dtype, then f32
     router_logits = linear(x, lw["router"], plain=plain).to(torch.float32)
@@ -215,20 +231,25 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
     experts = lw["experts"]
     if cfg.arch == "gpt_oss":
         out = gpt_oss_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
-                                  topi.reshape(b * t, -1), plain=plain)
-        return out.reshape(b, t, h)
-    if (cfg.num_experts >= _GROUPED_MIN_E
+                                  topi.reshape(b * t, -1), plain=plain).reshape(b, t, h)
+    elif (cfg.num_experts >= _GROUPED_MIN_E
             or any(isinstance(v, QTensor) for v in experts.values())):
         out = moe_grouped_mlp(x.reshape(-1, h), experts, topw.reshape(b * t, -1),
-                              topi.reshape(b * t, -1), act, plain=plain)
-        return out.reshape(b, t, h)
-    full_w = torch.zeros((b, t, cfg.num_experts), dtype=torch.float32, device=x.device)
-    full_w.scatter_add_(-1, topi, topw)
-    out = torch.zeros_like(x)
-    for e in range(cfg.num_experts):
-        ew = {("wgateup" if key == "gateup" else key): w[e] for key, w in experts.items()}
-        y = _mlp(x, ew, plain, act)
-        out = out + y * full_w[..., e, None].to(y.dtype)
+                              topi.reshape(b * t, -1), act, plain=plain).reshape(b, t, h)
+    else:
+        full_w = torch.zeros((b, t, cfg.num_experts), dtype=torch.float32, device=x.device)
+        full_w.scatter_add_(-1, topi, topw)
+        out = torch.zeros_like(x)
+        for e in range(cfg.num_experts):
+            ew = {("wgateup" if key == "gateup" else key): w[e] for key, w in experts.items()}
+            y = _mlp(x, ew, plain, act)
+            out = out + y * full_w[..., e, None].to(y.dtype)
+    if "shared_expert" in lw:  # qwen2moe
+        shared = _mlp(x, lw["shared_expert"], plain, act)
+        if "shared_expert_gate" in lw:
+            g = torch.sigmoid(linear(x, lw["shared_expert_gate"], plain=plain).to(torch.float32))
+            shared = shared * g.to(shared.dtype)
+        out = out + shared
     return out
 
 
@@ -418,8 +439,9 @@ def _fuse(d: dict, parts: tuple[str, ...], fused_key: str) -> dict:
 
 def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
     """Merge each layer's q/k/v into ``wqkv`` (their biases, where all three
-    have one, into ``wqkv_bias``), gate/up into ``wgateup`` and an expert
-    bank's gate/up into ``gateup`` (fewer kernel launches per layer); parts
+    have one, into ``wqkv_bias``), gate/up into ``wgateup`` (the shared
+    expert's too) and an expert bank's gate/up into ``gateup`` (fewer kernel
+    launches per layer); parts
     that differ in kind, or of which only some have a bias, stay unfused.
 
     Fuses in place: each entry of ``weights["layers"]`` is replaced by its
@@ -438,6 +460,8 @@ def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
         lw = _fuse(lw, ("gate", "up"), "wgateup")
         if "experts" in lw:
             lw["experts"] = _fuse(lw["experts"], ("gate", "up"), "gateup")
+        if "shared_expert" in lw:
+            lw["shared_expert"] = _fuse(lw["shared_expert"], ("gate", "up"), "wgateup")
         layers[i] = lw
     return weights
 
@@ -453,10 +477,13 @@ def init_random_weights(
     same numbers; a q/k-norm config (qwen3, gemma3) gets ``q_norm``/``k_norm``
     of ones ``[head_dim]``, as the JAX function makes them (gemma3 applies
     them in the gemma form, ``1 + w``, as every gemma norm). An MoE config
-    (mixtral, qwen3moe) then draws, after those, the router ``[L, E, H]``
-    and the expert banks gate and up ``[L, E, I, H]``, down ``[L, E, H, I]``
-    (``I`` = ``moe_intermediate_size`` or the dense width), which replace
-    the layers' dense MLP (the JAX function draws no experts). Like the JAX function it
+    (mixtral, qwen2moe, qwen3moe) then draws, after those, the router ``[L,
+    E, H]`` and the expert banks gate and up ``[L, E, I, H]``, down ``[L,
+    E, H, I]`` (``I`` = ``moe_intermediate_size`` or the dense width), which
+    replace the layers' dense MLP (the JAX function draws no experts), and a
+    qwen2moe config after those its shared expert, gate and up ``[L, S,
+    H]``, down ``[L, H, S]`` (``S`` = ``shared_expert_intermediate_size``),
+    and its gate ``[L, 1, H]``. Like the JAX function it
     makes no post norms, and draws no gpt-oss layers (its expert banks,
     biases and sinks come from a checkpoint or the JAX package's weights)."""
     check_supported(cfg)
@@ -497,6 +524,13 @@ def init_random_weights(
                 del lw[key]
             lw["router"] = router[i].contiguous()
             lw["experts"] = {k: v[i].contiguous() for k, v in banks.items()}
+        si = cfg.shared_expert_intermediate_size
+        if cfg.arch == "qwen2moe" and si:
+            shared = {"gate": arr(L, si, H), "up": arr(L, si, H), "down": arr(L, H, si)}
+            gate = arr(L, 1, H)
+            for i, lw in enumerate(layers):
+                lw["shared_expert"] = {k: v[i].contiguous() for k, v in shared.items()}
+                lw["shared_expert_gate"] = gate[i].contiguous()
     return {
         "embed": embed,
         "layers": layers,

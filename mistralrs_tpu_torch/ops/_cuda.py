@@ -13,9 +13,9 @@ wrappers raise on a non-zero code (:func:`check`).
 
 Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
 launches its kernel, and every plain PyTorch version adds one to
-``COUNTS[name + "_plain"]``; the dense W4 and W8 launches also add one to
-``COUNTS[name + ".decode"]`` or ``COUNTS[name + ".prefill"]``, the body their
-plan ran. A run resets them with :func:`reset_counts` and reads them
+``COUNTS[name + "_plain"]``; the W4 and W8 launches, dense and grouped, also
+add one to ``COUNTS[name + ".decode"]`` or ``COUNTS[name + ".prefill"]``, the
+body their plan ran. A run resets them with :func:`reset_counts` and reads them
 afterwards to show which path it went through.
 
 The kernels that split their work across blocks share per-device state
@@ -61,7 +61,8 @@ NVCC_FLAGS = (
 
 KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide",
            "paged_decode", "paged_prefill",
-           "w4_matmul_g", "w8_matmul_g", "dense_matmul_g", "mla_decode",
+           "w4_matmul_g", "w8_matmul_g", "w4_matmul_wide_g", "w8_matmul_wide_g",
+           "dense_matmul_g", "mla_decode",
            "paged_decode_int8", "paged_decode_fp8", "paged_prefill_int8", "paged_prefill_fp8",
            "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",
            "paged_prefill_hd64", "paged_decode_int8_hd256", "paged_decode_int8_hd64",

@@ -6,12 +6,13 @@ kernel** (``csrc/w4_matmul.cu``) for split-half packed 4-bit codes (Q4_K;
 GPTQ and AWQ 4-bit; replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8
 kernel** (``csrc/w8_matmul.cu``) for one byte per code (Q8_0, Q6_K,
 unsigned with bias, the widened form, GPTQ 8-bit and per-column GPTQ;
-replaces ``_w8_matmul``/``_w8_matmul_l``). Group sizes (:func:`_check_planes`):
-W4 32, or 64 and 128 dividing K/2; W8 16 and 32, or 64 and any multiple of
-128 dividing K (``group_size: -1``'s per-column scales are g = K). The
-groups over the k-quants' 32 are the kernels' wide-group forms, counted
-apart as ``w4_matmul_wide`` and ``w8_matmul_wide``; the grouped forms take
-the k-quant sizes only. On a CPU
+replaces ``_w8_matmul``/``_w8_matmul_l``). Group sizes (:func:`_check_planes`),
+for one matrix and a bank alike: W4 32, or 64 and 128 dividing K/2; W8 16
+and 32, or 64 and any multiple of 128 dividing K (``group_size: -1``'s
+per-column scales are g = K). The groups over the k-quants' 32 are the
+kernels' wide-group forms, counted apart as ``w4_matmul_wide`` and
+``w8_matmul_wide`` (``..._wide_g`` over a bank: GPTQ and AWQ expert banks).
+On a CPU
 tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX package and the card's
 smoke run holds the kernels against.
@@ -87,15 +88,15 @@ def _check_planes(qt: QTensor) -> int:
     and return the kernel's code format."""
     n, k = qt.out_features, qt.in_features
     lead = tuple(qt.data.shape[:-2])
-    gs, bank = qt.group_size, qt.num_banks is not None
+    gs = qt.group_size
     if qt.packed:
-        require(gs == 32 or (not bank and gs in (64, 128) and (k // 2) % gs == 0),
-                f"the W4 kernel takes group size 32 (a bank: 32 only), or 64 or 128 dividing "
-                f"K/2 = {k // 2}; not {gs}")
+        require(gs == 32 or (gs in (64, 128) and (k // 2) % gs == 0),
+                f"the W4 kernel takes group size 32, or 64 or 128 dividing K/2 = {k // 2}; "
+                f"not {gs}")
     else:
-        require(gs in (16, 32) or (not bank and (gs == 64 or (gs % 128 == 0 and k % gs == 0))),
-                f"the W8 kernel takes group size 16 or 32 (a bank: those only), 64, or a "
-                f"multiple of 128 dividing K = {k}; not {gs}")
+        require(gs in (16, 32, 64) or (gs % 128 == 0 and k % gs == 0),
+                f"the W8 kernel takes group size 16, 32, 64, or a multiple of 128 dividing "
+                f"K = {k}; not {gs}")
     require(k % 128 == 0 and n % 16 == 0,
             f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
     require(qt.scale.dtype == torch.float32 and qt.scale.is_contiguous()
@@ -524,6 +525,7 @@ def _quant_matmul_grouped_cuda(
         code = _w8_launch(x2, qt, fmt, out, out_bf16, tile_idx, n_used, tm)
     check(code, name)
     COUNTS[name] += 1
+    COUNTS[f"{name}.{_plan(qt, mp, sm_count(x2.device), tm).body}"] += 1  # the body it ran
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 

@@ -17,7 +17,7 @@ exact f32 products of the GGUF f16 scales and integer sub-scales, so
 A bank of experts carries one leading axis: codes ``[E, K/2, N]`` or
 ``[E, K, N]``, scales and biases ``[E, K/gs, N]``, contiguous, so expert
 ``e`` (:meth:`QTensor.bank`) is a view and the grouped kernels find it at a
-fixed stride.
+fixed stride. :meth:`QTensor.stack` makes a bank of single matrices.
 """
 
 from __future__ import annotations
@@ -132,6 +132,30 @@ class QTensor:
         device: DeviceLike = None,
     ) -> "QTensor":
         return cls.from_planar(to_planar(raw, t), shape, ggml_type=t, device=device)
+
+    @classmethod
+    def stack(cls, qts) -> "QTensor":
+        """A bank ``[E, N, K]`` of E single matrices of one shape, group size,
+        packing and code type (the decoded experts of a GPTQ or AWQ layer),
+        each plane stacked along a new leading axis."""
+        first = qts[0]
+        if first.num_banks is not None:
+            raise ValueError("QTensor.stack takes single matrices, not banks")
+        for qt in qts:
+            if (qt.shape, qt.group_size, qt.packed, qt.code_bits, qt.data.dtype,
+                    qt.bias is None) != (first.shape, first.group_size, first.packed,
+                                         first.code_bits, first.data.dtype, first.bias is None):
+                raise ValueError(f"QTensor.stack: {qt.shape} group {qt.group_size} "
+                                 f"(packed {qt.packed}, {qt.data.dtype}) does not match "
+                                 f"{first.shape} group {first.group_size} (packed "
+                                 f"{first.packed}, {first.data.dtype})")
+        return cls(
+            data=torch.stack([qt.data for qt in qts]),
+            scale=torch.stack([qt.scale for qt in qts]),
+            bias=None if first.bias is None else torch.stack([qt.bias for qt in qts]),
+            group_size=first.group_size, packed=first.packed,
+            code_bits=first.code_bits, ggml_type=first.ggml_type,
+        )
 
     def to(self, device) -> "QTensor":
         return QTensor(

@@ -203,19 +203,20 @@ def _planes(k, n, group, packed, lead=()):
 GROUP_RULES = {
     "w4_g32": (True, 512, 32, False, True), "w4_g64": (True, 512, 64, False, True),
     "w4_g128": (True, 512, 128, False, True), "w4_g96": (True, 384, 96, False, False),
-    "w4_g256": (True, 512, 256, False, False), "w4_bank_g64": (True, 512, 64, True, False),
+    "w4_g256": (True, 512, 256, False, False), "w4_bank_g64": (True, 512, 64, True, True),
+    "w4_bank_g96": (True, 384, 96, True, False), "w8_bank_g96": (False, 384, 96, True, False),
     "w8_g16": (False, 512, 16, False, True), "w8_g64": (False, 512, 64, False, True),
     "w8_g128": (False, 512, 128, False, True), "w8_gK": (False, 384, 384, False, True),
     "w8_g256_of_384": (False, 384, 256, False, False), "w8_g96": (False, 384, 96, False, False),
-    "w8_bank_g128": (False, 512, 128, True, False), "w8_bank_g16": (False, 512, 16, True, True),
+    "w8_bank_g128": (False, 512, 128, True, True), "w8_bank_g16": (False, 512, 16, True, True),
 }
 
 
 @pytest.mark.parametrize("case", list(GROUP_RULES))
 def test_kernel_group_size_rules(case):
     """W4 takes groups of 32, 64 and 128 (dividing K/2); W8 16, 32, 64 and
-    multiples of 128 dividing K (per-column: g = K); a bank only 32 (W4) or
-    16 and 32 (W8); anything else raises naming the size."""
+    multiples of 128 dividing K (per-column: g = K); a bank the same sizes
+    as one matrix; anything else raises naming the size."""
     packed, k, group, bank, ok = GROUP_RULES[case]
     qt = _planes(k, 64, group, packed, lead=(2,) if bank else ())
     if ok:
@@ -407,7 +408,7 @@ REFUSALS = {
     "awq_gemv": ("llama_awq", {"quant_method": "awq", "bits": 4, "group_size": 128,
                                "version": "gemv"}, "gemv"),
     "lm_head_qweight": ("llama_gptq4", None, "lm_head"),
-    "gptq_moe": ("llama_gptq4", None, "expert"),
+    "gptq_moe": ("llama_gptq4", None, "act-order"),
 }
 
 
@@ -416,7 +417,8 @@ def test_refusals(tmp_path, case):
     """What stays unported raises ``NotImplementedError`` naming it: an
     act-order ``g_idx`` (the JAX loader refuses it too), 3 bits, AWQ's GEMV
     packing, a quantized head (the JAX loader would tie it to the
-    embedding), GPTQ on an MoE config."""
+    embedding), and on a GPTQ Mixtral (its MLP as two experts) an act-order
+    ``g_idx`` on one expert."""
     kind, qc, match = REFUSALS[case]
     sd = _hf_dir(tmp_path, kind, seed=1, quant_config=qc, g_idx=case == "act_order")
     if case == "lm_head_qweight":
@@ -427,8 +429,20 @@ def test_refusals(tmp_path, case):
     if case == "gptq_moe":
         cfg = json.loads((tmp_path / "config.json").read_text())
         cfg.update(architectures=["MixtralForCausalLM"], model_type="mixtral",
-                   num_local_experts=4, num_experts_per_tok=2)
+                   num_local_experts=2, num_experts_per_tok=2)
         (tmp_path / "config.json").write_text(json.dumps(cfg))
+        for li in range(NL):
+            p = f"model.layers.{li}."
+            sd[p + "block_sparse_moe.gate.weight"] = np.zeros((2, H), np.float16)
+            for hf, w in (("gate_proj", "w1"), ("up_proj", "w3"), ("down_proj", "w2")):
+                for part in (".qweight", ".qzeros", ".scales", ".g_idx"):
+                    t = sd.pop(f"{p}mlp.{hf}{part}")
+                    for e in range(2):
+                        sd[f"{p}block_sparse_moe.experts.{e}.{w}{part}"] = t
+        k = PROJ["mlp.down_proj"][1]  # expert 1 of the last layer: act-order
+        sd[f"{p}block_sparse_moe.experts.1.w2.g_idx"] = (np.arange(k, dtype=np.int32)
+                                                        // 128)[::-1].copy()
+        write_safetensors(tmp_path / "model.safetensors", sd)
     with pytest.raises(NotImplementedError, match=match):
         load_pipeline(str(tmp_path), dtype=torch.float32, device="cpu")
 

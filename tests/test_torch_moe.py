@@ -300,9 +300,10 @@ def test_routers_agree_and_sparse_combine_refused():
     """The two routers choose the same experts with the same weights. Dense
     banks of 16 experts at few tokens, where the JAX package takes its
     sparse combine, run the grouped route (the dense grouped kernel's plain
-    version) and give JAX ``_moe_mlp``'s output (f32, 1e-5); qwen2moe's
-    router (softmax over all experts with a gated shared expert) stays
-    refused."""
+    version) and give JAX ``_moe_mlp``'s output (f32, 1e-5); hunyuan_moe's
+    router (softmax over all experts with its own shared MLP) stays
+    refused (qwen2moe's, ported, is held against JAX in
+    ``test_torch_moe_gptq.py``)."""
     rng = np.random.default_rng(10)
     logits = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32))
     wm, im = route(logits, ModelConfig(**dict(MOE_KW, arch="mixtral", num_experts=8)))
@@ -324,13 +325,18 @@ def test_routers_agree_and_sparse_combine_refused():
                                        "experts": {k: jnp.asarray(v) for k, v in banks.items()}},
                       JaxConfig(**kw), jax.nn.silu, "xla")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="qwen2moe"):
-        init_random_weights(ModelConfig(**dict(kw, arch="qwen2moe")), device="cpu")
+    with pytest.raises(NotImplementedError, match="hunyuan_moe"):
+        init_random_weights(ModelConfig(**dict(kw, arch="hunyuan_moe")), device="cpu")
 
 
-@pytest.mark.parametrize("arch,field", [("qwen2moe", {}), ("glm4moe", {}), ("phimoe", {}),
-                                        ("mixtral", {"shared_expert_intermediate_size": 64})])
+@pytest.mark.parametrize("arch,field", [("qwen2moe", {"first_k_dense": 1}), ("glm4moe", {}),
+                                        ("phimoe", {}),
+                                        ("mixtral", {"shared_expert_intermediate_size": 64}),
+                                        ("hunyuan_moe", {})])
 def test_other_moe_features_refused(arch, field):
+    """What stays unported raises: the routers of hunyuan_moe, glm4moe and
+    phimoe, dense first-k layers (qwen2moe's router is ported), and a shared
+    expert outside qwen2moe."""
     cfg = ModelConfig(**dict(MOE_KW, arch=arch, **field))
     with pytest.raises(NotImplementedError, match="not ported"):
         init_random_weights(cfg, device="cpu")
