@@ -139,7 +139,21 @@ script in one call:
    banks in the all-to-one and empty-expert routings at both row tiles, W4
    grouped at group 64, W8 grouped at 64 and per-column (g = K = 1408) in
    those routings at both row tiles, bf16 and f32 output, and the decode
-   kernel at GQA group 1 (16/16 heads) at the table's B=8 row;
+   kernel at GQA group 1 (16/16 heads) at the table's B=8 row.
+   Last, the GGUF forms on layers drawn as raw GGUF blocks on the device
+   (``gguf/drawn.py``: weights centred on zero) and decoded there by the
+   port's planarizers: W4 at group 16 (``w4_matmul_g16``: Q2_K's 2-bit
+   codes in nibbles) at Qwen3-30B-A3B's ``attn_q`` (N 4096, K 2048) and
+   ``attn_output`` (N 2048, K 4096), M 8 and 512, and over its fused
+   gate/up bank (``w4_matmul_g16_g``: E 128, N 1536, K 2048, top-8) at n*k
+   = 48 and 2048, timed as the group-32 rows are; untimed, W4 at group 16
+   at the W4 rows' edge shapes (K of one step from planes drawn directly),
+   the bank in the all-to-one and empty-expert routings at both row tiles
+   and without a bias; W8 with unsigned codes and a bias at group 32 (Q5_K)
+   at Qwen2.5-7B's gate-up (M 8) and down (M 8 and 512) and Q3_K banks
+   (signed, group 16) at Qwen3-30B-A3B's down (E 128, N 2048, K 768) at
+   n*k = 48 and 2048, timed; Q4_0, Q4_1 (W4 with a bias) and Q5_0, Q5_1
+   (W8 unsigned with a bias) untimed at N = K = 4096, M 8 and 130;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -217,6 +231,19 @@ script in one call:
 3k. the same at full Mixtral-8x7B width with 2 layers as TheBloke's AWQ
    checkpoint stores them (group 128, zero points, f16 router): W4 grouped
    for both banks in both bodies; phase 3b's rule on expert choices;
+3l. the planarizers: a 2048 x 4096 tensor of every planar type drawn on
+   the device, its codes, scales and biases decomposed there bit-equal to
+   the CPU's decomposition of the same bytes; then the phase-3f schedule
+   at full Qwen2.5-7B width with 2 layers as its Q5_K_M GGUF stores them
+   (layer 0 Q5_K, layer 1's ``attn_v`` and ``ffn_down`` Q6_K, a Q6_K head,
+   a Q5_K embedding; q/k/v biases) and at full Qwen3-30B-A3B width as a
+   Q2_K-mix GGUF (Q2_K attention q/k/o, gate/up banks and embedding, Q3_K
+   ``attn_v`` and down banks, a Q6_K head; q/k norms), each drawn on the
+   device as ``load_gguf_model`` reads it (``gguf/drawn.py``'s
+   ``DrawnGGUF``) and decoded there: W8 (Q5_K, Q6_K) in both bodies, and
+   W4 at group 16 dense and grouped and W8 dense and grouped in both
+   bodies, no plain version in the kernel run; phase 3g's near-tie rule on
+   Qwen3's expert choices; logits within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -291,15 +318,27 @@ script in one call:
    at a time beside the planes) after the Llama-3.1 weights are freed: the
    same 6 requests and checks; W4 grouped and W8 grouped launched in both
    bodies, the W4 wide form, and no plain version;
-14. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+14. serve the full 28-layer Qwen2.5-7B-Instruct geometry as its Q5_K_M
+   GGUF file stores it (llama.cpp's recipe: Q5_K, Q6_K for ``attn_v`` and
+   ``ffn_down`` on the 14 ``use_more_bits`` layers and for the head, a
+   Q5_K embedding; F32 norms and q/k/v biases), drawn on the device as
+   ``load_gguf_model`` reads it (its seconds and sizes logged) after the
+   Qwen1.5-MoE weights are freed: the same 6 requests and checks; W8
+   launched in both bodies and no plain version;
+15. serve the full 48-layer Qwen3-30B-A3B geometry as a Q2_K-mix GGUF file
+   stores it (phase 3l's mix; ~31 GiB of planes, its peak logged), drawn
+   on the device as the loader reads it after the Qwen2.5 weights are
+   freed: the same 6 requests and checks; W4 at group 16 dense and grouped
+   in both bodies, W8 and W8 grouped, and no plain version;
+16. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-13 (4's int8 serve and 11 for the int8 forms of the paged
+phases 4-15 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
-wide-group form runs there alone) and phases 3j and 3k; a kernel launched
+wide-group form runs there alone) and phases 3j, 3k and 3l; a kernel launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
@@ -356,14 +395,23 @@ from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E40
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
 from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
+from mistralrs_tpu_torch.gguf import planar as gguf_planar  # noqa: E402
+from mistralrs_tpu_torch.gguf.constants import GGMLType  # noqa: E402
+from mistralrs_tpu_torch.gguf.drawn import (  # noqa: E402
+    DrawnGGUF,
+    draw_blocks,
+    gguf_metadata,
+    llama_family_tensors,
+)
 from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
     CODE_DTYPES,
     PagedKVCache,
     gather_kv,
     quantize_rows,
 )
-from mistralrs_tpu_torch.models.config import ModelConfig  # noqa: E402
+from mistralrs_tpu_torch.models.config import ModelConfig, config_from_gguf  # noqa: E402
 from mistralrs_tpu_torch.models import deepseek, hf_loader, llama  # noqa: E402
+from mistralrs_tpu_torch.models.gguf_loader import load_gguf_model  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
 from mistralrs_tpu_torch.ops import _cuda  # noqa: E402
 from mistralrs_tpu_torch.ops import moe_grouped as _moe_grouped  # noqa: E402
@@ -508,6 +556,12 @@ QWEN_MOE_KERNELS = ("paged_decode", "paged_prefill", "dense_matmul_g")
 QWEN15_MOE_KERNELS = ("w4_matmul_wide_g", "w8_matmul_wide_g", "w4_matmul_wide", "paged_decode",
                       "paged_prefill")
 MIXTRAL_AWQ_KERNELS = ("w4_matmul_wide_g", "w4_matmul_wide", "paged_decode", "paged_prefill")
+# GGUF files: Qwen2.5-7B in Q5_K_M (W8 unsigned with a bias at group 32, Q6_K
+# on W8 signed at group 16), Qwen3-30B-A3B in a Q2_K mix (W4 at group 16,
+# dense and grouped; Q3_K attn_v and down banks and a Q6_K head on W8)
+GGUF_Q5KM_KERNELS = ("w8_matmul", "paged_decode", "paged_prefill")
+GGUF_Q2K_KERNELS = ("w4_matmul_g16", "w4_matmul_g16_g", "w8_matmul", "w8_matmul_g",
+                    "paged_decode", "paged_prefill")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -537,6 +591,11 @@ KERNEL_INFO = {
                          "mistralrs_tpu/ops/quant_matmul.py:830"),
     "w8_matmul_wide_g": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                          "mistralrs_tpu/ops/quant_matmul.py:895"),
+    # W4 at group 16 (Q2_K), dense and over a bank
+    "w4_matmul_g16": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
+                      "mistralrs_tpu/ops/quant_matmul.py:350"),
+    "w4_matmul_g16_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
+                        "mistralrs_tpu/ops/quant_matmul.py:830"),
     "dense_matmul_g": ("mistralrs_tpu_torch/csrc/dense_grouped.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
@@ -917,6 +976,59 @@ def build_mixtral(cfg: ModelConfig, dev, seed: int, down_kinds=None) -> dict:
         "final_norm": torch.ones(h, device=dev, dtype=torch.bfloat16),
         "lm_head": q6k(cfg.vocab_size, h, gen, dev),
     }
+
+
+def q5_k_m(n_layers: int):
+    """llama.cpp's Q5_K_M recipe (``llama_tensor_get_type``) as
+    Qwen/Qwen2.5-7B-Instruct-GGUF's ``q5_k_m`` file applies it: Q5_K for
+    the projections and the embedding, Q6_K for ``attn_v`` and ``ffn_down``
+    on the ``use_more_bits`` layers (half of them) and for ``output``."""
+    def type_of(stem: str, layer) -> GGMLType:
+        if stem == "output" or (stem in ("attn_v", "ffn_down")
+                                and use_more_bits(layer, n_layers)):
+            return GGMLType.Q6_K
+        return GGMLType.Q5_K
+    return type_of
+
+
+def q2_k_mix(stem: str, layer) -> GGMLType:
+    """Qwen3-30B-A3B's Q2_K mix: Q2_K for attention q/k/o, the gate/up
+    expert banks and the embedding, Q3_K for ``attn_v`` and the down banks
+    (llama.cpp's Q2_K recipe keeps those a step up), a Q6_K head."""
+    if stem == "output":
+        return GGMLType.Q6_K
+    return GGMLType.Q3_K if stem in ("attn_v", "ffn_down_exps") else GGMLType.Q2_K
+
+
+def gguf_config(base: dict) -> ModelConfig:
+    """The config the GGUF loader reads from a file of ``base``'s geometry
+    (``config_from_gguf`` of the metadata a converter writes): no sliding
+    window (GGUF stores none for Qwen2), ``attention.key_length`` for
+    Qwen3's head_dim of 128."""
+    return config_from_gguf(gguf_metadata(ModelConfig(**base)))
+
+
+def build_gguf(cfg: ModelConfig, dev, seed: int, type_of) -> dict:
+    """``cfg``'s weights as a GGUF file in the mix ``type_of`` stores them,
+    read through ``load_gguf_model``: a :class:`DrawnGGUF` draws each
+    tensor's raw blocks on the device as the loader reads it (a generator
+    of the tensor's own seed), the loader decodes them there into planar
+    QTensors (norms, biases and the router dense); then q/k/v, gate/up and
+    the experts' gate/up fused where their types match. Logs the load's
+    seconds and its raw and planar sizes."""
+    content = DrawnGGUF(gguf_metadata(cfg), llama_family_tensors(cfg, type_of), dev, seed)
+    t0 = time.monotonic()
+    lcfg, weights, _ = load_gguf_model(content, device=dev)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    check(lcfg == cfg, f"load_gguf_model read {lcfg}, not {cfg}")
+    mix = collections.Counter(t.ggml_type.name for t in content.tensors.values())
+    log(f"  load_gguf_model: {len(content.tensors)} tensors ({dict(mix)}), "
+        f"{content.nbytes() / 2**30:.2f} GiB of raw blocks drawn and decoded on the device in "
+        f"{dt:.1f} s ({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    weights = llama.fuse_projections(weights, cfg)
+    torch.cuda.empty_cache()
+    return weights
 
 
 def build_weights(cfg: ModelConfig, dev, seed: int) -> dict:
@@ -1338,6 +1450,101 @@ def check_wide_grouped(rows, rates, gen, dev):
         del w
         torch.cuda.empty_cache()
     rows["paged_decode"].append(check_decode(rates, gen, dev, n_q=16, n_kv=16, timed=False))
+
+
+def gguf_layer(t: str, shape, gen, dev, bias: bool = True) -> QTensor:
+    """A matrix or bank of GGML type ``t`` drawn as raw GGUF blocks on the
+    device (``gguf/drawn.py``: weights centred on zero, rms 1/sqrt(K)) and
+    decoded there by the port's planarizers, as the GGUF loader decodes a
+    file's tensor; ``bias=False`` drops the bias plane."""
+    qt = QTensor.from_gguf_raw(draw_blocks(GGMLType[t], shape, gen, dev), GGMLType[t],
+                               tuple(shape), device=dev)
+    if not bias:
+        qt = QTensor(qt.data, qt.scale, None, group_size=qt.group_size, packed=qt.packed,
+                     code_bits=qt.code_bits)
+    return qt
+
+
+def check_gguf_kernels(rows, rates, gen, dev):
+    """Phase 2's GGUF forms on layers drawn as raw blocks and decoded by the
+    port's planarizers (:func:`gguf_layer`): W4 at group 16 (Q2_K) at
+    Qwen3-30B-A3B's ``attn_q`` (N 4096, K 2048) and ``attn_output`` (N 2048,
+    K 4096), M 8 and 512, and over its fused gate/up bank (E 128, N 1536, K
+    2048, top-8) at n*k = 48 and 2048; then untimed: the W4 rows' edge
+    shapes (M 1, 16, 17, 64 and 130, N a multiple of 16 but not of 64, K of
+    one step, K splits that do not divide the steps, no bias, f32 output)
+    and the all-to-one and empty-expert routings at both row tiles. W8 with
+    unsigned codes and a bias at group 32 (Q5_K) at Qwen2.5-7B's gate-up (M
+    8, N 37888, K 3584) and down (M 8 and 512, N 3584, K 18944); Q3_K banks
+    (signed, group 16) at Qwen3-30B-A3B's down (E 128, N 2048, K 768) at
+    n*k = 48 and 2048; Q4_0, Q4_1, Q5_0 and Q5_1 untimed at one shape."""
+    for n, k in ((4096, 2048), (2048, 4096)):
+        qt = gguf_layer("Q2_K", (n, k), gen, dev)
+        check(qt.packed and qt.group_size == 16, f"Q2_K [{n}, {k}]: not W4 at group 16")
+        for m in (8, 512):
+            r = check_matmul("w4_matmul_g16", m, qt, rates, gen, dev)
+            r["shape"] += " Q2_K"
+            rows["w4_matmul_g16"].append(r)
+        del qt
+    for n, k, bias in ((336, 512, True), (1024, 4096, True), (4096, 14336, False)):
+        qt = gguf_layer("Q2_K", (n, k), gen, dev, bias=bias)
+        for m in (1, 16, 17, 64, 130):
+            for out_dtype in (None, torch.float32):
+                rows["w4_matmul_g16"].append(check_matmul("w4_matmul_g16", m, qt, rates, gen, dev,
+                                                          timed=False, out_dtype=out_dtype))
+        del qt
+    # K of one step (128) is not whole Q2_K super-blocks: 2-bit codes in
+    # nibbles and planes drawn directly
+    data = torch.randint(0, 256, (64, 320), generator=gen, device=dev, dtype=torch.uint8) & 0x33
+    scale = (0.75 + 0.5 * torch.rand((8, 320), generator=gen, device=dev)) / math.sqrt(1.25 * 128)
+    for bias in (-1.5 * scale, None):
+        qt = QTensor(data, scale, bias, group_size=16, packed=True, code_bits=2)
+        for m in (1, 17):
+            rows["w4_matmul_g16"].append(check_matmul("w4_matmul_g16", m, qt, rates, gen, dev,
+                                                      timed=False))
+    bank = gguf_layer("Q2_K", (128, 1536, 2048), gen, dev)
+    for ntok in (6, 256):
+        r = check_grouped("w4_matmul_g16_g", bank, ntok, rates, gen, dev, top=8)
+        r["shape"] = f"Qwen3-30B-A3B Q2_K gate/up, fused: {r['shape']}"
+        rows["w4_matmul_g16_g"].append(r)
+    for routing in ("all_to_one", "empty_expert"):
+        for ntok in (6, 256):
+            for out_dtype in (None, torch.float32):
+                rows["w4_matmul_g16_g"].append(check_grouped(
+                    "w4_matmul_g16_g", bank, ntok, rates, gen, dev, routing, timed=False, top=8,
+                    out_dtype=out_dtype))
+    nob = QTensor(bank.data, bank.scale, None, group_size=16, packed=True, code_bits=2)
+    rows["w4_matmul_g16_g"].append(check_grouped("w4_matmul_g16_g", nob, 6, rates, gen, dev,
+                                                 timed=False, top=8))
+    rows["w4_matmul_g16_g"].append(check_grouped("w4_matmul_g16_g", nob, 256, rates, gen, dev,
+                                                 timed=False, top=8))
+    del bank, nob
+    torch.cuda.empty_cache()
+    for n, k, ms in ((37888, 3584, (8,)), (3584, 18944, (8, 512))):
+        qt = gguf_layer("Q5_K", (n, k), gen, dev)
+        check(not qt.packed and qt.group_size == 32 and qt.bias is not None,
+              f"Q5_K [{n}, {k}]: not W8 unsigned with a bias at group 32")
+        for m in ms:
+            r = check_matmul("w8_matmul", m, qt, rates, gen, dev)
+            r["shape"] += " Q5_K (u8, bias)"
+            rows["w8_matmul"].append(r)
+        del qt
+    down = gguf_layer("Q3_K", (128, 2048, 768), gen, dev)
+    check(down.signed and down.group_size == 16 and down.bias is None, "Q3_K bank: not S8 g16")
+    for ntok in (6, 256):
+        r = check_grouped("w8_matmul_g", down, ntok, rates, gen, dev, top=8)
+        r["shape"] = f"Qwen3-30B-A3B Q3_K down: {r['shape']}"
+        rows["w8_matmul_g"].append(r)
+    del down
+    for t in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
+        qt = gguf_layer(t, (4096, 4096), gen, dev)
+        name = "w4_matmul" if qt.packed else "w8_matmul"
+        for m in (8, 130):
+            r = check_matmul(name, m, qt, rates, gen, dev, timed=False)
+            r["shape"] += f" {t}"
+            rows[name].append(r)
+        del qt
+    torch.cuda.empty_cache()
 
 
 def check_expert_banks(rows, rates, gen, dev, model: str, e: int, h: int, mi: int, top: int,
@@ -2367,8 +2574,46 @@ def check_quantized_moe_model(dev, base: dict, qc: dict, seed: int, what: str, r
     return counts
 
 
+def check_planarizers(dev) -> None:
+    """Phase 3l's planarizer check: a tensor of every planar type drawn on
+    the device and decomposed there and on the CPU (the same bytes): codes,
+    scales and biases bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    for t in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q2_K", "Q3_K", "Q4_K", "Q5_K", "Q6_K"):
+        raw = draw_blocks(GGMLType[t], (2048, 4096), gen, dev)
+        a = gguf_planar.to_planar(raw, GGMLType[t])
+        b = gguf_planar.to_planar(raw.cpu(), GGMLType[t])
+        for f in ("q", "scale", "bias"):
+            x, y = getattr(a, f), getattr(b, f)
+            same = (x is None and y is None) or (
+                x is not None and y is not None and x.dtype == y.dtype
+                and torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8)))
+            check(same, f"{t}: the card's {f} plane differs from the CPU's")
+    log("  planarizers: every type's codes, scales and biases on the card bit-equal to the "
+        "CPU's (2048 x 4096 each)")
+
+
+def check_gguf_model(dev, base: dict, type_of, seed: int, what: str, required,
+                     near_tie_ulps=None) -> dict:
+    """Phase 3l: 2 full-width layers of ``base`` as a GGUF file in the mix
+    ``type_of`` stores them (:func:`build_gguf`, through
+    ``load_gguf_model``), through the kernels and the plain versions
+    (``two_layer_runs``; ``near_tie_ulps``: phase 3g's rule on expert
+    choices): every kernel of ``required`` launched, and each W4 form of
+    it in both bodies. Returns the kernel run's launch counts."""
+    cfg = gguf_config(dict(base, num_layers=2))
+    weights = build_gguf(cfg, dev, seed, type_of)
+    counts, note, _ = two_layer_runs(dev, cfg, weights, seed + 1, what, required, near_tie_ulps)
+    bodies = {f"{k}.{b}": counts.get(f"{k}.{b}", 0) for k in required if k.startswith("w")
+              for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"{what}: bodies launched {bodies}")
+    log(f"  {what} 2 layers: {note}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 13: serve
+# phases 4 to 15: serve
 # ---------------------------------------------------------------------------
 
 
@@ -2913,6 +3158,10 @@ def main() -> int:
     # generator's stream of earlier runs)
     check_wide_grouped(rows, rates, gen, dev)
     torch.cuda.empty_cache()
+    # the GGUF forms: W4 at group 16 (Q2_K), W8 unsigned with a bias at
+    # group 32 (Q5_K), Q3_K banks, Q4_0/Q4_1/Q5_0/Q5_1 (after every other
+    # row, which keep the generator's stream of earlier runs)
+    check_gguf_kernels(rows, rates, gen, dev)
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
         log(f"kernels only: {len(timed)} timed rows [{name_line}]")
@@ -2968,6 +3217,17 @@ def main() -> int:
         "(group 128), kernels vs plain")
     mixtral_awq_model = check_quantized_moe_model(dev, MIXTRAL_8X7B, AWQ_INT4, SEED + 36,
                                                   "mixtral-8x7b awq model", MIXTRAL_AWQ_KERNELS)
+    torch.cuda.empty_cache()
+    log("phase 3l: forward_paged at full Qwen2.5-7B and Qwen3-30B-A3B width, 2 layers each, "
+        "as their Q5_K_M and Q2_K-mix GGUF files store them (through load_gguf_model), "
+        "kernels vs plain; the planarizers on the card against the CPU")
+    check_planarizers(dev)
+    q5km_model = check_gguf_model(dev, QWEN25_7B, q5_k_m(2), SEED + 46,
+                                  "qwen2.5-7b q5_k_m gguf model", GGUF_Q5KM_KERNELS)
+    torch.cuda.empty_cache()
+    q2k_model = check_gguf_model(dev, QWEN3_30B_A3B, q2_k_mix, SEED + 48,
+                                 "qwen3-30b-a3b q2_k gguf model", GGUF_Q2K_KERNELS,
+                                 NEAR_TIE_ULPS)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -3059,6 +3319,34 @@ def main() -> int:
     check(all(bodies.values()), f"phase 13: grouped wide bodies launched {bodies}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 14
+    q25 = gguf_config(QWEN25_7B)
+    log(f"phase 14: serve the {q25.num_layers}-layer Qwen2.5-7B-Instruct geometry as its "
+        f"Q5_K_M GGUF file stores it (Q5_K, Q6_K on half of attn_v and ffn_down and the head; "
+        f"drawn as the loader reads it)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    q5km_counts, _ = serve(dev, name_line, q25,
+                           lambda cfg, dev_, seed: build_gguf(cfg, dev_, seed,
+                                                              q5_k_m(cfg.num_layers)),
+                           SEED + 50, "qwen2.5-7b-instruct-q5_k_m-gguf", GGUF_Q5KM_KERNELS)
+    bodies = {b: q5km_counts.get(f"w8_matmul.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 14: w8_matmul bodies launched {bodies}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
+    # phase 15
+    q3 = gguf_config(QWEN3_30B_A3B)
+    log(f"phase 15: serve the {q3.num_layers}-layer Qwen3-30B-A3B geometry as a Q2_K-mix GGUF "
+        f"file stores it (Q2_K attention q/k/o, gate/up banks and embedding; Q3_K attn_v and down "
+        f"banks; a Q6_K head; drawn as the loader reads it)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    q2k_counts, _ = serve(dev, name_line, q3,
+                          lambda cfg, dev_, seed: build_gguf(cfg, dev_, seed, q2_k_mix),
+                          SEED + 52, "qwen3-30b-a3b-q2_k-gguf", GGUF_Q2K_KERNELS)
+    bodies = {f"{k}.{b}": q2k_counts.get(f"{k}.{b}", 0)
+              for k in GGUF_Q2K_KERNELS[:2] for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 15: W4 group-16 bodies launched {bodies}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -3071,6 +3359,9 @@ def main() -> int:
                   "w8_matmul_g": "Q6_K down: E=8 N=4096 K=14336 n*k=16",
                   "w4_matmul_wide_g": "Qwen1.5-MoE gate/up, fused: E=60 N=2816 K=2048 n*k=32",
                   "w8_matmul_wide_g": "Qwen1.5-MoE down (u8, bias): E=60 N=2048 K=1408 n*k=32",
+                  "w4_matmul_g16": "M=8 N=4096 K=2048",
+                  "w4_matmul_g16_g": "Qwen3-30B-A3B Q2_K gate/up, fused: E=128 N=1536 K=2048 "
+                                     "n*k=48",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
                   "mla_decode": "B=8 nh=16 D=576 rank=512 bs=64 kv_lens 0..2048"}
     # the fp8 forms and the int8 head_dim-64 forms run in the phase-3 model
@@ -3093,7 +3384,11 @@ def main() -> int:
             "llama-3.1-8b awq-int4 serve": awq_counts,
             "phase 3j qwen1.5-moe gptq-int4 model": q15_model,
             "phase 3k mixtral awq model": mixtral_awq_model,
-            "qwen1.5-moe-a2.7b gptq-int4 serve": q15_counts}
+            "qwen1.5-moe-a2.7b gptq-int4 serve": q15_counts,
+            "phase 3l qwen2.5-7b q5_k_m model": q5km_model,
+            "phase 3l qwen3-30b-a3b q2_k model": q2k_model,
+            "qwen2.5-7b q5_k_m gguf serve": q5km_counts,
+            "qwen3-30b-a3b q2_k gguf serve": q2k_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

@@ -3,6 +3,7 @@
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
+    python -m mistralrs_tpu_torch.cli serve qwen2.5-7b-instruct-q5_k_m.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/gemma-2-9b --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/gemma-3-12b --kv-quant int8
     python -m mistralrs_tpu_torch.cli serve path/to/DeepSeek-V2-Lite --port 8080
@@ -10,7 +11,9 @@
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen2.5-7B-Instruct --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen3-30B-A3B --port 8080
 
-A ``.gguf`` file and a llama-family HF directory (``config.json`` +
+A ``.gguf`` file (archs ``llama``, Mixtral included, ``qwen2``, ``qwen3``
+and ``qwen3moe``; every planar type: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
+Q3_K, Q4_K, Q5_K, Q6_K, and F16/BF16/F32) and a llama-family HF directory (``config.json`` +
 safetensors + ``tokenizer.json``: Llama, Mistral, Mixtral, Gemma-2, Gemma-3
 text, Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, dense bf16/f16/f32 tensors; gpt-oss with
 dense or MXFP4 expert banks, decoded to bf16 at load) serve through the
@@ -84,8 +87,8 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
-    p.add_argument("model", help="a llama .gguf file, or a llama- or DeepSeek-family HF "
-                                 "directory")
+    p.add_argument("model", help="a .gguf file (llama, qwen2, qwen3, qwen3moe), or a "
+                                 "llama- or DeepSeek-family HF directory")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")

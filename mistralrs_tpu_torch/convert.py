@@ -12,7 +12,9 @@ attributes.
 Gemma-2's and Gemma-3's post norms (``post_attn_norm``, ``post_ffn_norm``),
 Qwen3's and Gemma-3's q/k norms (``q_norm``, ``k_norm``) and Qwen2's q/k/v
 biases come across with
-the other layer leaves. The JAX ``layer_windows`` leaf is not carried:
+the other layer leaves, from HF directories and GGUF files alike, and so
+do the planes of every GGUF planar type, plane for plane (Q2_K's 2-bit
+codes packed in nibbles at group 16 included). The JAX ``layer_windows`` leaf is not carried:
 the port computes each layer's window from the config
 (``models/llama.py::layer_windows``).
 

@@ -53,7 +53,9 @@
 //     2304 (S8). tests/test_torch_w8_plan.py holds the conversion exact for
 //     all 256 byte values.
 // Scale and bias planes are f32 [K/gs, N]; bias may be absent. Group sizes:
-// PACKED4 32, 64 or 128 (those over 32 dividing K/2: GPTQ, AWQ);
+// PACKED4 16 (Q2_K's 2-bit codes: each half's 64 rows span 4 groups, so a
+// step reads 8 plane rows), 32, 64 or 128 (those over 32 dividing K/2:
+// GPTQ, AWQ);
 // U8/S8 16, 32, 64, or any multiple of 128 that divides K (GPTQ's 128, and
 // per-column scales: gs = K). A group smaller than a step's span (PACKED4:
 // each half's 64 rows; U8/S8: 128 rows) is a template constant (GS) and a
@@ -143,9 +145,9 @@ struct Decode {
   static constexpr int X = BIAS + (HB ? GROUPS * BN * 4 : 0);  // [8 MT rows][D_XLD B]
   static constexpr int STAGE = X + 8 * MT * D_XLD;
   static constexpr int TOTAL = D_STAGES * STAGE;
-  static_assert(FMT == PACKED4 ? (GS == 32 || GS == 0)
+  static_assert(FMT == PACKED4 ? (GS == 16 || GS == 32 || GS == 0)
                                 : (GS == 16 || GS == 32 || GS == 64 || GS == 0),
-                "PACKED4: groups of 32 or a runtime 64 or 128; U8/S8: 16, 32, 64 or "
+                "PACKED4: groups of 16 or 32 or a runtime 64 or 128; U8/S8: 16, 32, 64 or "
                 "a runtime multiple of 128");
   static_assert(NW == 4 || NW == 8, "code rows of 64 or 128 bytes");
   // chunk c of code row r sits at c ^ swz(r): the 8 rows one ldmatrix reads

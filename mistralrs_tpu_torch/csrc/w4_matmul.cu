@@ -10,8 +10,9 @@
 // k = K/2 + r in its high nibble, so a step over byte rows [r0, r1)
 // contracts two column ranges of x: [r0, r1) and [K/2 + r0, K/2 + r1).
 // Scale and bias planes are f32 [K/gs, N]; bias may be absent. Groups of 32
-// (Q4_K), or of 64 or 128 (GPTQ, AWQ) that divide K/2, so that each half of
-// the codes holds whole groups, for one matrix and a bank alike. The grouped
+// (Q4_K, Q4_0, Q4_1), of 16 (Q2_K: 2-bit codes in the nibbles), or of 64 or
+// 128 (GPTQ, AWQ) that divide K/2, so that each half of the codes holds
+// whole groups, for one matrix and a bank alike. The grouped
 // form multiplies row tile t by expert tile_idx[t] of a bank (planes
 // code_stride bytes and sb_stride floats apart); tiles at or past *n_used
 // write zeros and read no weights.
@@ -29,7 +30,11 @@
 //   A step is 32 byte rows: x's columns [32 s, 32 s + 32) and
 //   [K/2 + 32 s, ...) side by side as one 64-column box, each half within
 //   one group: plane rows 32 s / gs and (K/2 + 32 s) / gs (consecutive
-//   steps read the same rows when gs > 32).
+//   steps read the same rows when gs > 32). At group 16 each half spans two
+//   groups: a stage holds four plane rows (2 s, 2 s + 1 and their high-half
+//   rows), and a consumer dequantizes byte rows 0-15 and 16-31 of a half
+//   with the scale and bias of each one's own group; the ring holds one
+//   stage fewer for 64-row tiles (6), as the stages are larger.
 //   - Two producer warps and two consumer warpgroups; a block owns 128 rows
 //     (a warpgroup each, 64 x 256) or 64 rows (grouped, or M <= 64: each
 //     warpgroup takes 128 of the 256 columns, so eight warps still share the
@@ -76,17 +81,20 @@ constexpr int P_PRODUCERS = 64;  // two producer warps
 
 // Two consumer warpgroups: for a 128-row tile each takes 64 rows and all
 // 256 columns; for a 64-row tile each takes the 64 rows and 128 columns.
-template <int BM_>
+// SUB plane rows a half per step: 2 at group 16, else 1.
+template <int BM_, int SUB_>
 struct PrefillSmem {
   static constexpr int BM = BM_;
+  static constexpr int SUB = SUB_;
   static constexpr int WN = BM == 128 ? 256 : 128;  // columns per warpgroup
-  static constexpr int STAGES = BM == 128 ? 5 : 7;
-  // a step is 32 byte rows: logical k = [lo 32 | hi 32], within a group each
+  static constexpr int STAGES = BM == 128 ? 5 : (SUB == 2 ? 6 : 7);
+  // a step is 32 byte rows: logical k = [lo 32 | hi 32], SUB groups each
   static constexpr int X = 0;                        // [BM][64 k = 128 B], SW128
   static constexpr int CODES = BM * 128;             // [32 byte rows][256 B]
-  static constexpr int SCALE = CODES + 32 * P_BN;    // [2 rows: lo, hi][256] f32
-  static constexpr int BIAS = SCALE + 2 * P_BN * 4;
-  static constexpr int STAGE = BIAS + 2 * P_BN * 4;  // a multiple of 1024
+  // [2 SUB rows: the low half's groups, then the high half's][256] f32
+  static constexpr int SCALE = CODES + 32 * P_BN;
+  static constexpr int BIAS = SCALE + 2 * SUB * P_BN * 4;
+  static constexpr int STAGE = BIAS + 2 * SUB * P_BN * 4;  // a multiple of 1024
   static constexpr int BT = P_BN * 128;              // B tile [64 k][256 n], N-major SW128
   static constexpr int BTILES = STAGES * STAGE;
   static constexpr int BARS = BTILES + 2 * BT;
@@ -101,16 +109,18 @@ struct PrefillSmem {
 // of the next 64 n lbo = 8192 B on
 constexpr uint32_t B_LBO = 8192, B_SBO = 1024;
 
-// WIDE: groups of 64 or 128, the plane rows by a runtime shift (a bank's
-// planes offset to its expert first); else groups of 32, one row a step
-template <int BM, bool HAS_BIAS, bool WIDE>
+// GS = 0: groups of 64 or 128, the plane rows by a runtime shift (a bank's
+// planes offset to its expert first); GS = 32: one row a half a step; GS =
+// 16: two rows a half a step
+template <int BM, bool HAS_BIAS, int GS>
 __global__ void __launch_bounds__(256 + P_PRODUCERS, 1)
 w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
                   const float* __restrict__ scale, const float* __restrict__ bias,
                   void* __restrict__ out, int M, int N, int K, int out_bf16,
                   const int* __restrict__ tile_idx, const int* __restrict__ n_used,
                   long long code_stride, long long sb_stride, int gs) {
-  using L = PrefillSmem<BM>;
+  constexpr int SUB = GS == 16 ? 2 : 1;
+  using L = PrefillSmem<BM, SUB>;
   constexpr int WN = L::WN;
   extern __shared__ uint8_t dsmem[];
   const uint32_t raw = smem_u32(dsmem);
@@ -131,9 +141,10 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     if (HAS_BIAS) bias += e * sb_stride;
   }
   // a step's plane rows by a shift of its index (steps of 32 rows; gs 64
-  // or 128 when WIDE), no division in the producers' loop
-  const int gsh = WIDE ? __ffs(gs) - 6 : 0;
-  const int kh = K / 2, gh = (kh >> 5) >> gsh, nsteps = kh / 32;
+  // or 128 when GS = 0), no division in the producers' loop; gh: the first
+  // plane row of the high half
+  const int gsh = GS == 0 ? __ffs(gs) - 6 : 0;
+  const int kh = K / 2, gh = SUB == 2 ? kh >> 4 : (kh >> 5) >> gsh, nsteps = kh / 32;
   const uint32_t full = smem_a + L::BARS, empty = full + 8 * L::STAGES;
   if (tid == 0) {
     for (int i = 0; i < L::STAGES; ++i) {
@@ -168,10 +179,11 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
         cp_async16(st + L::CODES + r * 256 + (j << 4),
                    codes + (ok ? (size_t)(s * 32 + r) * N + col : 0), ok);
       }
-      const int g0 = s >> gsh;
-      for (int i = p; i < 2 * 64; i += P_PRODUCERS) {
+      const int g0 = SUB == 2 ? 2 * s : s >> gsh;
+      for (int i = p; i < 2 * SUB * 64; i += P_PRODUCERS) {
+        // g: SUB rows of the low half, then SUB of the high half
         const int g = i >> 6, c = i & 63;
-        const int grow = g ? gh + g0 : g0;
+        const int grow = (g >= SUB ? gh : 0) + g0 + (SUB == 2 ? (g & 1) : 0);
         const int col = n0 + 4 * c;
         const bool ok = col < N;
         cp_async16(st + L::SCALE + (g * P_BN + 4 * c) * 4,
@@ -194,7 +206,9 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
   for (int i = 0; i < WN / 2; ++i) acc[i] = 0.0f;
 
   // Dequantize stage `slot` into B tile `buf`. Lane l owns columns
-  // 8 l..8 l+7 and warp w byte rows w, w + 8, ...; a 32-bit code word
+  // 8 l..8 l+7 and warp w byte rows w, w + 8, ... (at group 16: rows w, w +
+  // 8 with the first group's scale and bias, then w + 16, w + 24 with the
+  // second's); a 32-bit code word
   // holds columns n0..n0+3 of a byte row, and one mask-and-or turns the
   // nibbles of columns (n0, n0+2) or (n0+1, n0+3) into the bf16 pair
   // (128 + q0, 128 + q2), so the B tile keeps each 8 columns in the order
@@ -211,15 +225,16 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     const uint32_t col_off = (n8 >> 6) * B_LBO;
     const int chunk = (n8 >> 3) & 7;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int hs = 0; hs < 2 * SUB; ++hs) {
+      const int h = hs / SUB, row0 = (hs % SUB) * (32 / SUB);  // the half; its first byte row
       float sc[8], bc[8];  // in the B column order 0 2 1 3 4 6 5 7
       {
-        const float4 sa = *reinterpret_cast<const float4*>(ss + h * P_BN + n8);
-        const float4 sb = *reinterpret_cast<const float4*>(ss + h * P_BN + n8 + 4);
+        const float4 sa = *reinterpret_cast<const float4*>(ss + hs * P_BN + n8);
+        const float4 sb = *reinterpret_cast<const float4*>(ss + hs * P_BN + n8 + 4);
         float4 ba = make_float4(0.0f, 0.0f, 0.0f, 0.0f), bb = ba;
         if (HAS_BIAS) {
-          ba = *reinterpret_cast<const float4*>(bs + h * P_BN + n8);
-          bb = *reinterpret_cast<const float4*>(bs + h * P_BN + n8 + 4);
+          ba = *reinterpret_cast<const float4*>(bs + hs * P_BN + n8);
+          bb = *reinterpret_cast<const float4*>(bs + hs * P_BN + n8 + 4);
         }
         const float sv[8] = {sa.x, sa.z, sa.y, sa.w, sb.x, sb.z, sb.y, sb.w};
         const float bv[8] = {ba.x, ba.z, ba.y, ba.w, bb.x, bb.z, bb.y, bb.w};
@@ -230,7 +245,7 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
         }
       }
 #pragma unroll 2
-      for (int r = cwarp; r < 32; r += 8) {
+      for (int r = row0 + cwarp; r < row0 + 32 / SUB; r += 8) {
         const uint2 cw = *reinterpret_cast<const uint2*>(st + L::CODES + r * 256 + n8);
         uint32_t v[4];
 #pragma unroll
@@ -323,10 +338,10 @@ w4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 
 using Args = DecodeArgs;
 
-template <int BM, bool HB, bool WIDE>
+template <int BM, bool HB, int GS>
 void launch_prefill(const Args& a, cudaStream_t st) {
-  using L = PrefillSmem<BM>;
-  auto kernel = w4_prefill_kernel<BM, HB, WIDE>;
+  using L = PrefillSmem<BM, GS == 16 ? 2 : 1>;
+  auto kernel = w4_prefill_kernel<BM, HB, GS>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
   const dim3 grid((a.M + L::BM - 1) / L::BM, (a.N + P_BN - 1) / P_BN);
   kernel<<<grid, L::THREADS, L::TOTAL, st>>>(a.x, a.codes, a.scale, a.bias, a.out, a.M, a.N, a.K,
@@ -334,25 +349,30 @@ void launch_prefill(const Args& a, cudaStream_t st) {
                                              a.sb_stride, a.gs);
 }
 
-// returns cudaErrorInvalidValue for a body and tile it does not have; at
-// groups over 32 the decode body is its runtime-group form (GS = 0) and the
-// prefill body its WIDE form
-template <bool HB, bool WIDE>
+// returns cudaErrorInvalidValue for a body and tile it does not have; GS
+// 16 or 32, or 0 for groups over 32 (both bodies' runtime-group forms)
+template <bool HB, int GS>
 cudaError_t launch(const Args& a, int body, int tile, cudaStream_t st) {
-  constexpr int GS = WIDE ? 0 : 32;
   if (body == 0 && tile == 8) return launch_decode<PACKED4, 1, HB, GS, 4>(a, st);
   if (body == 0 && tile == 16) return launch_decode<PACKED4, 2, HB, GS, 4>(a, st);
-  if (body == 1 && tile == 64) launch_prefill<64, HB, WIDE>(a, st);
-  else if (body == 1 && tile == 128) launch_prefill<128, HB, WIDE>(a, st);
+  if (body == 1 && tile == 64) launch_prefill<64, HB, GS>(a, st);
+  else if (body == 1 && tile == 128) launch_prefill<128, HB, GS>(a, st);
   else return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+template <bool HB>
+cudaError_t launch_gs(const Args& a, int body, int tile, cudaStream_t st) {
+  if (a.gs == 16) return launch<HB, 16>(a, body, tile, st);
+  if (a.gs == 32) return launch<HB, 32>(a, body, tile, st);
+  return launch<HB, 0>(a, body, tile, st);
 }
 
 }  // namespace
 
 // W4 matmul: x [M, K] bf16, codes [(E,) K/2, N] uint8, scale and bias
-// [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32); gs 32,
-// or 64 or 128 dividing K/2.
+// [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32); gs 16,
+// 32, 64 or 128 dividing K/2.
 // body 0 (decode): tile 8 or 16 rows; dense: M <= tile, grid.y = splits of
 //   K, workspace f32 [splits, M, N] and counters int32 [ceil(N / 64)] (all
 //   zero, left zero) when splits > 1; grouped: tile 16, one split.
@@ -368,7 +388,7 @@ extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale
   const bool grouped = tile_idx != nullptr;
   const int nsteps = K / 128;
   const bool ok = K > 0 && K % 128 == 0 && N > 0 && N % 16 == 0 && M > 0 && splits >= 1 &&
-                  (gs == 32 || ((gs == 64 || gs == 128) && (K / 2) % gs == 0)) &&
+                  (gs == 16 || gs == 32 || gs == 64 || gs == 128) && (K / 2) % gs == 0 &&
                   splits <= nsteps &&
                   (grouped ? (n_used != nullptr && M % tile == 0 && splits == 1 &&
                               (body == 0 ? tile == 16 : tile == 64))
@@ -381,11 +401,8 @@ extern "C" int mrt_w4_matmul(const void* x, const void* codes, const void* scale
                static_cast<const int*>(n_used), code_stride, sb_stride,
                static_cast<float*>(workspace), static_cast<int*>(counters), gs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = gs != 32;
-  const cudaError_t e = bias ? (wide ? launch<true, true>(a, body, tile, st)
-                                     : launch<true, false>(a, body, tile, st))
-                             : (wide ? launch<false, true>(a, body, tile, st)
-                                     : launch<false, false>(a, body, tile, st));
+  const cudaError_t e = bias ? launch_gs<true>(a, body, tile, st)
+                             : launch_gs<false>(a, body, tile, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -234,7 +234,7 @@ class GGUFContent:
         from .planar import dequantize
 
         info = self.tensors[name]
-        return dequantize(self.tensor_bytes(name), info.ggml_type, info.shape)
+        return dequantize(self.tensor_bytes(name), info.ggml_type, info.shape).numpy()
 
     def close(self):
         for f in self.files:

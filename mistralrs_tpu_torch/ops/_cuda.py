@@ -59,9 +59,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide",
+KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide", "w4_matmul_g16",
            "paged_decode", "paged_prefill",
            "w4_matmul_g", "w8_matmul_g", "w4_matmul_wide_g", "w8_matmul_wide_g",
+           "w4_matmul_g16_g",
            "dense_matmul_g", "mla_decode",
            "paged_decode_int8", "paged_decode_fp8", "paged_prefill_int8", "paged_prefill_fp8",
            "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",

@@ -7,11 +7,13 @@ GPTQ and AWQ 4-bit; replaces ``_w4_matmul``/``_w4_matmul_l``), or the **W8
 kernel** (``csrc/w8_matmul.cu``) for one byte per code (Q8_0, Q6_K,
 unsigned with bias, the widened form, GPTQ 8-bit and per-column GPTQ;
 replaces ``_w8_matmul``/``_w8_matmul_l``). Group sizes (:func:`_check_planes`),
-for one matrix and a bank alike: W4 32, or 64 and 128 dividing K/2; W8 16
+for one matrix and a bank alike: W4 16, 32, 64 and 128 dividing K/2; W8 16
 and 32, or 64 and any multiple of 128 dividing K (``group_size: -1``'s
 per-column scales are g = K). The groups over the k-quants' 32 are the
 kernels' wide-group forms, counted apart as ``w4_matmul_wide`` and
-``w8_matmul_wide`` (``..._wide_g`` over a bank: GPTQ and AWQ expert banks).
+``w8_matmul_wide`` (``..._wide_g`` over a bank: GPTQ and AWQ expert banks);
+W4 at group 16 (Q2_K's 2-bit codes in nibbles) counts as ``w4_matmul_g16``
+(``w4_matmul_g16_g`` over a bank).
 On a CPU
 tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX package and the card's
@@ -68,7 +70,10 @@ _FMT_PACKED4, _FMT_U8, _FMT_S8 = 0, 1, 2
 
 def _kernel_name(qt: QTensor) -> str:
     """The launch count's name: the W4 or W8 kernel, ``_wide`` for its
-    wide-group forms (groups over 32: GPTQ, AWQ)."""
+    wide-group forms (groups over 32: GPTQ, AWQ), ``w4_matmul_g16`` for W4
+    at group 16 (Q2_K)."""
+    if qt.packed and qt.group_size == 16:
+        return "w4_matmul_g16"
     return ("w4_matmul" if qt.packed else "w8_matmul") + ("_wide" if qt.group_size > 32 else "")
 
 
@@ -90,8 +95,8 @@ def _check_planes(qt: QTensor) -> int:
     lead = tuple(qt.data.shape[:-2])
     gs = qt.group_size
     if qt.packed:
-        require(gs == 32 or (gs in (64, 128) and (k // 2) % gs == 0),
-                f"the W4 kernel takes group size 32, or 64 or 128 dividing K/2 = {k // 2}; "
+        require(gs in (16, 32, 64, 128) and (k // 2) % gs == 0,
+                f"the W4 kernel takes group size 16, 32, 64 or 128 dividing K/2 = {k // 2}; "
                 f"not {gs}")
     else:
         require(gs in (16, 32, 64) or (gs % 128 == 0 and k % gs == 0),

@@ -1,5 +1,8 @@
 """Model loading entry point (counterpart of ``mistralrs_tpu/pipeline.py``):
-a llama ``.gguf`` path, a HF directory of the llama family (dense
+a ``.gguf`` path (archs ``llama``, Mixtral included, ``qwen2``, ``qwen3``,
+``qwen3moe``, in any of the ten planar types of ``gguf/planar.py``; the
+loader refuses ``gemma2``, ``gemma3``, ``qwen2moe``, ``granite`` and other
+archs by name), a HF directory of the llama family (dense
 checkpoints whose ``architectures[0]`` is in ``HF_ARCH_MAP`` and whose
 features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, Gemma-3 text
 (``Gemma3ForCausalLM``), Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, ...; and
@@ -57,8 +60,8 @@ def load_pipeline(
     chat_template_override: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Pipeline:
-    """Load a llama ``.gguf`` checkpoint, or a llama- or DeepSeek-family
-    HF directory, onto ``device`` (``cuda`` unless the caller asks for
+    """Load a ``.gguf`` checkpoint (llama, qwen2, qwen3, qwen3moe), or a
+    llama- or DeepSeek-family HF directory, onto ``device`` (``cuda`` unless the caller asks for
     ``"cpu"``)."""
     dev = resolve_device(device)
     path = Path(model_path)

@@ -30,7 +30,7 @@ NO_LOADS = [("for (int i = p; i < 8 * L::BM; i += P_PRODUCERS)",
              "for (int i = p; i < 0; i += P_PRODUCERS)"),
             ("for (int i = p; i < 32 * 16; i += P_PRODUCERS)",
              "for (int i = p; i < 0; i += P_PRODUCERS)"),
-            ("for (int i = p; i < 2 * 64; i += P_PRODUCERS)",
+            ("for (int i = p; i < 2 * SUB * 64; i += P_PRODUCERS)",
              "for (int i = p; i < 0; i += P_PRODUCERS)")]
 NO_DEQUANT = [("      dequant(ns, buf ^ 1);\n", "")]
 NO_MMA = [("      wgmma_tile<WN>(acc, sw128_desc", "      if (0) wgmma_tile<WN>(acc, sw128_desc")]

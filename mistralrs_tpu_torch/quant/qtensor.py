@@ -25,12 +25,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..gguf.constants import GGMLType
-from ..gguf.planar import PlanarQuant, to_planar
+from ..gguf.planar import PlanarQuant, as_bytes, to_planar
 
 
 @dataclass(frozen=True)
@@ -89,7 +88,12 @@ class QTensor:
         device: DeviceLike = None,
     ) -> "QTensor":
         """Planes of a ``[N, K]`` matrix or an ``[E, N, K]`` bank (GGUF row
-        order) on ``device`` (``cuda`` unless the caller asks for ``"cpu"``)."""
+        order) on ``device`` (``cuda`` unless the caller asks for ``"cpu"``).
+        The planes (torch tensors on any device, or numpy) are moved to
+        ``device`` first, then laid out K-major and packed there. Unsigned
+        codes of at most 4 bits pack into nibbles where ``(K / 2) %
+        group_size == 0``, as in the JAX package: Q4_0/Q4_1/Q4_K at group 32
+        and Q2_K's 2-bit codes at group 16."""
         dev = resolve_device(device)
         *lead, n, k = shape
         if len(lead) > 1:
@@ -99,22 +103,21 @@ class QTensor:
         if k % gs != 0:
             raise ValueError(f"K={k} not divisible by group size {gs}")
 
-        def kmajor(a, cols):  # [E*N*cols] → [E, cols, N]
-            return np.ascontiguousarray(a.reshape(e, n, cols).transpose(0, 2, 1))
+        def kmajor(a, cols):  # [E*N*cols] → [E, cols, N] on the device
+            return torch.as_tensor(a).to(dev).reshape(e, n, cols).transpose(1, 2).contiguous()
 
         q = kmajor(planar.q, k)
-        scale = kmajor(planar.scale.astype(np.float32), k // gs)
-        bias = None if planar.bias is None else kmajor(planar.bias.astype(np.float32), k // gs)
+        scale = kmajor(planar.scale, k // gs).to(torch.float32)
+        bias = None if planar.bias is None else kmajor(planar.bias, k // gs).to(torch.float32)
         pack = (not planar.signed) and planar.code_bits <= 4 and (k // 2) % gs == 0
         if pack:
             half = k // 2
-            data = (q[:, :half] | (q[:, half:] << 4)).astype(np.uint8)
+            data = q[:, :half].to(torch.uint8) | (q[:, half:].to(torch.uint8) << 4)
         else:
-            data = q.astype(np.int8 if planar.signed else np.uint8)
+            data = q.to(torch.int8 if planar.signed else torch.uint8)
 
         def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a if lead else a[0]))
-            return t.to(dev)
+            return a if lead else a[0]
 
         return cls(
             data=put(data),
@@ -128,10 +131,14 @@ class QTensor:
 
     @classmethod
     def from_gguf_raw(
-        cls, raw: np.ndarray, t: GGMLType, shape: tuple[int, ...],
+        cls, raw, t: GGMLType, shape: tuple[int, ...],
         device: DeviceLike = None,
     ) -> "QTensor":
-        return cls.from_planar(to_planar(raw, t), shape, ggml_type=t, device=device)
+        """Raw GGUF bytes (numpy, or a ``uint8`` tensor) → planes on
+        ``device``; the bytes are copied there first and decoded there."""
+        dev = resolve_device(device)
+        return cls.from_planar(to_planar(as_bytes(raw).to(dev), t), shape, ggml_type=t,
+                               device=dev)
 
     @classmethod
     def stack(cls, qts) -> "QTensor":

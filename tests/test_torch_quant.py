@@ -105,5 +105,7 @@ def test_embedding_lookup_rows_exact(name):
 
 
 def test_unported_type_raises():
+    """Q8_1 (an activation format, no weight type of a file) has no planar
+    decomposition in either package."""
     with pytest.raises(NotImplementedError):
-        planar.to_planar(np.zeros(18, np.uint8), GGMLType.Q4_0)
+        planar.to_planar(np.zeros(36, np.uint8), GGMLType.Q8_1)

@@ -110,9 +110,9 @@ def test_bad_planes_raise(breakage):
         scale = scale.double()
     elif breakage == "bias_shape":
         bias = bias[:4].contiguous()
-    elif breakage == "group_size":
-        gs = 16
-        scale = torch.ones((16, 64))
+    elif breakage == "group_size":  # W4 takes groups of 16, 32, 64 and 128
+        gs = 8
+        scale = torch.ones((32, 64))
         bias = None
     elif breakage == "codes_dtype":
         data = data.to(torch.int16)
