@@ -244,6 +244,22 @@ script in one call:
    W4 at group 16 dense and grouped and W8 dense and grouped in both
    bodies, no plain version in the kernel run; phase 3g's near-tie rule on
    Qwen3's expert choices; logits within 5e-2 of the largest;
+3m. in-situ quantization (ISQ): a 1024 x 4096 tensor quantized on the card
+   to each ISQ type (Q8_0, Q4_0, Q5_0, Q4_K, Q5_K, Q6_K; Q4_K also with
+   importance weights) must give the CPU's bytes for the same input (its
+   card time per million weights logged); then the phase-3f schedule at
+   full Mixtral-8x7B and Qwen1.5-MoE-A2.7B width with 2 layers each, drawn
+   on the device as bf16 checkpoints and quantized to Q4_K at load
+   (``weights_from_state_dict(isq=Q4_K)``: the routers padded to 16 and 64
+   rows on W4, the expert banks on W4 grouped, Qwen1.5-MoE's down bank at
+   K = 1408 left bf16 on the dense grouped kernel, its shared expert and
+   gate on W4, Q8_0 heads on W8): W4 and W4 grouped in both bodies, no
+   plain version in the kernel run; phase 3b's rule on Mixtral's expert
+   choices, phase 3g's near-tie rule on Qwen1.5-MoE's with its threshold
+   twice the largest router-logit difference of the two runs on one path
+   (at least 4 ulps: a quantized router's product is taken on f32
+   weights by the kernel, on bf16-rounded ones by the plain version);
+   logits within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -330,15 +346,21 @@ script in one call:
    on the device as the loader reads it after the Qwen2.5 weights are
    freed: the same 6 requests and checks; W4 at group 16 dense and grouped
    in both bodies, W8 and W8 grouped, and no plain version;
-16. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+16. serve the full 32-layer Llama-3.1-8B geometry drawn on the device as a
+   bf16 checkpoint (~16.1 GB) and quantized in situ to Q4_K at load, with a
+   Q8_0 embedding and head (the ISQ seconds, the weights quantized, the
+   planes' size and the peak device memory logged) after the Qwen3 weights
+   are freed: the same 6 requests and checks; W4 in both bodies and W8
+   launched, no plain version;
+17. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-15 (4's int8 serve and 11 for the int8 forms of the paged
+phases 4-16 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
-wide-group form runs there alone) and phases 3j, 3k and 3l; a kernel launched
+wide-group form runs there alone) and phases 3j, 3k, 3l and 3m; a kernel launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
@@ -396,13 +418,14 @@ from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
 from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
 from mistralrs_tpu_torch.gguf import planar as gguf_planar  # noqa: E402
-from mistralrs_tpu_torch.gguf.constants import GGMLType  # noqa: E402
+from mistralrs_tpu_torch.gguf.constants import GGMLType, type_traits  # noqa: E402
 from mistralrs_tpu_torch.gguf.drawn import (  # noqa: E402
     DrawnGGUF,
     draw_blocks,
     gguf_metadata,
     llama_family_tensors,
 )
+from mistralrs_tpu_torch.gguf.quants import quantize  # noqa: E402
 from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
     CODE_DTYPES,
     PagedKVCache,
@@ -562,6 +585,13 @@ MIXTRAL_AWQ_KERNELS = ("w4_matmul_wide_g", "w4_matmul_wide", "paged_decode", "pa
 GGUF_Q5KM_KERNELS = ("w8_matmul", "paged_decode", "paged_prefill")
 GGUF_Q2K_KERNELS = ("w4_matmul_g16", "w4_matmul_g16_g", "w8_matmul", "w8_matmul_g",
                     "paged_decode", "paged_prefill")
+
+# bf16 checkpoints quantized in situ to Q4_K at load: W4 (attention, the
+# padded routers, qwen2moe's shared expert and gate), W4 grouped (the expert
+# banks; qwen2moe's down bank at K = 1408 stays bf16 on the dense grouped
+# kernel), W8 (the Q8_0 head)
+ISQ_TYPES = ("Q8_0", "Q4_0", "Q5_0", "Q4_K", "Q5_K", "Q6_K")
+ISQ_MOE_KERNELS = ("w4_matmul", "w4_matmul_g", "w8_matmul", "paged_decode", "paged_prefill")
 
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
@@ -813,11 +843,12 @@ def quant_bank(e: int, n: int, k: int, gen: torch.Generator, dev, bits: int = 4,
     return QTensor.stack([wide_layer(n, k, gen, dev, bits, group, awq) for _ in range(e)])
 
 
-def checkpoint_layer(cfg: ModelConfig, qc: dict) -> dict:
-    """The tensors of one layer as a GPTQ or AWQ checkpoint of ``cfg``
-    stores them: ``{suffix: ("words", (n, k)) | ("f16", shape, std) |
-    ("ones", shape)}``; every projection (q/k/v/o, the dense MLP, Mixtral's
-    and qwen2moe's experts, qwen2moe's shared expert) as words, the norms
+def checkpoint_layer(cfg: ModelConfig) -> dict:
+    """The tensors of one layer of a checkpoint of ``cfg``: ``{suffix:
+    ("words", (n, k)) | ("f16", shape, std) | ("ones", shape)}``; every
+    projection (q/k/v/o, the dense MLP, Mixtral's and qwen2moe's experts,
+    qwen2moe's shared expert) as words in a GPTQ or AWQ checkpoint (a bf16
+    ``[n, k]`` weight in a dense one, :func:`bf16_checkpoint`), the norms
     of ones, Qwen's q/k/v biases of N(0, 0.1^2), the routers and qwen2moe's
     shared-expert gate in f16 of N(0, 1/H) (AutoGPTQ and AutoAWQ leave them
     unquantized)."""
@@ -865,7 +896,7 @@ class LayerwiseCheckpoint(collections.abc.Mapping):
 
     def __init__(self, cfg: ModelConfig, dev, seed: int, qc: dict):
         self.cfg, self.dev, self.seed, self.qc = cfg, dev, seed, qc
-        self.spec = checkpoint_layer(cfg, qc)
+        self.spec = checkpoint_layer(cfg)
         parts = ("qweight", "qzeros", "scales") + (() if qc["quant_method"] == "awq"
                                                    else ("g_idx",))
         self.names = {}  # name → (layer, suffix, part)
@@ -932,6 +963,82 @@ def build_quantized(cfg: ModelConfig, dev, seed: int, qc: dict) -> dict:
     24."""
     sd = LayerwiseCheckpoint(cfg, dev, seed, qc)
     weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev, quant_config=qc)
+    del sd
+    torch.cuda.empty_cache()
+    return llama.fuse_projections(weights, cfg)
+
+
+def bf16_checkpoint(cfg: ModelConfig, dev, seed: int) -> dict:
+    """``cfg``'s weights as a dense bf16 Hugging Face checkpoint (its tensor
+    names, :func:`checkpoint_layer`'s tensors) drawn on the device: each
+    projection ``[n, k]`` of N(0, 1/k), the routers and qwen2moe's
+    shared-expert gates of N(0, 1/H), Qwen's q/k/v biases of N(0, 0.1^2),
+    norms of ones, the embedding and an untied head of N(0, 0.02^2):
+    ~16.1 GB for Llama-3.1-8B."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).mul_(std)
+
+    h, v = cfg.hidden_size, cfg.vocab_size
+    sd = {"model.embed_tokens.weight": draw((v, h), 0.02),
+          "model.norm.weight": torch.ones(h, device=dev, dtype=torch.bfloat16)}
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = draw((v, h), 0.02)
+    spec = checkpoint_layer(cfg)
+    for li in range(cfg.num_layers):
+        for suffix, kind in spec.items():
+            name = f"model.layers.{li}.{suffix}"
+            if kind[0] == "words":
+                n, k = kind[1]
+                sd[name + ".weight"] = draw((n, k), k ** -0.5)
+            elif kind[0] == "f16":
+                sd[name] = draw(kind[1], kind[2])
+            else:
+                sd[name] = torch.ones(kind[1], device=dev, dtype=torch.bfloat16)
+    return sd
+
+
+def quantized_weights(tree) -> int:
+    """The weights of a weight tree held as planes (a padded matrix counts
+    its ``logical_n`` rows)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return sum(quantized_weights(t) for t in tree)
+    if isinstance(tree, QTensor):
+        *lead, n, k = tree.shape
+        return (tree.logical_n or n) * k * math.prod(lead)
+    return 0
+
+
+def build_isq(cfg: ModelConfig, dev, seed: int, stats: dict | None = None) -> dict:
+    """``cfg``'s weights as a bf16 checkpoint (:func:`bf16_checkpoint`)
+    quantized in situ to Q4_K as the HF loader reads it
+    (``weights_from_state_dict(isq=Q4_K)``: on the device, embedding and
+    head to Q8_0, routers and gates padded to 16 rows, tensors whose K is
+    not a multiple of 256 left bf16), then q/k/v, gate/up and the experts'
+    gate/up fused. Logs the ISQ seconds (drawing excluded), the weights
+    quantized, the planes' size and the peak device memory so far; puts
+    them in ``stats`` when given."""
+    sd = bf16_checkpoint(cfg, dev, seed)
+    torch.cuda.synchronize()
+    drawn = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev, isq=GGMLType.Q4_K)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    n = quantized_weights(weights)
+    info = {"seconds": dt, "weights": n, "ms_per_million": dt * 1e3 / (n / 1e6),
+            "bf16_gib": drawn / 2**30,
+            "planes_gib": (torch.cuda.memory_allocated(dev) - drawn) / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log(f"  ISQ to Q4_K at load: {n / 1e9:.3f} G weights quantized in {dt:.2f} s "
+        f"({info['ms_per_million']:.3f} ms per million weights); {info['bf16_gib']:.2f} GiB "
+        f"allocated with the bf16 checkpoint drawn, {info['planes_gib']:.2f} GiB of planes "
+        f"beside it, peak so far {info['peak_gib']:.2f} GiB")
+    if stats is not None:
+        stats.update(info)
     del sd
     torch.cuda.empty_cache()
     return llama.fuse_projections(weights, cfg)
@@ -2115,12 +2222,13 @@ def choice_agreement(what: str, kernel_run: list, plain_run: list, plain_gaps: l
     return same, total, gaps
 
 
-def router_noise(what: str, k: int, kernel_run: list, plain_run: list) -> str:
+def router_noise(what: str, k: int, kernel_run: list, plain_run: list) -> tuple[str, float]:
     """How far the router logits of the kernel run and of the plain run (on
     the kernel run's expert choices, so the same path) lie apart: the
     largest |difference|, and the differences in bf16 ulps of each (token,
     layer)'s k-th largest logit, the top-k edge that a choice must cross to
-    flip (the largest, and the 99th and 99.9th percentiles)."""
+    flip (the largest, and the 99th and 99.9th percentiles). Returns the
+    log line and the largest difference in those ulps."""
     diffs, ulps = [], []
     for a, b in zip(kernel_run, plain_run):
         d = (a - b).float().abs().reshape(-1, a.shape[-1])
@@ -2134,7 +2242,7 @@ def router_noise(what: str, k: int, kernel_run: list, plain_run: list) -> str:
             f"({ulp.max().item():.2f} bf16 ulps of the row's top-k edge; 99th / 99.9th "
             f"percentile {q[0]:.2f} / {q[1]:.2f}) over {diff.numel()} logits")
     log(f"  {what}: {line}")
-    return line + "; "
+    return line + "; ", ulp.max().item()
 
 
 def check_mixtral_model(dev) -> dict:
@@ -2377,7 +2485,11 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
     300-token prompts in 128-token chunks, then 4 decode steps of both rows;
     with experts, phase 3b's rule on expert choices or, with
     ``near_tie_ulps``, the near-tie rule of ``choice_agreement`` (their
-    router-logit gaps logged either way), then the plain run on the kernel
+    router-logit gaps logged either way; ``near_tie_ulps="noise"``: within
+    twice the largest difference of the two runs' router logits on one
+    path, in the same ulps, and at least ``NEAR_TIE_ULPS``: phase 3m's
+    quantized routers, whose product the kernel takes on f32 weights and
+    the plain version on bf16-rounded ones), then the plain run on the kernel
     run's choices; every step's logits within 5e-2 of the largest, every
     kernel of ``required`` (in its ``kv_quant`` form) launched and no plain
     version in the kernel run. With ``forced`` (another run's expert
@@ -2430,7 +2542,9 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
         choices.append(chosen)
     note = ""
     if cfg.num_experts:
-        note = router_noise(what, cfg.num_experts_per_tok, *router)
+        note, noise_ulps = router_noise(what, cfg.num_experts_per_tok, *router)
+        if near_tie_ulps == "noise":  # phase 3m's quantized routers: ties within the noise
+            near_tie_ulps = max(NEAR_TIE_ULPS, 2 * noise_ulps)
     if cfg.num_experts and forced is not None:
         note += "on the bf16 pools' kernel run's expert choices; "
     elif cfg.num_experts:
@@ -2612,8 +2726,67 @@ def check_gguf_model(dev, base: dict, type_of, seed: int, what: str, required,
     return counts
 
 
+def check_isq_bytes(dev) -> dict:
+    """Phase 3m's quantizer check: a 1024 x 4096 f32 tensor drawn on the
+    device (N(0, 0.02^2) rows, an all-zero and a constant super-block,
+    all-positive groups, rows whose f16 ``d`` is subnormal) quantized there
+    to each ISQ type (and to Q4_K with importance weights) and on the CPU:
+    the bytes must be equal. Returns each type's card time per million
+    weights (ms; the second of two calls, one chunk)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 56)
+    x = torch.randn((1024, 4096), generator=gen, device=dev) * 0.02
+    x[1, :256] = 0.0
+    x[2, :256] = -0.25
+    x[3] = x[3].abs() + 0.05
+    x[4:8] *= 5e-3
+    imp = torch.rand(4096, generator=gen, device=dev) ** 3
+    xc, impc = x.cpu(), imp.cpu()
+    rates = {}
+    for name in ISQ_TYPES + ("Q4_K+imatrix",):
+        t = GGMLType[name.split("+")[0]]
+        w, wc = (imp, impc) if "imatrix" in name else (None, None)
+        card = quantize(x, t, w)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        quantize(x, t, w)
+        torch.cuda.synchronize()
+        rates[name] = (time.monotonic() - t0) * 1e3 / (x.numel() / 1e6)
+        cpu = quantize(xc, t, wc)
+        nb = cpu.numel() // type_traits(t).type_size
+        differ = int((card.cpu().reshape(nb, -1) != cpu.reshape(nb, -1)).any(dim=1).sum())
+        check(differ == 0, f"ISQ {name}: {differ} of {nb} blocks on the card differ from the CPU's")
+    log("  ISQ bytes: every type on the card bit-equal to the CPU (1024 x 4096 each); card ms "
+        "per million weights: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()))
+    return rates
+
+
+def check_isq_model(dev, base: dict, seed: int, what: str, required,
+                    near_tie_ulps=None) -> dict:
+    """Phase 3m: 2 layers at full width of ``base`` as a bf16 checkpoint
+    quantized in situ to Q4_K at load (:func:`build_isq`) through the
+    kernels and the plain versions (``two_layer_runs``; ``near_tie_ulps``:
+    phase 3g's near-tie rule on expert choices, ``"noise"`` for its
+    threshold from the runs' router-logit noise; else phase 3b's): the router a
+    padded Q4_K matrix on W4, W4 and W4 grouped in both bodies, every
+    kernel of ``required`` launched and no plain version in the kernel run.
+    Returns the kernel run's launch counts."""
+    cfg = ModelConfig(**dict(base, num_layers=2))
+    weights = build_isq(cfg, dev, seed)
+    router = weights["layers"][0]["router"]
+    check(isinstance(router, QTensor) and router.logical_n == cfg.num_experts
+          and router.out_features % 16 == 0,
+          f"{what}: the router is not a padded planar matrix of {cfg.num_experts} rows")
+    counts, note, _ = two_layer_runs(dev, cfg, weights, seed + 1, what, required, near_tie_ulps)
+    bodies = {f"{k}.{b}": counts.get(f"{k}.{b}", 0) for k in ("w4_matmul", "w4_matmul_g")
+              for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"{what}: bodies launched {bodies}")
+    log(f"  {what} 2 layers: {note}")
+    del weights
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 15: serve
+# phases 4 to 16: serve
 # ---------------------------------------------------------------------------
 
 
@@ -3229,6 +3402,17 @@ def main() -> int:
                                  "qwen3-30b-a3b q2_k gguf model", GGUF_Q2K_KERNELS,
                                  NEAR_TIE_ULPS)
     torch.cuda.empty_cache()
+    log("phase 3m: in-situ quantization: each ISQ type's bytes on the card against the CPU; "
+        "forward_paged at full Mixtral-8x7B and Qwen1.5-MoE-A2.7B width, 2 layers each, as bf16 "
+        "checkpoints quantized to Q4_K at load, kernels vs plain")
+    isq_rates = check_isq_bytes(dev)
+    isq_mixtral_model = check_isq_model(dev, MIXTRAL_8X7B, SEED + 58, "mixtral-8x7b isq q4k model",
+                                        ISQ_MOE_KERNELS)
+    torch.cuda.empty_cache()
+    isq_q15_model = check_isq_model(dev, QWEN15_MOE_A27B, SEED + 60,
+                                    "qwen1.5-moe-a2.7b isq q4k model",
+                                    ISQ_MOE_KERNELS + ("dense_matmul_g",), "noise")
+    torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3347,6 +3531,22 @@ def main() -> int:
     check(all(bodies.values()), f"phase 15: W4 group-16 bodies launched {bodies}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
+    # phase 16
+    log(f"phase 16: serve the {LLAMA31_8B['num_layers']}-layer Llama-3.1-8B geometry as a bf16 "
+        f"checkpoint quantized in situ to Q4_K at load (Q8_0 embedding and head)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    isq_stats: dict = {}
+    isq_counts, _ = serve(dev, name_line, ModelConfig(**LLAMA31_8B),
+                          lambda cfg, dev_, seed: build_isq(cfg, dev_, seed, isq_stats),
+                          SEED + 62, "llama-3.1-8b-isq-q4k", DENSE_KERNELS)
+    bodies = {b: isq_counts.get(f"w4_matmul.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 16: w4_matmul bodies launched {bodies}")
+    log(f"  ISQ load {isq_stats['seconds']:.2f} s for {isq_stats['weights'] / 1e9:.3f} G weights "
+        f"({isq_stats['ms_per_million']:.3f} ms per million; 1024 x 4096 alone: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in isq_rates.items())
+        + f"), peak during the load {isq_stats['peak_gib']:.2f} GiB; W4 launches "
+        f"{isq_counts.get('w4_matmul', 0)}, W8 {isq_counts.get('w8_matmul', 0)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{name_line}]")
     # the summary: one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
@@ -3388,7 +3588,10 @@ def main() -> int:
             "phase 3l qwen2.5-7b q5_k_m model": q5km_model,
             "phase 3l qwen3-30b-a3b q2_k model": q2k_model,
             "qwen2.5-7b q5_k_m gguf serve": q5km_counts,
-            "qwen3-30b-a3b q2_k gguf serve": q2k_counts}
+            "qwen3-30b-a3b q2_k gguf serve": q2k_counts,
+            "phase 3m mixtral isq q4k model": isq_mixtral_model,
+            "phase 3m qwen1.5-moe isq q4k model": isq_q15_model,
+            "llama-3.1-8b isq q4k serve": isq_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

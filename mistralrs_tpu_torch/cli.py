@@ -10,6 +10,7 @@
     python -m mistralrs_tpu_torch.cli serve path/to/gpt-oss-20b --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen2.5-7B-Instruct --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen3-30B-A3B --port 8080
+    python -m mistralrs_tpu_torch.cli serve path/to/Meta-Llama-3.1-8B-Instruct --isq q4k
 
 A ``.gguf`` file (archs ``llama``, Mixtral included, ``qwen2``, ``qwen3``
 and ``qwen3moe``; every planar type: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
@@ -22,6 +23,9 @@ directory through its arch adapter.
 ``--kv-quant int8|fp8`` serves from 1-byte KV pools (or latent pool) with
 per-row scales, sized by their own bytes per token, for every model of the
 llama decoder (windows, softcaps, sinks, head_dim 64, 128 and 256).
+``--isq q4k|q5k|q6k|q8_0|q4_0|q5_0`` (the JAX package's names) quantizes a
+llama-family HF directory on the card as it loads (JAX ``cli.py:17``); a
+``.gguf`` file and a DeepSeek directory load unquantized, with a warning.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ def cmd_serve(args) -> int:
     if args.chat_template:
         with open(args.chat_template) as f:
             override = f.read()
-    pipe = load_pipeline(args.model, chat_template_override=override, device=args.device)
+    pipe = load_pipeline(args.model, isq=args.isq, chat_template_override=override,
+                         device=args.device)
     if pipe.tokenizer is None:
         print("error: model has no tokenizer; `serve` needs one", file=sys.stderr)
         return 1
@@ -92,6 +97,7 @@ def main(argv=None) -> int:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--isq", default=None, help="in-situ quantization (q4k, q8_0, ...)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--block-size", type=int, default=64, help="paged KV block tokens")
     p.add_argument("--num-kv-blocks", type=int, default=None,

@@ -36,6 +36,13 @@ grouped kernel in its signed-with-bias form. qwen2moe's ``shared_expert``
 (``{gate, up, down}`` of stacked ``[L, ...]`` leaves, plain or planar) and
 ``shared_expert_gate`` (``[L, 1, H]``) come across per layer.
 
+The JAX package's in-situ quantized weights (``load_hf_model(isq=...)``)
+come across plane for plane as well: its Q8_0 embedding and head, and its
+quantized routers and qwen2moe's shared-expert gates (N = 8, 60, 1), whose
+planes are zero-padded to a multiple of 16 rows with their N kept as
+``logical_n`` (``QTensor.pad_rows``), as the port's ISQ loader lays them
+out for the kernels.
+
 :func:`from_jax_deepseek_params` does the same for the JAX package's
 DeepSeek weights (absorbed MLA, DeepSeek-MoE).
 """
@@ -143,6 +150,9 @@ def from_jax_params(
     def layer(i):
         lw = {key: _leaf(w, device, dtype, layer=i)
               for key, w in stacked.items() if key not in ("experts", "shared_expert")}
+        for key in ("router", "shared_expert_gate"):  # quantized in situ: N padded to 16
+            if isinstance(lw.get(key), QTensor):
+                lw[key] = lw[key].pad_rows(16)
         if shared:
             lw["shared_expert"] = {key: _leaf(w, device, dtype, layer=i)
                                    for key, w in shared.items()}

@@ -34,6 +34,13 @@ import torch
 
 from ..models.config import ModelConfig
 from .constants import GGMLType, type_traits
+from .quants import (
+    _f16_bytes,
+    _pack_bits,
+    _pack_nibbles,
+    _pack_q6k_codes,
+    _pack_scale_min_k4,
+)
 
 # (sub-scale range, code range) of each type's draw; the codes as the format
 # stores them (unsigned), the sub-scales as integers
@@ -61,36 +68,11 @@ def _ints(lo, hi, shape, gen, dev, dtype=torch.uint8):
                          dtype=torch.int32).to(dtype)
 
 
-def _f16_bytes(v: torch.Tensor) -> torch.Tensor:
-    """f32 [n] → its f16 as [n, 2] bytes."""
-    return v.to(torch.float16).contiguous().view(torch.uint8).reshape(-1, 2)
-
-
 def _d6(n: int, d0: float, gen, dev) -> torch.Tensor:
     """n block scales around ``d0`` (x 0.75..1.25) as f16 values with 6
     significant bits (the low 5 mantissa bits cleared), widened to f32."""
     d = (d0 * (0.75 + 0.5 * torch.rand(n, generator=gen, device=dev))).to(torch.float16)
     return (d.view(torch.int16) & ~0x1F).view(torch.float16).to(torch.float32)
-
-
-def _pack_nibbles(c: torch.Tensor) -> torch.Tensor:
-    """[n, 32] 4-bit codes → [n, 16] bytes: code j low, code j + 16 high."""
-    return c[:, :16] | (c[:, 16:] << 4)
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """[n, 8 m] bits → [n, m] bytes, bit i of byte b from bits[:, 8 b + i]."""
-    n = bits.shape[0]
-    shifts = torch.arange(8, device=bits.device, dtype=torch.uint8)
-    return (bits.reshape(n, -1, 8) << shifts).sum(-1, dtype=torch.int32).to(torch.uint8)
-
-
-def _pack_scale_min_k4(sc: torch.Tensor, mn: torch.Tensor) -> torch.Tensor:
-    """[n, 8] 6-bit scales and mins → the 12 packed bytes of Q4_K / Q5_K."""
-    out = [(sc[:, g] & 63) | ((sc[:, g + 4] >> 4) << 6) for g in range(4)]
-    out += [(mn[:, g] & 63) | ((mn[:, g + 4] >> 4) << 6) for g in range(4)]
-    out += [(sc[:, g + 4] & 15) | ((mn[:, g + 4] & 15) << 4) for g in range(4)]
-    return torch.stack(out, dim=1)
 
 
 def _pack_q3k_scales(raw6: torch.Tensor) -> torch.Tensor:
@@ -150,13 +132,8 @@ def draw_blocks(t: GGMLType, shape: tuple[int, ...], gen: torch.Generator, devic
             parts.append(_ints(0, 255, (n, 32), gen, dev))
         parts.append(_ints(0, 255, (n, 128), gen, dev))
     elif t == GGMLType.Q6_K:  # codes 1..63 (-31..31 about the format's 32)
-        codes = _ints(clo, chi, (n, 2, 4, 32), gen, dev)  # element half*128 + quarter*32 + pos
-        lo, hi = codes & 15, codes >> 4
-        ql = torch.cat([lo[:, :, 0] | (lo[:, :, 2] << 4), lo[:, :, 1] | (lo[:, :, 3] << 4)],
-                       dim=2).reshape(n, 128)
-        qh = sum(hi[:, :, q] << (2 * q) for q in range(4)).reshape(n, 64)
-        parts = [ql, qh, _ints(*sub, (n, 16), gen, dev, torch.int8).view(torch.uint8),
-                 _f16_bytes(d)]
+        parts = [_pack_q6k_codes(_ints(clo, chi, (n, 256), gen, dev)),
+                 _ints(*sub, (n, 16), gen, dev, torch.int8).view(torch.uint8), _f16_bytes(d)]
     else:
         raise NotImplementedError(f"no block draw for {t!r}")
     out = torch.cat([p.to(torch.uint8) for p in parts], dim=1)

@@ -49,25 +49,49 @@ MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits (AWQ: 4 only),
 AWQ packings other than ``"gemm"``, GPTQ act-order (a non-trivial
 ``g_idx``, which the JAX package refuses too; an expert's as well),
 GPTQ/AWQ on gpt-oss's pre-stacked banks or on any other MoE arch, a
-quantized router, shared-expert gate or ``lm_head``, phi3's fused
-projections, MLP biases, and expert banks other than Mixtral's,
-Qwen3-MoE's, qwen2moe's and gpt-oss's. In-situ
-quantization, UQFF overlays, importance matrices and topologies are not
-ported: the loader takes no such argument.
+router, shared-expert gate or ``lm_head`` stored as GPTQ/AWQ words, phi3's
+fused projections, MLP biases, and expert banks other than Mixtral's,
+Qwen3-MoE's, qwen2moe's and gpt-oss's. UQFF overlays and topologies are
+not ported: the loader takes no such argument.
+
+In-situ quantization (ISQ, JAX ``hf_loader.py:121-155``): with ``isq`` (a
+GGUF type of ``gguf/quants.py``: Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q5_0) every
+dense tensor the plan names (:func:`default_isq_plan`: 2-D, not a norm or
+a bias, K a multiple of 256; ``embed_tokens`` and ``lm_head`` at Q8_0,
+the rest at ``isq``) is quantized to GGUF blocks as it is read, on
+``device``, from its checkpoint dtype (f32 there), and the blocks decoded
+into planes (``gguf/planar.py::to_planar``, ``QTensor.from_planar``): the
+JAX package's bytes and planes, bit for bit. The plan sees JAX's names
+(``layers.<key>`` with qwen2moe's shared expert as ``se_gate``/``se_up``/
+``se_down``, ``layers.exp_gate``/``exp_up``/``exp_down`` for each expert,
+``embed_tokens``, ``lm_head``). A tensor the plan leaves alone stays dense
+(qwen2moe's expert down bank at K = 1408 runs on the dense grouped
+kernel beside quantized gate/up banks); one already quantized (GPTQ, AWQ)
+stays as it is. A quantized matrix whose N is not a multiple of 16 (a
+router of 8 or 60 experts, the shared-expert gate) is zero-padded to one
+(``QTensor.pad_rows``) so that the W4/W8 kernels take it. ``imatrix``
+(``imatrix.py``'s taps) gives Q4_K and Q5_K each layer's importance row,
+``rows[i % len(rows)]`` as JAX ``build_stacked`` indexes them; the other
+types ignore it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import struct
 from pathlib import Path
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..gguf.constants import GGMLType
+from ..gguf.planar import to_planar
+from ..gguf.quants import quantize
+from ..imatrix import imatrix_rows_for_key
 from ..quant.gptq_awq import awq_to_qtensor, gptq_to_qtensor
 from ..quant.mxfp4 import decode_mxfp4_param
 from ..quant.qtensor import QTensor
@@ -167,6 +191,50 @@ _GPT_OSS_BANKS = {"gate_up_proj": "gateup", "down_proj": "down"}
 _GPTQ_PARTS = (".qweight", ".qzeros", ".scales", ".g_idx")
 
 
+# the port's layer keys that JAX names otherwise (qwen2moe's shared expert)
+_JAX_KEYS = {f"shared_{key}": f"se_{key}" for key in _QWEN_MOE_EXPERTS.values()}
+# tensors that stay dense under ISQ (JAX hf_loader.py:31)
+_NORM_RE = re.compile(r"(norm|layernorm)", re.IGNORECASE)
+
+IsqPlan = Callable[[str, tuple], Optional[GGMLType]]
+
+
+def default_isq_plan(isq: Optional[GGMLType]) -> IsqPlan:
+    """Each tensor's ISQ type by its JAX name and shape (JAX
+    ``default_isq_plan``, ``hf_loader.py:137-155``): None (dense) for
+    norms, biases, tensors that are not 2-D and K not a multiple of 256
+    (the k-quants' super-block); Q8_0 for ``embed`` and ``lm_head``; else
+    ``isq``."""
+
+    def plan(name: str, shape: tuple) -> Optional[GGMLType]:
+        if isq is None:
+            return None
+        if len(shape) != 2 or _NORM_RE.search(name) or name.endswith("bias"):
+            return None
+        if shape[1] % 256 != 0:
+            return None
+        if "embed" in name or "lm_head" in name:
+            return GGMLType.Q8_0
+        return isq
+
+    return plan
+
+
+def _quantize_tensor(w: torch.Tensor, t: GGMLType, dev: torch.device,
+                     imatrix_row: Optional[np.ndarray] = None) -> QTensor:
+    """One ``[N, K]`` tensor quantized on ``dev`` to type ``t``'s blocks
+    (with ``imatrix_row``'s importance weights where its length is K) and
+    decoded into planes there, N zero-padded to a multiple of 16 (JAX
+    ``_quantize_tensor``, ``hf_loader.py:121-134``)."""
+    w = w.to(dev)
+    weights = None
+    if imatrix_row is not None and imatrix_row.shape[-1] == w.shape[-1]:
+        weights = torch.from_numpy(np.asarray(imatrix_row, np.float32)).to(dev)
+    raw = quantize(w, t, weights)
+    qt = QTensor.from_planar(to_planar(raw, t), tuple(w.shape), ggml_type=t, device=dev)
+    return qt.pad_rows(16)
+
+
 def _quant_method(quant_config: Optional[Mapping[str, Any]], cfg: ModelConfig) -> Optional[str]:
     """The checkpoint's quantization, ``"mxfp4"``, ``"gptq"``, ``"awq"`` or
     None, once it is known to be ported; raises ``NotImplementedError``
@@ -233,6 +301,9 @@ def weights_from_state_dict(
     dtype=torch.bfloat16,
     device: DeviceLike = None,
     quant_config: Optional[Mapping[str, Any]] = None,
+    isq: Optional[GGMLType] = None,
+    isq_plan: Optional[IsqPlan] = None,
+    imatrix: Optional[Mapping[str, np.ndarray]] = None,
 ) -> dict:
     """The port's llama-family weight dict (``models/llama.py``) from a HF
     state dict (dense tensors; gpt-oss's MXFP4 banks with ``quant_config``
@@ -241,12 +312,13 @@ def weights_from_state_dict(
     ``dtype`` on ``device`` (``cuda`` unless the caller asks for ``"cpu"``;
     gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
     path, the same tensors to the same weights (gpt-oss's banks in the
-    kernel's layout, above; GPTQ/AWQ experts stacked into planar banks). A
-    tensor of any other name (MLP biases, phi3's fused projections, q/k
-    norms of a config without ``qk_norm``, expert banks other than
-    Mixtral's, Qwen3-MoE's, qwen2moe's and gpt-oss's, a quantized router,
-    shared-expert gate or ``lm_head``) raises ``NotImplementedError``
-    naming it."""
+    kernel's layout, above; GPTQ/AWQ experts stacked into planar banks).
+    With ``isq`` (or a plan of one's own, ``isq_plan(name, shape)``) and
+    ``imatrix``: in-situ quantization (module docstring). A tensor of any
+    other name (MLP biases, phi3's fused projections, q/k norms of a config
+    without ``qk_norm``, expert banks other than Mixtral's, Qwen3-MoE's,
+    qwen2moe's and gpt-oss's, a router, shared-expert gate or ``lm_head``
+    stored as GPTQ/AWQ words) raises ``NotImplementedError`` naming it."""
     gpt_oss = cfg.arch == "gpt_oss"
     method = _quant_method(quant_config, cfg)
     gptq_awq = method in ("gptq", "awq")
@@ -283,11 +355,20 @@ def weights_from_state_dict(
 
     bits = int((quant_config or {}).get("bits", 4))
     zero_offset = 0 if (quant_config or {}).get("checkpoint_format") == "gptq_v2" else 1
+    plan = isq_plan or default_isq_plan(isq)
 
-    def take(name: str):
+    def take(name: str, plan_name: Optional[str] = None, layer: int = 0):
+        """``name``'s tensor on ``dev``: dense in ``dtype``, quantized where
+        the plan gives ``plan_name`` a type, or decoded from GPTQ/AWQ words;
+        None where the checkpoint lacks it."""
         t = sd.get(name)
         if t is not None:
-            return t.to(device=dev, dtype=dtype)
+            qtype = None if plan_name is None else plan(plan_name, tuple(t.shape))
+            if qtype is None:
+                return t.to(device=dev, dtype=dtype)
+            rows = imatrix_rows_for_key(imatrix, plan_name[len("layers."):])
+            return _quantize_tensor(t, qtype, dev, None if rows is None
+                                    else rows[layer % len(rows)])
         stem = name[:-len(".weight")]
         if not (gptq_awq and name.endswith(".weight") and stem + ".qweight" in sd):
             return None
@@ -301,7 +382,8 @@ def weights_from_state_dict(
     layers = []
     for i in range(cfg.num_layers):
         lp = f"{prefix}layers.{i}."
-        lw = {key: t for suffix, key in layer_map.items() if (t := take(lp + suffix)) is not None}
+        lw = {key: t for suffix, key in layer_map.items()
+              if (t := take(lp + suffix, f"layers.{_JAX_KEYS.get(key, key)}", i)) is not None}
         if gpt_oss:
             lw["experts"] = _gpt_oss_experts(sd, lp, dtype, dev, method == "mxfp4")
             if "sinks" in lw:
@@ -310,7 +392,7 @@ def weights_from_state_dict(
             bank: dict[str, list] = {key: [None] * cfg.num_experts
                                      for key in _MIXTRAL_EXPERTS.values()}
             for suffix, (j, key) in experts.items():
-                bank[key][j] = take(lp + suffix)
+                bank[key][j] = take(lp + suffix, f"layers.exp_{key}")
             if all(x is not None for xs in bank.values() for x in xs):
                 lw["experts"] = {key: _stack_bank(xs) for key, xs in bank.items()}
             del bank  # each expert's own planes: gone before the next layer's are decoded
@@ -328,7 +410,7 @@ def weights_from_state_dict(
         if missing:
             raise ValueError(f"HF loader: layer {i} lacks {sorted(missing)}")
         layers.append(lw)
-    embed = take(prefix + "embed_tokens.weight")
+    embed = take(prefix + "embed_tokens.weight", "embed_tokens")
     final_norm = take(prefix + "norm.weight")
     if embed is None or final_norm is None:
         raise ValueError("HF loader: embed_tokens.weight or norm.weight missing")
@@ -336,7 +418,7 @@ def weights_from_state_dict(
         "embed": embed,
         "layers": layers,
         "final_norm": final_norm,
-        "lm_head": take("lm_head.weight"),  # None: tied to the embedding
+        "lm_head": take("lm_head.weight", "lm_head"),  # None: tied to the embedding
     }
 
 
@@ -345,13 +427,17 @@ def load_hf_model(
     *,
     dtype=torch.bfloat16,
     device: DeviceLike = None,
+    isq: Optional[GGMLType] = None,
+    imatrix: Optional[Mapping[str, np.ndarray]] = None,
 ) -> tuple[ModelConfig, dict, dict[str, Any]]:
     """A llama-family HF directory (``config.json`` + safetensors) →
-    ``(config, weights on device, config dict)``."""
+    ``(config, weights on device, config dict)``, quantized in situ to
+    ``isq`` (with ``imatrix``'s rows) where given."""
     path = Path(path)
     hf_cfg = json.loads((path / "config.json").read_text())
     cfg = config_from_hf(hf_cfg)
     weights = weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
                                       device=device,
-                                      quant_config=hf_cfg.get("quantization_config"))
+                                      quant_config=hf_cfg.get("quantization_config"),
+                                      isq=isq, imatrix=imatrix)
     return cfg, weights, hf_cfg

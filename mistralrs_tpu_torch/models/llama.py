@@ -405,11 +405,12 @@ def kernel_workspace(weights: dict, cfg: ModelConfig, batch: int, rows, widths,
 
 def _concat_n(ws):
     """Concat weights along out-features (dense [(E,) N, K] or K-major
-    QTensor [(E,) K, N]); None when their kinds differ."""
+    QTensor [(E,) K, N]); None when their kinds differ or a QTensor's rows
+    are padded."""
     if all(isinstance(w, QTensor) for w in ws):
         first = ws[0]
         if not all(
-            w.packed == first.packed and w.group_size == first.group_size
+            w.logical_n is None and w.packed == first.packed and w.group_size == first.group_size
             and w.code_bits == first.code_bits and w.data.dtype == first.data.dtype
             and (w.bias is None) == (first.bias is None)
             for w in ws

@@ -10,9 +10,17 @@ gpt-oss, in bf16 or with its MXFP4 expert banks), or a HF
 directory of the DeepSeek family (``model_type`` ``deepseek_v2``,
 ``deepseek_v3``, ``glm4_moe_lite``) → config, weights on the device,
 tokenizer, chat template and, for DeepSeek, the engine's arch adapter.
-Other HF directories (``Gemma3ForConditionalGeneration``, Gemma-3 with its
-vision tower, by name), UQFF files and in-situ quantization are not ported
-yet and raise ``NotImplementedError``."""
+
+``isq`` (a name of :data:`ISQ_NAMES`, as JAX ``parse_isq`` reads it, or a
+``GGMLType``) quantizes a llama-family HF directory in situ as it loads, on
+the device (``models/hf_loader.py``), with the importance rows of an
+``imatrix`` ``.npz`` where given. As in the JAX package, a ``.gguf`` file
+and a DeepSeek-family directory load unquantized whatever ``isq`` says
+(JAX ``pipeline.py:383-395``, ``_load_specialized`` :423-442); the port
+says so on stderr. Other HF directories
+(``Gemma3ForConditionalGeneration``, Gemma-3 with its vision tower, by
+name) and UQFF files are not ported yet and raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -26,9 +34,44 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .chat_template import ChatTemplate, resolve_chat_template
+from .gguf.constants import GGMLType
 from .models.config import HF_ARCH_MAP, ModelConfig
 from .models.gguf_loader import load_gguf_model
 from .tokenizer import TokenizerWrapper, from_gguf_metadata, from_hf_dir
+
+# in-situ quantization names (JAX pipeline.py:21-32)
+ISQ_NAMES = {
+    "q4k": GGMLType.Q4_K,
+    "q4_k": GGMLType.Q4_K,
+    "q5k": GGMLType.Q5_K,
+    "q5_k": GGMLType.Q5_K,
+    "q6k": GGMLType.Q6_K,
+    "q6_k": GGMLType.Q6_K,
+    "q8_0": GGMLType.Q8_0,
+    "q8": GGMLType.Q8_0,
+    "q4_0": GGMLType.Q4_0,
+    "q5_0": GGMLType.Q5_0,
+}
+
+
+def parse_isq(name: Optional[str]) -> Optional[GGMLType]:
+    """An ISQ name (case and surrounding spaces ignored; ``"none"`` and
+    ``""`` mean none) → its GGUF type; an unknown name raises the JAX
+    package's ``ValueError``."""
+    if name is None:
+        return None
+    key = name.strip().lower()
+    if key in ("none", ""):
+        return None
+    if key not in ISQ_NAMES:
+        raise ValueError(f"unknown ISQ type {name!r}; supported: {sorted(ISQ_NAMES)}")
+    return ISQ_NAMES[key]
+
+
+def _warn_unquantized(what: str, isq: Optional[GGMLType]) -> None:
+    if isq is not None:
+        print(f"warning: {what} loads unquantized; in-situ quantization to {isq.name} "
+              f"is ignored, as the JAX package ignores it", file=sys.stderr)
 
 # HF model types served through an arch adapter (JAX pipeline.py:61): the
 # DeepSeek family, to which GLM-4-MoE-Lite belongs
@@ -56,21 +99,27 @@ class Pipeline:
 def load_pipeline(
     model_path: str,
     *,
+    isq: Optional[str | GGMLType] = None,
     dtype=torch.bfloat16,
     chat_template_override: Optional[str] = None,
     device: DeviceLike = None,
+    imatrix: Optional[str] = None,
 ) -> Pipeline:
     """Load a ``.gguf`` checkpoint (llama, qwen2, qwen3, qwen3moe), or a
     llama- or DeepSeek-family HF directory, onto ``device`` (``cuda`` unless the caller asks for
-    ``"cpu"``)."""
+    ``"cpu"``); a llama-family directory quantized in situ to ``isq`` (with
+    the ``imatrix`` ``.npz``'s importance rows), as JAX ``load_pipeline``
+    does."""
     dev = resolve_device(device)
+    isq_t = parse_isq(isq) if isinstance(isq, str) else isq
     path = Path(model_path)
     if path.is_dir():
-        return _load_hf_dir(path, dtype, chat_template_override, dev)
+        return _load_hf_dir(path, dtype, chat_template_override, dev, isq_t, imatrix)
     if not (path.is_file() and path.suffix == ".gguf"):
         raise NotImplementedError(
             f"model path {model_path!r}: only .gguf files and HF directories are ported so far"
         )
+    _warn_unquantized(f"GGUF file {path.name}", isq_t)
     cfg, weights, md = load_gguf_model(str(path), dtype=dtype, device=dev)
     try:
         tokenizer = from_gguf_metadata(md)
@@ -90,11 +139,12 @@ def _tokenizer(path: Path):
         return None
 
 
-def _load_hf_dir(path: Path, dtype, chat_template_override, dev) -> Pipeline:
+def _load_hf_dir(path: Path, dtype, chat_template_override, dev, isq, imatrix) -> Pipeline:
     """A llama-family HF directory (JAX ``pipeline.py``'s HF branch, through
     ``models/hf_loader.py::load_hf_model``), or a DeepSeek-family one (JAX
     ``pipeline.py:240-257`` and ``make_adapter`` at :325-352)."""
     from .engine.adapters import DeepseekAdapter
+    from .imatrix import load_imatrix
     from .models.deepseek import DeepseekConfig, deepseek_weights_from_state_dict
     from .models.hf_loader import load_hf_model, load_safetensors_dir
 
@@ -110,9 +160,11 @@ def _load_hf_dir(path: Path, dtype, chat_template_override, dev) -> Pipeline:
             raise NotImplementedError(
                 f"HF directory {path}: architectures {archs} / model_type {model_type!r} are "
                 f"not ported (llama family: {sorted(HF_ARCH_MAP)}; {DEEPSEEK_ARCHS})")
-        cfg, weights, hf_cfg = load_hf_model(path, dtype=dtype, device=dev)
+        im = None if imatrix is None else load_imatrix(imatrix)
+        cfg, weights, hf_cfg = load_hf_model(path, dtype=dtype, device=dev, isq=isq, imatrix=im)
         ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=cfg.arch)
         return Pipeline(cfg, weights, _tokenizer(path), ct, path.name, hf_cfg)
+    _warn_unquantized(f"{model_type} directory {path.name}", isq)
     cfg = DeepseekConfig.from_hf(hf_cfg)
     weights = deepseek_weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
                                                device=dev)

@@ -22,11 +22,14 @@ def linear(
     plain: bool = False,
 ) -> torch.Tensor:
     """``x @ w.T (+ bias)`` with ``w`` of shape [out, in]; f32 accumulation,
-    result in ``x.dtype``."""
+    result in ``x.dtype``. A QTensor whose rows were padded for the kernels
+    (``logical_n``) gives its first ``logical_n`` outputs."""
     if isinstance(w, QTensor):
         # weights dequantize to bf16 whatever x's dtype, as in the JAX
         # package (quant_matmul's default dequant_dtype)
         out = quant_matmul(x, w, plain=plain)
+        if w.logical_n is not None:
+            out = out[..., :w.logical_n]
     elif isinstance(w, torch.Tensor):
         out = torch.matmul(x, w.to(x.dtype).T)
     else:
@@ -37,11 +40,13 @@ def linear(
 
 
 def embedding_lookup(ids: torch.Tensor, w: Weight, dtype=torch.bfloat16) -> torch.Tensor:
-    """Row gather from an embedding table ``[V, H]`` (dense or planar)."""
+    """Row gather from an embedding table ``[V, H]`` (dense or planar); the
+    rows come out contiguous (a planar table's gather is K-major, and a
+    strided residual stream slows every norm and add after it)."""
     if isinstance(w, QTensor):
-        data = w.data[:, ids].movedim(0, -1)  # [ids..., Kd]
-        scale = w.scale[:, ids].movedim(0, -1)  # [ids..., G]
-        bias = None if w.bias is None else w.bias[:, ids].movedim(0, -1)
+        data = w.data[:, ids].movedim(0, -1).contiguous()  # [ids..., Kd]
+        scale = w.scale[:, ids].movedim(0, -1).contiguous()  # [ids..., G]
+        bias = None if w.bias is None else w.bias[:, ids].movedim(0, -1).contiguous()
         if w.packed:
             d = data.to(torch.int32)
             codes = torch.cat([d & 15, d >> 4], dim=-1)

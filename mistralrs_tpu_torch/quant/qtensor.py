@@ -18,10 +18,17 @@ A bank of experts carries one leading axis: codes ``[E, K/2, N]`` or
 ``[E, K, N]``, scales and biases ``[E, K/gs, N]``, contiguous, so expert
 ``e`` (:meth:`QTensor.bank`) is a view and the grouped kernels find it at a
 fixed stride. :meth:`QTensor.stack` makes a bank of single matrices.
+
+The kernels take N in multiples of 16. A matrix of another N (a router of 8
+or 60 experts, qwen2moe's shared-expert gate of 1 row) carries its planes
+zero-padded to the next multiple (:meth:`QTensor.pad_rows`: zero codes,
+scales and biases, so the padded rows compute zeros) and its own N as
+``logical_n``; ``quant/linear.py::linear`` slices the product to it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -44,10 +51,12 @@ class QTensor:
     packed: bool = False
     code_bits: int = 8
     ggml_type: Optional[GGMLType] = None
+    logical_n: Optional[int] = None  # the rows before :meth:`pad_rows`; None: all real
 
     @property
     def shape(self) -> tuple[int, ...]:
-        """Logical shape: ``(N, K)``, or ``(E, N, K)`` for a bank."""
+        """The planes' shape: ``(N, K)``, or ``(E, N, K)`` for a bank (N
+        padded where ``logical_n`` is set)."""
         *lead, kd, n = self.data.shape
         return (*lead, n, kd * 2 if self.packed else kd)
 
@@ -146,8 +155,8 @@ class QTensor:
         packing and code type (the decoded experts of a GPTQ or AWQ layer),
         each plane stacked along a new leading axis."""
         first = qts[0]
-        if first.num_banks is not None:
-            raise ValueError("QTensor.stack takes single matrices, not banks")
+        if first.num_banks is not None or first.logical_n is not None:
+            raise ValueError("QTensor.stack takes single unpadded matrices, not banks")
         for qt in qts:
             if (qt.shape, qt.group_size, qt.packed, qt.code_bits, qt.data.dtype,
                     qt.bias is None) != (first.shape, first.group_size, first.packed,
@@ -165,12 +174,26 @@ class QTensor:
         )
 
     def to(self, device) -> "QTensor":
-        return QTensor(
-            data=self.data.to(device), scale=self.scale.to(device),
-            bias=None if self.bias is None else self.bias.to(device),
-            group_size=self.group_size, packed=self.packed,
-            code_bits=self.code_bits, ggml_type=self.ggml_type,
-        )
+        return dataclasses.replace(
+            self, data=self.data.to(device), scale=self.scale.to(device),
+            bias=None if self.bias is None else self.bias.to(device))
+
+    def pad_rows(self, multiple: int = 16) -> "QTensor":
+        """One matrix with N zero-padded to a multiple of ``multiple`` (zero
+        codes, scales and biases: the padded rows compute zeros), its N kept
+        as ``logical_n``; itself where N is a multiple already."""
+        if self.num_banks is not None:
+            raise ValueError("pad_rows takes one matrix, not a bank")
+        n = self.out_features
+        pad = -n % multiple
+        if pad == 0:
+            return self
+
+        def padded(p):
+            return None if p is None else torch.nn.functional.pad(p, (0, pad)).contiguous()
+
+        return dataclasses.replace(self, data=padded(self.data), scale=padded(self.scale),
+                                   bias=padded(self.bias), logical_n=n)
 
     # -- access -------------------------------------------------------------
 
@@ -178,12 +201,8 @@ class QTensor:
         """Expert ``e`` of a bank, as a view."""
         if self.num_banks is None:
             raise ValueError("not a bank of experts")
-        return QTensor(
-            data=self.data[e], scale=self.scale[e],
-            bias=None if self.bias is None else self.bias[e],
-            group_size=self.group_size, packed=self.packed,
-            code_bits=self.code_bits, ggml_type=self.ggml_type,
-        )
+        return dataclasses.replace(self, data=self.data[e], scale=self.scale[e],
+                                   bias=None if self.bias is None else self.bias[e])
 
     def unpack_codes(self) -> torch.Tensor:
         """Integer codes as int32 ``[(E,) K, N]``."""

@@ -324,10 +324,12 @@ def _weights_equal(a, b):
         for x, y in zip(a, b):
             _weights_equal(x, y)
     elif isinstance(a, QTensor):
-        assert (a.packed, a.group_size, a.code_bits) == (b.packed, b.group_size, b.code_bits)
+        assert (a.packed, a.group_size, a.code_bits, a.logical_n) == (
+            b.packed, b.group_size, b.code_bits, b.logical_n)
         for name in ("data", "scale", "bias"):
             x, y = getattr(a, name), getattr(b, name)
-            assert x.dtype == y.dtype and torch.equal(x, y), name
+            assert (x is None) == (y is None), name
+            assert x is None or (x.dtype == y.dtype and torch.equal(x, y)), name
     elif isinstance(a, torch.Tensor):
         assert a.dtype == b.dtype and torch.equal(a, b)
     else:
