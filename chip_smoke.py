@@ -153,7 +153,15 @@ script in one call:
    at Qwen2.5-7B's gate-up (M 8) and down (M 8 and 512) and Q3_K banks
    (signed, group 16) at Qwen3-30B-A3B's down (E 128, N 2048, K 768) at
    n*k = 48 and 2048, timed; Q4_0, Q4_1 (W4 with a bias) and Q5_0, Q5_1
-   (W8 unsigned with a bias) untimed at N = K = 4096, M 8 and 130;
+   (W8 unsigned with a bias) untimed at N = K = 4096, M 8 and 130.
+   Then the paged kernels' head_dim-96 and -80 forms at Phi-3-mini's and
+   Phi-2's attention (32/32 heads, group 1), timed: decode at B=8 (kv_lens
+   up to 1024; every form, bf16, int8 and fp8), at 8 x 4096 with the 2047
+   window (96) and at one request of 2048 positions (80), prefill at B=2
+   T=128 on 300 past (every form), 512 tokens on 2048 past through the
+   window (96) and 512 on 512 (80); untimed at each head dim, decode and
+   prefill with a softcap and with sinks (each with its control) and at
+   GQA group 8 (32/4 heads);
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -260,6 +268,17 @@ script in one call:
    (at least 4 ulps: a quantized router's product is taken on f32
    weights by the kernel, on bf16-rounded ones by the plain version);
    logits within 5e-2 of the largest;
+3n. the Llama-family variants: the phase-3f schedule at full width with 2
+   layers of each of Phi-3-mini-4k-instruct, Phi-2 (both over bf16, int8
+   and fp8 pools), StarCoder2-7B, StableLM-2-1.6B, Aya-23-8B,
+   Granite-3.1-8B, GLM-4-9B-0414 and SmolLM3-3B (its second layer a NoPE
+   one), each from its published ``config.json`` through the port's
+   ``config_from_hf``, drawn on the device as a bf16 HF checkpoint under
+   the arch's own tensor names (phi3's fused ``qkv_proj``/``gate_up_proj``,
+   phi2's ``dense``/``fc1``/``fc2`` and ``final_layernorm``, LayerNorm and
+   MLP biases, glm4's sandwich norms) and loaded through the HF loader: the
+   paged forms of the arch's head dim launched (80 and 96 for the Phis) and
+   no plain version; logits within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -352,15 +371,27 @@ script in one call:
    planes' size and the peak device memory logged) after the Qwen3 weights
    are freed: the same 6 requests and checks; W4 in both bodies and W8
    launched, no plain version;
-17. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+17. serve the full 32-layer Phi-3-mini-4k-instruct geometry (~7.6 GB
+   drawn on the device as a bf16 HF checkpoint and loaded through the HF
+   loader, its fused projections split at load and fused again) after the
+   Llama-3.1 weights are freed: the same 6 requests but one prompt of 2500
+   tokens (160 KV blocks of 64 positions), past its 2047 window in prefill
+   and in decode; the same checks; the head_dim-96 forms launched and no
+   plain version; then the same weights from int8 KV pools (its int8
+   head_dim-96 forms);
+18. serve the full 32-layer Phi-2 geometry drawn as a bf16 checkpoint and
+   quantized in situ to Q4_K at load (Q8_0 embedding and head; its biases
+   and LayerNorms dense): the same 6 requests and checks; W4 in both
+   bodies, W8 and the head_dim-80 forms launched, no plain version;
+19. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
 its path, and each run's count beside them (``launches_by_run``): the serve
-phases 4-16 (4's int8 serve and 11 for the int8 forms of the paged
-kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h)
+phases 4-18 (4's int8 serve and 11 for the int8 forms of the paged
+kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h, 3n)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
-wide-group form runs there alone) and phases 3j, 3k, 3l and 3m; a kernel launched
+wide-group form runs there alone) and phases 3j, 3k, 3l, 3m and 3n; a kernel launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
@@ -432,7 +463,11 @@ from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
     gather_kv,
     quantize_rows,
 )
-from mistralrs_tpu_torch.models.config import ModelConfig, config_from_gguf  # noqa: E402
+from mistralrs_tpu_torch.models.config import (  # noqa: E402
+    ModelConfig,
+    config_from_gguf,
+    config_from_hf,
+)
 from mistralrs_tpu_torch.models import deepseek, hf_loader, llama  # noqa: E402
 from mistralrs_tpu_torch.models.gguf_loader import load_gguf_model  # noqa: E402
 from mistralrs_tpu_torch.models.llama import forward_paged  # noqa: E402
@@ -593,11 +628,85 @@ GGUF_Q2K_KERNELS = ("w4_matmul_g16", "w4_matmul_g16_g", "w8_matmul", "w8_matmul_
 ISQ_TYPES = ("Q8_0", "Q4_0", "Q5_0", "Q4_K", "Q5_K", "Q6_K")
 ISQ_MOE_KERNELS = ("w4_matmul", "w4_matmul_g", "w8_matmul", "paged_decode", "paged_prefill")
 
+# the Llama-family variants: their published config.json files (the keys the
+# readers take), read by the port's own config_from_hf
+VARIANT_JSON = {
+    # microsoft/Phi-3-mini-4k-instruct: 32/32 heads of 96, fused qkv_proj and
+    # gate_up_proj, a window of 2047
+    "phi3": {"architectures": ["Phi3ForCausalLM"], "hidden_act": "silu", "hidden_size": 3072,
+             "intermediate_size": 8192, "max_position_embeddings": 4096,
+             "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 32,
+             "rms_norm_eps": 1e-05, "rope_scaling": None, "rope_theta": 10000.0,
+             "sliding_window": 2047, "tie_word_embeddings": False, "vocab_size": 32064},
+    # microsoft/phi-2: 32/32 heads of 80, partial rotary 0.4, LayerNorm with
+    # biases, parallel residual, gelu_new, biased gateless MLP, lm_head bias
+    "phi2": {"architectures": ["PhiForCausalLM"], "hidden_act": "gelu_new",
+             "hidden_size": 2560, "intermediate_size": 10240, "layer_norm_eps": 1e-05,
+             "max_position_embeddings": 2048, "num_attention_heads": 32,
+             "num_hidden_layers": 32, "num_key_value_heads": 32, "partial_rotary_factor": 0.4,
+             "qk_layernorm": False, "rope_theta": 10000.0, "tie_word_embeddings": False,
+             "vocab_size": 51200},
+    # bigcode/starcoder2-7b: 36/4 heads (group 9), gateless biased MLP,
+    # LayerNorm with biases, a window of 4096
+    "starcoder2": {"architectures": ["Starcoder2ForCausalLM"],
+                   "hidden_act": "gelu_pytorch_tanh", "hidden_size": 4608,
+                   "intermediate_size": 18432, "max_position_embeddings": 16384,
+                   "norm_epsilon": 1e-05, "num_attention_heads": 36, "num_hidden_layers": 32,
+                   "num_key_value_heads": 4, "rope_theta": 1000000, "sliding_window": 4096,
+                   "use_bias": True, "vocab_size": 49152},
+    # stabilityai/stablelm-2-1_6b: 32/32 heads of 64, partial rotary 0.25,
+    # q/k/v biases, LayerNorm with biases
+    "stablelm": {"architectures": ["StableLmForCausalLM"], "hidden_act": "silu",
+                 "hidden_size": 2048, "intermediate_size": 5632, "layer_norm_eps": 1e-05,
+                 "max_position_embeddings": 4096, "num_attention_heads": 32,
+                 "num_hidden_layers": 24, "num_key_value_heads": 32,
+                 "partial_rotary_factor": 0.25, "rope_theta": 10000,
+                 "tie_word_embeddings": False, "use_qkv_bias": True, "vocab_size": 100352},
+    # CohereForAI/aya-23-8B (cohere): 32/8 heads, interleaved rope, parallel
+    # residual, LayerNorm without biases, logit_scale 0.125, a tied head
+    "cohere": {"architectures": ["CohereForCausalLM"], "hidden_act": "silu",
+               "hidden_size": 4096, "intermediate_size": 14336, "layer_norm_eps": 1e-05,
+               "logit_scale": 0.125, "max_position_embeddings": 8192,
+               "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 8,
+               "rope_theta": 10000, "use_qk_norm": False, "vocab_size": 256000,
+               "tie_word_embeddings": True},
+    # ibm-granite/granite-3.1-8b-instruct: embedding 12, residual 0.22,
+    # attention 0.0078125, logits 16, vocab 49155, a tied head
+    "granite": {"architectures": ["GraniteForCausalLM"], "attention_multiplier": 0.0078125,
+                "embedding_multiplier": 12.0, "hidden_act": "silu", "hidden_size": 4096,
+                "intermediate_size": 12800, "logits_scaling": 16.0,
+                "max_position_embeddings": 131072, "num_attention_heads": 32,
+                "num_hidden_layers": 40, "num_key_value_heads": 8, "residual_multiplier": 0.22,
+                "rms_norm_eps": 1e-05, "rope_theta": 10000000.0, "tie_word_embeddings": True,
+                "vocab_size": 49155},
+    # THUDM/GLM-4-9B-0414: 32/2 heads (group 16), partial rotary 0.5
+    # interleaved, sandwich norms, q/k/v biases, fused gate_up_proj
+    "glm4": {"architectures": ["Glm4ForCausalLM"], "attention_bias": True, "head_dim": 128,
+             "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 13696,
+             "max_position_embeddings": 32768, "num_attention_heads": 32,
+             "num_hidden_layers": 40, "num_key_value_heads": 2, "partial_rotary_factor": 0.5,
+             "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "tie_word_embeddings": False,
+             "vocab_size": 151552},
+    # HuggingFaceTB/SmolLM3-3B: 16/4 heads, NoPE every fourth layer, a tied head
+    "smollm3": {"architectures": ["SmolLM3ForCausalLM"], "hidden_act": "silu",
+                "hidden_size": 2048, "intermediate_size": 11008,
+                "max_position_embeddings": 65536, "no_rope_layers": [
+                    0 if (i + 1) % 4 == 0 else 1 for i in range(36)],
+                "num_attention_heads": 16, "num_hidden_layers": 36, "num_key_value_heads": 4,
+                "rms_norm_eps": 1e-06, "rope_theta": 5000000.0, "sliding_window": None,
+                "tie_word_embeddings": True, "use_sliding_window": False,
+                "vocab_size": 128256},
+}
+PHI3_KERNELS = ("paged_decode_hd96", "paged_prefill_hd96")
+PHI2_KERNELS = ("paged_decode_hd80", "paged_prefill_hd80")
+PHI2_ISQ_KERNELS = ("w4_matmul", "w8_matmul") + PHI2_KERNELS
+
 # memory rate (B/s) and dense bf16 tensor-core rate (FLOP/s) by card
 # (NVIDIA data sheets; the rates assume the card's full power limit)
 RATES = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
          "H100": (3.35e12, 989e12), "H200": (4.8e12, 989e12)}
 
+# (the paged kernels' bodies: paged_attention.cuh, compiled one head dim a source)
 KERNEL_INFO = {
     "w4_matmul": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                   "mistralrs_tpu/ops/quant_matmul.py:350"),
@@ -608,9 +717,9 @@ KERNEL_INFO = {
                        "mistralrs_tpu/ops/quant_matmul.py:350"),
     "w8_matmul_wide": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
                        "mistralrs_tpu/ops/quant_matmul.py:411"),
-    "paged_decode": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                      "mistralrs_tpu/ops/paged_attention.py:496"),
-    "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                       "mistralrs_tpu/ops/paged_attention.py:1162"),
     "w4_matmul_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:830"),
@@ -631,29 +740,34 @@ KERNEL_INFO = {
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
                    "mistralrs_tpu/ops/mla_attention.py:218"),
     # the quantized forms of the paged kernels (the JAX kernels' quantized=True)
-    "paged_decode_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                           "mistralrs_tpu/ops/paged_attention.py:496"),
-    "paged_decode_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                          "mistralrs_tpu/ops/paged_attention.py:496"),
-    "paged_prefill_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill_int8": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                            "mistralrs_tpu/ops/paged_attention.py:1162"),
-    "paged_prefill_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill_fp8": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                           "mistralrs_tpu/ops/paged_attention.py:1162"),
     # the head_dim-256 instances of the bf16 forms (Gemma-2)
-    "paged_decode_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                            "mistralrs_tpu/ops/paged_attention.py:496"),
-    "paged_prefill_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill_hd256": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                             "mistralrs_tpu/ops/paged_attention.py:1162"),
     # the head_dim-64 instances of the bf16 forms (gpt-oss)
-    "paged_decode_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                           "mistralrs_tpu/ops/paged_attention.py:496"),
-    "paged_prefill_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill_hd64": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                            "mistralrs_tpu/ops/paged_attention.py:1162"),
     # the quantized forms at head_dim 256 and 64 (Gemma, gpt-oss)
-    **{f"paged_{k}_{q}_hd{d}": ("mistralrs_tpu_torch/csrc/paged_attention.cu",
+    **{f"paged_{k}_{q}_hd{d}": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
                                 "mistralrs_tpu/ops/paged_attention.py:"
                                 + ("496" if k == "decode" else "1162"))
        for k in ("decode", "prefill") for q in ("int8", "fp8") for d in (256, 64)},
+    # every form at head_dim 80 and 96 (Phi-2, Phi-3-mini)
+    **{f"paged_{k}{q}_hd{d}": ("mistralrs_tpu_torch/csrc/paged_attention.cuh",
+                               "mistralrs_tpu/ops/paged_attention.py:"
+                               + ("496" if k == "decode" else "1162"))
+       for k in ("decode", "prefill") for q in ("", "_int8", "_fp8") for d in (80, 96)},
 }
 QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_int8")
 
@@ -851,12 +965,25 @@ def checkpoint_layer(cfg: ModelConfig) -> dict:
     ``[n, k]`` weight in a dense one, :func:`bf16_checkpoint`), the norms
     of ones, Qwen's q/k/v biases of N(0, 0.1^2), the routers and qwen2moe's
     shared-expert gate in f16 of N(0, 1/H) (AutoGPTQ and AutoAWQ leave them
-    unquantized)."""
+    unquantized). The Llama-family variants' layers under their own HF names
+    (:data:`VARIANT_JSON`): phi3's fused ``qkv_proj`` and ``gate_up_proj``
+    (glm4's ``gate_up_proj``), phi2's ``dense``, ``fc1``, ``fc2`` and
+    starcoder2's ``c_fc``, ``c_proj`` with their biases of N(0, 0.02^2), q/k/v
+    biases of N(0, 0.1^2) where the arch has them, LayerNorm biases of N(0,
+    0.02^2), no post-attention norm with a parallel residual, glm4's
+    sandwich norms."""
     h, i = cfg.hidden_size, cfg.intermediate_size
-    spec = {f"{norm}.weight": ("ones", (h,))
-            for norm in ("input_layernorm", "post_attention_layernorm")}
-    projs = {"self_attn.q_proj": (cfg.q_dim, h), "self_attn.k_proj": (cfg.kv_dim, h),
-             "self_attn.v_proj": (cfg.kv_dim, h), "self_attn.o_proj": (h, cfg.q_dim)}
+    norms = ("input_layernorm",) + (() if cfg.parallel_residual
+                                    else ("post_attention_layernorm",))
+    spec = {f"{norm}.weight": ("ones", (h,)) for norm in norms}
+    if cfg.arch in ("phi2", "starcoder2", "stablelm"):  # LayerNorm with biases
+        spec.update({f"{norm}.bias": ("f16", (h,), 0.02) for norm in norms})
+    o_proj = "self_attn.dense" if cfg.arch == "phi2" else "self_attn.o_proj"
+    if cfg.arch == "phi3":
+        projs = {"self_attn.qkv_proj": (cfg.q_dim + 2 * cfg.kv_dim, h), o_proj: (h, cfg.q_dim)}
+    else:
+        projs = {"self_attn.q_proj": (cfg.q_dim, h), "self_attn.k_proj": (cfg.kv_dim, h),
+                 "self_attn.v_proj": (cfg.kv_dim, h), o_proj: (h, cfg.q_dim)}
     e, mi = cfg.num_experts, cfg.moe_intermediate_size or i
     if cfg.arch == "mixtral":
         spec["block_sparse_moe.gate.weight"] = ("f16", (e, h), h ** -0.5)
@@ -875,12 +1002,22 @@ def checkpoint_layer(cfg: ModelConfig) -> dict:
         projs.update({"mlp.shared_expert.gate_proj": (si, h),
                       "mlp.shared_expert.up_proj": (si, h),
                       "mlp.shared_expert.down_proj": (h, si)})
+    elif cfg.arch in ("phi2", "starcoder2"):  # gateless, biased
+        up, down = ("mlp.fc1", "mlp.fc2") if cfg.arch == "phi2" else ("mlp.c_fc", "mlp.c_proj")
+        projs.update({up: (i, h), down: (h, i)})
+        spec.update({f"{up}.bias": ("f16", (i,), 0.02), f"{down}.bias": ("f16", (h,), 0.02),
+                     f"{o_proj}.bias": ("f16", (h,), 0.02)})
+    elif cfg.arch in ("phi3", "glm4"):
+        projs.update({"mlp.gate_up_proj": (2 * i, h), "mlp.down_proj": (h, i)})
     else:
         projs.update({"mlp.gate_proj": (i, h), "mlp.up_proj": (i, h), "mlp.down_proj": (h, i)})
     spec.update({name: ("words", nk) for name, nk in projs.items()})
-    if cfg.arch in ("qwen2", "qwen2moe"):
+    if cfg.arch in ("qwen2", "qwen2moe", "phi2", "starcoder2", "stablelm", "glm4"):
         for t in "qkv":
             spec[f"self_attn.{t}_proj.bias"] = ("f16", (projs[f"self_attn.{t}_proj"][0],), 0.1)
+    if cfg.arch == "glm4":
+        spec.update({f"{norm}.weight": ("ones", (h,))
+                     for norm in ("post_self_attn_layernorm", "post_mlp_layernorm")})
     return spec
 
 
@@ -974,17 +1111,25 @@ def bf16_checkpoint(cfg: ModelConfig, dev, seed: int) -> dict:
     projection ``[n, k]`` of N(0, 1/k), the routers and qwen2moe's
     shared-expert gates of N(0, 1/H), Qwen's q/k/v biases of N(0, 0.1^2),
     norms of ones, the embedding and an untied head of N(0, 0.02^2):
-    ~16.1 GB for Llama-3.1-8B."""
+    ~16.1 GB for Llama-3.1-8B; the variants' layers as
+    :func:`checkpoint_layer` names them, phi2's ``final_layernorm`` and
+    ``lm_head.bias`` (N(0, 0.02^2)), a LayerNorm arch's final norm bias:
+    ~7.6 GB for Phi-3-mini."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draw(shape, std):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).mul_(std)
 
     h, v = cfg.hidden_size, cfg.vocab_size
+    final = "model.final_layernorm" if cfg.arch == "phi2" else "model.norm"
     sd = {"model.embed_tokens.weight": draw((v, h), 0.02),
-          "model.norm.weight": torch.ones(h, device=dev, dtype=torch.bfloat16)}
+          f"{final}.weight": torch.ones(h, device=dev, dtype=torch.bfloat16)}
+    if cfg.arch in ("phi2", "starcoder2", "stablelm"):
+        sd[f"{final}.bias"] = draw((h,), 0.02)
     if not cfg.tie_word_embeddings:
         sd["lm_head.weight"] = draw((v, h), 0.02)
+    if cfg.arch == "phi2":
+        sd["lm_head.bias"] = draw((v,), 0.02)
     spec = checkpoint_layer(cfg)
     for li in range(cfg.num_layers):
         for suffix, kind in spec.items():
@@ -1039,6 +1184,31 @@ def build_isq(cfg: ModelConfig, dev, seed: int, stats: dict | None = None) -> di
         f"beside it, peak so far {info['peak_gib']:.2f} GiB")
     if stats is not None:
         stats.update(info)
+    del sd
+    torch.cuda.empty_cache()
+    return llama.fuse_projections(weights, cfg)
+
+
+def variant_config(kind: str, num_layers: int | None = None) -> ModelConfig:
+    """``kind``'s published config (:data:`VARIANT_JSON`) through the port's
+    ``config_from_hf``, cut to ``num_layers`` (SmolLM3's cut keeps a NoPE
+    layer: its third and fourth layers' flags)."""
+    d = dict(VARIANT_JSON[kind])
+    if num_layers is not None:
+        d["num_hidden_layers"] = num_layers
+        if kind == "smollm3":
+            d["no_rope_layers"] = d["no_rope_layers"][4 - num_layers:4]
+    return config_from_hf(d)
+
+
+def build_variant(cfg: ModelConfig, dev, seed: int) -> dict:
+    """``cfg``'s weights as a dense bf16 HF checkpoint (:func:`bf16_checkpoint`,
+    the arch's own tensor names) loaded through the HF loader
+    (``weights_from_state_dict``: phi3's fused projections split, the biases
+    and LayerNorm biases mapped), then fused as the engine serves them
+    (q/k/v with their biases; gate/up where unbiased)."""
+    sd = bf16_checkpoint(cfg, dev, seed)
+    weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev)
     del sd
     torch.cuda.empty_cache()
     return llama.fuse_projections(weights, cfg)
@@ -1814,7 +1984,7 @@ def draw_sinks(gen, n_q, dev):
 
 
 def attn_name(kernel, kv_quant, hd) -> str:
-    return kernel + (f"_{kv_quant}" if kv_quant else "") + (f"_hd{hd}" if hd in (64, 256) else "")
+    return kernel + (f"_{kv_quant}" if kv_quant else "") + (f"_hd{hd}" if hd != 128 else "")
 
 
 def quant_names(names, kv_quant) -> tuple:
@@ -1901,10 +2071,19 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
                                     "window")
         del ctl_p
     del ref
+    opts = (f" window={window}" if window else "") + (
+        f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "") + (" sinks" if sinks else "")
+    controls = ((f", the cap moves the plain version {moved:.3e} (> {CAP_CONTROL})"
+                 if softcap else "")
+                + (f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
+                   if sinks else "")
+                + (f", the window moves the plain version {win_moved:.3e} (> {CAP_CONTROL})"
+                   if window_control else ""))
     if not timed:
-        shape = f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<={int(kv_lens.max())}"
+        shape = (f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} kv_lens<={int(kv_lens.max())}"
+                 + opts)
         log(f"  {name} {shape}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
-            f"two calls equal")
+            f"two calls equal{controls}")
         return dict(shape=shape, max_abs_err=err)
     # yardstick: SDPA over K/V gathered and expanded to all query heads ahead
     # of time; no mask where every position of the table is visible
@@ -1930,8 +2109,6 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     same = bool((kv_lens == kv_lens[0]).all())
     lens = (f"kv_lens={int(kv_lens[0])} x {b}" if same
             else f"kv_lens<={int(kv_lens.max())}")
-    opts = (f" window={window}" if window else "") + (
-        f" softcap={softcap:g} q x{CAP_Q:g}" if softcap else "") + (" sinks" if sinks else "")
     row = dict(shape=(f"{kv_quant} " if kv_quant else "")
                + f"B={b} n_q={n_q} n_kv={n_kv} hd={hd} bs={bs} {lens}{opts}",
                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1943,12 +2120,7 @@ def check_decode(rates, gen, dev, kv_lens=(1024, 1, 700, 64, 65, 333, 901, 512),
     if window_control:
         row["window_moves_plain"] = win_moved
     log(f"  {name} {row['shape']}: err {err:.3e} (tol 2e-2), pools exact but the trash slot, "
-        f"two calls equal" + (f", the cap moves the plain version {moved:.3e} (> "
-                              f"{CAP_CONTROL})" if softcap else "")
-        + (f", the sinks move the plain version {sink_moved:.3e} (> {CAP_CONTROL})"
-           if sinks else "")
-        + (f", the window moves the plain version {win_moved:.3e} (> {CAP_CONTROL})"
-           if window_control else "")
+        f"two calls equal{controls}"
         + f" | kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bound {b_ms:.4f} ms "
         f"({b_by}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{fmt_ms(lib_dev_ms)})")
@@ -2078,6 +2250,42 @@ def check_prefill_edges(rows, rates, gen, dev):
         rows["paged_prefill"].append(check_prefill(
             rates, gen, dev, b=3, t=150, n_valid=(150, 0, 77), past=(200, 37, 0), n_q=n_q,
             n_kv=n_kv, bs=bs, timed=False))
+
+
+def check_hd80_96(rows, rates, gen, dev):
+    """The paged kernels' head_dim-96 and -80 forms at Phi-3-mini's and
+    Phi-2's attention (32/32 heads). Timed, head_dim 96: decode at B=8 with
+    kv_lens <= 1024 and at 8 x 4096 with the 2047 window, prefill at B=2
+    T=128 on 300 past and 512 tokens on 2048 past through the window;
+    head_dim 80: decode at B=8 and at B=1 with 2048 positions, prefill at
+    B=2 T=128 on 300 past and 512 on 512; the int8 and fp8 forms at the B=8
+    and B=2 rows. Untimed, at each head dim: decode and prefill with a
+    softcap and with sinks (each with its control: the plain version
+    without the option differs by more than ``CAP_CONTROL``) and at GQA
+    group 8 (32/4 heads)."""
+    for hd in (96, 80):
+        attn = dict(n_q=32, n_kv=32, hd=hd)
+        d, p = rows[f"paged_decode_hd{hd}"], rows[f"paged_prefill_hd{hd}"]
+        d.append(check_decode(rates, gen, dev, **attn))
+        p.append(check_prefill(rates, gen, dev, **attn))
+        if hd == 96:
+            d.append(check_decode(rates, gen, dev, kv_lens=(4096,) * 8, w=64, dropped=7,
+                                  window=2047, **attn))
+            p.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(2048,),
+                                   window=2047, **attn))
+        else:
+            d.append(check_decode(rates, gen, dev, kv_lens=(2048,), w=32, dropped=0, **attn))
+            p.append(check_prefill(rates, gen, dev, b=1, t=512, n_valid=(512,), past=(512,),
+                                   **attn))
+        for kvq in ("int8", "fp8"):
+            rows[f"paged_decode_{kvq}_hd{hd}"].append(
+                check_decode(rates, gen, dev, kv_quant=kvq, **attn))
+            rows[f"paged_prefill_{kvq}_hd{hd}"].append(
+                check_prefill(rates, gen, dev, kv_quant=kvq, **attn))
+        for opt in (dict(softcap=50.0), dict(sinks=True), dict(n_q=32, n_kv=4)):
+            kw = dict(attn, **opt)
+            d.append(check_decode(rates, gen, dev, timed=False, **kw))
+            p.append(check_prefill(rates, gen, dev, timed=False, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -2578,6 +2786,39 @@ def two_layer_runs(dev, cfg, weights, seed: int, what: str, required,
         note += (f"; the control config moves the logits {moved:.3e} of the largest (> "
                  f"{10 * worst:.3e}, ten times the kernels' worst difference)")
     return counts, note + f"; kernel run launches {counts}", choices[0]
+
+
+# phase 3n's runs: each variant's pools, and the Phi models over every pool type
+VARIANT_RUNS = (("phi3", (None, "int8", "fp8")), ("phi2", (None, "int8", "fp8")),
+                ("starcoder2", (None,)), ("stablelm", (None,)), ("cohere", (None,)),
+                ("granite", (None,)), ("glm4", (None,)), ("smollm3", (None,)))
+
+
+def check_variant_models(dev) -> dict:
+    """Phase 3n: 2 layers at full width of each Llama-family variant of
+    :data:`VARIANT_RUNS` (its published geometry, its features kept:
+    SmolLM3's second layer a NoPE one), drawn as a bf16 HF checkpoint and
+    loaded through the HF loader (:func:`build_variant`), through the
+    kernels and the plain versions (``two_layer_runs``: logits within 5e-2
+    of the largest, the paged forms of the arch's head dim launched, no
+    plain version in the kernel run), Phi-3-mini and Phi-2 over bf16, int8
+    and fp8 pools. Returns the kernel runs' launch counts by (arch,
+    ``kv_quant``)."""
+    counts = {}
+    for i, (kind, pools) in enumerate(VARIANT_RUNS):
+        cfg = variant_config(kind, 2)
+        weights = build_variant(cfg, dev, SEED + 70 + 2 * i)
+        required = tuple(attn_name(k, None, cfg.head_dim) for k in ("paged_decode",
+                                                                     "paged_prefill"))
+        for kvq in pools:
+            counts[(kind, kvq)], note, _ = two_layer_runs(dev, cfg, weights, SEED + 71 + 2 * i,
+                                                          f"{kind} model", required,
+                                                          kv_quant=kvq)
+            log(f"  {kind} 2 layers (hidden {cfg.hidden_size}, {cfg.num_heads}/"
+                f"{cfg.num_kv_heads} heads of {cfg.head_dim}): {note}")
+        del weights
+        torch.cuda.empty_cache()
+    return counts
 
 
 def check_gpt_oss_model(dev) -> dict:
@@ -3335,6 +3576,9 @@ def main() -> int:
     # group 32 (Q5_K), Q3_K banks, Q4_0/Q4_1/Q5_0/Q5_1 (after every other
     # row, which keep the generator's stream of earlier runs)
     check_gguf_kernels(rows, rates, gen, dev)
+    # the paged kernels at head_dim 96 and 80 (after every other row, which
+    # keep the generator's stream of earlier runs)
+    check_hd80_96(rows, rates, gen, dev)
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
         log(f"kernels only: {len(timed)} timed rows [{name_line}]")
@@ -3413,6 +3657,11 @@ def main() -> int:
                                     "qwen1.5-moe-a2.7b isq q4k model",
                                     ISQ_MOE_KERNELS + ("dense_matmul_g",), "noise")
     torch.cuda.empty_cache()
+    log("phase 3n: forward_paged at full width of the Llama-family variants, 2 layers each, "
+        "drawn as bf16 HF checkpoints (Phi-3-mini and Phi-2 over bf16, int8 and fp8 pools; "
+        "StarCoder2-7B, StableLM-2-1.6B, Aya-23-8B, Granite-3.1-8B, GLM-4-9B-0414, SmolLM3-3B), "
+        "kernels vs plain")
+    variant_models = check_variant_models(dev)
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3547,7 +3796,35 @@ def main() -> int:
         + f"), peak during the load {isq_stats['peak_gib']:.2f} GiB; W4 launches "
         f"{isq_counts.get('w4_matmul', 0)}, W8 {isq_counts.get('w8_matmul', 0)}; peak device "
         f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{name_line}]")
-    # the summary: one entry per kernel at the main path's dominant shape
+    # phase 17
+    phi3 = variant_config("phi3")
+    log(f"phase 17: serve the {phi3.num_layers}-layer Phi-3-mini-4k-instruct geometry as a bf16 "
+        f"HF checkpoint through the HF loader (fused projections split at load; one prompt of "
+        f"2500 tokens past its 2047 window), then from int8 KV pools")
+    torch.cuda.reset_peak_memory_stats(dev)
+    phi3_counts, phi3_q8_counts = serve(
+        dev, name_line, phi3, build_variant, SEED + 90, "phi-3-mini-4k-instruct-geometry-bf16",
+        PHI3_KERNELS, quant=("int8", quant_names(PHI3_KERNELS, "int8"), 24), num_blocks=160,
+        max_model_len=4096, sizes=(40, 97, 180, 290, 430, 2500))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
+    # phase 18
+    phi2 = variant_config("phi2")
+    log(f"phase 18: serve the {phi2.num_layers}-layer Phi-2 geometry as a bf16 checkpoint "
+        f"quantized in situ to Q4_K at load (Q8_0 embedding and head; biases and LayerNorms "
+        f"dense)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    phi2_stats: dict = {}
+    phi2_counts, _ = serve(dev, name_line, phi2,
+                           lambda cfg, dev_, seed: build_isq(cfg, dev_, seed, phi2_stats),
+                           SEED + 92, "phi-2-isq-q4k", PHI2_ISQ_KERNELS)
+    bodies = {b: phi2_counts.get(f"w4_matmul.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 18: w4_matmul bodies launched {bodies}")
+    log(f"  ISQ load {phi2_stats['seconds']:.2f} s for {phi2_stats['weights'] / 1e9:.3f} G "
+        f"weights; W4 launches {phi2_counts.get('w4_matmul', 0)}, W8 "
+        f"{phi2_counts.get('w8_matmul', 0)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{name_line}]")
+    # phase 19: the summary, one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
     # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
@@ -3591,7 +3868,11 @@ def main() -> int:
             "qwen3-30b-a3b q2_k gguf serve": q2k_counts,
             "phase 3m mixtral isq q4k model": isq_mixtral_model,
             "phase 3m qwen1.5-moe isq q4k model": isq_q15_model,
-            "llama-3.1-8b isq q4k serve": isq_counts}
+            "llama-3.1-8b isq q4k serve": isq_counts,
+            **{f"phase 3n {kind} {kvq or 'bf16'}-kv model": c
+               for (kind, kvq), c in variant_models.items()},
+            "phi-3-mini serve": phi3_counts, "phi-3-mini int8-kv serve": phi3_q8_counts,
+            "phi-2 isq q4k serve": phi2_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

@@ -11,18 +11,21 @@
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen2.5-7B-Instruct --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Qwen3-30B-A3B --port 8080
     python -m mistralrs_tpu_torch.cli serve path/to/Meta-Llama-3.1-8B-Instruct --isq q4k
+    python -m mistralrs_tpu_torch.cli serve path/to/Phi-3-mini-4k-instruct --port 8080
+    python -m mistralrs_tpu_torch.cli serve path/to/phi-2 --isq q4k
 
 A ``.gguf`` file (archs ``llama``, Mixtral included, ``qwen2``, ``qwen3``
 and ``qwen3moe``; every planar type: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
 Q3_K, Q4_K, Q5_K, Q6_K, and F16/BF16/F32) and a llama-family HF directory (``config.json`` +
 safetensors + ``tokenizer.json``: Llama, Mistral, Mixtral, Gemma-2, Gemma-3
-text, Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, dense bf16/f16/f32 tensors; gpt-oss with
+text, Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, Phi-2, Phi-3, StarCoder2, StableLM,
+Cohere, Granite, GLM, GLM-4, SmolLM3, Hunyuan (dense), dense bf16/f16/f32 tensors; gpt-oss with
 dense or MXFP4 expert banks, decoded to bf16 at load) serve through the
 llama decoder; a DeepSeek-family HF
 directory through its arch adapter.
 ``--kv-quant int8|fp8`` serves from 1-byte KV pools (or latent pool) with
 per-row scales, sized by their own bytes per token, for every model of the
-llama decoder (windows, softcaps, sinks, head_dim 64, 128 and 256).
+llama decoder (windows, softcaps, sinks, head_dim 64, 80, 96, 128 and 256).
 ``--isq q4k|q5k|q6k|q8_0|q4_0|q5_0`` (the JAX package's names) quantizes a
 llama-family HF directory on the card as it loads (JAX ``cli.py:17``); a
 ``.gguf`` file and a DeepSeek directory load unquantized, with a warning.

@@ -14,9 +14,14 @@ Qwen3's and Gemma-3's q/k norms (``q_norm``, ``k_norm``) and Qwen2's q/k/v
 biases come across with
 the other layer leaves, from HF directories and GGUF files alike, and so
 do the planes of every GGUF planar type, plane for plane (Q2_K's 2-bit
-codes packed in nibbles at group 16 included). The JAX ``layer_windows`` leaf is not carried:
-the port computes each layer's window from the config
-(``models/llama.py::layer_windows``).
+codes packed in nibbles at group 16 included). So do the Llama-family
+variants' leaves: the LayerNorm biases (``attn_norm_bias``,
+``ffn_norm_bias``, and ``final_norm_bias`` beside ``final_norm``), the MLP
+biases (``gate_bias``, ``up_bias``, ``down_bias``), a gateless MLP's
+``up``/``down``, glm4's post norms, hunyuan's q/k norms and phi2's
+``lm_head_bias``. The JAX ``layer_windows`` and ``layer_use_rope`` leaves
+are not carried: the port computes each layer's window and RoPE flag from
+the config (``models/llama.py::layer_windows``, ``layer_rope_flags``).
 
 gpt-oss's leaves come across in the port's layout: the q/k/v/o biases and
 the router bias as they are, the sinks as f32, and the expert banks (JAX
@@ -124,7 +129,8 @@ def from_jax_params(
     gpt_oss = cfg.arch == "gpt_oss"
     known = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wqkv", "wo", "gate", "up", "wgateup",
              "down", "router", "experts", "post_attn_norm", "post_ffn_norm", "wq_bias",
-             "wk_bias", "wv_bias", "wo_bias"} | ({"sinks", "router_bias"} if gpt_oss else set()) | (
+             "wk_bias", "wv_bias", "wo_bias", "attn_norm_bias", "ffn_norm_bias", "gate_bias",
+             "up_bias", "down_bias"} | ({"sinks", "router_bias"} if gpt_oss else set()) | (
                  {"q_norm", "k_norm"} if cfg.qk_norm else set()) | (
                  {"shared_expert", "shared_expert_gate"} if cfg.arch == "qwen2moe" else set())
     unknown = set(stacked) - known
@@ -164,12 +170,16 @@ def from_jax_params(
         return lw
 
     layers = [layer(i) for i in range(cfg.num_layers)]
-    return {
+    out = {
         "embed": _leaf(params["embed"], device, dtype),
         "layers": layers,
         "final_norm": _leaf(params["final_norm"], device, dtype),
         "lm_head": _leaf(params.get("lm_head"), device, dtype),
     }
+    for key in ("final_norm_bias", "lm_head_bias"):  # LayerNorm archs; phi2's head
+        if params.get(key) is not None:
+            out[key] = _leaf(params[key], device, dtype)
+    return out
 
 
 _DEEPSEEK_LAYER_KEYS = {"attn_norm", "ffn_norm", "q", "q_a", "q_a_norm", "q_b", "kv_a",

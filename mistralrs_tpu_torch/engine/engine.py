@@ -24,7 +24,7 @@
   per-(layer, head, slot) scales (``kv/paged.py``), or an adapter's own
   quantized cache where the adapter has one (``supports_kv_quant``). The
   1-byte kernel forms take every option of the bf16 ones (sliding windows,
-  logit softcaps, attention sinks, head_dim 64, 128 and 256).
+  logit softcaps, attention sinks, head_dim 64, 80, 96, 128 and 256).
 * A llama-family model whose GQA group (query heads per KV head) is over 16
   is refused before the pools are reserved: the decode kernel takes groups
   1 to 16.

@@ -1,8 +1,11 @@
 """Model configuration (a copy of ``mistralrs_tpu/models/config.py``).
 
 One normalized dataclass covers the Llama superfamily; the port's decoder
-serves the dense llama subset and raises ``NotImplementedError`` on the
-feature fields it does not support yet (see ``models/llama.py``)."""
+raises ``NotImplementedError`` on the feature fields it does not support yet
+(see ``models/llama.py``). :func:`config_from_hf` also refuses, by name, the
+HF keys that change the model's function but that the JAX package's reader
+drops (:func:`dropped_keys`), so that the port never serves such a
+checkpoint as another model."""
 
 from __future__ import annotations
 
@@ -114,8 +117,38 @@ HF_ARCH_MAP = {
 }
 
 
+def dropped_keys(cfg: dict[str, Any], arch: str) -> list[str]:
+    """The keys of a HF ``config.json`` dict that change the function of an
+    ``arch`` model but that JAX ``config_from_hf`` drops, each with what it
+    asks for (the published configs of the ten Llama-family variants set
+    none of them):
+
+    * cohere's ``use_qk_norm``: HF normalises each head's q and k with a
+      LayerNorm of per-head weights; JAX reads it as ``qk_norm`` and applies
+      an RMSNorm;
+    * stablelm's ``use_parallel_residual`` (JAX's parallel residual is
+      phi2's and cohere's alone) and ``qk_layernorm``, phi's
+      ``qk_layernorm`` (per-head q/k LayerNorms; JAX maps no such tensor);
+    * a LayerNorm arch's ``layer_norm_eps`` (phi2, stablelm, cohere) other
+      than the eps JAX reads (``rms_norm_eps`` or ``norm_epsilon``, else
+      1e-5)."""
+    out = []
+    if arch == "cohere" and cfg.get("use_qk_norm"):
+        out.append("use_qk_norm (cohere's per-head q/k LayerNorm)")
+    if arch == "stablelm" and cfg.get("use_parallel_residual"):
+        out.append("use_parallel_residual (stablelm)")
+    if arch in ("stablelm", "phi2") and cfg.get("qk_layernorm"):
+        out.append(f"qk_layernorm ({arch}'s per-head q/k LayerNorm)")
+    eps = cfg.get("rms_norm_eps", cfg.get("norm_epsilon", 1e-5))
+    if (arch in ("phi2", "stablelm", "cohere") and "layer_norm_eps" in cfg
+            and cfg["layer_norm_eps"] != eps):
+        out.append(f"layer_norm_eps {cfg['layer_norm_eps']} (the JAX package reads {eps})")
+    return out
+
+
 def config_from_hf(cfg: dict[str, Any]) -> ModelConfig:
-    """Build from a HF ``config.json`` dict (auto-detect like `auto.rs:352`)."""
+    """Build from a HF ``config.json`` dict (auto-detect like `auto.rs:352`);
+    raises ``NotImplementedError`` naming any of :func:`dropped_keys`."""
     archs = cfg.get("architectures") or []
     arch = HF_ARCH_MAP.get(archs[0]) if archs else None
     if arch is None:
@@ -129,6 +162,10 @@ def config_from_hf(cfg: dict[str, Any]) -> ModelConfig:
         raise NotImplementedError(
             "qwen2moe: mixed dense/sparse layer stacks not supported yet"
         )
+    dropped = dropped_keys(cfg, arch)
+    if dropped:
+        raise NotImplementedError(f"{arch}: config keys the reference drops: "
+                                  f"{', '.join(dropped)}")
     eos = cfg.get("eos_token_id")
     if eos is None:
         eos_ids: tuple[int, ...] = ()

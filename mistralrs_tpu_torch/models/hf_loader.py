@@ -28,6 +28,17 @@ the JAX loader does whatever ``tie_word_embeddings`` says); the q/k/v/o biases w
 :342-349), dense or in MXFP4 (``quantization_config.quant_method ==
 "mxfp4"``: ``<stem>_blocks``/``_scales`` uint8, stored transposed,
 ``[E, out, in / 32, 16]``, decoded on the device by ``quant/mxfp4.py``).
+The Llama-family variants' tensors (JAX ``_HF_LAYER_MAP``'s remaining
+entries): the LayerNorm biases (``input_layernorm.bias``,
+``post_attention_layernorm.bias``; the final ``norm`` or phi2's
+``final_layernorm``, weight and bias), starcoder2's gateless
+``mlp.c_fc``/``c_proj`` and phi2's ``mlp.fc1``/``fc2`` and
+``self_attn.dense`` with their biases, glm4's ``post_self_attn_layernorm``
+and ``post_mlp_layernorm``, hunyuan's ``query_layernorm`` and
+``key_layernorm``, phi2's ``lm_head.bias``, and phi3's fused
+``self_attn.qkv_proj`` and ``mlp.gate_up_proj`` (glm's too), split at load
+into q/k/v and gate/up (JAX ``_PHI3_FUSED``), each part read, cast or
+quantized in situ as its own tensor.
 gpt-oss's banks are stored as the dense grouped kernel reads them:
 K-contiguous ``[E, N, K]``, the gate-up bank's interleaved columns (gate
 even, up odd) as a gate half then an up half, its bias permuted alike (a
@@ -49,8 +60,11 @@ MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits (AWQ: 4 only),
 AWQ packings other than ``"gemm"``, GPTQ act-order (a non-trivial
 ``g_idx``, which the JAX package refuses too; an expert's as well),
 GPTQ/AWQ on gpt-oss's pre-stacked banks or on any other MoE arch, a
-router, shared-expert gate or ``lm_head`` stored as GPTQ/AWQ words, phi3's
-fused projections, MLP biases, and expert banks other than Mixtral's,
+router, shared-expert gate or ``lm_head`` stored as GPTQ/AWQ words, fused
+projections stored as GPTQ/AWQ words, the biases of a gated MLP
+(``mlp.{gate,up,down}_proj.bias``, which the JAX loader drops), per-head
+q/k LayerNorms (stablelm's and phi's ``q_layernorm``/``k_layernorm``), and
+expert banks other than Mixtral's,
 Qwen3-MoE's, qwen2moe's and gpt-oss's. UQFF overlays and topologies are
 not ported: the loader takes no such argument.
 
@@ -145,7 +159,7 @@ def load_safetensors_dir(path: str | os.PathLike) -> dict[str, torch.Tensor]:
 
 
 # HF tensor names of a llama-family layer → the port's layer keys (the
-# dense subset of JAX hf_loader.py's _HF_LAYER_MAP)
+# dense entries of JAX hf_loader.py's _HF_LAYER_MAP, :50-105)
 _HF_LAYER_MAP = {
     "input_layernorm.weight": "attn_norm",
     "self_attn.q_proj.weight": "wq",
@@ -159,7 +173,27 @@ _HF_LAYER_MAP = {
     "pre_feedforward_layernorm.weight": "ffn_norm",  # gemma2/3
     "post_feedforward_layernorm.weight": "post_ffn_norm",
     "block_sparse_moe.gate.weight": "router",  # mixtral
+    "mlp.c_fc.weight": "up",  # starcoder2's gateless MLP
+    "mlp.c_proj.weight": "down",
+    "mlp.c_fc.bias": "up_bias",
+    "mlp.c_proj.bias": "down_bias",
+    "input_layernorm.bias": "attn_norm_bias",  # LayerNorm archs
+    "post_attention_layernorm.bias": "ffn_norm_bias",
+    "post_self_attn_layernorm.weight": "post_attn_norm",  # glm4's sandwich norms
+    "post_mlp_layernorm.weight": "post_ffn_norm",
+    "self_attn.dense.weight": "wo",  # phi2
+    "self_attn.dense.bias": "wo_bias",
+    "mlp.fc1.weight": "up",  # phi2's gateless MLP
+    "mlp.fc1.bias": "up_bias",
+    "mlp.fc2.weight": "down",
+    "mlp.fc2.bias": "down_bias",
 }
+# phi3's (and glm's gate_up) fused projections, split at load (JAX
+# hf_loader.py's _PHI3_FUSED, :111-114, applied at :242-254)
+_FUSED = {"self_attn.qkv_proj.weight": ("wq", "wk", "wv"),
+          "mlp.gate_up_proj.weight": ("gate", "up")}
+# archs whose MLP has no gate: down(act(up x))
+_GATELESS_ARCHS = ("phi2", "starcoder2")
 # gemma2/3 use post_attention_layernorm as the *post* norm and
 # pre_feedforward_layernorm as the pre-FFN norm
 _GEMMA_LAYER_MAP = dict(_HF_LAYER_MAP)
@@ -179,8 +213,11 @@ _QWEN2_MOE_MAP = {**_SHARED_EXPERT, "mlp.shared_expert_gate.weight": "shared_exp
 _QUANT_MOE_ARCHS = ("mixtral", "qwen3moe", "qwen2moe")
 # q/k/v/o biases (required with attention_bias, taken wherever present)
 _ATTN_BIASES = {f"self_attn.{p}_proj.bias": f"w{p}_bias" for p in "qkvo"}
-# Qwen3's per-head q/k norms ([head_dim], applied before RoPE)
-_QK_NORMS = {"self_attn.q_norm.weight": "q_norm", "self_attn.k_norm.weight": "k_norm"}
+# Qwen3's per-head q/k norms ([head_dim], applied before RoPE; hunyuan's
+# query_layernorm/key_layernorm after it)
+_QK_NORMS = {"self_attn.q_norm.weight": "q_norm", "self_attn.k_norm.weight": "k_norm",
+             "self_attn.query_layernorm.weight": "q_norm",
+             "self_attn.key_layernorm.weight": "k_norm"}
 # gpt-oss's layer tensors besides the attention projections and norms
 _GPT_OSS_MAP = {"self_attn.sinks": "sinks", "mlp.router.weight": "router",
                 "mlp.router.bias": "router_bias"}
@@ -315,8 +352,9 @@ def weights_from_state_dict(
     kernel's layout, above; GPTQ/AWQ experts stacked into planar banks).
     With ``isq`` (or a plan of one's own, ``isq_plan(name, shape)``) and
     ``imatrix``: in-situ quantization (module docstring). A tensor of any
-    other name (MLP biases, phi3's fused projections, q/k norms of a config
-    without ``qk_norm``, expert banks other than Mixtral's, Qwen3-MoE's,
+    other name (a gated MLP's biases, GPTQ/AWQ words of a fused projection,
+    q/k norms of a config without ``qk_norm``, expert banks other than
+    Mixtral's, Qwen3-MoE's,
     qwen2moe's and gpt-oss's, a router, shared-expert gate or ``lm_head``
     stored as GPTQ/AWQ words) raises ``NotImplementedError`` naming it."""
     gpt_oss = cfg.arch == "gpt_oss"
@@ -345,10 +383,12 @@ def weights_from_state_dict(
     projections = [suffix for suffix in layer_map if suffix.endswith("_proj.weight")]
     quantized = [suffix[:-len(".weight")] + part for suffix in (*projections, *experts)
                  for part in _GPTQ_PARTS] if gptq_awq else []
-    known = {prefix + "embed_tokens.weight", prefix + "norm.weight", "lm_head.weight"}
+    known = {prefix + f"{norm}.{p}" for norm in ("norm", "final_layernorm")
+             for p in ("weight", "bias")} | {prefix + "embed_tokens.weight", "lm_head.weight",
+                                             "lm_head.bias"}
     for i in range(cfg.num_layers):
         known.update(f"{prefix}layers.{i}.{suffix}"
-                     for suffix in (*layer_map, *experts, *banks, *quantized))
+                     for suffix in (*layer_map, *_FUSED, *experts, *banks, *quantized))
     unknown = sorted(n for n in sd if n not in known and not n.endswith("rotary_emb.inv_freq"))
     if unknown:
         raise NotImplementedError(f"HF loader: tensors not ported: {unknown[:8]}")
@@ -357,18 +397,22 @@ def weights_from_state_dict(
     zero_offset = 0 if (quant_config or {}).get("checkpoint_format") == "gptq_v2" else 1
     plan = isq_plan or default_isq_plan(isq)
 
+    def dense(t: torch.Tensor, plan_name: Optional[str], layer: int):
+        """A checkpoint tensor on ``dev``: in ``dtype``, or quantized where
+        the plan gives ``plan_name`` a type."""
+        qtype = None if plan_name is None else plan(plan_name, tuple(t.shape))
+        if qtype is None:
+            return t.to(device=dev, dtype=dtype)
+        rows = imatrix_rows_for_key(imatrix, plan_name[len("layers."):])
+        return _quantize_tensor(t, qtype, dev, None if rows is None else rows[layer % len(rows)])
+
     def take(name: str, plan_name: Optional[str] = None, layer: int = 0):
         """``name``'s tensor on ``dev``: dense in ``dtype``, quantized where
         the plan gives ``plan_name`` a type, or decoded from GPTQ/AWQ words;
         None where the checkpoint lacks it."""
         t = sd.get(name)
         if t is not None:
-            qtype = None if plan_name is None else plan(plan_name, tuple(t.shape))
-            if qtype is None:
-                return t.to(device=dev, dtype=dtype)
-            rows = imatrix_rows_for_key(imatrix, plan_name[len("layers."):])
-            return _quantize_tensor(t, qtype, dev, None if rows is None
-                                    else rows[layer % len(rows)])
+            return dense(t, plan_name, layer)
         stem = name[:-len(".weight")]
         if not (gptq_awq and name.endswith(".weight") and stem + ".qweight" in sd):
             return None
@@ -384,6 +428,13 @@ def weights_from_state_dict(
         lp = f"{prefix}layers.{i}."
         lw = {key: t for suffix, key in layer_map.items()
               if (t := take(lp + suffix, f"layers.{_JAX_KEYS.get(key, key)}", i)) is not None}
+        for suffix, keys in _FUSED.items():  # split at load, each part as its own tensor
+            t = sd.get(lp + suffix)
+            if t is not None:
+                sizes = ([cfg.q_dim, cfg.kv_dim, cfg.kv_dim] if len(keys) == 3
+                         else [t.shape[0] // 2] * 2)
+                for key, part in zip(keys, t.split(sizes)):
+                    lw[key] = dense(part, f"layers.{key}", i)
         if gpt_oss:
             lw["experts"] = _gpt_oss_experts(sd, lp, dtype, dev, method == "mxfp4")
             if "sinks" in lw:
@@ -400,10 +451,13 @@ def weights_from_state_dict(
                       if key in lw}
             if len(shared) == len(_SHARED_EXPERT):
                 lw["shared_expert"] = shared
-        want = {"attn_norm", "ffn_norm", "wq", "wk", "wv", "wo"} | (
-            {"router", "experts"} if cfg.num_experts else {"gate", "up", "down"}) | (
+        want = {"attn_norm", "wq", "wk", "wv", "wo"} | (
+            set() if cfg.parallel_residual else {"ffn_norm"}) | (
+            {"router", "experts"} if cfg.num_experts else
+            {"up", "down"} | (set() if cfg.arch in _GATELESS_ARCHS else {"gate"})) | (
             {"shared_expert", "shared_expert_gate"} if cfg.arch == "qwen2moe" else set()) | (
-            set(_ATTN_BIASES.values()) if cfg.attention_bias else set()) | (
+            # glm's attention_bias is q/k/v's alone; an o bias is taken where present
+            {"wq_bias", "wk_bias", "wv_bias"} if cfg.attention_bias else set()) | (
             set(_QK_NORMS.values()) if cfg.qk_norm else set()) | (
             set(_GPT_OSS_MAP.values()) if gpt_oss else set())
         missing = want - set(lw)
@@ -411,15 +465,22 @@ def weights_from_state_dict(
             raise ValueError(f"HF loader: layer {i} lacks {sorted(missing)}")
         layers.append(lw)
     embed = take(prefix + "embed_tokens.weight", "embed_tokens")
-    final_norm = take(prefix + "norm.weight")
+    # phi2 names its final norm final_layernorm (JAX hf_loader.py:384-391)
+    final = "norm" if prefix + "norm.weight" in sd else "final_layernorm"
+    final_norm = take(prefix + final + ".weight")
     if embed is None or final_norm is None:
         raise ValueError("HF loader: embed_tokens.weight or norm.weight missing")
-    return {
+    out = {
         "embed": embed,
         "layers": layers,
         "final_norm": final_norm,
         "lm_head": take("lm_head.weight", "lm_head"),  # None: tied to the embedding
     }
+    for key, name in (("final_norm_bias", prefix + final + ".bias"),
+                      ("lm_head_bias", "lm_head.bias")):  # LayerNorm archs; phi2's head
+        if name in sd:
+            out[key] = take(name)
+    return out
 
 
 def load_hf_model(

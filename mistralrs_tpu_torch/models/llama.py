@@ -48,8 +48,24 @@ cos and sin (JAX ``_rope_sets``, :671-684).
 
 Qwen3's q/k norm (``cfg.qk_norm``, JAX ``forward_paged`` :1082-1084) is
 an RMSNorm of each head's q and k over head_dim, after the projections and
-before RoPE (Gemma-3's in the gemma form, ``1 + w``); Qwen2's q/k/v biases
-are the attention biases above.
+before RoPE (Gemma-3's in the gemma form, ``1 + w``; hunyuan's after RoPE,
+``cfg.qk_norm_after_rope``, JAX :1094-1096); Qwen2's q/k/v biases are the
+attention biases above.
+
+The Llama-family variants (phi2, phi3, starcoder2, stablelm, cohere,
+granite, glm, glm4, smollm3, hunyuan; JAX ``forward_paged`` :903-1326):
+LayerNorm with optional biases in place of RMSNorm (``cfg.norm_type``;
+``attn_norm_bias``, ``ffn_norm_bias``, ``final_norm_bias``), partial and
+interleaved rotary (``partial_rotary_factor``, ``rope_interleaved``),
+NoPE layers (``layer_rope_flags``: no rotation at all), the gateless MLP
+``down(act(up x))`` and the MLP biases ``gate_bias``, ``up_bias`` and
+``down_bias``, the parallel residual (``h + attn + mlp``, both read the
+one normed input; no ffn norm), granite's ``residual_multiplier`` on both
+branches and ``embedding_multiplier``, the logits divided by
+``logits_scaling`` (cohere's ``1 / logit_scale``), ``lm_head_bias`` (phi2,
+added to the f32 logits), glm4's sandwich norms (``post_attn_norm``,
+``post_ffn_norm``) and ``attn_scale`` (granite's
+``attention_multiplier``) as both kernels' scale.
 
 Gemma-3 has two rope sets (JAX ``_rope_sets``, :671-684): the global one of
 ``rope_theta`` with ``rope_scaling`` (linear, factor 8, on the 4B-27B
@@ -67,11 +83,9 @@ of ``llama`` with experts (how GGUF Mixtral files arrive), of ``qwen3moe``
 renormalised only with ``norm_topk_prob``) and of ``gpt_oss`` (top-k of
 the biased logits, softmax over the k, no renormalisation) are ported;
 other routers (hunyuan_moe, glm4moe, phimoe), shared experts outside
-qwen2moe, expert parallelism, LoRA, M-RoPE, q/k norm after RoPE (hunyuan),
-NoPE layers, MLP biases (but gpt-oss's
-expert biases), partial or interleaved rotary, layernorm, parallel
-residuals and granite's multipliers are not yet and raise
-``NotImplementedError`` (:func:`check_supported`).
+qwen2moe, dense first-k layers, expert parallelism, LoRA and M-RoPE are not
+yet and raise ``NotImplementedError`` (:func:`check_supported`), as does a
+gated MLP with biases (``mlp_bias``), which the reference loads unbiased.
 """
 
 from __future__ import annotations
@@ -86,7 +100,7 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kv.paged import PagedKVCache
 from ..ops.moe_grouped import gpt_oss_grouped_mlp, moe_grouped_mlp
-from ..ops.norms import rms_norm, rms_norm_gemma
+from ..ops.norms import layer_norm, rms_norm, rms_norm_gemma
 from ..ops.paged_attention import (
     decode_counters,
     decode_plan,
@@ -123,7 +137,6 @@ _GROUPED_MIN_E = 16
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for config features the port lacks."""
     moe = cfg.num_experts > 0
-    gemma = cfg.arch.startswith("gemma")
     unsupported = {
         f"mixture-of-experts router of arch {cfg.arch!r}": moe and cfg.arch not in _MOE_ARCHS,
         "top-k wider than the expert count": moe and not (
@@ -132,18 +145,14 @@ def check_supported(cfg: ModelConfig) -> None:
                                            and cfg.arch != "qwen2moe"),
         "dense first-k layers": bool(cfg.first_k_dense),
         "M-RoPE": bool(cfg.mrope_section),
-        "q/k norm after RoPE": cfg.qk_norm and cfg.qk_norm_after_rope,
-        f"norm type {cfg.norm_type!r}": cfg.norm_type != "rmsnorm",
+        f"norm type {cfg.norm_type!r}": cfg.norm_type not in ("rmsnorm", "layernorm"),
         f"activation {cfg.hidden_act!r}": cfg.hidden_act not in ACTIVATIONS,
-        "parallel residual": cfg.parallel_residual,
-        "partial rotary": cfg.partial_rotary_factor != 1.0,
-        "interleaved rope": cfg.rope_interleaved,
-        "NoPE layers": bool(cfg.no_rope_layers),
-        "residual/logit/embedding multipliers": bool(
-            cfg.residual_multiplier or cfg.logits_scaling
-            or (cfg.embedding_multiplier and not gemma)
-        ),
-        "MLP biases": cfg.mlp_bias,
+        "NoPE flags of another length than the layers": bool(cfg.no_rope_layers) and len(
+            cfg.no_rope_layers) != cfg.num_layers,
+        # the reference's loader maps no mlp.{gate,up,down}_proj.bias and runs
+        # such a model unbiased (starcoder2's and phi2's gateless MLPs carry
+        # their biases under other names, without this key)
+        "biases of a gated MLP (mlp_bias)": cfg.mlp_bias,
     }
     missing = [name for name, on in unsupported.items() if on]
     if missing:
@@ -170,20 +179,39 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
     return out
 
 
-def _maybe_norm(x: torch.Tensor, w: torch.Tensor, eps: float, gemma: bool) -> torch.Tensor:
+def layer_rope_flags(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer RoPE flags [L] (0: a NoPE layer, SmolLM3's every fourth): a
+    copy of JAX ``models/llama.py::layer_rope_flags``."""
+    if cfg.no_rope_layers:
+        return np.asarray(cfg.no_rope_layers, np.int32)
+    return np.ones(cfg.num_layers, dtype=np.int32)
+
+
+def _maybe_norm(x: torch.Tensor, w: torch.Tensor, eps: float, gemma: bool, bias=None,
+                norm_type: str = "rmsnorm") -> torch.Tensor:
+    """The config's norm (JAX ``_maybe_norm``): LayerNorm with its optional
+    bias, or RMSNorm (gemma's ``1 + w`` form)."""
+    if norm_type == "layernorm":
+        return layer_norm(x, w, bias, eps)
     return rms_norm_gemma(x, w, eps) if gemma else rms_norm(x, w, eps)
 
 
 def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
-    """Dense gated MLP (``gate``/``up`` or fused ``wgateup``, ``down``):
-    ``down(act(gate x) * up x)``."""
+    """Dense MLP (JAX ``_mlp``): gated, ``down(act(gate x) * up x)`` (``gate``
+    and ``up`` or the fused ``wgateup``), or gateless, ``down(act(up x))``
+    (starcoder2, phi2), each projection with its bias where the layer has
+    one (``gate_bias``, ``up_bias``, ``down_bias``; a fused layer has none)."""
     if "wgateup" in lw:
         gu = linear(x, lw["wgateup"], plain=plain)
         half = gu.shape[-1] // 2
         hidden = act(gu[..., :half]) * gu[..., half:]
     else:
-        hidden = act(linear(x, lw["gate"], plain=plain)) * linear(x, lw["up"], plain=plain)
-    return linear(hidden, lw["down"], plain=plain)
+        up = linear(x, lw["up"], lw.get("up_bias"), plain=plain)
+        if "gate" in lw:
+            hidden = act(linear(x, lw["gate"], lw.get("gate_bias"), plain=plain)) * up
+        else:
+            hidden = act(up)
+    return linear(hidden, lw["down"], lw.get("down_bias"), plain=plain)
 
 
 def route(router_logits: torch.Tensor, cfg: ModelConfig):
@@ -280,9 +308,13 @@ def forward_paged(
     gemma = cfg.arch.startswith("gemma")
     b, t = input_ids.shape
     h = embedding_lookup(input_ids, weights["embed"], dtype=compute_dtype)
-    if gemma:  # the multiplier in the compute dtype first, as the JAX package casts it
+    # the multiplier in the compute dtype first, as the JAX package casts it
+    if gemma:
         h = h * torch.tensor(cfg.embedding_multiplier or cfg.hidden_size ** 0.5, dtype=h.dtype)
+    elif cfg.embedding_multiplier:  # granite
+        h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype)
     windows = layer_windows(cfg).tolist()
+    use_rope = layer_rope_flags(cfg).tolist()
     softcap = float(cfg.attn_logit_softcap or 0.0)
     ropes = rope_sets(cfg, positions)
     attn_scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
@@ -294,9 +326,12 @@ def forward_paged(
         (last_indices.to(**i32) + 1) if last_indices is not None
         else torch.full((b,), t, **i32)
     )
-    eps = cfg.rms_norm_eps
+    eps, norm_type = cfg.rms_norm_eps, cfg.norm_type
+    # granite's multiplier on both branches, in the compute dtype as JAX casts it
+    rm = None if not cfg.residual_multiplier else torch.tensor(cfg.residual_multiplier,
+                                                               dtype=h.dtype)
     for li, lw in enumerate(weights["layers"]):
-        x = _maybe_norm(h, lw["attn_norm"], eps, gemma)
+        x = _maybe_norm(h, lw["attn_norm"], eps, gemma, lw.get("attn_norm_bias"), norm_type)
         if "wqkv" in lw:
             qkv = linear(x, lw["wqkv"], lw.get("wqkv_bias"), plain=plain)
             q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -307,12 +342,16 @@ def forward_paged(
         q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
         k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:  # each head's q and k over head_dim, before RoPE (qwen3)
+        if cfg.qk_norm and not cfg.qk_norm_after_rope:  # each head's q and k (qwen3)
             q = _maybe_norm(q, lw["q_norm"], eps, gemma)
             k = _maybe_norm(k, lw["k_norm"], eps, gemma)
-        cos, sin = ropes[1] if windows[li] > 0 else ropes[0]  # a sliding layer: the local set
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if use_rope[li]:  # a NoPE layer (smollm3) rotates nothing
+            cos, sin = ropes[1] if windows[li] > 0 else ropes[0]  # sliding: the local set
+            q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
+            k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
+        if cfg.qk_norm and cfg.qk_norm_after_rope:  # hunyuan
+            q = _maybe_norm(q, lw["q_norm"], eps, gemma)
+            k = _maybe_norm(k, lw["k_norm"], eps, gemma)
         # the step's rows in the pools' dtype, or in the compute dtype for
         # 1-byte pools: the kernels quantize them as they write them
         kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
@@ -334,18 +373,22 @@ def forward_paged(
             )
         attn_out = linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], lw.get("wo_bias"),
                           plain=plain)
+        if cfg.parallel_residual:  # phi2, cohere: the MLP reads the same normed x
+            h = h + attn_out + _mlp(x, lw, plain, act)
+            continue
         if "post_attn_norm" in lw:
             attn_out = _maybe_norm(attn_out, lw["post_attn_norm"], eps, gemma)
-        h = h + attn_out
-        x = _maybe_norm(h, lw["ffn_norm"], eps, gemma)
+        h = h + (attn_out if rm is None else attn_out * rm)
+        x = _maybe_norm(h, lw["ffn_norm"], eps, gemma, lw.get("ffn_norm_bias"), norm_type)
         if "experts" in lw:
             mlp_out = _moe_mlp(x, lw, cfg, plain, act)
         else:
             mlp_out = _mlp(x, lw, plain, act)
         if "post_ffn_norm" in lw:
             mlp_out = _maybe_norm(mlp_out, lw["post_ffn_norm"], eps, gemma)
-        h = h + mlp_out
-    h = _maybe_norm(h, weights["final_norm"], eps, gemma)
+        h = h + (mlp_out if rm is None else mlp_out * rm)
+    h = _maybe_norm(h, weights["final_norm"], eps, gemma, weights.get("final_norm_bias"),
+                    norm_type)
     if logits_last_only:
         if last_indices is not None:
             idx = last_indices.to(device=h.device, dtype=torch.long)
@@ -356,6 +399,10 @@ def forward_paged(
     if lm_head is None:
         lm_head = weights["embed"]
     logits = linear(h, lm_head, plain=plain).to(torch.float32)
+    if weights.get("lm_head_bias") is not None:  # phi2
+        logits = logits + weights["lm_head_bias"].to(torch.float32)
+    if cfg.logits_scaling:  # granite; cohere's 1 / logit_scale
+        logits = logits / cfg.logits_scaling
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits, cache
@@ -363,19 +410,20 @@ def forward_paged(
 
 def rope_sets(cfg: ModelConfig, positions: torch.Tensor):
     """``((cos, sin), (cos_local, sin_local))`` at ``positions``: a copy of
-    JAX ``_rope_sets``. The global set takes ``rope_scaling`` (and YaRN's
-    attention factor, folded into cos and sin as HF and JAX do); the local
-    set, for sliding layers, is ``rope_local_theta``'s without scaling, or
-    the global set itself where the config has no local base."""
-    inv = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                           device=positions.device)
+    JAX ``_rope_sets``. Each covers the rotated dims, ``int(head_dim *
+    partial_rotary_factor)``. The global set takes ``rope_scaling`` (and
+    YaRN's attention factor, folded into cos and sin as HF and JAX do); the
+    local set, for sliding layers, is ``rope_local_theta``'s without
+    scaling, or the global set itself where the config has no local base."""
+    rot_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
+    inv = rope_frequencies(rot_dim, cfg.rope_theta, cfg.rope_scaling, device=positions.device)
     cos, sin = rope_cos_sin(positions, inv)
     mscale = yarn_attention_factor(cfg.rope_scaling)
     if mscale != 1.0:
         cos, sin = cos * mscale, sin * mscale
     if cfg.rope_local_theta is None:
         return (cos, sin), (cos, sin)
-    inv_l = rope_frequencies(cfg.head_dim, cfg.rope_local_theta, None, device=positions.device)
+    inv_l = rope_frequencies(rot_dim, cfg.rope_local_theta, None, device=positions.device)
     return (cos, sin), rope_cos_sin(positions, inv_l)
 
 
@@ -443,7 +491,9 @@ def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
     have one, into ``wqkv_bias``), gate/up into ``wgateup`` (the shared
     expert's too) and an expert bank's gate/up into ``gateup`` (fewer kernel
     launches per layer); parts
-    that differ in kind, or of which only some have a bias, stay unfused.
+    that differ in kind, or of which only some have a bias, stay unfused, and
+    so do a gate and an up with a bias (``wgateup`` carries none, as JAX
+    ``fuse_projections`` fuses no biased gate/up) and a gateless MLP's up.
 
     Fuses in place: each entry of ``weights["layers"]`` is replaced by its
     fused layer as soon as that exists, so the unfused parts are released
@@ -458,7 +508,8 @@ def fuse_projections(weights: dict, cfg: ModelConfig) -> dict:
             lw = _fuse(lw, qkv, "wqkv")
         if n_bias == 3 and "wqkv" in lw:
             lw["wqkv_bias"] = torch.cat([lw.pop(k) for k in biases])
-        lw = _fuse(lw, ("gate", "up"), "wgateup")
+        if "gate_bias" not in lw and "up_bias" not in lw:
+            lw = _fuse(lw, ("gate", "up"), "wgateup")
         if "experts" in lw:
             lw["experts"] = _fuse(lw["experts"], ("gate", "up"), "gateup")
         if "shared_expert" in lw:

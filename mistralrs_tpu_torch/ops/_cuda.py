@@ -52,8 +52,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# the paged attention kernels' head dims, each compiled in a source of its
+# own (their bodies in csrc/paged_attention.cuh, their C entry points in
+# paged_attention.cu, whose PA_HEAD_DIMS lists the same)
+PAGED_HEAD_DIMS = (64, 80, 96, 128, 256)
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "w8_prefill.cu", "dense_grouped.cu",
-           "paged_attention.cu", "mla_attention.cu")
+           "paged_attention.cu", *(f"paged_attention_hd{d}.cu" for d in PAGED_HEAD_DIMS),
+           "mla_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -68,7 +73,9 @@ KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide", "w4_mat
            "paged_decode_hd256", "paged_prefill_hd256", "paged_decode_hd64",
            "paged_prefill_hd64", "paged_decode_int8_hd256", "paged_decode_int8_hd64",
            "paged_decode_fp8_hd256", "paged_decode_fp8_hd64", "paged_prefill_int8_hd256",
-           "paged_prefill_int8_hd64", "paged_prefill_fp8_hd256", "paged_prefill_fp8_hd64")
+           "paged_prefill_int8_hd64", "paged_prefill_fp8_hd256", "paged_prefill_fp8_hd64",
+           *(f"paged_{k}{q}_hd{d}" for d in (80, 96) for k in ("decode", "prefill")
+             for q in ("", "_int8", "_fp8")))
 COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p

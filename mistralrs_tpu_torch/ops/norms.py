@@ -1,5 +1,5 @@
-"""RMSNorm (counterpart of ``mistralrs_tpu/ops/norms.py``: ``rms_norm`` and
-``rms_norm_gemma``)."""
+"""Normalisations (counterpart of ``mistralrs_tpu/ops/norms.py``:
+``rms_norm``, ``rms_norm_gemma`` and ``layer_norm``)."""
 
 from __future__ import annotations
 
@@ -25,3 +25,17 @@ def rms_norm_gemma(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> 
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + weight.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias=None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis (phi2, starcoder2, stablelm, cohere): the
+    mean and the biased variance in f32, then ``weight`` and the optional
+    ``bias`` in f32, result in x.dtype (JAX ``layer_norm``, the same dtype
+    steps)."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)

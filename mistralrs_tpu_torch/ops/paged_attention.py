@@ -51,9 +51,12 @@ softcap ``c`` maps the scaled score ``x`` to ``tanh(x / c) * c`` before the
 mask and the running max, and a head's sink is one more logit in its
 softmax, uncapped, whose probability is dropped (its value is zero): a row
 that sees no position still gives zeros. Every form, bf16 or quantized,
-takes all three, at head_dim 64, 128 and 256 (:func:`form` names the
-launch count of each: ``paged_decode``, ``paged_decode_hd64``,
-``paged_decode_int8``, ``paged_decode_fp8_hd256``, ...); with 1-byte pools
+takes all three, at head_dim 64, 80, 96, 128 and 256 (:func:`form` names
+the launch count of each: ``paged_decode``, ``paged_decode_hd64``,
+``paged_decode_int8``, ``paged_decode_fp8_hd256``, ``paged_prefill_hd80``,
+...; the kernels compute at the true head dim: pools ``[n_kv, S, 80]`` or
+``[n_kv, S, 96]`` are not padded to 128 as the JAX package pads them for
+its kernels); with 1-byte pools
 the k scale multiplies the raw score before the softcap, the window's mask
 and the running max, and no scale reaches a sink (JAX ``_decode_kernel``
 :292-327). A windowed decode walks only the tiles its window reaches, and
@@ -69,7 +72,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kv.paged import is_quantized, quantize_rows, write_kv
-from ._cuda import COUNTS, check, library, require, sm_count, split_counters, stream_ptr
+from ._cuda import (
+    COUNTS,
+    PAGED_HEAD_DIMS,
+    check,
+    library,
+    require,
+    sm_count,
+    split_counters,
+    stream_ptr,
+)
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -86,11 +98,13 @@ def _scale_plane(scale: Optional[torch.Tensor], layer: int) -> Optional[torch.Te
 def form(kernel: str, pool: torch.Tensor, hd: int = 128) -> str:
     """The launch-count name of ``kernel``'s form for ``pool`` and head_dim
     ``hd``: the kernel's own for bf16 pools at head_dim 128, ``_int8`` or
-    ``_fp8`` after it for quantized pools, then ``_hd64`` or ``_hd256`` at
-    head_dim 64 or 256 (their own template instances)."""
+    ``_fp8`` after it for quantized pools, then ``_hd64``, ``_hd80``,
+    ``_hd96`` or ``_hd256`` at another head dim the kernels take (its own
+    template instances; the plain versions at any other head dim count
+    under the head_dim-128 name)."""
     if is_quantized(pool):
         kernel += "_int8" if pool.dtype == torch.int8 else "_fp8"
-    return f"{kernel}_hd{hd}" if hd in (64, 256) else kernel
+    return f"{kernel}_hd{hd}" if hd in PAGED_HEAD_DIMS and hd != 128 else kernel
 
 
 def _check_scales(pool, k_scale, v_scale, what: str) -> None:
@@ -264,7 +278,8 @@ def _exponent(scale: float, softcap: float) -> tuple[float, float]:
 
 
 def _check_head_dim(hd: int, what: str) -> None:
-    require(hd in (64, 128, 256), f"{what} kernel needs head_dim 64, 128 or 256, got {hd}")
+    require(hd in PAGED_HEAD_DIMS,
+            f"{what} kernel needs head_dim 64, 80, 96, 128 or 256, got {hd}")
 
 
 def _check_sinks(sinks, n_q: int, q: torch.Tensor) -> None:

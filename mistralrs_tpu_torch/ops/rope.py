@@ -1,8 +1,10 @@
 """Rotary position embeddings (counterpart of ``mistralrs_tpu/ops/rope.py``):
 the default, linear-scaled (Gemma-3's global layers), llama3-scaled and
-YaRN frequencies with HF rotate-half pairing, and YaRN's attention factor (:func:`yarn_attention_factor`, which
-the decoder folds into cos and sin as the JAX package does). Other scaling
-kinds raise ``NotImplementedError``."""
+YaRN frequencies, applied with the HF rotate-half pairing or the GLM/GPT-J
+interleaved one, over the whole head or its leading dims (partial rotary),
+and YaRN's attention factor (:func:`yarn_attention_factor`, which the
+decoder folds into cos and sin as the JAX package does). Other scaling kinds
+raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -92,14 +94,27 @@ def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE over the whole head. x: [..., n_heads, head_dim];
-    cos/sin: [..., head_dim // 2] (positions of shape x.shape[:-2])."""
-    half = cos.shape[-1]
-    if 2 * half != x.shape[-1]:
-        raise NotImplementedError("partial rotary embeddings")
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
+               interleaved: bool = False) -> torch.Tensor:
+    """RoPE over the leading ``2 * cos.shape[-1]`` dims of each head; the
+    dims past them pass through (partial rotary: phi2, stablelm, glm's
+    ``partial_rotary_factor``). x: [..., n_heads, head_dim]; cos/sin:
+    [..., rot // 2] (positions of shape x.shape[:-2]). The HF rotate-half
+    pairing (j, j + rot / 2), or with ``interleaved`` the GLM/GPT-J pairing
+    (2j, 2j + 1) (JAX ``apply_rope``, the same f32 steps)."""
+    rot = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
     cos = cos[..., None, :]
     sin = sin[..., None, :]
-    x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:].to(torch.float32)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    if interleaved:
+        x1 = x_rot[..., 0::2].to(torch.float32)
+        x2 = x_rot[..., 1::2].to(torch.float32)
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        out = out.reshape(x_rot.shape).to(x.dtype)
+    else:
+        x1 = x_rot[..., :rot // 2].to(torch.float32)
+        x2 = x_rot[..., rot // 2:].to(torch.float32)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    if x_pass.shape[-1] == 0:
+        return out
+    return torch.cat([out, x_pass], dim=-1)

@@ -5,7 +5,9 @@ loader refuses ``gemma2``, ``gemma3``, ``qwen2moe``, ``granite`` and other
 archs by name), a HF directory of the llama family (dense
 checkpoints whose ``architectures[0]`` is in ``HF_ARCH_MAP`` and whose
 features the decoder takes: Llama, Mistral, Mixtral, Gemma-2, Gemma-3 text
-(``Gemma3ForCausalLM``), Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, ...; and
+(``Gemma3ForCausalLM``), Qwen2 and Qwen2.5, Qwen3, Qwen3-MoE, Phi-2, Phi-3,
+StarCoder2, StableLM, Cohere, Granite, GLM, GLM-4, SmolLM3, Hunyuan dense,
+...; and
 gpt-oss, in bf16 or with its MXFP4 expert banks), or a HF
 directory of the DeepSeek family (``model_type`` ``deepseek_v2``,
 ``deepseek_v3``, ``glm4_moe_lite``) → config, weights on the device,

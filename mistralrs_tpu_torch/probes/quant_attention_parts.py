@@ -3,8 +3,10 @@ parts, on the card:
 
     python3 -m mistralrs_tpu_torch.probes.quant_attention_parts
 
-Builds ``csrc/paged_attention.cu`` alone, as it is and in variants (all
-built together, each into its own library under ``_build/``): the prefill
+Builds the kernels' bodies (``csrc/paged_attention.cuh``) with their entry
+points (``csrc/paged_attention.cu``) at head_dim 128 alone, as they are and
+in variants (all built together, each into its own library under
+``_build/``): the prefill
 form without its first launch (the chunk's rows quantized, written and
 round-tripped once), without the widening of the past's codes, without
 the whole pass over the landed tile (and its second barrier), and with the
@@ -76,7 +78,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
-    libs = build(VARIANTS, "paged_attention.cu", ENTRIES[0])
+    # one source: the edited bodies, then the entry points with only head_dim
+    # 128's forms (the header's include guard skips their include of it)
+    libs = build(VARIANTS, "paged_attention.cuh", ENTRIES[0],
+                 prefix="#define PA_HEAD_DIMS(X) X(128)\n",
+                 suffix="\n" + (_cuda.CSRC / "paged_attention.cu").read_text())
     for lib in libs.values():  # bind the other entries too
         for name in ENTRIES[1:]:
             fn = getattr(lib, name)

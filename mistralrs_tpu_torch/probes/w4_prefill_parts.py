@@ -64,12 +64,12 @@ VARIANTS = {
 
 
 def build(variants: dict, source: str = "w4_matmul.cu", entry: str = "mrt_w4_matmul",
-          argtypes=None, csrc=None) -> dict:
+          argtypes=None, csrc=None, prefix: str = "", suffix: str = "") -> dict:
     """``{name: library}``: ``source`` (in ``csrc``, by default the port's
-    ``csrc/``) with each variant's edits (old, new) applied, built alone
-    into its own library under ``_build/`` (one ``nvcc`` per variant, all
-    started together); ``entry`` bound with ``argtypes`` (by default its
-    signature in ``_cuda``)."""
+    ``csrc/``) with each variant's edits (old, new) applied, between
+    ``prefix`` and ``suffix``, built alone into its own library under
+    ``_build/`` (one ``nvcc`` per variant, all started together); ``entry``
+    bound with ``argtypes`` (by default its signature in ``_cuda``)."""
     csrc = csrc or _cuda.CSRC
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -79,6 +79,7 @@ def build(variants: dict, source: str = "w4_matmul.cu", entry: str = "mrt_w4_mat
             if old not in src:
                 raise RuntimeError(f"variant {name!r}: the source no longer has {old[:60]!r}")
             src = src.replace(old, new)
+        src = prefix + src + suffix
         tag = f"{source.split('.')[0]}_{name.replace(' ', '_')}"
         path = _cuda.BUILD_DIR / f"parts_{tag}.cu"
         path.write_text(src)

@@ -451,10 +451,11 @@ def test_hf_refusals(tmp_path, case):
         cfg_d["quantization_config"] = {"quant_method": "bitsandbytes"}
     elif case == "bias":  # attention biases load by name (Qwen2); MLP biases do not
         sd["model.layers.0.mlp.down_proj.bias"] = np.zeros(32, np.float32)
-    elif case == "qk_norm":  # q/k norm before RoPE is ported (Qwen3); after it is not
-        cfg_d.update(architectures=["HunYuanDenseV1ForCausalLM"], model_type="hunyuan")
-    else:
-        sd["model.layers.0.self_attn.qkv_proj.weight"] = np.zeros((128, 32), np.float32)
+    elif case == "qk_norm":  # q/k norms load where the config has them (Qwen3, hunyuan)
+        sd["model.layers.0.self_attn.q_norm.weight"] = np.ones(8, np.float32)
+    else:  # phi3's fused projections load and split; as GPTQ words they do not
+        cfg_d["quantization_config"] = {"quant_method": "gptq", "bits": 4}
+        sd["model.layers.0.self_attn.qkv_proj.qweight"] = np.zeros((4, 128), np.int32)
     _write_hf(tmp_path, cfg_d, sd)
     with pytest.raises(NotImplementedError):
         load_pipeline(str(tmp_path), dtype=torch.float32, device="cpu")
