@@ -161,7 +161,9 @@ script in one call:
    T=128 on 300 past (every form), 512 tokens on 2048 past through the
    window (96) and 512 on 512 (80); untimed at each head dim, decode and
    prefill with a softcap and with sinks (each with its control) and at
-   GQA group 8 (32/4 heads);
+   GQA group 8 (32/4 heads). Last, the contiguous path's prefill shapes at
+   perplexity's 2048 rows (4 windows of 512), timed: W4 gate-up (N=28672
+   K=4096) and down (N=4096 K=14336), and the Q8_0 head (W8, N=128256);
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -279,6 +281,17 @@ script in one call:
    MLP biases, glm4's sandwich norms) and loaded through the HF loader: the
    paged forms of the arch's head dim launched (80 and 96 for the Phis) and
    no plain version; logits within 5e-2 of the largest;
+3o. the contiguous-cache forward (``models/llama.py::forward``) at full
+   width with 2 layers of Llama-3-8B (Q4_K, a Q8_0 head) and Mixtral-8x7B
+   Q4_K_M (a Q6_K and a Q4_K down bank) over ``KVCache`` (a 512-token
+   prefill in chunks of 256, 4 decode steps), and of Gemma-2-9B in bf16
+   over ``HybridKVCache`` (a 4400-token prompt in chunks of 1024: the
+   sliding layer's 4096-slot ring wraps; 4 decode steps): through the
+   kernels, through the plain versions, and through ``forward_paged`` on
+   the same weights and tokens (Mixtral's two other runs on the kernel
+   run's expert choices); every step's logits within 5e-2 of the largest
+   of the kernel run's (``contiguous_runs``), the W4/W8 (and grouped)
+   kernels launched and no plain version in the kernel runs;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -383,7 +396,19 @@ script in one call:
    quantized in situ to Q4_K at load (Q8_0 embedding and head; its biases
    and LayerNorms dense): the same 6 requests and checks; W4 in both
    bodies, W8 and the head_dim-80 forms launched, no plain version;
-19. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+19. the calibration loop on the 32-layer Llama-3.1-8B geometry drawn as a
+   bf16 checkpoint (as phase 16): an importance matrix collected in f32
+   over 4 drawn batches of 512 tokens (``ImatrixCollector``; the f32 copy
+   freed after), written and read back; ISQ to Q4_K without and with it
+   (their codes must differ); ``compute_perplexity`` (window 512, batch 4,
+   8 windows) of the bf16, Q4_K and Q4_K+imatrix models, finite (drawn
+   weights and tokens: the values mean nothing), the Q4_K run through the
+   W4/W8 kernels and no plain version; one batch through the kernels
+   against the plain versions (logits within 5e-2 of the largest); one
+   traced batch (wall, device ms, idle share, W4/W8 device ms and
+   launches); ``generate`` of 32 greedy tokens (ms a token, an eager
+   decode step's idle share); ``embed`` of 8 prompts; under 600 s;
+20. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
@@ -391,16 +416,18 @@ its path, and each run's count beside them (``launches_by_run``): the serve
 phases 4-18 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h, 3n)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
-wide-group form runs there alone) and phases 3j, 3k, 3l, 3m and 3n; a kernel launched
+wide-group form runs there alone), phases 3j, 3k, 3l, 3m, 3n and 3o, and
+phase 19's Q4_K perplexity run; a kernel launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
 
-Budget: the whole run at most 8 minutes on an H100 with the build (the
-int8 serve and the quantized rows add about half a minute), at most 8 GB of
-host memory (all weights are drawn on the device, none on the host), at
-most 72 GB of device memory (phase 10's Qwen3-30B-A3B weights take 61.1 GB,
-its KV pools 0.8 GB).
+Budget: the whole run at most 10 minutes on an H100 with the build (the
+int8 serve and the quantized rows add about half a minute, phase 19 at
+most 600 s of it), at most 8 GB of host memory (all weights are drawn on
+the device, none on the host), at most 72 GB of device memory (phase 10's
+Qwen3-30B-A3B weights take 61.1 GB, its KV pools 0.8 GB; phase 19's bf16
+checkpoint and its f32 copy about 48 GB).
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
 tile) and the dense grouped kernel use the plain version's weights exactly
@@ -432,6 +459,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -442,12 +470,15 @@ KERNELS_ONLY = "--kernels-only" in sys.argv
 if "--port" in sys.argv:
     sys.path.insert(0, sys.argv[sys.argv.index("--port") + 1])
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mistralrs_tpu_torch import embeddings, perplexity  # noqa: E402
 from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E402
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
 from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
+from mistralrs_tpu_torch.generate import generate  # noqa: E402
 from mistralrs_tpu_torch.gguf import planar as gguf_planar  # noqa: E402
 from mistralrs_tpu_torch.gguf.constants import GGMLType, type_traits  # noqa: E402
 from mistralrs_tpu_torch.gguf.drawn import (  # noqa: E402
@@ -457,6 +488,7 @@ from mistralrs_tpu_torch.gguf.drawn import (  # noqa: E402
     llama_family_tensors,
 )
 from mistralrs_tpu_torch.gguf.quants import quantize  # noqa: E402
+from mistralrs_tpu_torch.imatrix import ImatrixCollector, load_imatrix, save_imatrix  # noqa: E402,E501
 from mistralrs_tpu_torch.kv.paged import (  # noqa: E402
     CODE_DTYPES,
     PagedKVCache,
@@ -487,6 +519,7 @@ from mistralrs_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quant_matmul,
     quant_matmul_grouped,
 )
+from mistralrs_tpu_torch.perplexity import compute_perplexity  # noqa: E402
 from mistralrs_tpu_torch.quant import gptq_awq  # noqa: E402
 from mistralrs_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from mistralrs_tpu_torch.serving.server import Server  # noqa: E402
@@ -3027,6 +3060,135 @@ def check_isq_model(dev, base: dict, seed: int, what: str, required,
 
 
 # ---------------------------------------------------------------------------
+# phase 3o: the contiguous-cache forward
+# ---------------------------------------------------------------------------
+
+
+def contiguous_runs(dev, cfg, weights, ids, chunks, n_dec, make_cache, what: str,
+                    required) -> dict:
+    """Phase 3o on one model: ``ids [1, sum(chunks) + n_dec]`` as a chunked
+    prefill then ``n_dec`` decode steps through ``llama.forward`` over
+    ``make_cache()`` (each step's last-token logits), three times: through
+    the kernels, through the plain versions (``plain=True``), and through
+    ``forward_paged`` and its kernels over a paged cache of 64-token blocks
+    with the same chunks. An MoE model's plain and paged runs take the
+    kernel run's expert choices (phase 3b checks the router's own). Every
+    step's logits of the plain run within 5e-2 of the largest of the kernel
+    run's (phase 3's tolerance); of the paged run within 5e-2 too: the two
+    forwards share the layer body and the W4/W8 kernels and differ only in
+    attention, the f32 ``sdpa`` against the paged kernels (exp2, P as two
+    bf16 parts), which phase 3 already holds to that tolerance against
+    their plain versions, and both store K/V in bf16. Every kernel of
+    ``required`` launched in the kernel run, no plain version. Returns the
+    kernel run's launch counts."""
+    bs = 64
+    total = sum(chunks) + n_dec
+    w = -(-total // bs)
+    bt = torch.arange(w, device=dev, dtype=torch.int32)[None]
+    choices: list = []
+    runs, counts = {}, {}
+    for mode in ("kernels", "plain", "paged"):
+        chosen: list = []
+        forced = None if mode == "kernels" else choices
+        with recorded_routing(chosen, forced) if cfg.num_experts else contextlib.nullcontext():
+            paged = mode == "paged"
+            cache = PagedKVCache.create(cfg, w, bs, device=dev) if paged else make_cache()
+            _cuda.reset_counts()
+            outs, p = [], 0
+            for c in list(chunks) + [1] * n_dec:
+                pos = torch.arange(p, p + c, device=dev)[None]
+                if paged:
+                    logits, _ = forward_paged(weights, cfg, ids[:, p:p + c], pos, cache, bt,
+                                              slots_for(bt, pos, bs),
+                                              torch.tensor([p + c], device=dev), block_size=bs)
+                else:
+                    logits, _ = llama.forward(weights, cfg, ids[:, p:p + c], pos, cache, [p],
+                                              logits_last_only=True, plain=mode == "plain")
+                outs.append(logits)
+                p += c
+            torch.cuda.synchronize()
+            if mode == "kernels":
+                counts = dict(_cuda.COUNTS)
+                choices = chosen
+            del cache
+        runs[mode] = outs
+    worst = {}
+    for mode in ("plain", "paged"):
+        worst[mode] = 0.0
+        for step, (got, ref) in enumerate(zip(runs["kernels"], runs[mode])):
+            if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+                raise AssertionError(f"{what}: step {step}: non-finite logits ({mode} run)")
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            worst[mode] = max(worst[mode], err / max(scale, 1e-30))
+            if err > 5e-2 * scale:
+                raise AssertionError(f"{what}: step {step}: the kernel run's logits differ from "
+                                     f"the {mode} run's by {err} > {5e-2 * scale}")
+    missing = [k for k in required if counts.get(k, 0) == 0]
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain_run:
+        raise AssertionError(f"{what}: kernels not launched {missing}, plain versions run "
+                             f"{plain_run}")
+    log(f"  {what}: prefill of {sum(chunks)} tokens in chunks of {max(chunks)}, {n_dec} decode "
+        f"steps; worst |err|/max|logit| against the plain run {worst['plain']:.3e}, against "
+        f"forward_paged {worst['paged']:.3e} (tol 5e-2 each"
+        + ("; on the kernel run's expert choices" if cfg.num_experts else "")
+        + f"); kernel run launches {counts}")
+    return counts
+
+
+def check_contiguous_models(dev) -> dict:
+    """Phase 3o: ``llama.forward`` over the contiguous caches at full width,
+    2 layers of each model (:func:`contiguous_runs`): Llama-3-8B with Q4_K
+    projections and a Q8_0 head over ``KVCache`` (two 256-token chunks),
+    Mixtral-8x7B Q4_K_M (Q4_K gate/up banks, a Q6_K down bank on layer 0 and
+    a Q4_K one on layer 1: grouped W4 and W8) over ``KVCache``, and
+    Gemma-2-9B in bf16 (layer 0 sliding with its 4096 window, layer 1 full;
+    softcaps, head_dim 256) over ``HybridKVCache`` with a 4400-token prompt
+    in chunks of 1024, so that the ring wraps. Returns each model's kernel
+    run launch counts."""
+    out = {}
+    cfg = ModelConfig(**dict(LLAMA3_8B, num_layers=2))
+    weights = build_weights(cfg, dev, SEED + 94)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 95)
+    ids = torch.randint(0, cfg.vocab_size, (1, 516), generator=gen, device=dev)
+    out["llama"] = contiguous_runs(
+        dev, cfg, weights, ids, (256, 256), 4,
+        lambda: llama.KVCache.create(cfg, 1, 516, device=dev),
+        "llama-3-8b q4_k, contiguous", ("w4_matmul", "w8_matmul"))
+    del weights
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**dict(MIXTRAL_8X7B, num_layers=2))
+    weights = build_mixtral(cfg, dev, SEED + 96, down_kinds=("q6k", "q4k"))
+    ids = torch.randint(0, cfg.vocab_size, (1, 516), generator=gen, device=dev)
+    out["mixtral"] = contiguous_runs(
+        dev, cfg, weights, ids, (256, 256), 4,
+        lambda: llama.KVCache.create(cfg, 1, 516, device=dev),
+        "mixtral-8x7b q4_k_m, contiguous", ("w4_matmul_g", "w8_matmul_g", "w4_matmul",
+                                            "w8_matmul"))
+    del weights
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**dict(GEMMA2_9B, num_layers=2))
+    weights = build_gemma(cfg, dev, SEED + 97)
+    ids = torch.randint(0, cfg.vocab_size, (1, 4404), generator=gen, device=dev)
+    cache_box = []
+
+    def hybrid():
+        cache_box.append(llama.HybridKVCache.create(cfg, 1, 4404, device=dev))
+        return cache_box[-1]
+
+    out["gemma"] = contiguous_runs(dev, cfg, weights, ids, (1024,) * 4 + (304,), 4, hybrid,
+                                   "gemma-2-9b bf16, hybrid cache", ())
+    ring = cache_box[0].slot_pos
+    check(int(ring.min()) == 4404 - 4096 and int(ring.max()) == 4403,
+          f"phase 3o: the ring holds positions {int(ring.min())}..{int(ring.max())}, not the "
+          f"last 4096 (308..4403)")
+    del weights, cache_box
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4 to 16: serve
 # ---------------------------------------------------------------------------
 
@@ -3378,6 +3540,190 @@ def serve_once(dev, name_line: str, cfg, weights, model_id: str, required, adapt
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the calibration loop (imatrix, ISQ, perplexity, generate, embed)
+# ---------------------------------------------------------------------------
+
+# the W4 and W8 kernels' names in a trace (decode body: format 0 is W4, 1
+# and 2 are W8; the prefill bodies and W8's split sum)
+W4_TRACE = ("w4_prefill_kernel", "mm_decode_kernel<0")
+W8_TRACE = ("w8_prefill_kernel", "w8_split_sum_kernel", "mm_decode_kernel<1",
+            "mm_decode_kernel<2")
+
+
+def calibration_loop(dev, name_line: str) -> dict:
+    """Phase 19 on the 32-layer Llama-3.1-8B geometry drawn as a bf16
+    checkpoint as phase 16 draws it (:func:`bf16_checkpoint`):
+
+    * ``ImatrixCollector`` over 4 drawn batches of 1 x 512 tokens, in f32
+      over an f32 copy of the weights (freed before the next step);
+    * ISQ to Q4_K without and with that imatrix (at least one block's codes
+      must differ: the rows reached the quantizer);
+    * ``compute_perplexity`` (window 512, batch 4, 8 windows of drawn
+      tokens) of the bf16 model, the Q4_K and the Q4_K+imatrix models, each
+      finite (drawn weights and tokens give the values no meaning); one
+      batch of the Q4_K model through the kernels against the plain
+      versions: logits within 5e-2 of the largest (phase 3's tolerance),
+      and the two runs' mean NLL;
+    * one traced batch of 4 windows: wall, device ms, idle share, the W4
+      and W8 kernels' device ms and launches;
+    * ``generate``: 32 greedy tokens after a 128-token prompt, ms per
+      token, and one eager decode step's wall against its device time;
+    * ``embed`` of 8 prompts (finite, unit norm).
+
+    Stays under 600 s. Returns the launch counts of the Q4_K perplexity
+    run."""
+    t_phase = time.monotonic()
+    cfg = ModelConfig(**LLAMA31_8B)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 98)
+    sd = bf16_checkpoint(cfg, dev, SEED + 99)
+    toks = torch.randint(0, cfg.vocab_size, (8 * 512,), generator=gen, device=dev)
+    calib = torch.randint(0, cfg.vocab_size, (4, 1, 512), generator=gen, device=dev)
+    # the importance matrix, in f32
+    t0 = time.monotonic()
+    w32 = hf_loader.weights_from_state_dict(sd, cfg, dtype=torch.float32, device=dev)
+    coll = ImatrixCollector(cfg, device=dev)
+    for batch in calib:
+        coll.update(w32, batch.cpu().numpy())
+    im = coll.finalize()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del w32
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(sorted(im) == ["attn_in", "down_in", "mlp_in", "o_in"]
+          and all(np.isfinite(v).all() and v.shape[0] == 32 for v in im.values()),
+          "phase 19: imatrix taps")
+    log(f"  imatrix over {coll.tokens} tokens in f32: {time.monotonic() - t0:.2f} s, peak device "
+        f"memory {peak:.2f} GiB; taps " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in im.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_imatrix(f"{tmp}/imatrix.npz", im)
+        back = load_imatrix(f"{tmp}/imatrix.npz")
+    check(all(np.array_equal(back[k], v) for k, v in im.items()),
+          "phase 19: the written imatrix reads back")
+    ids = toks.tolist()
+    ppl = {}
+    t0 = time.monotonic()
+    bf16 = hf_loader.weights_from_state_dict(sd, cfg, device=dev)
+    ppl["bf16"] = compute_perplexity(bf16, cfg, ids, window=512, batch_size=4, device=dev)
+    del bf16
+    log(f"  perplexity bf16: {ppl['bf16']} in {time.monotonic() - t0:.2f} s")
+    # ISQ without and with the imatrix
+    quant = {}
+    for label, rows in (("q4k", None), ("q4k+imatrix", im)):
+        t0 = time.monotonic()
+        quant[label] = hf_loader.weights_from_state_dict(sd, cfg, device=dev, isq=GGMLType.Q4_K,
+                                                         imatrix=rows)
+        torch.cuda.synchronize()
+        log(f"  ISQ to Q4_K{' with the imatrix' if rows else ''}: "
+            f"{time.monotonic() - t0:.2f} s")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = (quant[k]["layers"][0]["wq"] for k in ("q4k", "q4k+imatrix"))
+    differ = (a.data != b.data).any(dim=0).sum().item()
+    check(differ > 0, "phase 19: the imatrix changed no code of layer 0's wq")
+    log(f"  layer 0 wq: {differ} of {a.data.shape[1]} rows have codes that the imatrix changed")
+    for label in quant:
+        quant[label] = llama.fuse_projections(quant[label], cfg)
+    torch.cuda.empty_cache()
+    weights = quant["q4k"]
+    counts = {}
+    for label, w in quant.items():
+        t0 = time.monotonic()
+        _cuda.reset_counts()
+        ppl[label] = compute_perplexity(w, cfg, ids, window=512, batch_size=4, device=dev)
+        torch.cuda.synchronize()
+        if label == "q4k":
+            counts = dict(_cuda.COUNTS)
+        log(f"  perplexity {label}: {ppl[label]} in {time.monotonic() - t0:.2f} s")
+    for label, r in ppl.items():
+        check(math.isfinite(r["ppl"]) and r["windows"] == 8 and r["tokens_scored"] == 8 * 256,
+              f"phase 19: perplexity {label} {r}")
+    plain_run = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    check(counts.get("w4_matmul", 0) > 0 and counts.get("w8_matmul", 0) > 0 and not plain_run,
+          f"phase 19: perplexity launches {counts}")
+    del quant["q4k+imatrix"]
+    torch.cuda.empty_cache()
+    # one batch of 4 windows through the kernels and through the plain versions
+    batch = toks.reshape(8, 512)[:4]
+    pos = torch.arange(512, device=dev)[None].expand(4, 512)
+    logits = {}
+    for plain in (False, True):
+        cache = llama.KVCache.create(cfg, 4, 512, device=dev)
+        out, _ = llama.forward(weights, cfg, batch, pos, cache, [0] * 4, plain=plain)
+        nll = -torch.log_softmax(out[:, :-1], dim=-1).gather(-1, batch[:, 1:, None]).mean()
+        logits[plain] = (out, nll.item())
+        del cache
+    err = (logits[False][0] - logits[True][0]).abs().max().item()
+    scale = logits[True][0].abs().max().item()
+    check(bool(torch.isfinite(logits[False][0]).all()) and err <= 5e-2 * scale,
+          f"phase 19: Q4_K logits through the kernels differ from the plain run's by {err} > "
+          f"{5e-2 * scale}")
+    log(f"  Q4_K batch of 4 x 512, kernels vs plain: worst |err|/max|logit| "
+        f"{err / scale:.3e} (tol 5e-2); mean NLL {logits[False][1]:.6f} vs {logits[True][1]:.6f}")
+    del logits, out
+    torch.cuda.empty_cache()
+    # one traced batch of 4 windows
+    cache = llama.KVCache.create(cfg, 4, 512, device=dev)
+
+    def window():
+        perplexity._window_nll(weights, cfg, cache, batch, 256, torch.bfloat16, False)[0].cpu()
+
+    _cuda.reset_counts()
+    window()
+    per_batch = {k: v for k, v in _cuda.COUNTS.items() if v}
+    wall, busy, by_kernel = traced_ms(window)
+    w4 = sum(v for k, v in by_kernel.items() if any(n in k for n in W4_TRACE)) / 1e3
+    w8 = sum(v for k, v in by_kernel.items() if any(n in k for n in W8_TRACE)) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {step_line('perplexity batch (4 windows of 512)', wall, busy)}; W4 {w4:.3f} ms, W8 "
+        f"{w8:.3f} ms, all others {busy - w4 - w8:.3f} ms; launches a batch {per_batch}; top: "
+        + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top) + f" [{name_line}]")
+    del cache
+    torch.cuda.empty_cache()
+    # generate: 32 greedy tokens after a 128-token prompt
+    prompt = toks[:128].tolist()
+    walls = {}
+    for n in (1, 32):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out_toks = generate(weights, cfg, prompt, max_new_tokens=n, stop_tokens=set(), device=dev)
+        walls[n] = (time.monotonic() - t0) * 1e3
+        check(len(out_toks) == n, f"phase 19: generate gave {len(out_toks)} tokens, not {n}")
+    cache = llama.KVCache.create(cfg, 1, 160, device=dev)
+    llama.forward(weights, cfg, toks[None, :128], torch.arange(128, device=dev)[None], cache,
+                  [0], logits_last_only=True)
+    tok = toks[None, 128:129]
+    p128 = torch.full((1, 1), 128, device=dev)
+
+    def step():  # one eager decode step at position 128 (rewrites the same slot)
+        llama.forward(weights, cfg, tok, p128, cache, [128], logits_last_only=True)[0].cpu()
+
+    step()
+    s_wall, s_busy, _ = traced_ms(step)
+    per_token = (walls[32] - walls[1]) / 31
+    log(f"  generate: 32 greedy tokens after 128 in {walls[32]:.1f} ms ({per_token:.2f} ms a token "
+        f"after the first, {walls[1]:.1f} ms to the first); "
+        f"{step_line('eager decode step', s_wall, s_busy)} [{name_line}]")
+    del cache
+    # embed 8 prompts
+    prompts = [toks[i * 64:i * 64 + 16 + 6 * i].tolist() for i in range(8)]
+    emb = embeddings.embed(weights, cfg, prompts, device=dev)
+    check(emb.shape == (8, cfg.hidden_size) and np.isfinite(emb).all()
+          and np.allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-3),
+          f"phase 19: embed gave {emb.shape}")
+    del weights, quant
+    gc.collect()
+    torch.cuda.empty_cache()
+    dt = time.monotonic() - t_phase
+    log("  perplexity (drawn weights and tokens: the values mean nothing): "
+        + ", ".join(f"{k} {v['ppl']:.4f}" for k, v in ppl.items())
+        + f"; phase 19 took {dt:.1f} s (limit 600)")
+    check(dt < 600, f"phase 19 took {dt:.1f} s, over 600")
+    return counts
+
+
 def main() -> int:
     # phase 0
     if not torch.cuda.is_available():
@@ -3579,6 +3925,16 @@ def main() -> int:
     # the paged kernels at head_dim 96 and 80 (after every other row, which
     # keep the generator's stream of earlier runs)
     check_hd80_96(rows, rates, gen, dev)
+    # the contiguous path's prefill at perplexity's rows (4 windows of 512:
+    # M = 2048): W4 gate-up and down, the Q8_0 head (after every other row,
+    # which keep the generator's stream of earlier runs)
+    for n, k in ((28672, 4096), (4096, 14336)):
+        qt = q4k(n, k, gen, dev)
+        rows["w4_matmul"].append(check_matmul("w4_matmul", 2048, qt, rates, gen, dev))
+        del qt
+    head = q8(128256, 4096, gen, dev)
+    rows["w8_matmul"].append(check_matmul("w8_matmul", 2048, head, rates, gen, dev))
+    del head
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
         log(f"kernels only: {len(timed)} timed rows [{name_line}]")
@@ -3662,6 +4018,12 @@ def main() -> int:
         "StarCoder2-7B, StableLM-2-1.6B, Aya-23-8B, Granite-3.1-8B, GLM-4-9B-0414, SmolLM3-3B), "
         "kernels vs plain")
     variant_models = check_variant_models(dev)
+    torch.cuda.empty_cache()
+    log("phase 3o: llama.forward over the contiguous caches at full width, 2 layers each "
+        "(Llama-3-8B Q4_K over KVCache, Mixtral-8x7B Q4_K_M over KVCache, Gemma-2-9B bf16 over "
+        "HybridKVCache past its 4096 window), kernels vs plain vs forward_paged")
+    contiguous_models = check_contiguous_models(dev)
+    torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3824,7 +4186,17 @@ def main() -> int:
         f"weights; W4 launches {phi2_counts.get('w4_matmul', 0)}, W8 "
         f"{phi2_counts.get('w8_matmul', 0)}; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{name_line}]")
-    # phase 19: the summary, one entry per kernel at the main path's dominant shape
+    # phase 19
+    log(f"phase 19: the calibration loop on the {LLAMA31_8B['num_layers']}-layer Llama-3.1-8B "
+        f"geometry (bf16 checkpoint): imatrix in f32, ISQ to Q4_K with and without it, "
+        f"perplexity of the three models, generate, embed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    calib_counts = calibration_loop(dev, name_line)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+        f"[{name_line}]")
+    # phase 20: the summary, one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
     # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
@@ -3872,7 +4244,9 @@ def main() -> int:
             **{f"phase 3n {kind} {kvq or 'bf16'}-kv model": c
                for (kind, kvq), c in variant_models.items()},
             "phi-3-mini serve": phi3_counts, "phi-3-mini int8-kv serve": phi3_q8_counts,
-            "phi-2 isq q4k serve": phi2_counts}
+            "phi-2 isq q4k serve": phi2_counts,
+            **{f"phase 3o {kind} contiguous model": c for kind, c in contiguous_models.items()},
+            "phase 19 q4k perplexity": calib_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

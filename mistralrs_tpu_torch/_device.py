@@ -27,3 +27,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def weights_device(weights: dict, device: DeviceLike = None) -> torch.device:
+    """The device of a library entry point that takes a model's weights:
+    ``device`` resolved as :func:`resolve_device` resolves it (``cuda``
+    unless the caller asks for ``"cpu"``); raises when the weights lie
+    elsewhere."""
+    dev = resolve_device(device)
+    have = weights["embed"].device
+    if have.type != dev.type or (dev.type == "cuda" and have.index != dev.index):
+        raise ValueError(f"the weights are on {have}, not on {dev}")
+    return dev

@@ -1,5 +1,5 @@
 """Command-line interface (counterpart of ``mistralrs_tpu/cli.py``): the
-``serve`` command only.
+``serve``, ``imatrix`` and ``perplexity`` commands.
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
@@ -29,6 +29,21 @@ llama decoder (windows, softcaps, sinks, head_dim 64, 80, 96, 128 and 256).
 ``--isq q4k|q5k|q6k|q8_0|q4_0|q5_0`` (the JAX package's names) quantizes a
 llama-family HF directory on the card as it loads (JAX ``cli.py:17``); a
 ``.gguf`` file and a DeepSeek directory load unquantized, with a warning.
+
+    python -m mistralrs_tpu_torch.cli imatrix path/to/Meta-Llama-3.1-8B --text calib.txt -o im.npz
+    python -m mistralrs_tpu_torch.cli serve path/to/Meta-Llama-3.1-8B --isq q4k  # with --imatrix
+    python -m mistralrs_tpu_torch.cli perplexity path/to/Meta-Llama-3.1-8B eval.txt \
+        --compare-isq q4k,q8_0
+
+``imatrix`` (JAX ``cmd_imatrix``, ``cli.py:377-413``) loads a llama-family
+HF directory in f32 and runs each non-empty line of ``--text`` (its first
+``--chunk`` tokens; lines of fewer than 2 tokens skipped) through
+``imatrix.py::ImatrixCollector``, then writes the ``.npz``. ``perplexity``
+(JAX ``cmd_perplexity``, :416-456) scores a text file with
+``perplexity.py::compute_perplexity``, for the model as stored and then
+quantized in situ to each type of ``--compare-isq``: one JSON line each,
+with ``delta_ppl`` against ``base``. A DeepSeek-family directory (its own
+forward is not ported over a contiguous cache) is refused by both.
 """
 
 from __future__ import annotations
@@ -89,6 +104,91 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _refuse_adapter(pipe, command: str) -> None:
+    if pipe.adapter is not None:
+        raise NotImplementedError(f"{command}: {pipe.model_id} runs through an arch adapter "
+                                  f"(DeepSeek), whose contiguous-cache forward is not ported")
+
+
+def cmd_imatrix(args) -> int:
+    """Collect an importance matrix over calibration text."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from ._device import resolve_device
+    from .imatrix import ImatrixCollector, save_imatrix
+    from .models.config import config_from_hf
+    from .models.hf_loader import load_safetensors_dir, weights_from_state_dict
+    from .pipeline import DEEPSEEK_ARCHS
+    from .tokenizer import from_file
+
+    src = Path(args.model)
+    hf_cfg = json.loads((src / "config.json").read_text())
+    if hf_cfg.get("model_type") in DEEPSEEK_ARCHS:
+        raise NotImplementedError(f"imatrix: {hf_cfg['model_type']} runs through an arch "
+                                  f"adapter, whose contiguous-cache forward is not ported")
+    cfg = config_from_hf(hf_cfg)
+    dev = resolve_device(args.device)
+    weights = weights_from_state_dict(load_safetensors_dir(src), cfg, dtype=torch.float32,
+                                      device=dev)
+    tok = from_file(src / "tokenizer.json")
+    coll = ImatrixCollector(cfg, device=dev)
+    with open(args.text) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            ids = tok.encode(line)[: args.chunk]
+            if len(ids) < 2:
+                continue
+            coll.update(weights, np.asarray(ids, np.int64)[None])
+    save_imatrix(args.output, coll.finalize())
+    print(f"wrote {args.output} ({coll.tokens} calibration tokens)")
+    return 0
+
+
+def cmd_perplexity(args) -> int:
+    """Perplexity over a text file, for the model and each ISQ type."""
+    import json
+
+    import torch
+
+    from .perplexity import compute_perplexity
+    from .pipeline import load_pipeline
+
+    compute_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
+    results = {}
+    quants = [None] + [q for q in (args.compare_isq or "").split(",") if q]
+    with open(args.text) as f:
+        text = f.read()
+    for q in quants:
+        pipe = load_pipeline(args.model, isq=q, dtype=compute_dtype, device=args.device)
+        _refuse_adapter(pipe, "perplexity")
+        if pipe.tokenizer is None:
+            print("error: model has no tokenizer", file=sys.stderr)
+            return 1
+        ids = pipe.tokenizer.encode(text)
+        if args.max_tokens:
+            ids = ids[: args.max_tokens]
+        r = compute_perplexity(pipe.weights, pipe.cfg, ids, window=args.window,
+                               batch_size=args.batch_size, compute_dtype=compute_dtype,
+                               progress=not args.quiet, device=args.device)
+        label = q or "base"
+        results[label] = r
+        line = {"model": pipe.model_id, "quant": label, **r}
+        if q is not None:
+            line["delta_ppl"] = r["ppl"] - results["base"]["ppl"]
+        print(json.dumps({k: round(v, 6) if isinstance(v, float) else v
+                          for k, v in line.items()}), flush=True)
+        del pipe
+        if args.device != "cpu":
+            torch.cuda.empty_cache()  # the next quant's load reuses this model's memory
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="mistralrs_tpu_torch", description="quantized LLM serving on one CUDA GPU"
@@ -111,6 +211,27 @@ def main(argv=None) -> int:
                    help="1-byte KV cache with per-row scales (default: the compute dtype)")
     p.add_argument("--chat-template", default=None, help="jinja template override file")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("imatrix", help="collect an importance matrix (calibration)")
+    p.add_argument("model", help="llama-family HF model directory")
+    p.add_argument("--text", required=True, help="calibration text file (one prompt per line)")
+    p.add_argument("--chunk", type=int, default=512, help="max tokens per line")
+    p.add_argument("-o", "--output", required=True, help="output .npz")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_imatrix)
+
+    p = sub.add_parser("perplexity", help="sliding-window perplexity (quality check)")
+    p.add_argument("model", help="model path (.gguf or llama-family HF dir)")
+    p.add_argument("text", help="evaluation text file")
+    p.add_argument("--window", type=int, default=512)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--max-tokens", type=int, default=0, help="limit eval tokens")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--compare-isq", default="",
+                   help="comma list of ISQ types to also evaluate (prints delta_ppl vs base)")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_perplexity)
     args = parser.parse_args(argv)
     return args.fn(args)
 

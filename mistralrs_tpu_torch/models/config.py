@@ -12,6 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+import numpy as np
+
 
 @dataclass
 class ModelConfig:
@@ -275,3 +277,31 @@ def config_from_gguf(md: dict[str, Any]) -> ModelConfig:
         bos_token_id=md.get("tokenizer.ggml.bos_token_id"),
         eos_token_ids=(eos,) if eos is not None else (),
     )
+
+
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer sliding window sizes [L] (0 = full attention): a copy of
+    JAX ``models/llama.py::layer_windows``. ``layer_types`` names the
+    sliding layers where the config has it; else gemma2 slides on its even
+    layers, gemma3 on all but every sixth, any other arch on every layer."""
+    out = np.zeros(cfg.num_layers, dtype=np.int32)
+    if cfg.sliding_window:
+        if cfg.layer_types:
+            for i, lt in enumerate(cfg.layer_types):
+                if lt == "sliding_attention":
+                    out[i] = cfg.sliding_window
+        elif cfg.arch in ("gemma2", "gemma3"):
+            for i in range(cfg.num_layers):
+                if (i % 2 == 0) if cfg.arch == "gemma2" else ((i + 1) % 6 != 0):
+                    out[i] = cfg.sliding_window
+        else:  # mistral-style: uniform sliding window
+            out[:] = cfg.sliding_window
+    return out
+
+
+def layer_rope_flags(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer RoPE flags [L] (0: a NoPE layer, SmolLM3's every fourth): a
+    copy of JAX ``models/llama.py::layer_rope_flags``."""
+    if cfg.no_rope_layers:
+        return np.asarray(cfg.no_rope_layers, np.int32)
+    return np.ones(cfg.num_layers, dtype=np.int32)

@@ -1,8 +1,12 @@
-"""Llama-family decoder over the paged KV cache (counterpart of
-``mistralrs_tpu/models/llama.py``: ``forward_paged`` at :903, the dense MLP,
+"""Llama-family decoder over the paged KV cache and over the contiguous
+caches (counterpart of ``mistralrs_tpu/models/llama.py``: ``forward_paged``
+at :903, ``forward`` at :687 with ``_layer_step`` at :530, the dense MLP,
 the Mixtral-style mixture of experts (``_moe_mlp`` at :272) and gpt-oss's
 (``_gpt_oss_experts`` at :496), plus ``fuse_projections``,
-``layer_windows`` and ``init_random_weights``).
+``layer_windows`` and ``init_random_weights``). Both forwards run one
+layer body (:class:`_Decoder`), into which each plugs its attention: the
+fused paged kernels, or ``ops/attention.py::sdpa`` over
+``kv/contiguous.py``'s caches.
 
 Weights are a plain dictionary. Per-layer weights are a LIST of dictionaries
 (one per layer) and the decoder is a Python loop over it, where the JAX
@@ -98,7 +102,17 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..kv.contiguous import (
+    HybridKVCache,
+    KVCache,
+    RotatingKVCache,
+    advance_ring,
+    hybrid_layer_maps,
+    write_kv,
+    write_kv_ring,
+)
 from ..kv.paged import PagedKVCache
+from ..ops.attention import sdpa
 from ..ops.moe_grouped import gpt_oss_grouped_mlp, moe_grouped_mlp
 from ..ops.norms import layer_norm, rms_norm, rms_norm_gemma
 from ..ops.paged_attention import (
@@ -111,7 +125,7 @@ from ..ops.quant_matmul import split_need_tree
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies, yarn_attention_factor
 from ..quant.linear import embedding_lookup, linear
 from ..quant.qtensor import QTensor
-from .config import ModelConfig
+from .config import ModelConfig, layer_rope_flags, layer_windows
 
 
 ACTIVATIONS = {
@@ -159,34 +173,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
-def layer_windows(cfg: ModelConfig) -> np.ndarray:
-    """Per-layer sliding window sizes [L] (0 = full attention): a copy of
-    JAX ``models/llama.py::layer_windows``. ``layer_types`` names the
-    sliding layers where the config has it; else gemma2 slides on its even
-    layers, gemma3 on all but every sixth, any other arch on every layer."""
-    out = np.zeros(cfg.num_layers, dtype=np.int32)
-    if cfg.sliding_window:
-        if cfg.layer_types:
-            for i, lt in enumerate(cfg.layer_types):
-                if lt == "sliding_attention":
-                    out[i] = cfg.sliding_window
-        elif cfg.arch in ("gemma2", "gemma3"):
-            for i in range(cfg.num_layers):
-                if (i % 2 == 0) if cfg.arch == "gemma2" else ((i + 1) % 6 != 0):
-                    out[i] = cfg.sliding_window
-        else:  # mistral-style: uniform sliding window
-            out[:] = cfg.sliding_window
-    return out
-
-
-def layer_rope_flags(cfg: ModelConfig) -> np.ndarray:
-    """Per-layer RoPE flags [L] (0: a NoPE layer, SmolLM3's every fourth): a
-    copy of JAX ``models/llama.py::layer_rope_flags``."""
-    if cfg.no_rope_layers:
-        return np.asarray(cfg.no_rope_layers, np.int32)
-    return np.ones(cfg.num_layers, dtype=np.int32)
-
-
 def _maybe_norm(x: torch.Tensor, w: torch.Tensor, eps: float, gemma: bool, bias=None,
                 norm_type: str = "rmsnorm") -> torch.Tensor:
     """The config's norm (JAX ``_maybe_norm``): LayerNorm with its optional
@@ -196,11 +182,12 @@ def _maybe_norm(x: torch.Tensor, w: torch.Tensor, eps: float, gemma: bool, bias=
     return rms_norm_gemma(x, w, eps) if gemma else rms_norm(x, w, eps)
 
 
-def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu, return_hidden: bool = False):
     """Dense MLP (JAX ``_mlp``): gated, ``down(act(gate x) * up x)`` (``gate``
     and ``up`` or the fused ``wgateup``), or gateless, ``down(act(up x))``
     (starcoder2, phi2), each projection with its bias where the layer has
-    one (``gate_bias``, ``up_bias``, ``down_bias``; a fused layer has none)."""
+    one (``gate_bias``, ``up_bias``, ``down_bias``; a fused layer has none).
+    ``return_hidden`` also returns down's input (the imatrix's ``down_in``)."""
     if "wgateup" in lw:
         gu = linear(x, lw["wgateup"], plain=plain)
         half = gu.shape[-1] // 2
@@ -211,7 +198,8 @@ def _mlp(x: torch.Tensor, lw: dict, plain: bool, act=F.silu) -> torch.Tensor:
             hidden = act(linear(x, lw["gate"], lw.get("gate_bias"), plain=plain)) * up
         else:
             hidden = act(up)
-    return linear(hidden, lw["down"], lw.get("down_bias"), plain=plain)
+    out = linear(hidden, lw["down"], lw.get("down_bias"), plain=plain)
+    return (out, hidden) if return_hidden else out
 
 
 def route(router_logits: torch.Tensor, cfg: ModelConfig):
@@ -281,6 +269,130 @@ def _moe_mlp(x: torch.Tensor, lw: dict, cfg: ModelConfig, plain: bool = False,
     return out
 
 
+class _Decoder:
+    """What every layer of one forward shares: the config's switches, the
+    rope sets at this step's positions, the per-layer windows and RoPE
+    flags, granite's residual multiplier (a 0-dim tensor in the compute
+    dtype, as JAX casts it) and ``plain``."""
+
+    def __init__(self, cfg: ModelConfig, positions: torch.Tensor, dtype, plain: bool):
+        self.cfg, self.plain = cfg, plain
+        self.act = ACTIVATIONS[cfg.hidden_act]
+        self.gemma = cfg.arch.startswith("gemma")
+        self.windows = layer_windows(cfg).tolist()
+        self.use_rope = layer_rope_flags(cfg).tolist()
+        self.ropes = rope_sets(cfg, positions)
+        self.rm = (None if not cfg.residual_multiplier
+                   else torch.tensor(cfg.residual_multiplier, dtype=dtype))
+
+    def norm(self, x, w, bias=None, norm_type="rmsnorm"):
+        return _maybe_norm(x, w, self.cfg.rms_norm_eps, self.gemma, bias, norm_type)
+
+    def layer(self, h: torch.Tensor, lw: dict, li: int, attend, moments=None) -> torch.Tensor:
+        """One decoder layer (JAX ``_layer_step``, :530-668, and the layer
+        loop of ``forward_paged``): norms, projections, q/k norms, RoPE,
+        ``attend(li, q, k, v) -> [B, T, n_q, hd]`` (the paged kernels or the
+        contiguous ``sdpa``), the MLP or the experts, and the residuals.
+        ``moments`` (a dict of lists) collects the imatrix taps: Σx² in f32
+        over batch and time of the normed input (``attn_in``), the attention
+        output before ``wo`` (``o_in``), the FFN's normed input (``mlp_in``;
+        the same x under a parallel residual) and the dense MLP's hidden
+        (``down_in``; none on expert layers)."""
+        cfg, plain, act = self.cfg, self.plain, self.act
+        b, t, _ = h.shape
+        x = self.norm(h, lw["attn_norm"], lw.get("attn_norm_bias"), cfg.norm_type)
+        if "wqkv" in lw:
+            qkv = linear(x, lw["wqkv"], lw.get("wqkv_bias"), plain=plain)
+            q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        else:
+            q = linear(x, lw["wq"], lw.get("wq_bias"), plain=plain)
+            k = linear(x, lw["wk"], lw.get("wk_bias"), plain=plain)
+            v = linear(x, lw["wv"], lw.get("wv_bias"), plain=plain)
+        q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm and not cfg.qk_norm_after_rope:  # each head's q and k (qwen3)
+            q = self.norm(q, lw["q_norm"])
+            k = self.norm(k, lw["k_norm"])
+        if self.use_rope[li]:  # a NoPE layer (smollm3) rotates nothing
+            cos, sin = self.ropes[1] if self.windows[li] > 0 else self.ropes[0]  # sliding: local
+            q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
+            k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
+        if cfg.qk_norm and cfg.qk_norm_after_rope:  # hunyuan
+            q = self.norm(q, lw["q_norm"])
+            k = self.norm(k, lw["k_norm"])
+        attn = attend(li, q, k, v).reshape(b, t, cfg.q_dim).to(h.dtype)
+        attn_out = linear(attn, lw["wo"], lw.get("wo_bias"), plain=plain)
+        if moments is not None:
+            moments["attn_in"].append(_sq(x))
+            moments["o_in"].append(_sq(attn))
+        if cfg.parallel_residual:  # phi2, cohere: the MLP reads the same normed x
+            if moments is None:
+                return h + attn_out + _mlp(x, lw, plain, act)
+            mlp_out, hidden = _mlp(x, lw, plain, act, return_hidden=True)
+            moments["mlp_in"].append(_sq(x))
+            moments["down_in"].append(_sq(hidden))
+            return h + attn_out + mlp_out
+        rm = self.rm
+        if "post_attn_norm" in lw:
+            attn_out = self.norm(attn_out, lw["post_attn_norm"])
+        h = h + (attn_out if rm is None else attn_out * rm)
+        x = self.norm(h, lw["ffn_norm"], lw.get("ffn_norm_bias"), cfg.norm_type)
+        hidden = None
+        if "experts" in lw:
+            mlp_out = _moe_mlp(x, lw, cfg, plain, act)
+        elif moments is not None:
+            mlp_out, hidden = _mlp(x, lw, plain, act, return_hidden=True)
+        else:
+            mlp_out = _mlp(x, lw, plain, act)
+        if "post_ffn_norm" in lw:
+            mlp_out = self.norm(mlp_out, lw["post_ffn_norm"])
+        if moments is not None:
+            moments["mlp_in"].append(_sq(x))
+            if hidden is not None:
+                moments["down_in"].append(_sq(hidden))
+        return h + (mlp_out if rm is None else mlp_out * rm)
+
+
+def _sq(a: torch.Tensor) -> torch.Tensor:
+    """Σa² in f32 over the batch and time axes (an imatrix tap)."""
+    return a.to(torch.float32).square().sum(dim=(0, 1))
+
+
+def _embed(weights: dict, cfg: ModelConfig, input_ids: torch.Tensor, compute_dtype):
+    """The token embedding in the compute dtype, times gemma's ``sqrt(hidden)``
+    or granite's ``embedding_multiplier`` (each cast to the compute dtype
+    first, as the JAX package casts it)."""
+    h = embedding_lookup(input_ids, weights["embed"], dtype=compute_dtype)
+    if cfg.arch.startswith("gemma"):
+        h = h * torch.tensor(cfg.embedding_multiplier or cfg.hidden_size ** 0.5, dtype=h.dtype)
+    elif cfg.embedding_multiplier:  # granite
+        h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype)
+    return h
+
+
+def _final_norm(weights: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return _maybe_norm(h, weights["final_norm"], cfg.rms_norm_eps, cfg.arch.startswith("gemma"),
+                       weights.get("final_norm_bias"), cfg.norm_type)
+
+
+def _head(weights: dict, cfg: ModelConfig, h: torch.Tensor, plain: bool) -> torch.Tensor:
+    """f32 logits of the normed ``h``: the head (the embedding when tied),
+    phi2's ``lm_head_bias``, the division by ``logits_scaling`` (granite;
+    cohere's ``1 / logit_scale``) and the final softcap."""
+    lm_head = weights.get("lm_head")
+    if lm_head is None:
+        lm_head = weights["embed"]
+    logits = linear(h, lm_head, plain=plain).to(torch.float32)
+    if weights.get("lm_head_bias") is not None:  # phi2
+        logits = logits + weights["lm_head_bias"].to(torch.float32)
+    if cfg.logits_scaling:
+        logits = logits / cfg.logits_scaling
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
 def forward_paged(
     weights: dict,
     cfg: ModelConfig,
@@ -304,19 +416,10 @@ def forward_paged(
     one) and ``[B, T, V]`` otherwise. ``plain=True`` runs the plain PyTorch
     version of every kernel on any device (the card's smoke run compares)."""
     check_supported(cfg)
-    act = ACTIVATIONS[cfg.hidden_act]
-    gemma = cfg.arch.startswith("gemma")
     b, t = input_ids.shape
-    h = embedding_lookup(input_ids, weights["embed"], dtype=compute_dtype)
-    # the multiplier in the compute dtype first, as the JAX package casts it
-    if gemma:
-        h = h * torch.tensor(cfg.embedding_multiplier or cfg.hidden_size ** 0.5, dtype=h.dtype)
-    elif cfg.embedding_multiplier:  # granite
-        h = h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype)
-    windows = layer_windows(cfg).tolist()
-    use_rope = layer_rope_flags(cfg).tolist()
+    h = _embed(weights, cfg, input_ids, compute_dtype)
+    dec = _Decoder(cfg, positions, h.dtype, plain)
     softcap = float(cfg.attn_logit_softcap or 0.0)
-    ropes = rope_sets(cfg, positions)
     attn_scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
     i32 = dict(dtype=torch.int32, device=input_ids.device)
     block_tables = block_tables.to(**i32).contiguous()
@@ -326,85 +429,161 @@ def forward_paged(
         (last_indices.to(**i32) + 1) if last_indices is not None
         else torch.full((b,), t, **i32)
     )
-    eps, norm_type = cfg.rms_norm_eps, cfg.norm_type
-    # granite's multiplier on both branches, in the compute dtype as JAX casts it
-    rm = None if not cfg.residual_multiplier else torch.tensor(cfg.residual_multiplier,
-                                                               dtype=h.dtype)
-    for li, lw in enumerate(weights["layers"]):
-        x = _maybe_norm(h, lw["attn_norm"], eps, gemma, lw.get("attn_norm_bias"), norm_type)
-        if "wqkv" in lw:
-            qkv = linear(x, lw["wqkv"], lw.get("wqkv_bias"), plain=plain)
-            q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
-        else:
-            q = linear(x, lw["wq"], lw.get("wq_bias"), plain=plain)
-            k = linear(x, lw["wk"], lw.get("wk_bias"), plain=plain)
-            v = linear(x, lw["wv"], lw.get("wv_bias"), plain=plain)
-        q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm and not cfg.qk_norm_after_rope:  # each head's q and k (qwen3)
-            q = _maybe_norm(q, lw["q_norm"], eps, gemma)
-            k = _maybe_norm(k, lw["k_norm"], eps, gemma)
-        if use_rope[li]:  # a NoPE layer (smollm3) rotates nothing
-            cos, sin = ropes[1] if windows[li] > 0 else ropes[0]  # sliding: the local set
-            q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
-            k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
-        if cfg.qk_norm and cfg.qk_norm_after_rope:  # hunyuan
-            q = _maybe_norm(q, lw["q_norm"], eps, gemma)
-            k = _maybe_norm(k, lw["k_norm"], eps, gemma)
-        # the step's rows in the pools' dtype, or in the compute dtype for
-        # 1-byte pools: the kernels quantize them as they write them
-        kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
+    # the step's rows in the pools' dtype, or in the compute dtype for 1-byte
+    # pools: the kernels quantize them as they write them
+    kv_dtype = compute_dtype if cache.quantized else cache.k.dtype
+
+    def attend(li, q, k, v):
+        """The fused paged kernels: this step's K/V written into the pools."""
         k = k.to(kv_dtype)
         v = v.to(kv_dtype)
         scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale,
-                      window=int(windows[li]), softcap=softcap, sinks=lw.get("sinks"))
+                      window=int(dec.windows[li]), softcap=softcap,
+                      sinks=weights["layers"][li].get("sinks"))
         if t == 1:
-            attn = paged_decode_attention_fused(
+            return paged_decode_attention_fused(
                 q[:, 0].contiguous(), cache.k, cache.v, k[:, 0].contiguous(),
                 v[:, 0].contiguous(), slots[:, 0].contiguous(), block_tables,
                 kv_lens, li, block_size=block_size, scale=attn_scale, plain=plain, **scales,
             )[:, None]
-        else:
-            attn = paged_prefill_attention_fused(
-                q.contiguous(), cache.k, cache.v, k.contiguous(), v.contiguous(),
-                slots, block_tables, kv_lens, n_valid, li,
-                block_size=block_size, scale=attn_scale, plain=plain, **scales,
-            )
-        attn_out = linear(attn.reshape(b, t, cfg.q_dim).to(h.dtype), lw["wo"], lw.get("wo_bias"),
-                          plain=plain)
-        if cfg.parallel_residual:  # phi2, cohere: the MLP reads the same normed x
-            h = h + attn_out + _mlp(x, lw, plain, act)
-            continue
-        if "post_attn_norm" in lw:
-            attn_out = _maybe_norm(attn_out, lw["post_attn_norm"], eps, gemma)
-        h = h + (attn_out if rm is None else attn_out * rm)
-        x = _maybe_norm(h, lw["ffn_norm"], eps, gemma, lw.get("ffn_norm_bias"), norm_type)
-        if "experts" in lw:
-            mlp_out = _moe_mlp(x, lw, cfg, plain, act)
-        else:
-            mlp_out = _mlp(x, lw, plain, act)
-        if "post_ffn_norm" in lw:
-            mlp_out = _maybe_norm(mlp_out, lw["post_ffn_norm"], eps, gemma)
-        h = h + (mlp_out if rm is None else mlp_out * rm)
-    h = _maybe_norm(h, weights["final_norm"], eps, gemma, weights.get("final_norm_bias"),
-                    norm_type)
+        return paged_prefill_attention_fused(
+            q.contiguous(), cache.k, cache.v, k.contiguous(), v.contiguous(),
+            slots, block_tables, kv_lens, n_valid, li,
+            block_size=block_size, scale=attn_scale, plain=plain, **scales,
+        )
+
+    for li, lw in enumerate(weights["layers"]):
+        h = dec.layer(h, lw, li, attend)
+    h = _final_norm(weights, cfg, h)
     if logits_last_only:
         if last_indices is not None:
             idx = last_indices.to(device=h.device, dtype=torch.long)
             h = h[torch.arange(b, device=h.device), idx][:, None]
         else:
             h = h[:, -1:]
-    lm_head = weights.get("lm_head")
-    if lm_head is None:
-        lm_head = weights["embed"]
-    logits = linear(h, lm_head, plain=plain).to(torch.float32)
-    if weights.get("lm_head_bias") is not None:  # phi2
-        logits = logits + weights["lm_head_bias"].to(torch.float32)
-    if cfg.logits_scaling:  # granite; cohere's 1 / logit_scale
-        logits = logits / cfg.logits_scaling
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return _head(weights, cfg, h, plain), cache
+
+
+def _host_starts(kv_start, b: int) -> list[int]:
+    """Each row's write offset as a host int (a tensor is read once)."""
+    vals = (kv_start.reshape(-1) if isinstance(kv_start, torch.Tensor)
+            else np.asarray(kv_start).reshape(-1)).tolist()
+    if len(vals) != b:
+        raise ValueError(f"kv_start has {len(vals)} offsets for {b} rows")
+    return [int(x) for x in vals]
+
+
+# forward's arguments that the port refuses, each with the ROADMAP item that
+# brings it
+_REFUSED = {
+    "input_embeds": "multimodal merged embeddings (ROADMAP Queue 1 item 12)",
+    "rope_override": "M-RoPE tables (ROADMAP Queue 1 item 12)",
+    "bidirectional": "block diffusion's bidirectional attention (ROADMAP Queue 1 item 13)",
+    "tp_axis": "tensor parallelism (ROADMAP Queue 1 item 11)",
+}
+
+
+def forward(
+    weights: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T]
+    cache,  # KVCache | RotatingKVCache | HybridKVCache, written in place
+    kv_start,  # [B] tokens already in the cache (host ints, or a tensor read once)
+    *,
+    logits_last_only: bool = False,
+    compute_dtype=torch.bfloat16,
+    return_hidden: bool = False,
+    collect_moments: bool = False,
+    plain: bool = False,
+    input_embeds=None,
+    bidirectional: bool = False,
+    rope_override=None,
+    tp_axis=None,
+):
+    """Decoder over a contiguous KV cache (JAX ``forward``, :687-900):
+    returns ``(logits [B, T or 1, V] f32, cache)``; with ``return_hidden``
+    the final-norm hidden states ``[B, T, H]`` f32 in place of the logits;
+    with ``collect_moments`` (a :class:`KVCache` only) also ``{tap: [L,
+    dim] f32}``, the imatrix taps of :meth:`_Decoder.layer` stacked over the
+    layers.
+
+    Attention is ``ops/attention.py::sdpa``. A :class:`KVCache` (and a
+    hybrid cache's full layers) takes the chunk at ``kv_start`` and attends
+    over the buffer's first ``kv_start + T`` entries; a ring layer
+    (:class:`RotatingKVCache`, a hybrid cache's sliding layers) attends over
+    the ring as it was before this chunk together with the chunk itself,
+    then writes the chunk (its last ``window`` rows), and ``slot_pos`` takes
+    the chunk's positions after the last layer. The projections go through
+    the W4/W8 kernels as in ``forward_paged``; the layer body is the same.
+
+    Refused: a ring cache for a model with sinks (JAX's ring branch drops
+    them, ROADMAP Queue 3 item 11), imatrix taps over a ring cache,
+    ``layers_moe`` segments (glm4moe, ROADMAP Queue 1 item 5) and the
+    arguments of :data:`_REFUSED`."""
+    for name, value in (("input_embeds", input_embeds), ("rope_override", rope_override),
+                        ("bidirectional", bidirectional or None), ("tp_axis", tp_axis)):
+        if value is not None:
+            raise NotImplementedError(f"forward({name}=...): {_REFUSED[name]} is not ported")
+    if "layers_moe" in weights:
+        raise NotImplementedError("forward: layers_moe segments (glm4moe's dense-prefix MoE, "
+                                  "ROADMAP Queue 1 item 5) are not ported")
+    check_supported(cfg)
+    b, t = input_ids.shape
+    layers = weights["layers"]
+    ring = isinstance(cache, (RotatingKVCache, HybridKVCache))
+    if not ring and not isinstance(cache, KVCache):
+        raise TypeError(f"forward: unknown cache {type(cache).__name__}")
+    if ring and any("sinks" in lw for lw in layers):
+        raise NotImplementedError(
+            f"{type(cache).__name__} for a model with attention sinks: the JAX ring branch "
+            f"drops the sinks (ROADMAP Queue 3 item 11); use KVCache")
+    if collect_moments and ring:
+        raise NotImplementedError("imatrix taps (collect_moments) over a ring cache: use KVCache")
+    starts = _host_starts(kv_start, b)
+    h = _embed(weights, cfg, input_ids, compute_dtype)
+    dev = h.device
+    positions = positions.to(device=dev, dtype=torch.int64)
+    dec = _Decoder(cfg, positions, h.dtype, plain)
+    kv_len = torch.tensor([s + t for s in starts], dtype=torch.int64, device=dev)
+    opts = dict(scale=cfg.attn_scale, logit_softcap=cfg.attn_logit_softcap)
+    if ring:  # every ring layer reads the ring as it was before this chunk
+        kv_pos = torch.cat([cache.slot_pos.to(torch.int64), positions], dim=1)
+    kinds, pool = hybrid_layer_maps(cfg) if isinstance(cache, HybridKVCache) else (None, None)
+
+    def attend(li, q, k, v):
+        if isinstance(cache, RotatingKVCache) or (kinds is not None and kinds[li]):
+            kc, vc = ((cache.k[li], cache.v[li]) if kinds is None
+                      else (cache.k_win[pool[li]], cache.v_win[pool[li]]))
+            k, v = k.to(kc.dtype), v.to(vc.dtype)
+            out = sdpa(q, torch.cat([kc, k], dim=1), torch.cat([vc, v], dim=1),
+                       q_positions=positions, sliding_window=dec.windows[li],
+                       kv_positions=kv_pos, **opts)
+            write_kv_ring(kc, k, starts, cache.window)
+            write_kv_ring(vc, v, starts, cache.window)
+            return out
+        kc, vc = ((cache.k[li], cache.v[li]) if kinds is None
+                  else (cache.k_full[pool[li]], cache.v_full[pool[li]]))
+        write_kv(kc, k.to(kc.dtype), starts)
+        write_kv(vc, v.to(vc.dtype), starts)
+        return sdpa(q, kc, vc, q_positions=positions, kv_len=kv_len,
+                    sliding_window=dec.windows[li], sinks=layers[li].get("sinks"), **opts)
+
+    moments = {tap: [] for tap in ("attn_in", "o_in", "mlp_in", "down_in")} if collect_moments \
+        else None
+    for li, lw in enumerate(layers):
+        h = dec.layer(h, lw, li, attend, moments)
+    if ring:
+        advance_ring(cache.slot_pos, starts, t, cache.window)
+    h = _final_norm(weights, cfg, h)
+    if return_hidden:
+        return h.to(torch.float32), cache
+    if logits_last_only:
+        h = h[:, -1:]
+    logits = _head(weights, cfg, h, plain)
+    if collect_moments:
+        return logits, cache, {tap: torch.stack(v) for tap, v in moments.items()
+                               if len(v) == len(layers)}
     return logits, cache
 
 

@@ -83,6 +83,14 @@ class TokenizerWrapper:
         return Detokenizer(self)
 
 
+def from_file(path: str | Path, bos_id=None, eos_ids=()) -> TokenizerWrapper:
+    """A ``tokenizer.json`` alone (no BOS unless ``bos_id`` is given), as
+    JAX ``tokenizer.py::from_file`` reads it."""
+    from tokenizers import Tokenizer
+
+    return TokenizerWrapper(Tokenizer.from_file(str(path)), bos_id=bos_id, eos_ids=eos_ids)
+
+
 def from_hf_dir(path: str | Path) -> TokenizerWrapper:
     """The tokenizer of a HF model directory (``tokenizer.json``; BOS and EOS
     ids from ``config.json``). Raises ``FileNotFoundError`` without
@@ -102,9 +110,7 @@ def from_hf_dir(path: str | Path) -> TokenizerWrapper:
     tok_path = path / "tokenizer.json"
     if not tok_path.exists():
         raise FileNotFoundError(tok_path)
-    from tokenizers import Tokenizer
-
-    return TokenizerWrapper(Tokenizer.from_file(str(tok_path)), bos_id=bos_id, eos_ids=eos_ids)
+    return from_file(tok_path, bos_id=bos_id, eos_ids=eos_ids)
 
 
 # ---------------------------------------------------------------------------

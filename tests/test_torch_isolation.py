@@ -3,6 +3,7 @@ loads neither jax nor any module of the JAX package; its entry points refuse
 to run without a card unless the caller asks for the CPU; and a kernel
 wrapper without a CUDA build raises instead of falling back."""
 
+import dataclasses
 import pkgutil
 import subprocess
 import sys
@@ -17,9 +18,13 @@ import mistralrs_tpu_torch
 from mistralrs_tpu_torch import resolve_device
 from mistralrs_tpu_torch.convert import from_jax_deepseek_params, from_jax_params
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter
+from mistralrs_tpu_torch.embeddings import embed
 from mistralrs_tpu_torch.engine.engine import Engine
+from mistralrs_tpu_torch.generate import generate
 from mistralrs_tpu_torch.gguf.constants import GGMLType
 from mistralrs_tpu_torch.gguf.planar import PlanarQuant
+from mistralrs_tpu_torch.imatrix import ImatrixCollector
+from mistralrs_tpu_torch.kv.contiguous import HybridKVCache, KVCache, RotatingKVCache
 from mistralrs_tpu_torch.kv.paged import PagedKVCache
 from mistralrs_tpu_torch.models import ModelConfig, init_random_weights
 from mistralrs_tpu_torch.models import deepseek
@@ -28,12 +33,15 @@ from mistralrs_tpu_torch.ops import _cuda
 from mistralrs_tpu_torch.ops.mla_attention import _mla_cuda
 from mistralrs_tpu_torch.ops.paged_attention import _decode_cuda
 from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
+from mistralrs_tpu_torch.perplexity import compute_perplexity
 from mistralrs_tpu_torch.pipeline import load_pipeline
 from mistralrs_tpu_torch.quant.qtensor import QTensor
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
                   num_layers=1, num_heads=2, num_kv_heads=1, head_dim=16)
+SLIDING = dataclasses.replace(CFG, sliding_window=8)
+GEMMA2 = dataclasses.replace(CFG, arch="gemma2", num_layers=2, sliding_window=8)
 
 
 def test_imports_no_jax():
@@ -123,6 +131,15 @@ CONSTRUCTORS = {
         DS_CFG, deepseek.init_random_weights(DS_CFG, device="cpu")),
     "from_jax_deepseek_params": lambda tmp: from_jax_deepseek_params(
         _jax_deepseek_numpy(), DS_CFG),
+    "KVCache.create": lambda tmp: KVCache.create(CFG, 1, 8),
+    "RotatingKVCache.create": lambda tmp: RotatingKVCache.create(SLIDING, 1),
+    "HybridKVCache.create": lambda tmp: HybridKVCache.create(GEMMA2, 1, 16),
+    "ImatrixCollector": lambda tmp: ImatrixCollector(CFG),
+    # the library entry points over the contiguous cache, given CPU weights
+    "generate": lambda tmp: generate(init_random_weights(CFG, device="cpu"), CFG, [1, 2]),
+    "compute_perplexity": lambda tmp: compute_perplexity(
+        init_random_weights(CFG, device="cpu"), CFG, list(range(32)), window=16),
+    "embed": lambda tmp: embed(init_random_weights(CFG, device="cpu"), CFG, [[1, 2]]),
 }
 
 
@@ -145,6 +162,17 @@ def test_constructors_take_the_cpu_when_asked():
     pool = ad.create_cache(4, 16, 2).pool  # the cache's latent pool (LatentCache)
     assert pool.device.type == dw["layers"][1]["experts"]["gateup"].device.type == "cpu"
     assert tuple(pool.shape) == (2, 5 * 16, 24)
+    caches = (KVCache.create(CFG, 1, 8, device="cpu"),
+              RotatingKVCache.create(SLIDING, 1, device="cpu"),
+              HybridKVCache.create(GEMMA2, 1, 16, device="cpu"))
+    assert {t.device.type for c in caches for t in vars(c).values()
+            if isinstance(t, torch.Tensor)} == {"cpu"}
+    w = init_random_weights(CFG, device="cpu")
+    assert len(generate(w, CFG, [1, 2], max_new_tokens=2, stop_tokens=set(),
+                        device="cpu")) == 2
+    assert embed(w, CFG, [[1, 2]], device="cpu").shape == (1, CFG.hidden_size)
+    with pytest.raises(ValueError, match="weights are on meta, not on cpu"):
+        embed({**w, "embed": w["embed"].to("meta")}, CFG, [[1, 2]], device="cpu")
 
 
 def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):
