@@ -163,7 +163,14 @@ script in one call:
    prefill with a softcap and with sinks (each with its control) and at
    GQA group 8 (32/4 heads). Last, the contiguous path's prefill shapes at
    perplexity's 2048 rows (4 windows of 512), timed: W4 gate-up (N=28672
-   K=4096) and down (N=4096 K=14336), and the Q8_0 head (W8, N=128256);
+   K=4096) and down (N=4096 K=14336), and the Q8_0 head (W8, N=128256).
+   Last, the weight formats at Llama-3.1-8B's gate-up (M 8 and 512) and
+   down (M 8): FP8 weights through the W8 kernel's e4m3 form
+   (``w8_matmul_e4m3``: the decode body at M 8, the prefill body at 512)
+   at 128 x 128 block scales and at a per-tensor scale, and the same
+   weights as HQQ-4 at group 64 on the W4 wide form, timed as the other
+   W4/W8 rows are (bound: the codes and the f32 scale plane, and HQQ's
+   bias plane); untimed, e4m3 at M 1 and 17 and at block 64;
 3. model: ``forward_paged`` at full Llama-3-8B width with 2 layers, through
    the kernels and through the plain versions on the same device weights
    (a 2 x 96-token prefill, then 4 decode steps), logits compared; then the
@@ -292,6 +299,19 @@ script in one call:
    run's expert choices); every step's logits within 5e-2 of the largest
    of the kernel run's (``contiguous_runs``), the W4/W8 (and grouped)
    kernels launched and no plain version in the kernel runs;
+3p. the weight formats at full Llama-3.1-8B width with 2 layers, drawn on
+   the card as a bf16 checkpoint and written to a temporary directory as
+   a bf16 HF directory, an NF4 one (bitsandbytes' tensors, double-quantized
+   scales, codes made on the card by ``quant/bnb.py``) and a mistral.rs
+   UQFF file of the projections at Q4_K (``save_reference_uqff``): two NF4
+   weights decoded on the card must equal the CPU's decode bit for bit;
+   then the phase-3f schedule (``two_layer_runs``) on the NF4 directory
+   loaded with ISQ Q4_K, and with ISQ Q8_0 under a ``Topology`` of Q2_K
+   (layer 0) and Q3_K (layer 1), on the bf16 directory with the UQFF
+   overlay (``from_uqff=``), and on the CLI's ``quantize`` of the bf16
+   directory to a Q4_K ``.gguf`` read by ``load_gguf_model``: W4, W4 at
+   group 16 and W8 launched, no plain version in the kernel runs, logits
+   within 5e-2 of the largest;
 4. serve: the full 32-layer Llama-3-8B geometry with random Q4_K/Q8_0
    planes drawn on the device, behind the port's HTTP server on 127.0.0.1;
    6 concurrent chat requests (40-600 prompt tokens, one streamed, half
@@ -408,7 +428,22 @@ script in one call:
    traced batch (wall, device ms, idle share, W4/W8 device ms and
    launches); ``generate`` of 32 greedy tokens (ms a token, an eager
    decode step's idle share); ``embed`` of 8 prompts; under 600 s;
-20. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+20. serve the 32-layer Llama-3.1-8B geometry drawn as a bf16 checkpoint,
+   its projections quantized on the card to HQQ-4 at group 64 (the
+   embedding and head bf16), fused, written with ``save_uqff`` to a
+   temporary directory (~6 GiB) and loaded back through ``load_pipeline``
+   of the ``.uqff`` file (the HQQ, write and read seconds and the file's
+   size logged; the file deleted); its 32 layers through the kernels and
+   the plain versions (logits within 5e-2 of the largest), then the same 6
+   requests and checks; the W4 wide form launched in both bodies and no
+   plain version;
+21. serve the 32-layer Llama-3.1-8B geometry with its projections in
+   blockwise FP8 (128 x 128 scales, quantized on the card; the embedding
+   and head bf16): the same 6 requests and checks, the e4m3 form launched
+   in both bodies and no plain version; then 2 layers of it written with
+   ``save_uqff`` and read back with ``load_uqff`` bit for bit, through the
+   kernels and the plain versions;
+22. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
@@ -416,18 +451,23 @@ its path, and each run's count beside them (``launches_by_run``): the serve
 phases 4-18 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h, 3n)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
-wide-group form runs there alone), phases 3j, 3k, 3l, 3m, 3n and 3o, and
-phase 19's Q4_K perplexity run; a kernel launched
+wide-group form runs there alone), phases 3j, 3k, 3l, 3m, 3n, 3o and
+3p, phase 19's Q4_K perplexity run, the serves of phases 20 and 21 and
+phase 21's 2-layer run (the e4m3 form runs in phase 21 alone); a kernel
+launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
 
 Budget: the whole run at most 10 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute, phase 19 at
-most 600 s of it), at most 8 GB of host memory (all weights are drawn on
-the device, none on the host), at most 72 GB of device memory (phase 10's
-Qwen3-30B-A3B weights take 61.1 GB, its KV pools 0.8 GB; phase 19's bf16
-checkpoint and its f32 copy about 48 GB).
+most 600 s of it), at most 8 GB of host memory (8e9 bytes of peak RSS,
+checked at the end: all weights are drawn on the device, none on the host;
+phases 3p and 20 move their files between the card and the disk in 64 MiB
+chunks, GGUF and UQFF blocks included), at most
+72 GB of device memory (phase 10's Qwen3-30B-A3B weights take 61.1 GB, its
+KV pools 0.8 GB; phase 19's bf16 checkpoint and its f32 copy about 48 GB),
+and about 7 GB of files in the temporary directory at a time (phase 3p).
 
 Tolerances: the W8 prefill body (W8 and W8 grouped at more than 16 rows a
 tile) and the dense grouped kernel use the plain version's weights exactly
@@ -455,6 +495,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import resource
 import statistics
 import subprocess
@@ -463,6 +504,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 faulthandler.dump_traceback_later(900, exit=True)
 
@@ -473,7 +515,7 @@ if "--port" in sys.argv:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from mistralrs_tpu_torch import embeddings, perplexity  # noqa: E402
+from mistralrs_tpu_torch import cli, embeddings, perplexity  # noqa: E402
 from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E402
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
 from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
@@ -520,13 +562,19 @@ from mistralrs_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quant_matmul_grouped,
 )
 from mistralrs_tpu_torch.perplexity import compute_perplexity  # noqa: E402
-from mistralrs_tpu_torch.quant import gptq_awq  # noqa: E402
+from mistralrs_tpu_torch.pipeline import load_pipeline  # noqa: E402
+from mistralrs_tpu_torch.quant import bnb, gptq_awq  # noqa: E402
+from mistralrs_tpu_torch.quant.fp8 import Fp8Tensor  # noqa: E402
+from mistralrs_tpu_torch.quant.hqq import hqq_quantize  # noqa: E402
 from mistralrs_tpu_torch.quant.qtensor import QTensor  # noqa: E402
+from mistralrs_tpu_torch.topology import Topology  # noqa: E402
+from mistralrs_tpu_torch.uqff import load_uqff, save_reference_uqff, save_uqff  # noqa: E402
 from mistralrs_tpu_torch.serving.server import Server  # noqa: E402
 from mistralrs_tpu_torch.tokenizer import Detokenizer  # noqa: E402
 
 T0 = time.monotonic()
 SEED = 0
+HOST_BUDGET = 8e9  # bytes of host memory the run may hold at its peak (module docstring)
 
 # Llama-3-8B geometry (bench.py:103-115 of the JAX package)
 LLAMA3_8B = dict(
@@ -768,6 +816,9 @@ KERNEL_INFO = {
                       "mistralrs_tpu/ops/quant_matmul.py:350"),
     "w4_matmul_g16_g": ("mistralrs_tpu_torch/csrc/w4_matmul.cu",
                         "mistralrs_tpu/ops/quant_matmul.py:830"),
+    # the e4m3 form (FP8 weights): JAX fp8_matmul, computed by XLA there
+    "w8_matmul_e4m3": ("mistralrs_tpu_torch/csrc/w8_matmul.cu",
+                       "mistralrs_tpu/quant/fp8.py:84"),
     "dense_matmul_g": ("mistralrs_tpu_torch/csrc/dense_grouped.cu",
                        "mistralrs_tpu/ops/moe_grouped.py:67"),
     "mla_decode": ("mistralrs_tpu_torch/csrc/mla_attention.cu",
@@ -806,7 +857,21 @@ QUANT_KERNELS = ("w4_matmul", "w8_matmul", "paged_decode_int8", "paged_prefill_i
 
 
 def log(msg: str) -> None:
+    if msg.startswith("phase "):  # each phase's first line: where host memory stands
+        msg += f" [{host_rss()}]"
     print(f"[{time.monotonic() - T0:7.1f}s] {msg}", flush=True)
+
+
+def host_rss() -> str:
+    """The process's resident host memory now and at its peak so far, in GB
+    (1e9 bytes)."""
+    now = 0
+    with contextlib.suppress(OSError), open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1])  # KiB
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB
+    return f"host RSS {now * 1024 / 1e9:.2f} GB (peak {peak * 1024 / 1e9:.2f} GB)"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1475,14 +1540,21 @@ def cold_copies(t, nbytes: int) -> list:
                               None if t.bias is None else t.bias.clone(),
                               group_size=t.group_size, packed=t.packed,
                               code_bits=t.code_bits) for _ in range(extra)]
+    if isinstance(t, Fp8Tensor):
+        return [t] + [Fp8Tensor(t.data.clone(), t.scale.clone(), t.block_shape)
+                      for _ in range(extra)]
     return [t] + [t.clone() for _ in range(extra)]
 
 
 def check_matmul(name, m, qt, rates, gen, dev, timed=True, out_dtype=None):
+    """One W4/W8 launch (an FP8 weight: the W8 kernel's e4m3 form) against
+    its plain version, timed beside its bound and ``torch.matmul`` on the
+    bf16 weight unless ``timed=False``."""
     n, k = qt.shape
+    mm = quant_matmul
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-    got = quant_matmul(x, qt, out_dtype=out_dtype)
-    ref = quant_matmul(x, qt, plain=True, out_dtype=out_dtype)
+    got = mm(x, qt, out_dtype=out_dtype)
+    ref = mm(x, qt, plain=True, out_dtype=out_dtype)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     tol = 1e-2 * ref.float().abs().max().item()
@@ -1490,18 +1562,18 @@ def check_matmul(name, m, qt, rates, gen, dev, timed=True, out_dtype=None):
         raise AssertionError(f"{name} M={m} N={n} K={k}: max err {err} > {tol}")
     shape = f"M={m} N={n} K={k}"
     if not timed:
-        log(f"  {name} {shape} bias={qt.bias is not None} out={got.dtype}: err {err:.3e} "
-            f"(tol {tol:.3e})")
+        log(f"  {name} {shape} bias={getattr(qt, 'bias', None) is not None} out={got.dtype}: "
+            f"err {err:.3e} (tol {tol:.3e})")
         return dict(shape=shape, max_abs_err=err)
     w_bf16 = qt.dequantize(torch.float32).to(torch.bfloat16)
     copies = cold_copies(qt, qt.nbytes)
     for c in copies:  # each copy's first call (plane checks) before timing
-        quant_matmul(x, c)
+        mm(x, c)
     weights = itertools.cycle(copies).__next__
     dense = itertools.cycle(cold_copies(w_bf16, w_bf16.numel() * 2)).__next__
-    ms = time_ms(lambda: quant_matmul(x, weights()))
-    dev_ms = device_ms(lambda: quant_matmul(x, weights()))
-    plain_ms = time_ms(lambda: quant_matmul(x, qt, plain=True), iters=3, warmup=1)
+    ms = time_ms(lambda: mm(x, weights()))
+    dev_ms = device_ms(lambda: mm(x, weights()))
+    plain_ms = time_ms(lambda: mm(x, qt, plain=True), iters=3, warmup=1)
     lib_ms = time_ms(lambda: torch.matmul(x, dense().T))
     lib_dev_ms = device_ms(lambda: torch.matmul(x, dense().T))
     del w_bf16, copies, weights, dense
@@ -3025,7 +3097,10 @@ def check_isq_bytes(dev) -> dict:
         quantize(x, t, w)
         torch.cuda.synchronize()
         rates[name] = (time.monotonic() - t0) * 1e3 / (x.numel() / 1e6)
-        cpu = quantize(xc, t, wc)
+        # the CPU's bytes 256 rows at a time (whole rows of blocks: the same
+        # bytes), so its temporaries stay small in host memory
+        cpu = torch.cat([quantize(xc[i:i + 256], t, wc).reshape(-1)
+                         for i in range(0, xc.shape[0], 256)])
         nb = cpu.numel() // type_traits(t).type_size
         differ = int((card.cpu().reshape(nb, -1) != cpu.reshape(nb, -1)).any(dim=1).sum())
         check(differ == 0, f"ISQ {name}: {differ} of {nb} blocks on the card differ from the CPU's")
@@ -3185,6 +3260,281 @@ def check_contiguous_models(dev) -> dict:
           f"last 4096 (308..4403)")
     del weights, cache_box
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the weight formats (phase 2's FP8 and HQQ rows, phases 3p, 20 and 21): FP8
+# on the W8 kernel's e4m3 form, HQQ on the W4 kernel's wide form,
+# bitsandbytes NF4, UQFF files of both kinds, topologies, GGUF export
+# ---------------------------------------------------------------------------
+
+FP8_KERNELS = ("w8_matmul_e4m3", "paged_decode", "paged_prefill")
+HQQ_KERNELS = ("w4_matmul_wide", "paged_decode", "paged_prefill")
+PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+# meta-llama/Llama-3.1-8B-Instruct's config.json, for the HF directories
+# phase 3p writes
+LLAMA31_8B_JSON = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "vocab_size": 128256, "tie_word_embeddings": False,
+    "bos_token_id": 128000, "eos_token_id": [128001, 128008, 128009],
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+}
+
+
+# (N, K, row counts) of phase 2's FP8 and HQQ rows: Llama-3.1-8B's gate-up and down
+FORMAT_SHAPES = ((28672, 4096, (8, 512)), (4096, 14336, (8,)))
+
+
+def check_fp8_hqq(rows, rates, gen, dev):
+    """Phase 2's rows of the weight formats at Llama-3.1-8B's gate-up (M 8
+    and 512: N 28672, K 4096) and down (M 8: N 4096, K 14336): the W8
+    kernel's e4m3 form at 128 x 128 block scales and at a per-tensor scale
+    (the decode body at M 8, the prefill body at 512), and the same weights
+    as HQQ-4 at group 64 on the W4 kernel's wide form, timed as the other
+    W4/W8 rows are; then untimed, e4m3 at M 1 and 17 and at block 64."""
+    for n, k, ms in FORMAT_SHAPES:
+        w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+        for blocks in ((128, 128), None):
+            fw = Fp8Tensor.quantize(w, blocks, device=dev)
+            for m in ms:
+                r = check_matmul("w8_matmul_e4m3", m, fw, rates, gen, dev)
+                r["shape"] += " blockwise 128x128" if blocks else " per-tensor"
+                rows["w8_matmul_e4m3"].append(r)
+            del fw
+        hq = hqq_quantize(w, 4, 64, device=dev)
+        for m in ms:
+            r = check_matmul("w4_matmul_wide", m, hq, rates, gen, dev)
+            r["shape"] += " HQQ-4 group 64"
+            rows["w4_matmul_wide"].append(r)
+        del w, hq
+    w = torch.randn((1024, 4096), generator=gen, device=dev) / 64
+    for blocks in ((128, 128), (64, 64), None):
+        fw = Fp8Tensor.quantize(w, blocks, device=dev)
+        for m in (1, 17):
+            r = check_matmul("w8_matmul_e4m3", m, fw, rates, gen, dev, timed=False,
+                             out_dtype=torch.float32 if m == 17 else None)
+            r["shape"] += f" blocks {blocks}"
+            rows["w8_matmul_e4m3"].append(r)
+
+
+def dense_llama(cfg, dev, seed: int) -> dict:
+    """``cfg``'s weights as a bf16 checkpoint (:func:`bf16_checkpoint`)
+    through the HF loader, unfused (the projections dense bf16)."""
+    sd = bf16_checkpoint(cfg, dev, seed)
+    weights = hf_loader.weights_from_state_dict(sd, cfg, device=dev)
+    del sd
+    return weights
+
+
+def requantize(weights: dict, fn) -> float:
+    """Each layer's projections replaced by ``fn(weight)`` in place, the
+    bf16 weight released as it goes; returns the seconds taken."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for lw in weights["layers"]:
+        for key in PROJECTIONS:
+            lw[key] = fn(lw[key])
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    return dt
+
+
+def build_fp8(cfg, dev, seed: int, stats: dict | None = None) -> dict:
+    """``cfg``'s projections in blockwise FP8 (128 x 128 scales, quantized on
+    the card from a bf16 checkpoint), the embedding and head bf16, fused
+    (q/k/v, gate/up: whole blocks of 128 rows each)."""
+    weights = dense_llama(cfg, dev, seed)
+    dt = requantize(weights, lambda w: Fp8Tensor.quantize(w, (128, 128), device=dev))
+    if stats is not None:
+        stats["seconds"] = dt
+    return llama.fuse_projections(weights, cfg)
+
+
+def build_hqq_uqff(cfg, dev, seed: int, stats: dict) -> dict:
+    """Phase 20's weights: ``cfg``'s projections quantized on the card to
+    HQQ-4 at group 64 from a bf16 checkpoint (the embedding and head bf16),
+    fused, written with ``save_uqff`` to a temporary directory, then loaded
+    back through ``load_pipeline`` of the ``.uqff`` file (the file deleted
+    after); ``stats`` gets the HQQ, write and read seconds and the file's
+    size."""
+    weights = dense_llama(cfg, dev, seed)
+    stats["hqq_s"] = requantize(weights, lambda w: hqq_quantize(w, 4, 64, device=dev))
+    weights = llama.fuse_projections(weights, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/llama-3.1-8b-hqq4.uqff"
+        t0 = time.monotonic()
+        save_uqff(path, cfg, weights)
+        stats["write_s"] = time.monotonic() - t0
+        stats["bytes"] = os.path.getsize(path)
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        pipe = load_pipeline(path, device=dev)
+        torch.cuda.synchronize()
+        stats["read_s"] = time.monotonic() - t0
+    check(pipe.cfg == cfg, f"phase 20: the file's config {pipe.cfg} is not {cfg}")
+    return pipe.weights
+
+
+def leaves_equal(a, b) -> bool:
+    """Two weight trees hold the same leaves, bit for bit (FP8 codes as
+    bytes)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(leaves_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(leaves_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, Fp8Tensor):
+        return (isinstance(b, Fp8Tensor) and a.block_shape == b.block_shape
+                and torch.equal(a.data.view(torch.uint8), b.data.view(torch.uint8))
+                and torch.equal(a.scale, b.scale))
+    if isinstance(a, QTensor):
+        return all(leaves_equal(getattr(a, f), getattr(b, f)) for f in ("data", "scale", "bias"))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def check_fp8_uqff(dev) -> dict:
+    """Phase 21's 2-layer check: Llama-3.1-8B's projections in blockwise FP8
+    written with ``save_uqff`` and read back with ``load_uqff``: every code,
+    scale and dense leaf bit for bit; the file's weights through the kernels
+    and the plain versions (``two_layer_runs``), the e4m3 form in both
+    bodies. Returns the kernel run's launch counts."""
+    cfg = ModelConfig(**dict(LLAMA31_8B, num_layers=2))
+    weights = build_fp8(cfg, dev, SEED + 102)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_uqff(f"{tmp}/fp8.uqff", cfg, weights)
+        cfg2, back = load_uqff(f"{tmp}/fp8.uqff", device=dev)
+    check(cfg2 == cfg and leaves_equal(weights, back),
+          "phase 21: the FP8 uqff file does not give back its weights bit for bit")
+    del weights
+    what = "llama-3.1-8b fp8 uqff model"
+    counts, note, _ = two_layer_runs(dev, cfg, back, SEED + 103, what, FP8_KERNELS)
+    bodies = {b: counts.get(f"w8_matmul_e4m3.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"{what}: e4m3 bodies launched {bodies}")
+    log(f"  {what} 2 layers (read back bit for bit): {note}")
+    return counts
+
+
+def write_hf_dir(path, cfg_json: dict, tensors: dict) -> None:
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(cfg_json))
+    hf_loader.write_safetensors(path / "model.safetensors", tensors)
+
+
+def nf4_tensors(sd: dict, dev) -> dict:
+    """A bf16 checkpoint with every projection as bitsandbytes stores NF4
+    with double-quantized scales (``quant/bnb.py``: codes and scales on the
+    card; a 256-entry nested table; the offset under ``nested_offset``)."""
+    nested = torch.linspace(-1.0, 1.0, 256, device=dev)
+    table = torch.from_numpy(bnb.NF4_CODE).to(dev)
+    out = {}
+    for name, t in sd.items():
+        if not name.endswith("_proj.weight"):
+            out[name] = t
+            continue
+        packed, absmax = bnb.quantize_4bit(t)
+        idx, na, off = bnb.double_quantize(absmax, nested)
+        meta = {"quant_type": "nf4", "blocksize": 64, "dtype": "bfloat16",
+                "shape": list(t.shape), "nested_blocksize": 256, "nested_offset": off}
+        out.update({name: packed, name + ".absmax": idx, name + ".quant_map": table,
+                    name + ".nested_absmax": na, name + ".nested_quant_map": nested,
+                    name + ".quant_state.bitsandbytes__nf4": torch.tensor(
+                        list(json.dumps(meta).encode()), dtype=torch.uint8)})
+    return out
+
+
+def check_format_models(dev) -> dict:
+    """Phase 3p: 2 layers at full Llama-3.1-8B width, drawn as a bf16
+    checkpoint on the card, written as HF directories and files to a
+    temporary directory and loaded back through the port's entry points:
+
+    * an NF4 directory (double-quantized scales): two projections' dense
+      weights (layer 0's k, layer 1's v: 4.2 M weights each, so the CPU's
+      decode stays small in host memory) decoded on the card bit-equal to
+      the CPU's decode; loaded with
+      ``isq=Q4_K``, and with ``isq=Q8_0`` under a ``Topology`` of Q2_K
+      (layer 0) and Q3_K (layer 1);
+    * the bf16 directory overlaid with a mistral.rs UQFF file of its
+      projections at Q4_K (``save_reference_uqff``, ``from_uqff=``);
+    * ``quantize`` (the CLI) of the bf16 directory to a Q4_K ``.gguf``,
+      loaded by ``load_gguf_model``.
+
+    Each through the kernels and the plain versions (``two_layer_runs``).
+    Returns each run's kernel launch counts."""
+    hf_json = dict(LLAMA31_8B_JSON, num_hidden_layers=2)
+    cfg = config_from_hf(hf_json)
+    sd = bf16_checkpoint(cfg, dev, SEED + 104)
+    out, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.monotonic()
+        write_hf_dir(tmp / "bf16", hf_json, sd)
+        write_hf_dir(tmp / "nf4", dict(hf_json, quantization_config={
+            "quant_method": "bitsandbytes", "load_in_4bit": True,
+            "bnb_4bit_quant_type": "nf4", "bnb_4bit_use_double_quant": True}),
+            nf4_tensors(sd, dev))
+        save_reference_uqff(str(tmp / "q4k.uqff"),
+                            {n: t for n, t in sd.items() if n.endswith("_proj.weight")},
+                            GGMLType.Q4_K)
+        times["write"] = time.monotonic() - t0
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        stored = hf_loader.load_safetensors_dir(tmp / "nf4")
+        for name in ("model.layers.0.self_attn.k_proj.weight",
+                     "model.layers.1.self_attn.v_proj.weight"):
+            card = bnb.decode_bnb_param(stored, name, dev).cpu()
+            check(torch.equal(card, bnb.decode_bnb_param(stored, name, "cpu")),
+                  f"phase 3p: {name}'s NF4 decode on the card differs from the CPU's")
+        del stored
+        topo = Topology.from_dict({"0-1": {"isq": "Q2K"}, "1-2": {"isq": "Q3K"}}, 2)
+        loads = (
+            ("nf4 isq q4k", lambda: hf_loader.load_hf_model(tmp / "nf4", device=dev,
+                                                            isq=GGMLType.Q4_K)[1],
+             ("w4_matmul", "w8_matmul")),
+            ("nf4 topology q2k/q3k", lambda: hf_loader.load_hf_model(
+                tmp / "nf4", device=dev, isq=GGMLType.Q8_0, topology=topo)[1],
+             ("w4_matmul_g16", "w8_matmul")),
+            ("bf16 + uqff q4k overlay", lambda: load_pipeline(
+                str(tmp / "bf16"), device=dev, from_uqff=str(tmp / "q4k.uqff")).weights,
+             ("w4_matmul",)),
+            ("quantize q4k gguf", lambda: load_gguf_model(str(tmp / "q4k.gguf"),
+                                                          device=dev)[1],
+             ("w4_matmul", "w8_matmul")),
+        )
+        for i, (what, load, kernels) in enumerate(loads):
+            if what.startswith("quantize"):
+                t0 = time.monotonic()
+                check(cli.main(["quantize", str(tmp / "bf16"), "--quant", "q4k", "-o",
+                                str(tmp / "q4k.gguf"), "--device", dev.type]) == 0,
+                      "phase 3p: quantize failed")
+                times["quantize"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            weights = llama.fuse_projections(load(), cfg)
+            torch.cuda.synchronize()
+            times[what] = time.monotonic() - t0
+            if what.startswith("nf4 topology"):
+                types = [weights["layers"][j]["wqkv"].ggml_type for j in range(2)]
+                check(types == [GGMLType.Q2_K, GGMLType.Q3_K]
+                      and weights["lm_head"].ggml_type == GGMLType.Q8_0,
+                      f"phase 3p: topology types {types}, head {weights['lm_head'].ggml_type}")
+            full = f"llama-3.1-8b {what} model"
+            counts, note, _ = two_layer_runs(dev, cfg, weights, SEED + 105 + i, full,
+                                             kernels + ("paged_decode", "paged_prefill"))
+            log(f"  {full} 2 layers: {note}")
+            out[what] = counts
+            del weights
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("  phase 3p seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f" (files written and read in a temporary directory); {host_rss()}")
     return out
 
 
@@ -3357,11 +3707,13 @@ def graph_step_checks(engine, add_request, name_line: str) -> str:
     tops = ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
     # the decode body (mm_decode_kernel<format, row tiles of 8, ..>) runs the
     # dense projections of <= 8 rows with its 8-row tile and the grouped
-    # experts with its 16-row tile, W4 in format 0 and W8 in formats 1 and 2;
+    # experts with its 16-row tile, W4 in format 0 and W8 in formats 1 and 2
+    # (W8's e4m3 form, FP8 weights, format 3);
     # dense grouped, paged decode and MLA decode are named as in this tree
     # and its parents (MLA: one kernel, or a split and a combine kernel)
     families = {"W4": ("mm_decode_kernel<0, 1",), "W4 grouped": ("mm_decode_kernel<0, 2",),
                 "W8": ("mm_decode_kernel<1, 1", "mm_decode_kernel<2, 1"),
+                "W8 e4m3": ("mm_decode_kernel<3, 1",),
                 "W8 grouped": ("mm_decode_kernel<1, 2", "mm_decode_kernel<2, 2"),
                 "W8 prefill": ("w8_prefill_kernel",),
                 "dense grouped": ("dense_g_decode_kernel", "dense_g_prefill_kernel",
@@ -3548,7 +3900,7 @@ def serve_once(dev, name_line: str, cfg, weights, model_id: str, required, adapt
 # and 2 are W8; the prefill bodies and W8's split sum)
 W4_TRACE = ("w4_prefill_kernel", "mm_decode_kernel<0")
 W8_TRACE = ("w8_prefill_kernel", "w8_split_sum_kernel", "mm_decode_kernel<1",
-            "mm_decode_kernel<2")
+            "mm_decode_kernel<2", "mm_decode_kernel<3")
 
 
 def calibration_loop(dev, name_line: str) -> dict:
@@ -3935,6 +4287,8 @@ def main() -> int:
     head = q8(128256, 4096, gen, dev)
     rows["w8_matmul"].append(check_matmul("w8_matmul", 2048, head, rates, gen, dev))
     del head
+    # the weight formats: FP8 on the W8 kernel's e4m3 form, HQQ-4 on W4 wide
+    check_fp8_hqq(rows, rates, gen, dev)
     if KERNELS_ONLY:
         timed = [dict(name=k, **r) for k in _cuda.KERNELS for r in rows[k] if "ms" in r]
         log(f"kernels only: {len(timed)} timed rows [{name_line}]")
@@ -4023,6 +4377,11 @@ def main() -> int:
         "(Llama-3-8B Q4_K over KVCache, Mixtral-8x7B Q4_K_M over KVCache, Gemma-2-9B bf16 over "
         "HybridKVCache past its 4096 window), kernels vs plain vs forward_paged")
     contiguous_models = check_contiguous_models(dev)
+    torch.cuda.empty_cache()
+    log("phase 3p: the weight formats at full Llama-3.1-8B width, 2 layers: an NF4 directory "
+        "(ISQ Q4_K, and a Q2_K/Q3_K topology), a mistral.rs UQFF overlay, quantize to GGUF, "
+        "kernels vs plain")
+    format_models = check_format_models(dev)
     torch.cuda.empty_cache()
     # phase 4
     log("phase 4: serve the 32-layer Llama-3-8B geometry (bf16, then int8 KV pools)")
@@ -4196,7 +4555,46 @@ def main() -> int:
     calib_counts = calibration_loop(dev, name_line)
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
         f"[{name_line}]")
-    # phase 20: the summary, one entry per kernel at the main path's dominant shape
+    # phase 20
+    log(f"phase 20: serve the {LLAMA31_8B['num_layers']}-layer Llama-3.1-8B geometry quantized "
+        f"on the card to HQQ-4 (group 64), saved as a .uqff file and loaded back through "
+        f"load_pipeline")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hqq_stats: dict = {}
+
+    def build_hqq(cfg, dev_, seed):
+        weights = build_hqq_uqff(cfg, dev_, seed, hqq_stats)
+        _, note, _ = two_layer_runs(dev_, cfg, weights, seed + 1, "llama-3.1-8b hqq4 model",
+                                    HQQ_KERNELS)
+        log(f"  the file's {cfg.num_layers} layers, kernels vs plain: {note}")
+        return weights
+
+    hqq_counts, _ = serve(dev, name_line, ModelConfig(**LLAMA31_8B), build_hqq, SEED + 100,
+                          "llama-3.1-8b-hqq4-uqff", HQQ_KERNELS)
+    bodies = {b: hqq_counts.get(f"w4_matmul_wide.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 20: w4_matmul_wide bodies launched {bodies}")
+    log(f"  HQQ {hqq_stats['hqq_s']:.2f} s on the card; .uqff of "
+        f"{hqq_stats['bytes'] / 2**30:.2f} GiB written in {hqq_stats['write_s']:.2f} s, read "
+        f"back in {hqq_stats['read_s']:.2f} s (then deleted); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {host_rss()} [{name_line}]")
+    # phase 21
+    log(f"phase 21: serve the {LLAMA31_8B['num_layers']}-layer Llama-3.1-8B geometry with its "
+        f"projections in blockwise FP8 (128 x 128 scales); a 2-layer .uqff round trip of FP8 "
+        f"weights")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp8_stats: dict = {}
+    fp8_counts, _ = serve(dev, name_line, ModelConfig(**LLAMA31_8B),
+                          lambda cfg, dev_, seed: build_fp8(cfg, dev_, seed, fp8_stats),
+                          SEED + 101, "llama-3.1-8b-fp8-blockwise", FP8_KERNELS)
+    bodies = {b: fp8_counts.get(f"w8_matmul_e4m3.{b}", 0) for b in ("decode", "prefill")}
+    check(all(bodies.values()), f"phase 21: w8_matmul_e4m3 bodies launched {bodies}")
+    log(f"  FP8 quantization {fp8_stats['seconds']:.2f} s on the card; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {host_rss()} [{name_line}]")
+    fp8_model = check_fp8_uqff(dev)
+    torch.cuda.empty_cache()
+    # phase 22: the summary, one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
     # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
@@ -4209,6 +4607,7 @@ def main() -> int:
                   "w4_matmul_wide_g": "Qwen1.5-MoE gate/up, fused: E=60 N=2816 K=2048 n*k=32",
                   "w8_matmul_wide_g": "Qwen1.5-MoE down (u8, bias): E=60 N=2048 K=1408 n*k=32",
                   "w4_matmul_g16": "M=8 N=4096 K=2048",
+                  "w8_matmul_e4m3": "M=8 N=28672 K=4096",
                   "w4_matmul_g16_g": "Qwen3-30B-A3B Q2_K gate/up, fused: E=128 N=1536 K=2048 "
                                      "n*k=48",
                   "dense_matmul_g": "V2-Lite gate/up: E=64 N=2816 K=2048 n*k=36",
@@ -4246,7 +4645,10 @@ def main() -> int:
             "phi-3-mini serve": phi3_counts, "phi-3-mini int8-kv serve": phi3_q8_counts,
             "phi-2 isq q4k serve": phi2_counts,
             **{f"phase 3o {kind} contiguous model": c for kind, c in contiguous_models.items()},
-            "phase 19 q4k perplexity": calib_counts}
+            "phase 19 q4k perplexity": calib_counts,
+            **{f"phase 3p {what} model": c for what, c in format_models.items()},
+            "llama-3.1-8b hqq4 uqff serve": hqq_counts, "llama-3.1-8b fp8 serve": fp8_counts,
+            "phase 21 fp8 uqff model": fp8_model}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:
@@ -4266,9 +4668,10 @@ def main() -> int:
             "bound_by": pick["bound_by"], "library_ms": pick["library_ms"],
             "library_device_ms": pick["library_device_ms"], "shape": pick["shape"],
         })
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB → GiB
-    log(f"done in {time.monotonic() - T0:.1f} s, peak host memory (RSS) {rss:.2f} GiB "
-        f"[{name_line}]")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024  # KiB → bytes
+    log(f"done in {time.monotonic() - T0:.1f} s, peak host memory (RSS) {rss / 1e9:.2f} GB "
+        f"of the {HOST_BUDGET / 1e9:.0f} GB budget [{name_line}]")
+    check(rss <= HOST_BUDGET, f"peak host memory {rss} bytes is over the budget")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

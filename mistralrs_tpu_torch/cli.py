@@ -1,5 +1,6 @@
 """Command-line interface (counterpart of ``mistralrs_tpu/cli.py``): the
-``serve``, ``imatrix`` and ``perplexity`` commands.
+``serve``, ``imatrix``, ``perplexity``, ``quantize`` and ``uqff-inspect``
+commands.
 
     python -m mistralrs_tpu_torch.cli serve model.gguf --port 8080
     python -m mistralrs_tpu_torch.cli serve model.gguf --kv-quant int8
@@ -29,6 +30,21 @@ llama decoder (windows, softcaps, sinks, head_dim 64, 80, 96, 128 and 256).
 ``--isq q4k|q5k|q6k|q8_0|q4_0|q5_0`` (the JAX package's names) quantizes a
 llama-family HF directory on the card as it loads (JAX ``cli.py:17``); a
 ``.gguf`` file and a DeepSeek directory load unquantized, with a warning.
+A ``.uqff`` file (the ``uqff_tpu`` container of either package: planar,
+HQQ or FP8 weights, with a ``tokenizer.json`` beside it) serves as saved;
+``--from-uqff FILE`` overlays a mistral.rs UQFF file's quantized layers on
+a HF directory (JAX ``cli.py:18``). A bitsandbytes NF4/FP4 directory
+decodes to dense weights at load (``--isq`` re-quantizes them).
+
+    python -m mistralrs_tpu_torch.cli quantize path/to/Meta-Llama-3.1-8B --quant q4k -o l.gguf
+    python -m mistralrs_tpu_torch.cli quantize path/to/Meta-Llama-3.1-8B --quant q4k -o l.uqff
+    python -m mistralrs_tpu_torch.cli uqff-inspect l.uqff
+
+``quantize`` (JAX ``cmd_quantize``, ``cli.py:336-374``) writes a GGUF file
+(``convert.py::convert_hf_to_gguf``, the tokenizer's metadata included;
+``--imatrix`` for the Q4_K/Q5_K fit) or, for a ``.uqff`` output, a
+mistral.rs UQFF file (``uqff.py::save_reference_uqff``), quantizing on
+``--device``; ``uqff-inspect`` (:532-571) prints a UQFF file's inventory.
 
     python -m mistralrs_tpu_torch.cli imatrix path/to/Meta-Llama-3.1-8B --text calib.txt -o im.npz
     python -m mistralrs_tpu_torch.cli serve path/to/Meta-Llama-3.1-8B --isq q4k  # with --imatrix
@@ -64,7 +80,7 @@ def cmd_serve(args) -> int:
         with open(args.chat_template) as f:
             override = f.read()
     pipe = load_pipeline(args.model, isq=args.isq, chat_template_override=override,
-                         device=args.device)
+                         device=args.device, from_uqff=args.from_uqff)
     if pipe.tokenizer is None:
         print("error: model has no tokenizer; `serve` needs one", file=sys.stderr)
         return 1
@@ -150,6 +166,49 @@ def cmd_imatrix(args) -> int:
     return 0
 
 
+def cmd_quantize(args) -> int:
+    """HF safetensors → a quantized GGUF file, or a mistral.rs UQFF file."""
+    import json
+    from pathlib import Path
+
+    from ._device import resolve_device
+    from .convert import convert_hf_to_gguf, tokenizer_metadata_from_hf
+    from .imatrix import load_imatrix
+    from .models.config import config_from_hf
+    from .models.hf_loader import load_safetensors_dir
+    from .pipeline import parse_isq
+    from .uqff import save_reference_uqff
+
+    src = Path(args.model)
+    cfg = config_from_hf(json.loads((src / "config.json").read_text()))
+    t = parse_isq(args.quant)
+    dev = resolve_device(args.device)
+    sd = load_safetensors_dir(src, dev)
+    if str(args.output).endswith(".uqff"):
+        save_reference_uqff(args.output, sd, t)
+    else:
+        tok_md = None
+        if (src / "tokenizer.json").exists():
+            from tokenizers import Tokenizer
+
+            tok_md = tokenizer_metadata_from_hf(Tokenizer.from_file(str(src / "tokenizer.json")))
+        im = load_imatrix(args.imatrix) if args.imatrix else None
+        convert_hf_to_gguf(sd, cfg, args.output, quant=t, tokenizer_metadata=tok_md,
+                           imatrix=im, device=dev)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_uqff_inspect(args) -> int:
+    """Print a UQFF file's inventory (ours or mistral.rs v1.x)."""
+    import json
+
+    from .uqff import inspect
+
+    print(json.dumps(inspect(args.path), indent=2))
+    return 0
+
+
 def cmd_perplexity(args) -> int:
     """Perplexity over a text file, for the model and each ISQ type."""
     import json
@@ -195,8 +254,10 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
-    p.add_argument("model", help="a .gguf file (llama, qwen2, qwen3, qwen3moe), or a "
-                                 "llama- or DeepSeek-family HF directory")
+    p.add_argument("model", help="a .gguf file (llama, mistral, qwen2, qwen3, qwen3moe), a "
+                                 ".uqff file, or a llama- or DeepSeek-family HF directory")
+    p.add_argument("--from-uqff", default=None,
+                   help="overlay a mistral.rs UQFF file onto the HF checkpoint")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -232,6 +293,18 @@ def main(argv=None) -> int:
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_perplexity)
+
+    p = sub.add_parser("quantize", help="HF safetensors → quantized GGUF (or mistral.rs UQFF)")
+    p.add_argument("model", help="HF model directory")
+    p.add_argument("--quant", default="q4k")
+    p.add_argument("--imatrix", help="imatrix .npz from the `imatrix` command")
+    p.add_argument("-o", "--output", required=True, help="output .gguf or .uqff")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("uqff-inspect", help="list a UQFF file's contents")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_uqff_inspect)
     args = parser.parse_args(argv)
     return args.fn(args)
 

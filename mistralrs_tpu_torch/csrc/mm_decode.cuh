@@ -52,12 +52,22 @@
 //     codes -128..127 become u = q + 128 by XOR 0x80, so OFF' = 2176 (U8) or
 //     2304 (S8). tests/test_torch_w8_plan.py holds the conversion exact for
 //     all 256 byte values.
+//   E4M3: [K, N] one fp8 e4m3 byte per weight (FP8 checkpoints: JAX
+//     quant/fp8.py's fp8_matmul), no bias plane. The bytes do not fit the
+//     mask-and-or trick (their exponent field varies), so the hardware
+//     conversion cvt.rn.f16x2.e4m3x2 turns each pair into exact halves, the
+//     halves become f32 and then bf16 pairs (every e4m3 value, subnormals
+//     included, is exact in bf16): one MMA per chunk gives sum x * w per group,
+//     and acc += scale * that sum (no ones MMA: no bias, no offset).
+//     tests/test_torch_w8_plan.py holds the conversion exact for all 256 byte
+//     values.
 // Scale and bias planes are f32 [K/gs, N]; bias may be absent. Group sizes:
 // PACKED4 16 (Q2_K's 2-bit codes: each half's 64 rows span 4 groups, so a
 // step reads 8 plane rows), 32, 64 or 128 (those over 32 dividing K/2:
 // GPTQ, AWQ);
 // U8/S8 16, 32, 64, or any multiple of 128 that divides K (GPTQ's 128, and
-// per-column scales: gs = K). A group smaller than a step's span (PACKED4:
+// per-column scales: gs = K); E4M3 64 or a multiple of 128 dividing K (a
+// 128 x 128 block scale is a group-128 plane, a per-tensor one gs = K). A group smaller than a step's span (PACKED4:
 // each half's 64 rows; U8/S8: 128 rows) is a template constant (GS) and a
 // step reads span / GS rows of the planes; a group of a span or more is a
 // runtime value (GS = 0) and a step reads the one row its span lies in,
@@ -73,6 +83,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +101,15 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t v) {
 // the same nibbles as the bf16 pair (2048 + 16 q0, 2048 + 16 q1)
 __device__ __forceinline__ uint32_t nib_pair_x16(uint32_t v) {
   return (v & 0x000F000Fu) | 0x45004500u;
+}
+
+// the four e4m3 bytes of c (byte 0 in .x) as exact f32 values, through the
+// hardware fp8 -> f16 pair conversion
+__device__ __forceinline__ float4 e4m3x4(uint32_t c) {
+  const __half2 lo(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(c & 0xFFFFu), __NV_E4M3));
+  const __half2 hi(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(c >> 16), __NV_E4M3));
+  const float2 a = __half22float2(lo), b = __half22float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void store_pair(void* out, size_t idx, float a, float b, int out_bf16) {
@@ -117,7 +138,7 @@ __device__ inline void zero_tile(void* out, int m0, int rows, int n0, int cols, 
 // the decode body
 // ---------------------------------------------------------------------------
 
-enum CodeFmt { PACKED4 = 0, U8 = 1, S8 = 2 };  // the wrappers' format numbers
+enum CodeFmt { PACKED4 = 0, U8 = 1, S8 = 2, E4M3 = 3 };  // the wrappers' format numbers
 
 constexpr int D_STAGES = 4;
 constexpr int D_XLD = 272;  // bytes per staged x row: 128 bf16 of the step, 16 pad
@@ -149,6 +170,8 @@ struct Decode {
                                 : (GS == 16 || GS == 32 || GS == 64 || GS == 0),
                 "PACKED4: groups of 16 or 32 or a runtime 64 or 128; U8/S8: 16, 32, 64 or "
                 "a runtime multiple of 128");
+  static_assert(FMT != E4M3 || (!HB && (GS == 64 || GS == 0)),
+                "E4M3: no bias plane, groups of 64 or a runtime multiple of 128");
   static_assert(NW == 4 || NW == 8, "code rows of 64 or 128 bytes");
   // chunk c of code row r sits at c ^ swz(r): the 8 rows one ldmatrix reads
   // at one logical chunk land in 8 different 16-byte bank groups
@@ -338,6 +361,35 @@ mm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
             }
           }
           apply(ss, bs, h * L::GPS + gi, 128.0f, tq, t1);
+        }
+      }
+    } else if constexpr (FMT == E4M3) {
+#pragma unroll
+      for (int gi = 0; gi < L::GROUPS; ++gi) {
+        float tq[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tq[mt][j] = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < L::G / 16; ++cc) {
+          const int ch = gi * (L::G / 16) + cc;
+          // bytes 0, 2 are A row g (k 2q, 2q+1), bytes 1, 3 row g + 8
+          const float4 p = e4m3x4(cw[ch][0]), r = e4m3x4(cw[ch][1]);
+          const uint32_t a0 = pack_bf16(p.x, p.z), a1 = pack_bf16(p.y, p.w);
+          const uint32_t a2 = pack_bf16(r.x, r.z), a3 = pack_bf16(r.y, r.w);
+          uint32_t b[2][2];
+          x_frag(xrow + ch * 32, b);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(tq[mt], a0, a1, a2, a3, b[mt][0], b[mt][1]);
+        }
+        const float2 s2 = *reinterpret_cast<const float2*>(ss + gi * L::BN + 16 * warp + 2 * g);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[mt][0] = fmaf(s2.x, tq[mt][0], acc[mt][0]);
+          acc[mt][1] = fmaf(s2.x, tq[mt][1], acc[mt][1]);
+          acc[mt][2] = fmaf(s2.y, tq[mt][2], acc[mt][2]);
+          acc[mt][3] = fmaf(s2.y, tq[mt][3], acc[mt][3]);
         }
       }
     } else {

@@ -4,7 +4,10 @@
 //   _w8_matmul (:411) and _w8_matmul_l (:616), body _w8_kernel (:202), and
 //   _w8_matmul_g (:895), the grouped (MoE) form: signed int8 codes without
 //   bias (Q8_0 at group 32, Q6_K at group 16), unsigned codes with bias, and
-//   signed codes with bias (the widened form).
+//   signed codes with bias (the widened form). Its e4m3 form (fmt 3, one
+//   matrix, no bias) computes mistralrs_tpu/quant/fp8.py's fp8_matmul
+//   (:84-95, XLA in the JAX package): FP8 weights with blockwise or
+//   per-tensor scales as a group-bk or group-K scale plane.
 //
 //   out[m, n] = sum_k x[m, k] * (scale[k / gs, n] * q[k, n] + bias[k / gs, n])
 //
@@ -75,6 +78,10 @@ cudaError_t launch(const DecodeArgs& a, int fmt, int gs, int tile, int columns,
   if (fmt == S8 && gs == 16) return launch_body<S8, HB, 16>(a, tile, columns, st);
   if (fmt == S8 && gs == 64) return launch_body<S8, HB, 64>(a, tile, columns, st);
   if (fmt == S8 && gs % 128 == 0) return launch_body<S8, HB, 0>(a, tile, columns, st);
+  if constexpr (!HB) {
+    if (fmt == E4M3 && gs == 64) return launch_body<E4M3, false, 64>(a, tile, columns, st);
+    if (fmt == E4M3 && gs % 128 == 0) return launch_body<E4M3, false, 0>(a, tile, columns, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -88,9 +95,10 @@ extern "C" int mrt_w8_prefill(const void* x, const void* codes, const void* scal
                               long long sb_stride, void* workspace, void* counters,
                               void* stream);
 
-// W8 matmul: x [M, K] bf16, codes [(E,) K, N] (fmt 1: uint8, 2: int8), scale
-// and bias [(E,) K/gs, N] f32 (bias may be NULL), out [M, N] (bf16 or f32);
-// gs 16, 32, 64 or a multiple of 128 dividing K.
+// W8 matmul: x [M, K] bf16, codes [(E,) K, N] (fmt 1: uint8, 2: int8, 3:
+// e4m3 of one matrix without bias), scale and bias [(E,) K/gs, N] f32 (bias
+// may be NULL), out [M, N] (bf16 or f32); gs 16, 32, 64 or a multiple of 128
+// dividing K (e4m3: 64 or a multiple of 128).
 // body 0 (decode): tile 8 or 16 rows, `columns` 64 or 128 per block; dense:
 //   M <= tile, grid.y = splits of K's K/128 steps, workspace f32 [splits, M,
 //   N] and counters int32 [ceil(N / columns)] (all zero, left zero) when
@@ -116,7 +124,8 @@ extern "C" int mrt_w8_matmul(const void* x, const void* codes, const void* scale
                               (body == 0 ? tile == 16 && M % 16 == 0 : M % 64 == 0))
                            : (body == 1 || M <= tile)) &&
                   (body == 0 || (body == 1 && columns == 256 && (tile == 64 || tile == 128))) &&
-                  (splits == 1 || (workspace != nullptr && (body == 1 || counters != nullptr)));
+                  (splits == 1 || (workspace != nullptr && (body == 1 || counters != nullptr))) &&
+                  (fmt != E4M3 || (bias == nullptr && !grouped && gs % 64 == 0));
   if (!ok) return (int)cudaErrorInvalidValue;
   if (body == 1)
     return mrt_w8_prefill(x, codes, scale, bias, out, tile_idx, n_used, M, N, K, gs, fmt,

@@ -32,7 +32,8 @@
 //   weight exactly as the plain version does: one prmt puts the byte in the
 //   mantissa of 2^23 (signed codes XORed with 0x80 first), one subtraction
 //   gives the code exactly, then w = scale * q rounded to f32, + bias
-//   rounded, and one rounding of the pair to bf16
+//   rounded, and one rounding of the pair to bf16 (e4m3 bytes: the hardware
+//   fp8 -> f16 conversion gives q exactly, then w = bf16(scale * q))
 //   (tests/test_torch_w8_plan.py models it for all 256 byte values). The
 //   fragments of k16 step j + 1 are made while the wgmmas of the steps
 //   before run (register sets for 2 steps with 128-row tiles, 4 with 64-row
@@ -116,6 +117,14 @@ __device__ __forceinline__ float w8_weight(uint32_t c, uint32_t sel, float s, fl
 template <int FMT, bool HB>
 __device__ __forceinline__ void w8_frag(uint32_t c0, uint32_t c1, float2 s, float2 b,
                                         uint32_t (&a)[4]) {
+  if constexpr (FMT == E4M3) {  // the byte's exact value (hardware fp8 -> f16), then s * q
+    const float4 p = e4m3x4(c0), r = e4m3x4(c1);
+    a[0] = pack_bf16(__fmul_rn(s.x, p.x), __fmul_rn(s.x, p.z));
+    a[1] = pack_bf16(__fmul_rn(s.y, p.y), __fmul_rn(s.y, p.w));
+    a[2] = pack_bf16(__fmul_rn(s.x, r.x), __fmul_rn(s.x, r.z));
+    a[3] = pack_bf16(__fmul_rn(s.y, r.y), __fmul_rn(s.y, r.w));
+    return;
+  }
   if (FMT == S8) {
     c0 ^= 0x80808080u;
     c1 ^= 0x80808080u;
@@ -375,6 +384,9 @@ cudaError_t launch(const DecodeArgs& a, int fmt, int gs, int tile, cudaStream_t 
   if (fmt == S8 && gs == 16) return launch_tile<S8, HB, 16>(a, tile, st);
   if (fmt == U8 && gs % 64 == 0) return launch_tile<U8, HB, 0>(a, tile, st);
   if (fmt == S8 && gs % 64 == 0) return launch_tile<S8, HB, 0>(a, tile, st);
+  if constexpr (!HB) {
+    if (fmt == E4M3 && gs % 64 == 0) return launch_tile<E4M3, false, 0>(a, tile, st);
+  }
   return cudaErrorInvalidValue;
 }
 

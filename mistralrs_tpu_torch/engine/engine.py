@@ -50,6 +50,7 @@ from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward_paged, kernel_workspace
 from ..ops._cuda import sm_count
 from ..ops.paged_attention import DECODE_MAX_GROUP
+from ..quant.fp8 import Fp8Tensor
 from ..quant.qtensor import QTensor
 from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
 from .sampler import BatchSamplingState, SamplingParams, sample
@@ -96,13 +97,13 @@ def forward_rows(max_batch: int, prefill_chunk: int, max_prefill_seqs: int) -> l
 
 
 def weights_to(weights, device: torch.device):
-    """Move a weight tree (dicts, lists, tensors, QTensors) to ``device``;
+    """Move a weight tree (dicts, lists, tensors, QTensors, Fp8Tensors) to ``device``;
     leaves already there are not copied."""
     if isinstance(weights, dict):
         return {k: weights_to(v, device) for k, v in weights.items()}
     if isinstance(weights, list):
         return [weights_to(v, device) for v in weights]
-    if isinstance(weights, (torch.Tensor, QTensor)):
+    if isinstance(weights, (torch.Tensor, QTensor, Fp8Tensor)):
         return weights.to(device)
     return weights
 

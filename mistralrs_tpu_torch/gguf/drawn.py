@@ -169,13 +169,17 @@ class DrawnGGUF:
     def tensor_info(self, name: str) -> DrawnTensor:
         return self.tensors[name]
 
-    def tensor_bytes(self, name: str) -> torch.Tensor:
+    def tensor_bytes(self, name: str, device=None) -> torch.Tensor:
+        """The tensor's raw blocks, drawn on this content's device (then
+        moved to ``device`` where another is asked for)."""
         t = self.tensors[name]
         gen = torch.Generator(device=self.device).manual_seed(self._seeds[name])
         if t.ggml_type == GGMLType.F32:
             v = torch.randn(t.shape, generator=gen, device=self.device) * (t.std or 0.0)
-            return (v + t.fill).contiguous().view(torch.uint8).reshape(-1)
-        return draw_blocks(t.ggml_type, t.shape, gen, self.device, t.std)
+            raw = (v + t.fill).contiguous().view(torch.uint8).reshape(-1)
+        else:
+            raw = draw_blocks(t.ggml_type, t.shape, gen, self.device, t.std)
+        return raw if device is None else raw.to(device)
 
     def nbytes(self) -> int:
         """The raw bytes of all its tensors (as a file would hold them)."""

@@ -272,12 +272,30 @@ def to_planar(raw: Raw, t: GGMLType) -> PlanarQuant:
     return fn(raw)
 
 
+def _dequant_q8_1(raw: Raw) -> torch.Tensor:
+    b = _blocks(raw, GGMLType.Q8_1)
+    return _f16(b[:, 0:2]) * b[:, 4:36].contiguous().view(torch.int8).to(torch.float32)
+
+
+def _dequant_q8_k(raw: Raw) -> torch.Tensor:
+    b = _blocks(raw, GGMLType.Q8_K)
+    d = b[:, 0:4].contiguous().view(torch.float32)
+    return d * b[:, 4:260].contiguous().view(torch.int8).to(torch.float32)
+
+
+# types the JAX package dequantizes to dense weights only (JAX
+# gguf/quants.py:104-117): llama.cpp's activation-side 8-bit blocks
+DENSE_ONLY_TYPES = {GGMLType.Q8_1: _dequant_q8_1, GGMLType.Q8_K: _dequant_q8_k}
+
+
 def dequantize(raw: Raw, t: GGMLType, shape: tuple[int, ...]) -> torch.Tensor:
     """Raw GGUF tensor bytes → float32 tensor of ``shape`` on the bytes'
-    device (dense types and the planar types above)."""
+    device (dense types, the planar types above, Q8_1 and Q8_K)."""
     if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
         b = as_bytes(raw).contiguous()
         dt = {GGMLType.F32: torch.float32, GGMLType.F16: torch.float16,
               GGMLType.BF16: torch.bfloat16}[t]
         return b.view(dt).to(torch.float32).reshape(shape)
+    if t in DENSE_ONLY_TYPES:
+        return DENSE_ONLY_TYPES[t](raw).reshape(shape)
     return to_planar(raw, t).dequantize().reshape(shape)

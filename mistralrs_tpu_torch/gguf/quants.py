@@ -3,7 +3,8 @@ weights' device (the port's copy of the ISQ types of
 ``mistralrs_tpu/gguf/quants.py``: ``quant_q8_0`` :275, ``quant_q4_0`` and
 ``quant_q5_0`` :287-320, the k-quants' grid search ``_make_qkx2_quants``
 :323 and ``_quant_k_affine`` :395, ``quant_q4_k`` / ``quant_q5_k`` :437-468,
-``quant_q6_k`` :471, ``quantize`` :643 and ``quantize_imatrix`` :659).
+``quant_q6_k`` :471, ``quant_q2_k`` / ``quant_q3_k`` :528-608 (the types a
+topology may name), ``quantize`` :643 and ``quantize_imatrix`` :659).
 
 The functions follow the numpy reference op for op, so that the bytes are
 the reference's, bit for bit, on the CPU and on the card alike:
@@ -173,11 +174,12 @@ def _quant_q5_0(x: torch.Tensor, k: _Consts) -> torch.Tensor:
 
 def _make_qkx2_quants(x: torch.Tensor, nmax: int, k: _Consts, w: Optional[torch.Tensor] = None,
                       rmin: float = -1.0, rdelta: float = 0.1, nstep: int = 20):
-    """Affine quantization of each row of ``x`` to codes in [0, nmax] with
-    value = scale * q - min: llama.cpp's ``make_qkx2_quants`` grid search
-    (JAX :323-392), with the optional per-element importance ``w`` (the
-    weighted least-squares refit and error). Returns ``(scale [n] f32,
-    min [n] f32, q [n, gs] codes as floats)``."""
+    """Affine quantization of each row of ``x`` (16 or 32 wide) to codes in
+    [0, nmax] with value = scale * q - min: llama.cpp's ``make_qkx2_quants``
+    grid search (JAX :323-392), with the optional per-element importance
+    ``w`` (the weighted least-squares refit and error). Returns ``(scale [n]
+    f32, min [n] f32, q [n, gs] codes as floats)``."""
+    width = x.shape[1]
     vmax = x.amax(dim=1)
     vmax = torch.where(vmax != 0, vmax, k(0.0))  # a zero max as +0
     vmin = x.amin(dim=1)
@@ -210,8 +212,8 @@ def _make_qkx2_quants(x: torch.Tensor, nmax: int, k: _Consts, w: Optional[torch.
             sum_l = qf.sum(dim=1)  # sums of integers: exact in any order
             sum_l2 = (qf * qf).sum(dim=1)
             sum_xl = _pairwise(qf * x64)
-            D = sum_l2 * 32 - sum_l * sum_l
-            num_scale = sum_xl * 32 - sum_x * sum_l
+            D = sum_l2 * width - sum_l * sum_l
+            num_scale = sum_xl * width - sum_x * sum_l
         else:
             wq = wf * qf
             sum_l = _pairwise(wq)
@@ -303,7 +305,74 @@ def _quant_q6_k(x: torch.Tensor, k: _Consts) -> torch.Tensor:
                       _f16_bytes(d)], dim=1)
 
 
+def _pack_2bit(q: torch.Tensor) -> torch.Tensor:
+    """[n, 256] 2-bit codes → the 64 ``qs`` bytes of Q2_K / Q3_K: element
+    128 h + 32 s + j at bits 2 s of byte 32 h + j."""
+    q = q.reshape(-1, 2, 4, 32)
+    return (q[:, :, 0] | (q[:, :, 1] << 2) | (q[:, :, 2] << 4) | (q[:, :, 3] << 6)).reshape(-1, 64)
+
+
+def _quant_q2_k(x: torch.Tensor, k: _Consts) -> torch.Tensor:
+    """Q2_K (JAX :528-560): sixteen groups of 16 fitted by the grid search
+    (codes 0..3), their scales and mins to 4 bits under f16 super-scales,
+    then every element re-quantized with the decoded scales (84 B / 256)."""
+    n = x.shape[0]
+    scales, mins, _ = _make_qkx2_quants(x.reshape(n * 16, 16), 3, k)
+    scales, mins = scales.reshape(n, 16), mins.reshape(n, 16)
+    max_scale = scales.amax(dim=1, keepdim=True)
+    max_min = mins.amax(dim=1, keepdim=True)
+    fifteen = k(15.0)
+    inv_scale = torch.where(max_scale > 0, fifteen / torch.where(max_scale > 0, max_scale,
+                                                                  k(1.0)), k(0.0))
+    inv_min = torch.where(max_min > 0, fifteen / torch.where(max_min > 0, max_min, k(1.0)),
+                          k(0.0))
+    sc4 = _clip_int(inv_scale * scales, 0, 15)
+    mn4 = _clip_int(inv_min * mins, 0, 15)
+    d = (max_scale / fifteen).to(torch.float16).to(F32)
+    dmin = (max_min / fifteen).to(torch.float16).to(F32)
+    es = (d * sc4).repeat_interleave(16, dim=1)
+    em = (dmin * mn4).repeat_interleave(16, dim=1)
+    q = _u8(_clip_int((x + em) * _safe_inv(es, k), 0, 3))
+    return torch.cat([_u8(sc4) | (_u8(mn4) << 4), _pack_2bit(q), _f16_bytes(d),
+                      _f16_bytes(dmin)], dim=1)
+
+
+def _quant_q3_k(x: torch.Tensor, k: _Consts) -> torch.Tensor:
+    """Q3_K (JAX :563-608): per group of 16 a symmetric scale (the amax
+    seed, one least-squares refit), the 16 scales to signed 6 bits under an
+    f16 super-scale, codes in [-4, 3] stored biased by 4 as 2 low bits and
+    a high-bit mask (110 B / 256)."""
+    n = x.shape[0]
+    groups = x.reshape(n * 16, 16)
+    amax = groups.abs().amax(dim=1, keepdim=True)
+    s0 = torch.where(amax > 0, amax / k(4.0), k(1.0))
+    q0 = _clip_int(groups / s0, -4, 3)
+    num = _pairwise(groups * q0)
+    den = _pairwise(q0 * q0)
+    s1 = torch.where(den > 0, num / torch.where(den > 0, den, k(1.0)), s0[:, 0])
+    scales = s1.reshape(n, 16)
+    max_abs = scales.abs().amax(dim=1, keepdim=True)
+    thirty1 = k(31.0)
+    inv = torch.where(max_abs > 0, thirty1 / torch.where(max_abs > 0, max_abs, k(1.0)), k(0.0))
+    sc6 = _clip_int(inv * scales, -32, 31)
+    d = (max_abs / thirty1).to(torch.float16).to(F32)
+    es = (d * sc6).repeat_interleave(16, dim=1)
+    q = (_clip_int(x * _safe_inv(es, k, positive=False), -4, 3) + 4).to(torch.int32)
+    hm = ((q >> 2) & 1).to(torch.uint8).reshape(-1, 8, 32)
+    shifts = torch.arange(8, device=x.device, dtype=torch.uint8)[None, :, None]
+    hmask = (hm << shifts).sum(1, dtype=torch.int32).to(torch.uint8)
+    sp = (sc6 + 32).to(torch.int32).to(torch.uint8)  # the signed scales stored as value + 32
+    lo, hi = sp & 15, (sp >> 4) & 3
+    scales12 = torch.cat([lo[:, :8] | (lo[:, 8:] << 4),
+                          (hi.reshape(n, 4, 4) << (2 * shifts[0, :4])).sum(1, dtype=torch.int32)
+                          .to(torch.uint8)], dim=1)
+    return torch.cat([hmask, _pack_2bit((q & 3).to(torch.uint8)), scales12, _f16_bytes(d)],
+                     dim=1)
+
+
 _QUANTIZERS = {
+    GGMLType.Q2_K: _quant_q2_k,
+    GGMLType.Q3_K: _quant_q3_k,
     GGMLType.Q8_0: _quant_q8_0,
     GGMLType.Q4_0: _quant_q4_0,
     GGMLType.Q5_0: _quant_q5_0,
@@ -314,7 +383,7 @@ _QUANTIZERS = {
 # the types that refit with importance weights (the others ignore them)
 _WEIGHTED = (GGMLType.Q4_K, GGMLType.Q5_K)
 
-ISQ_TYPES = frozenset(_QUANTIZERS)
+QUANT_TYPES = frozenset(_QUANTIZERS)  # the types quantize() writes
 
 
 def quantize(x: torch.Tensor, t: GGMLType,
@@ -331,8 +400,8 @@ def quantize(x: torch.Tensor, t: GGMLType,
     :data:`CHUNK_WEIGHTS` weights."""
     fn = _QUANTIZERS.get(t)
     if fn is None:
-        raise NotImplementedError(f"in-situ quantization to {t!r}: not an ISQ type "
-                                  f"({sorted(q.name for q in ISQ_TYPES)})")
+        raise NotImplementedError(f"quantization to {t!r}: not a type this module writes "
+                                  f"({sorted(q.name for q in QUANT_TYPES)})")
     tr = type_traits(t)
     cols = x.shape[-1] if x.dim() else 1
     if cols % tr.block_size:
@@ -356,4 +425,4 @@ def quantize(x: torch.Tensor, t: GGMLType,
     return out.reshape(-1)
 
 
-__all__ = ["CHUNK_WEIGHTS", "ISQ_TYPES", "quantize"]
+__all__ = ["CHUNK_WEIGHTS", "QUANT_TYPES", "quantize"]

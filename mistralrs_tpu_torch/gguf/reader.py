@@ -1,22 +1,25 @@
-"""GGUF container reader (mmap-backed, multi-file aware).
+"""GGUF container reader (multi-file aware).
 
 A copy of ``mistralrs_tpu/gguf/reader.py``: parses header, metadata KV
-section and tensor index, exposes zero-copy views of raw tensor bytes, and
-joins split files (``model-00001-of-00003.gguf``) into one namespace.
+section and tensor index, reads raw tensor bytes, and joins split files
+(``model-00001-of-00003.gguf``) into one namespace. It reads with plain
+file reads, never a memory map: on some machines a map of the file makes
+the whole file resident in the process. A loader that reads each tensor
+onto the card holds one chunk of it on the host at a time.
 """
 
 from __future__ import annotations
 
-import mmap
 import os
 import re
 import struct
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 
+from .._device import DeviceLike, read_bytes
 from .constants import (
     GGUF_DEFAULT_ALIGNMENT,
     GGUF_MAGIC,
@@ -48,6 +51,10 @@ class TensorInfo:
         return row_byte_size(self.ggml_type, self.n_elements)
 
 
+class _Truncated(Exception):
+    """The parser ran past the end of its buffer."""
+
+
 class _Parser:
     __slots__ = ("buf", "pos")
 
@@ -63,6 +70,8 @@ class _Parser:
 
     def read_string(self) -> str:
         n = self.read("Q")
+        if self.pos + n > len(self.buf):
+            raise _Truncated
         s = bytes(self.buf[self.pos : self.pos + n]).decode("utf-8", errors="replace")
         self.pos += n
         return s
@@ -105,6 +114,8 @@ class _Parser:
             }
             if elem_type in np_map:
                 dt = np.dtype(np_map[elem_type]).newbyteorder("<")
+                if self.pos + n * dt.itemsize > len(self.buf):
+                    raise _Truncated
                 arr = np.frombuffer(self.buf, dtype=dt, count=n, offset=self.pos)
                 self.pos += arr.nbytes
                 return arr.tolist()
@@ -114,22 +125,35 @@ class _Parser:
 
 @dataclass
 class GGUFFile:
-    """A single parsed .gguf file with mmap-backed tensor data."""
+    """A single parsed .gguf file."""
 
     path: Path
     metadata: dict[str, Any]
     tensors: dict[str, TensorInfo]
     alignment: int
     data_offset: int
-    _mmap: mmap.mmap = field(repr=False, default=None)
 
     @classmethod
     def open(cls, path: str | os.PathLike, file_index: int = 0) -> "GGUFFile":
+        """Parse ``path``'s header from its first bytes (1 MiB, doubled
+        until the header fits)."""
         path = Path(path)
-        f = open(path, "rb")
-        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-        f.close()
-        p = _Parser(mm)
+        size = os.path.getsize(path)
+        n = min(size, 1 << 20)
+        while True:
+            with open(path, "rb") as f:
+                head = f.read(n)
+            try:
+                return cls._parse(path, head, file_index)
+            except (_Truncated, struct.error):  # the header runs past the bytes read
+                if n >= size:
+                    raise ValueError(f"{path}: GGUF header runs past the end of the file") \
+                        from None
+                n = min(size, 2 * n)
+
+    @classmethod
+    def _parse(cls, path: Path, head: bytes, file_index: int) -> "GGUFFile":
+        p = _Parser(head)
         magic = p.read("I")
         if magic != GGUF_MAGIC:
             raise ValueError(f"{path}: not a GGUF file (magic {magic:#x})")
@@ -169,18 +193,18 @@ class GGUFFile:
             tensors=tensors,
             alignment=alignment,
             data_offset=data_offset,
-            _mmap=mm,
         )
 
-    def tensor_bytes(self, name: str) -> np.ndarray:
-        """Zero-copy uint8 view of the tensor's raw data."""
+    def tensor_bytes(self, name: str, device: DeviceLike = None):
+        """The tensor's raw data read from the file: a new writable uint8
+        array, or with ``device`` a flat uint8 tensor there (on a card
+        copied in chunks, so the host holds one chunk, not the tensor)."""
         info = self.tensors[name]
-        return np.frombuffer(self._mmap, dtype=np.uint8, count=info.byte_size, offset=info.offset)
+        out = read_bytes(self.path, info.offset, info.byte_size, device or "cpu", name)
+        return out.numpy() if device is None else out
 
     def close(self):
-        if self._mmap is not None:
-            self._mmap.close()
-            self._mmap = None
+        """Nothing is held open between reads."""
 
 
 class GGUFContent:
@@ -225,9 +249,9 @@ class GGUFContent:
     def tensor_info(self, name: str) -> TensorInfo:
         return self.tensors[name]
 
-    def tensor_bytes(self, name: str) -> np.ndarray:
+    def tensor_bytes(self, name: str, device: DeviceLike = None):
         info = self.tensors[name]
-        return self.files[info.file_index].tensor_bytes(name)
+        return self.files[info.file_index].tensor_bytes(name, device)
 
     def dequantize(self, name: str) -> np.ndarray:
         """Load a tensor fully dequantized to float32 (host)."""

@@ -1,6 +1,7 @@
 """GGUF → model weights loader (counterpart of
 ``mistralrs_tpu/models/gguf_loader.py``) for the archs ``llama`` (Mixtral
-included), ``qwen2`` (Qwen2 and Qwen2.5), ``qwen3`` and ``qwen3moe``.
+included), ``mistral``, ``qwen2`` (Qwen2 and Qwen2.5), ``qwen3`` and
+``qwen3moe``.
 
 Maps ``blk.N.*`` tensor names onto the port's per-layer weight list as the
 JAX ``_LAYER_MAP`` does (``mistralrs_tpu/models/gguf_loader.py:117-136``):
@@ -8,13 +9,14 @@ the projections, Qwen2's ``attn_{q,k,v}.bias`` (and an ``attn_output.bias``
 where a file has one) and Qwen3's ``attn_{q,k}_norm.weight``, norms and
 biases dense. llama.cpp permutes the ``attn_q``/``attn_k`` rows of ``llama``
 files for its interleaved RoPE; the loader undoes that for ``llama`` only
-(JAX ``_PERMUTED_QK_ARCHS``: of its archs the port serves only ``llama``),
-so one rotate-half RoPE serves every weight source. Qwen files are not
-permuted.
+and ``mistral`` (JAX ``_PERMUTED_QK_ARCHS``, :33; its third, ``granite``,
+is refused below), so one rotate-half RoPE serves every weight source.
+Qwen files are not permuted.
 
 Every planar type (``gguf/planar.py``: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
 Q3_K, Q4_K, Q5_K, Q6_K) stays planar (:class:`QTensor`): each tensor's raw
-blocks are copied to ``device`` and decoded there. Each layer keeps its
+blocks are copied to ``device`` and decoded there. Q8_1 and Q8_K tensors
+load as dense weights, as the JAX loader dequantizes them. Each layer keeps its
 own GGML type (Q4_K_M files store half of ``ffn_down`` and ``attn_v`` in
 Q6_K), and each expert bank its own: the port does not stack layers, so
 it needs no counterpart of the JAX loader's ``widen_planar``, which
@@ -45,7 +47,14 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..gguf.constants import GGMLType
-from ..gguf.planar import PLANAR_TYPES, PlanarQuant, as_bytes, dequantize, to_planar
+from ..gguf.planar import (
+    DENSE_ONLY_TYPES,
+    PLANAR_TYPES,
+    PlanarQuant,
+    as_bytes,
+    dequantize,
+    to_planar,
+)
 from ..gguf.reader import GGUFContent
 from ..quant.qtensor import QTensor
 from .config import ModelConfig, config_from_gguf
@@ -54,8 +63,8 @@ from .llama import check_supported
 _DENSE_TYPES = {GGMLType.F32, GGMLType.F16, GGMLType.BF16}
 
 # the GGUF archs served, and those whose q/k rows llama.cpp permuted
-GGUF_ARCHS = ("llama", "qwen2", "qwen3", "qwen3moe")
-_PERMUTED_QK_ARCHS = {"llama"}
+GGUF_ARCHS = ("llama", "mistral", "qwen2", "qwen3", "qwen3moe")
+_PERMUTED_QK_ARCHS = {"llama", "mistral"}
 # archs refused by name, with the reason
 REFUSED_ARCHS = {
     "gemma2": "the JAX GGUF path reads no softcap or attention-scale key and adds gemma's 1 "
@@ -131,9 +140,9 @@ def _load(content, name: str, *, dense: bool, dtype, device, unpermute_heads: in
     dense (``dtype``) or planar; a 3-D ``[E, out, in]`` expert tensor
     becomes a bank."""
     info = content.tensor_info(name)
-    raw = as_bytes(content.tensor_bytes(name)).to(device)
+    raw = as_bytes(content.tensor_bytes(name, device))
     shape = tuple(info.shape)
-    if dense or info.ggml_type in _DENSE_TYPES:
+    if dense or info.ggml_type in _DENSE_TYPES or info.ggml_type in DENSE_ONLY_TYPES:
         w = dequantize(raw, info.ggml_type, shape)
         if unpermute_heads:
             w = w[_unpermute_index(shape[0], unpermute_heads, w.device)]
@@ -162,8 +171,8 @@ def load_gguf_model(
     (config, weights, metadata), the weights on ``device`` (``cuda`` unless
     the caller asks for ``"cpu"``). ``path`` is a file (split files join) or
     an opened content: anything with ``metadata``, ``tensor_info(name)``
-    (``.shape``, ``.ggml_type``), ``tensor_bytes(name)`` (numpy or a
-    ``uint8`` tensor) and ``in``."""
+    (``.shape``, ``.ggml_type``), ``tensor_bytes(name, device)`` (a flat
+    ``uint8`` tensor on ``device``) and ``in``."""
     device = resolve_device(device)
     opened = isinstance(path, (str, os.PathLike))
     content = GGUFContent.open(path) if opened else path

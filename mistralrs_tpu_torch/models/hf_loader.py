@@ -8,7 +8,10 @@ A ``.safetensors`` file is an 8-byte little-endian header length, a JSON
 header ``{name: {"dtype", "shape", "data_offsets": [begin, end]}, ...}``
 (plus an optional ``__metadata__`` entry), then the raw little-endian data,
 offsets counted from the end of the header. A directory holds one file or
-the shards named by ``model.safetensors.index.json``.
+the shards named by ``model.safetensors.index.json``; its tensors are read
+from their files as the loader looks them up (:class:`SafetensorsDir`), so
+the host holds one tensor at a time. ``write_safetensors`` writes the
+``safetensors`` package's bytes.
 
 The loader takes dense bf16, f16 or f32 tensors: the attention and MLP
 projections, the norms (Gemma-2's pre- and post-norms through the JAX
@@ -55,8 +58,13 @@ device at a time) and stacked into a bank (``QTensor.stack``: JAX
 ``build_stacked``, :272-273, stacks them alike); the grouped W4 and W8
 kernels take them at groups 64 and 128. Their routers and qwen2moe's
 shared-expert gate stay dense, as AutoGPTQ and AutoAWQ leave them.
-Everything else raises ``NotImplementedError`` naming it: bitsandbytes,
-MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits (AWQ: 4 only),
+bitsandbytes 4-bit checkpoints (``quant_method`` ``"bitsandbytes"``, JAX
+``hf_loader.py:190-200``: NF4 or FP4 codes with their ``absmax``,
+``quant_map``, nested scales and ``quant_state`` side tensors) decode on the
+device (``quant/bnb.py``) into dense weights, which are then cast or
+quantized in situ like any dense tensor.
+Everything else raises ``NotImplementedError`` naming it: bitsandbytes
+8-bit, MXFP4 outside gpt-oss, GPTQ/AWQ at other than 4 or 8 bits (AWQ: 4 only),
 AWQ packings other than ``"gemm"``, GPTQ act-order (a non-trivial
 ``g_idx``, which the JAX package refuses too; an expert's as well),
 GPTQ/AWQ on gpt-oss's pre-stacked banks or on any other MoE arch, a
@@ -65,8 +73,15 @@ projections stored as GPTQ/AWQ words, the biases of a gated MLP
 (``mlp.{gate,up,down}_proj.bias``, which the JAX loader drops), per-head
 q/k LayerNorms (stablelm's and phi's ``q_layernorm``/``k_layernorm``), and
 expert banks other than Mixtral's,
-Qwen3-MoE's, qwen2moe's and gpt-oss's. UQFF overlays and topologies are
-not ported: the loader takes no such argument.
+Qwen3-MoE's, qwen2moe's and gpt-oss's.
+
+A topology (``topology.py``, with ``isq``) gives each layer's quantized
+tensors its own type (JAX ``hf_loader.py:276-290``): the layers keep their
+own types, so they need no widening to a common form. ``from_uqff`` (JAX
+``load_hf_model``, :427-445) overlays a mistral.rs UQFF file
+(``uqff.py::load_reference_uqff``): its layers, already quantized and
+decoded into planes on the device, or plain, replace the checkpoint's
+tensors of the same names.
 
 In-situ quantization (ISQ, JAX ``hf_loader.py:121-155``): with ``isq`` (a
 GGUF type of ``gguf/quants.py``: Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q5_0) every
@@ -91,6 +106,7 @@ types ignore it.
 
 from __future__ import annotations
 
+import collections.abc
 import json
 import os
 import re
@@ -101,46 +117,102 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import IO_CHUNK, DeviceLike, read_bytes, resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.planar import to_planar
 from ..gguf.quants import quantize
 from ..imatrix import imatrix_rows_for_key
+from ..quant.bnb import decode_bnb_param, side_tensor_names
 from ..quant.gptq_awq import awq_to_qtensor, gptq_to_qtensor
 from ..quant.mxfp4 import decode_mxfp4_param
 from ..quant.qtensor import QTensor
 from .config import ModelConfig, config_from_hf
 from .llama import check_supported
 
-_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
-           "U8": torch.uint8, "I32": torch.int32}
+# safetensors dtype names, in the format's own order (its writer lays the
+# tensors out by this rank, largest first, then by name)
+_DTYPES = {"BOOL": torch.bool, "U8": torch.uint8, "I8": torch.int8,
+           "F8_E4M3": torch.float8_e4m3fn, "I16": torch.int16, "U16": torch.uint16,
+           "F16": torch.float16, "BF16": torch.bfloat16, "I32": torch.int32,
+           "U32": torch.uint32, "F32": torch.float32, "F64": torch.float64,
+           "I64": torch.int64}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+_DTYPE_RANK = {name: i for i, name in enumerate(_DTYPES)}
 
 
-def read_safetensors(path: str | os.PathLike) -> dict[str, torch.Tensor]:
-    """Every tensor of one ``.safetensors`` file as a CPU tensor in its own
-    dtype (F32, F16, BF16, U8 for MXFP4 blocks and scales, or I32 for GPTQ
-    and AWQ words and ``g_idx``; other dtypes raise). The file is
-    memory-mapped and each tensor copied out of it."""
-    path = Path(path)
-    with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
-    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
+class SafetensorsFile:
+    """One ``.safetensors`` file: ``header`` (name → dtype, shape, offsets),
+    ``metadata`` (the ``__metadata__`` strings) and :meth:`get`, which reads
+    one tensor from the file into a CPU tensor in its own dtype (the names
+    of ``_DTYPES``; others raise). Nothing is mapped or kept: only the
+    tensor asked for is in host memory, and only while its caller holds it."""
+
+    def __init__(self, path: str | os.PathLike):
+        self.path = Path(path)
+        with open(self.path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+        self._data_start = 8 + n
+        self.metadata = header.pop("__metadata__", None) or {}
+        self.header = header
+
+    def keys(self):
+        return self.header.keys()
+
+    def get(self, name: str, device: DeviceLike = "cpu") -> torch.Tensor:
+        """``name``'s tensor on ``device``: a CPU tensor by default; on a
+        card it is copied there in chunks of :data:`IO_CHUNK` bytes, so the
+        host holds one chunk, not the tensor."""
+        info = self.header[name]
         dtype = _DTYPES.get(info["dtype"])
         if dtype is None:
-            raise NotImplementedError(f"{path.name}: {name} has dtype {info['dtype']}")
+            raise NotImplementedError(f"{self.path.name}: {name} has dtype {info['dtype']}")
         begin, end = info["data_offsets"]
-        raw = torch.from_numpy(np.array(data[begin:end]))  # a copy, owned by torch
-        out[name] = raw.view(dtype).reshape(info["shape"])
-    return out
+        out = read_bytes(self.path, self._data_start + begin, end - begin, device, name)
+        return out.view(dtype).reshape(info["shape"])
 
 
-def load_safetensors_dir(path: str | os.PathLike) -> dict[str, torch.Tensor]:
-    """All tensors of a model directory: the shards of
+class SafetensorsDir(collections.abc.MutableMapping):
+    """The tensors of a model directory's safetensors files as a mapping
+    that reads each tensor from its file onto ``device`` when it is looked
+    up (not kept), so a loader holds at most one tensor on the host, or one
+    chunk of it when ``device`` is a card. Assigned entries (a UQFF
+    overlay's) take the place of the files' tensors of those names."""
+
+    def __init__(self, files, device: DeviceLike = "cpu"):
+        self._device = device
+        self._where: dict[str, SafetensorsFile] = {}
+        self._set: dict[str, Any] = {}
+        for f in files:
+            st = SafetensorsFile(f)
+            self._where.update(dict.fromkeys(st.keys(), st))
+
+    def __getitem__(self, name):
+        if name in self._set:
+            return self._set[name]
+        return self._where[name].get(name, self._device)
+
+    def __setitem__(self, name, value):
+        self._set[name] = value
+
+    def __delitem__(self, name):
+        self._set.pop(name, None)
+        self._where.pop(name)
+
+    def __contains__(self, name):
+        return name in self._set or name in self._where
+
+    def __iter__(self):
+        yield from self._where
+        yield from (k for k in self._set if k not in self._where)
+
+    def __len__(self):
+        return len(self._where) + sum(k not in self._where for k in self._set)
+
+
+def load_safetensors_dir(path: str | os.PathLike, device: DeviceLike = "cpu") -> SafetensorsDir:
+    """All tensors of a model directory, read onto ``device`` as they are
+    looked up (:class:`SafetensorsDir`): the shards of
     ``model.safetensors.index.json`` where it exists, else every
     ``*.safetensors`` file."""
     path = Path(path)
@@ -152,10 +224,52 @@ def load_safetensors_dir(path: str | os.PathLike) -> dict[str, torch.Tensor]:
         files = sorted(path.glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no safetensors files in {path}")
-    tensors: dict[str, torch.Tensor] = {}
-    for f in files:
-        tensors.update(read_safetensors(f))
-    return tensors
+    return SafetensorsDir(files, device)
+
+
+def write_bytes(f, t: torch.Tensor) -> int:
+    """Write ``t``'s bytes to the open file ``f`` (a tensor on a card is
+    copied to the host in chunks of :data:`IO_CHUNK` bytes); returns their
+    count."""
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    for lo in range(0, flat.numel(), IO_CHUNK):
+        f.write(flat[lo:lo + IO_CHUNK].cpu().numpy().data)
+    return flat.numel()
+
+
+def write_safetensors(path: str | os.PathLike, tensors: Mapping[str, Any],
+                      metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Write ``tensors`` (name → a tensor on any device, or a list of
+    tensors of one shape and dtype, written as their stack along a new
+    first axis) as the ``safetensors`` package's ``save_file`` writes them,
+    byte for byte: the tensors ordered by dtype (the format's rank, largest
+    first) then name, the compact JSON header (``__metadata__`` first) padded
+    with spaces to 8 bytes. The data is streamed: one tensor (one part of a
+    list) is copied to the host at a time."""
+    entries = []
+    for name, t in tensors.items():
+        parts = list(t) if isinstance(t, (list, tuple)) else [t]
+        first = parts[0]
+        shape = [len(parts), *first.shape] if isinstance(t, (list, tuple)) else list(first.shape)
+        code = _DTYPE_NAMES[first.dtype]
+        nbytes = sum(p.numel() * p.element_size() for p in parts)
+        entries.append((_DTYPE_RANK[code], name, code, shape, parts, nbytes))
+    entries.sort(key=lambda e: (-e[0], e[1]))
+    header: dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    off = 0
+    for _, name, code, shape, _, nbytes in entries:
+        header[name] = {"dtype": code, "shape": shape, "data_offsets": [off, off + nbytes]}
+        off += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for *_, parts, _ in entries:
+            for p in parts:
+                write_bytes(f, p)
 
 
 # HF tensor names of a llama-family layer → the port's layer keys (the
@@ -281,6 +395,11 @@ def _quant_method(quant_config: Optional[Mapping[str, Any]], cfg: ModelConfig) -
     method = quant_config.get("quant_method")
     if method == "mxfp4" and cfg.arch == "gpt_oss":
         return method
+    if method == "bitsandbytes":
+        if quant_config.get("load_in_8bit"):
+            raise NotImplementedError("HF loader: bitsandbytes 8-bit (LLM.int8) not ported "
+                                      "(4-bit NF4/FP4 only, as in the JAX package)")
+        return method
     if method in ("gptq", "awq"):
         bits = int(quant_config.get("bits", 4))
         version = str(quant_config.get("version", "gemm")).lower()
@@ -294,8 +413,8 @@ def _quant_method(quant_config: Optional[Mapping[str, Any]], cfg: ModelConfig) -
             raise NotImplementedError(f"HF loader: AWQ packing {version!r} not ported (gemm only)")
         return method
     raise NotImplementedError(
-        f"HF loader: quantized checkpoint (quantization_config {method!r}: bitsandbytes, "
-        f"MXFP4 outside gpt-oss, ...) not ported yet")
+        f"HF loader: quantized checkpoint (quantization_config {method!r}: MXFP4 outside "
+        f"gpt-oss, ...) not ported yet")
 
 
 def _deinterleave(t: torch.Tensor) -> torch.Tensor:
@@ -341,6 +460,7 @@ def weights_from_state_dict(
     isq: Optional[GGMLType] = None,
     isq_plan: Optional[IsqPlan] = None,
     imatrix: Optional[Mapping[str, np.ndarray]] = None,
+    topology=None,
 ) -> dict:
     """The port's llama-family weight dict (``models/llama.py``) from a HF
     state dict (dense tensors; gpt-oss's MXFP4 banks with ``quant_config``
@@ -350,8 +470,11 @@ def weights_from_state_dict(
     gpt-oss's sinks to f32 after that): JAX ``weights_from_state_dict``'s
     path, the same tensors to the same weights (gpt-oss's banks in the
     kernel's layout, above; GPTQ/AWQ experts stacked into planar banks).
-    With ``isq`` (or a plan of one's own, ``isq_plan(name, shape)``) and
-    ``imatrix``: in-situ quantization (module docstring). A tensor of any
+    With ``isq`` (or a plan of one's own, ``isq_plan(name, shape)``),
+    ``imatrix`` and ``topology`` (``topology.py``: each layer's type where
+    it names one): in-situ quantization (module docstring). Tensors that
+    are already QTensors (a UQFF overlay's) stay as they are, their rows
+    padded to 16. A tensor of any
     other name (a gated MLP's biases, GPTQ/AWQ words of a fused projection,
     q/k norms of a config without ``qk_norm``, expert banks other than
     Mixtral's, Qwen3-MoE's,
@@ -383,6 +506,9 @@ def weights_from_state_dict(
     projections = [suffix for suffix in layer_map if suffix.endswith("_proj.weight")]
     quantized = [suffix[:-len(".weight")] + part for suffix in (*projections, *experts)
                  for part in _GPTQ_PARTS] if gptq_awq else []
+    if method == "bitsandbytes":
+        quantized = [n for suffix in (*projections, *_FUSED, *experts)
+                     for n in side_tensor_names(suffix)]
     known = {prefix + f"{norm}.{p}" for norm in ("norm", "final_layernorm")
              for p in ("weight", "bias")} | {prefix + "embed_tokens.weight", "lm_head.weight",
                                              "lm_head.bias"}
@@ -397,10 +523,25 @@ def weights_from_state_dict(
     zero_offset = 0 if (quant_config or {}).get("checkpoint_format") == "gptq_v2" else 1
     plan = isq_plan or default_isq_plan(isq)
 
-    def dense(t: torch.Tensor, plan_name: Optional[str], layer: int):
+    def stored(name: str):
+        """``name``'s tensor as the checkpoint holds it, a bitsandbytes
+        weight decoded on ``dev`` (f32); None where absent."""
+        if method == "bitsandbytes" and not isinstance(sd.get(name), QTensor):
+            dec = decode_bnb_param(sd, name, dev)
+            if dec is not None:
+                return dec
+        return sd.get(name)
+
+    def dense(t, plan_name: Optional[str], layer: int):
         """A checkpoint tensor on ``dev``: in ``dtype``, or quantized where
-        the plan gives ``plan_name`` a type."""
+        the plan (a layer's: the topology's type for it, where it names
+        one) gives ``plan_name`` a type; a QTensor as it is, its rows
+        padded to 16."""
+        if isinstance(t, QTensor):
+            return t.to(dev).pad_rows(16)
         qtype = None if plan_name is None else plan(plan_name, tuple(t.shape))
+        if qtype is not None and topology is not None and plan_name.startswith("layers."):
+            qtype = topology.type_for_layer(layer) or qtype
         if qtype is None:
             return t.to(device=dev, dtype=dtype)
         rows = imatrix_rows_for_key(imatrix, plan_name[len("layers."):])
@@ -408,9 +549,9 @@ def weights_from_state_dict(
 
     def take(name: str, plan_name: Optional[str] = None, layer: int = 0):
         """``name``'s tensor on ``dev``: dense in ``dtype``, quantized where
-        the plan gives ``plan_name`` a type, or decoded from GPTQ/AWQ words;
-        None where the checkpoint lacks it."""
-        t = sd.get(name)
+        the plan gives ``plan_name`` a type, or decoded from GPTQ/AWQ words
+        or bitsandbytes codes; None where the checkpoint lacks it."""
+        t = stored(name)
         if t is not None:
             return dense(t, plan_name, layer)
         stem = name[:-len(".weight")]
@@ -429,7 +570,7 @@ def weights_from_state_dict(
         lw = {key: t for suffix, key in layer_map.items()
               if (t := take(lp + suffix, f"layers.{_JAX_KEYS.get(key, key)}", i)) is not None}
         for suffix, keys in _FUSED.items():  # split at load, each part as its own tensor
-            t = sd.get(lp + suffix)
+            t = stored(lp + suffix)
             if t is not None:
                 sizes = ([cfg.q_dim, cfg.kv_dim, cfg.kv_dim] if len(keys) == 3
                          else [t.shape[0] // 2] * 2)
@@ -443,7 +584,7 @@ def weights_from_state_dict(
             bank: dict[str, list] = {key: [None] * cfg.num_experts
                                      for key in _MIXTRAL_EXPERTS.values()}
             for suffix, (j, key) in experts.items():
-                bank[key][j] = take(lp + suffix, f"layers.exp_{key}")
+                bank[key][j] = take(lp + suffix, f"layers.exp_{key}", i)
             if all(x is not None for xs in bank.values() for x in xs):
                 lw["experts"] = {key: _stack_bank(xs) for key, xs in bank.items()}
             del bank  # each expert's own planes: gone before the next layer's are decoded
@@ -490,15 +631,23 @@ def load_hf_model(
     device: DeviceLike = None,
     isq: Optional[GGMLType] = None,
     imatrix: Optional[Mapping[str, np.ndarray]] = None,
+    topology=None,
+    from_uqff: Optional[str] = None,
 ) -> tuple[ModelConfig, dict, dict[str, Any]]:
     """A llama-family HF directory (``config.json`` + safetensors) →
     ``(config, weights on device, config dict)``, quantized in situ to
-    ``isq`` (with ``imatrix``'s rows) where given."""
+    ``isq`` (with ``imatrix``'s rows and ``topology``'s types) where given,
+    with a mistral.rs UQFF file's layers over the checkpoint's where
+    ``from_uqff`` names one."""
+    from ..uqff import load_reference_uqff
+
     path = Path(path)
     hf_cfg = json.loads((path / "config.json").read_text())
     cfg = config_from_hf(hf_cfg)
-    weights = weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
-                                      device=device,
+    sd = load_safetensors_dir(path, resolve_device(device))
+    if from_uqff is not None:
+        sd.update(load_reference_uqff(from_uqff, device=device))
+    weights = weights_from_state_dict(sd, cfg, dtype=dtype, device=device,
                                       quant_config=hf_cfg.get("quantization_config"),
-                                      isq=isq, imatrix=imatrix)
+                                      isq=isq, imatrix=imatrix, topology=topology)
     return cfg, weights, hf_cfg

@@ -124,6 +124,7 @@ from ..ops.paged_attention import (
 from ..ops.quant_matmul import split_need_tree
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies, yarn_attention_factor
 from ..quant.linear import embedding_lookup, linear
+from ..quant.fp8 import Fp8Tensor
 from ..quant.qtensor import QTensor
 from .config import ModelConfig, layer_rope_flags, layer_windows
 
@@ -631,9 +632,18 @@ def kernel_workspace(weights: dict, cfg: ModelConfig, batch: int, rows, widths,
 
 
 def _concat_n(ws):
-    """Concat weights along out-features (dense [(E,) N, K] or K-major
-    QTensor [(E,) K, N]); None when their kinds differ or a QTensor's rows
-    are padded."""
+    """Concat weights along out-features (dense [(E,) N, K], K-major
+    QTensor [(E,) K, N], or blockwise FP8 of one block shape whose N are
+    whole blocks); None when their kinds differ, a QTensor's rows are
+    padded, or FP8 scales cannot be joined (per tensor, other blocks)."""
+    if all(isinstance(w, Fp8Tensor) for w in ws):
+        bs = ws[0].block_shape
+        if bs is None or any(w.block_shape != bs or w.out_features % bs[0] for w in ws):
+            return None
+        return Fp8Tensor(torch.cat([w.data for w in ws], dim=-1),
+                         torch.cat([w.scale for w in ws], dim=0), bs)
+    if any(isinstance(w, Fp8Tensor) for w in ws):
+        return None
     if all(isinstance(w, QTensor) for w in ws):
         first = ws[0]
         if not all(

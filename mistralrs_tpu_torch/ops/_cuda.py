@@ -65,6 +65,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("w4_matmul", "w8_matmul", "w4_matmul_wide", "w8_matmul_wide", "w4_matmul_g16",
+           "w8_matmul_e4m3",
            "paged_decode", "paged_prefill",
            "w4_matmul_g", "w8_matmul_g", "w4_matmul_wide_g", "w8_matmul_wide_g",
            "w4_matmul_g16_g",

@@ -14,6 +14,12 @@ kernels' wide-group forms, counted apart as ``w4_matmul_wide`` and
 ``w8_matmul_wide`` (``..._wide_g`` over a bank: GPTQ and AWQ expert banks);
 W4 at group 16 (Q2_K's 2-bit codes in nibbles) counts as ``w4_matmul_g16``
 (``w4_matmul_g16_g`` over a bank).
+An FP8 weight (``quant/fp8.py``'s :class:`Fp8Tensor`: one e4m3 byte per
+weight, no bias plane) takes the W8 kernel's **e4m3 form** (replaces JAX
+``quant/fp8.py::fp8_matmul``, which XLA computes): both bodies, at groups of
+64 or a multiple of 128 dividing K (a block scale of ``bk`` rows of K, or
+one per-tensor group of K), its expanded scale plane as the kernel's,
+counted as ``w8_matmul_e4m3``; other shapes raise (:func:`_check_fp8`).
 On a CPU
 tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX package and the card's
@@ -53,6 +59,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..quant.fp8 import Fp8Tensor
 from ..quant.qtensor import QTensor
 from ._cuda import (
     COUNTS,
@@ -65,27 +72,43 @@ from ._cuda import (
     stream_ptr,
 )
 
-_FMT_PACKED4, _FMT_U8, _FMT_S8 = 0, 1, 2
+_FMT_PACKED4, _FMT_U8, _FMT_S8, _FMT_E4M3 = 0, 1, 2, 3
+FP8_NAME = "w8_matmul_e4m3"  # the W8 kernel's e4m3 form's launch count
 
 
-def _kernel_name(qt: QTensor) -> str:
+def _kernel_name(qt) -> str:
     """The launch count's name: the W4 or W8 kernel, ``_wide`` for its
     wide-group forms (groups over 32: GPTQ, AWQ), ``w4_matmul_g16`` for W4
-    at group 16 (Q2_K)."""
+    at group 16 (Q2_K), ``w8_matmul_e4m3`` for an FP8 weight."""
+    if isinstance(qt, Fp8Tensor):
+        return FP8_NAME
     if qt.packed and qt.group_size == 16:
         return "w4_matmul_g16"
     return ("w4_matmul" if qt.packed else "w8_matmul") + ("_wide" if qt.group_size > 32 else "")
 
 
 def quant_matmul_plain(
-    x2: torch.Tensor, qt: QTensor, compute_dtype=torch.bfloat16, out_dtype=None
+    x2: torch.Tensor, qt, compute_dtype=torch.bfloat16, out_dtype=None
 ) -> torch.Tensor:
     """Plain PyTorch version: dequantize, round to ``compute_dtype``, f32
-    matmul. ``x2`` is ``[M, K]``; returns ``[M, N]`` in ``out_dtype``."""
+    matmul (an FP8 weight: JAX ``fp8_matmul``). ``x2`` is ``[M, K]``;
+    returns ``[M, N]`` in ``out_dtype``."""
     COUNTS[_kernel_name(qt) + "_plain"] += 1
     w = qt.dequantize(torch.float32).to(compute_dtype)  # [N, K]
     out = x2.to(compute_dtype).to(torch.float32) @ w.to(torch.float32).T
     return out.to(out_dtype or x2.dtype)
+
+
+def group_error(packed: bool, gs: int, k: int) -> Optional[str]:
+    """Why the W4 (``packed``) or W8 kernel refuses groups of ``gs`` over
+    ``K = k``, or None where it takes them."""
+    if packed and not (gs in (16, 32, 64, 128) and (k // 2) % gs == 0):
+        return (f"the W4 kernel takes group size 16, 32, 64 or 128 dividing K/2 = {k // 2}; "
+                f"not {gs}")
+    if not packed and not (gs in (16, 32, 64) or (gs % 128 == 0 and k % gs == 0)):
+        return (f"the W8 kernel takes group size 16, 32, 64, or a multiple of 128 dividing "
+                f"K = {k}; not {gs}")
+    return None
 
 
 def _check_planes(qt: QTensor) -> int:
@@ -93,15 +116,8 @@ def _check_planes(qt: QTensor) -> int:
     and return the kernel's code format."""
     n, k = qt.out_features, qt.in_features
     lead = tuple(qt.data.shape[:-2])
-    gs = qt.group_size
-    if qt.packed:
-        require(gs in (16, 32, 64, 128) and (k // 2) % gs == 0,
-                f"the W4 kernel takes group size 16, 32, 64 or 128 dividing K/2 = {k // 2}; "
-                f"not {gs}")
-    else:
-        require(gs in (16, 32, 64) or (gs % 128 == 0 and k % gs == 0),
-                f"the W8 kernel takes group size 16, 32, 64, or a multiple of 128 dividing "
-                f"K = {k}; not {gs}")
+    why = group_error(qt.packed, qt.group_size, k)
+    require(why is None, why)
     require(k % 128 == 0 and n % 16 == 0,
             f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
     require(qt.scale.dtype == torch.float32 and qt.scale.is_contiguous()
@@ -121,12 +137,33 @@ def _check_planes(qt: QTensor) -> int:
     return _FMT_S8 if qt.data.dtype == torch.int8 else _FMT_U8
 
 
-def _plane_format(qt: QTensor) -> int:
-    """The kernels' code format of ``qt``, its planes validated on its first
-    call only: a QTensor is frozen, so they cannot change after."""
+def _check_fp8(w: Fp8Tensor) -> int:
+    """Validate an FP8 weight's planes for the W8 kernel's e4m3 form and
+    return its code format."""
+    k, n = w.data.shape
+    gs = w.group_size
+    require(gs == 64 or (gs % 128 == 0 and k % gs == 0),
+            f"the W8 kernel's e4m3 form takes a block of 64 or a multiple of 128 rows of K "
+            f"dividing K = {k} (a per-tensor scale: K); not {gs}")
+    require(k % 128 == 0 and n % 16 == 0,
+            f"kernel needs K % 128 == 0 and N % 16 == 0, got K={k}, N={n}")
+    require(w.data.dtype == torch.float8_e4m3fn and w.data.is_contiguous(),
+            "e4m3 codes must be a contiguous float8_e4m3fn [K, N] plane")
+    require(w.plane.dtype == torch.float32 and w.plane.is_contiguous()
+            and tuple(w.plane.shape) == (k // gs, n), "bad scale plane")
+    require(w.plane.device == w.data.device and w.data.data_ptr() % 16 == 0
+            and w.plane.data_ptr() % 16 == 0,
+            "planes must share a device and start at 16-byte aligned addresses")
+    return _FMT_E4M3
+
+
+def _plane_format(qt) -> int:
+    """The kernels' code format of ``qt`` (a QTensor or an Fp8Tensor), its
+    planes validated on its first call only: both are frozen, so they
+    cannot change after."""
     fmt = qt.__dict__.get("_kernel_format")
     if fmt is None:
-        fmt = _check_planes(qt)
+        fmt = _check_fp8(qt) if isinstance(qt, Fp8Tensor) else _check_planes(qt)
         object.__setattr__(qt, "_kernel_format", fmt)
     return fmt
 
@@ -305,7 +342,7 @@ def split_sizes(plan: Plan, m: int, n: int) -> tuple[int, int]:
     return plan.splits * m * n, -(-n // plan.columns)
 
 
-def _plan(qt: QTensor, m: int, sms: int, tm: Optional[int] = None) -> Plan:
+def _plan(qt, m: int, sms: int, tm: Optional[int] = None) -> Plan:
     n, k = qt.out_features, qt.in_features
     if qt.packed:
         return w4_plan(m, n, k, tm, sms)
@@ -314,12 +351,13 @@ def _plan(qt: QTensor, m: int, sms: int, tm: Optional[int] = None) -> Plan:
 
 def _matrices(weights):
     """The single quantized matrices of a weight tree (dicts, lists,
-    tensors, QTensors)."""
+    tensors, QTensors, Fp8Tensors)."""
     if isinstance(weights, dict):
         weights = list(weights.values())
     if isinstance(weights, list):
         return [qt for w in weights for qt in _matrices(w)]
-    return [weights] if isinstance(weights, QTensor) and weights.num_banks is None else []
+    one = isinstance(weights, (QTensor, Fp8Tensor)) and weights.num_banks is None
+    return [weights] if one else []
 
 
 def split_need_tree(weights, rows, sms: int) -> tuple[int, int]:
@@ -373,27 +411,27 @@ def _w4_launch(x2: torch.Tensor, qt: QTensor, out: torch.Tensor, out_bf16: bool,
     )
 
 
-def _w8_launch(x2: torch.Tensor, qt: QTensor, fmt: int, out: torch.Tensor, out_bf16: bool,
+def _w8_launch(x2: torch.Tensor, qt, fmt: int, out: torch.Tensor, out_bf16: bool,
                tile_idx: Optional[torch.Tensor] = None,
                n_used: Optional[torch.Tensor] = None, tm: Optional[int] = None) -> int:
     """Launch the W8 kernel's body that :func:`w8_plan` picks on ``x2 [m,
     k]`` (rows sorted into ``tm``-row tiles for a bank) into ``out``;
-    returns the CUDA error code."""
+    returns the CUDA error code. An FP8 weight gives its expanded scale
+    plane as the kernel's."""
     m, k = x2.shape
     n = out.shape[1]
     plan = _plan(qt, m, sm_count(x2.device), tm)
     ws, cnt = _split_buffers(x2.device, plan, m, n)
+    scale = qt.plane if fmt == _FMT_E4M3 else qt.scale
     return library().mrt_w8_matmul(
-        x2.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
+        x2.data_ptr(), qt.data.data_ptr(), scale.data_ptr(), _ptr(qt.bias), out.data_ptr(),
         _ptr(tile_idx), _ptr(n_used), m, n, k, qt.group_size, fmt, int(out_bf16),
         _BODIES[plan.body], plan.tile, plan.splits, plan.columns, *_bank_strides(qt),
         _ptr(ws), _ptr(cnt), stream_ptr(x2),
     )
 
 
-def _quant_matmul_cuda(
-    x2: torch.Tensor, qt: QTensor, compute_dtype, out_dtype
-) -> torch.Tensor:
+def _quant_matmul_cuda(x2: torch.Tensor, qt, compute_dtype, out_dtype) -> torch.Tensor:
     m = x2.shape[0]
     n = qt.out_features
     if compute_dtype != torch.bfloat16:
@@ -420,13 +458,14 @@ def _quant_matmul_cuda(
 
 def quant_matmul(
     x: torch.Tensor,
-    qt: QTensor,
+    qt: QTensor | Fp8Tensor,
     *,
     out_dtype: Optional[torch.dtype] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
 ) -> torch.Tensor:
-    """``x @ w.T`` for quantized ``w = [N, K]``; ``x`` is ``[..., K]``.
+    """``x @ w.T`` for quantized ``w = [N, K]`` (planar or FP8); ``x`` is
+    ``[..., K]``.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor, or
     ``plain=True``, runs the plain version."""

@@ -16,13 +16,17 @@ tokenizer, chat template and, for DeepSeek, the engine's arch adapter.
 ``isq`` (a name of :data:`ISQ_NAMES`, as JAX ``parse_isq`` reads it, or a
 ``GGMLType``) quantizes a llama-family HF directory in situ as it loads, on
 the device (``models/hf_loader.py``), with the importance rows of an
-``imatrix`` ``.npz`` where given. As in the JAX package, a ``.gguf`` file
+``imatrix`` ``.npz`` where given, and ``from_uqff`` overlays a mistral.rs
+UQFF file's layers on it. As in the JAX package, a ``.gguf`` file
 and a DeepSeek-family directory load unquantized whatever ``isq`` says
 (JAX ``pipeline.py:383-395``, ``_load_specialized`` :423-442); the port
-says so on stderr. Other HF directories
-(``Gemma3ForConditionalGeneration``, Gemma-3 with its vision tower, by
-name) and UQFF files are not ported yet and raise
-``NotImplementedError``."""
+says so on stderr. A ``.uqff`` path is a ``uqff_tpu`` file of either
+package (``uqff.py::load_uqff``: planar QTensors, FP8 and HQQ weights as
+saved; JAX ``pipeline.py:377-381``), with the ``tokenizer.json`` beside it
+where there is one (the JAX package loads none); a mistral.rs UQFF file
+there is refused by name, as it loads only as an overlay. Other HF
+directories (``Gemma3ForConditionalGeneration``, Gemma-3 with its vision
+tower, by name) raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -106,21 +110,25 @@ def load_pipeline(
     chat_template_override: Optional[str] = None,
     device: DeviceLike = None,
     imatrix: Optional[str] = None,
+    from_uqff: Optional[str] = None,
 ) -> Pipeline:
-    """Load a ``.gguf`` checkpoint (llama, qwen2, qwen3, qwen3moe), or a
-    llama- or DeepSeek-family HF directory, onto ``device`` (``cuda`` unless the caller asks for
+    """Load a ``.gguf`` checkpoint (llama, mistral, qwen2, qwen3,
+    qwen3moe), a ``.uqff`` file, or a llama- or DeepSeek-family HF
+    directory, onto ``device`` (``cuda`` unless the caller asks for
     ``"cpu"``); a llama-family directory quantized in situ to ``isq`` (with
-    the ``imatrix`` ``.npz``'s importance rows), as JAX ``load_pipeline``
-    does."""
+    the ``imatrix`` ``.npz``'s importance rows) and overlaid with the
+    ``from_uqff`` mistral.rs UQFF file, as JAX ``load_pipeline`` does."""
     dev = resolve_device(device)
     isq_t = parse_isq(isq) if isinstance(isq, str) else isq
     path = Path(model_path)
     if path.is_dir():
-        return _load_hf_dir(path, dtype, chat_template_override, dev, isq_t, imatrix)
+        return _load_hf_dir(path, dtype, chat_template_override, dev, isq_t, imatrix,
+                            from_uqff)
+    if path.is_file() and path.suffix == ".uqff":
+        return _load_uqff(path, dtype, chat_template_override, dev, isq_t)
     if not (path.is_file() and path.suffix == ".gguf"):
-        raise NotImplementedError(
-            f"model path {model_path!r}: only .gguf files and HF directories are ported so far"
-        )
+        raise FileNotFoundError(
+            f"model path {model_path!r}: not a .gguf/.uqff file or a directory")
     _warn_unquantized(f"GGUF file {path.name}", isq_t)
     cfg, weights, md = load_gguf_model(str(path), dtype=dtype, device=dev)
     try:
@@ -141,7 +149,23 @@ def _tokenizer(path: Path):
         return None
 
 
-def _load_hf_dir(path: Path, dtype, chat_template_override, dev, isq, imatrix) -> Pipeline:
+def _load_uqff(path: Path, dtype, chat_template_override, dev, isq) -> Pipeline:
+    """A ``uqff_tpu`` file (JAX ``pipeline.py:377-381``)."""
+    from .uqff import is_reference_uqff, load_uqff
+
+    if is_reference_uqff(str(path)):
+        raise ValueError(f"{path.name} is a mistral.rs UQFF file: it holds quantized layers "
+                         f"only, and loads as the from_uqff= overlay (serve --from-uqff) of "
+                         f"its HF directory, as in the JAX package")
+    _warn_unquantized(f"UQFF file {path.name}", isq)
+    cfg, weights = load_uqff(str(path), device=dev, dtype=dtype)
+    ct = resolve_chat_template(override=chat_template_override, arch=cfg.arch)
+    tokenizer = _tokenizer(path.parent) if (path.parent / "tokenizer.json").exists() else None
+    return Pipeline(cfg, weights, tokenizer, ct, path.stem, {})
+
+
+def _load_hf_dir(path: Path, dtype, chat_template_override, dev, isq, imatrix,
+                 from_uqff=None) -> Pipeline:
     """A llama-family HF directory (JAX ``pipeline.py``'s HF branch, through
     ``models/hf_loader.py::load_hf_model``), or a DeepSeek-family one (JAX
     ``pipeline.py:240-257`` and ``make_adapter`` at :325-352)."""
@@ -163,13 +187,17 @@ def _load_hf_dir(path: Path, dtype, chat_template_override, dev, isq, imatrix) -
                 f"HF directory {path}: architectures {archs} / model_type {model_type!r} are "
                 f"not ported (llama family: {sorted(HF_ARCH_MAP)}; {DEEPSEEK_ARCHS})")
         im = None if imatrix is None else load_imatrix(imatrix)
-        cfg, weights, hf_cfg = load_hf_model(path, dtype=dtype, device=dev, isq=isq, imatrix=im)
+        cfg, weights, hf_cfg = load_hf_model(path, dtype=dtype, device=dev, isq=isq, imatrix=im,
+                                             from_uqff=from_uqff)
         ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=cfg.arch)
         return Pipeline(cfg, weights, _tokenizer(path), ct, path.name, hf_cfg)
     _warn_unquantized(f"{model_type} directory {path.name}", isq)
+    if from_uqff is not None:
+        raise NotImplementedError(f"{model_type} directory {path.name}: a UQFF overlay is "
+                                  f"not ported for the DeepSeek family")
     cfg = DeepseekConfig.from_hf(hf_cfg)
-    weights = deepseek_weights_from_state_dict(load_safetensors_dir(path), cfg, dtype=dtype,
-                                               device=dev)
+    weights = deepseek_weights_from_state_dict(load_safetensors_dir(path, dev), cfg,
+                                               dtype=dtype, device=dev)
     ct = resolve_chat_template(override=chat_template_override, hf_dir=path, arch=model_type)
     adapter = DeepseekAdapter(cfg, weights, compute_dtype=dtype, device=dev)
     return Pipeline(cfg, weights, _tokenizer(path), ct, path.name, hf_cfg, adapter=adapter)

@@ -1,6 +1,7 @@
 """Uniform linear-layer dispatch (counterpart of
 ``mistralrs_tpu/quant/linear.py:35-84``): one entry point for a planar
-:class:`QTensor` or a plain dense ``[out, in]`` tensor."""
+:class:`QTensor`, an FP8 :class:`Fp8Tensor` or a plain dense ``[out, in]``
+tensor."""
 
 from __future__ import annotations
 
@@ -9,9 +10,10 @@ from typing import Optional, Union
 import torch
 
 from ..ops.quant_matmul import quant_matmul
+from .fp8 import Fp8Tensor
 from .qtensor import QTensor
 
-Weight = Union[QTensor, torch.Tensor]
+Weight = Union[QTensor, Fp8Tensor, torch.Tensor]
 
 
 def linear(
@@ -24,9 +26,9 @@ def linear(
     """``x @ w.T (+ bias)`` with ``w`` of shape [out, in]; f32 accumulation,
     result in ``x.dtype``. A QTensor whose rows were padded for the kernels
     (``logical_n``) gives its first ``logical_n`` outputs."""
-    if isinstance(w, QTensor):
+    if isinstance(w, (QTensor, Fp8Tensor)):
         # weights dequantize to bf16 whatever x's dtype, as in the JAX
-        # package (quant_matmul's default dequant_dtype)
+        # package (quant_matmul's default dequant_dtype; fp8_matmul's bf16)
         out = quant_matmul(x, w, plain=plain)
         if w.logical_n is not None:
             out = out[..., :w.logical_n]

@@ -447,8 +447,9 @@ def test_gguf_gemma2_is_refused(tmp_path):
 @pytest.mark.parametrize("case", ["quantization_config", "bias", "qk_norm", "phi3_fused"])
 def test_hf_refusals(tmp_path, case):
     cfg_d, sd = _hf_case("llama", np.random.default_rng(0))
-    if case == "quantization_config":  # GPTQ/AWQ load since they were ported; bnb does not
-        cfg_d["quantization_config"] = {"quant_method": "bitsandbytes"}
+    if case == "quantization_config":  # GPTQ/AWQ and bnb 4-bit load since they were
+        # ported; bnb 8-bit does not
+        cfg_d["quantization_config"] = {"quant_method": "bitsandbytes", "load_in_8bit": True}
     elif case == "bias":  # attention biases load by name (Qwen2); MLP biases do not
         sd["model.layers.0.mlp.down_proj.bias"] = np.zeros(32, np.float32)
     elif case == "qk_norm":  # q/k norms load where the config has them (Qwen3, hunyuan)

@@ -347,7 +347,7 @@ def test_refused_by_name(tmp_path, arch):
     w.add_tensor("token_embd.weight", np.zeros((4, 8), np.float32))
     w.write()
     reason = {"gemma2": "softcap", "gemma3": "scale", "qwen2moe": "shared expert",
-              "granite": "multipliers", "mamba": "served: llama, qwen2, qwen3, qwen3moe"}[arch]
+              "granite": "multipliers", "mamba": "served: llama, mistral, qwen2, qwen3, qwen3moe"}[arch]
     with pytest.raises(NotImplementedError, match=f"'{arch}'.*{reason}"):
         load_gguf_model(str(tmp_path / "x.gguf"), device="cpu")
     with pytest.raises(NotImplementedError, match=arch):

@@ -16,7 +16,11 @@ import torch
 
 import mistralrs_tpu_torch
 from mistralrs_tpu_torch import resolve_device
-from mistralrs_tpu_torch.convert import from_jax_deepseek_params, from_jax_params
+from mistralrs_tpu_torch.convert import (
+    convert_hf_to_gguf,
+    from_jax_deepseek_params,
+    from_jax_params,
+)
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter
 from mistralrs_tpu_torch.embeddings import embed
 from mistralrs_tpu_torch.engine.engine import Engine
@@ -35,7 +39,11 @@ from mistralrs_tpu_torch.ops.paged_attention import _decode_cuda
 from mistralrs_tpu_torch.ops.quant_matmul import quant_matmul
 from mistralrs_tpu_torch.perplexity import compute_perplexity
 from mistralrs_tpu_torch.pipeline import load_pipeline
+from mistralrs_tpu_torch.quant.bnb import dequantize_4bit
+from mistralrs_tpu_torch.quant.fp8 import Fp8Tensor
+from mistralrs_tpu_torch.quant.hqq import hqq_from_state, hqq_quantize
 from mistralrs_tpu_torch.quant.qtensor import QTensor
+from mistralrs_tpu_torch.uqff import load_reference_uqff, load_uqff
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
@@ -140,6 +148,17 @@ CONSTRUCTORS = {
     "compute_perplexity": lambda tmp: compute_perplexity(
         init_random_weights(CFG, device="cpu"), CFG, list(range(32)), window=16),
     "embed": lambda tmp: embed(init_random_weights(CFG, device="cpu"), CFG, [[1, 2]]),
+    # the weight formats: FP8, HQQ, bitsandbytes, UQFF files, the GGUF converter
+    "Fp8Tensor.quantize": lambda tmp: Fp8Tensor.quantize(torch.ones(16, 128)),
+    "hqq_quantize": lambda tmp: hqq_quantize(torch.ones(16, 128)),
+    "hqq_from_state": lambda tmp: hqq_from_state(
+        np.zeros(16 * 128, np.uint8), np.ones(32, np.float32), np.zeros(32, np.float32),
+        (16, 128)),
+    "bnb.dequantize_4bit": lambda tmp: dequantize_4bit(
+        np.zeros((32, 1), np.uint8), np.ones(1, np.float32), np.zeros(16, np.float32), (64,)),
+    "load_uqff": lambda tmp: load_uqff(str(tmp / "missing.uqff")),
+    "load_reference_uqff": lambda tmp: load_reference_uqff(str(tmp / "missing.uqff")),
+    "convert_hf_to_gguf": lambda tmp: convert_hf_to_gguf({}, CFG, str(tmp / "x.gguf")),
 }
 
 

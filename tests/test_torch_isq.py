@@ -150,14 +150,15 @@ def test_quantize_imatrix_bytes_equal_jax(name, dims):
 
 
 def test_other_types_ignore_importance_weights():
-    """Q8_0, Q4_0, Q5_0 and Q6_K quantize as they do without weights (JAX
-    ``quantize_imatrix`` falls back alike)."""
+    """Q8_0, Q4_0, Q5_0, Q6_K, Q2_K and Q3_K quantize as they do without
+    weights (JAX ``quantize_imatrix`` falls back alike); a type neither
+    package quantizes (Q4_1) raises."""
     x = torch.from_numpy(_inputs()[:8])
     w = torch.rand(x.shape[-1])
-    for name in ("Q8_0", "Q4_0", "Q5_0", "Q6_K"):
+    for name in ("Q8_0", "Q4_0", "Q5_0", "Q6_K", "Q2_K", "Q3_K"):
         assert torch.equal(quantize(x, GGMLType[name], w), quantize(x, GGMLType[name]))
-    with pytest.raises(NotImplementedError, match="Q2_K"):
-        quantize(x, GGMLType.Q2_K)
+    with pytest.raises(NotImplementedError, match="Q4_1"):
+        quantize(x, GGMLType.Q4_1)
     with pytest.raises(ValueError, match="blocks of 256"):
         quantize(x[:, :100], GGMLType.Q4_K)
 

@@ -522,7 +522,8 @@ def test_cli_serve_kv_quant_reaches_engine(monkeypatch, tmp_path):
         def encode(self, text, add_bos=None):
             return list(text.encode())
 
-    def load(path, isq=None, chat_template_override=None, device=None):
+    def load(path, isq=None, chat_template_override=None, device=None, from_uqff=None):
+        assert from_uqff is None  # no --from-uqff on this command line
         # serve fuses the projections in place: hand it copies of the layer dicts
         weights = {**TW, "layers": [dict(lw) for lw in TW["layers"]]}
         return pipeline.Pipeline(CFG, weights, Tok(), resolve_chat_template(override="x"),

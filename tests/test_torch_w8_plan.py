@@ -22,7 +22,12 @@ another f32 order: 1e-5 of the largest output). The prefill body makes the
 weight itself: the byte placed in the mantissa of 2^23 by one prmt (signed
 codes XORed with 0x80 first), less 2^23 (or 2^23 + 128), then scale * q and
 + bias in f32, rounded to bf16 in pairs; a model of those bit operations
-equals the plain version's bf16 weight for every byte value.
+equals the plain version's bf16 weight for every byte value. The e4m3 form
+(FP8 weights) converts each byte through the hardware fp8 -> f16
+instruction, exact for every e4m3 value (the two NaNs aside): the decode
+body's bf16 pairs are the values themselves, the prefill body's weights the
+plain version's ``bf16(scale * q)``; its plan is the W8 plan at its group
+size.
 """
 
 import importlib
@@ -356,3 +361,59 @@ def test_grouped_decode_arithmetic_matches_plain_and_jax(fmt, routing):
         backend="xla", out_dtype=jnp.float32))
     # the JAX function multiplies every tile (unused ones: zero padding rows)
     np.testing.assert_allclose(got.numpy(), ref, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the e4m3 form (FP8 weights)
+# ---------------------------------------------------------------------------
+
+
+def _e4m3_to_f32(byte: torch.Tensor) -> torch.Tensor:
+    """The kernels' e4m3x4: the hardware fp8 -> f16 conversion (exact: every
+    e4m3 value, subnormals included, is an f16 normal or zero), then f16 ->
+    f32."""
+    return byte.to(torch.uint8).view(torch.float8_e4m3fn).to(torch.float16).to(torch.float32)
+
+
+def test_e4m3_byte_to_bf16_is_exact_for_every_byte():
+    """Every e4m3 byte but the two NaNs: f16 -> f32 -> bf16 (the decode
+    body's A fragments) gives the byte's value exactly; and the prefill
+    body's bf16(scale * q), scale * q rounded to f32 first, is the plain
+    version's weight (``Fp8Tensor.dequantize``, f32 product then bf16) bit
+    for bit at several scales."""
+    from mistralrs_tpu_torch.quant.fp8 import Fp8Tensor
+
+    byte = torch.arange(256)
+    keep = (byte != 0x7F) & (byte != 0xFF)
+    exact = byte.to(torch.uint8).view(torch.float8_e4m3fn).to(torch.float64)[keep]
+    q = _e4m3_to_f32(byte)[keep]
+    assert torch.equal(q.to(torch.float64), exact)
+    assert torch.equal(q.to(torch.bfloat16).to(torch.float64), exact)
+    for s in (1.0, 3.0e-4, 0.7071, 448.0 ** -1):
+        data = byte[keep].to(torch.uint8).view(torch.float8_e4m3fn).reshape(-1, 1)  # [K, 1]
+        data = data.expand(-1, 16).contiguous()
+        fw = Fp8Tensor(data, torch.tensor(s, dtype=torch.float32))
+        kernel = (torch.tensor(s, dtype=torch.float32) * q).to(torch.bfloat16)
+        assert torch.equal(fw.dequantize(torch.bfloat16)[0], kernel)
+
+
+@pytest.mark.parametrize("blocks,k", [(None, 4096), ((128, 128), 4096), ((128, 128), 14336),
+                                      ((64, 64), 512)])
+def test_e4m3_plan_is_the_w8_plan(blocks, k):
+    """An FP8 weight takes the W8 kernel's plan at its group size (the block
+    or K), without a bias plane; the split state the engine reserves covers
+    it."""
+    from mistralrs_tpu_torch.ops.quant_matmul import _plan, split_need_tree, split_sizes
+    from mistralrs_tpu_torch.quant.fp8 import Fp8Tensor
+
+    n = 4096
+    fw = Fp8Tensor(torch.zeros((k, n), dtype=torch.float8_e4m3fn),
+                   torch.ones(() if blocks is None else (n // blocks[0], k // blocks[1])),
+                   blocks)
+    gs = k if blocks is None else blocks[1]
+    assert fw.group_size == gs and tuple(fw.plane.shape) == (k // gs, n)
+    for m in (1, 8, 512):
+        assert _plan(fw, m, 132) == w8_plan(m, n, k, 132, None, gs, False)
+    need = split_need_tree({"layers": [{"wq": fw}]}, (1, 8, 512), 132)
+    assert need == tuple(max(split_sizes(w8_plan(m, n, k, 132, None, gs, False), m, n)[i]
+                             for m in (1, 8, 512)) for i in range(2))
