@@ -443,7 +443,30 @@ script in one call:
    in both bodies and no plain version; then 2 layers of it written with
    ``save_uqff`` and read back with ``load_uqff`` bit for bit, through the
    kernels and the plain versions;
-22. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
+22. constrained decoding and the text routes: the 32-layer Llama-3-8B
+   geometry of phase 4 (Q4_K, drawn on the device) served with a tokenizer
+   of Llama-3's 128256 ids (:class:`VocabTokenizer`: ids 0-255 single bytes,
+   the rest 1-12-byte strings drawn from the seed), 8 requests at once on
+   ``/v1/chat/completions`` and ``/v1/completions`` (two ``json_object``,
+   one ``json_schema``, one regex, one choice, one Lark grammar, one with
+   DRY and logprobs, one plain completion) while ``/v1/messages``,
+   ``count_tokens``, ``/v1/responses`` (POST, then GET and DELETE),
+   ``/v1/embeddings``, ``/metrics`` and ``/v1/system/info`` are called:
+   each constrained output stays inside its recognizer (a JSON object that
+   parses, or a live prefix where it stopped on length), every route's
+   JSON checked, W4/W8 and the paged kernels launched and no plain
+   version; the host ms per mask of each constraint kind; a second model
+   (a 2-layer Llama-geometry Q4_K GGUF written to the temporary directory)
+   loaded through ``/v1/models/load`` and served beside the 8B, each giving
+   the greedy text it gives alone, a load whose split state would have to
+   grow under the 8B's graphs refused (400), the unload giving the device
+   memory back (``memory_allocated`` within 1 % of its value before the
+   load), load and unload seconds; then, on the engine with 0, 1 and 8
+   JSON-constrained rows of 8, 8 decode steps from one saved state eagerly
+   and through the graph, with the host's mask updates between them, must
+   give bit-equal logits and tokens, and one engine step's wall time beside
+   the device's kernel time in a trace of the next step (its idle share);
+23. the last line: ``{"ok": true, "device": {...}}``. A failed phase raises
    and the script exits non-zero without that line.
 
 The ``kernels`` line gives each kernel's launches summed over the runs of
@@ -452,17 +475,17 @@ phases 4-18 (4's int8 serve and 11 for the int8 forms of the paged
 kernels), the phase-3 model runs for their fp8 forms (3, 3d, 3e, 3h, 3n)
 and the int8 head_dim-64 forms (3e), phase 3i's two runs (the W8
 wide-group form runs there alone), phases 3j, 3k, 3l, 3m, 3n, 3o and
-3p, phase 19's Q4_K perplexity run, the serves of phases 20 and 21 and
-phase 21's 2-layer run (the e4m3 form runs in phase 21 alone); a kernel
-launched
+3p, phase 19's Q4_K perplexity run, the serves of phases 20 and 21,
+phase 21's 2-layer run (the e4m3 form runs in phase 21 alone) and phase
+22's constrained serve; a kernel launched
 in none fails the
 run; and its times at the main path's dominant shape
 (``library_device_ms``: the library call's own device time).
 
 Budget: the whole run at most 10 minutes on an H100 with the build (the
 int8 serve and the quantized rows add about half a minute, phase 19 at
-most 600 s of it), at most 8 GB of host memory (8e9 bytes of peak RSS,
-checked at the end: all weights are drawn on the device, none on the host;
+most 600 s of it, phase 22 at most 90 s), at most 8 GB of host memory
+(8e9 bytes of peak RSS, checked at the end: all weights are drawn on the device, none on the host;
 phases 3p and 20 move their files between the card and the disk in 64 MiB
 chunks, GGUF and UQFF blocks included), at most
 72 GB of device memory (phase 10's Qwen3-30B-A3B weights take 61.1 GB, its
@@ -518,7 +541,7 @@ import torch  # noqa: E402
 from mistralrs_tpu_torch import cli, embeddings, perplexity  # noqa: E402
 from mistralrs_tpu_torch.chat_template import resolve_chat_template  # noqa: E402
 from mistralrs_tpu_torch.engine.adapters import DeepseekAdapter  # noqa: E402
-from mistralrs_tpu_torch.engine.engine import Engine  # noqa: E402
+from mistralrs_tpu_torch.engine.engine import Engine, decode_widths, forward_rows  # noqa: E402,E501
 from mistralrs_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
 from mistralrs_tpu_torch.generate import generate  # noqa: E402
 from mistralrs_tpu_torch.gguf import planar as gguf_planar  # noqa: E402
@@ -4076,6 +4099,530 @@ def calibration_loop(dev, name_line: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 22: constrained decoding, DRY, the text routes, a second model
+# ---------------------------------------------------------------------------
+
+
+class VocabTokenizer:
+    """A tokenizer of Llama-3's 128256 ids with the port's interface: ids
+    0-255 are single bytes (prompts encode as bytes, as with
+    :class:`ByteTokenizer`), ids 256-127999 decode to byte strings of 1-12
+    bytes drawn from ``seed`` (printable ASCII, one character in 20 a whole
+    two- or three-byte UTF-8 character), and ids 128000-128255 are special
+    tokens (``<|eot_id|>`` = 128009, the EOS) that decode to nothing unless
+    asked to."""
+
+    EOS = 128009
+    WIDE = [c.encode() for c in "éüßñ€→日本語ÆøΩ"]
+
+    def __init__(self, seed: int, size: int = 128256):
+        rng = np.random.default_rng(seed)
+        pieces = [bytes([i]) for i in range(256)]
+        lengths = rng.integers(1, 13, 128000 - 256)
+        for n in lengths.tolist():
+            out = b""
+            while len(out) < n:
+                wide = self.WIDE[rng.integers(len(self.WIDE))]
+                if rng.random() < 0.05 and len(out) + len(wide) <= n:
+                    out += wide
+                else:
+                    out += bytes([int(rng.integers(32, 127))])
+            pieces.append(out)
+        self.special = {i: (b"<|eot_id|>" if i == self.EOS else f"<|reserved_{i}|>".encode())
+                        for i in range(128000, size)}
+        self.pieces = pieces
+
+    def encode(self, text, add_bos=None):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids, skip_special_tokens=True):
+        out = b"".join(self.pieces[i] if i < 128000 else
+                       (b"" if skip_special_tokens else self.special[i]) for i in ids)
+        return out.decode("utf-8", errors="replace")
+
+    def detokenizer(self):
+        return Detokenizer(self)
+
+
+LARK_LIST = """start: "[" item ("," item)* "]"
+item: NUM | WORD | start
+NUM: /[0-9]{1,4}/
+WORD: /[a-z]{2,8}/
+"""
+REGEX_EMAIL = r"[a-z]{3,8}@(example|test)\.(com|org)"
+CHOICES = ["positive", "negative", "neutral"]
+PERSON_SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                                  "age": {"type": "integer"}}}
+
+
+def recognizer(kind: str):
+    """A fresh recognizer of a phase-22 request kind."""
+    from mistralrs_tpu_torch.cfg_grammar import LarkConstraint
+    from mistralrs_tpu_torch.grammar import ChoiceConstraint, JsonConstraint, RegexConstraint
+
+    return {"json": lambda: JsonConstraint("object"),
+            "regex": lambda: RegexConstraint(REGEX_EMAIL),
+            "choice": lambda: ChoiceConstraint(CHOICES),
+            "lark": lambda: LarkConstraint(LARK_LIST)}[kind]()
+
+
+def http(url: str, path: str, body=None, method=None, timeout: float = 300):
+    """``(status, parsed JSON or text)`` of one request; an HTTP error's
+    status and body are returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read().decode()
+    try:
+        return status, json.loads(raw)
+    except json.JSONDecodeError:
+        return status, raw
+
+
+def concurrently(calls: dict) -> dict:
+    """Run ``{name: fn}`` on threads at once → ``{name: result}``; a call's
+    exception fails the phase."""
+    out, errors = {}, []
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=kv) for kv in calls.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"requests failed: {errors}")
+    return out
+
+
+def write_tiny_llama_gguf(path, seed: int) -> None:
+    """A 2-layer Llama-geometry GGUF (hidden 512, 4 heads of 128 on 2 KV
+    heads, FFN 1024, Q4_K projections and embedding, a Q6_K head) with a
+    byte-level BPE tokenizer of the 256 byte symbols, 3 special tokens and
+    61 unused ones (vocab 320), and a ChatML template."""
+    from mistralrs_tpu_torch.gguf.writer import GGUFWriter
+
+    byte_syms = [chr(c) for c in range(33, 127)] + [chr(c) for c in range(161, 173)] + \
+        [chr(c) for c in range(174, 256)]
+    extra = [chr(256 + i) for i in range(256 - len(byte_syms))]
+    tokens = byte_syms + extra + ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+    tokens += [f"<|unused_{i}|>" for i in range(320 - len(tokens))]
+    types = [1] * 256 + [3] * (len(tokens) - 256)
+    h, inter, v = 512, 1024, len(tokens)
+    gen = torch.Generator().manual_seed(seed)
+    w = GGUFWriter(path)
+    w.add_metadata("general.architecture", "llama")
+    for key, val in dict(block_count=2, context_length=1024, embedding_length=h,
+                         feed_forward_length=inter, vocab_size=v,
+                         **{"attention.head_count": 4, "attention.head_count_kv": 2,
+                            "rope.dimension_count": 128}).items():
+        w.add_metadata(f"llama.{key}", np.uint32(val))
+    w.add_metadata("llama.attention.layer_norm_rms_epsilon", np.float32(1e-5))
+    w.add_metadata("llama.rope.freq_base", np.float32(5e5))
+    w.add_metadata("tokenizer.ggml.model", "gpt2")
+    w.add_metadata("tokenizer.ggml.tokens", tokens)
+    w.add_metadata("tokenizer.ggml.merges", [])
+    w.add_metadata("tokenizer.ggml.token_type", types)
+    w.add_metadata("tokenizer.ggml.eos_token_id", np.uint32(tokens.index("<|im_end|>")))
+    w.add_metadata("tokenizer.ggml.bos_token_id", np.uint32(tokens.index("<|endoftext|>")))
+    w.add_metadata("tokenizer.ggml.add_bos_token", False)
+    w.add_metadata("tokenizer.chat_template",
+                   "{% for message in messages %}{{'<|im_start|>' + message['role'] + '\\n' + "
+                   "message['content'] + '<|im_end|>' + '\\n'}}{% endfor %}"
+                   "{% if add_generation_prompt %}{{ '<|im_start|>assistant\\n' }}{% endif %}")
+
+    def quant(name, shape, t, std=0.05):  # blocks drawn as they are stored
+        w.add_raw_tensor(name, draw_blocks(t, shape, gen, "cpu", std=std), shape, t)
+
+    quant("token_embd.weight", (v, h), GGMLType.Q4_K, std=0.5)
+    w.add_tensor("output_norm.weight", torch.ones(h))
+    quant("output.weight", (v, h), GGMLType.Q6_K)
+    for i in range(2):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", torch.ones(h))
+        w.add_tensor(p + "ffn_norm.weight", torch.ones(h))
+        for name, shape in (("attn_q", (h, h)), ("attn_k", (256, h)), ("attn_v", (256, h)),
+                            ("attn_output", (h, h)), ("ffn_gate", (inter, h)),
+                            ("ffn_up", (inter, h)), ("ffn_down", (h, inter))):
+            quant(p + name + ".weight", shape, GGMLType.Q4_K)
+    w.write()
+
+
+class _BiasedRows:
+    """Phase 22's host loop over the constrained rows of a saved decode
+    state: each row's recognizer state, advanced by the tokens a step gives
+    and written as the next mask (or zeros once complete or dead) with
+    ``DecodeStep.set_bias_row``, as ``Engine._commit_token`` does."""
+
+    def __init__(self, engine, rows: dict):
+        self.engine, self.rows = engine, dict(rows)  # slot -> (recognizer, state)
+        self.builder = engine._get_mask_builder()
+
+    def commit(self, tokens: dict) -> None:
+        for slot, (cons, st) in list(self.rows.items()):
+            if st is None:
+                continue
+            st = self.builder.advance_with_token(cons, st, tokens[slot])
+            if st is None or cons.is_complete(st):
+                self.rows[slot] = (cons, None)
+                self.engine.decode_step.set_bias_row(slot, None)
+            else:
+                self.rows[slot] = (cons, st)
+                allow = self.builder.mask(cons, st, self.engine.cfg.eos_token_ids)
+                self.engine.decode_step.set_bias_row(
+                    slot, np.where(allow, 0.0, -1e30).astype(np.float32))
+
+
+def constrained_step_checks(engine, n_constrained: int, name_line: str) -> str:
+    """8 running requests on the served engine (its server stopped), the
+    first ``n_constrained`` JSON-constrained, greedy and seeded sampled
+    rows alternating, past their first decode step: from one saved state
+    (KV pools and sampling state, ``constraint_bias`` included) 8 decode
+    steps through the step function eagerly and 8 through the graph, each
+    followed by the host's mask update, must give bit-equal logits and the
+    same tokens; then one engine step's wall time (host clock), and the
+    device's kernel time in a trace of the next step, so its idle share."""
+    seqs = []
+    for i in range(8):
+        p = SamplingParams(temperature=0.0, max_tokens=200) if i % 2 == 0 else \
+            SamplingParams(temperature=0.8, top_p=0.95, seed=300 + i, max_tokens=200)
+        if i < n_constrained:
+            p.constraint = "json_object"
+        seqs.append(engine.add_request([(11 * i + j) % 200 + 32 for j in range(90)], p))
+    while any(len(s.generated_ids) < 2 and not s.is_finished for s in seqs):
+        engine.step()
+    live = [s for s in seqs if not s.is_finished]
+    ds, width, bs = engine.decode_step, engine._max_blocks_bucket(), engine.block_size
+    check(width in ds._graphs, f"phase 22: no graph captured at width {width}")
+    saved = StepState(engine)
+    start = {s.slot: (s.all_ids[-1], s.total_len - 1, engine.kv.block_table(s.request_id))
+             for s in live}
+    # a row whose output completed its JSON object has stopped: fewer rows
+    cons0 = {s.slot: (s.constraint, s.constraint_state) for s in live
+             if s.constraint is not None}
+    runs = {}
+    for mode in ("eager", "graph"):
+        saved.restore()
+        host = _BiasedRows(engine, cons0)
+        toks = {slot: r[0] for slot, r in start.items()}
+        logits, tokens = [], []
+        for i in range(8):
+            a = ds.staging(width)
+            for slot, (_, pos0, table) in start.items():
+                pos = pos0 + i
+                a[slot, :4] = (toks[slot], pos, table[pos // bs] * bs + pos % bs, pos + 1)
+                a[slot, 4:4 + len(table)] = table
+            if mode == "eager":
+                ds.upload(width)
+                out = ds.compute(width)
+                got = out.tokens.cpu().numpy()
+            else:
+                ds.launch(width)
+                got = ds.wait()[0]
+                out = ds.graph_output(width)
+            logits.append(out.logits.clone())
+            toks = {slot: int(got[slot]) for slot in start}
+            tokens.append([toks[slot] for slot in sorted(start)])
+            host.commit(toks)
+        runs[mode] = (logits, tokens)
+    for i, (a, b) in enumerate(zip(runs["eager"][0], runs["graph"][0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 22, {n_constrained} constrained rows, step {i}: graph "
+                                 f"logits differ by {(a - b).abs().max().item()}")
+    if runs["eager"][1] != runs["graph"][1]:
+        raise AssertionError(f"phase 22, {n_constrained} constrained rows: graph tokens "
+                             f"{runs['graph'][1]} != eager {runs['eager'][1]}")
+    saved.restore()
+    del saved
+    t0 = time.monotonic()
+    engine.step()
+    wall = (time.monotonic() - t0) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    busy = sum(us for us, _ in device_kernels(prof).values()) / 1e3
+    for s in seqs:
+        engine.abort(s.request_id)
+    return (f"{len(cons0)} constrained rows of {len(live)}: graph and eager steps bit-equal "
+            f"over 8 steps with the host's mask updates; "
+            + step_line("engine step (graph, 8 rows; device time from a trace of the next)",
+                        wall, busy))
+
+
+def mask_ms(builder, kind: str, token_ids, eos) -> tuple[float, float, int]:
+    """Host ms of ``builder.mask`` at each recognizer state along a served
+    output (a fresh recognizer of ``kind``): (median, largest, states)."""
+    cons = recognizer(kind)
+    st, times = cons.initial(), []
+    for t in [None] + list(token_ids):
+        if t is not None:
+            st = builder.advance_with_token(cons, st, t)
+        if st is None:
+            break
+        t0 = time.perf_counter()
+        builder.mask(cons, st, eos)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), max(times), len(times)
+
+
+def split_need(path: str, opts: dict, dev) -> tuple[int, int]:
+    """The split state (workspace floats, counters) an engine of the GGUF
+    at ``path`` reserves on ``dev`` with these options (its weights read on
+    the CPU: the plans need only their shapes)."""
+    pipe = load_pipeline(path, device="cpu")
+    weights = llama.fuse_projections(pipe.weights, pipe.cfg)
+    return llama.kernel_workspace(
+        weights, pipe.cfg, opts["max_batch"],
+        forward_rows(opts["max_batch"], opts["prefill_chunk"], 4),  # the scheduler's default
+        decode_widths(opts["max_model_len"], opts["block_size"]), opts["block_size"],
+        _cuda.sm_count(dev))
+
+
+def constrained_serve(dev, name_line: str) -> dict:
+    """Phase 22 (module docstring); returns the serve run's launch counts."""
+    cfg = ModelConfig(**dict(LLAMA3_8B, eos_token_ids=(VocabTokenizer.EOS,)))
+    # the split state only grows: drop what earlier phases grew it to, so
+    # that the 8B's reservation is the one a second model meets (as on a
+    # fresh server); no graph may hold it now
+    check(_cuda._held[dev] == 0, "phase 22: a CUDA graph still holds the split state")
+    _cuda._workspaces.pop(dev, None)
+    _cuda._counters.pop(dev, None)
+    t_w = time.monotonic()
+    weights = build_weights(cfg, dev, SEED + 110)
+    torch.cuda.synchronize()
+    tok = VocabTokenizer(SEED + 111)
+    log(f"  {cfg.num_layers}-layer weights drawn in {time.monotonic() - t_w:.1f} s; "
+        f"tokenizer of {len(tok.pieces) + len(tok.special)} ids")
+    engine = Engine(cfg, weights, num_blocks=96, block_size=64, max_batch=8,
+                    max_model_len=1024, prefill_chunk=256, device=dev, seed=SEED,
+                    tokenizer=tok)
+    del weights
+    seqs = []
+    add_request = engine.add_request
+
+    def recording_add_request(*a, **kw):
+        seq = add_request(*a, **kw)
+        seqs.append(seq)
+        return seq
+
+    engine.add_request = recording_add_request
+    template = resolve_chat_template(
+        override="{% for message in messages %}{{ message['content'] }}{% endfor %}")
+    threads_before = set(threading.enumerate())
+    server = Server(engine, tok, template, "llama3-8b-constrained", host="127.0.0.1", port=0)
+    server.start()
+    url = server.url
+
+    def chat(i, extra, max_tokens=32):
+        return {"messages": [{"role": "user", "content": f"request {i}: " + "give me data " * 6}],
+                "max_tokens": max_tokens, "temperature": 0.0, **extra}
+
+    bodies = {
+        "json 0": ("/v1/chat/completions", chat(0, {"response_format": {"type": "json_object"}})),
+        "json 1": ("/v1/chat/completions", chat(1, {"response_format": {"type": "json_object"},
+                                                    "temperature": 0.8, "seed": 7})),
+        "json_schema": ("/v1/chat/completions", chat(2, {"response_format": {
+            "type": "json_schema", "json_schema": {"name": "person", "schema": PERSON_SCHEMA}}})),
+        "regex": ("/v1/chat/completions",
+                  chat(3, {"grammar": {"type": "regex", "value": REGEX_EMAIL}})),
+        "choice": ("/v1/chat/completions",
+                   chat(4, {"grammar": {"type": "choice", "value": CHOICES}})),
+        "lark": ("/v1/chat/completions", chat(5, {"grammar": {"type": "lark",
+                                                              "value": LARK_LIST}})),
+        "dry": ("/v1/chat/completions", chat(6, {"dry_multiplier": 0.8, "dry_base": 1.75,
+                                                 "dry_allowed_length": 2, "logprobs": True,
+                                                 "top_logprobs": 3})),
+        "completion": ("/v1/completions", {"prompt": "request 7: the plain one " * 3,
+                                           "max_tokens": 32, "temperature": 0.0}),
+    }
+    kinds = {"json 0": "json", "json 1": "json", "json_schema": "json", "regex": "regex",
+             "choice": "choice", "lark": "lark"}
+    prompts = {name: (tok.encode(template.render(b["messages"])) if "messages" in b
+                      else tok.encode(b["prompt"])) for name, (_, b) in bodies.items()}
+    _cuda.reset_counts()
+    t_s = time.monotonic()
+    calls = {name: (lambda p=path, b=body: http(url, p, b)) for name, (path, body) in
+             bodies.items()}
+    msg_body = {"max_tokens": 8, "system": "be brief",
+                "messages": [{"role": "user", "content": [{"type": "text", "text": "hello"}]}]}
+    calls.update({
+        "/v1/messages": lambda: http(url, "/v1/messages", msg_body),
+        "/v1/messages/count_tokens": lambda: http(url, "/v1/messages/count_tokens", {
+            "messages": [{"role": "user", "content": "count these"}]}),
+        "/v1/responses": lambda: http(url, "/v1/responses",
+                                      {"input": "respond", "max_output_tokens": 8,
+                                       "temperature": 0.0}),
+        "/v1/embeddings": lambda: http(url, "/v1/embeddings",
+                                       {"input": ["embed this", "and this one, longer"]}),
+        "/v1/system/info": lambda: http(url, "/v1/system/info"),
+    })
+    res = concurrently(calls)
+    wall = time.monotonic() - t_s
+    counts = dict(_cuda.COUNTS)
+    for name, (status, body) in res.items():
+        check(status == 200, f"phase 22 {name}: HTTP {status} {str(body)[:300]}")
+    by_prompt = {tuple(s.prompt_ids): s for s in seqs}
+    builder = engine._get_mask_builder()
+    notes = []
+    for name, kind in kinds.items():
+        seq = by_prompt[tuple(prompts[name])]
+        finish = res[name][1]["choices"][0]["finish_reason"]
+        out = b"".join(builder.token_bytes[t] for t in seq.generated_ids)
+        cons = recognizer(kind)
+        st = cons.initial()
+        for by in out:
+            st = cons.advance(st, by)
+            check(st is not None, f"phase 22 {name}: output {out!r} leaves its {kind} recognizer")
+        if finish == "stop":
+            check(cons.is_complete(st), f"phase 22 {name}: stopped on an incomplete {out!r}")
+            if kind == "json":
+                check(isinstance(json.loads(out.decode("utf-8")), dict),
+                      f"phase 22 {name}: {out!r} is not a JSON object")
+            if kind == "choice":
+                check(out.decode() in CHOICES, f"phase 22 choice: {out!r}")
+        else:
+            check(finish == "length" and len(seq.generated_ids) == 32,
+                  f"phase 22 {name}: finish {finish!r} after {len(seq.generated_ids)} tokens")
+        notes.append(f"{name} {finish} after {len(seq.generated_ids)} tokens ({len(out)} bytes)")
+    lp = res["dry"][1]["choices"][0]["logprobs"]["content"]
+    check(len(lp) == 32 and all(len(e["top_logprobs"]) == 3 for e in lp),
+          "phase 22 dry: logprobs")
+    check(res["completion"][1]["object"] == "text_completion"
+          and res["completion"][1]["usage"]["completion_tokens"] == 32, "phase 22 completion")
+    m = res["/v1/messages"][1]
+    check(m["type"] == "message" and m["content"][0]["type"] == "text"
+          and m["usage"]["output_tokens"] == 8, f"phase 22 /v1/messages: {m}")
+    n_count = len(tok.encode(template.render([{"role": "user", "content": "count these"}])))
+    check(res["/v1/messages/count_tokens"][1] == {"input_tokens": n_count},
+          "phase 22 count_tokens")
+    emb = res["/v1/embeddings"][1]["data"]
+    vecs = np.asarray([e["embedding"] for e in emb], np.float64)
+    check(vecs.shape == (2, cfg.hidden_size) and np.isfinite(vecs).all()
+          and np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3),
+          f"phase 22 embeddings: shape {vecs.shape}")
+    info = res["/v1/system/info"][1]
+    check(info["backend"] == torch.cuda.get_device_name(dev)
+          and info["models"] == ["llama3-8b-constrained"], f"phase 22 system info: {info}")
+    rid = res["/v1/responses"][1]["id"]
+    check(http(url, f"/v1/responses/{rid}") == (200, res["/v1/responses"][1]),
+          "phase 22 GET /v1/responses")
+    check(http(url, f"/v1/responses/{rid}", method="DELETE") == (200, {"id": rid,
+                                                                        "deleted": True}),
+          "phase 22 DELETE /v1/responses")
+    check(http(url, f"/v1/responses/{rid}")[0] == 404, "phase 22 GET after DELETE")
+    status, metrics = http(url, "/metrics")
+    check(status == 200 and 'route="/v1/chat/completions",status="200"} 7' in metrics
+          and "engine_constraint_masks" in metrics, "phase 22 /metrics")
+    missing = [k for k in DENSE_KERNELS if counts.get(k, 0) == 0]
+    plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if missing or plain:
+        raise AssertionError(f"phase 22: kernels not launched {missing}, plain versions {plain}")
+    st = engine.stats
+    log(f"  served 8 requests (6 constrained, 1 DRY with logprobs, 1 completion) and 5 other "
+        f"routes at once in {wall:.2f} s: {'; '.join(notes)}; {st['constraint_masks']} masks "
+        f"in {st['constraint_mask_s']:.3f} s of host time; decode "
+        f"{st['decode_time_s'] / st['decode_steps'] * 1e3:.1f} ms/step over "
+        f"{st['decode_steps']} steps [{name_line}]")
+    per_kind = []
+    for kind, name in (("json", "json 0"), ("regex", "regex"), ("choice", "choice"),
+                       ("lark", "lark")):
+        med, mx, n = mask_ms(builder, kind, by_prompt[tuple(prompts[name])].generated_ids,
+                             cfg.eos_token_ids)
+        per_kind.append(f"{kind} {med:.2f} (max {mx:.2f}, {n} states)")
+    log(f"  host ms per mask at V = {cfg.vocab_size}: {', '.join(per_kind)} [{name_line}]")
+
+    # a second model beside the first: load, run both at once, unload
+    q = {"prompt": "the same prompt for both runs", "max_tokens": 16, "temperature": 0.0}
+    s_alone, big_alone = http(url, "/v1/completions", q)
+    check(s_alone == 200, f"phase 22: completion alone HTTP {s_alone}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny-llama-q4k.gguf")
+        write_tiny_llama_gguf(path, SEED + 112)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        opts = {"num_blocks": 64, "block_size": 16, "max_batch": 4, "max_model_len": 512,
+                "prefill_chunk": 64}
+        t_l = time.monotonic()
+        status, body = http(url, "/v1/models/load", {"model_id": "tiny", "path": path,
+                                                     "engine_options": opts})
+        load_s = time.monotonic() - t_l
+        check(status == 200 and body == {"status": "loaded", "model_id": "tiny"},
+              f"phase 22 load: {status} {body}")
+        loaded = torch.cuda.memory_allocated(dev)
+        tq = {"model": "tiny", "prompt": "tiny model prompt", "max_tokens": 24,
+              "temperature": 0.0}
+        s_tiny, tiny_alone = http(url, "/v1/completions", tq)
+        check(s_tiny == 200, f"phase 22: tiny completion alone HTTP {s_tiny}")
+        both = concurrently({
+            **{f"big {i}": (lambda b=dict(q, model="llama3-8b-constrained",
+                                          prompt=q["prompt"] if i == 0 else f"other {i}"):
+                            http(url, "/v1/completions", b)) for i in range(3)},
+            **{f"tiny {i}": (lambda b=dict(tq, prompt=tq["prompt"] if i == 0 else f"t {i}"):
+                             http(url, "/v1/completions", b)) for i in range(3)},
+        })
+        check(all(s == 200 for s, _ in both.values()), "phase 22: requests to both models")
+        held = torch.cuda.memory_allocated(dev)  # weights, pools, graphs of both widths
+        check(both["big 0"][1]["choices"][0]["text"] == big_alone["choices"][0]["text"],
+              "phase 22: the 8B's greedy text beside the second model differs from alone")
+        check(both["tiny 0"][1]["choices"][0]["text"] == tiny_alone["choices"][0]["text"],
+              "phase 22: the second model's greedy text beside the 8B differs from alone")
+        big_opts = dict(opts, max_batch=1024)
+        need, have = split_need(path, big_opts, dev), (_cuda.split_workspace(dev, 0).numel(),
+                                                       _cuda.split_counters(dev, 0).numel())
+        check(need[0] > have[0] or need[1] > have[1],
+              f"phase 22: the wide load needs split state {need}, within the {have} held")
+        status, body = http(url, "/v1/models/load", {"model_id": "tiny-wide", "path": path,
+                                                     "engine_options": big_opts})
+        check(status == 400 and "while a CUDA graph uses it" in body["error"]["message"],
+              f"phase 22: a load that cannot reserve its split state answered {status} {body}")
+        t_u = time.monotonic()
+        status, body = http(url, "/v1/models/unload", {"model_id": "tiny"})
+        unload_s = time.monotonic() - t_u
+        check(status == 200 and body == {"status": "unloaded"}, f"phase 22 unload: {body}")
+        check(http(url, "/v1/models/unload", {"model_id": "tiny"})[0] == 404,
+              "phase 22: a second unload is not 404")
+        gc.collect()
+        after = torch.cuda.memory_allocated(dev)
+        # against what the second model held, not the whole card's allocation
+        check(abs(after - before) <= 0.01 * (held - before),
+              f"phase 22: {after - before} bytes more allocated after the unload than before "
+              f"the load; the model held {held - before}")
+    log(f"  second model (2-layer Llama geometry, Q4_K GGUF): loaded in {load_s:.2f} s "
+        f"(+{(loaded - before) / 2**20:.1f} MiB), both models served at once with the greedy "
+        f"text each gives alone (+{(held - before) / 2**20:.1f} MiB held then); a load "
+        f"needing split state {need} beyond the {have} held refused while graphs hold it; "
+        f"unloaded in {unload_s:.2f} s, {after - before:+d} bytes allocated after against "
+        f"before the load [{name_line}]")
+    server.shutdown()
+    for th in threading.enumerate():
+        if th not in threads_before:
+            th.join(10)
+    leftover = [th.name for th in threading.enumerate()
+                if th not in threads_before and th.is_alive()]
+    check(not leftover, f"phase 22: threads still running after shutdown: {leftover}")
+    del engine.add_request
+    for k in (0, 1, 8):
+        log(f"  {constrained_step_checks(engine, k, name_line)} [{name_line}]")
+    engine.close()
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     # phase 0
     if not torch.cuda.is_available():
@@ -4594,7 +5141,16 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {host_rss()} [{name_line}]")
     fp8_model = check_fp8_uqff(dev)
     torch.cuda.empty_cache()
-    # phase 22: the summary, one entry per kernel at the main path's dominant shape
+    # phase 22
+    log(f"phase 22: serve the {LLAMA3_8B['num_layers']}-layer Llama-3-8B geometry (Q4_K) with "
+        f"a 128256-id tokenizer: JSON, regex, choice and Lark constraints, DRY, the text routes, "
+        f"a second model loaded, served and unloaded beside it")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t22 = time.monotonic()
+    constrained_counts = constrained_serve(dev, name_line)
+    log(f"  phase 22 took {time.monotonic() - t22:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {host_rss()} [{name_line}]")
+    # phase 23: the summary, one entry per kernel at the main path's dominant shape
     # (W4: decode M=8 gate-up; W8: decode M=8 lm_head; grouped: decode,
     # fused gate/up for W4, the Q6_K down bank for W8, DeepSeek-V2-Lite's
     # gate/up bank for dense; MLA: 64-token blocks), errors the worst of all
@@ -4648,7 +5204,8 @@ def main() -> int:
             "phase 19 q4k perplexity": calib_counts,
             **{f"phase 3p {what} model": c for what, c in format_models.items()},
             "llama-3.1-8b hqq4 uqff serve": hqq_counts, "llama-3.1-8b fp8 serve": fp8_counts,
-            "phase 21 fp8 uqff model": fp8_model}
+            "phase 21 fp8 uqff model": fp8_model,
+            "llama3-8b constrained serve": constrained_counts}
     by_run = {k: {run: c[k] for run, c in runs.items() if c.get(k, 0)} for k in _cuda.KERNELS}
     unlaunched = [k for k in _cuda.KERNELS if not by_run[k]]
     if unlaunched:

@@ -19,6 +19,9 @@ trash slot and no count moves), which runs the lazy set-up (library load,
 kernel attributes, plans), then captures ``compute`` into a graph that
 shares one memory pool with the other widths' graphs, and every step
 replays it. A capture or replay error raises: there is no eager fallback.
+The capture holds the device's lock (the engine steps under it) but
+tolerates other threads' allocations (``capture_error_mode="thread_local"``):
+a model loading beside the engine reads and places its weights unlocked.
 The kernels' split workspace and counters are reserved before the first
 capture, at the size the engine works out from the kernels' plans for every
 width and every forward it runs (the eager prefill included, which must not
@@ -26,6 +29,16 @@ grow them while a graph lives; ``ops/_cuda.py``). The weights the kernels
 read in place (gpt-oss's f32 sinks among them) are the engine's own
 tensors, so their addresses hold for a graph's life. On the CPU (the caller
 asked for it) the same function runs uncaptured.
+
+The engine writes a slot's constraint-bias row (grammar mask plus DRY
+penalty, computed on the host after each step) with :meth:`set_bias_row`:
+a non-blocking copy, on the engine's stream, from that slot's row of a
+pinned host buffer into ``constraint_bias[slot]`` in place, so the next
+replay reads it at the address it captured. A host row is rewritten only
+after its last copy has completed: each copy records an event of its slot,
+and a rewrite waits on it. Between two decode steps that wait never
+blocks, as the step's one event wait (recorded after the replay, which
+follows the copy on the same stream) has already passed it.
 """
 
 from __future__ import annotations
@@ -80,6 +93,9 @@ class DecodeStep:
                          torch.empty((batch, k), dtype=torch.float32, **pin),
                          torch.empty((batch, k), dtype=torch.long, **pin))
         self._done = torch.cuda.Event() if self.cuda else None
+        self._bias_host = torch.zeros(samp_state.constraint_bias.shape, dtype=torch.float32,
+                                      pin_memory=self.cuda)
+        self._bias_copied = [torch.cuda.Event() if self.cuda else None for _ in range(batch)]
         if self.cuda:
             _cuda.reserve(device, *workspace)
 
@@ -98,6 +114,22 @@ class DecodeStep:
         a.fill(0)
         a[:, SLOT] = -1
         return a
+
+    def set_bias_row(self, slot: int, row: "np.ndarray | None") -> None:
+        """Write ``row`` ([V] f32; None → zeros) into the sampling state's
+        ``constraint_bias[slot]`` before the next step, without a host sync
+        on CUDA (see the module docstring)."""
+        ev = self._bias_copied[slot]
+        if ev is not None:
+            ev.synchronize()  # the last copy from this host row has completed
+        host = self._bias_host[slot]
+        if row is None:
+            host.zero_()
+        else:
+            host.numpy()[:] = row
+        self.state.constraint_bias[slot].copy_(host, non_blocking=self.cuda)
+        if ev is not None:
+            ev.record()
 
     def upload(self, width: int) -> None:
         """Send the host staging of ``width`` to its device buffer (one
@@ -165,7 +197,10 @@ class DecodeStep:
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _cuda.recording_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._pool):
+            # thread_local: a model loading on another thread may allocate
+            # (cudaMalloc) while this captures; only this thread's calls
+            # must be capture-safe
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 out = self.compute(width)
         if self._pool is None:
             self._pool = graph.pool()
@@ -177,10 +212,16 @@ class DecodeStep:
         self.capture_seconds += time.monotonic() - t0
 
     def close(self) -> None:
-        """Drop the graphs (the split buffers may grow again once no graph
-        holds them; collecting the object does the same)."""
+        """Drop the graphs, their memory pool, outputs and staging buffers
+        (the split buffers may grow again once no graph holds them;
+        collecting the object does the same). A later step captures
+        again."""
         self._graphs.clear()
         self._outs.clear()
+        self._launches.clear()
+        self._dev.clear()
+        self._host.clear()
+        self._pool = None
         if self._release is not None:
             self._release()
             self._release = None

@@ -28,13 +28,27 @@
 * A llama-family model whose GQA group (query heads per KV head) is over 16
   is refused before the pools are reserved: the decode kernel takes groups
   1 to 16.
+* Grammar constraints (``SamplingParams.constraint``: JSON, regex, Lark,
+  a choice or a recognizer object; ``grammar.py``, ``cfg_grammar.py``) and
+  the DRY penalty run on the host between steps, as in the JAX engine: each
+  committed token advances the request's recognizer, and the next mask
+  (−1e30 where the recognizer would die; EOS only once it is complete) plus
+  the DRY row is written into the slot's ``constraint_bias`` row, which the
+  captured step reads in place (``DecodeStep.set_bias_row``). A request
+  whose output completes its constraint stops (``STOP_TOKEN``). A
+  constraint the engine cannot resolve, or one given to an engine without a
+  tokenizer, is refused when the request is added.
+* Every step (and :meth:`Engine.embed`) holds the device's lock
+  (``ops/_cuda.py::device_lock``), so engines that share a card take turns
+  on its split state.
 
-Speculative decoding, tensor/data parallelism, LoRA adapters, grammar
-constraints and the DRY penalty are not ported yet.
+Speculative decoding, tensor/data parallelism and LoRA adapters are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 import traceback
@@ -48,12 +62,12 @@ from ..kv.manager import KVCacheManager
 from ..kv.paged import PagedKVCache
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward_paged, kernel_workspace
-from ..ops._cuda import sm_count
+from ..ops._cuda import device_lock, sm_count
 from ..ops.paged_attention import DECODE_MAX_GROUP
 from ..quant.fp8 import Fp8Tensor
 from ..quant.qtensor import QTensor
 from .decode_step import KV_LEN, POSITION, SLOT, TABLE, TOKEN, DecodeStep
-from .sampler import BatchSamplingState, SamplingParams, sample
+from .sampler import BatchSamplingState, SamplingParams, dry_penalty_row, sample
 from .scheduler import Scheduler
 from .sequence import Sequence, StopReason
 
@@ -107,6 +121,21 @@ def weights_to(weights, device: torch.device):
         return weights.to(device)
     return weights
 
+
+@functools.lru_cache(maxsize=64)
+def _recognizer(c: str):
+    """The recognizer of a constraint string (``Engine._resolve_constraint``)."""
+    from ..grammar import JsonConstraint, RegexConstraint
+
+    if c in ("json_object", "json"):
+        return JsonConstraint(root="object" if c == "json_object" else "any")
+    if c.startswith("regex:"):
+        return RegexConstraint(c[len("regex:"):])
+    if c.startswith("lark:"):
+        from ..cfg_grammar import LarkConstraint
+
+        return LarkConstraint(c[len("lark:"):])
+    raise ValueError(f"unknown constraint {c!r}")
 
 class Engine:
     """Single-model serving engine (synchronous step loop; the server drives
@@ -183,6 +212,7 @@ class Engine:
                                       self.device, workspace)
         self._req_counter = itertools.count()
         self._slot_seq: list[Optional[Sequence]] = [None] * max_batch
+        self._mask_builder = None  # grammar.TokenMaskBuilder, built at the first constraint
         self.stats = {
             "prompt_tokens": 0, "generated_tokens": 0, "preemptions": 0,
             "prefix_cache_hit_tokens": 0, "steps": 0,
@@ -201,8 +231,9 @@ class Engine:
             raise ValueError(
                 f"prompt length {len(prompt_ids)} ≥ max_model_len {self.max_model_len}"
             )
-        if params.constraint is not None or params.dry_multiplier > 0.0:
-            raise NotImplementedError("grammar constraints and DRY are not ported yet")
+        cons = self._resolve_constraint(params.constraint)
+        if cons is not None:
+            self._get_mask_builder()  # no tokenizer → ValueError, before the request waits
         n = next(self._req_counter)
         seq = Sequence(
             request_id=request_id or f"req-{n}",
@@ -213,6 +244,8 @@ class Engine:
         )
         seq.sample_seed = (params.seed if params.seed is not None
                            else (self.seed * 1_000_003 + n) % (2**63))
+        if cons is not None:
+            seq.constraint, seq.constraint_state = cons, cons.initial()
         self.scheduler.add(seq)
         return seq
 
@@ -229,9 +262,13 @@ class Engine:
         return self.scheduler.has_work
 
     def step(self) -> list[Sequence]:
-        """Run one engine step. Returns sequences that finished this step.
-        A forward error finishes the sequences of that forward with ERROR
-        and leaves the engine running."""
+        """Run one engine step, under the device's lock. Returns sequences
+        that finished this step. A forward error finishes the sequences of
+        that forward with ERROR and leaves the engine running."""
+        with device_lock(self.device):
+            return self._step()
+
+    def _step(self) -> list[Sequence]:
         out = self.scheduler.schedule()
         self.stats["steps"] += 1
         self.stats["preemptions"] = self.scheduler.num_preemptions
@@ -285,6 +322,55 @@ class Engine:
         while self.has_work:
             finished.extend(self.step())
         return finished
+
+    def embed(self, token_batches, *, pooling: str = "last",
+              normalize: bool = True) -> np.ndarray:
+        """Sequence embeddings (``embeddings.embed``) of this engine's model
+        on its device, under the device's lock (between steps) → ``[B, H]``
+        f32. The batch runs as forwards of ``r`` sequences padded to ``t``
+        tokens, ``r`` a power of two up to the scheduler's
+        ``max_prefill_seqs`` and ``t`` a prefill bucket, which are token-row
+        counts the engine reserved the kernels' split state for; trailing
+        padding changes no pooled row (causal attention; ``mean`` pools the
+        valid tokens). An input longer than the largest bucket raises
+        ``ValueError``."""
+        from ..embeddings import embed
+
+        if self.adapter is not None:
+            raise NotImplementedError(
+                f"embeddings of {type(self.adapter).__name__} models are not ported")
+        batches = [list(b) for b in token_batches]
+        longest = _bucket(self.scheduler.prefill_chunk)
+        if any(len(b) > longest for b in batches):
+            raise ValueError(f"an input of {max(len(b) for b in batches)} tokens is longer "
+                             f"than the engine's prefill bucket of {longest}")
+        per = self.scheduler.max_prefill_seqs
+        out = []
+        with device_lock(self.device):
+            for lo in range(0, len(batches), per):
+                group = batches[lo:lo + per]
+                r = 1
+                while r < len(group):
+                    r *= 2
+                t = _bucket(max(1, max(len(b) for b in group)))
+                vecs = embed(self.weights, self.cfg, group + [[0]] * (r - len(group)),
+                             pooling=pooling, normalize=normalize, max_len=t,
+                             device=self.device)
+                out.append(vecs[:len(group)])
+        if not out:
+            return np.zeros((0, self.cfg.hidden_size), np.float32)
+        return np.concatenate(out)
+
+    def close(self) -> None:
+        """Release the device memory the engine holds: the decode step's
+        graphs and their pool, the KV pools, the sampling state and the
+        weights (the engine cannot step afterwards)."""
+        with device_lock(self.device):
+            self.decode_step.close()
+            self.decode_step.forward = None
+            self.cache = self.weights = self.adapter = None
+            self.samp_state = self.decode_step.state = None
+            self._slot_seq = [None] * self.max_batch
 
     # -- internals -----------------------------------------------------------
 
@@ -358,6 +444,11 @@ class Engine:
         self._slot_seq[slot] = seq
         self.samp_state.admit(slot, seq.params, seq.prompt_ids, seq.sample_seed,
                               drawn=seq.num_generated)
+        # the first mask (from the recognizer's state: initial, or where a
+        # recomputed request's output left it) plus DRY over the context
+        row = self._bias_row(seq, list(seq.prompt_ids), seq.constraint is not None)
+        if row is not None:
+            self.decode_step.set_bias_row(slot, row)
         toks, logprobs, tops = sample(logits_row[None], self.samp_state,
                                       rows=torch.tensor([slot], device=self.device))
         seq.first_token_time = time.monotonic()
@@ -409,8 +500,20 @@ class Engine:
 
     def _commit_token(self, seq: Sequence, tok: int, logprob: float,
                       top_vals_row, top_ids_row) -> bool:
-        """Record one sampled token, publish KV-complete blocks and run the
-        stop checks. Returns True if the sequence finished."""
+        """Advance the grammar state, record one sampled token, publish
+        KV-complete blocks, run the stop checks and, for a sequence that goes
+        on, write its next constraint-bias row. Returns True if the sequence
+        finished."""
+        constrained = seq.constraint is not None
+        if constrained:
+            st = self._get_mask_builder().advance_with_token(
+                seq.constraint, seq.constraint_state, tok)
+            if st is not None and seq.constraint.is_complete(st):
+                seq.constraint_done = True
+            if st is None or seq.constraint_done:  # dead or complete: no more masks
+                seq.constraint, seq.constraint_state = None, None
+            else:
+                seq.constraint_state = st
         if seq.first_token_time is None:
             seq.first_token_time = time.monotonic()
         seq.output_ids.append(tok)
@@ -433,10 +536,58 @@ class Engine:
             self.scheduler.release(seq)
             self._slot_seq[s] = None
             return True
+        if constrained or seq.params.dry_multiplier > 0.0:
+            # zeros once the constraint is dead or complete (JAX engine.py:1325-1337)
+            row = self._bias_row(seq, seq.all_ids, constrained)
+            self.decode_step.set_bias_row(seq.slot, row)
         return False
+
+    def _bias_row(self, seq: Sequence, ctx: list[int], constrained: bool):
+        """The slot's constraint-bias row: the mask of the sequence's
+        recognizer state (0 allowed, −1e30 not), plus the DRY penalty over
+        ``ctx``; zeros for a sequence that was constrained until now; None
+        for one that is neither constrained nor penalized."""
+        row = None
+        if seq.constraint is not None:
+            t0 = time.monotonic()
+            allow = self._get_mask_builder().mask(seq.constraint, seq.constraint_state,
+                                                  self.cfg.eos_token_ids)
+            row = np.where(allow, 0.0, -1e30).astype(np.float32)
+            self.stats["constraint_masks"] = self.stats.get("constraint_masks", 0) + 1
+            self.stats["constraint_mask_s"] = (
+                self.stats.get("constraint_mask_s", 0.0) + time.monotonic() - t0)
+        if seq.params.dry_multiplier > 0.0:
+            dry = dry_penalty_row(ctx, seq.params, self.cfg.vocab_size)
+            if dry is not None:
+                row = dry if row is None else row + dry
+        if row is None and constrained:
+            row = np.zeros((self.cfg.vocab_size,), np.float32)
+        return row
+
+    def _resolve_constraint(self, c):
+        """A request's constraint → its recognizer: ``"json_object"``
+        (an object at the root), ``"json"`` (any value), ``"regex:<pattern>"``,
+        ``"lark:<grammar>"``, or a recognizer object as given. An unknown
+        string raises ``ValueError``. Requests that give the same string
+        share its recognizer, and so its transition table in the mask
+        builder (recognizers hold no state of a request)."""
+        if c is None:
+            return None
+        return _recognizer(c) if isinstance(c, str) else c
+
+    def _get_mask_builder(self):
+        if self._mask_builder is None:
+            if self.tokenizer is None:
+                raise ValueError("grammar constraints require a tokenizer")
+            from ..grammar import TokenMaskBuilder
+
+            self._mask_builder = TokenMaskBuilder(self.tokenizer, self.cfg.vocab_size)
+        return self._mask_builder
 
     def _check_stop(self, seq: Sequence, tok: int) -> Optional[StopReason]:
         p = seq.params
+        if seq.constraint_done:
+            return StopReason.STOP_TOKEN
         if tok in p.stop_token_ids:
             return StopReason.STOP_TOKEN
         if tok in self.cfg.eos_token_ids:

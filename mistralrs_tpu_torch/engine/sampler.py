@@ -1,9 +1,11 @@
 """Batched sampler (counterpart of ``mistralrs_tpu/engine/sampler.py``).
 
 Temperature, top-k, top-p and min-p share one descending sort, as in the JAX
-sampler; repetition, frequency and presence penalties and logit bias are
-vector ops over a per-slot token-count matrix kept on the device. Greedy
-rows (temperature ≤ 0) take the arg-max.
+sampler; repetition, frequency and presence penalties, logit bias and the
+per-slot constraint bias (grammar masks at −1e30 plus the DRY penalty,
+written by the engine from the host between steps) are vector ops over
+per-slot rows kept on the device. Greedy rows (temperature ≤ 0) take the
+arg-max. :func:`dry_penalty_row` runs on the host, as in the JAX package.
 
 Sampled rows draw on the device with no host round trip, as
 ``jax.random.categorical`` does: the arg-max of the filtered logits plus
@@ -25,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -76,12 +79,16 @@ class SamplingParams:
     repetition_penalty: float = 1.0
     seed: Optional[int] = None
     logit_bias: dict[int, float] = field(default_factory=dict)
-    constraint: object = None  # grammar constraints: not ported yet
+    # grammar constraint: None | "json_object" | "json" | "regex:..." |
+    # "lark:..." | a recognizer object (grammar.py, cfg_grammar.py)
+    constraint: object = None
     max_tokens: int = 512
     stop_token_ids: tuple[int, ...] = ()
     stop_strings: tuple[str, ...] = ()
     n_logprobs: int = 0
-    dry_multiplier: float = 0.0  # DRY penalty: not ported yet
+    # DRY repetition penalty (reference: `mistralrs-core/src/dry.rs`):
+    # penalize tokens that would extend a sequence already seen in the context
+    dry_multiplier: float = 0.0  # 0 → disabled
     dry_base: float = 1.75
     dry_allowed_length: int = 2
     dry_sequence_breaker_ids: tuple[int, ...] = ()
@@ -89,6 +96,57 @@ class SamplingParams:
     @property
     def is_greedy(self) -> bool:
         return self.temperature <= 0.0
+
+
+_DRY_MAX_NGRAM = 50
+
+
+def dry_penalty_row(
+    ctx, params: "SamplingParams", vocab_size: int
+) -> Optional[np.ndarray]:
+    """Negative logit adjustments [V] for the DRY repetition penalty, or None
+    when nothing matches (a copy of JAX ``dry_penalty_row``). ``ctx`` is the
+    full token context (prompt + output).
+
+    For every earlier occurrence of the current last token, the token that
+    followed it is penalized by ``multiplier * base^(match_len -
+    allowed_length)`` where ``match_len`` is the length of the repeated
+    suffix (reference semantics: `mistralrs-core/src/dry.rs`)."""
+    n = len(ctx)
+    if params.dry_multiplier <= 0.0 or n < 2:
+        return None
+    breakers = set(params.dry_sequence_breaker_ids)
+    last = ctx[-1]
+    if last in breakers:
+        return None
+    pen: dict[int, float] = {}
+    for i in range(n - 1):
+        if ctx[i] != last:
+            continue
+        length = 1
+        while (
+            length < _DRY_MAX_NGRAM
+            and length <= i
+            and n - 1 - length >= 0
+            and ctx[i - length] == ctx[n - 1 - length]
+            and ctx[i - length] not in breakers
+        ):
+            length += 1
+        cand = ctx[i + 1]
+        if cand in breakers or not 0 <= cand < vocab_size:
+            continue
+        if length >= params.dry_allowed_length:
+            v = params.dry_multiplier * (
+                params.dry_base ** (length - params.dry_allowed_length)
+            )
+            if v > pen.get(cand, 0.0):
+                pen[cand] = v
+    if not pen:
+        return None
+    row = np.zeros((vocab_size,), np.float32)
+    for t, v in pen.items():
+        row[t] = -v
+    return row
 
 
 @dataclass
@@ -106,6 +164,7 @@ class BatchSamplingState:
     repetition_penalty: torch.Tensor  # [B] f32
     counts: torch.Tensor  # [B, V] i32 token counts (context + generated)
     logit_bias: torch.Tensor  # [B, V] f32
+    constraint_bias: torch.Tensor  # [B, V] f32 (0 or −1e30 grammar masks, plus DRY)
     seed_lo: torch.Tensor  # [B] i64, the request seed's low 32 bits
     seed_hi: torch.Tensor  # [B] i64, its next 32 bits
     drawn: torch.Tensor  # [B] i64 tokens the request has drawn
@@ -113,7 +172,8 @@ class BatchSamplingState:
 
     _SCALARS = ("temperature", "top_k", "top_p", "min_p", "frequency_penalty",
                 "presence_penalty", "repetition_penalty")
-    _ROWS = _SCALARS + ("counts", "logit_bias", "seed_lo", "seed_hi", "drawn")
+    _ROWS = _SCALARS + ("counts", "logit_bias", "constraint_bias", "seed_lo", "seed_hi",
+                        "drawn")
 
     @classmethod
     def create(cls, batch: int, vocab_size: int, device) -> "BatchSamplingState":
@@ -129,6 +189,7 @@ class BatchSamplingState:
             repetition_penalty=torch.ones(batch, **f32),
             counts=torch.zeros((batch, vocab_size), dtype=torch.int32, device=device),
             logit_bias=torch.zeros((batch, vocab_size), **f32),
+            constraint_bias=torch.zeros((batch, vocab_size), **f32),
             seed_lo=torch.zeros(batch, **i64),
             seed_hi=torch.zeros(batch, **i64),
             drawn=torch.zeros(batch, **i64),
@@ -140,7 +201,8 @@ class BatchSamplingState:
         """Install a request's parameters, context counts, logit bias and
         draw state (``seed``; ``drawn`` tokens drawn so far, which a
         recomputed request keeps) at ``slot`` (ids outside the vocabulary
-        take no part in penalties)."""
+        take no part in penalties), and clear its constraint bias (the
+        engine writes a constrained or DRY request's row after this)."""
         for name in self._SCALARS:
             getattr(self, name)[slot] = getattr(p, name)
         v = self.counts.shape[1]
@@ -152,6 +214,7 @@ class BatchSamplingState:
             if 0 <= tok < v:
                 bias[tok] = val
         self.logit_bias[slot] = bias.to(self.logit_bias.device)
+        self.constraint_bias[slot].zero_()
         self.seed_lo[slot] = seed & _M32
         self.seed_hi[slot] = (seed >> 32) & _M32
         self.drawn[slot] = drawn
@@ -172,7 +235,7 @@ def sample(
     idx = (torch.arange(r, device=logits.device) if rows is None
            else rows.to(device=logits.device, dtype=torch.long))
     st = {name: getattr(state, name)[idx] for name in BatchSamplingState._ROWS}
-    logits = logits.to(torch.float32) + st["logit_bias"]
+    logits = logits.to(torch.float32) + st["logit_bias"] + st["constraint_bias"]
     counts = st["counts"]
     seen = counts > 0
     rp = st["repetition_penalty"][:, None]

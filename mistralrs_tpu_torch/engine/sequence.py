@@ -54,6 +54,12 @@ class Sequence:
     extra_hash: tuple = ()
     # seed of the sampler's draws: the request's, or one the engine derives
     sample_seed: int = 0
+    # grammar constraint (the engine's resolved recognizer) and its state
+    # after the committed tokens; kept across preemption-recompute, so a
+    # recomputed request resumes where its output left the recognizer
+    constraint: Any = None
+    constraint_state: Any = None
+    constraint_done: bool = False  # the output completed the constraint
     # set in __post_init__; stable across preemption-recompute (which folds
     # generated tokens back into prompt_ids)
     original_prompt_len: int = -1

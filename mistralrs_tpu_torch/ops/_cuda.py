@@ -21,7 +21,11 @@ afterwards to show which path it went through.
 The kernels that split their work across blocks share per-device state
 here: :func:`split_workspace` (f32 partials) and :func:`split_counters` (int
 counters, zero between calls: the last block of a tile resets its own).
-Calls that use them on one device must not run on two streams at once.
+Calls that use them on one device must not run on two streams at once:
+every user of a device's forwards (an engine's step, its embeddings, the
+building and release of another model's engine beside it) holds
+:func:`device_lock` of that device, so several models served on one card
+take turns.
 
 CUDA graphs: a captured launch keeps the address of the buffer it was given,
 so these buffers must not be replaced while a graph that uses them lives.
@@ -114,6 +118,7 @@ _sm_counts: dict = {}
 _workspaces: dict = {}
 _counters: dict = {}
 _held: collections.Counter = collections.Counter()  # device -> live graphs using the buffers
+_device_locks: dict = {}
 
 
 def reset_counts() -> None:
@@ -180,11 +185,21 @@ def split_counters(device: torch.device, n: int) -> torch.Tensor:
     return cnt
 
 
+def device_lock(device: torch.device) -> threading.RLock:
+    """The one lock of ``device`` that serialises the work on it that shares
+    its split state or may race a capture (steps, embeddings, reservations,
+    an engine's construction and release; re-entrant)."""
+    with _lock:
+        return _device_locks.setdefault(torch.device(device), threading.RLock())
+
+
 def reserve(device: torch.device, floats: int, counters: int) -> None:
     """Allocate the split workspace and counters on ``device`` at these
-    sizes at least, now (before a graph captures them)."""
-    split_workspace(device, floats)
-    split_counters(device, counters)
+    sizes at least, now (before a graph captures them). Raises when they
+    must grow while a graph holds them (another engine's on the device)."""
+    with device_lock(device):
+        split_workspace(device, floats)
+        split_counters(device, counters)
 
 
 def hold_buffers(device: torch.device) -> None:

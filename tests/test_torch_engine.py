@@ -121,9 +121,14 @@ def test_seeded_sampling_is_reproducible_and_stops():
 
 
 def test_unported_features_raise():
+    """What still refuses: a constraint string the engine does not know, and
+    any constraint on an engine with no tokenizer to build its masks."""
     te = Engine(CFG, TW, device="cpu", num_blocks=16, block_size=16, max_batch=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown constraint"):
+        te.add_request([1, 2], SamplingParams(constraint="xml"))
+    with pytest.raises(ValueError, match="require a tokenizer"):
         te.add_request([1, 2], SamplingParams(constraint="json_object"))
+    assert not te.has_work
 
 
 def test_cache_config_sizes_from_memory():

@@ -219,3 +219,32 @@ def test_kernel_wrappers_raise_without_cuda_build(monkeypatch):
                  torch.zeros((4, 16)), group_size=32, packed=True, code_bits=4)
     with pytest.raises(ValueError, match="unsupported device"):
         quant_matmul(torch.zeros((2, 128), device="meta"), qt)
+
+
+# the modules of constrained decoding and the text routes, by name
+SERVING_MODULES = ("mistralrs_tpu_torch.grammar", "mistralrs_tpu_torch.cfg_grammar",
+                   "mistralrs_tpu_torch.tools", "mistralrs_tpu_torch.tools.parsers",
+                   "mistralrs_tpu_torch.tools.reasoning", "mistralrs_tpu_torch.serving.protocol",
+                   "mistralrs_tpu_torch.serving.registry", "mistralrs_tpu_torch.serving.server")
+
+
+def test_serving_modules_import_no_jax(monkeypatch, tmp_path):
+    """The grammar, tool and serving modules load neither jax nor the JAX
+    package; a registry with no device loads its models onto the card, so it
+    refuses without one."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {SERVING_MODULES!r}:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "mistralrs_tpu" or m.startswith("mistralrs_tpu.")]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    from mistralrs_tpu_torch.serving.registry import ModelRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry().load("m", str(tmp_path / "missing.gguf"))

@@ -119,7 +119,8 @@ def test_streaming_chat(server):
 def test_bad_requests(server):
     for body, status in (({"messages": []}, 422),
                          ({"messages": [{"role": "user", "content": "x"}],
-                           "tools": [{"type": "function"}]}, 400)):
+                           "adapters": ["a"]}, 400),
+                         ({"messages": [{"role": "user", "content": "x"}], "n": 2}, 400)):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(server, body)
         assert e.value.code == status
